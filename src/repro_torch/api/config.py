@@ -1,0 +1,134 @@
+"""Config schema and resolution for the sampling front door.
+
+:class:`SamplerConfig` keeps the JAX package's field names
+(``repro.api.config``).  This slice of the port resolves the in-memory walk
+only: backend ``inmem``, runtime ``local``, scheme ``seq`` (``auto``
+resolves to it), a static χ, and an explicit ``micro_batch``.  Every other
+value raises ``NotImplementedError`` naming the ROADMAP.md row that ports it.
+
+``kernels``: ``"cuda"`` (the Hopper site-step kernels), ``"torch"`` (the
+plain PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Union
+
+import torch
+
+from repro_torch.core.sampler import SamplerConfig as CoreSamplerConfig
+from repro_torch.kernels.dispatch import resolve_kernels
+
+AUTO = "auto"
+
+_SCHEMES = ("seq", "dp", "tp_single", "tp_double", "baseline19")
+_SCALINGS = ("none", "global", "per_sample")
+
+
+def unported(what: str, row: int, topic: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet "
+        f"(ROADMAP.md §1 row {row}: {topic})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Session-level sampling configuration (see module docstring)."""
+    semantics: str = AUTO              # "linear" | "born" | AUTO (from MPS)
+    scaling: str = "per_sample"
+    kernels: str = AUTO                # "cuda" | "torch" | AUTO
+    compute_dtype: Optional[Any] = None
+    wire_dtype: Optional[Any] = None
+    measure_first: bool = False
+    scheme: str = AUTO
+    backend: str = AUTO
+    runtime: str = AUTO
+    micro_batch: Union[int, str, None] = None
+    chi_profile: Optional[tuple[int, ...]] = None
+    shard: Union[int, str, None] = None
+    clamp: Optional[Any] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionPlan:
+    """Fully-resolved execution record for one ``session.sample(n, key)``."""
+    backend: str                       # "inmem"
+    runtime: str                       # "local"
+    scheme: str                        # "seq"
+    semantics: str
+    kernels: str                       # resolved dispatch: "cuda" | "torch"
+    n_samples: int
+    micro_batch: Optional[int]
+    sampler_config: CoreSamplerConfig  # the kernel-level config
+    device: str
+
+
+def _check_unported(config: SamplerConfig) -> None:
+    if config.backend in ("streamed", "remote"):
+        raise unported(f"backend={config.backend!r}", 9 if
+                       config.backend == "streamed" else 10,
+                       "GammaStore + streaming engine" if
+                       config.backend == "streamed" else
+                       "service and cluster layers")
+    if config.runtime not in (AUTO, "local"):
+        raise unported(f"runtime={config.runtime!r}", 10,
+                       "service and cluster layers")
+    if config.shard is not None:
+        raise unported("chain sharding (shard=...)", 10,
+                       "service and cluster layers")
+    if config.scheme in ("dp", "tp_single", "tp_double", "baseline19"):
+        raise unported(f"scheme={config.scheme!r}", 11,
+                       "core/parallel.py over torch.distributed")
+    if config.wire_dtype is not None or config.measure_first:
+        raise unported("wire_dtype / measure_first", 11,
+                       "core/parallel.py over torch.distributed")
+    if config.chi_profile is not None:
+        raise unported("chi_profile (dynamic χ)", 8, "core/dynamic_bond.py")
+    if config.clamp:
+        raise unported("clamp (conditional sampling)", 12,
+                       "core/clamped.py + workloads")
+    if config.compute_dtype is not None:
+        raise unported("compute_dtype (bf16 GEMM inputs)", 7,
+                       "the compute_dtype / mxu_bf16 mode")
+    if config.micro_batch == AUTO:
+        raise unported("micro_batch='auto' (memory-model pick)", 9,
+                       "perfmodel + planner")
+
+
+def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
+                 chi: int, d: int, source_semantics: Optional[str] = None,
+                 device: torch.device) -> SessionPlan:
+    """Resolve every AUTO field of ``config`` into a :class:`SessionPlan`;
+    raises ``ValueError`` for malformed requests and ``NotImplementedError``
+    for values this slice of the port does not carry."""
+    _check_unported(config)
+    if config.backend not in (AUTO, "inmem"):
+        raise ValueError(f"unknown backend {config.backend!r}")
+    if config.scheme not in (AUTO,) + _SCHEMES:
+        raise ValueError(f"unknown scheme {config.scheme!r}; have {_SCHEMES}")
+    if config.scaling not in _SCALINGS:
+        raise ValueError(f"unknown scaling {config.scaling!r}; "
+                         f"have {_SCALINGS}")
+    if n_samples < 1 or n_sites < 1 or chi < 1 or d < 1:
+        raise ValueError(f"empty request: n_samples={n_samples}, "
+                         f"(M, χ, d)=({n_sites}, {chi}, {d})")
+    semantics = (config.semantics if config.semantics != AUTO
+                 else (source_semantics or "linear"))
+    if semantics not in ("linear", "born"):
+        raise ValueError(f"unknown semantics {semantics!r}")
+    kernels = resolve_kernels(config.kernels, device)
+
+    micro = config.micro_batch
+    if micro is not None:
+        micro = int(micro)
+        if micro <= 0 or n_samples % micro != 0:
+            raise ValueError(f"micro_batch={micro} must divide the batch "
+                             f"{n_samples}")
+
+    sampler_config = CoreSamplerConfig(semantics=semantics,
+                                       scaling=config.scaling,
+                                       kernels=kernels)
+    return SessionPlan(backend="inmem", runtime="local", scheme="seq",
+                       semantics=semantics, kernels=kernels,
+                       n_samples=n_samples, micro_batch=micro,
+                       sampler_config=sampler_config, device=str(device))

@@ -1,0 +1,173 @@
+"""Matrix Product State container, random builders and exact oracles.
+
+Mirrors ``repro.core.mps``.  Two semantics (see that module's docstring):
+
+- ``linear``: non-negative weights, ``probs = temp · Λ`` (an HMM);
+- ``born``: complex amplitudes in Vidal form, ``p(s) = Σ_r |temp λ|²``.
+
+``gammas (M, χ, χ, d)`` holds the site tensors (``gammas[i][l, r, s]`` maps
+left bond ``l`` to right bond ``r`` on outcome ``s``) and ``lambdas (M, χ)``
+the per-site Λ / Schmidt weights.
+
+The random builders take an explicit ``torch.Generator`` and build on its
+device.  They match the JAX builders in distribution only: tests carry the
+JAX package's MPS across (``repro_torch.convert``) instead of regenerating
+it.  Each builder allocates the whole chain once and fills it one site at a
+time, so the peak memory stays near the chain's own size.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class MPS:
+    """Uniform-χ stacked MPS (see module docstring)."""
+
+    gammas: torch.Tensor
+    lambdas: torch.Tensor
+    semantics: str = "linear"
+
+    @property
+    def n_sites(self) -> int:
+        return self.gammas.shape[0]
+
+    @property
+    def chi(self) -> int:
+        return self.gammas.shape[1]
+
+    @property
+    def phys_dim(self) -> int:
+        return self.gammas.shape[3]
+
+    @property
+    def device(self) -> torch.device:
+        return self.gammas.device
+
+    def to(self, device=None, dtype=None) -> "MPS":
+        """Move and/or cast; Born Λ stays real when Γ is complex."""
+        lam_dtype = dtype
+        if dtype is not None and dtype.is_complex:
+            lam_dtype = torch.empty((), dtype=dtype).real.dtype
+        return MPS(self.gammas.to(device=device, dtype=dtype),
+                   self.lambdas.to(device=device, dtype=lam_dtype),
+                   self.semantics)
+
+
+# ---------------------------------------------------------------------------
+# Random MPS generation (site by site into one preallocated chain)
+# ---------------------------------------------------------------------------
+
+def _rand(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, dtype=dtype,
+                      device=generator.device)
+
+
+def random_linear_mps(n_sites: int, chi: int, d: int, *,
+                      generator: torch.Generator, decay: float = 0.0,
+                      dtype: torch.dtype = torch.float64) -> MPS:
+    """Random non-negative ("linear") MPS.  Each site's rows are normalised
+    so that Σ_(r,s) Γ = 1; ``decay`` shrinks site i by a random
+    ``10**(-decay·(1+U))`` to spread sample magnitudes (paper Figs. 5/6)."""
+    gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype,
+                         device=generator.device)
+    for i in range(n_sites):
+        g = gammas[i]
+        g.uniform_(generator=generator)
+        g /= g.sum(dim=(1, 2), keepdim=True)
+        if decay:
+            g *= 10.0 ** (-decay * (1.0 + _rand(generator, (), dtype)))
+    lambdas = 1.0 + _rand(generator, (n_sites, chi), dtype)
+    return MPS(gammas, lambdas, "linear")
+
+
+def random_born_mps(n_sites: int, chi: int, d: int, *,
+                    generator: torch.Generator,
+                    dtype: torch.dtype = torch.complex128) -> MPS:
+    """Random complex MPS in right-canonical form: each site's
+    ``(χ, χ·d)`` matrix has orthonormal rows (a QR of a complex Gaussian),
+    so ``Σ_s Γ^s Γ^s† = I``; λ = 1."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    dev = generator.device
+    gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype, device=dev)
+    for i in range(n_sites):
+        a = torch.complex(
+            torch.randn((chi, chi * d), generator=generator, dtype=real,
+                        device=dev),
+            torch.randn((chi, chi * d), generator=generator, dtype=real,
+                        device=dev))
+        q, _ = torch.linalg.qr(a.conj().T, mode="reduced")   # (χ·d, χ)
+        del a
+        gammas[i].copy_(q.conj().T.reshape(chi, chi, d))
+        del q
+    lambdas = torch.ones((n_sites, chi), dtype=real, device=dev)
+    return MPS(gammas, lambdas, "born")
+
+
+def gbs_like_mps(n_sites: int, chi: int, d: int, *,
+                 generator: torch.Generator, photon_decay: float = 0.002,
+                 dtype: torch.dtype = torch.float64) -> MPS:
+    """Synthetic GBS-flavoured linear MPS: a decaying random linear chain
+    whose vacuum outcome (s = 0) is boosted towards the chain's edges."""
+    mps = random_linear_mps(n_sites, chi, d, generator=generator,
+                            decay=photon_decay * 50, dtype=dtype)
+    centre = (n_sites - 1) / 2.0
+    for i in range(n_sites):
+        edge = abs(i - centre) / centre if centre else 0.0
+        g = mps.gammas[i]
+        g[:, :, 0] *= 1.0 + 4.0 * edge
+        g /= g.sum(dim=(1, 2), keepdim=True)
+    return mps
+
+
+# ---------------------------------------------------------------------------
+# Exact oracles (numpy; exponential in M, keep M small)
+# ---------------------------------------------------------------------------
+
+def enumerate_probabilities(mps: MPS) -> np.ndarray:
+    """Exact joint distribution over all d**M outcomes, as the product of
+    the per-site conditionals the sampler draws from (float64)."""
+    g = mps.gammas.detach().cpu().numpy()
+    lam = mps.lambdas.detach().cpu().numpy()
+    M, chi, _, d = g.shape
+    outcomes = np.stack(np.meshgrid(*([np.arange(d)] * M), indexing="ij"),
+                        axis=-1).reshape(-1, M)
+
+    linear = mps.semantics == "linear"
+    probs = np.zeros(len(outcomes))
+    for idx, s in enumerate(outcomes):
+        env = np.zeros(chi, dtype=complex)
+        env[0] = 1.0
+        logp = 0.0
+        for i in range(M):
+            temp = np.einsum("l,lrs->rs", env, g[i])  # (chi, d)
+            if linear:
+                cond = np.real(temp.T @ lam[i])  # (d,)
+            else:
+                cond = np.sum(np.abs(temp.T * lam[i][None, :]) ** 2, axis=1)
+            total = cond.sum()
+            logp += np.log(cond[s[i]] / total)
+            env = temp[:, s[i]]
+            if not linear:
+                env = env * lam[i]
+            nrm = np.abs(env).sum()
+            if nrm > 0:
+                env = env / nrm
+        probs[idx] = np.exp(logp)
+    return probs / probs.sum()
+
+
+def exact_site_marginals(mps: MPS) -> np.ndarray:
+    """Per-site marginal distribution, (M, d), via the joint (small M)."""
+    M, d = mps.n_sites, mps.phys_dim
+    joint = enumerate_probabilities(mps)
+    outcomes = np.stack(np.meshgrid(*([np.arange(d)] * M), indexing="ij"),
+                        axis=-1).reshape(-1, M)
+    marg = np.zeros((M, d))
+    for i in range(M):
+        for s in range(d):
+            marg[i, s] = joint[outcomes[:, i] == s].sum()
+    return marg

@@ -1,0 +1,102 @@
+"""Counter-based PRNG: jax's default ``threefry2x32``, bit for bit.
+
+The sampler's seed contract (paper §4.1) is that site ``i`` draws its
+inverse-CDF uniforms from ``fold_in(key, i)``, so every schedule sharing a
+base key draws the same randoms.  Holding the port to the JAX package's
+samples therefore needs jax's generator itself, not ``torch.Generator``:
+this module reproduces ``jax.random.key`` / ``fold_in`` / ``split`` /
+``uniform`` under jax's defaults (impl ``threefry2x32``,
+``jax_threefry_partitionable=True``).
+
+A key is an int64 tensor of shape ``(2,)`` holding two uint32 words, the
+same words ``jax.random.key_data`` shows.  Keys live on the CPU (they are
+two words); ``uniform`` builds its counters on the requested device and
+hashes them with torch integer ops, so the CPU and the card give the same
+bits.  uint32 arithmetic is carried in int64 and masked to 32 bits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1: int, k2: int, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds) on counter words
+    ``(x1, x2)``.  Works on Python ints and on int64 tensors alike."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = (x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def _words(key: torch.Tensor) -> tuple[int, int]:
+    if key.shape != (2,):
+        raise ValueError(f"a key has shape (2,), got {tuple(key.shape)}")
+    k1, k2 = (int(w) for w in key.tolist())
+    return k1, k2
+
+
+def _as_key(k1, k2) -> torch.Tensor:
+    return torch.tensor([int(k1), int(k2)], dtype=torch.int64)
+
+
+def key(seed: int) -> torch.Tensor:
+    """``jax.random.key(seed)``: the 64-bit seed split into (hi, lo) words."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return _as_key(seed >> 32, seed & _MASK)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: hash the counter pair (0, data) with the key."""
+    k1, k2 = _words(key)
+    return _as_key(*threefry2x32(k1, k2, 0, int(data) & _MASK))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable): key i hashes counter (0, i).
+    Returns ``(num, 2)`` keys."""
+    k1, k2 = _words(key)
+    lo = torch.arange(num, dtype=torch.int64)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=1)
+
+
+def _bits(key: torch.Tensor, size: int, device) -> tuple:
+    """The two hash words for flat counters 0..size-1 (64-bit iota split
+    into hi/lo words, as jax's partitionable random bits do)."""
+    k1, k2 = _words(key)
+    counts = torch.arange(size, dtype=torch.int64, device=device)
+    return threefry2x32(k1, k2, counts >> 32, counts & _MASK)
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (),
+            dtype: torch.dtype = torch.float64, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on ``[0, 1)``: random
+    mantissa bits under the exponent of 1.0, minus 1."""
+    shape = tuple(int(s) for s in shape)
+    b1, b2 = _bits(key, math.prod(shape), device)
+    if dtype == torch.float32:
+        mant = (b1 ^ b2) >> 9                               # 23 mantissa bits
+        one = 0x3F800000
+        floats = (mant | one).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        mant = (b1 << 20) | (b2 >> 12)                      # (hi:lo) >> 12
+        one = 0x3FF0000000000000
+        floats = (mant | one).view(torch.float64)
+    else:
+        raise ValueError(f"uniform covers float32 and float64, got {dtype}")
+    return (floats - 1.0).reshape(shape)

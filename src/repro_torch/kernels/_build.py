@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels (plain C interface + ctypes).
+
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library at first use, under ``build/repro_torch_kernels/`` at the root of the
+checkout, named by a hash of the source and the flags so an edited source
+rebuilds.  Importing this module needs no ``nvcc``: nothing is compiled until
+a kernel is first launched.  ``build_all`` compiles every source at once,
+one ``nvcc`` per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# argtypes of every C entry point, by source: each pointer and the stream
+# are c_void_p (a bare Python int would be cut to 32 bits), sizes c_int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LINEAR = [_P] * 10 + [_I] * 5 + [_P]
+_BORN = [_P] * 8 + [_I] * 5 + [_P]
+SIGNATURES = {
+    "site_step": {
+        "fastmps_max_d": [],
+        "fastmps_site_step_linear_f64": _LINEAR,
+        "fastmps_site_step_linear_f32": _LINEAR,
+        "fastmps_site_step_born_c128": _BORN,
+        "fastmps_site_step_born_c64": _BORN,
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+build_seconds: dict[str, float] = {}     # wall time of each build, if built
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first "
+                       "use and need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; returns (process, target, tmp) or
+    None when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, target, tmp
+
+
+def _finish(name: str, started, t0: float) -> None:
+    proc, target, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    (BUILD_DIR / f"{target.stem}.log").write_text(log)
+    os.replace(tmp, target)            # atomic: concurrent builds agree
+    build_seconds[name] = time.perf_counter() - t0
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile every source not yet built (in parallel) and load them all."""
+    with _lock:
+        t0 = time.perf_counter()
+        started = {n: _start(n) for n in SIGNATURES if n not in _libs}
+        errors = []
+        for n, s in started.items():       # reap every nvcc before raising
+            if s is not None:
+                try:
+                    _finish(n, s, t0)
+                except RuntimeError as e:
+                    errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n in started:
+            _libs[n] = _load(n)
+        return dict(_libs)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build_all()[name]
+
+
+def ptxas_log(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` said when the library was built here."""
+    log = BUILD_DIR / f"{_target(name).stem}.log"
+    return log.read_text() if log.exists() else ""

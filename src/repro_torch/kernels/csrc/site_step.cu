@@ -1,0 +1,555 @@
+// Fused MPS site step for NVIDIA Hopper (sm_90a): one site of Alg. 1,
+//   contract -> measure -> inverse-CDF draw -> collapse -> per-sample rescale,
+// for linear semantics (real fp32/fp64) and Born semantics (complex64/128).
+//
+// Replaces the Pallas TPU kernels repro/kernels/site_step.py::site_step_linear
+// (_linear_kernel) and ::site_step_born (_born_kernel).
+//
+// Why the TPU design is not carried over.  The TPU kernel keeps a
+// (BN, chi_r, d) slab of temp = env . Gamma in VMEM for the whole site.  At
+// chi = 1e4, d = 4 one sample's slab is 320 KB in fp64: more than the 227 KB
+// of shared memory a Hopper block can have, so the slab cannot live on the SM.
+// It also relies on the TPU running grid steps in order (probs += across
+// r tiles); Hopper blocks run in no order, so every cross-block reduction here
+// is a second pass, and none uses floating-point atomics (their run-to-run
+// order would move the drawn samples).
+//
+// Linear (measure first, temp never exists):
+//   1. measure_weights: W[l, s] = sum_r Gamma[l, r, s] * Lambda[r]
+//      -- one pass over Gamma: bound by its bytes.
+//   2. probs_draw: probs[n, s] = sum_l env[n, l] * W[l, s], then the draw.
+//   3. bucket: a stable counting sort of the rows by drawn outcome.
+//   4. collapse: env'[n, :] = env[n, :] . Gamma[:, :, s_n] as a GEMM grouped
+//      by outcome -- 2*N*chi^2 flops, 1/d of the full contraction; bound by
+//      fp64 operations at the full width.
+//   5. rescale: per-row max (exact, order-free) and division.
+// Born (|sum|^2 != sum|.|^2, so measure-first is invalid):
+//   1. born_contract: the full complex GEMM temp = env . Gamma over the
+//      flattened (r, s) columns, written to global memory (N, chi_r, d) --
+//      the N*chi^2*d complex multiply-adds are the bound; writing and
+//      re-reading temp costs well under 1 % of that at the full width.
+//   2. probs_draw: probs[n, s] = sum_r |temp[n, r, s] * lambda_r|^2 per row
+//      (fixed order), then the draw.
+//   3. born_collapse: env'[n, :] = temp[n, :, s_n] * lambda, a gather.
+//   4. rescale as linear.
+//
+// The draw is op for op repro/kernels/site_impls.py::draw_from_uniform:
+// clip(probs, 0), row total, probs/total (1/d where the total is 0), a
+// sequential cumsum, count(u > cdf) with a strict '>', clipped to [0, d-1].
+// Every sum accumulates in the input's precision (fp64 stays fp64, no TF32).
+//
+// The GEMMs are plain shared-memory tiles with FMA (64x64 output tile, 16-deep
+// k step, 4x4 outputs per thread); wgmma/TMA pipelines are later work.
+//
+// C interface (loaded with ctypes): each entry launches its kernels on the
+// given stream and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_D = 16;        // largest physical dimension supported
+constexpr int THREADS = 256;     // every kernel: 256 threads per block
+constexpr int BM = 64;           // GEMM tile rows (samples)
+constexpr int BN = 64;           // GEMM tile columns
+constexpr int BK = 16;           // GEMM k step
+constexpr int TM = 4;            // rows per thread: ty + 16 * i
+constexpr int TN = 4;            // columns per thread: tx + 16 * j
+constexpr int APAD = BM + 1;     // padded A tile row (store without conflicts)
+constexpr int MAX_GRID_Y = 65535;
+
+// shared bytes: the double-complex GEMM tiles
+constexpr int SMEM_BYTES = 2 * (BK * APAD + BK * BN) * 8;
+
+#define RETURN_IF_ERROR()                         \
+  do {                                            \
+    cudaError_t err_ = cudaGetLastError();        \
+    if (err_ != cudaSuccess) return (int)err_;    \
+  } while (0)
+
+// ---------------------------------------------------------------------------
+// Block reductions (fixed order: warp shuffles, then the warps' results)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ T block_sum(T v, T* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  T out = T(0);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < THREADS / 32; ++w) out += red[w];
+  __syncthreads();
+  return out;  // valid in thread 0 only
+}
+
+template <typename T>
+__device__ T block_max(T v, T* red) {
+  for (int off = 16; off > 0; off >>= 1) {
+    T o = __shfl_down_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T m = red[0];
+    for (int w = 1; w < THREADS / 32; ++w) m = red[w] > m ? red[w] : m;
+    red[0] = m;
+  }
+  __syncthreads();
+  T out = red[0];
+  __syncthreads();
+  return out;  // valid in every thread
+}
+
+// ---------------------------------------------------------------------------
+// The draw (Alg. 1 lines 2-4), op for op as draw_from_uniform
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ int draw(const T* probs, int d, T u) {
+  T p[MAX_D];
+  T total = T(0);
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s)
+    if (s < d) {
+      p[s] = probs[s] < T(0) ? T(0) : probs[s];   // clip(probs, 0); NaN stays
+      total += p[s];
+    }
+  const T uniform_p = T(1) / T(d);
+  T cdf = T(0);
+  int count = 0;
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s)
+    if (s < d) {
+      cdf += total > T(0) ? p[s] / total : uniform_p;
+      count += u > cdf ? 1 : 0;
+    }
+  return count < d - 1 ? count : d - 1;
+}
+
+// ---------------------------------------------------------------------------
+// Linear step 1: W[l, s] = sum_r Gamma[l, r, s] * Lambda[r]   (grid: L)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+measure_weights_kernel(const T* __restrict__ gamma, const T* __restrict__ lam,
+                       int R, int d, T* __restrict__ w) {
+  __shared__ T red[THREADS / 32];
+  const int l = blockIdx.x;
+  const T* row = gamma + (size_t)l * R * d;
+  T acc[MAX_D];
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s) acc[s] = T(0);
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const T lr = lam[r];
+    const T* g = row + (size_t)r * d;
+#pragma unroll
+    for (int s = 0; s < MAX_D; ++s)
+      if (s < d) acc[s] += g[s] * lr;
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s)
+    if (s < d) {
+      T tot = block_sum(acc[s], red);
+      if (threadIdx.x == 0) w[(size_t)l * d + s] = tot;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Step 2: per-row probs (linear: env . W; Born: sum_r |temp * lambda|^2),
+// then the draw.  One block per sample row.
+// ---------------------------------------------------------------------------
+
+template <typename T, bool BORN>
+__global__ void __launch_bounds__(THREADS)
+probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
+                  const T* __restrict__ u, int L, int d,
+                  int32_t* __restrict__ samples) {
+  __shared__ T red[THREADS / 32];
+  __shared__ T probs[MAX_D];
+  const int n = blockIdx.x;
+  T acc[MAX_D];
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s) acc[s] = T(0);
+  if constexpr (BORN) {
+    // src: temp (N, L, d) complex, L = chi_r here; w: lambda (L)
+    const T* row = src + (size_t)n * L * d * 2;
+    for (int r = threadIdx.x; r < L; r += THREADS) {
+      const T lr = w[r];
+      const T* t = row + (size_t)r * d * 2;
+#pragma unroll
+      for (int s = 0; s < MAX_D; ++s)
+        if (s < d) {
+          const T vr = t[2 * s] * lr, vi = t[2 * s + 1] * lr;
+          acc[s] += vr * vr + vi * vi;
+        }
+    }
+  } else {
+    // src: env (N, L); w: the (L, d) measure weights
+    const T* e = src + (size_t)n * L;
+    for (int l = threadIdx.x; l < L; l += THREADS) {
+      const T el = e[l];
+#pragma unroll
+      for (int s = 0; s < MAX_D; ++s)
+        if (s < d) acc[s] += el * w[(size_t)l * d + s];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_D; ++s)
+    if (s < d) {
+      T tot = block_sum(acc[s], red);
+      if (threadIdx.x == 0) probs[s] = tot;
+    }
+  if (threadIdx.x == 0) samples[n] = draw(probs, d, u[n]);
+}
+
+// ---------------------------------------------------------------------------
+// Step 3: stable counting sort of rows by outcome (one block).
+// meta: [count[d], offset[d], tile_start[d], total_tiles]
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+bucket_kernel(const int32_t* __restrict__ samples, int n, int d,
+              int32_t* __restrict__ perm, int32_t* __restrict__ meta) {
+  __shared__ int cnt[THREADS][MAX_D + 1];
+  const int t = threadIdx.x;
+  const int chunk = (n + THREADS - 1) / THREADS;
+  const int lo = t * chunk < n ? t * chunk : n;
+  const int hi = lo + chunk < n ? lo + chunk : n;
+  for (int s = 0; s < d; ++s) cnt[t][s] = 0;
+  for (int i = lo; i < hi; ++i) cnt[t][samples[i]] += 1;
+  __syncthreads();
+  if (t == 0) {
+    int base = 0, tiles = 0;
+    for (int s = 0; s < d; ++s) {
+      int tot = 0;
+      for (int tt = 0; tt < THREADS; ++tt) {
+        const int c = cnt[tt][s];
+        cnt[tt][s] = base + tot;
+        tot += c;
+      }
+      meta[s] = tot;
+      meta[d + s] = base;
+      meta[2 * d + s] = tiles;
+      base += tot;
+      tiles += (tot + BM - 1) / BM;
+    }
+    meta[3 * d] = tiles;
+  }
+  __syncthreads();
+  for (int i = lo; i < hi; ++i) perm[cnt[t][samples[i]]++] = i;
+}
+
+// ---------------------------------------------------------------------------
+// The shared-memory GEMM main loop: acc[m][c] = sum_k A[row(m), k] * B(k, c)
+// A is env (N, L), rows given per tile; B(k, c) is Gamma at
+// bofs + k * ldb + c * bstride (in elements; complex elements interleaved).
+// ---------------------------------------------------------------------------
+
+template <typename T, bool CPLX>
+__device__ void gemm_tile(const T* __restrict__ env, int L,
+                          const int (&arow)[4],
+                          const T* __restrict__ gamma, size_t bofs, size_t ldb,
+                          int bstride, int c0, int ncols,
+                          T* smem, T (&acc_re)[TM][TN], T (&acc_im)[TM][TN]) {
+  constexpr int CW = CPLX ? 2 : 1;
+  T* a_re = smem;
+  T* b_re = a_re + BK * APAD;
+  T* a_im = b_re + BK * BN;
+  T* b_im = a_im + BK * APAD;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc_re[i][j] = acc_im[i][j] = T(0);
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    // A tile (BM x BK): thread loads rows ty + 16 e at column tx
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = ty + 16 * e, gk = k0 + tx;
+      T vr = T(0), vi = T(0);
+      if (arow[e] >= 0 && gk < L) {
+        const size_t off = ((size_t)arow[e] * L + gk) * CW;
+        vr = env[off];
+        if constexpr (CPLX) vi = env[off + 1];
+      }
+      a_re[tx * APAD + m] = vr;
+      if constexpr (CPLX) a_im[tx * APAD + m] = vi;
+    }
+    // B tile (BK x BN): thread loads k = t/64 + 4 e at column t % 64
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = (t >> 6) + 4 * e, c = t & 63;
+      const int gk = k0 + k, gc = c0 + c;
+      T vr = T(0), vi = T(0);
+      if (gk < L && gc < ncols) {
+        const size_t off = (bofs + (size_t)gk * ldb + (size_t)gc * bstride) * CW;
+        vr = gamma[off];
+        if constexpr (CPLX) vi = gamma[off + 1];
+      }
+      b_re[k * BN + c] = vr;
+      if constexpr (CPLX) b_im[k * BN + c] = vi;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      T ar[TM], br[TN], ai[TM], bi[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        ar[i] = a_re[k * APAD + ty + 16 * i];
+        if constexpr (CPLX) ai[i] = a_im[k * APAD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        br[j] = b_re[k * BN + tx + 16 * j];
+        if constexpr (CPLX) bi[j] = b_im[k * BN + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc_re[i][j] += ar[i] * br[j];
+          if constexpr (CPLX) {
+            acc_re[i][j] -= ai[i] * bi[j];
+            acc_im[i][j] += ar[i] * bi[j];
+            acc_im[i][j] += ai[i] * br[j];
+          }
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Linear step 4: the collapse, a GEMM grouped by drawn outcome.
+// grid.x: row tiles over the outcome groups (fastest, so the blocks in flight
+// share Gamma's column panel in L2); grid.y: column tiles over R.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+collapse_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int L,
+                int R, int d, const int32_t* __restrict__ perm,
+                const int32_t* __restrict__ meta, T* __restrict__ out) {
+  __shared__ __align__(16) unsigned char smem_raw[SMEM_BYTES];
+  const int bx = blockIdx.x;
+  if (bx >= meta[3 * d]) return;
+  int s = 0;
+  for (int q = 0; q < d; ++q)
+    if (meta[q] > 0 && meta[2 * d + q] <= bx) s = q;
+  const int count = meta[s], offset = meta[d + s];
+  const int r0 = (bx - meta[2 * d + s]) * BM;   // first row of this tile
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  int arow[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = r0 + ty + 16 * e;
+    arow[e] = i < count ? perm[offset + i] : -1;
+  }
+  const int c0 = blockIdx.y * BN;
+  T acc_re[TM][TN], acc_im[TM][TN];
+  gemm_tile<T, false>(env, L, arow, gamma, (size_t)s, (size_t)R * d, d, c0, R,
+                      reinterpret_cast<T*>(smem_raw), acc_re, acc_im);
+  // rows: the thread loaded rows ty + 16 e, and owns outputs ty + 16 i
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    if (arow[i] < 0) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < R) out[(size_t)arow[i] * R + c] = acc_re[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Born step 1: temp = env . Gamma over columns c = r * d + s, written out.
+// grid.x: row tiles; grid.y: column tiles.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+born_contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma,
+                     int n, int L, int ncols, T* __restrict__ temp) {
+  __shared__ __align__(16) unsigned char smem_raw[SMEM_BYTES];
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  int arow[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = r0 + ty + 16 * e;
+    arow[e] = row < n ? row : -1;
+  }
+  T acc_re[TM][TN], acc_im[TM][TN];
+  gemm_tile<T, true>(env, L, arow, gamma, 0, (size_t)ncols, 1, c0, ncols,
+                     reinterpret_cast<T*>(smem_raw), acc_re, acc_im);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    if (arow[i] < 0) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= ncols) continue;
+      const size_t off = ((size_t)arow[i] * ncols + c) * 2;
+      temp[off] = acc_re[i][j];
+      temp[off + 1] = acc_im[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Born step 3: env'[n, r] = temp[n, r, s_n] * lambda_r.  One block per row.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+born_collapse_kernel(const T* __restrict__ temp, const T* __restrict__ lam,
+                     const int32_t* __restrict__ samples, int R, int d,
+                     T* __restrict__ out) {
+  const int n = blockIdx.x, s = samples[n];
+  const T* row = temp + (size_t)n * R * d * 2;
+  T* o = out + (size_t)n * R * 2;
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const T lr = lam[r];
+    const size_t off = ((size_t)r * d + s) * 2;
+    o[2 * r] = row[off] * lr;
+    o[2 * r + 1] = row[off + 1] * lr;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Step 5: per-sample rescale (per_sample) -- or dlog = 0 (none).
+// ---------------------------------------------------------------------------
+
+template <typename T, bool CPLX>
+__global__ void __launch_bounds__(THREADS)
+rescale_kernel(T* __restrict__ env, int R, int per_sample,
+               T* __restrict__ dlog) {
+  __shared__ T red[THREADS / 32];
+  const int n = blockIdx.x;
+  constexpr int CW = CPLX ? 2 : 1;
+  T* row = env + (size_t)n * R * CW;
+  if (!per_sample) {
+    if (threadIdx.x == 0) dlog[n] = T(0);
+    return;
+  }
+  T m = T(0);
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    T a;
+    if constexpr (CPLX) {
+      const T re = row[2 * r], im = row[2 * r + 1];
+      a = sqrt(re * re + im * im);
+    } else {
+      a = fabs(row[r]);
+    }
+    m = a > m ? a : m;
+  }
+  m = block_max(m, red);
+  const T factor = m > T(0) ? m : T(1);
+  for (int r = threadIdx.x; r < R * CW; r += THREADS) row[r] = row[r] / factor;
+  if (threadIdx.x == 0) dlog[n] = log10(factor);
+}
+
+template <typename T>
+int site_step_linear(const T* env, const T* gamma, const T* lam, const T* u,
+                     T* env_out, int32_t* samples, T* dlog, T* w,
+                     int32_t* perm, int32_t* meta, int n, int L, int R, int d,
+                     int per_sample, cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BM - 1) / BM + d, (R + BN - 1) / BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  measure_weights_kernel<T><<<L, THREADS, 0, stream>>>(gamma, lam, R, d, w);
+  RETURN_IF_ERROR();
+  probs_draw_kernel<T, false><<<n, THREADS, 0, stream>>>(env, w, u, L, d,
+                                                         samples);
+  RETURN_IF_ERROR();
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, perm, meta);
+  RETURN_IF_ERROR();
+  collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
+                                                   meta, env_out);
+  RETURN_IF_ERROR();
+  rescale_kernel<T, false><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
+                                                      dlog);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename T>
+int site_step_born(const T* env, const T* gamma, const T* lam, const T* u,
+                   T* env_out, int32_t* samples, T* dlog, T* temp, int n,
+                   int L, int R, int d, int per_sample, cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  born_contract_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
+                                                        R * d, temp);
+  RETURN_IF_ERROR();
+  probs_draw_kernel<T, true><<<n, THREADS, 0, stream>>>(temp, lam, u, R, d,
+                                                        samples);
+  RETURN_IF_ERROR();
+  born_collapse_kernel<T><<<n, THREADS, 0, stream>>>(temp, lam, samples, R, d,
+                                                     env_out);
+  RETURN_IF_ERROR();
+  rescale_kernel<T, true><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
+                                                     dlog);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int fastmps_max_d() { return MAX_D; }
+
+int fastmps_site_step_linear_f64(const double* env, const double* gamma,
+                                 const double* lam, const double* u,
+                                 double* env_out, int32_t* samples,
+                                 double* dlog, double* w, int32_t* perm,
+                                 int32_t* meta, int n, int L, int R, int d,
+                                 int per_sample, void* stream) {
+  return site_step_linear<double>(env, gamma, lam, u, env_out, samples, dlog,
+                                  w, perm, meta, n, L, R, d, per_sample,
+                                  (cudaStream_t)stream);
+}
+
+int fastmps_site_step_linear_f32(const float* env, const float* gamma,
+                                 const float* lam, const float* u,
+                                 float* env_out, int32_t* samples, float* dlog,
+                                 float* w, int32_t* perm, int32_t* meta, int n,
+                                 int L, int R, int d, int per_sample,
+                                 void* stream) {
+  return site_step_linear<float>(env, gamma, lam, u, env_out, samples, dlog, w,
+                                 perm, meta, n, L, R, d, per_sample,
+                                 (cudaStream_t)stream);
+}
+
+// complex operands are interleaved (re, im) pairs of the real type;
+// temp is the (N, R, d) complex scratch of the contraction
+int fastmps_site_step_born_c128(const double* env, const double* gamma,
+                                const double* lam, const double* u,
+                                double* env_out, int32_t* samples,
+                                double* dlog, double* temp, int n, int L,
+                                int R, int d, int per_sample, void* stream) {
+  return site_step_born<double>(env, gamma, lam, u, env_out, samples, dlog,
+                                temp, n, L, R, d, per_sample,
+                                (cudaStream_t)stream);
+}
+
+int fastmps_site_step_born_c64(const float* env, const float* gamma,
+                               const float* lam, const float* u,
+                               float* env_out, int32_t* samples, float* dlog,
+                               float* temp, int n, int L, int R, int d,
+                               int per_sample, void* stream) {
+  return site_step_born<float>(env, gamma, lam, u, env_out, samples, dlog,
+                               temp, n, L, R, d, per_sample,
+                               (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,155 @@
+"""GBS sampling CLI of the port: argument parsing → config → session.
+
+Builds a synthetic GBS-like linear MPS from ``--seed``, walks it in
+``--macro-batches`` idempotent macro batches through
+:class:`repro_torch.api.SamplingSession`, and writes ``batch_XXXXX.npy``
+(int8 outcomes) and ``stats.json`` under ``--out``.  Batches already on disk
+are skipped, so a killed run resumes where it stopped; batch b's key is
+``fold_in(key(seed + 1), b)``, the JAX package's CLI schedule.
+
+Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
+  PYTHONPATH=src python -m repro_torch.launch.sample --sites 8 --chi 256 \
+      --d 4 --samples 4096 --macro-batches 2 --out OUT_DIR
+
+Flags of the JAX package's CLI that this slice does not carry (``--scheme`` other
+than seq, ``--stream``, ``--dynamic-bond``, ``--service*``, ``--clamp``,
+``--runtime``, ``--precision mxu_bf16``) raise ``NotImplementedError``
+naming the ROADMAP.md row that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import api
+from repro_torch.api.config import unported
+from repro_torch.core import mps as M
+from repro_torch.core import precision, prng
+from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.site_step import LAUNCHES
+from repro_torch.runtime.elastic import WorkQueue
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sites", type=int, default=64)
+    ap.add_argument("--chi", type=int, default=64)
+    ap.add_argument("--d", type=int, default=3)
+    ap.add_argument("--samples", type=int, default=4096)
+    ap.add_argument("--macro-batches", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", default="fp64",
+                    choices=["fp64", "fp32", "mxu_bf16"])
+    ap.add_argument("--kernels", default="auto",
+                    choices=["auto", "cuda", "torch"],
+                    help="site-step dispatch: the Hopper kernels, the plain "
+                         "PyTorch cells, or auto (cuda on the card)")
+    ap.add_argument("--micro-batch", type=int, default=0,
+                    help="N₂ (0 = whole macro batch)")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; without a GPU the default "
+                         "raises")
+    # the JAX package's CLI flags that later slices port
+    ap.add_argument("--scheme", default="seq",
+                    choices=["auto", "seq", "dp", "tp_single", "tp_double",
+                             "baseline19"])
+    ap.add_argument("--runtime", default="auto",
+                    choices=["auto", "local", "multihost", "remote"])
+    ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--dynamic-bond", action="store_true")
+    ap.add_argument("--clamp", default=None)
+    ap.add_argument("--service", action="store_true")
+    ap.add_argument("--service-workers", type=int, default=None)
+    ap.add_argument("--service-fleet", action="store_true")
+    return ap
+
+
+def _reject_unported(args) -> None:
+    if args.scheme not in ("auto", "seq"):
+        raise unported(f"--scheme {args.scheme}", 11,
+                       "core/parallel.py over torch.distributed")
+    if args.runtime not in ("auto", "local"):
+        raise unported(f"--runtime {args.runtime}", 10,
+                       "service and cluster layers")
+    if args.stream:
+        raise unported("--stream", 9, "GammaStore + streaming engine")
+    if args.dynamic_bond:
+        raise unported("--dynamic-bond", 8, "core/dynamic_bond.py")
+    if args.clamp:
+        raise unported("--clamp", 12, "core/clamped.py + workloads")
+    if args.service or args.service_fleet or args.service_workers:
+        raise unported("--service", 10, "service and cluster layers")
+    if args.precision == "mxu_bf16":
+        raise unported("--precision mxu_bf16", 7,
+                       "the compute_dtype / mxu_bf16 mode")
+
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
+    _reject_unported(args)
+    device = resolve_device(args.device)
+    if args.samples % args.macro_batches:
+        raise ValueError(f"--samples {args.samples} must divide over "
+                         f"--macro-batches {args.macro_batches}")
+    per_batch = args.samples // args.macro_batches
+    os.makedirs(args.out, exist_ok=True)
+
+    dtype = precision.policy_dtypes(args.precision)[0]
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    mps = M.gbs_like_mps(args.sites, args.chi, args.d, generator=gen,
+                         dtype=dtype)
+    config = api.SamplerConfig(scheme="seq", backend="inmem",
+                               kernels=args.kernels,
+                               micro_batch=args.micro_batch or None)
+
+    # resume: macro batches already on disk are done (idempotent by id)
+    n1 = args.macro_batches
+    queue = WorkQueue(n1)
+    for b in range(n1):
+        if os.path.exists(os.path.join(args.out, f"batch_{b:05d}.npy")):
+            queue.complete(b)
+    print(f"pending macro batches: {queue.pending}")
+
+    base = prng.key(args.seed + 1)
+    t0 = time.perf_counter()
+    with api.SamplingSession(mps, config, device=device) as session:
+        plan = session.plan(per_batch)
+        print("plan:", plan)
+        print(f"kernel dispatch: requested={args.kernels!r} → resolved "
+              f"{plan.kernels!r} (device={device}; registered ops: "
+              f"{dispatch.registered_ops()})")
+
+        def save_batch(b: int, out: np.ndarray) -> None:
+            np.save(os.path.join(args.out, f"batch_{b:05d}.npy"),
+                    out.astype(np.int8))
+            print(f"macro batch {b} done ({per_batch} samples)", flush=True)
+
+        session.run_queue(queue, per_batch, base, worker="cli",
+                          on_batch=save_batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print("kernel launches:", json.dumps(LAUNCHES))
+
+    allb = [np.load(os.path.join(args.out, f"batch_{b:05d}.npy"))
+            for b in range(n1)]
+    samples = np.concatenate(allb, axis=0)
+    mean_photons = samples.mean(axis=0)
+    stats = {"n_samples": int(samples.shape[0]), "sites": args.sites,
+             "chi": args.chi, "device": str(device),
+             "walltime_s": time.perf_counter() - t0,
+             "mean_photon_min": float(mean_photons.min()),
+             "mean_photon_max": float(mean_photons.max())}
+    with open(os.path.join(args.out, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=1)
+    print(json.dumps(stats, indent=1))
+
+
+if __name__ == "__main__":
+    main()

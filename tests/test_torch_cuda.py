@@ -1,0 +1,90 @@
+"""The Hopper kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without an NVIDIA GPU these tests skip (a CUDA kernel has
+no interpret mode).  On a machine with one, run
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which this file does
+not need.)
+
+TF32 is turned off, so fp32 products stay full fp32.  Tolerances as
+``tests/test_torch_site_step.py``, atol relative to the largest |env|.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.core import mps as M
+from repro_torch.core import prng
+from repro_torch.kernels import site_impls as SI
+from repro_torch.kernels import site_step as K
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float64: dict(rtol=1e-12, atol=1e-14),
+       torch.float32: dict(rtol=1e-5, atol=1e-6)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _operands(semantics, real, n, chi, d, device):
+    rng = np.random.default_rng(n * chi + d)
+    npr = np.float64 if real == torch.float64 else np.float32
+    u = rng.uniform(size=n).astype(npr)
+    if semantics == "linear":
+        arrs = [rng.uniform(size=(n, chi)), rng.uniform(size=(chi, chi, d)),
+                rng.uniform(size=chi)]
+        arrs = [a.astype(npr) for a in arrs]
+    else:
+        npc = np.complex128 if real == torch.float64 else np.complex64
+        arrs = [(rng.normal(size=(n, chi))
+                 + 1j * rng.normal(size=(n, chi))).astype(npc),
+                (rng.normal(size=(chi, chi, d))
+                 + 1j * rng.normal(size=(chi, chi, d))).astype(npc),
+                (rng.uniform(size=chi) + 0.5).astype(npr)]
+    return [torch.from_numpy(a).to(device) for a in (*arrs, u)]
+
+
+@pytest.mark.parametrize("n,chi,d", [(8, 4, 3), (37, 13, 5), (64, 32, 2),
+                                     (300, 130, 4)])
+@pytest.mark.parametrize("scaling", ["none", "per_sample", "global"])
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+@pytest.mark.parametrize("semantics", ["linear", "born"])
+def test_kernel_matches_plain(card, semantics, real, scaling, n, chi, d):
+    env, gamma, lam, u = _operands(semantics, real, n, chi, d, card)
+    kernel, plain = ((SI.site_step_linear_cuda, SI.site_step_linear_torch)
+                     if semantics == "linear"
+                     else (SI.site_step_born_cuda, SI.site_step_born_torch))
+    before = dict(K.LAUNCHES)
+    kw = dict(scaling=scaling, compute_dtype=None)
+    e_k, s_k, d_k = kernel(env, gamma, lam, u[:, None], **kw)
+    e_p, s_p, d_p = plain(env, gamma, lam, u[:, None], **kw)
+    torch.cuda.synchronize()
+    name = f"site_step_{semantics}"
+    assert K.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(s_k, s_p)
+    scale = max(1.0, e_p.abs().max().item())
+    assert torch.allclose(e_k / scale, e_p / scale, **TOL[real])
+    assert torch.allclose(d_k, d_p, **TOL[real])
+
+
+@pytest.mark.parametrize("semantics", ["linear", "born"])
+def test_session_walk_on_the_card(card, semantics):
+    gen = torch.Generator(device=card).manual_seed(0)
+    mps = (M.random_linear_mps(6, 40, 3, generator=gen) if semantics ==
+           "linear" else M.random_born_mps(6, 40, 3, generator=gen))
+    outs = {}
+    for kernels in ("cuda", "torch"):
+        with api.SamplingSession(mps, api.SamplerConfig(kernels=kernels),
+                                 device=card) as s:
+            outs[kernels] = s.sample(256, prng.key(3))
+    np.testing.assert_array_equal(outs["cuda"], outs["torch"])
