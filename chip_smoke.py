@@ -18,10 +18,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               holds the whole chain on the card), N=1024, walked through
               ``SamplingSession(kernels="cuda")`` and through the plain
               version; samples equal, log_scale allclose, launches = M;
-5. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks;
-6. cli      — ``python -m repro_torch.launch.sample`` in a subprocess;
-7. timings  — per-site kernel, plain and library times and the bound at the
-              phase 4/5 shapes, printed as the ``{"kernels": [...]}`` line.
+5. tp       — a one-rank NCCL process group (a ``FileStore`` under
+              ``build/``) and a 1×1 mesh; on phase 4's chain, the session
+              walks dp, tp_single, tp_single with measure_first and
+              tp_double with ``kernels="cuda"``, each checked against the
+              same walk with the plain cells (samples equal, env and
+              log_scale allclose) and for its launches (M per kernel);
+6. tp kernels — contract_measure, measure_probs and collapse_select called
+              at the bond-shard shapes of p₂ = 4 (N = 1024), against their
+              plain versions, with times and bounds;
+7. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
+              then a Born tp_double walk on the mesh against the dp walk;
+8. cli      — ``python -m repro_torch.launch.sample`` in a subprocess;
+9. timings  — per-site kernel, plain and library times and the bound at the
+              phase 4/7 shapes; with phase 6's, printed as the
+              ``{"kernels": [...]}`` line.
 
 Tolerances: samples equal; env and dlog ``rtol=1e-12, atol=1e-14`` (fp64)
 and ``rtol=1e-5, atol=1e-6`` (fp32), with atol taken relative to the
@@ -58,6 +69,13 @@ BORN_SITES, BORN_N = 4, 512
 # tensor-core peak (the card's fp64 GEMM rate)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP64_FLOPS = 67e12
+
+# the tp phase: (scheme, measure_first) → kernels its walk must launch M times
+TP_WALKS = {("dp", False): ("site_step_linear",),
+            ("tp_single", False): ("contract_measure",),
+            ("tp_single", True): ("measure_probs", "collapse_select"),
+            ("tp_double", False): ("contract_measure",)}
+TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
 
 
 def check(cond: bool, msg: str) -> None:
@@ -229,12 +247,14 @@ def _walk(mps, n, key, kernels: str):
     return S.sample_chain(mps, S.init_state(mps, n, key, cfg), cfg)
 
 
-def phase_full(device, semantics: str) -> dict:
+def phase_full(device, semantics: str):
     """Full-width walk through the session with the kernels, checked against
-    the plain version on the card; then per-site timings on site 0."""
+    the plain version on the card; then per-site timings on site 0.
+    Returns (the kernel's entry, the chain, the walk's final env)."""
     from repro_torch import api
     from repro_torch.core import mps as M
     from repro_torch.core import prng
+    from repro_torch.kernels import ops
     from repro_torch.kernels import site_step as K
 
     t0 = time.perf_counter()
@@ -242,11 +262,12 @@ def phase_full(device, semantics: str) -> dict:
     sites, n = (LINEAR_SITES, LINEAR_N) if linear else (BORN_SITES, BORN_N)
     name = "site_step_linear" if linear else "site_step_born"
     torch.cuda.reset_peak_memory_stats(device)
-    gen = torch.Generator(device=device).manual_seed(1234)
     tb = time.perf_counter()
     if linear:
-        mps = M.gbs_like_mps(sites, CHI, D, generator=gen, dtype=torch.float64)
+        mps = M.gbs_like_mps(prng.key(1234), sites, CHI, D,
+                             dtype=torch.float64, device=device)
     else:
+        gen = torch.Generator(device=device).manual_seed(1234)
         mps = M.random_born_mps(sites, CHI, D, generator=gen,
                                 dtype=torch.complex128)
     torch.cuda.synchronize()
@@ -258,14 +279,14 @@ def phase_full(device, semantics: str) -> dict:
 
     key = prng.key(7)
     # the main path: counts set to 0 just before, read just after
-    K.reset_launches()
+    ops.reset_launches()
     tw = time.perf_counter()
     with api.SamplingSession(mps, api.SamplerConfig(kernels="cuda"),
                              device=device) as session:
         samples = session.sample(n, key)
     torch.cuda.synchronize()
     walk_s = time.perf_counter() - tw
-    launches = dict(K.LAUNCHES)
+    launches = ops.launch_counts()
     print(f"{semantics}: session walk N={n} in {walk_s:.3f} s; "
           f"launches {launches}")
     check(launches[name] == sites, f"{name} launched {launches[name]} times "
@@ -334,10 +355,232 @@ def phase_full(device, semantics: str) -> dict:
           f"library_ms={library_ms:.3f} bound_ms={entry['bound_ms']:.3f} "
           f"({entry['bound_by']}: {moved / 1e9:.3f} GB, "
           f"{flops / 1e12:.4f} TFLOP)")
-    del mps, kern, plain, env, gamma, lam, u, g2
+    del kern, plain, gamma, lam, u, g2
     torch.cuda.empty_cache()
     _phase(semantics, t0)
-    return entry
+    return entry, mps, env
+
+
+def phase_nccl(device):
+    """A real one-rank NCCL process group and a 1×1 ("data", "model") mesh
+    (the card is one GPU; NCCL refuses two ranks on one)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    store = ROOT / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    mesh = make_mesh(1, device)
+    x = torch.arange(4.0, device=device)
+    dist.all_reduce(x, group=mesh.group("model"))
+    torch.cuda.synchronize()
+    check(x.tolist() == [0.0, 1.0, 2.0, 3.0], f"NCCL all_reduce gave {x}")
+    print(f"NCCL {torch.cuda.nccl.version()}: mesh {mesh.shape} on "
+          f"{mesh.device}", flush=True)
+    _phase("nccl", t0)
+    return mesh
+
+
+def _segment(mesh, mps, n, key, scheme, measure_first, kernels):
+    """The segment runner over the whole chain: (samples, env, log_scale)."""
+    from repro_torch.core import parallel as PP
+    from repro_torch.core import sampler as S
+
+    cfg = S.SamplerConfig(semantics=mps.semantics, kernels=kernels)
+    pc = PP.ParallelConfig(scheme=scheme, measure_first=measure_first)
+    env = PP.segment_env_init(n, mps.chi, mps.gammas.dtype, mps.device)
+    return PP.sample_segment(mesh, mps, env, key, 0, pc, cfg)
+
+
+def _same_walk(name, got, want) -> tuple[float, float]:
+    """Samples equal, env and log_scale within TOL; returns the largest env
+    and log_scale differences."""
+    bad = int((got[0] != want[0]).sum())
+    check(bad == 0, f"{name}: samples differ in {bad} draws")
+    tol = TOL[torch.float64]
+    env_err = (got[1] - want[1]).abs().max().item()
+    ls_err = (got[2] - want[2]).abs().max().item()
+    check(torch.allclose(got[1], want[1], **tol),
+          f"{name}: env differs (max abs {env_err:.3e})")
+    check(torch.isfinite(got[2]).all().item()
+          and torch.allclose(got[2], want[2], **tol),
+          f"{name}: log_scale differs (max abs {ls_err:.3e})")
+    return env_err, ls_err
+
+
+def phase_tp(mesh, mps) -> dict:
+    """The TP schemes through the session on the mesh, kernels vs plain.
+    Returns, per walk, its launch counts and wall time."""
+    from repro_torch import api
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n, key, sites = LINEAR_N, prng.key(11), mps.n_sites
+    walks, first = {}, None
+    for (scheme, mf), kernels in TP_WALKS.items():
+        label = scheme + ("+measure_first" if mf else "")
+        cfg = api.SamplerConfig(kernels="cuda", scheme=scheme,
+                                measure_first=mf)
+        # the main path: counts set to 0 just before, read just after
+        ops.reset_launches()
+        tw = time.perf_counter()
+        with api.SamplingSession(mps, cfg, mesh=mesh) as session:
+            samples = session.sample(n, key)
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - tw
+        launches = ops.launch_counts()
+        for k in kernels:
+            check(launches[k] == sites, f"{label}: {k} launched "
+                  f"{launches[k]} times on the walk, expected {sites}")
+        kern = _segment(mesh, mps, n, key, scheme, mf, "cuda")
+        plain = _segment(mesh, mps, n, key, scheme, mf, "torch")
+        torch.cuda.synchronize()
+        check(np.array_equal(kern[0].T.cpu().numpy(), samples),
+              f"{label}: session and segment walk differ")
+        env_err, ls_err = _same_walk(label, kern, plain)
+        first = samples if first is None else first
+        check(np.array_equal(samples, first),
+              f"{label}: samples differ from the dp walk's")
+        walks[label] = {"launches": {k: launches[k] for k in kernels},
+                        "walk_s": walk_s}
+        print(f"tp {label}: session walk N={n} M={sites} in {walk_s:.3f} s; "
+              f"launches {walks[label]['launches']}; kernel == plain "
+              f"({n * sites} draws), env max abs diff {env_err:.3e}, "
+              f"log_scale max abs diff {ls_err:.3e}", flush=True)
+    _phase("tp", t0)
+    return walks
+
+
+def _kernel_numbers(name, kernel, plain, library, moved, flops, reps=5):
+    """Kernel vs plain on the same inputs; times (CUDA events) and bound."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        scale = max(1.0, w.abs().max().item())
+        check(torch.allclose(g / scale, w / scale, **TOL[w.dtype]),
+              f"{name}: kernel and plain differ (max abs "
+              f"{(g - w).abs().max().item():.3e})")
+        err = max(err, (g - w).abs().max().item())
+    del got, want
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP64_FLOPS * 1e3
+    out = {"max_abs_err": err, "ms": time_ms(kernel, reps),
+           "plain_ms": time_ms(plain, reps),
+           "library_ms": time_ms(library, reps),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"{name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
+          f"library_ms={out['library_ms']:.3f} bound_ms={out['bound_ms']:.3f}"
+          f" ({out['bound_by']}: {moved / 1e9:.3f} GB, {flops / 1e12:.4f} "
+          f"TFLOP) max_abs_err={err:.3e}", flush=True)
+    return out
+
+
+def phase_tp_kernels(device, mps, env, walks) -> list:
+    """The three TP kernels at the bond-shard shapes of p₂ = 4 (N = 1024),
+    on the chain's site 0 and the linear walk's final env."""
+    from repro_torch.kernels import collapse_select as CS
+    from repro_torch.kernels import contract_measure as CM
+    from repro_torch.kernels import site_step as K
+
+    t0 = time.perf_counter()
+    n, shard = env.shape[0], CHI // TP_SHARDS
+    gamma, lam = mps.gammas[0], mps.lambdas[0]
+    env_s = env[:, :shard].contiguous()             # (N, χ/p₂)
+    g_left = gamma[:shard]                           # (χ/p₂, χ, d)
+    g_right = gamma[:, :shard].contiguous()          # (χ, χ/p₂, d)
+    lam_s = lam[:shard].contiguous()
+    w8 = 8                                           # bytes per fp64 word
+
+    cm = []
+    for e, g, l_ in ((env_s, g_left, lam), (env, g_right, lam_s)):
+        (L, R, d) = g.shape
+        g2 = g.reshape(L, R * d)
+        moved = (n * L + L * R * d + R + n * R * d + n * d) * w8
+        flops = 2 * n * L * R * d + 2 * n * R * d
+        nums = _kernel_numbers(
+            f"contract_measure {L}→{R}", lambda: CM.contract_measure(e, g, l_),
+            lambda: CM.contract_measure_plain(e, g, l_),
+            lambda: torch.matmul(e, g2), moved, flops)
+        cm.append(dict(nums, shape={"n": n, "L": L, "R": R, "d": d}))
+    tp_single = walks["tp_single"]["launches"]["contract_measure"]
+    entries = [dict(cm[0], name="contract_measure", route="cuda",
+                    source="src/repro_torch/kernels/csrc/site_step.cu",
+                    replaces="src/repro/kernels/contract_measure.py:92",
+                    launches=tp_single,
+                    launches_tp_double=walks["tp_double"]["launches"][
+                        "contract_measure"],
+                    other_shapes=cm[1:])]
+
+    w = CS.measure_weights(g_left.to(torch.float32), lam.to(torch.float32)
+                           ).to(torch.float64)      # as the walk builds W
+    nums = _kernel_numbers(
+        f"measure_probs {shard}", lambda: K.measure_probs(env_s, w),
+        lambda: K.measure_first_plain(env_s, w), lambda: env_s @ w,
+        (n * shard + shard * D + n * D) * w8, 2 * n * shard * D)
+    mf = walks["tp_single+measure_first"]["launches"]
+    entries.append(dict(nums, name="measure_probs", route="cuda",
+                        source="src/repro_torch/kernels/csrc/site_step.cu",
+                        replaces="src/repro/kernels/site_step.py:379",
+                        launches=mf["measure_probs"],
+                        shape={"n": n, "L": shard, "d": D}))
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    samples = torch.randint(0, D, (n,), generator=gen, device=device)
+    present = int(torch.unique(samples).numel())
+    g2 = g_left.reshape(shard, CHI * D)
+    nums = _kernel_numbers(
+        f"collapse_select {shard}→{CHI}",
+        lambda: CS.collapse_select(env_s, g_left, samples),
+        lambda: CS.collapse_select_plain(env_s, g_left, samples),
+        lambda: torch.matmul(env_s, g2),
+        (n * shard + shard * CHI * present + n + n * CHI) * w8,
+        2 * n * shard * CHI)
+    entries.append(dict(nums, name="collapse_select", route="cuda",
+                        source="src/repro_torch/kernels/csrc/site_step.cu",
+                        replaces="src/repro/kernels/collapse_select.py:83",
+                        launches=mf["collapse_select"],
+                        shape={"n": n, "L": shard, "R": CHI, "d": D,
+                               "outcomes_present": present}))
+    del env_s, g_right, w, g2
+    torch.cuda.empty_cache()
+    _phase("tp kernels", t0)
+    return entries
+
+
+def phase_tp_born(mesh, mps) -> None:
+    """A Born tp_double walk on the mesh (its contraction stays plain
+    PyTorch by design) against the Born dp walk, which runs the kernel."""
+    from repro_torch import api
+    from repro_torch.core import prng
+
+    t0 = time.perf_counter()
+    n, key = BORN_N, prng.key(13)
+    tw = time.perf_counter()
+    cfg = api.SamplerConfig(kernels="cuda", scheme="tp_double")
+    with api.SamplingSession(mps, cfg, mesh=mesh) as session:
+        samples = session.sample(n, key)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - tw
+    td = _segment(mesh, mps, n, key, "tp_double", False, "cuda")
+    dp = _segment(mesh, mps, n, key, "dp", False, "cuda")
+    torch.cuda.synchronize()
+    check(np.array_equal(td[0].T.cpu().numpy(), samples),
+          "born tp_double: session and segment walk differ")
+    env_err, ls_err = _same_walk("born tp_double vs dp", td, dp)
+    print(f"born tp_double: session walk N={n} M={mps.n_sites} in "
+          f"{walk_s:.3f} s; == the dp walk ({n * mps.n_sites} draws), env "
+          f"max abs diff {env_err:.3e}, log_scale max abs diff "
+          f"{ls_err:.3e}", flush=True)
+    _phase("tp born", t0)
 
 
 def phase_cli() -> None:
@@ -367,12 +610,27 @@ def phase_cli() -> None:
 
 
 def main() -> int:
+    import torch.distributed as dist
+
     device = phase_device()
     sys.path.insert(0, str(SRC))
     phase_build()
     phase_small(device)
-    entries = [phase_full(device, "linear"), phase_full(device, "born")]
+    mesh = phase_nccl(device)
+    try:
+        linear, mps, env = phase_full(device, "linear")
+        walks = phase_tp(mesh, mps)
+        tp_entries = phase_tp_kernels(device, mps, env, walks)
+        del mps, env
+        torch.cuda.empty_cache()
+        born, mps, _ = phase_full(device, "born")
+        phase_tp_born(mesh, mps)
+        del mps
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
     phase_cli()
+    entries = [linear, born, *tp_entries]
     print("kernels:", json.dumps(entries))
     print(nvidia_smi())
     print(json.dumps({"kernels": entries}))

@@ -1,14 +1,16 @@
 """Data-plane registry for :class:`repro_torch.api.SamplingSession`.
 
-This slice carries the ``inmem`` data plane's ``seq`` branch: the whole
-stacked Γ is on the device and the chain is walked by ``core/sampler``
-(micro-batched or not).  Other data planes register the same way when they
-are ported (ROADMAP.md §1 rows 9-10).
+This slice carries the ``inmem`` data plane: the whole stacked Γ is on the
+device; scheme ``seq`` walks it with ``core/sampler`` (micro-batched or not),
+``dp``/``tp_single``/``tp_double`` and ``baseline19`` with
+``core/parallel`` over the session's mesh.  The dynamic-χ branch waits for
+ROADMAP.md §1 row 8; other data planes register the same way when they are
+ported (rows 9-10).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ class SampleRequest:
     n_samples: int
     key: torch.Tensor
     mps: MPS
+    mesh: Optional[object] = None      # launch.mesh.Mesh for dp/tp/[19]
 
 
 class Backend:
@@ -54,16 +57,23 @@ class Backend:
 
 @register_backend("inmem")
 class InMemBackend(Backend):
-    """Whole chain on the device, walked by ``core/sampler`` (scheme seq)."""
+    """Whole chain on the device (paper §3.1–§3.2 in-memory paths)."""
     name = "inmem"
 
     def sample(self, req: SampleRequest) -> np.ndarray:
+        from repro_torch.core import parallel as PP
         from repro_torch.core import sampler as S
 
-        plan, cfg = req.plan, req.plan.sampler_config
-        if plan.micro_batch is not None:
-            out = S.sample_batched(req.mps, req.n_samples, req.key,
-                                   plan.micro_batch, cfg)
+        plan, cfg, n = req.plan, req.plan.sampler_config, req.n_samples
+        if plan.scheme == "seq":
+            if plan.micro_batch is not None:
+                out = S.sample_batched(req.mps, n, req.key, plan.micro_batch,
+                                       cfg)
+            else:
+                out = S.sample(req.mps, n, req.key, cfg)
+        elif plan.scheme == "baseline19":
+            out = PP._baseline19_sample(req.mesh, req.mps, n, req.key, cfg)
         else:
-            out = S.sample(req.mps, req.n_samples, req.key, cfg)
+            out = PP._multilevel_sample(req.mesh, req.mps, n, req.key,
+                                        plan.pconfig, cfg)
         return out.cpu().numpy()

@@ -1,13 +1,18 @@
 """Config schema and resolution for the sampling front door.
 
 :class:`SamplerConfig` keeps the JAX package's field names
-(``repro.api.config``).  This slice of the port resolves the in-memory walk
-only: backend ``inmem``, runtime ``local``, scheme ``seq`` (``auto``
-resolves to it), a static χ, and an explicit ``micro_batch``.  Every other
-value raises ``NotImplementedError`` naming the ROADMAP.md row that ports it.
+(``repro.api.config``).  This slice of the port resolves the in-memory walk:
+backend ``inmem``, runtime ``local``, a static χ, an explicit
+``micro_batch``, and the schemes ``seq``, ``dp``, ``tp_single``,
+``tp_double`` and ``baseline19`` over a session's mesh (with ``wire_dtype``
+and ``measure_first``).  ``auto`` resolves to ``seq`` without a mesh (or on
+a 1×1 mesh) and to ``dp`` when the mesh has no model axis; with p₂ > 1 the
+JAX package picks a TP schedule by its Eq. 7 model, which is not ported yet.
+Every other value raises ``NotImplementedError`` naming the ROADMAP.md row
+that ports it.
 
-``kernels``: ``"cuda"`` (the Hopper site-step kernels), ``"torch"`` (the
-plain PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
+``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
+PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Any, Optional, Union
 
 import torch
 
+from repro_torch.core.parallel import ParallelConfig
 from repro_torch.core.sampler import SamplerConfig as CoreSamplerConfig
 from repro_torch.kernels.dispatch import resolve_kernels
 
@@ -54,13 +60,28 @@ class SessionPlan:
     """Fully-resolved execution record for one ``session.sample(n, key)``."""
     backend: str                       # "inmem"
     runtime: str                       # "local"
-    scheme: str                        # "seq"
+    scheme: str                        # "seq" | "dp" | "tp_*" | "baseline19"
     semantics: str
     kernels: str                       # resolved dispatch: "cuda" | "torch"
     n_samples: int
+    p1: int                            # data-parallel shards
+    p2: int                            # tensor-parallel ranks per shard
     micro_batch: Optional[int]
     sampler_config: CoreSamplerConfig  # the kernel-level config
+    pconfig: Optional[ParallelConfig]  # the DP × TP placement (dp, tp_*)
     device: str
+
+
+def _mesh_sizes(mesh) -> tuple[int, int]:
+    if mesh is None:
+        return 1, 1
+    shape = dict(mesh.shape)
+    p2 = shape.get("model", 1)
+    p1 = 1
+    for ax, size in shape.items():
+        if ax != "model":
+            p1 *= size
+    return p1, p2
 
 
 def _check_unported(config: SamplerConfig) -> None:
@@ -76,12 +97,6 @@ def _check_unported(config: SamplerConfig) -> None:
     if config.shard is not None:
         raise unported("chain sharding (shard=...)", 10,
                        "service and cluster layers")
-    if config.scheme in ("dp", "tp_single", "tp_double", "baseline19"):
-        raise unported(f"scheme={config.scheme!r}", 11,
-                       "core/parallel.py over torch.distributed")
-    if config.wire_dtype is not None or config.measure_first:
-        raise unported("wire_dtype / measure_first", 11,
-                       "core/parallel.py over torch.distributed")
     if config.chi_profile is not None:
         raise unported("chi_profile (dynamic χ)", 8, "core/dynamic_bond.py")
     if config.clamp:
@@ -97,7 +112,7 @@ def _check_unported(config: SamplerConfig) -> None:
 
 def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                  chi: int, d: int, source_semantics: Optional[str] = None,
-                 device: torch.device) -> SessionPlan:
+                 device: torch.device, mesh=None) -> SessionPlan:
     """Resolve every AUTO field of ``config`` into a :class:`SessionPlan`;
     raises ``ValueError`` for malformed requests and ``NotImplementedError``
     for values this slice of the port does not carry."""
@@ -118,17 +133,56 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
         raise ValueError(f"unknown semantics {semantics!r}")
     kernels = resolve_kernels(config.kernels, device)
 
+    p1, p2 = _mesh_sizes(mesh)
+    scheme = config.scheme
+    if scheme == AUTO:
+        if mesh is None or (p1 == 1 and p2 == 1):
+            scheme = "seq"
+        elif p2 > 1:
+            raise unported("scheme='auto' on a mesh with a model axis (the "
+                           "Eq. 7 TP selector)", 9,
+                           "core/perfmodel.py choose_tp_scheme")
+        else:
+            scheme = "dp"
+    if scheme != "seq" and mesh is None:
+        raise ValueError(f"scheme {scheme!r} needs a mesh")
+    if scheme != "seq" and mesh.device.type != device.type:
+        raise ValueError(f"the mesh runs on {mesh.device.type}, the "
+                         f"session on {device.type}")
+    sharded = scheme in ("dp", "tp_single", "tp_double")   # the batch on p₁
+    if sharded and n_samples % p1:
+        raise ValueError(f"n_samples={n_samples} must divide over the "
+                         f"p₁={p1} data shards")
+    if scheme in ("tp_single", "tp_double") and chi % p2:
+        raise ValueError(f"χ={chi} does not divide over p₂={p2} "
+                         f"tensor-parallel workers")
+    if scheme == "tp_double" and n_sites % 2:
+        raise ValueError("tp_double pairs sites (2j, 2j+1): the chain needs "
+                         f"an even site count, got {n_sites}")
+    n_local = n_samples // p1 if sharded else n_samples
+
     micro = config.micro_batch
     if micro is not None:
         micro = int(micro)
-        if micro <= 0 or n_samples % micro != 0:
-            raise ValueError(f"micro_batch={micro} must divide the batch "
-                             f"{n_samples}")
+        if micro <= 0 or n_local % micro != 0:
+            raise ValueError(f"micro_batch={micro} must divide the local "
+                             f"batch {n_local}")
+        if scheme == "baseline19":
+            raise ValueError("micro batching does not compose with the [19] "
+                             "pipeline baseline")
 
+    pconfig = None
+    if sharded:
+        data_axes = tuple(ax for ax in mesh.axis_names if ax != "model")
+        pconfig = ParallelConfig(scheme=scheme, data_axes=data_axes,
+                                 wire_dtype=config.wire_dtype,
+                                 measure_first=config.measure_first,
+                                 micro_batch=micro)
     sampler_config = CoreSamplerConfig(semantics=semantics,
                                        scaling=config.scaling,
                                        kernels=kernels)
-    return SessionPlan(backend="inmem", runtime="local", scheme="seq",
+    return SessionPlan(backend="inmem", runtime="local", scheme=scheme,
                        semantics=semantics, kernels=kernels,
-                       n_samples=n_samples, micro_batch=micro,
-                       sampler_config=sampler_config, device=str(device))
+                       n_samples=n_samples, p1=p1, p2=p2, micro_batch=micro,
+                       sampler_config=sampler_config, pconfig=pconfig,
+                       device=str(device))

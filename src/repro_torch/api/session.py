@@ -11,7 +11,12 @@ registered data plane::
         samples = session.sample(4096, prng.key(0))    # (N, M) outcomes
 
 ``device`` defaults to the card; without a GPU the session raises unless
-``device="cpu"`` is passed.  ``sample`` uses its key unchanged (the JAX
+``device="cpu"`` is passed.  ``mesh`` (``launch.mesh.make_mesh``) places the
+walk over DP × TP ranks: every rank of the job builds the same session and
+calls ``sample`` with the same key, and every rank gets the full (N, M)
+array back, as the JAX package's controller does; the session then runs on
+the mesh's device.  Without a mesh the session walks the chain in this
+process (scheme ``seq``).  ``sample`` uses its key unchanged (the JAX
 package's one-batch service job); ``run_queue`` derives macro batch b's key
 as ``fold_in(base, b)``.  The service layer is a later slice.
 """
@@ -34,13 +39,15 @@ class SamplingSession:
     """Facade over the data-plane registry; see module docstring."""
 
     def __init__(self, source: MPS, config: Optional[SamplerConfig] = None,
-                 *, device: DeviceLike = None):
+                 *, device: DeviceLike = None, mesh=None):
         if not isinstance(source, MPS):
             raise unported(f"a {type(source).__name__} source (only an "
                            f"in-memory MPS is)", 9,
                            "GammaStore + streaming engine")
         self.config = config or SamplerConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if device is not None
+                       or mesh is None else mesh.device)
         # moving is explicit here: the chain lives on the session's device
         self._mps: Optional[MPS] = (source if source.device == self.device
                                     else source.to(self.device))
@@ -55,7 +62,7 @@ class SamplingSession:
             self._plans[n_samples] = resolve_plan(
                 self.config, n_samples=n_samples, n_sites=self.n_sites,
                 chi=self.chi, d=self.d, source_semantics=self._semantics,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return self._plans[n_samples]
 
     def sample(self, n_samples: int, key: torch.Tensor) -> np.ndarray:
@@ -64,7 +71,7 @@ class SamplingSession:
             raise RuntimeError("the session is closed")
         plan = self.plan(n_samples)
         req = SampleRequest(plan=plan, n_samples=n_samples, key=key,
-                            mps=self._mps)
+                            mps=self._mps, mesh=self.mesh)
         return get_backend(plan.backend).sample(req)
 
     def run_queue(self, queue, per_batch: int, base_key: torch.Tensor, *,

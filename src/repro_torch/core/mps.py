@@ -9,11 +9,14 @@ Mirrors ``repro.core.mps``.  Two semantics (see that module's docstring):
 left bond ``l`` to right bond ``r`` on outcome ``s``) and ``lambdas (M, χ)``
 the per-site Λ / Schmidt weights.
 
-The random builders take an explicit ``torch.Generator`` and build on its
-device.  They match the JAX builders in distribution only: tests carry the
-JAX package's MPS across (``repro_torch.convert``) instead of regenerating
-it.  Each builder allocates the whole chain once and fills it one site at a
-time, so the peak memory stays near the chain's own size.
+The linear builders (:func:`random_linear_mps`, :func:`gbs_like_mps`) take a
+key of the port's threefry (``core/prng.py``) and draw what the JAX builders
+draw from the same key, so a seed names the same chain in both packages.
+:func:`random_born_mps` takes a ``torch.Generator`` and matches the JAX
+builder in distribution only (see its docstring).  Each builder allocates
+the whole chain once on ``device`` (the card unless ``device="cpu"``) and
+fills it a site at a time, so the peak memory stays near the chain's own
+size.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -61,26 +67,39 @@ class MPS:
 # Random MPS generation (site by site into one preallocated chain)
 # ---------------------------------------------------------------------------
 
-def _rand(generator: torch.Generator, shape, dtype) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, dtype=dtype,
-                      device=generator.device)
+# counters per uniform call while a site is filled: bounds the threefry
+# temporaries (a few int64 words per counter) to about a GB
+_DRAW_CHUNK = 2 ** 25
 
 
-def random_linear_mps(n_sites: int, chi: int, d: int, *,
-                      generator: torch.Generator, decay: float = 0.0,
-                      dtype: torch.dtype = torch.float64) -> MPS:
-    """Random non-negative ("linear") MPS.  Each site's rows are normalised
-    so that Σ_(r,s) Γ = 1; ``decay`` shrinks site i by a random
-    ``10**(-decay·(1+U))`` to spread sample magnitudes (paper Figs. 5/6)."""
-    gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype,
-                         device=generator.device)
+def random_linear_mps(key, n_sites: int, chi: int, d: int,
+                      decay: float = 0.0, dtype: torch.dtype = torch.float64,
+                      device: DeviceLike = None) -> MPS:
+    """Random non-negative ("linear") MPS, as ``repro.core.mps``'s builder
+    draws it from the same key: ``kg, kl, kd = split(key, 3)``; Γ from
+    ``uniform(kg, (M, χ, χ, d))`` with each row normalised so that
+    Σ_(r,s) Γ = 1; ``decay`` shrinks site i by ``10**(-decay·(1+U_i))``
+    with ``U = uniform(kd, (M, 1, 1, 1))``; Λ = 1 + ``uniform(kl, (M, χ))``.
+    Γ is drawn in pieces whose counters are the whole-array draw's, so the
+    bits are the same."""
+    dev = resolve_device(device)
+    kg, kl, kd = prng.split(key, 3)
+    site = chi * chi * d
+    rows = max(1, _DRAW_CHUNK // (chi * d))
+    gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype, device=dev)
+    scale = (prng.uniform(kd, (n_sites,), dtype=dtype, device=dev)
+             if decay else None)
     for i in range(n_sites):
         g = gammas[i]
-        g.uniform_(generator=generator)
+        for r0 in range(0, chi, rows):
+            r1 = min(chi, r0 + rows)
+            g[r0:r1] = prng.uniform(kg, (r1 - r0, chi, d), dtype=dtype,
+                                    device=dev,
+                                    offset=i * site + r0 * chi * d)
         g /= g.sum(dim=(1, 2), keepdim=True)
         if decay:
-            g *= 10.0 ** (-decay * (1.0 + _rand(generator, (), dtype)))
-    lambdas = 1.0 + _rand(generator, (n_sites, chi), dtype)
+            g *= 10.0 ** (-decay * (1.0 + scale[i]))
+    lambdas = 1.0 + prng.uniform(kl, (n_sites, chi), dtype=dtype, device=dev)
     return MPS(gammas, lambdas, "linear")
 
 
@@ -89,7 +108,11 @@ def random_born_mps(n_sites: int, chi: int, d: int, *,
                     dtype: torch.dtype = torch.complex128) -> MPS:
     """Random complex MPS in right-canonical form: each site's
     ``(χ, χ·d)`` matrix has orthonormal rows (a QR of a complex Gaussian),
-    so ``Σ_s Γ^s Γ^s† = I``; λ = 1."""
+    so ``Σ_s Γ^s Γ^s† = I``; λ = 1.  Built on ``generator``'s device.
+
+    Same distribution as the JAX builder only: its Gaussians come from
+    ``torch.Generator`` and its QR from another LAPACK call, so tests carry
+    the JAX package's Born chain across (``repro_torch.convert``) instead."""
     real = torch.float64 if dtype == torch.complex128 else torch.float32
     dev = generator.device
     gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype, device=dev)
@@ -107,13 +130,15 @@ def random_born_mps(n_sites: int, chi: int, d: int, *,
     return MPS(gammas, lambdas, "born")
 
 
-def gbs_like_mps(n_sites: int, chi: int, d: int, *,
-                 generator: torch.Generator, photon_decay: float = 0.002,
-                 dtype: torch.dtype = torch.float64) -> MPS:
-    """Synthetic GBS-flavoured linear MPS: a decaying random linear chain
-    whose vacuum outcome (s = 0) is boosted towards the chain's edges."""
-    mps = random_linear_mps(n_sites, chi, d, generator=generator,
-                            decay=photon_decay * 50, dtype=dtype)
+def gbs_like_mps(key, n_sites: int, chi: int, d: int,
+                 photon_decay: float = 0.002,
+                 dtype: torch.dtype = torch.float64,
+                 device: DeviceLike = None) -> MPS:
+    """Synthetic GBS-flavoured linear MPS, as ``repro.core.mps`` draws it
+    from the same key: a decaying random linear chain whose vacuum outcome
+    (s = 0) is boosted towards the chain's edges."""
+    mps = random_linear_mps(key, n_sites, chi, d, decay=photon_decay * 50,
+                            dtype=dtype, device=device)
     centre = (n_sites - 1) / 2.0
     for i in range(n_sites):
         edge = abs(i - centre) / centre if centre else 0.0

@@ -75,20 +75,26 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
-def _bits(key: torch.Tensor, size: int, device) -> tuple:
-    """The two hash words for flat counters 0..size-1 (64-bit iota split
-    into hi/lo words, as jax's partitionable random bits do)."""
+def _bits(key: torch.Tensor, size: int, device, offset: int = 0) -> tuple:
+    """The two hash words for flat counters offset..offset+size-1 (64-bit
+    iota split into hi/lo words, as jax's partitionable random bits do)."""
     k1, k2 = _words(key)
-    counts = torch.arange(size, dtype=torch.int64, device=device)
+    counts = torch.arange(offset, offset + size, dtype=torch.int64,
+                          device=device)
     return threefry2x32(k1, k2, counts >> 32, counts & _MASK)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
-            dtype: torch.dtype = torch.float64, device=None) -> torch.Tensor:
+            dtype: torch.dtype = torch.float64, device=None,
+            offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype)`` on ``[0, 1)``: random
-    mantissa bits under the exponent of 1.0, minus 1."""
+    mantissa bits under the exponent of 1.0, minus 1.
+
+    ``offset`` starts the flat counters there: the draw is then the slice
+    ``[offset, offset + prod(shape))`` of a larger draw with the same key
+    (in row-major order), so a big array can be drawn a piece at a time."""
     shape = tuple(int(s) for s in shape)
-    b1, b2 = _bits(key, math.prod(shape), device)
+    b1, b2 = _bits(key, math.prod(shape), device, offset)
     if dtype == torch.float32:
         mant = (b1 ^ b2) >> 9                               # 23 mantissa bits
         one = 0x3F800000

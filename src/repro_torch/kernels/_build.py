@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LINEAR = [_P] * 10 + [_I] * 5 + [_P]
 _BORN = [_P] * 8 + [_I] * 5 + [_P]
+_CONTRACT_MEASURE = [_P] * 5 + [_I] * 4 + [_P]
+_MEASURE = [_P] * 3 + [_I] * 3 + [_P]
+_COLLAPSE = [_P] * 6 + [_I] * 4 + [_P]
 SIGNATURES = {
     "site_step": {
         "fastmps_max_d": [],
@@ -35,6 +40,12 @@ SIGNATURES = {
         "fastmps_site_step_linear_f32": _LINEAR,
         "fastmps_site_step_born_c128": _BORN,
         "fastmps_site_step_born_c64": _BORN,
+        "fastmps_contract_measure_f64": _CONTRACT_MEASURE,
+        "fastmps_contract_measure_f32": _CONTRACT_MEASURE,
+        "fastmps_measure_probs_f64": _MEASURE,
+        "fastmps_measure_probs_f32": _MEASURE,
+        "fastmps_collapse_select_f64": _COLLAPSE,
+        "fastmps_collapse_select_f32": _COLLAPSE,
     },
 }
 
@@ -123,3 +134,42 @@ def ptxas_log(name: str) -> str:
     """What ``nvcc -Xptxas -v`` said when the library was built here."""
     log = BUILD_DIR / f"{_target(name).stem}.log"
     return log.read_text() if log.exists() else ""
+
+
+def check_operands(name: str, device: torch.device, operands: dict) -> None:
+    """Raise unless every ``operands[arg] = (tensor, dtype)`` lies on
+    ``device``, has that dtype and is contiguous."""
+    for arg, (t, dt) in operands.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_sizes(name: str, d: int, *sizes: int) -> None:
+    """Raise unless ``d`` is within the kernels' ``MAX_D`` and every size is
+    positive and fits their 32-bit indices."""
+    max_d = library("site_step").fastmps_max_d()
+    if not 1 <= d <= max_d:
+        raise ValueError(f"{name}: d={d} outside the kernel's 1..{max_d}")
+    if min(sizes) < 1:
+        raise ValueError(f"{name}: empty operand")
+    if max(sizes) >= 2 ** 31:
+        raise ValueError(f"{name}: sizes exceed the kernel's 32-bit indices")
+
+
+def launch(entry: str, tensors, ints, device: torch.device, name: str) -> None:
+    """Call one C entry of ``csrc/site_step.cu`` on the current stream of
+    ``device``: the tensors' pointers, then the ints, then the stream.
+    Raises if the entry returns a CUDA error (a refused launch)."""
+    fn = getattr(library("site_step"), entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors),
+                 *(int(i) for i in ints), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {err}")

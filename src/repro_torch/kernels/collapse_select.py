@@ -1,0 +1,80 @@
+"""Sample-selected collapse for the measure-first TP schedule (tp-3).
+
+By associativity of Alg. 1's linear measurement, ``probs = env @ W`` with
+``W[l, s] = Σ_r Γ[l, r, s]·Λ[r]`` (:func:`measure_weights`), so the
+(N, χ, d) temp is never needed to draw.  After the draw the new environment
+is ``env'[n, r] = Σ_l env[n, l]·Γ[l, r, s_n]``.
+
+:func:`collapse_select` launches the CUDA kernel of ``csrc/site_step.cu``
+(which replaces the Pallas TPU kernel
+``repro/kernels/collapse_select.py::collapse_select``): a stable counting sort
+of the rows by outcome, then one GEMM grouped by outcome — 1/d of the flops
+of the TPU kernel's d masked GEMMs.  It takes its plain version,
+:func:`collapse_select_plain` (the d masked GEMMs, op for op with the JAX
+package's ``collapse`` xla cell), only for tensors on the CPU.
+
+``LAUNCHES`` counts kernel launches; ``reset_launches`` sets it to 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.site_step import supported
+
+LAUNCHES = {"collapse_select": 0}
+
+_ENTRY = {torch.float64: "fastmps_collapse_select_f64",
+          torch.float32: "fastmps_collapse_select_f32"}
+
+
+def reset_launches() -> None:
+    LAUNCHES["collapse_select"] = 0
+
+
+def measure_weights(gamma, lam):
+    """W[l, s] = Σ_r Γ[l, r, s]·Λ[r] — the per-site measure-first operator."""
+    return torch.einsum("lrs,r->ls", gamma, lam)
+
+
+def collapse_select_plain(env, gamma, samples):
+    """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) as d masked
+    GEMMs; a row whose outcome is outside [0, d) comes out zero."""
+    acc = None
+    for s in range(gamma.shape[2]):
+        mask = (samples == s).to(env.dtype)[:, None]
+        part = (env * mask) @ gamma[:, :, s]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def collapse_select(env, gamma, samples):
+    """The kernel: env and Γ both fp32 or both fp64, samples (N,) integer →
+    env' (N, R) as :func:`collapse_select_plain`.  Bound by fp64 operations
+    (2·N·L·R) at the full width."""
+    if env.device.type == "cpu":
+        return collapse_select_plain(env, gamma, samples)
+    name = "collapse_select"
+    entry = supported(env, _ENTRY, name)
+    if samples.dtype.is_floating_point or samples.dtype.is_complex:
+        raise TypeError(f"{name}: samples must be integers, got "
+                        f"{samples.dtype}")
+    s32 = samples.to(torch.int32).contiguous()
+    _build.check_operands(name, env.device, {
+        "env": (env, env.dtype), "gamma": (gamma, env.dtype),
+        "samples": (s32, torch.int32)})
+    if (env.ndim != 2 or gamma.ndim != 3 or gamma.shape[0] != env.shape[1]
+            or samples.shape != env.shape[:1]):
+        raise ValueError(f"{name}: expected env (N, L), Γ (L, R, d), "
+                         f"samples (N,); got {tuple(env.shape)}, "
+                         f"{tuple(gamma.shape)}, {tuple(samples.shape)}")
+    (n, chi_l), (chi_r, d) = env.shape, gamma.shape[1:]
+    _build.check_sizes(name, d, n, chi_l, chi_r * d)
+    dev = env.device
+    out = torch.empty((n, chi_r), dtype=env.dtype, device=dev)
+    perm = torch.empty((n,), dtype=torch.int32, device=dev)
+    meta = torch.empty((3 * d + 1,), dtype=torch.int32, device=dev)
+    _build.launch(entry, (env, gamma, s32, out, perm, meta),
+                  (n, chi_l, chi_r, d), dev, name)
+    LAUNCHES[name] += 1
+    return out

@@ -1,9 +1,13 @@
 // Fused MPS site step for NVIDIA Hopper (sm_90a): one site of Alg. 1,
 //   contract -> measure -> inverse-CDF draw -> collapse -> per-sample rescale,
-// for linear semantics (real fp32/fp64) and Born semantics (complex64/128).
+// for linear semantics (real fp32/fp64) and Born semantics (complex64/128),
+// and the three stages the tensor-parallel schedules run on bond shards.
 //
 // Replaces the Pallas TPU kernels repro/kernels/site_step.py::site_step_linear
-// (_linear_kernel) and ::site_step_born (_born_kernel).
+// (_linear_kernel) and ::site_step_born (_born_kernel); and, for the TP
+// schedules, repro/kernels/contract_measure.py::contract_measure,
+// repro/kernels/site_step.py::measure_probs (_measure_kernel) and
+// repro/kernels/collapse_select.py::collapse_select (see "TP stages" below).
 //
 // Why the TPU design is not carried over.  The TPU kernel keeps a
 // (BN, chi_r, d) slab of temp = env . Gamma in VMEM for the whole site.  At
@@ -24,7 +28,7 @@
 //      fp64 operations at the full width.
 //   5. rescale: per-row max (exact, order-free) and division.
 // Born (|sum|^2 != sum|.|^2, so measure-first is invalid):
-//   1. born_contract: the full complex GEMM temp = env . Gamma over the
+//   1. contract: the full complex GEMM temp = env . Gamma over the
 //      flattened (r, s) columns, written to global memory (N, chi_r, d) --
 //      the N*chi^2*d complex multiply-adds are the bound; writing and
 //      re-reading temp costs well under 1 % of that at the full width.
@@ -32,6 +36,22 @@
 //      (fixed order), then the draw.
 //   3. born_collapse: env'[n, :] = temp[n, :, s_n] * lambda, a gather.
 //   4. rescale as linear.
+//
+// TP stages (env and Gamma are bond shards: L != R in general):
+//   contract_measure: temp = env . Gamma (the real GEMM above, written out),
+//      then probs[n, s] = sum_r temp[n, r, s] * Lambda[r] in a second pass,
+//      one block per row in a fixed order.  The TPU kernel adds probs across
+//      r tiles in grid order; Hopper blocks cannot, and the second pass reads
+//      temp once more (N*R*d words, < 1 % of the GEMM at the full width).
+//      Probs come from the temp the caller receives, as in the reference.
+//      Bound by fp64 operations (2*N*L*R*d).
+//   measure_probs: probs = env . W, the probs half of probs_draw without
+//      the draw.  Bound by env's bytes.
+//   collapse_select: env'[n, :] = env[n, :] . Gamma[:, :, s_n] with s from
+//      the caller: the bucket sort and grouped collapse GEMM of the linear
+//      step (1/d of the TPU kernel's d masked GEMMs).  A row whose outcome is
+//      outside [0, d) comes out zero, as with the masks.  Bound by fp64
+//      operations (2*N*L*R).
 //
 // The draw is op for op repro/kernels/site_impls.py::draw_from_uniform:
 // clip(probs, 0), row total, probs/total (1/d where the total is 0), a
@@ -161,22 +181,23 @@ measure_weights_kernel(const T* __restrict__ gamma, const T* __restrict__ lam,
 }
 
 // ---------------------------------------------------------------------------
-// Step 2: per-row probs (linear: env . W; Born: sum_r |temp * lambda|^2),
-// then the draw.  One block per sample row.
+// Step 2: per-row probs, then the draw.  One block per sample row.
+//   ENV_W:       probs[s] = sum_l env[n, l] * W[l, s]       (linear)
+//   TEMP_LINEAR: probs[s] = sum_r temp[n, r, s] * Lambda[r] (linear, TP)
+//   TEMP_BORN:   probs[s] = sum_r |temp[n, r, s] * lambda_r|^2
 // ---------------------------------------------------------------------------
 
-template <typename T, bool BORN>
-__global__ void __launch_bounds__(THREADS)
-probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
-                  const T* __restrict__ u, int L, int d,
-                  int32_t* __restrict__ samples) {
-  __shared__ T red[THREADS / 32];
-  __shared__ T probs[MAX_D];
+enum Measure { ENV_W, TEMP_LINEAR, TEMP_BORN };
+
+// probs of row blockIdx.x into probs[0..d) (written by thread 0)
+template <typename T, Measure M>
+__device__ void row_probs(const T* __restrict__ src, const T* __restrict__ w,
+                          int L, int d, T* probs, T* red) {
   const int n = blockIdx.x;
   T acc[MAX_D];
 #pragma unroll
   for (int s = 0; s < MAX_D; ++s) acc[s] = T(0);
-  if constexpr (BORN) {
+  if constexpr (M == TEMP_BORN) {
     // src: temp (N, L, d) complex, L = chi_r here; w: lambda (L)
     const T* row = src + (size_t)n * L * d * 2;
     for (int r = threadIdx.x; r < L; r += THREADS) {
@@ -188,6 +209,16 @@ probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
           const T vr = t[2 * s] * lr, vi = t[2 * s + 1] * lr;
           acc[s] += vr * vr + vi * vi;
         }
+    }
+  } else if constexpr (M == TEMP_LINEAR) {
+    // src: temp (N, L, d) real, L = chi_r here; w: Lambda (L)
+    const T* row = src + (size_t)n * L * d;
+    for (int r = threadIdx.x; r < L; r += THREADS) {
+      const T lr = w[r];
+      const T* t = row + (size_t)r * d;
+#pragma unroll
+      for (int s = 0; s < MAX_D; ++s)
+        if (s < d) acc[s] += t[s] * lr;
     }
   } else {
     // src: env (N, L); w: the (L, d) measure weights
@@ -205,7 +236,29 @@ probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
       T tot = block_sum(acc[s], red);
       if (threadIdx.x == 0) probs[s] = tot;
     }
-  if (threadIdx.x == 0) samples[n] = draw(probs, d, u[n]);
+}
+
+template <typename T, Measure M>
+__global__ void __launch_bounds__(THREADS)
+probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
+                  const T* __restrict__ u, int L, int d,
+                  int32_t* __restrict__ samples) {
+  __shared__ T red[THREADS / 32];
+  __shared__ T probs[MAX_D];
+  row_probs<T, M>(src, w, L, d, probs, red);
+  if (threadIdx.x == 0) samples[blockIdx.x] = draw(probs, d, u[blockIdx.x]);
+}
+
+// the same probs written out (N, d): no draw
+template <typename T, Measure M>
+__global__ void __launch_bounds__(THREADS)
+probs_kernel(const T* __restrict__ src, const T* __restrict__ w, int L, int d,
+             T* __restrict__ out) {
+  __shared__ T red[THREADS / 32];
+  __shared__ T probs[MAX_D];
+  row_probs<T, M>(src, w, L, d, probs, red);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < d; ++s) out[(size_t)blockIdx.x * d + s] = probs[s];
 }
 
 // ---------------------------------------------------------------------------
@@ -222,7 +275,10 @@ bucket_kernel(const int32_t* __restrict__ samples, int n, int d,
   const int lo = t * chunk < n ? t * chunk : n;
   const int hi = lo + chunk < n ? lo + chunk : n;
   for (int s = 0; s < d; ++s) cnt[t][s] = 0;
-  for (int i = lo; i < hi; ++i) cnt[t][samples[i]] += 1;
+  for (int i = lo; i < hi; ++i) {
+    const int s = samples[i];
+    if (s >= 0 && s < d) cnt[t][s] += 1;   // other rows join no group
+  }
   __syncthreads();
   if (t == 0) {
     int base = 0, tiles = 0;
@@ -242,7 +298,10 @@ bucket_kernel(const int32_t* __restrict__ samples, int n, int d,
     meta[3 * d] = tiles;
   }
   __syncthreads();
-  for (int i = lo; i < hi; ++i) perm[cnt[t][samples[i]]++] = i;
+  for (int i = lo; i < hi; ++i) {
+    const int s = samples[i];
+    if (s >= 0 && s < d) perm[cnt[t][s]++] = i;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -369,15 +428,16 @@ collapse_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int L,
 }
 
 // ---------------------------------------------------------------------------
-// Born step 1: temp = env . Gamma over columns c = r * d + s, written out.
-// grid.x: row tiles; grid.y: column tiles.
+// Born step 1 and contract_measure: temp = env . Gamma over columns
+// c = r * d + s, written out.  grid.x: row tiles; grid.y: column tiles.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool CPLX>
 __global__ void __launch_bounds__(THREADS)
-born_contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma,
-                     int n, int L, int ncols, T* __restrict__ temp) {
+contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int n,
+                int L, int ncols, T* __restrict__ temp) {
   __shared__ __align__(16) unsigned char smem_raw[SMEM_BYTES];
+  constexpr int CW = CPLX ? 2 : 1;
   const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
   int arow[4];
@@ -387,7 +447,7 @@ born_contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma,
     arow[e] = row < n ? row : -1;
   }
   T acc_re[TM][TN], acc_im[TM][TN];
-  gemm_tile<T, true>(env, L, arow, gamma, 0, (size_t)ncols, 1, c0, ncols,
+  gemm_tile<T, CPLX>(env, L, arow, gamma, 0, (size_t)ncols, 1, c0, ncols,
                      reinterpret_cast<T*>(smem_raw), acc_re, acc_im);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -396,9 +456,9 @@ born_contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma,
     for (int j = 0; j < TN; ++j) {
       const int c = c0 + tx + 16 * j;
       if (c >= ncols) continue;
-      const size_t off = ((size_t)arow[i] * ncols + c) * 2;
+      const size_t off = ((size_t)arow[i] * ncols + c) * CW;
       temp[off] = acc_re[i][j];
-      temp[off + 1] = acc_im[i][j];
+      if constexpr (CPLX) temp[off + 1] = acc_im[i][j];
     }
   }
 }
@@ -466,7 +526,7 @@ int site_step_linear(const T* env, const T* gamma, const T* lam, const T* u,
   if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
   measure_weights_kernel<T><<<L, THREADS, 0, stream>>>(gamma, lam, R, d, w);
   RETURN_IF_ERROR();
-  probs_draw_kernel<T, false><<<n, THREADS, 0, stream>>>(env, w, u, L, d,
+  probs_draw_kernel<T, ENV_W><<<n, THREADS, 0, stream>>>(env, w, u, L, d,
                                                          samples);
   RETURN_IF_ERROR();
   bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, perm, meta);
@@ -487,17 +547,61 @@ int site_step_born(const T* env, const T* gamma, const T* lam, const T* u,
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
   if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  born_contract_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
-                                                        R * d, temp);
+  contract_kernel<T, true><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
+                                                         R * d, temp);
   RETURN_IF_ERROR();
-  probs_draw_kernel<T, true><<<n, THREADS, 0, stream>>>(temp, lam, u, R, d,
-                                                        samples);
+  probs_draw_kernel<T, TEMP_BORN><<<n, THREADS, 0, stream>>>(temp, lam, u, R,
+                                                             d, samples);
   RETURN_IF_ERROR();
   born_collapse_kernel<T><<<n, THREADS, 0, stream>>>(temp, lam, samples, R, d,
                                                      env_out);
   RETURN_IF_ERROR();
   rescale_kernel<T, true><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
                                                      dlog);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename T>
+int contract_measure(const T* env, const T* gamma, const T* lam, T* temp,
+                     T* probs, int n, int L, int R, int d,
+                     cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  contract_kernel<T, false><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
+                                                          R * d, temp);
+  RETURN_IF_ERROR();
+  probs_kernel<T, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
+                                                          probs);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename T>
+int measure_probs(const T* env, const T* w, T* probs, int n, int L, int d,
+                  cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  probs_kernel<T, ENV_W><<<n, THREADS, 0, stream>>>(env, w, L, d, probs);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename T>
+int collapse_select(const T* env, const T* gamma, const int32_t* samples,
+                    T* out, int32_t* perm, int32_t* meta, int n, int L, int R,
+                    int d, cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + BM - 1) / BM + d, (R + BN - 1) / BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  // rows whose outcome is outside [0, d) join no group and stay zero
+  const cudaError_t zeroed =
+      cudaMemsetAsync(out, 0, (size_t)n * R * sizeof(T), stream);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, perm, meta);
+  RETURN_IF_ERROR();
+  collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
+                                                   meta, out);
   RETURN_IF_ERROR();
   return 0;
 }
@@ -550,6 +654,50 @@ int fastmps_site_step_born_c64(const float* env, const float* gamma,
   return site_step_born<float>(env, gamma, lam, u, env_out, samples, dlog,
                                temp, n, L, R, d, per_sample,
                                (cudaStream_t)stream);
+}
+
+// TP stages: temp (N, R, d) and probs (N, d) out; W (L, d); samples (N)
+// int32; perm (N) and meta (3d + 1) int32 scratch of collapse_select
+int fastmps_contract_measure_f64(const double* env, const double* gamma,
+                                 const double* lam, double* temp,
+                                 double* probs, int n, int L, int R, int d,
+                                 void* stream) {
+  return contract_measure<double>(env, gamma, lam, temp, probs, n, L, R, d,
+                                  (cudaStream_t)stream);
+}
+
+int fastmps_contract_measure_f32(const float* env, const float* gamma,
+                                 const float* lam, float* temp, float* probs,
+                                 int n, int L, int R, int d, void* stream) {
+  return contract_measure<float>(env, gamma, lam, temp, probs, n, L, R, d,
+                                 (cudaStream_t)stream);
+}
+
+int fastmps_measure_probs_f64(const double* env, const double* w,
+                              double* probs, int n, int L, int d,
+                              void* stream) {
+  return measure_probs<double>(env, w, probs, n, L, d, (cudaStream_t)stream);
+}
+
+int fastmps_measure_probs_f32(const float* env, const float* w, float* probs,
+                              int n, int L, int d, void* stream) {
+  return measure_probs<float>(env, w, probs, n, L, d, (cudaStream_t)stream);
+}
+
+int fastmps_collapse_select_f64(const double* env, const double* gamma,
+                                const int32_t* samples, double* out,
+                                int32_t* perm, int32_t* meta, int n, int L,
+                                int R, int d, void* stream) {
+  return collapse_select<double>(env, gamma, samples, out, perm, meta, n, L,
+                                 R, d, (cudaStream_t)stream);
+}
+
+int fastmps_collapse_select_f32(const float* env, const float* gamma,
+                                const int32_t* samples, float* out,
+                                int32_t* perm, int32_t* meta, int n, int L,
+                                int R, int d, void* stream) {
+  return collapse_select<float>(env, gamma, samples, out, perm, meta, n, L, R,
+                                d, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,44 @@
-"""Public entry point for the fused site step, routed through the dispatch
-registry (``kernels="auto"``: the CUDA kernel on the card, the plain
-PyTorch cell on the CPU)."""
+"""Public entry points for the kernels, routed through the dispatch registry
+(``kernels="auto"``: the CUDA kernel on the card, the plain PyTorch cell on
+the CPU), and the launch counts of every kernel wrapper."""
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import collapse_select as CS
+from repro_torch.kernels import contract_measure as CM
+from repro_torch.kernels import site_step as SS
 from repro_torch.kernels.dispatch import get_site_op, resolve_kernels
+
+_COUNTED = (SS, CM, CS)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by wrapper name."""
+    return {name: n for mod in _COUNTED for name, n in mod.LAUNCHES.items()}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for mod in _COUNTED:
+        mod.reset_launches()
+
+
+def contract_measure(env, gamma, lam, kernels: str = "auto"):
+    """Site contraction + linear measurement. Returns (temp, probs)."""
+    op = get_site_op("contract_measure", "linear",
+                     resolve_kernels(kernels, env.device))
+    return op(env, gamma, lam, semantics="linear", compute_dtype=None)
+
+
+def collapse_rescale(env, gamma, samples, kernels: str = "auto"):
+    """Sample-selected collapse + per-sample rescale (§3.3):
+    env (N, L) · Γ[:, :, sₙ] → env' (N, R), rescaled to unit per-row max."""
+    op = get_site_op("collapse", "linear", resolve_kernels(kernels,
+                                                           env.device))
+    env_new = op(env, gamma, samples, compute_dtype=None)
+    m = env_new.abs().amax(dim=1, keepdim=True)
+    return env_new / torch.where(m > 0, m, 1.0)
 
 
 def site_step(env, gamma, lam, u, kernels: str = "auto",
@@ -16,4 +51,5 @@ def site_step(env, gamma, lam, u, kernels: str = "auto",
     return op(env, gamma, lam, u, scaling=scaling, compute_dtype=None)
 
 
-__all__ = ["site_step", "resolve_kernels"]
+__all__ = ["collapse_rescale", "contract_measure", "launch_counts",
+           "reset_launches", "resolve_kernels", "site_step"]

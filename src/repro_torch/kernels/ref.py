@@ -1,9 +1,38 @@
-"""Plain oracle for the fused site step (mirrors ``repro.kernels.ref``)."""
+"""Plain oracles for the kernels (mirror ``repro.kernels.ref``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.precision import real_dtype_of
+
+
+def contract_measure_ref(env, gamma, lam):
+    """Site contraction + linear measurement (paper Fig. 1 + Alg. 1 l.1):
+    env (N, L) · Γ (L, R, d) → temp (N, R, d); probs (N, d) = temp · Λ."""
+    temp = torch.einsum("nl,lrs->nrs", env, gamma)
+    return temp, torch.einsum("nrs,r->ns", temp, lam)
+
+
+def collapse_rescale_ref(temp, samples):
+    """Collapse the physical leg at the drawn outcome + per-sample rescale
+    (§3.3): env'[n, r] = temp[n, r, s_n] / max_r |temp[n, r, s_n]|."""
+    env = torch.take_along_dim(temp, samples[:, None, None].to(torch.int64),
+                               dim=2)[:, :, 0]
+    m = env.abs().amax(dim=1, keepdim=True)
+    return env / torch.where(m > 0, m, 1.0)
+
+
+def collapse_select_ref(env, gamma, samples):
+    """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) = env·Γ[:, :, s_n]."""
+    temp = torch.einsum("nl,lrs->nrs", env, gamma)
+    return torch.take_along_dim(temp, samples[:, None, None].to(torch.int64),
+                                dim=2)[:, :, 0]
+
+
+def measure_first_probs_ref(env, gamma, lam):
+    """probs via associativity: env @ (Γ·Λ) — equals
+    ``contract_measure_ref(...)[1]`` in exact arithmetic."""
+    return env @ torch.einsum("lrs,r->ls", gamma, lam)
 
 
 def site_step_ref(env, gamma, lam, u, semantics="linear",

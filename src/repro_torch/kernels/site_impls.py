@@ -1,13 +1,20 @@
 """Registered implementations behind ``kernels/dispatch.py``.
 
-Stage signature (semantics is part of the registry key):
+Stage signatures (semantics is part of the registry key):
 
 * ``site_step(env, gamma, lam, u, *, scaling, compute_dtype)``
   → ``(env', samples, dlog)`` with u (N, 1)
+* ``contract_measure(env, gamma, lam, *, semantics, compute_dtype)``
+  → ``(temp, probs)`` (the split-K TP schedules; ``cuda`` is linear only,
+  as the JAX package's Pallas cell)
+* ``measure(env, w, *, compute_dtype)`` → partial probs ``(N, d)`` (linear)
+* ``collapse(env, gamma, samples, *, compute_dtype)`` → ``env' (N, R)``
+  (linear)
 
-The ``torch`` cells are the plain versions in ``kernels/site_step.py``; the
-``cuda`` cells launch the Hopper kernels and rescale ``global`` outside, as
-the JAX package's Pallas cells do (the global max crosses row tiles).
+The ``torch`` cells are the plain versions beside the kernels; the ``cuda``
+cells launch the Hopper kernels.  The site-step cells rescale ``global``
+outside, as the JAX package's Pallas cells do (the global max crosses row
+tiles).
 """
 from __future__ import annotations
 
@@ -15,10 +22,12 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.precision import real_dtype_of
+from repro_torch.kernels import collapse_select as CS
+from repro_torch.kernels import contract_measure as CM
 from repro_torch.kernels.dispatch import register_site_op
 from repro_torch.kernels.site_step import (  # noqa: F401  (draw re-exported)
-    draw_from_uniform, site_step_born, site_step_born_plain,
-    site_step_linear, site_step_linear_plain)
+    draw_from_uniform, measure_first_plain, measure_probs, site_step_born,
+    site_step_born_plain, site_step_linear, site_step_linear_plain)
 
 
 def _no_compute_dtype(compute_dtype) -> None:
@@ -26,6 +35,12 @@ def _no_compute_dtype(compute_dtype) -> None:
         raise NotImplementedError(
             "compute_dtype (bf16 GEMM inputs) is not ported yet "
             "(ROADMAP.md §1 row 7)")
+
+
+def _on_card(env, stage: str) -> None:
+    if env.device.type != "cuda":
+        raise ValueError(f"the cuda {stage} cell needs tensors on a CUDA "
+                         f"device; got {env.device}")
 
 
 def site_probs_dtype(env, gamma, lam, semantics: str,
@@ -54,9 +69,7 @@ def site_step_born_torch(env, gamma, lam, u, *, scaling, compute_dtype):
 
 def _site_step_cuda(kernel, env, gamma, lam, u, scaling, compute_dtype):
     _no_compute_dtype(compute_dtype)
-    if env.device.type != "cuda":
-        raise ValueError("the cuda site-step cell needs tensors on a CUDA "
-                         f"device; got {env.device}")
+    _on_card(env, "site-step")
     fused = scaling if scaling in ("per_sample", "none") else "none"
     env2, samples, dlog = kernel(env, gamma, lam, u[:, 0], scaling=fused)
     if scaling == "global":
@@ -74,3 +87,81 @@ def site_step_linear_cuda(env, gamma, lam, u, *, scaling, compute_dtype):
 def site_step_born_cuda(env, gamma, lam, u, *, scaling, compute_dtype):
     return _site_step_cuda(site_step_born, env, gamma, lam, u, scaling,
                            compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# contract_measure — the split-K TP schedules' (temp, probs) pair
+# ---------------------------------------------------------------------------
+
+def measure_probs_plain(temp, lam, semantics: str):
+    """Alg. 1 line 1 for either semantics: linear ``temp·Λ``, Born
+    ``Σ_r |temp λ|²`` (shared by the TP schedules and the [19] baseline)."""
+    if semantics == "linear":
+        return torch.einsum("nrs,r->ns", temp, lam)
+    return torch.sum((temp * lam[None, :, None]).abs() ** 2, dim=1)
+
+
+def contract_parallel(env, gamma, compute_dtype):
+    """The segment runner's contraction ``temp[n,r,s] = Σ_l env·Γ`` — the
+    torch cells and the Born split-K paths share this one implementation."""
+    _no_compute_dtype(compute_dtype)
+    return torch.einsum("nl,lrs->nrs", env, gamma)
+
+
+def _contract_measure_torch(env, gamma, lam, *, semantics, compute_dtype):
+    temp = contract_parallel(env, gamma, compute_dtype)
+    return temp, measure_probs_plain(temp, lam, semantics)
+
+
+register_site_op("contract_measure", "linear", "torch")(
+    _contract_measure_torch)
+register_site_op("contract_measure", "born", "torch")(_contract_measure_torch)
+
+
+@register_site_op("contract_measure", "linear", "cuda")
+def contract_measure_cuda(env, gamma, lam, *, semantics, compute_dtype):
+    del semantics                      # the registry key says linear
+    _no_compute_dtype(compute_dtype)
+    _on_card(env, "contract_measure")
+    return CM.contract_measure(env, gamma, lam)
+
+
+# ---------------------------------------------------------------------------
+# measure — the tp-3 measure-first partial probs (linear only)
+# ---------------------------------------------------------------------------
+
+def _promoted(env, w):
+    """env and W in their promoted dtype (W is built in fp32, as in the JAX
+    package, and meets an fp64 env by promotion there)."""
+    dt = torch.promote_types(env.dtype, w.dtype)
+    return env.to(dt), w.to(dt)
+
+
+@register_site_op("measure", "linear", "torch")
+def measure_torch(env, w, *, compute_dtype):
+    _no_compute_dtype(compute_dtype)
+    return measure_first_plain(*_promoted(env, w))
+
+
+@register_site_op("measure", "linear", "cuda")
+def measure_cuda(env, w, *, compute_dtype):
+    _no_compute_dtype(compute_dtype)
+    _on_card(env, "measure")
+    return measure_probs(*_promoted(env, w))
+
+
+# ---------------------------------------------------------------------------
+# collapse — the sample-selected collapse GEMM (linear only)
+# ---------------------------------------------------------------------------
+
+@register_site_op("collapse", "linear", "torch")
+def collapse_torch(env, gamma, samples, *, compute_dtype):
+    _no_compute_dtype(compute_dtype)
+    return CS.collapse_select_plain(env, gamma, samples)
+
+
+@register_site_op("collapse", "linear", "cuda")
+def collapse_cuda(env, gamma, samples, *, compute_dtype):
+    _no_compute_dtype(compute_dtype)
+    _on_card(env, "collapse")
+    return CS.collapse_select(env, gamma, samples)

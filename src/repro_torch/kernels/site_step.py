@@ -10,6 +10,10 @@ takes its plain version, :func:`site_step_linear_plain` /
 :func:`site_step_born_plain`, only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.
 
+:func:`measure_probs` (with its plain version :func:`measure_first_plain`)
+is the tensor-parallel measure-first stage: it replaces the Pallas
+``repro/kernels/site_step.py::measure_probs``.
+
 Randomness stays outside: the caller passes the per-site uniforms ``u`` (N,)
 drawn from the folded key, so the kernels and the plain versions consume
 the same bits.
@@ -19,15 +23,14 @@ the card); ``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import precision
 from repro_torch.core.precision import real_dtype_of
 from repro_torch.kernels import _build
 
-LAUNCHES = {"site_step_linear": 0, "site_step_born": 0}
+LAUNCHES = {"site_step_linear": 0, "site_step_born": 0,
+            "measure_probs": 0}
 
 _FUSED_SCALING = ("per_sample", "none")
 
@@ -83,6 +86,12 @@ def site_step_born_plain(env, gamma, lam, u, scaling: str = "per_sample"):
                             scaling=scaling)
 
 
+def measure_first_plain(env, w):
+    """The measure-first partial probs of one bond shard: env (N, L) · W (L, d)
+    → (N, d); the caller sums them over the TP group."""
+    return env @ w
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -91,24 +100,25 @@ _LINEAR_ENTRY = {torch.float64: "fastmps_site_step_linear_f64",
                  torch.float32: "fastmps_site_step_linear_f32"}
 _BORN_ENTRY = {torch.complex128: "fastmps_site_step_born_c128",
                torch.complex64: "fastmps_site_step_born_c64"}
+_MEASURE_ENTRY = {torch.float64: "fastmps_measure_probs_f64",
+                  torch.float32: "fastmps_measure_probs_f32"}
+
+
+def supported(env, entries: dict, name: str) -> str:
+    """The C entry for env's dtype; raises for a dtype the kernel lacks."""
+    if env.dtype not in entries:
+        raise TypeError(f"{name}: env dtype {env.dtype} not supported; "
+                        f"have {sorted(str(k) for k in entries)}")
+    return entries[env.dtype]
 
 
 def _check_operands(env, gamma, lam, u, entries: dict, name: str):
     """Validate what the kernel takes; returns (n, χl, χr, d)."""
-    if env.dtype not in entries:
-        raise TypeError(f"{name}: env dtype {env.dtype} not supported; "
-                        f"have {sorted(str(k) for k in entries)}")
+    supported(env, entries, name)
     rdt = real_dtype_of(env.dtype)
-    want = {"env": (env, env.dtype), "gamma": (gamma, env.dtype),
-            "lam": (lam, rdt), "u": (u, rdt)}
-    for arg, (t, dt) in want.items():
-        if t.device != env.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, env on "
-                             f"{env.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+    _build.check_operands(name, env.device, {
+        "env": (env, env.dtype), "gamma": (gamma, env.dtype),
+        "lam": (lam, rdt), "u": (u, rdt)})
     if env.ndim != 2 or gamma.ndim != 3:
         raise ValueError(f"{name}: expected env (N, χl) and Γ (χl, χr, d); "
                          f"got {tuple(env.shape)} and {tuple(gamma.shape)}")
@@ -118,37 +128,21 @@ def _check_operands(env, gamma, lam, u, entries: dict, name: str):
         raise ValueError(f"{name}: shapes disagree: env {tuple(env.shape)}, "
                          f"Γ {tuple(gamma.shape)}, λ {tuple(lam.shape)}, "
                          f"u {tuple(u.shape)}")
-    max_d = _build.library("site_step").fastmps_max_d()
-    if not 1 <= d <= max_d:
-        raise ValueError(f"{name}: d={d} outside the kernel's 1..{max_d}")
-    if n < 1 or chi_l < 1 or chi_r < 1:
-        raise ValueError(f"{name}: empty operand")
-    if chi_r * d >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError(f"{name}: sizes exceed the kernel's 32-bit indices")
+    _build.check_sizes(name, d, n, chi_l, chi_r * d)
     return n, chi_l, chi_r, d
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _launch(entry: str, env, gamma, lam, u, scratch: list, n, chi_l, chi_r,
             d, scaling: str, name: str):
-    """Launch one C entry: operands, outputs, then ``scratch`` buffers."""
+    """Launch one site-step entry: operands, outputs, then ``scratch``."""
     dev = env.device
     env_out = torch.empty((n, chi_r), dtype=env.dtype, device=dev)
     samples = torch.empty((n,), dtype=torch.int32, device=dev)
     dlog = torch.empty((n,), dtype=real_dtype_of(env.dtype), device=dev)
-    fn = getattr(_build.library("site_step"), entry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(_ptr(t) for t in (env, gamma, lam, u, env_out, samples,
-                                     dlog, *scratch)),
-                 n, chi_l, chi_r, d, int(scaling == "per_sample"),
-                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {err}")
+    _build.launch(entry, (env, gamma, lam, u, env_out, samples, dlog,
+                          *scratch),
+                  (n, chi_l, chi_r, d, int(scaling == "per_sample")), dev,
+                  name)
     LAUNCHES[name] += 1
     return env_out, samples.to(torch.int64), dlog
 
@@ -188,3 +182,25 @@ def site_step_born(env, gamma, lam, u, scaling: str = "per_sample"):
     temp = torch.empty((n, chi_r, d), dtype=env.dtype, device=env.device)
     return _launch(_BORN_ENTRY[env.dtype], env, gamma, lam, u, [temp], n,
                    chi_l, chi_r, d, scaling, "site_step_born")
+
+
+def measure_probs(env, w):
+    """The tp-3 measure-first partial probs (replaces the Pallas
+    ``repro/kernels/site_step.py::measure_probs``): env (N, L) · W (L, d),
+    both fp32 or both fp64 → (N, d).  One block per row sums its L terms in
+    a fixed order; bound by env's bytes."""
+    if env.device.type == "cpu":
+        return measure_first_plain(env, w)
+    name = "measure_probs"
+    entry = supported(env, _MEASURE_ENTRY, name)
+    _build.check_operands(name, env.device, {"env": (env, env.dtype),
+                                             "w": (w, env.dtype)})
+    if env.ndim != 2 or w.ndim != 2 or w.shape[0] != env.shape[1]:
+        raise ValueError(f"{name}: expected env (N, L) and W (L, d); got "
+                         f"{tuple(env.shape)} and {tuple(w.shape)}")
+    (n, chi_l), d = env.shape, w.shape[1]
+    _build.check_sizes(name, d, n, chi_l, chi_l * d)
+    probs = torch.empty((n, d), dtype=env.dtype, device=env.device)
+    _build.launch(entry, (env, w, probs), (n, chi_l, d), env.device, name)
+    LAUNCHES[name] += 1
+    return probs

@@ -1,20 +1,28 @@
 """GBS sampling CLI of the port: argument parsing → config → session.
 
-Builds a synthetic GBS-like linear MPS from ``--seed``, walks it in
-``--macro-batches`` idempotent macro batches through
-:class:`repro_torch.api.SamplingSession`, and writes ``batch_XXXXX.npy``
-(int8 outcomes) and ``stats.json`` under ``--out``.  Batches already on disk
-are skipped, so a killed run resumes where it stopped; batch b's key is
-``fold_in(key(seed + 1), b)``, the JAX package's CLI schedule.
+Builds a synthetic GBS-like linear MPS from ``--seed`` (the JAX package's
+chain for the same seed), walks it in ``--macro-batches`` idempotent macro
+batches through :class:`repro_torch.api.SamplingSession`, and writes
+``batch_XXXXX.npy`` (int8 outcomes) and ``stats.json`` under ``--out``.
+Batches already on disk are skipped, so a killed run resumes where it
+stopped; batch b's key is ``fold_in(key(seed + 1), b)``, the JAX package's
+CLI schedule, and the default scheme is ``dp``, as there: the same flags
+write the same batch files in both packages.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.sample --sites 8 --chi 256 \
       --d 4 --samples 4096 --macro-batches 2 --out OUT_DIR
 
-Flags of the JAX package's CLI that this slice does not carry (``--scheme`` other
-than seq, ``--stream``, ``--dynamic-bond``, ``--service*``, ``--clamp``,
-``--runtime``, ``--precision mxu_bf16``) raise ``NotImplementedError``
-naming the ROADMAP.md row that ports them.
+Over P ranks (one per card; gloo ranks with ``--device cpu``), with p₂ of
+them per tensor-parallel group:
+  PYTHONPATH=src torchrun --nproc-per-node=P -m repro_torch.launch.sample \
+      --scheme tp_single --model-parallel 2 ... --out OUT_DIR
+Every rank walks its shard; rank 0 writes the files.
+
+Flags of the JAX package's CLI that this slice does not carry (``--stream``,
+``--dynamic-bond``, ``--service*``, ``--clamp``, ``--runtime`` other than
+local, ``--precision mxu_bf16``) raise ``NotImplementedError`` naming the
+ROADMAP.md row that ports them.
 """
 from __future__ import annotations
 
@@ -25,14 +33,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import api
 from repro_torch.api.config import unported
 from repro_torch.core import mps as M
 from repro_torch.core import precision, prng
-from repro_torch.device import resolve_device
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.site_step import LAUNCHES
+from repro_torch.kernels import dispatch, ops
+from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
 from repro_torch.runtime.elastic import WorkQueue
 
 
@@ -56,10 +64,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a GPU the default "
                          "raises")
-    # the JAX package's CLI flags that later slices port
-    ap.add_argument("--scheme", default="seq",
+    ap.add_argument("--scheme", default="dp",
                     choices=["auto", "seq", "dp", "tp_single", "tp_double",
                              "baseline19"])
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="p₂: ranks per tensor-parallel group")
+    # the JAX package's CLI flags that later slices port
     ap.add_argument("--runtime", default="auto",
                     choices=["auto", "local", "multihost", "remote"])
     ap.add_argument("--stream", action="store_true")
@@ -72,9 +82,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args) -> None:
-    if args.scheme not in ("auto", "seq"):
-        raise unported(f"--scheme {args.scheme}", 11,
-                       "core/parallel.py over torch.distributed")
     if args.runtime not in ("auto", "local"):
         raise unported(f"--runtime {args.runtime}", 10,
                        "service and cluster layers")
@@ -94,32 +101,49 @@ def _reject_unported(args) -> None:
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
     _reject_unported(args)
-    device = resolve_device(args.device)
+    device = local_device(args.device)
     if args.samples % args.macro_batches:
         raise ValueError(f"--samples {args.samples} must divide over "
                          f"--macro-batches {args.macro_batches}")
     per_batch = args.samples // args.macro_batches
-    os.makedirs(args.out, exist_ok=True)
+    created = init_distributed(device)      # a caller's group stays theirs
+    try:
+        _run(args, make_mesh(args.model_parallel, device), per_batch)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
+
+def _run(args, mesh, per_batch: int) -> None:
+    device, lead = mesh.device, dist.get_rank() == 0
+    print(f"rank {dist.get_rank()}/{dist.get_world_size()} mesh "
+          f"{mesh.shape} scheme {args.scheme} device {device}")
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+
+    # built in fp64 and cast, as the JAX package's CLI does
     dtype = precision.policy_dtypes(args.precision)[0]
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    mps = M.gbs_like_mps(args.sites, args.chi, args.d, generator=gen,
-                         dtype=dtype)
-    config = api.SamplerConfig(scheme="seq", backend="inmem",
+    mps = M.gbs_like_mps(prng.key(args.seed), args.sites, args.chi, args.d,
+                         dtype=torch.float64, device=device).to(dtype=dtype)
+    config = api.SamplerConfig(scheme=args.scheme, backend="inmem",
                                kernels=args.kernels,
                                micro_batch=args.micro_batch or None)
 
-    # resume: macro batches already on disk are done (idempotent by id)
+    # resume: macro batches already on disk are done (idempotent by id);
+    # rank 0 looks, so every rank walks the same batches
     n1 = args.macro_batches
+    done = [[b for b in range(n1) if os.path.exists(
+        os.path.join(args.out, f"batch_{b:05d}.npy"))]]
+    dist.broadcast_object_list(done, src=0)
     queue = WorkQueue(n1)
-    for b in range(n1):
-        if os.path.exists(os.path.join(args.out, f"batch_{b:05d}.npy")):
-            queue.complete(b)
+    for b in done[0]:
+        queue.complete(b)
     print(f"pending macro batches: {queue.pending}")
 
     base = prng.key(args.seed + 1)
     t0 = time.perf_counter()
-    with api.SamplingSession(mps, config, device=device) as session:
+    with api.SamplingSession(mps, config, device=device,
+                             mesh=mesh) as session:
         plan = session.plan(per_batch)
         print("plan:", plan)
         print(f"kernel dispatch: requested={args.kernels!r} → resolved "
@@ -127,23 +151,26 @@ def main(argv=None) -> None:
               f"{dispatch.registered_ops()})")
 
         def save_batch(b: int, out: np.ndarray) -> None:
-            np.save(os.path.join(args.out, f"batch_{b:05d}.npy"),
-                    out.astype(np.int8))
+            if lead:
+                np.save(os.path.join(args.out, f"batch_{b:05d}.npy"),
+                        out.astype(np.int8))
             print(f"macro batch {b} done ({per_batch} samples)", flush=True)
 
         session.run_queue(queue, per_batch, base, worker="cli",
                           on_batch=save_batch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print("kernel launches:", json.dumps(LAUNCHES))
+    print("kernel launches:", json.dumps(ops.launch_counts()))
+    if not lead:
+        return
 
     allb = [np.load(os.path.join(args.out, f"batch_{b:05d}.npy"))
             for b in range(n1)]
     samples = np.concatenate(allb, axis=0)
     mean_photons = samples.mean(axis=0)
     stats = {"n_samples": int(samples.shape[0]), "sites": args.sites,
-             "chi": args.chi, "device": str(device),
-             "walltime_s": time.perf_counter() - t0,
+             "chi": args.chi, "device": str(device), "scheme": plan.scheme,
+             "mesh": mesh.shape, "walltime_s": time.perf_counter() - t0,
              "mean_photon_min": float(mean_photons.min()),
              "mean_photon_max": float(mean_photons.max())}
     with open(os.path.join(args.out, "stats.json"), "w") as f:

@@ -80,11 +80,111 @@ def test_kernel_matches_plain(card, semantics, real, scaling, n, chi, d):
 @pytest.mark.parametrize("semantics", ["linear", "born"])
 def test_session_walk_on_the_card(card, semantics):
     gen = torch.Generator(device=card).manual_seed(0)
-    mps = (M.random_linear_mps(6, 40, 3, generator=gen) if semantics ==
-           "linear" else M.random_born_mps(6, 40, 3, generator=gen))
+    mps = (M.random_linear_mps(prng.key(0), 6, 40, 3, device=card)
+           if semantics == "linear"
+           else M.random_born_mps(6, 40, 3, generator=gen))
     outs = {}
     for kernels in ("cuda", "torch"):
         with api.SamplingSession(mps, api.SamplerConfig(kernels=kernels),
                                  device=card) as s:
             outs[kernels] = s.sample(256, prng.key(3))
     np.testing.assert_array_equal(outs["cuda"], outs["torch"])
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel stages: bond shards, L ≠ R, d up to MAX_D = 16
+# ---------------------------------------------------------------------------
+
+TP_SHAPES = [(8, 4, 6, 3), (37, 13, 29, 5), (300, 130, 65, 4),
+             (65, 64, 128, 16), (1, 1, 1, 1)]
+
+
+def _tp_operands(real, n, chi_l, chi_r, d, device):
+    rng = np.random.default_rng(n + 7 * chi_l + 31 * chi_r + d)
+    npr = np.float64 if real == torch.float64 else np.float32
+    arrs = [rng.uniform(size=(n, chi_l)), rng.uniform(size=(chi_l, chi_r, d)),
+            rng.uniform(size=chi_r), rng.uniform(size=(chi_l, d))]
+    return [torch.from_numpy(a.astype(npr)).to(device) for a in arrs]
+
+
+def _close(got, want, real):
+    scale = max(1.0, want.abs().max().item())
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.allclose(got / scale, want / scale, **TOL[real])
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_contract_measure_kernel(card, real, n, chi_l, chi_r, d):
+    from repro_torch.kernels import contract_measure as CM
+
+    env, gamma, lam, _ = _tp_operands(real, n, chi_l, chi_r, d, card)
+    before = CM.LAUNCHES["contract_measure"]
+    temp, probs = CM.contract_measure(env, gamma, lam)
+    t_p, p_p = CM.contract_measure_plain(env, gamma, lam)
+    torch.cuda.synchronize()
+    assert CM.LAUNCHES["contract_measure"] == before + 1
+    _close(temp, t_p, real)
+    _close(probs, p_p, real)
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_measure_probs_kernel(card, real, n, chi_l, chi_r, d):
+    env, _, _, w = _tp_operands(real, n, chi_l, chi_r, d, card)
+    before = K.LAUNCHES["measure_probs"]
+    probs = K.measure_probs(env, w)
+    want = K.measure_first_plain(env, w)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["measure_probs"] == before + 1
+    _close(probs, want, real)
+
+
+@pytest.mark.parametrize("present", ["all", "some"])
+@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_collapse_select_kernel(card, real, n, chi_l, chi_r, d, present):
+    """Every outcome drawn, or only some (rows outside [0, d) come out
+    zero, as with the plain version's masks)."""
+    from repro_torch.kernels import collapse_select as CS
+
+    env, gamma, _, _ = _tp_operands(real, n, chi_l, chi_r, d, card)
+    samples = torch.arange(n, device=card) % d
+    if present == "some":
+        samples = samples.clamp(max=max(0, d - 2))
+        samples[::7] = d                     # outside [0, d)
+        samples[1::11] = -1
+    before = CS.LAUNCHES["collapse_select"]
+    got = CS.collapse_select(env, gamma, samples)
+    want = CS.collapse_select_plain(env, gamma, samples)
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["collapse_select"] == before + 1
+    _close(got, want, real)
+
+
+def test_parallel_walks_on_the_card(card, tmp_path):
+    """dp, tp_single (with measure-first) and tp_double through the session
+    on a one-rank NCCL mesh: the kernels' samples equal the plain ones."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, card)
+        mps = M.random_linear_mps(prng.key(0), 6, 40, 3, device=card)
+        for scheme, mf in (("dp", False), ("tp_single", False),
+                           ("tp_single", True), ("tp_double", False)):
+            outs = {}
+            for kernels in ("cuda", "torch"):
+                ops.reset_launches()
+                cfg = api.SamplerConfig(kernels=kernels, scheme=scheme,
+                                        measure_first=mf)
+                with api.SamplingSession(mps, cfg, mesh=mesh) as s:
+                    outs[kernels] = s.sample(128, prng.key(3))
+            assert sum(ops.launch_counts().values()) == 0   # torch ran last
+            np.testing.assert_array_equal(outs["cuda"], outs["torch"])
+    finally:
+        dist.destroy_process_group()

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -43,8 +44,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def _tiny_mps(device="cpu"):
-    gen = torch.Generator(device=device).manual_seed(0)
-    return M.random_linear_mps(3, 4, 2, generator=gen)
+    return M.random_linear_mps(prng.key(0), 3, 4, 2, device=device)
 
 
 @pytest.fixture
@@ -80,25 +80,81 @@ def test_cuda_kernels_on_cpu_tensors_raise():
         session.sample(8, prng.key(0))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("scheme", "dp"), ("scheme", "tp_single"), ("scheme", "tp_double"),
-    ("scheme", "baseline19"), ("backend", "streamed"), ("backend", "remote"),
-    ("runtime", "multihost"), ("runtime", "remote"),
-    ("chi_profile", (4, 4, 4)), ("clamp", {0: 1}), ("shard", 2),
-    ("compute_dtype", torch.bfloat16), ("wire_dtype", torch.bfloat16),
-    ("measure_first", True), ("micro_batch", "auto"),
-])
-def test_unported_config_values_raise(field, value):
-    session = api.SamplingSession(_tiny_mps(),
-                                  SamplerConfig(**{field: value}),
-                                  device="cpu")
+def _mesh(p1: int, p2: int):
+    """What planning reads of a mesh (no process group is needed to plan)."""
+    return SimpleNamespace(shape={"data": p1, "model": p2},
+                           axis_names=("data", "model"),
+                           device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("fields,mesh", [
+    ({"scheme": "auto"}, (1, 2)),
+    ({"scheme": "tp_single", "chi_profile": (4, 4, 4)}, (1, 1)),
+    ({"scheme": "dp", "clamp": {0: 1}}, (1, 1)),
+    ({"scheme": "dp", "runtime": "multihost"}, (1, 1)),
+    ({"backend": "streamed"}, None), ({"backend": "remote"}, None),
+    ({"runtime": "multihost"}, None), ({"runtime": "remote"}, None),
+    ({"chi_profile": (4, 4, 4)}, None), ({"clamp": {0: 1}}, None),
+    ({"shard": 2}, None), ({"compute_dtype": torch.bfloat16}, None),
+    ({"scheme": "tp_double", "compute_dtype": torch.bfloat16}, (1, 1)),
+    ({"scheme": "tp_single", "shard": 2}, (1, 1)),
+    ({"micro_batch": "auto"}, None),
+], ids=lambda v: "-".join(f"{k}={v[k]}" for k in v) if isinstance(v, dict)
+   else f"mesh{v}")
+def test_unported_config_values_raise(fields, mesh):
+    session = api.SamplingSession(_tiny_mps(), SamplerConfig(**fields),
+                                  device="cpu",
+                                  mesh=mesh and _mesh(*mesh))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
         session.plan(8)
 
 
+@pytest.mark.parametrize("fields,mesh,scheme", [
+    ({"scheme": "dp"}, (2, 1), "dp"),
+    ({"scheme": "tp_single"}, (1, 2), "tp_single"),
+    ({"scheme": "tp_double"}, (1, 2), "tp_double"),
+    ({"scheme": "baseline19"}, (4, 1), "baseline19"),
+    ({"scheme": "tp_single", "wire_dtype": torch.bfloat16}, (2, 2),
+     "tp_single"),
+    ({"scheme": "tp_single", "measure_first": True}, (1, 2), "tp_single"),
+    ({}, (2, 1), "dp"),
+    ({}, (1, 1), "seq"),
+], ids=["dp", "tp_single", "tp_double", "baseline19", "wire_dtype",
+        "measure_first", "auto-dp", "auto-seq"])
+def test_parallel_config_values_resolve(fields, mesh, scheme):
+    """The schemes of core/parallel.py plan on a mesh: p₁, p₂ and the
+    placement as the JAX package resolves them."""
+    mps = M.random_linear_mps(prng.key(0), 4, 4, 2, device="cpu")
+    session = api.SamplingSession(mps, SamplerConfig(**fields),
+                                  device="cpu", mesh=_mesh(*mesh))
+    plan = session.plan(8)
+    assert (plan.scheme, plan.p1, plan.p2) == (scheme, *mesh)
+    if scheme in ("dp", "tp_single", "tp_double"):
+        assert plan.pconfig.scheme == scheme
+        assert plan.pconfig.wire_dtype == fields.get("wire_dtype")
+        assert plan.pconfig.measure_first == fields.get("measure_first",
+                                                        False)
+    else:
+        assert plan.pconfig is None
+
+
+@pytest.mark.parametrize("fields,mesh,match", [
+    ({"scheme": "dp"}, None, "needs a mesh"),
+    ({"scheme": "tp_single"}, (1, 3), "does not divide"),
+    ({"scheme": "dp"}, (3, 1), "must divide"),
+    ({"scheme": "baseline19", "micro_batch": 4}, (2, 1), "micro batching"),
+])
+def test_bad_parallel_requests_raise(fields, mesh, match):
+    session = api.SamplingSession(_tiny_mps(), SamplerConfig(**fields),
+                                  device="cpu",
+                                  mesh=mesh and _mesh(*mesh))
+    with pytest.raises(ValueError, match=match):
+        session.plan(8)
+
+
 @pytest.mark.parametrize("flags", [
-    ["--scheme", "dp"], ["--runtime", "remote"], ["--stream"],
-    ["--dynamic-bond"], ["--clamp", "0=1"], ["--service"],
+    ["--dynamic-bond", "--scheme", "tp_double"], ["--runtime", "remote"],
+    ["--stream"], ["--dynamic-bond"], ["--clamp", "0=1"], ["--service"],
     ["--precision", "mxu_bf16"],
 ])
 def test_unported_cli_flags_raise(flags, tmp_path):

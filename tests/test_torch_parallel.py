@@ -1,0 +1,248 @@
+"""The port's DP × TP segment runner (``repro_torch.core.parallel``) against
+the JAX package's (``repro.core.parallel``) on the same chains and seeds.
+
+The JAX reference runs in one subprocess with 8 forced host devices (as
+``tests/test_parallel.py`` does), on meshes of 4 of them.  The port runs as
+4 gloo ranks on the CPU, each its own process joined through a ``FileStore``
+in ``tmp_path``; every rank builds the meshes 2×2, 1×4 and the 4-rank [19]
+ring.  Both sides load the same chains (made here by the JAX builders,
+carried across as numpy) and run the cases of ``CASES``.  The two jobs run
+at the same time; each has its own timeout, so a hung collective fails this
+module and nothing else.
+
+Samples must be equal.  Env and ``log_scale`` (``sample_segment`` cases)
+agree to ``rtol=1e-12, atol=1e-14`` in fp64: the contractions and the
+collectives sum in other orders in the two packages.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from repro.core import mps as JM
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT = 150
+TOL = dict(rtol=1e-12, atol=1e-14)
+
+# name → what to run; both sides read these (see _JAX_CHILD and _PORT_RANK)
+CASES = {}
+for _mesh in ("2x2", "1x4"):
+    for _chain in ("linear", "born"):
+        for _scheme in ("dp", "tp_single", "tp_single_mf", "tp_double"):
+            if _chain == "born" and _scheme == "tp_single_mf":
+                continue                 # measure-first is linear only
+            CASES[f"{_scheme}-{_chain}-{_mesh}"] = dict(
+                mesh=_mesh, chain=_chain, scheme=_scheme)
+for _scheme in ("tp_single", "tp_single_mf", "tp_double"):
+    CASES[f"{_scheme}-wire_bf16-2x2"] = dict(mesh="2x2", chain="linear",
+                                             scheme=_scheme, wire=True)
+CASES["tp_single-micro8-2x2"] = dict(mesh="2x2", chain="linear",
+                                     scheme="tp_single", micro=8)
+CASES["tp_single_mf-micro8-1x4"] = dict(mesh="1x4", chain="linear",
+                                        scheme="tp_single_mf", micro=8)
+CASES["dp-micro16-1x4"] = dict(mesh="1x4", chain="linear", scheme="dp",
+                               micro=16)
+CASES["tp_single-global-2x2"] = dict(mesh="2x2", chain="linear",
+                                     scheme="tp_single", scaling="global")
+for _scheme in ("dp", "tp_single", "tp_double"):
+    CASES[f"segment-{_scheme}-2x2"] = dict(mesh="2x2", chain="linear",
+                                           scheme=_scheme, segment=True)
+CASES["segment-tp_single-born-1x4"] = dict(mesh="1x4", chain="born",
+                                           scheme="tp_single", segment=True)
+CASES["baseline19-linear-ring4"] = dict(mesh="ring4", chain="ring",
+                                        scheme="baseline19")
+CASES["baseline19-born-ring4"] = dict(mesh="ring4", chain="born",
+                                      scheme="baseline19")
+
+_COMMON = """
+import json, sys
+import numpy as np
+work = sys.argv[1]
+cases = json.load(open(work + "/cases.json"))
+arrays = np.load(work + "/chains.npz")
+N = {"linear": 64, "born": 32, "ring": 60}
+SPLIT = 2                               # segment cases: [0, 2) then [2, M)
+out = {}
+"""
+
+_JAX_CHILD = _COMMON + textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.core import parallel as PP, sampler as S
+    from repro.core.mps import MPS
+
+    devs = np.array(jax.devices()[:4])
+    meshes = {"2x2": Mesh(devs.reshape(2, 2), ("data", "model")),
+              "1x4": Mesh(devs.reshape(1, 4), ("data", "model")),
+              "ring4": Mesh(devs, ("data",))}
+    chains = {c: MPS(jnp.asarray(arrays[c + "_g"]),
+                     jnp.asarray(arrays[c + "_l"]),
+                     "born" if c == "born" else "linear")
+              for c in ("linear", "born", "ring")}
+    key = jax.random.key(7)
+    for name, c in cases.items():
+        mesh, mps = meshes[c["mesh"]], chains[c["chain"]]
+        cfg = S.SamplerConfig(semantics=mps.semantics, kernels="xla",
+                              scaling=c.get("scaling", "per_sample"))
+        n = N[c["chain"]] if c["scheme"] != "baseline19" else N["ring"]
+        if c["scheme"] == "baseline19":
+            out[name + "/samples"] = PP._baseline19_sample(
+                mesh, mps, n, key, cfg)
+            continue
+        pc = PP.ParallelConfig(
+            scheme=c["scheme"].replace("_mf", ""),
+            measure_first=c["scheme"].endswith("_mf"),
+            wire_dtype=jnp.bfloat16 if c.get("wire") else None,
+            micro_batch=c.get("micro"))
+        if not c.get("segment"):
+            out[name + "/samples"] = PP._multilevel_sample(mesh, mps, n, key,
+                                                           pc, cfg)
+            continue
+        env = PP.segment_env_init(n, mps.chi, mps.gammas.dtype)
+        ls = None
+        for s0, s1 in ((0, SPLIT), (SPLIT, mps.n_sites)):
+            seg = MPS(mps.gammas[s0:s1], mps.lambdas[s0:s1], mps.semantics)
+            smp, env, ls = PP.sample_segment(mesh, seg, env, key, s0, pc, cfg,
+                                             log_scale=ls)
+            out[f"{name}/samples{s0}"] = smp
+            out[f"{name}/env{s0}"] = env
+            out[f"{name}/log_scale{s0}"] = ls
+    np.savez(work + "/jax.npz", **{k: np.asarray(v) for k, v in out.items()})
+""")
+
+_PORT_RANK = _COMMON + textwrap.dedent("""
+    import torch
+    import torch.distributed as dist
+    rank = int(sys.argv[2])
+    dist.init_process_group("gloo", store=dist.FileStore(work + "/store", 4),
+                            rank=rank, world_size=4)
+    from repro_torch.convert import mps_from_arrays
+    from repro_torch.core import parallel as PP, prng, sampler as S
+    from repro_torch.core.mps import MPS
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+
+    meshes = {"2x2": make_mesh(2, "cpu"), "1x4": make_mesh(4, "cpu"),
+              "ring4": device_mesh((4,), ("data",), "cpu")}
+    chains = {c: mps_from_arrays(arrays[c + "_g"], arrays[c + "_l"],
+                                 "born" if c == "born" else "linear",
+                                 device="cpu")
+              for c in ("linear", "born", "ring")}
+    key = prng.key(7)
+    for name, c in cases.items():
+        mesh, mps = meshes[c["mesh"]], chains[c["chain"]]
+        cfg = S.SamplerConfig(semantics=mps.semantics, kernels="torch",
+                              scaling=c.get("scaling", "per_sample"))
+        n = N[c["chain"]] if c["scheme"] != "baseline19" else N["ring"]
+        if c["scheme"] == "baseline19":
+            out[name + "/samples"] = PP._baseline19_sample(
+                mesh, mps, n, key, cfg)
+            continue
+        pc = PP.ParallelConfig(
+            scheme=c["scheme"].replace("_mf", ""),
+            measure_first=c["scheme"].endswith("_mf"),
+            wire_dtype=torch.bfloat16 if c.get("wire") else None,
+            micro_batch=c.get("micro"))
+        if not c.get("segment"):
+            out[name + "/samples"] = PP._multilevel_sample(mesh, mps, n, key,
+                                                           pc, cfg)
+            continue
+        env = PP.segment_env_init(n, mps.chi, mps.gammas.dtype, "cpu")
+        ls = None
+        for s0, s1 in ((0, SPLIT), (SPLIT, mps.n_sites)):
+            seg = MPS(mps.gammas[s0:s1], mps.lambdas[s0:s1], mps.semantics)
+            smp, env, ls = PP.sample_segment(mesh, seg, env, key, s0, pc, cfg,
+                                             log_scale=ls)
+            out[f"{name}/samples{s0}"] = smp
+            out[f"{name}/env{s0}"] = env
+            out[f"{name}/log_scale{s0}"] = ls
+    np.savez(f"{work}/port{rank}.npz",
+             **{k: v.numpy() for k, v in out.items()})
+    dist.destroy_process_group()
+""")
+
+
+def _spawn(code: str, work: Path, *args: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", code, str(work), *args],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _join(proc: subprocess.Popen, what: str) -> None:
+    try:
+        log, _ = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+        pytest.fail(f"{what} did not finish in {TIMEOUT} s:\n{log[-3000:]}")
+    assert proc.returncode == 0, f"{what} failed:\n{log[-5000:]}"
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """(jax, [port rank 0, ..., port rank 3]) dicts of result arrays, keyed
+    '<case>/<what>'."""
+    work = tmp_path_factory.mktemp("torch_parallel")
+    chains = {"linear": JM.random_linear_mps(jax.random.key(0), 6, 8, 3),
+              "born": JM.random_born_mps(jax.random.key(2), 4, 8, 2),
+              "ring": JM.random_linear_mps(jax.random.key(1), 4, 8, 3)}
+    np.savez(work / "chains.npz",
+             **{f"{c}_{part}": np.asarray(getattr(m, attr))
+                for c, m in chains.items()
+                for part, attr in (("g", "gammas"), ("l", "lambdas"))})
+    (work / "cases.json").write_text(json.dumps(CASES))
+    procs = [("the JAX reference", _spawn(_JAX_CHILD, work))]
+    procs += [(f"port rank {r}", _spawn(_PORT_RANK, work, str(r)))
+              for r in range(4)]
+    for what, proc in procs:
+        _join(proc, what)
+    return (dict(np.load(work / "jax.npz")),
+            [dict(np.load(work / f"port{r}.npz")) for r in range(4)])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_matches_jax(results, case):
+    want, got = results[0], results[1][0]
+    keys = sorted(k for k in want if k.startswith(case + "/"))
+    assert keys and keys == sorted(k for k in got if k.startswith(case + "/"))
+    for k in keys:
+        if "/samples" in k:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+
+
+def test_schemes_draw_alike(results):
+    """§4.1 within the port: dp, tp_single (with and without measure-first)
+    and tp_double give the same samples on one mesh and seed."""
+    got = results[1][0]
+    for chain in ("linear", "born"):
+        for mesh in ("2x2", "1x4"):
+            dp = got[f"dp-{chain}-{mesh}/samples"]
+            for scheme in ("tp_single", "tp_single_mf", "tp_double"):
+                k = f"{scheme}-{chain}-{mesh}/samples"
+                if k in got:
+                    np.testing.assert_array_equal(got[k], dp, err_msg=k)
+
+
+def test_every_rank_holds_the_full_result(results):
+    """Every rank returns the whole (N, M) array, env and log_scale, as the
+    JAX controller does: ranks 1-3 equal rank 0 bit for bit."""
+    ranks = results[1]
+    for r in (1, 2, 3):
+        assert sorted(ranks[r]) == sorted(ranks[0])
+        for k, v in ranks[0].items():
+            np.testing.assert_array_equal(ranks[r][k], v, err_msg=f"{r} {k}")
+

@@ -109,7 +109,7 @@ def test_random_builders_structure():
     """The port's builders keep the JAX builders' invariants: stochastic
     linear rows, right-canonical Born sites, a vacuum boost at the edges."""
     gen = torch.Generator().manual_seed(0)
-    lin = M.random_linear_mps(3, 5, 2, generator=gen)
+    lin = M.random_linear_mps(prng.key(0), 3, 5, 2, device="cpu")
     np.testing.assert_allclose(lin.gammas.sum(dim=(2, 3)).numpy(), 1.0,
                                rtol=1e-12)
     assert (lin.lambdas >= 1).all() and (lin.lambdas < 2).all()
@@ -118,7 +118,7 @@ def test_random_builders_structure():
         a = g.reshape(5, 10)
         np.testing.assert_allclose((a @ a.conj().T).numpy(), np.eye(5),
                                    atol=1e-12)
-    gbs = M.gbs_like_mps(5, 4, 3, generator=gen)
+    gbs = M.gbs_like_mps(prng.key(1), 5, 4, 3, device="cpu")
     np.testing.assert_allclose(gbs.gammas.sum(dim=(2, 3)).numpy(), 1.0,
                                rtol=1e-12)
     vacuum = gbs.gammas[..., 0].sum(dim=(1, 2))
