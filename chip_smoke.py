@@ -29,14 +29,40 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               plain versions, with times and bounds;
 7. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
               then a Born tp_double walk on the mesh against the dp walk;
-8. cli      — ``python -m repro_torch.launch.sample`` in a subprocess;
-9. timings  — per-site kernel, plain and library times and the bound at the
-              phase 4/7 shapes; with phase 6's, printed as the
+8. displacement — ``ops.displacement_matrices`` (the main path of the
+              displacement kernel) on B = 2²⁰ μ's with |μ| ≤ 1.5 and μ = 0,
+              d ∈ {4 (jiuzhang2's cutoff), 16}, fp64 and fp32, against the
+              plain version, with times and the bound;
+9. flash    — the flash-attention kernel against its plain version at the
+              granite-3-2b shapes (B = 2, S = T = 4096, H = 32, KVH = 8,
+              Dh = 64, bf16, causal), non-causal, Dh = 128 with KVH = H,
+              MQA, and fp32 at S = 1024; times, the bound, and
+              ``F.scaled_dot_product_attention`` as the library yardstick;
+10. lm      — granite-3-2b at full width (40 layers, bf16, weights from the
+              port's seeded init on the card): ``make_prefill_step`` at
+              B = 2, S = 4096 through the flash kernel (40 launches), its
+              last-token logits against the same prefill with the plain
+              attention; decode (plain ``_sdpa``) against the forward on a
+              short sequence; ``serve()`` of 16 requests (batch 8, 16 new
+              tokens, cache 64), cold and again warm; one decode step's
+              wall time against its device time (torch.profiler); peak
+              memory and wall times;
+11. cli     — ``python -m repro_torch.launch.sample`` in a subprocess;
+12. timings — per-site kernel, plain and library times and the bound at the
+              phase 4/7 shapes; with phases 6, 8 and 9's, printed as the
               ``{"kernels": [...]}`` line.
 
 Tolerances: samples equal; env and dlog ``rtol=1e-12, atol=1e-14`` (fp64)
 and ``rtol=1e-5, atol=1e-6`` (fp32), with atol taken relative to the
-largest |env| (which is 1 after the per-sample rescale).
+largest |env| (which is 1 after the per-sample rescale).  Displacement:
+``displacement_expm.rounding_bound`` (8·d·ε times the summed magnitudes of
+the cancelling terms, elementwise) and μ = 0 → I exactly.  Flash: fp32
+within 1e-5 of the largest |out|; bf16 within one output rounding
+(2⁻⁷·|out| + 1e-5 elementwise).  LM logits (bf16 through 40 layers):
+within 5e-2 of the largest |logit| (a 40-layer bf16 stand-in on the CPU
+drifted 1.5e-2 between decode and forward).  The argmax agreement is
+printed, not held: among 49155 random-weight logits near-ties are common
+(the stand-in agreed on 0.94 of the positions).
 """
 from __future__ import annotations
 
@@ -65,10 +91,25 @@ CHI, D = 10_000, 4
 LINEAR_SITES, LINEAR_N = 8, 1024
 BORN_SITES, BORN_N = 4, 512
 
-# NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth and the FP64
-# tensor-core peak (the card's fp64 GEMM rate)
+# NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth, the FP64 tensor-core
+# peak (the card's fp64 GEMM rate), fp32 outside the tensor cores, and the
+# bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP64_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+DISP_BATCH = 2 ** 20
+DISP_DS = (4, 16)                 # jiuzhang2's cutoff (configs/gbs.py), max
+# (B, S, H, KVH, Dh, dtype, causal): granite-3-2b first (the lm phase's)
+FLASH_CASES = [(2, 4096, 32, 8, 64, torch.bfloat16, True),
+               (2, 4096, 32, 8, 64, torch.bfloat16, False),
+               (2, 4096, 32, 32, 128, torch.bfloat16, True),
+               (2, 4096, 32, 1, 64, torch.bfloat16, True),
+               (2, 1024, 32, 8, 64, torch.float32, True)]
+LM_ARCH, LM_BATCH, LM_SEQ = "granite-3-2b", 2, 4096
+LM_LOGIT_TOL = 5e-2
+SERVE = dict(requests=16, batch=8, max_new=16, cache_len=64)
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -583,6 +624,279 @@ def phase_tp_born(mesh, mps) -> None:
     _phase("tp born", t0)
 
 
+def _bound(moved: float, flops: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) for the bytes and the operations, and which."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_displacement(device) -> dict:
+    """``ops.displacement_matrices`` on B = 2²⁰ μ's against the plain version,
+    at d = 4 and 16 in fp64 and fp32; returns the kernels-line entry (d = 4,
+    fp64, with the other shapes beside it)."""
+    from repro_torch.kernels import displacement_expm as DE
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(17)
+    r = 1.5 * torch.sqrt(torch.rand(DISP_BATCH, generator=gen, device=device,
+                                    dtype=torch.float64))
+    phi = 2 * np.pi * torch.rand(DISP_BATCH, generator=gen, device=device,
+                                 dtype=torch.float64)
+    r[0] = 0.0                                        # μ = 0 → I
+    mu64 = torch.polar(r, phi)
+    shapes = [(d, cd) for d in DISP_DS
+              for cd in (torch.complex128, torch.complex64)]
+    # the main path: counts set to 0 just before, read just after
+    ops.reset_launches()
+    outs = [ops.displacement_matrices(mu64.to(cd), d) for d, cd in shapes]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["displacement_expm"]
+    check(launches == len(shapes), f"displacement_expm launched {launches} "
+          f"times on the main path, expected {len(shapes)}")
+    rows = []
+    for (d, cd), out in zip(shapes, outs):
+        mu = mu64.to(cd)
+        mre, mim = mu.real.contiguous(), mu.imag.contiguous()
+        plain = DE.displacement_expm_plain(mre, mim, d)
+        bound = DE.rounding_bound(mre, mim, d)
+        err, excess = 0.0, 0.0
+        for got, want in ((out.real, plain[0]), (out.imag, plain[1])):
+            diff = (got - want).abs()
+            err = max(err, diff.max().item())
+            excess = max(excess, (diff.double() / bound).nan_to_num(0.0)
+                         .max().item())
+        check(excess <= 1.0, f"displacement d={d} {cd}: kernel and plain "
+              f"differ beyond the rounding bound ({excess:.3f} of it)")
+        eye = torch.eye(d, dtype=cd, device=device)
+        check(torch.equal(out[0], eye), f"displacement d={d} {cd}: D(0) ≠ I")
+        check(bool(torch.isfinite(out.real).all()), "displacement: not finite")
+        del out, plain, bound
+        w = mre.element_size()
+        dd = sum(min(j, k) + 1 for j in range(d) for k in range(d))
+        moved = (2 * DISP_BATCH + 2 * DISP_BATCH * d * d) * w
+        flops = 8 * dd * DISP_BATCH        # complex multiply-adds of L·U
+        bound_ms, bound_by = _bound(moved, flops, PEAK_FP64_FLOPS
+                                    if w == 8 else PEAK_FP32_FLOPS)
+        row = {"max_abs_err": err, "of_rounding_bound": excess,
+               "ms": time_ms(lambda: DE.displacement_expm(mre, mim, d), 10),
+               "plain_ms": time_ms(
+                   lambda: DE.displacement_expm_plain(mre, mim, d), 3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None,
+               "shape": {"b": DISP_BATCH, "d": d, "dtype": str(mre.dtype)}}
+        print(f"displacement d={d} {mre.dtype}: ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}: {moved / 1e9:.4f} GB, {flops / 1e12:.5f} TFLOP) "
+              f"max_abs_err={err:.3e} ({excess:.4f} of the rounding bound)",
+              flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    del outs, mu64, r, phi
+    torch.cuda.empty_cache()
+    _phase("displacement", t0)
+    return dict(rows[0], name="displacement_expm", route="cuda",
+                source="src/repro_torch/kernels/csrc/displacement_expm.cu",
+                replaces="src/repro/kernels/displacement_expm.py:108",
+                launches=launches, other_shapes=rows[1:],
+                library_note="no single PyTorch call computes the Zassenhaus "
+                "product; torch.linalg.matrix_exp computes the exact D(μ), "
+                "another function")
+
+
+def _flash_close(name, got, want) -> float:
+    """fp32: within 1e-5 of the largest |out|; bf16: one output rounding
+    apart (2⁻⁷·|out| + 1e-5).  Returns the max abs difference."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if want.dtype == torch.float32:
+        ok = diff.max().item() <= 1e-5 * max(1.0, w.abs().max().item())
+    else:
+        ok = bool((diff <= 2 ** -7 * w.abs() + 1e-5).all())
+    check(ok and bool(torch.isfinite(g).all()), f"{name}: kernel and plain "
+          f"differ (max abs {diff.max().item():.3e})")
+    return diff.max().item()
+
+
+def phase_flash(device) -> list:
+    """The flash kernel against its plain version at FLASH_CASES; returns
+    one row per case (the first is granite-3-2b's prefill)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(23)
+    rows = []
+    for b, s, h, kvh, dh, dt, causal in FLASH_CASES:
+        name = (f"flash B={b} S={s} H={h} KVH={kvh} Dh={dh} {dt} "
+                f"{'causal' if causal else 'full'}")
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
+                   for shape in ((b, s, h, dh), (b, s, kvh, dh),
+                                 (b, s, kvh, dh)))
+        err = _flash_close(name, FA.flash_attention(q, k, v, causal),
+                           FA.flash_attention_plain(q, k, v, causal))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        w = q.element_size()
+        flops = 4 * b * h * s * s * dh // (2 if causal else 1)
+        moved = (2 * q.numel() + k.numel() + v.numel()) * w
+        bound_ms, bound_by = _bound(moved, flops, PEAK_BF16_FLOPS
+                                    if dt == torch.bfloat16
+                                    else PEAK_FP32_FLOPS)
+        row = {"max_abs_err": err,
+               "ms": time_ms(lambda: FA.flash_attention(q, k, v, causal), 5),
+               "plain_ms": time_ms(
+                   lambda: FA.flash_attention_plain(q, k, v, causal), 3),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), 5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "shape": {"b": b, "s": s, "t": s, "h": h, "kvh": kvh,
+                         "dh": dh, "dtype": str(dt), "causal": causal}}
+        print(f"{name}: ms={row['ms']:.3f} plain_ms={row['plain_ms']:.3f} "
+              f"library_ms={row['library_ms']:.3f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}: {moved / 1e9:.4f} GB, {flops / 1e12:.4f} TFLOP; "
+              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s) max_abs_err="
+              f"{err:.3e}", flush=True)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    _phase("flash", t0)
+    return rows
+
+
+def phase_lm(device) -> dict:
+    """granite-3-2b at full width through the port's prefill and serve
+    paths.  Returns the flash launches of one prefill and the wall times."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    ti = time.perf_counter()
+    params = T.init_params(0, cfg, device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm: {LM_ARCH} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.dtype}: {n_params / 1e9:.3f} B parameters built in "
+          f"{time.perf_counter() - ti:.3f} s", flush=True)
+    gen = torch.Generator(device=device).manual_seed(29)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=device)
+    prefill = steps.make_prefill_step(cfg, kernels="auto")
+    prefill(params, {"tokens": toks[:, :128]})          # warm-up
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before, read just after
+    ops.reset_launches()
+    tp = time.perf_counter()
+    last = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - tp
+    launches = ops.launch_counts()
+    print(f"lm: prefill B={LM_BATCH} S={LM_SEQ} in {prefill_s:.3f} s "
+          f"({LM_BATCH * LM_SEQ / prefill_s:.0f} tokens/s); launches "
+          f"{launches}", flush=True)
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"one prefill, expected {cfg.n_layers}")
+    tq = time.perf_counter()
+    plain = steps.make_prefill_step(cfg, kernels="torch")(params,
+                                                          {"tokens": toks})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - tq
+    check(bool(torch.isfinite(last.float()).all()), "lm: logits not finite")
+    rel = ((last.float() - plain.float()).abs().max()
+           / plain.float().abs().max()).item()
+    agree = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"lm: last-token logits flash vs plain attention: max rel diff "
+          f"{rel:.3e} (tolerance {LM_LOGIT_TOL}), argmax agreement {agree}; "
+          f"plain prefill {plain_s:.3f} s", flush=True)
+    check(last.shape == (LM_BATCH, cfg.vocab) and rel <= LM_LOGIT_TOL,
+          f"lm: prefill logits differ from the plain attention's ({rel:.3e})")
+    del last, plain
+    torch.cuda.empty_cache()
+
+    short = toks[:, :16]
+    full, _ = T.forward(params, short, cfg)            # flash kernel
+    state = T.init_decode_state(cfg, LM_BATCH, 17, device)
+    outs = []
+    for t in range(short.shape[1]):                      # plain _sdpa
+        logits, state = T.decode_step(params, short[:, t:t + 1], state, cfg)
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    rel = ((dec.float() - full.float()).abs().max()
+           / full.float().abs().max()).item()
+    print(f"lm: decode vs forward on S=16: argmax agreement {agree:.4f}, "
+          f"max rel diff {rel:.3e}", flush=True)
+    check(rel <= LM_LOGIT_TOL,
+          f"lm: decode differs from the forward (max rel diff {rel:.3e})")
+
+    rng = np.random.default_rng(31)
+    n, mx = SERVE["requests"], SERVE["max_new"]
+    prompts = [(int(t), int(m)) for t, m in
+               zip(rng.integers(0, cfg.vocab, n),
+                   rng.integers(max(2, mx // 4), mx + 1, n))]
+    ts = time.perf_counter()
+    done = serve_lm.serve(cfg, params, prompts, SERVE["batch"], mx,
+                          SERVE["cache_len"])
+    serve_s = time.perf_counter() - ts
+    total = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(n)), f"lm: served {sorted(done)}")
+    for rid, (_, limit) in enumerate(prompts):
+        check(1 <= len(done[rid]) <= limit
+              and all(0 <= t < cfg.vocab for t in done[rid]),
+              f"lm: request {rid} got {done[rid]}")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"lm: serve {n} requests, {total} tokens in {serve_s:.3f} s "
+          f"({total / serve_s:.1f} tokens/s); peak memory {peak:.3f} GB",
+          flush=True)
+    ts = time.perf_counter()                        # again, warm
+    again = serve_lm.serve(cfg, params, prompts, SERVE["batch"], mx,
+                           SERVE["cache_len"], verbose=False)
+    warm_s = time.perf_counter() - ts
+    check(again == done, "lm: a second serve() gave other tokens")
+
+    # one decode step at the serving batch: wall time against device time
+    b = SERVE["batch"]
+    caches = T.init_decode_state(cfg, b, SERVE["cache_len"], device).caches
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    pos = torch.arange(b, dtype=torch.int32, device=device)
+    step = serve_lm.make_decode_fn(cfg)
+
+    def one():
+        step(params, tok, caches, pos)
+
+    walls = []
+    for _ in range(6):
+        tw = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tw) * 1e3)
+    step_ms = statistics.median(walls[1:])
+    kernels = device_breakdown(one)
+    device_ms = sum(v[0] for v in kernels.values())
+    n_kernels = sum(v[1] for v in kernels.values())
+    top = dict(list(kernels.items())[:4])
+    print(f"lm: serve again (warm) in {warm_s:.3f} s ({total / warm_s:.1f} "
+          f"tokens/s); one decode step at batch {b}: {step_ms:.3f} ms wall, "
+          f"{device_ms:.3f} ms on the device in {n_kernels} kernels "
+          f"(idle share {1 - device_ms / step_ms:.3f}); largest "
+          f"{json.dumps(top)}", flush=True)
+    del params, full, dec, state, caches
+    torch.cuda.empty_cache()
+    _phase("lm", t0)
+    return {"flash_launches": launches["flash_attention"],
+            "prefill_s": prefill_s, "plain_prefill_s": plain_s,
+            "serve_s": serve_s, "serve_warm_s": warm_s,
+            "serve_tokens": total, "decode_step_ms": step_ms,
+            "decode_step_device_ms": device_ms,
+            "decode_step_kernels": n_kernels, "peak_gb": peak}
+
+
 def phase_cli() -> None:
     t0 = time.perf_counter()
     build = ROOT / "build"
@@ -629,8 +943,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    displacement = phase_displacement(device)
+    flash_rows = phase_flash(device)
+    lm = phase_lm(device)
+    flash = dict(flash_rows[0], name="flash_attention", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:111",
+                 launches=lm["flash_launches"], other_shapes=flash_rows[1:],
+                 lm=lm)
     phase_cli()
-    entries = [linear, born, *tp_entries]
+    entries = [linear, born, *tp_entries, displacement, flash]
     print("kernels:", json.dumps(entries))
     print(nvidia_smi())
     print(json.dumps({"kernels": entries}))

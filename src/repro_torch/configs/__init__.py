@@ -1,0 +1,67 @@
+"""Architecture registry and assigned input shapes.
+
+Every ported ``<arch>.py`` exports ``CONFIG`` (the published config, copied
+value for value from ``repro.configs``) and ``SMOKE`` (a reduced
+same-family config for CPU tests).  The port runs the dense family; the
+other architectures of ``ARCHS`` raise ``NotImplementedError`` naming their
+ROADMAP row.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.transformer import ModelConfig, require_dense
+
+ARCHS = [
+    "zamba2-7b", "qwen1.5-4b", "deepseek-7b", "starcoder2-15b",
+    "granite-3-2b", "llama-3.2-vision-11b", "whisper-small", "mamba2-1.3b",
+    "kimi-k2-1t-a32b", "deepseek-v3-671b",
+]
+
+# the family of each architecture not ported yet
+_UNPORTED = {"zamba2-7b": "hybrid", "llama-3.2-vision-11b": "vlm",
+             "whisper-small": "encdec", "mamba2-1.3b": "ssm",
+             "kimi-k2-1t-a32b": "moe", "deepseek-v3-671b": "moe"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def _mod(arch: str):
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; have {ARCHS}")
+    if arch in _UNPORTED:
+        require_dense(_UNPORTED[arch])
+    name = arch.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _mod(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _mod(arch).SMOKE
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether (arch × shape) is a defined cell (long_500k needs
+    sub-quadratic attention)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch — 500k decode skipped "
+                       "(DESIGN.md)")
+    return True, ""

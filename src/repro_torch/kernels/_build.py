@@ -33,6 +33,8 @@ _BORN = [_P] * 8 + [_I] * 5 + [_P]
 _CONTRACT_MEASURE = [_P] * 5 + [_I] * 4 + [_P]
 _MEASURE = [_P] * 3 + [_I] * 3 + [_P]
 _COLLAPSE = [_P] * 6 + [_I] * 4 + [_P]
+_DISPLACEMENT = [_P] * 5 + [_I] * 2 + [_P]
+_FLASH = [_P] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
     "site_step": {
         "fastmps_max_d": [],
@@ -46,6 +48,14 @@ SIGNATURES = {
         "fastmps_measure_probs_f32": _MEASURE,
         "fastmps_collapse_select_f64": _COLLAPSE,
         "fastmps_collapse_select_f32": _COLLAPSE,
+    },
+    "displacement_expm": {
+        "fastmps_displacement_expm_f64": _DISPLACEMENT,
+        "fastmps_displacement_expm_f32": _DISPLACEMENT,
+    },
+    "flash_attention": {
+        "fastmps_flash_attention_bf16": _FLASH,
+        "fastmps_flash_attention_f32": _FLASH,
     },
 }
 
@@ -161,11 +171,12 @@ def check_sizes(name: str, d: int, *sizes: int) -> None:
         raise ValueError(f"{name}: sizes exceed the kernel's 32-bit indices")
 
 
-def launch(entry: str, tensors, ints, device: torch.device, name: str) -> None:
-    """Call one C entry of ``csrc/site_step.cu`` on the current stream of
+def launch(entry: str, tensors, ints, device: torch.device, name: str,
+           source: str = "site_step") -> None:
+    """Call one C entry of ``csrc/<source>.cu`` on the current stream of
     ``device``: the tensors' pointers, then the ints, then the stream.
     Raises if the entry returns a CUDA error (a refused launch)."""
-    fn = getattr(library("site_step"), entry)
+    fn = getattr(library(source), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors),

@@ -1,0 +1,88 @@
+"""Forward flash attention: a Hopper kernel beside its plain version.
+
+``flash_attention(q, k, v, causal)`` with the reference's public layout:
+q (B, S, H, Dh), k/v (B, T, KVH, Dh), out (B, S, H, Dh) in q's dtype; H a
+multiple of KVH (grouped-query attention, KV head ``h // (H // KVH)``).
+Scores, softmax and the accumulation are fp32 for bf16 and fp32 inputs;
+masked scores are −1e30, as the reference kernel's.
+
+:func:`flash_attention` launches the CUDA kernel of
+``csrc/flash_attention.cu`` (which replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``; the source's header
+says how the design differs) for CUDA tensors, and takes its plain version,
+:func:`flash_attention_plain`, only for tensors on the CPU.
+
+``LAUNCHES`` counts kernel launches; ``reset_launches`` sets it to 0.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = {"flash_attention": 0}
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+
+_ENTRY = {torch.bfloat16: "fastmps_flash_attention_bf16",
+          torch.float32: "fastmps_flash_attention_f32"}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    """The same function in plain PyTorch: fp32 scores from the inputs,
+    the −1e30 mask, softmax, fp32 weights times fp32 V, cast to q's dtype.
+    Materialises the (B, KVH, g, S, T) scores."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, kvh, h // kvh, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (
+        1.0 / math.sqrt(dh))
+    if causal:
+        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
+                                     device=q.device))
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """The kernel: q, k, v all bf16 or all fp32, contiguous, Dh 64 or 128 →
+    out as :func:`flash_attention_plain`.  One block per (b·h, 64 query
+    rows) walks the key tiles in order."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    name = "flash_attention"
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported; have "
+                        f"{sorted(str(d) for d in _ENTRY)}")
+    _build.check_operands(name, q.device, {"q": (q, q.dtype),
+                                           "k": (k, q.dtype),
+                                           "v": (v, q.dtype)})
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: expected q (B, S, H, Dh) and k/v "
+                         f"(B, T, KVH, Dh); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or h % kvh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree (H must be a multiple "
+                         "of KVH)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+    if b * h > 65535 or q.numel() >= 2 ** 31 or k.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: sizes exceed the kernel's grid")
+    out = torch.empty_like(q)
+    _build.launch(_ENTRY[q.dtype], (q, k, v, out),
+                  (b, s, t, h, kvh, dh, int(causal)), q.device, name,
+                  source="flash_attention")
+    LAUNCHES[name] += 1
+    return out

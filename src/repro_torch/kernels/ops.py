@@ -7,10 +7,12 @@ import torch
 
 from repro_torch.kernels import collapse_select as CS
 from repro_torch.kernels import contract_measure as CM
+from repro_torch.kernels import displacement_expm as DE
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import site_step as SS
 from repro_torch.kernels.dispatch import get_site_op, resolve_kernels
 
-_COUNTED = (SS, CM, CS)
+_COUNTED = (SS, CM, CS, DE, FA)
 
 
 def launch_counts() -> dict[str, int]:
@@ -29,6 +31,26 @@ def contract_measure(env, gamma, lam, kernels: str = "auto"):
     op = get_site_op("contract_measure", "linear",
                      resolve_kernels(kernels, env.device))
     return op(env, gamma, lam, semantics="linear", compute_dtype=None)
+
+
+def displacement_matrices(mu, d: int, kernels: str = "auto"):
+    """Batched D(μ) (B, d, d) complex from complex μ (B,): the CUDA kernel
+    on the card, its plain version for ``kernels="torch"`` or on the CPU."""
+    mre, mim = mu.real.contiguous(), mu.imag.contiguous()
+    if resolve_kernels(kernels, mu.device) == "cuda":
+        ore, oim = DE.displacement_expm(mre, mim, d)
+    else:
+        ore, oim = DE.displacement_expm_plain(mre, mim, d)
+    return torch.complex(ore, oim)
+
+
+def flash_attention(q, k, v, causal: bool = True, kernels: str = "auto"):
+    """Full-sequence attention q (B, S, H, Dh), k/v (B, T, KVH, Dh) → out
+    (B, S, H, Dh): the CUDA flash kernel on the card, its plain version for
+    ``kernels="torch"`` or on the CPU."""
+    if resolve_kernels(kernels, q.device) == "cuda":
+        return FA.flash_attention(q, k, v, causal=causal)
+    return FA.flash_attention_plain(q, k, v, causal=causal)
 
 
 def collapse_rescale(env, gamma, samples, kernels: str = "auto"):
@@ -51,5 +73,6 @@ def site_step(env, gamma, lam, u, kernels: str = "auto",
     return op(env, gamma, lam, u, scaling=scaling, compute_dtype=None)
 
 
-__all__ = ["collapse_rescale", "contract_measure", "launch_counts",
-           "reset_launches", "resolve_kernels", "site_step"]
+__all__ = ["collapse_rescale", "contract_measure", "displacement_matrices",
+           "flash_attention", "launch_counts", "reset_launches",
+           "resolve_kernels", "site_step"]

@@ -22,6 +22,16 @@ def collapse_rescale_ref(temp, samples):
     return env / torch.where(m > 0, m, 1.0)
 
 
+def displacement_zassenhaus_ref(mu_re, mu_im, d: int):
+    """Batched D(μ) ≈ e^{−|μ|²/2} e^{μa†} e^{−μ*a} as split re/im planes:
+    (B,) real pairs → (B, d, d) re and im planes, assembled in complex128
+    by ``core.displacement.displacement_zassenhaus`` and cast back."""
+    from repro_torch.core.displacement import displacement_zassenhaus
+    mu = torch.complex(mu_re.to(torch.float64), mu_im.to(torch.float64))
+    out = displacement_zassenhaus(mu, d)
+    return out.real.to(mu_re.dtype), out.imag.to(mu_re.dtype)
+
+
 def collapse_select_ref(env, gamma, samples):
     """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) = env·Γ[:, :, s_n]."""
     temp = torch.einsum("nl,lrs->nrs", env, gamma)
@@ -66,3 +76,21 @@ def site_step_ref(env, gamma, lam, u, semantics="linear",
         return env_new / factor, samples, torch.log10(factor[:, 0])
     return env_new, samples, torch.zeros((env.shape[0],), dtype=rdt,
                                          device=env.device)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """Naive softmax attention (GQA-aware): q (B, S, H, Dh), k/v
+    (B, T, KVH, Dh) → (B, S, H, Dh); scores in fp32 from the inputs' dtype,
+    weights cast to v's dtype."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
+    logits = logits / torch.sqrt(torch.tensor(dh, dtype=torch.float32))
+    if causal:
+        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(b, s, h, dh)

@@ -11,6 +11,8 @@ not need.)
 TF32 is turned off, so fp32 products stay full fp32.  Tolerances as
 ``tests/test_torch_site_step.py``, atol relative to the largest |env|.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -188,3 +190,89 @@ def test_parallel_walks_on_the_card(card, tmp_path):
             np.testing.assert_array_equal(outs["cuda"], outs["torch"])
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The displacement and flash-attention kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", list(range(1, 17)))
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_displacement_kernel(card, real, d):
+    """|μ| up to 1.5 and μ = 0 (→ I exactly); within
+    ``displacement_expm.rounding_bound`` (8·d·ε times the summed
+    magnitudes of the cancelling terms)."""
+    from repro_torch.kernels import displacement_expm as DE
+
+    rng = np.random.default_rng(d)
+    r = 1.5 * np.sqrt(rng.uniform(size=1003))
+    phi = rng.uniform(0, 2 * np.pi, size=1003)
+    r[0] = 0.0
+    mre, mim = (torch.from_numpy(a).to(real).to(card)
+                for a in (r * np.cos(phi), r * np.sin(phi)))
+    before = DE.LAUNCHES["displacement_expm"]
+    got = DE.displacement_expm(mre, mim, d)
+    want = DE.displacement_expm_plain(mre, mim, d)
+    torch.cuda.synchronize()
+    assert DE.LAUNCHES["displacement_expm"] == before + 1
+    bound = DE.rounding_bound(mre, mim, d)
+    for g, w in zip(got, want):
+        assert g.dtype == real and g.shape == (1003, d, d)
+        assert bool(((g - w).abs().double() <= bound).all())
+    assert torch.equal(got[0][0], torch.eye(d, dtype=real, device=card))
+    assert torch.equal(got[1][0], torch.zeros((d, d), dtype=real,
+                                              device=card))
+
+
+def _flash_close(got, want):
+    """fp32: 1e-5 of the largest |out|; bf16: one rounding of the output
+    (2⁻⁷ relative) apart, both versions computing in fp32."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if want.dtype == torch.float32:
+        assert (g - w).abs().max().item() <= 1e-5 * max(1.0, w.abs().max())
+    else:
+        assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4, 6])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel(card, dtype, dh, g, causal):
+    """Ragged lengths (S = 200, T = 200 causal; S = 130, T = 77 not)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    s, t = (200, 200) if causal else (130, 77)
+    kvh = 2
+    rng = np.random.default_rng(dh + g)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dtype).to(card)
+               for shape in ((2, s, kvh * g, dh), (2, t, kvh, dh),
+                             (2, t, kvh, dh)))
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    _flash_close(got, want)
+
+
+def test_lm_prefill_runs_the_flash_kernel(card):
+    """A smoke-size prefill through the model launches the flash kernel once
+    per layer and agrees with the plain attention."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_smoke_config("granite-3-2b")
+    cfg = dataclasses.replace(cfg, d_model=512)       # head_dim 64
+    params = T.init_params(0, cfg, card)
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=card)
+    ops.reset_launches()
+    got, _ = T.forward(params, toks, cfg, kernels="auto")
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = T.forward(params, toks, cfg, kernels="torch")
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= 3e-2

@@ -1,0 +1,183 @@
+"""The port's displacement operator (paper §3.4.1) against the JAX package:
+each function of ``core/displacement.py``, the plain version of the
+``displacement_expm`` kernel against the reference's Pallas kernel in
+interpret mode and its oracle, μ = 0, and the ``ops`` entry point.
+
+Tolerances.  The factors and tables: ``rtol=1e-12`` (the packages build
+μ^m otherwise: repeated products here, a complex power there).  D(μ) is a
+sum of terms up to ~500 times larger than the result at d = 16 (they
+cancel in the truncation corner), so in fp64 its differences are bounded
+by ``1e-12`` times the summed magnitudes ``e^{−|μ|²/2}·(|L|@|U|)``
+elementwise; in fp32 by ``atol=3e-5·d`` (the reference test's bound for its
+fp32 kernel against the fp64 oracle).  ``displacement_exact`` is held at
+``rtol=1e-12`` against ``scipy.linalg.expm`` and at ``atol=1e-9`` against
+the reference, whose ``jax.scipy.linalg.expm`` differs from both by up to
+2.8e-10 on these draws at d = 16 (against 40-digit mpmath at |μ| ≈ 1.2–1.9:
+the reference off by up to 1.1e-11, torch's ``matrix_exp`` and scipy's
+within 2e-15).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.linalg
+import torch
+
+from repro.core import displacement as jax_D
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.displacement_expm import displacement_expm as jax_kernel
+from repro_torch.core import displacement as D
+from repro_torch.kernels import displacement_expm as DE
+from repro_torch.kernels import ops, ref
+
+DS = [3, 4, 8, 16]
+
+
+def _mu(n, scale=0.5, seed=0):
+    rng = np.random.default_rng(seed)
+    mu = scale * rng.normal(size=n) + 1j * scale * rng.normal(size=n)
+    mu[0] = 0.0
+    return mu.astype(np.complex128)
+
+
+def _summed(mu, d):
+    """e^{−|μ|²/2}·(|L| @ |U|): the magnitudes each entry of D(μ) sums."""
+    t = torch.from_numpy(np.asarray(mu, np.complex128))
+    lower = D.exp_mu_adag(t, d).abs()
+    upper = D.exp_neg_mustar_a(t, d).abs()
+    pref = torch.exp(-0.5 * t.abs() ** 2)[:, None, None]
+    return (pref * (lower @ upper)).numpy()
+
+
+def _close_summed(got, want, mu, d, rtol=1e-12):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    err = np.abs(got - np.asarray(want))
+    bound = rtol * _summed(mu, d)
+    assert np.all(err <= bound), float((err - bound).max())
+
+
+def _close(got, want, rtol=1e-12):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-14 * scale)
+
+
+@pytest.mark.parametrize("d", DS)
+def test_ladder_ops_and_coefficients(d):
+    a, adag = D.ladder_ops(d)
+    ja, jadag = jax_D.ladder_ops(d)
+    _close(a, ja)
+    _close(adag, jadag)
+    m, c = D._tri_factor_log_coeffs(d, torch.float64)
+    jm, jc = jax_D._tri_factor_log_coeffs(d, jnp.float64)
+    _close(m, jm)
+    _close(c, jc)
+    _close(DE.coeff_table(d), jc)
+
+
+@pytest.mark.parametrize("d", DS)
+def test_triangular_factors(d):
+    mu = _mu(32, seed=d)
+    _close(D.exp_mu_adag(torch.from_numpy(mu), d),
+           jax_D.exp_mu_adag(jnp.asarray(mu), d))
+    _close(D.exp_neg_mustar_a(torch.from_numpy(mu), d),
+           jax_D.exp_neg_mustar_a(jnp.asarray(mu), d))
+
+
+@pytest.mark.parametrize("correction", [False, True])
+@pytest.mark.parametrize("d", DS)
+def test_zassenhaus_and_exact(d, correction):
+    mu = _mu(32, scale=0.6, seed=10 + d)
+    got = D.displacement_zassenhaus(torch.from_numpy(mu), d,
+                                    correction=correction)
+    _close_summed(got, jax_D.displacement_zassenhaus(jnp.asarray(mu), d,
+                                                     correction=correction),
+                  mu, d)
+    exact = D.displacement_exact(torch.from_numpy(mu), d).numpy()
+    a = np.diag(np.sqrt(np.arange(1, d)), 1)
+    for i in range(len(mu)):
+        gen = mu[i] * a.T - np.conj(mu[i]) * a
+        np.testing.assert_allclose(exact[i], scipy.linalg.expm(gen),
+                                   rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(exact, jax_D.displacement_exact(
+        jnp.asarray(mu), d), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("method", ["zassenhaus", "exact"])
+def test_displace_env(method):
+    rng = np.random.default_rng(3)
+    env = rng.uniform(size=(8, 5, 6))
+    mu = _mu(8, scale=0.2, seed=4)
+    got = D.displace_env(torch.from_numpy(env), torch.from_numpy(mu), 6,
+                         method=method)
+    assert got.shape == (8, 5, 6) and got.dtype == torch.complex128
+    want = jax_D.displace_env(jnp.asarray(env), jnp.asarray(mu), 6,
+                              method=method)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12 if method == "exact" else 1e-14)
+    with pytest.raises(ValueError):
+        D.displace_env(torch.from_numpy(env), torch.from_numpy(mu), 6,
+                       method="pade")
+
+
+@pytest.mark.parametrize("d", DS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_kernel_against_pallas_and_oracle(d, dtype):
+    """The plain version in the inputs' precision against the reference's
+    Pallas kernel (interpret mode, the inputs' precision) and its oracle
+    (complex128, cast back), |μ| up to ~1.5."""
+    rng = np.random.default_rng(d)
+    mre = (0.5 * rng.normal(size=128)).astype(dtype)
+    mim = (0.5 * rng.normal(size=128)).astype(dtype)
+    got_re, got_im = DE.displacement_expm(torch.from_numpy(mre),
+                                          torch.from_numpy(mim), d)
+    assert got_re.dtype == torch.from_numpy(mre).dtype
+    pal = jax_kernel(jnp.asarray(mre), jnp.asarray(mim), d, bb=128,
+                     interpret=True)
+    orc = jax_ref.displacement_zassenhaus_ref(jnp.asarray(mre),
+                                              jnp.asarray(mim), d)
+    mine = ref.displacement_zassenhaus_ref(torch.from_numpy(mre),
+                                           torch.from_numpy(mim), d)
+    mu = mre.astype(np.float64) + 1j * mim.astype(np.float64)
+    for want in (pal, orc, mine):
+        for g, w in zip((got_re, got_im), want):
+            if dtype == np.float32:
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           atol=3e-5 * d)
+            else:
+                _close_summed(g, w, mu, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mu_zero_is_identity(dtype):
+    z = torch.zeros(4, dtype=dtype)
+    for d in (1, 5, 16):
+        ore, oim = DE.displacement_expm(z, z, d)
+        assert torch.equal(ore, torch.eye(d, dtype=dtype).expand(4, d, d))
+        assert torch.equal(oim, torch.zeros_like(oim))
+    eye = D.displacement_zassenhaus(torch.zeros(2, dtype=torch.complex128), 7)
+    assert torch.equal(eye, torch.eye(7, dtype=torch.complex128).expand(
+        2, 7, 7))
+
+
+def test_d_above_16_raises():
+    z = torch.zeros(4)
+    with pytest.raises(ValueError, match="d=17"):
+        DE.displacement_expm(z, z, 17)
+
+
+def test_ops_displacement_matrices_on_cpu():
+    """``auto`` on the CPU is the plain cell; it agrees with the
+    reference's ``use_kernel=False`` path; ``cuda`` raises."""
+    mu = _mu(128, scale=0.3, seed=9)
+    t = torch.from_numpy(mu)
+    before = ops.launch_counts()["displacement_expm"]
+    got = ops.displacement_matrices(t, 6)
+    assert got.dtype == torch.complex128 and got.shape == (128, 6, 6)
+    assert ops.launch_counts()["displacement_expm"] == before
+    assert torch.equal(got, ops.displacement_matrices(t, 6, kernels="torch"))
+    _close(got, jax_ops.displacement_matrices(jnp.asarray(mu), 6,
+                                              use_kernel=False))
+    with pytest.raises(ValueError, match="cuda"):
+        ops.displacement_matrices(t, 6, kernels="cuda")

@@ -1,0 +1,90 @@
+"""The plain version of the port's flash-attention kernel (PyTorch on the
+CPU) against the JAX package's Pallas kernel in interpret mode and its
+oracle, at the reference test's four cases (GQA, MHA, non-causal, MQA),
+in fp32 and bf16; the port's oracle against the reference's; and the
+dispatch on CPU tensors.
+
+Tolerances: fp32 ``atol=3e-6`` (the reference test's, for its kernel
+against the same oracle); bf16 ``atol=3e-2`` against the fp32 oracle on the
+unrounded inputs (the reference's bf16 test), and against the reference's
+bf16 kernel (which rounds the probabilities to bf16 before P·V, the port
+keeps them fp32).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops, ref
+
+CASES = [(2, 64, 4, 2, 32, True), (1, 128, 4, 4, 16, True),
+         (2, 64, 8, 2, 32, False), (1, 64, 6, 1, 64, True)]
+IDS = ["gqa", "mha", "noncausal", "mqa"]
+
+
+def _qkv(b, s, h, kvh, dh, t=None, seed=0):
+    rng = np.random.default_rng(seed)
+    t = s if t is None else t
+    return (rng.normal(size=(b, s, h, dh)).astype(np.float32),
+            rng.normal(size=(b, t, kvh, dh)).astype(np.float32),
+            rng.normal(size=(b, t, kvh, dh)).astype(np.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh,causal", CASES, ids=IDS)
+def test_fp32_matches_pallas_interpret_and_oracle(b, s, h, kvh, dh, causal):
+    q, k, v = _qkv(b, s, h, kvh, dh)
+    got = FA.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, dh)
+    pal = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, bq=32, bk=32, interpret=True)
+    orc = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal)
+    for want in (pal, orc):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-6)
+    mine = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(orc), atol=3e-6)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh,causal", CASES, ids=IDS)
+def test_bf16_matches_pallas_interpret_and_oracle(b, s, h, kvh, dh, causal):
+    q, k, v = _qkv(b, s, h, kvh, dh, seed=1)
+    bf = [_t(a, torch.bfloat16) for a in (q, k, v)]
+    got = FA.flash_attention(*bf, causal=causal)
+    assert got.dtype == torch.bfloat16
+    jbf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    pal = jax_flash(*jbf, causal=causal, bq=32, bk=32, interpret=True)
+    orc = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal)
+    for want in (pal, orc):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize("s,t,causal", [(100, 100, True), (77, 130, True),
+                                        (130, 77, False)])
+def test_ragged_lengths_match_oracle(s, t, causal):
+    """Lengths that are not multiples of the kernel's 64-row tiles, and
+    S ≠ T (the causal mask then starts at the top-left, as the reference's)."""
+    q, k, v = _qkv(1, s, 6, 2, 64, t=t, seed=2)
+    got = FA.flash_attention_plain(_t(q), _t(k), _t(v), causal=causal)
+    want = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-6)
+
+
+def test_dispatch_on_cpu_tensors():
+    q, k, v = (_t(a) for a in _qkv(1, 64, 4, 2, 64))
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert torch.equal(out, FA.flash_attention_plain(q, k, v))
+    assert torch.equal(out, ops.flash_attention(q, k, v, kernels="torch"))
+    assert ops.launch_counts()["flash_attention"] == before
+    with pytest.raises(ValueError, match="cuda"):
+        ops.flash_attention(q, k, v, kernels="cuda")

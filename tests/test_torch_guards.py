@@ -14,13 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
+from repro_torch import api, configs
 from repro_torch.api.config import SamplerConfig
 from repro_torch.core import mps as M
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops, site_impls
 from repro_torch.launch import sample as cli
+from repro_torch.launch import serve_lm
+from repro_torch.models import transformer as T
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -61,6 +63,22 @@ def test_default_device_raises_without_gpu(no_gpu, tmp_path):
         cli.main(["--sites", "3", "--chi", "4", "--samples", "8",
                   "--macro-batches", "1", "--out", str(tmp_path)])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_raise_without_gpu(no_gpu, capsys):
+    """The LM serving CLI and the model constructors target the card by
+    default and raise without one; ``--device cpu`` serves on the CPU."""
+    argv = ["--arch", "granite-3-2b", "--requests", "5", "--batch", "2",
+            "--max-new", "4"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(argv)
+    cfg = configs.get_smoke_config("granite-3-2b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_decode_state(cfg, 2, 8)
+    serve_lm.main([*argv, "--device", "cpu"])
+    assert "served 5 requests" in capsys.readouterr().out
 
 
 def test_cuda_kernels_on_cpu_tensors_raise():
