@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -144,6 +145,46 @@ def ptxas_log(name: str) -> str:
     """What ``nvcc -Xptxas -v`` said when the library was built here."""
     log = BUILD_DIR / f"{_target(name).stem}.log"
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_kernels(log: str) -> dict[str, dict]:
+    """Per kernel function in a ``-Xptxas -v`` log: its registers and spill
+    bytes, keyed by a short name (``flash_tc_kernel<64>``: the function's
+    name and its integer template arguments, from the mangled name)."""
+    out: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(_Z\w+)", line)
+        if m:
+            current = out.setdefault(_short_name(m.group(1)), {})
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
+
+
+def _short_name(mangled: str) -> str:
+    """The last length-prefixed identifier of an Itanium-mangled name, with
+    the integer values of the template arguments that follow it."""
+    i, name, rest = mangled.find("N") + 1, mangled, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+        rest = mangled[i:]
+    args = re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]) if rest[:1] == "I" \
+        else []
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def check_operands(name: str, device: torch.device, operands: dict) -> None:

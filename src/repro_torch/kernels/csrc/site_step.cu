@@ -38,13 +38,19 @@
 //   4. rescale as linear.
 //
 // TP stages (env and Gamma are bond shards: L != R in general):
-//   contract_measure: temp = env . Gamma (the real GEMM above, written out),
-//      then probs[n, s] = sum_r temp[n, r, s] * Lambda[r] in a second pass,
-//      one block per row in a fixed order.  The TPU kernel adds probs across
-//      r tiles in grid order; Hopper blocks cannot, and the second pass reads
-//      temp once more (N*R*d words, < 1 % of the GEMM at the full width).
-//      Probs come from the temp the caller receives, as in the reference.
-//      Bound by fp64 operations (2*N*L*R*d).
+//   contract_measure: temp = env . Gamma written out, then probs[n, s] =
+//      sum_r temp[n, r, s] * Lambda[r] in a second pass, one block per row
+//      in a fixed order.  The TPU kernel adds probs across r tiles in grid
+//      order; Hopper blocks cannot, and the second pass reads temp once more
+//      (N*R*d words, < 1 % of the GEMM at the full width).  Probs come from
+//      the temp the caller receives, as in the reference.  Bound by fp64
+//      operations (2*N*L*R*d) at the fp64 tensor cores' rate, so the fp64
+//      GEMM is contract_f64_kernel: mma.sync m16n8k8 .f64 (DMMA) on 128 x 64
+//      block tiles, 32 x 32 per warp, a 3-stage cp.async ring of 16-deep
+//      env and Gamma tiles (Gamma read along its contiguous (r, s) axis),
+//      edges zero-filled.  m16n8k8 is one of Hopper's fp64 shapes; Ampere's
+//      m8n8k4 in the same kernel was about 1.7x slower.  fp32 keeps the FMA
+//      tile below (no TF32).
 //   measure_probs: probs = env . W, the probs half of probs_draw without
 //      the draw.  Bound by env's bytes.
 //   collapse_select: env'[n, :] = env[n, :] . Gamma[:, :, s_n] with s from
@@ -58,14 +64,21 @@
 // sequential cumsum, count(u > cdf) with a strict '>', clipped to [0, d-1].
 // Every sum accumulates in the input's precision (fp64 stays fp64, no TF32).
 //
-// The GEMMs are plain shared-memory tiles with FMA (64x64 output tile, 16-deep
-// k step, 4x4 outputs per thread); wgmma/TMA pipelines are later work.
+// What bounds the GEMMs is their fp64 operations (2*N*chi^2 and more at
+// chi = 1e4), which the card does at 67 TFLOP/s only on its fp64 tensor
+// cores.  contract_measure's fp64 GEMM runs there (contract_f64_kernel);
+// the others -- the linear collapse, the Born complex contraction and
+// collapse_select -- are still plain shared-memory tiles with FMA (64x64
+// output tile, 16-deep k step, 4x4 outputs per thread), at about a quarter
+// of that rate; the DMMA tile is their next step.  wgmma has no fp64 form.
 //
 // C interface (loaded with ctypes): each entry launches its kernels on the
 // given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -464,6 +477,203 @@ contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int n,
 }
 
 // ---------------------------------------------------------------------------
+// contract_measure's fp64 GEMM on the fp64 tensor cores:
+// temp (n, ncols) = env (n, L) . Gamma (L, ncols), both row-major.
+// mma.sync m16n8k8 .f64 (DMMA); a block computes a BM x BN tile, each
+// warp a WM x WN part of it as (WM/16) x (WN/8) accumulators; env and Gamma
+// tiles come in by cp.async into a ring of STAGES, so the next tiles' copies
+// overlap this tile's products.  Every output adds its k terms in one fixed
+// order (no atomics, no split k): runs repeat bit for bit.
+// ---------------------------------------------------------------------------
+
+// The block, k and warp tiles: BM, BN, BK, STAGES, WM, WN.  A file that
+// defines FASTMPS_DMMA_TILE and then includes this one builds another tile
+// (scripts/tile_sweep.py).
+#ifndef FASTMPS_DMMA_TILE
+#define FASTMPS_DMMA_TILE 128, 64, 16, 3, 32, 32
+#endif
+
+namespace dmma {
+constexpr int TILE[] = {FASTMPS_DMMA_TILE};
+constexpr int BM = TILE[0], BN = TILE[1], BK = TILE[2], STAGES = TILE[3];
+constexpr int WM = TILE[4], WN = TILE[5];        // warp tile
+constexpr int WARPS = (BM / WM) * (BN / WN);
+constexpr int NT = WARPS * 32;
+// rows padded to 4 mod 16 words: the 16 lanes of a half-warp that read a
+// fragment (4 rows x 4 words) hit 16 distinct 8-byte bank pairs
+constexpr int LDA = BK + 4;                      // env tile: BM rows of BK
+constexpr int LDB = BN + 4;                      // Gamma tile: BK rows of BN
+constexpr int STAGE = BM * LDA + BK * LDB;       // words per stage
+constexpr int SMEM_BYTES = STAGES * STAGE * 8;
+static_assert(LDA % 16 == 4 && LDB % 16 == 4, "conflict-free fragments");
+static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole fragments");
+}  // namespace dmma
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// W words global -> shared (W = 1 or 2); zero-filled when !pred
+template <int W>
+__device__ __forceinline__ void cp_async_words(uint32_t dst,
+                                               const double* src, bool pred) {
+  const int n = pred ? 8 * W : 0;
+  if constexpr (W == 2)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c (16 x 8) += a (16 x 8, row) . b (8 x 8, col), mma.sync m16n8k8.  Lane
+// (g, t) = (lane / 4, lane % 4) holds a[e] = A[g + 8 (e % 2)][t + 4 (e / 2)],
+// b[e] = B[t + 4 e][g], and c[e] = C[g + 8 (e / 2)][2 t + e % 2].
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// one stage: env rows [r0, r0 + BM) x k [k0, k0 + BK) and Gamma k rows
+// [k0, k0 + BK) x columns [c0, c0 + BN); out of range -> 0.  VEC copies two
+// words at a time (L and ncols even, operands 16-byte aligned).
+template <bool VEC>
+__device__ __forceinline__ void dmma_load(double* As, double* Bs,
+                                          const double* __restrict__ env,
+                                          const double* __restrict__ gamma,
+                                          int n, int L, int ncols, int r0,
+                                          int c0, int k0) {
+  using dmma::BM, dmma::BN, dmma::BK, dmma::NT, dmma::LDA, dmma::LDB;
+  constexpr int W = VEC ? 2 : 1;
+  constexpr int ACH = BK / W, BCH = BN / W;    // copies per row
+  static_assert(BM * ACH % NT == 0 && BK * BCH % NT == 0, "whole copies");
+#pragma unroll
+  for (int it = 0; it < BM * ACH / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int r = idx / ACH, kc = (idx % ACH) * W;
+    const int row = r0 + r, k = k0 + kc;
+    const bool ok = row < n && k < L;
+    cp_async_words<W>(smem_addr(As + r * LDA + kc),
+                      ok ? env + (size_t)row * L + k : env, ok);
+  }
+#pragma unroll
+  for (int it = 0; it < BK * BCH / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int kr = idx / BCH, c = (idx % BCH) * W;
+    const int k = k0 + kr, col = c0 + c;
+    const bool ok = k < L && col < ncols;
+    cp_async_words<W>(smem_addr(Bs + kr * LDB + c),
+                      ok ? gamma + (size_t)k * ncols + col : gamma, ok);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(dmma::NT)
+contract_f64_kernel(const double* __restrict__ env,
+                    const double* __restrict__ gamma, int n, int L, int ncols,
+                    double* __restrict__ temp) {
+  using dmma::BM, dmma::BN, dmma::BK, dmma::STAGES, dmma::WM, dmma::WN,
+      dmma::LDA, dmma::LDB, dmma::STAGE;
+  constexpr int MI = WM / 16, NJ = WN / 8;
+  extern __shared__ __align__(16) unsigned char dmma_smem[];
+  double* sm = reinterpret_cast<double*>(dmma_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int n_k = (L + BK - 1) / BK;
+
+  double acc[MI][NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_k)
+      dmma_load<VEC>(sm + s * STAGE, sm + s * STAGE + BM * LDA, env, gamma, n,
+                     L, ncols, r0, c0, s * BK);
+    cp_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_wait<STAGES - 2>();   // tile kt has landed
+    __syncthreads();         // ... for every thread; tile kt - 1 is consumed
+    const int nxt = kt + STAGES - 1;
+    if (nxt < n_k) {
+      double* st = sm + (nxt % STAGES) * STAGE;
+      dmma_load<VEC>(st, st + BM * LDA, env, gamma, n, L, ncols, r0, c0,
+                     nxt * BK);
+    }
+    cp_commit();
+    const double* As = sm + (kt % STAGES) * STAGE;
+    const double* Bs = As + BM * LDA;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      double a[MI][4], b[NJ][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          a[i][e] = As[(wm + 16 * i + g + 8 * (e % 2)) * LDA + kk + t4
+                       + 4 * (e / 2)];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          b[j][e] = Bs[(kk + t4 + 4 * e) * LDB + wn + 8 * j + g];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_f64(acc[i][j], a[i], b[j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int row = r0 + wm + 16 * i + g + 8 * (e / 2);
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = c0 + wn + 8 * j + 2 * t4;
+        double* o = temp + (size_t)row * ncols + col;
+        if (col < ncols) o[0] = acc[i][j][e];
+        if (col + 1 < ncols) o[1] = acc[i][j][e + 1];
+      }
+    }
+}
+
+int contract_f64(const double* env, const double* gamma, int n, int L,
+                 int ncols, double* temp, cudaStream_t stream) {
+  using dmma::BM, dmma::BN, dmma::NT, dmma::SMEM_BYTES;
+  const dim3 grid((n + BM - 1) / BM, (ncols + BN - 1) / BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  const bool vec = L % 2 == 0 && ncols % 2 == 0 &&
+                   (uintptr_t)env % 16 == 0 && (uintptr_t)gamma % 16 == 0;
+  auto kernel = vec ? contract_f64_kernel<true> : contract_f64_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NT, SMEM_BYTES, stream>>>(env, gamma, n, L, ncols, temp);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Born step 3: env'[n, r] = temp[n, r, s_n] * lambda_r.  One block per row.
 // ---------------------------------------------------------------------------
 
@@ -567,11 +777,16 @@ int contract_measure(const T* env, const T* gamma, const T* lam, T* temp,
                      T* probs, int n, int L, int R, int d,
                      cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  contract_kernel<T, false><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
-                                                          R * d, temp);
-  RETURN_IF_ERROR();
+  if constexpr (std::is_same_v<T, double>) {   // the fp64 tensor cores
+    const int err = contract_f64(env, gamma, n, L, R * d, temp, stream);
+    if (err != 0) return err;
+  } else {                                      // fp32: FMA, no TF32
+    const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
+    if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+    contract_kernel<T, false><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
+                                                            R * d, temp);
+    RETURN_IF_ERROR();
+  }
   probs_kernel<T, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
                                                           probs);
   RETURN_IF_ERROR();

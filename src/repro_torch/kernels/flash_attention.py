@@ -3,8 +3,10 @@
 ``flash_attention(q, k, v, causal)`` with the reference's public layout:
 q (B, S, H, Dh), k/v (B, T, KVH, Dh), out (B, S, H, Dh) in q's dtype; H a
 multiple of KVH (grouped-query attention, KV head ``h // (H // KVH)``).
-Scores, softmax and the accumulation are fp32 for bf16 and fp32 inputs;
-masked scores are −1e30, as the reference kernel's.
+Scores, softmax and the accumulation are fp32; masked scores are −1e30, as
+the reference kernel's.  For bf16 inputs the unnormalised weights
+exp(s − max) are rounded to bf16 before P·V, as the reference kernel's
+``p.astype(v.dtype)``, and divided by the fp32 sum of the unrounded weights.
 
 :func:`flash_attention` launches the CUDA kernel of
 ``csrc/flash_attention.cu`` (which replaces the Pallas TPU kernel
@@ -36,9 +38,26 @@ def reset_launches() -> None:
 
 
 def flash_attention_plain(q, k, v, causal: bool = True):
-    """The same function in plain PyTorch: fp32 scores from the inputs,
-    the −1e30 mask, softmax, fp32 weights times fp32 V, cast to q's dtype.
-    Materialises the (B, KVH, g, S, T) scores."""
+    """The same function in plain PyTorch: fp32 scores from the inputs, the
+    −1e30 mask; fp32 softmax times fp32 V for fp32 inputs; for bf16 inputs
+    the weights exp(s − rowmax) rounded to bf16, times V, over their fp32
+    sum.  Cast to q's dtype.  Materialises the (B, KVH, g, S, T) scores."""
+    scores = _scores(q, k, causal)
+    b, s, h, dh = q.shape
+    if q.dtype == torch.float32:
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
+    else:
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1)
+        l = torch.where(l > 0, l, 1.0).permute(0, 3, 1, 2)[..., None]
+        out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype).float(),
+                           v.float()) / l
+    return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+def _scores(q, k, causal: bool):
+    """fp32 scores (B, KVH, g, S, T), scaled and masked with −1e30."""
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, s, kvh, h // kvh, dh)
@@ -48,15 +67,36 @@ def flash_attention_plain(q, k, v, causal: bool = True):
         mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
                                      device=q.device))
         scores = torch.where(mask, scores, NEG_INF)
+    return scores
+
+
+def rounding_bound(q, k, v, causal: bool = True):
+    """Elementwise bound (fp32, q's shape) on |kernel − plain| for bf16
+    inputs.
+
+    Both round each weight w = exp(s − m) to bf16 (unit roundoff 2⁻⁸), the
+    kernel relative to its running max and the plain version relative to
+    the final one, so a weight may differ by 2·2⁻⁸·w and the output by
+    2⁻⁷·A before its own rounding, with A = Σ_t w_t·|v_t| / Σ_t w_t.  The
+    fp32 sums over T keys (products exact, ≤ 2 roundings of 2⁻²⁴ a term, in
+    each version) and exp2 of log2(e)-scaled scores add (T·2⁻²² + 2⁻¹⁴)·A.
+    Rounding both outputs to bf16 adds 2⁻⁷·|o| (o the plain fp32 output).
+    """
+    scores = _scores(q, k, causal)
+    b, s, h, dh = q.shape
+    t = k.shape[1]
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    a = torch.einsum("bkgst,btkd->bskgd", w, v.float().abs())
+    o = torch.einsum("bkgst,btkd->bskgd", w, v.float()).abs()
+    coef = 2.0 ** -7 * (1 + 2.0 ** -8) + t * 2.0 ** -22 + 2.0 ** -14
+    return (coef * a + 2.0 ** -7 * o).reshape(b, s, h, dh)
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """The kernel: q, k, v all bf16 or all fp32, contiguous, Dh 64 or 128 →
-    out as :func:`flash_attention_plain`.  One block per (b·h, 64 query
-    rows) walks the key tiles in order."""
+    out as :func:`flash_attention_plain` (bf16: within
+    :func:`rounding_bound`).  One block per (b·h, query tile) walks the key
+    tiles in order; bf16 on the tensor cores, fp32 on the FMA units."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     name = "flash_attention"
@@ -80,6 +120,9 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
     if b * h > 65535 or q.numel() >= 2 ** 31 or k.numel() >= 2 ** 31:
         raise ValueError(f"{name}: sizes exceed the kernel's grid")
+    if q.dtype == torch.bfloat16:       # the kernel copies 16-byte chunks
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
     out = torch.empty_like(q)
     _build.launch(_ENTRY[q.dtype], (q, k, v, out),
                   (b, s, t, h, kvh, dh, int(causal)), q.device, name,

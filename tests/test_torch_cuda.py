@@ -130,6 +130,47 @@ def test_contract_measure_kernel(card, real, n, chi_l, chi_r, d):
     _close(probs, p_p, real)
 
 
+@pytest.mark.parametrize("shape", ["left", "right"])
+def test_contract_measure_f64_at_a_shard_shape(card, shape):
+    """The fp64 tensor-core GEMM at the p₂ = 4 shard shapes of χ = 10⁴
+    with d = 4 (N = 1024; left: L = 2500 → R = 10⁴, right: the reverse)."""
+    from repro_torch.kernels import contract_measure as CM
+
+    n, (chi_l, chi_r) = 1024, ((2500, 10_000) if shape == "left"
+                               else (10_000, 2500))
+    gen = torch.Generator(device=card).manual_seed(chi_l)
+    env = torch.rand((n, chi_l), generator=gen, device=card,
+                     dtype=torch.float64)
+    gamma = torch.rand((chi_l, chi_r, 4), generator=gen, device=card,
+                       dtype=torch.float64)
+    lam = torch.rand(chi_r, generator=gen, device=card, dtype=torch.float64)
+    temp, probs = CM.contract_measure(env, gamma, lam)
+    t_p, p_p = CM.contract_measure_plain(env, gamma, lam)
+    torch.cuda.synchronize()
+    _close(temp, t_p, torch.float64)
+    _close(probs, p_p, torch.float64)
+
+
+def test_contract_measure_f64_unaligned_operands(card):
+    """env and Γ 8 bytes into their storage: the kernel copies one word at
+    a time instead of two, with the same result."""
+    from repro_torch.kernels import contract_measure as CM
+
+    env, gamma, lam, _ = _tp_operands(torch.float64, 300, 130, 65, 4, card)
+    moved = []
+    for x in (env, gamma):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0
+        moved.append(y)
+    got = CM.contract_measure(*moved, lam)
+    want = CM.contract_measure(env, gamma, lam)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
 @pytest.mark.parametrize("real", [torch.float64, torch.float32])
 def test_measure_probs_kernel(card, real, n, chi_l, chi_r, d):
@@ -224,15 +265,29 @@ def test_displacement_kernel(card, real, d):
                                               device=card))
 
 
-def _flash_close(got, want):
-    """fp32: 1e-5 of the largest |out|; bf16: one rounding of the output
-    (2⁻⁷ relative) apart, both versions computing in fp32."""
+def _flash_close(got, want, qkv, causal):
+    """fp32: 1e-5 of the largest |out|.  bf16: within
+    ``flash_attention.rounding_bound``: the kernel rounds the weights to
+    bf16 relative to its running max, the plain version relative to the
+    final max, so they differ by up to two bf16 roundings of each weight
+    (2⁻⁷·Σ w|v| / Σ w), the fp32 sums, and one rounding of the output."""
+    from repro_torch.kernels import flash_attention as FA
+
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.float(), want.float()
     if want.dtype == torch.float32:
         assert (g - w).abs().max().item() <= 1e-5 * max(1.0, w.abs().max())
     else:
-        assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 1e-5).all())
+        bound = FA.rounding_bound(*qkv, causal=causal)
+        assert bool(((g - w).abs() <= bound).all())
+
+
+def _flash_operands(dtype, b, s, t, kvh, g, dh, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype).to(device)
+            for shape in ((b, s, kvh * g, dh), (b, t, kvh, dh),
+                          (b, t, kvh, dh))]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -244,18 +299,70 @@ def test_flash_attention_kernel(card, dtype, dh, g, causal):
     from repro_torch.kernels import flash_attention as FA
 
     s, t = (200, 200) if causal else (130, 77)
-    kvh = 2
-    rng = np.random.default_rng(dh + g)
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-               .to(dtype).to(card)
-               for shape in ((2, s, kvh * g, dh), (2, t, kvh, dh),
-                             (2, t, kvh, dh)))
+    q, k, v = _flash_operands(dtype, 2, s, t, 2, g, dh, card, dh + g)
     before = FA.LAUNCHES["flash_attention"]
     got = FA.flash_attention(q, k, v, causal=causal)
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert FA.LAUNCHES["flash_attention"] == before + 1
-    _flash_close(got, want)
+    _flash_close(got, want, (q, k, v), causal)
+
+
+@pytest.mark.parametrize("s,t", [(100, 100), (77, 130), (130, 77)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4, 6])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bf16_ragged(card, dh, g, causal, s, t):
+    """The tensor-core kernel on lengths that are not multiples of its
+    query and key tiles, S = T and S ≠ T, within the rounding bound."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(torch.bfloat16, 1, s, t, 2, g, dh, card,
+                              s + t + dh + g)
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    _flash_close(got, want, (q, k, v), causal)
+
+
+def test_flash_attention_bf16_unaligned_operands(card):
+    """Operands that start 2 bytes into their storage: the wrapper hands
+    the kernel 16-byte aligned copies."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(torch.bfloat16, 1, 70, 90, 2, 3, 64, card, 9)
+    moved = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0 and y.is_contiguous()
+        moved.append(y)
+    got = FA.flash_attention(*moved, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, FA.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "contract_measure"])
+def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
+    """No atomics and a fixed order of every sum: two calls, same bits."""
+    from repro_torch.kernels import contract_measure as CM
+    from repro_torch.kernels import flash_attention as FA
+
+    if kernel == "flash_attention":
+        q, k, v = _flash_operands(torch.bfloat16, 2, 333, 333, 2, 4, 64,
+                                  card, 5)
+        first = FA.flash_attention(q, k, v, causal=True)
+        second = FA.flash_attention(q, k, v, causal=True)
+        outs = [(first,), (second,)]
+    else:
+        env, gamma, lam, _ = _tp_operands(torch.float64, 300, 130, 65, 4,
+                                          card)
+        outs = [CM.contract_measure(env, gamma, lam) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_lm_prefill_runs_the_flash_kernel(card):

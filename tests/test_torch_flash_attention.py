@@ -7,8 +7,12 @@ dispatch on CPU tensors.
 Tolerances: fp32 ``atol=3e-6`` (the reference test's, for its kernel
 against the same oracle); bf16 ``atol=3e-2`` against the fp32 oracle on the
 unrounded inputs (the reference's bf16 test), and against the reference's
-bf16 kernel (which rounds the probabilities to bf16 before P·V, the port
-keeps them fp32).
+bf16 kernel.  Both the reference kernel and the port round the unnormalised
+weights to bf16 before P·V (the reference relative to the running max of
+its key blocks, the port's plain version relative to the final max), so
+the bf16 plain version is also held to the Pallas kernel within
+``flash_attention.rounding_bound``: one bf16 rounding of each weight in
+each, the fp32 sums, and one output rounding (its docstring derives it).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +69,36 @@ def test_bf16_matches_pallas_interpret_and_oracle(b, s, h, kvh, dh, causal):
     for want in (pal, orc):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh,causal", CASES, ids=IDS)
+def test_bf16_rounded_weights_match_pallas_interpret(b, s, h, kvh, dh,
+                                                     causal):
+    """32-key blocks: the Pallas kernel rounds each block's weights relative
+    to its running max, as the CUDA kernel's 64-key tiles do."""
+    q, k, v = _qkv(b, s, h, kvh, dh, seed=3)
+    _within_rounding_bound(q, k, v, causal, block=32)
+
+
+@pytest.mark.parametrize("s,t,causal,block", [
+    (64, 96, True, 32), (96, 64, False, 32), (77, 130, True, None),
+    (130, 77, False, None)])
+def test_bf16_ragged_matches_pallas_interpret(s, t, causal, block):
+    """S ≠ T, in 32-key blocks and (lengths not multiples of 32) as one
+    block, which rounds relative to the final max as the plain version."""
+    q, k, v = _qkv(1, s, 6, 2, 64, t=t, seed=4)
+    _within_rounding_bound(q, k, v, causal, block=block)
+
+
+def _within_rounding_bound(q, k, v, causal, block):
+    bf = [_t(a, torch.bfloat16) for a in (q, k, v)]
+    got = FA.flash_attention_plain(*bf, causal=causal)
+    sizes = {} if block is None else dict(bq=block, bk=block)
+    pal = jax_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                    causal=causal, interpret=True, **sizes)
+    bound = FA.rounding_bound(*bf, causal=causal)
+    diff = (got.float() - torch.from_numpy(np.asarray(pal, np.float32))).abs()
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
 
 
 @pytest.mark.parametrize("s,t,causal", [(100, 100, True), (77, 130, True),

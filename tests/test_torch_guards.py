@@ -207,6 +207,25 @@ def test_c_interface_matches_the_cuda_source():
             assert len(params) == len(argtypes), fn
 
 
+def test_ptxas_log_parser():
+    """Registers and spill bytes per kernel from an ``nvcc -Xptxas -v``
+    log, keyed by the short name ``chip_smoke.py`` prints and checks."""
+    fn = ("_ZN36_GLOBAL__N__f191fb7b_4_k_cu_c950e9fc15flash_tc_kernelILi64EE"
+          "EvPK13__nv_bfloat16S3_S3_PS1_iiiii")
+    other = "_ZN36_GLOBAL__N__6a00b96d_4_k_cu_64f50b2913bucket_kernelEPKiiiPiS2_"
+    log = (f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {fn}\n"
+           "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 255 registers, 400 bytes cmem[0]\n"
+           f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'\n"
+           "ptxas info    : Used 32 registers, 380 bytes cmem[0]\n")
+    assert _build.ptxas_kernels(log) == {
+        "flash_tc_kernel<64>": {"spill_stores": 12, "spill_loads": 16,
+                                "registers": 255},
+        "bucket_kernel": {"registers": 32}}
+
+
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
     """With no GPU visible the script exits non-zero, in the repo and as a
     lone copy, and prints no ok line."""
