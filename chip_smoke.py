@@ -32,19 +32,28 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               at the bond-shard shapes of p₂ = 4 (N = 1024), against their
               plain versions, with times and bounds, and the card's SM
               clock, power and temperature while contract_measure runs;
-7. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
+7. bf16     — phase 4's chain cast to fp32 (``mxu_bf16``) and to bf16 Γ
+              with fp32 Λ (``store_bf16``), walked through the session with
+              ``compute_dtype=bf16`` (``site_step_linear``'s bf16 entry
+              launched M times each), then lockstep with the plain walk;
+              tp_single (± measure_first) and tp_double in mxu_bf16 on the
+              mesh, the same way; the four bf16 kernels against their
+              plain versions at the walk's and the p₂ = 4 shard shapes in
+              both tiers, with times, bounds and ``torch.matmul`` on the
+              bf16 operands as the library yardstick;
+8. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
               then a Born tp_double walk on the mesh against the dp walk;
-8. displacement — ``ops.displacement_matrices`` (the main path of the
+9. displacement — ``ops.displacement_matrices`` (the main path of the
               displacement kernel) on B = 2²⁰ μ's with |μ| ≤ 1.5 and μ = 0,
               d ∈ {4 (jiuzhang2's cutoff), 16}, fp64 and fp32, against the
               plain version, with times and the bound;
-9. flash    — the flash-attention kernel against its plain version at the
+10. flash   — the flash-attention kernel against its plain version at the
               granite-3-2b shapes (B = 2, S = T = 4096, H = 32, KVH = 8,
               Dh = 64, bf16, causal), non-causal, Dh = 128 with KVH = H,
               MQA, and fp32 at S = 1024; times, the bound,
               ``F.scaled_dot_product_attention`` as the library yardstick,
               and the card's clock, power and temperature while it runs;
-10. lm      — granite-3-2b at full width (40 layers, bf16, weights from the
+11. lm      — granite-3-2b at full width (40 layers, bf16, weights from the
               port's seeded init on the card): ``make_prefill_step`` at
               B = 2, S = 4096 through the flash kernel (40 launches), its
               last-token logits against the same prefill with the plain
@@ -53,10 +62,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               tokens, cache 64), cold and again warm; one decode step's
               wall time against its device time (torch.profiler); peak
               memory and wall times;
-11. cli     — ``python -m repro_torch.launch.sample`` in a subprocess;
-12. timings — per-site kernel, plain and library times and the bound at the
-              phase 4/7 shapes; with phases 6, 8 and 9's, printed as the
+12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess;
+13. timings — per-site kernel, plain and library times and the bound at the
+              phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line.
+
+bf16 inputs: each kernel's outputs within their rounding bound, elementwise
+(``site_step.bf16_gemm_bound``: the same bf16-exact products summed in fp32
+in two orders differ by at most 2·K·2⁻²⁴·Σ|a||b|; ``site_step_bf16_bounds``
+for the measure-first probs).  A draw may differ between a kernel walk and
+its plain walk only where the uniform lies within the CDF's bound of a
+boundary; each is printed with its margin and its row leaves the later
+comparisons; the other rows' log_scale and env agree within 1e-5 per site.
 
 Tolerances: samples equal; env and dlog ``rtol=1e-12, atol=1e-14`` (fp64)
 and ``rtol=1e-5, atol=1e-6`` (fp32), with atol taken relative to the
@@ -133,6 +150,8 @@ TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
 # the kernels that run on the tensor cores, and their instruction
 TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": "HMMA",
                        "flash_tc_kernel<128>": "HMMA",
+                       "tc_contract_kernel": "HMMA",
+                       "tc_collapse_kernel": "HMMA",
                        "contract_f64_kernel<0>": "DMMA",
                        "contract_f64_kernel<1>": "DMMA"}
 
@@ -380,9 +399,8 @@ def phase_full(device, semantics: str):
         mps = M.gbs_like_mps(prng.key(1234), sites, CHI, D,
                              dtype=torch.float64, device=device)
     else:
-        gen = torch.Generator(device=device).manual_seed(1234)
-        mps = M.random_born_mps(sites, CHI, D, generator=gen,
-                                dtype=torch.complex128)
+        mps = M.random_born_mps(prng.key(1234), sites, CHI, D,
+                                dtype=torch.complex128, device=device)
     torch.cuda.synchronize()
     chain_gb = mps.gammas.numel() * mps.gammas.element_size() / 1e9
     print(f"{semantics}: chain (M, χ, d)=({sites}, {CHI}, {D}) "
@@ -678,6 +696,425 @@ def phase_tp_kernels(device, mps, env, walks) -> list:
     del env_s, g_right, w, g2
     torch.cuda.empty_cache()
     _phase("tp kernels", t0)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# bf16 inputs: the mxu_bf16 and store_bf16 tiers
+# ---------------------------------------------------------------------------
+
+def _bf16_site_bounds(e_k, e_p, gamma, lam, w):
+    """Plain probs of one site under bf16 inputs, from the plain walk's env
+    ``e_p`` (env·W when ``w`` is given, the measure-first cell; else
+    temp·Λ), and bounds on how far the kernel walk's site, from its env
+    ``e_k``, may lie from them: (probs (N, d), probs bound, temp bound
+    (N, R, d)).  The bounds add the sum-order bounds of the kernels
+    (``site_step_bf16_bounds``, ``bf16_gemm_bound``, on the larger of the
+    two envs) and the part of the inputs that differ after rounding, D =
+    |bf16(e_k) − bf16(e_p)|: D·|Γ| for temp, D·(|Γ|·Λ) or D·|W| for probs
+    (D is 0 where both walks start from the same env)."""
+    from repro_torch.core import precision
+    from repro_torch.kernels import site_step as K
+
+    bf, f64 = torch.bfloat16, torch.float64
+    chi_l, chi_r, d = gamma.shape
+    big = torch.maximum(e_k.abs(), e_p.abs())
+    diff = (precision.rounded(e_k, bf, f64)
+            - precision.rounded(e_p, bf, f64)).abs()
+    g_abs = precision.rounded(gamma.reshape(chi_l, chi_r * d), bf, f64).abs()
+    temp_b = (K.bf16_gemm_bound(big, gamma.reshape(chi_l, chi_r * d))
+              + diff @ g_abs).reshape(-1, chi_r, d)
+    if w is not None:
+        probs = K.measure_first_plain(e_p, w, bf).double()
+        pb = K.bf16_gemm_bound(big, w) + diff @ precision.rounded(
+            w, bf, f64).abs()
+    else:
+        probs = K.linear_probs_plain(K.contract_plain(e_p, gamma, bf),
+                                     lam).double()
+        pb = K.site_step_bf16_bounds(big, gamma, lam)[0] + diff @ (
+            g_abs.reshape(chi_l, chi_r, d) * lam.double().abs()[:, None]
+        ).sum(dim=1)
+    return probs, pb, temp_b
+
+
+def _bf16_lockstep(label, mps, n, ukey, run, seg, weights=None) -> dict:
+    """The kernel walk, ``seg`` sites at a time (``run(kernels, env,
+    log_scale, i0, i1)`` → samples (i1 − i0, N), env, log_scale), each
+    segment also run by the plain cells from the kernel walk's own env and
+    log_scale, and held to them site by site.  A draw may differ only where
+    the uniform lies within the CDF's bound of a boundary (``draw_margin``
+    ≤ 2·Σ_s probs bound_s / Σ_s probs_s); each such draw is printed with
+    its margin and its row leaves the later comparisons.  The segment's
+    env' and its dlog (the log_scale increment) agree on the other rows
+    within 2·B/max plus their own fp32 roundings, B the largest temp bound
+    of the row's drawn column.  Inside a two-site segment the walks' mid-pair envs may
+    differ by bf16 rounding flips, which the bounds carry (D in
+    :func:`_bf16_site_bounds`); the kernel walk's is replayed by
+    ``contract_measure``, as tp_double's odd half-site computes it on a
+    1 × 1 mesh.  Returns the kernel walk's samples, its final env, the
+    differing draws and the largest differences and shares of the
+    bounds."""
+    from repro_torch.core import precision, prng
+    from repro_torch.core.parallel import segment_env_init
+    from repro_torch.kernels import contract_measure as CM
+    from repro_torch.kernels import site_step as K
+
+    bf = torch.bfloat16
+    sites = mps.n_sites
+    env_k = segment_env_init(n, mps.chi, mps.gammas.dtype, mps.device)
+    ls_k = torch.zeros(n, dtype=env_k.dtype, device=env_k.device)
+    live = torch.ones(n, dtype=torch.bool, device=env_k.device)
+    flips, samples = [], []
+    worst = {"env_err": 0.0, "log_scale_err": 0.0, "env_share": 0.0,
+             "log_scale_share": 0.0}
+    for i0 in range(0, sites, seg):
+        i1 = min(sites, i0 + seg)
+        env_in, ls_in = env_k, ls_k
+        s_k, env_k, ls_k = run("cuda", env_in, ls_in, i0, i1)
+        s_p, env_p, ls_p = run("torch", env_in, ls_in, i0, i1)
+        samples.append(s_k)
+        e_k = e_p = env_in
+        dlog_b = torch.zeros(n, dtype=torch.float64, device=env_k.device)
+        for j in range(i1 - i0):
+            i = i0 + j
+            gamma, lam = mps.gammas[i], mps.lambdas[i]
+            probs, pb, tb = _bf16_site_bounds(
+                e_k, e_p, gamma, lam, None if weights is None else weights[i])
+            bad = (live & (s_k[j] != s_p[j])).nonzero().flatten()
+            if bad.numel():
+                u = prng.uniform(prng.fold_in(ukey, i), (n,),
+                                 dtype=e_p.dtype, device=e_p.device)[bad]
+                margin = K.draw_margin(probs[bad], u)
+                bound = 2 * pb[bad].sum(dim=1) / probs[bad].sum(dim=1)
+                for r, m, b in zip(bad.tolist(), margin.tolist(),
+                                   bound.tolist()):
+                    print(f"{label}: site {i} row {r} draws differ: margin "
+                          f"|u − cdf| {m:.3e}, bound {b:.3e}", flush=True)
+                    check(m <= b, f"{label}: site {i} row {r} draws differ "
+                          f"{m:.3e} from a CDF boundary, beyond the "
+                          f"rounding bound {b:.3e}")
+                    flips.append({"site": i, "row": r, "margin": m,
+                                  "bound": b})
+                live[bad] = False
+            s = s_p[j][:, None, None]
+            t_p = K.contract_plain(e_p, gamma, bf)
+            peak = torch.take_along_dim(t_p, s, dim=2)[:, :, 0].double().abs(
+                ).amax(dim=1)
+            rel = torch.take_along_dim(tb, s, dim=2)[:, :, 0].amax(
+                dim=1) / peak
+            # the max, then both walks' fp32 log10 (within 2 ulp) and
+            # log_scale additions
+            dlog_b += 2 * rel / np.log(10) + 2.0 ** -20 * (
+                peak.log10().abs() + ls_in.double().abs() + 1)
+            if j + 1 < i1 - i0:        # both walks' envs after site i
+                t_k = CM.contract_measure(e_k, gamma, lam, bf)[0]
+                e_k = precision.rescale(torch.take_along_dim(
+                    t_k, s_k[j][:, None, None], dim=2)[:, :, 0])[0]
+                e_p = precision.rescale(torch.take_along_dim(
+                    t_p, s, dim=2)[:, :, 0])[0]
+        env_b = 2 * rel[:, None] + 2.0 ** -23
+        d_env = (env_k - env_p).abs().double()
+        d_ls = ((ls_k - ls_in) - (ls_p - ls_in)).abs().double()
+        env_share = (d_env / env_b)[live].max().item()
+        ls_share = (d_ls / dlog_b)[live].max().item()
+        check(env_share <= 1.0 and ls_share <= 1.0 and
+              bool(torch.isfinite(ls_k).all()),
+              f"{label}: sites {i0}..{i1 - 1}: env or log_scale beyond the "
+              f"rounding bound ({env_share:.3f}, {ls_share:.3f} of it)")
+        worst = {"env_err": max(worst["env_err"], d_env[live].max().item()),
+                 "log_scale_err": max(worst["log_scale_err"],
+                                      d_ls[live].max().item()),
+                 "env_share": max(worst["env_share"], env_share),
+                 "log_scale_share": max(worst["log_scale_share"], ls_share)}
+    print(f"{label}: kernel walk == plain walk on {int(live.sum())} of {n} "
+          f"rows ({len(flips)} draws within the bound of a CDF boundary "
+          f"differ); per segment env max abs diff {worst['env_err']:.3e} "
+          f"({worst['env_share']:.3f} of the bound), log_scale "
+          f"{worst['log_scale_err']:.3e} ({worst['log_scale_share']:.3f})",
+          flush=True)
+    return {"samples": torch.cat(samples), "env": env_k, "flips": flips,
+            **worst}
+
+
+def _bf16_numbers(name, kernel, plain, library, checked, moved, flops,
+                  reps=5):
+    """A bf16-input kernel against its plain version on the same inputs:
+    ``checked`` is [(kernel output, plain output, elementwise rounding
+    bound)]; times of kernel, plain and library, and the bound (bytes at
+    the HBM rate, operations at the bf16 tensor-core peak)."""
+    err = excess = 0.0
+    for g, w, b in checked:
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}: {g.dtype}{tuple(g.shape)} vs {w.dtype}"
+              f"{tuple(w.shape)}")
+        diff = (g.double() - w.double()).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff / b).nan_to_num(0.0).max().item())
+    check(excess <= 1.0, f"{name}: kernel and plain differ beyond the "
+          f"rounding bound ({excess:.3f} of it)")
+    del checked
+    lib_out = library()
+    bound_ms, bound_by = _bound(moved, flops, PEAK_BF16_FLOPS)
+    out = {"max_abs_err": err, "of_rounding_bound": excess,
+           "ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
+           "library_ms": time_ms(library, reps),
+           "library_out_dtype": str(lib_out.dtype),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    del lib_out
+    print(f"{name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
+          f"library_ms={out['library_ms']:.3f} ({out['library_out_dtype']} "
+          f"out) bound_ms={bound_ms:.3f} ({bound_by}: {moved / 1e9:.3f} GB, "
+          f"{flops / 1e12:.4f} TFLOP) max_abs_err={err:.3e} "
+          f"({excess:.4f} of the rounding bound)", flush=True)
+    return out
+
+
+def phase_bf16(device, mesh, mps64) -> list:
+    """The bf16 tiers at the linear phase's width, on its chain cast to fp32
+    (``mxu_bf16``) and to bf16 with Λ in fp32 (``store_bf16``): the session
+    walks with bf16 GEMM inputs through ``site_step_linear``'s bf16 entry,
+    each against the plain walk; tp_single (± measure_first) and tp_double
+    in mxu_bf16 on the mesh; the four bf16 kernels against their plain
+    versions at the walk's and the p₂ = 4 shard shapes, with times.
+    Returns the kernels-line rows."""
+    from repro_torch import api
+    from repro_torch.core import parallel as PP
+    from repro_torch.core import prng
+    from repro_torch.core import sampler as S
+    from repro_torch.core.mps import MPS
+    from repro_torch.kernels import collapse_select as CS
+    from repro_torch.kernels import contract_measure as CM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import site_step as K
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    n, sites = LINEAR_N, mps64.n_sites
+    chains = {"mxu_bf16": mps64.to(dtype=torch.float32)}
+    chains["store_bf16"] = chains["mxu_bf16"].to(dtype=bf)
+    for tier, m in chains.items():
+        print(f"bf16 {tier}: Γ {m.gammas.dtype} "
+              f"{m.gammas.numel() * m.gammas.element_size() / 1e9:.3f} GB, "
+              f"Λ {m.lambdas.dtype}", flush=True)
+    key, walks, finals = prng.key(7), {}, {}
+    for tier, m in chains.items():
+        cfg = api.SamplerConfig(kernels="cuda", compute_dtype=bf)
+        # the main path: counts set to 0 just before, read just after
+        ops.reset_launches()
+        tw = time.perf_counter()
+        with api.SamplingSession(m, cfg, device=device) as session:
+            samples = session.sample(n, key)
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - tw
+        launches = ops.launch_counts()
+        print(f"bf16 {tier}: session walk N={n} M={sites} in {walk_s:.3f} s; "
+              f"launches {launches}", flush=True)
+        check(launches["site_step_linear_bf16"] == sites,
+              f"bf16 {tier}: site_step_linear's bf16 entry launched "
+              f"{launches['site_step_linear_bf16']} times, expected {sites}")
+        check(samples.shape == (n, sites) and samples.min() >= 0
+              and samples.max() < D, f"bf16 {tier}: bad samples")
+
+        def seq(kernels, env, ls, i0, i1, m=m):
+            c = S.SamplerConfig(kernels=kernels, compute_dtype=bf)
+            st, (smp, _) = S.site_step(S.SamplerState(env, key, ls),
+                                       (m.gammas[i0], m.lambdas[i0], i0), c)
+            return smp[None], st.env, st.log_scale
+
+        res = _bf16_lockstep(f"bf16 {tier}", m, n, key, seq, 1)
+        check(np.array_equal(res["samples"].T.cpu().numpy(), samples),
+              f"bf16 {tier}: session and kernel walk differ")
+        walks[tier] = {"launches": launches["site_step_linear_bf16"],
+                       "walk_s": walk_s,
+                       **{k: v for k, v in res.items()
+                          if k not in ("samples", "env")}}
+        finals[tier] = res["env"]
+
+    # tensor-parallel schedules in mxu_bf16 on the 1 × 1 mesh
+    m = chains["mxu_bf16"]
+    ukey = prng.split(key, 1)[0]
+    tp_launches = {}
+    for (scheme, mf), names in TP_WALKS.items():
+        if scheme == "dp":
+            continue
+        label = f"bf16 mxu_bf16 {scheme}" + ("+measure_first" if mf else "")
+        cfg = api.SamplerConfig(kernels="cuda", scheme=scheme,
+                                measure_first=mf, compute_dtype=bf)
+        ops.reset_launches()
+        with api.SamplingSession(m, cfg, mesh=mesh) as session:
+            samples = session.sample(n, key)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        for k in names:
+            check(launches[k + "_bf16"] == sites, f"{label}: {k}'s bf16 "
+                  f"entry launched {launches[k + '_bf16']} times, expected "
+                  f"{sites}")
+        tp_launches[label] = {k: launches[k + "_bf16"] for k in names}
+        pc = PP.ParallelConfig(scheme=scheme, measure_first=mf)
+
+        def tp(kernels, env, ls, i0, i1, pc=pc):
+            c = S.SamplerConfig(kernels=kernels, compute_dtype=bf)
+            seg = MPS(m.gammas[i0:i1], m.lambdas[i0:i1])
+            smp, env, ls = PP.sample_segment(mesh, seg, env, key, i0, pc, c,
+                                             log_scale=ls)
+            return smp, env, ls
+
+        weights = ([CS.measure_weights(m.gammas[i].float(),
+                                       m.lambdas[i].float())
+                    for i in range(sites)] if mf else None)
+        res = _bf16_lockstep(label, m, n, ukey, tp,
+                             2 if scheme == "tp_double" else 1, weights)
+        check(np.array_equal(res["samples"].T.cpu().numpy(), samples),
+              f"{label}: session and segment walk differ")
+        print(f"{label}: launches {tp_launches[label]}", flush=True)
+
+    # the four kernels: the walk's shapes, then the p₂ = 4 shard shapes
+    rows = {"site_step_linear_bf16": [], "contract_measure_bf16": [],
+            "measure_probs_bf16": [], "collapse_select_bf16": []}
+    shard = CHI // TP_SHARDS
+    for tier, m in chains.items():
+        env, gamma, lam = finals[tier], m.gammas[0], m.lambdas[0]
+        u = prng.uniform(prng.fold_in(key, 0), (n,), dtype=lam.dtype,
+                         device=device)
+        wg = gamma.element_size()
+        pb, tb = K.site_step_bf16_bounds(env, gamma, lam)
+        e_k, s_k, d_k = K.site_step_linear(env, gamma, lam, u,
+                                           compute_dtype=bf)
+        e_p, s_p, d_p = K.site_step_linear_plain(env, gamma, lam, u,
+                                                 compute_dtype=bf)
+        probs = K.linear_probs_plain(K.contract_plain(env, gamma, bf),
+                                     lam).double()
+        flip = (s_k != s_p).nonzero().flatten()
+        cdf_bound = 2 * pb.sum(dim=1) / probs.sum(dim=1)
+        check(bool((K.draw_margin(probs, u)[flip] <= cdf_bound[flip]).all()),
+              f"bf16 {tier} site: draws differ beyond the rounding bound")
+        keep = s_k == s_p
+        # env' = temp[:, :, s]/max in both: 2·B/max apart, B the row's
+        # temp bound; dlog = log10(max) likewise; plus their own roundings
+        mx = (torch.take_along_dim(K.contract_plain(env, gamma, bf),
+                                   s_p[:, None, None], dim=2)[:, :, 0]
+              .double().abs().amax(dim=1))
+        rel = torch.take_along_dim(tb, s_p[:, None, None], dim=2)[
+            :, :, 0].amax(dim=1) / mx
+        checked = [(e_k[keep], e_p[keep], (2 * rel + 2.0 ** -23)[keep, None]),
+                   (d_k[keep], d_p[keep],
+                    (2 * rel + 2.0 ** -20 * (mx.log10().abs() + 1))[keep])]
+        del tb, pb, mx, probs
+        g2 = gamma.reshape(CHI, CHI * D)
+        eb, gb2 = env.to(bf), g2.to(bf)
+        row = _bf16_numbers(
+            f"bf16 {tier} site_step_linear N={n} χ={CHI}",
+            lambda: K.site_step_linear(env, gamma, lam, u, compute_dtype=bf),
+            lambda: K.site_step_linear_plain(env, gamma, lam, u,
+                                             compute_dtype=bf),
+            lambda: torch.matmul(eb, gb2), checked,
+            4 * (2 * n * CHI + CHI + 3 * n) + wg * CHI * CHI * D,
+            2 * CHI * CHI * D + 2 * n * CHI * D + 2 * n * CHI * CHI)
+        parts = device_breakdown(
+            lambda: K.site_step_linear(env, gamma, lam, u, compute_dtype=bf))
+        print(f"bf16 {tier}: device ms by kernel in one site_step_linear "
+              f"bf16 call (torch.profiler): {json.dumps(parts)}", flush=True)
+        rows["site_step_linear_bf16"].append(dict(
+            row, tier=tier, draws_differing=int(flip.numel()), parts=parts,
+            shape={"n": n, "chi": CHI, "d": D, "env": str(env.dtype),
+                   "gamma": str(gamma.dtype)}))
+        del e_k, e_p, eb, gb2, g2
+        torch.cuda.empty_cache()
+
+        env_s = env[:, :shard].contiguous()
+        g_left, g_right = gamma[:shard], gamma[:, :shard].contiguous()
+        lam_s = lam[:shard].contiguous()
+        for e, g, l_ in ((env_s, g_left, lam), (env, g_right, lam_s)):
+            L, R, d = g.shape
+            g2 = g.reshape(L, R * d)
+            tb = K.bf16_gemm_bound(e, g2).reshape(n, R, d)
+            eps_p = 2 * R * 2.0 ** -24
+            t_p = CM.contract_measure_plain(e, g, l_, bf)[0]
+            pbound = torch.einsum("nrs,r->ns", tb + eps_p * t_p.double()
+                                  .abs(), l_.double())
+            del t_p
+            eb, gb2 = e.to(bf), g2.to(bf)
+            row = _bf16_numbers(
+                f"bf16 {tier} contract_measure {L}→{R}",
+                lambda: CM.contract_measure(e, g, l_, bf),
+                lambda: CM.contract_measure_plain(e, g, l_, bf),
+                lambda: torch.matmul(eb, gb2),
+                list(zip(CM.contract_measure(e, g, l_, bf),
+                         CM.contract_measure_plain(e, g, l_, bf),
+                         (tb, pbound))),
+                4 * (n * L + R + n * R * d + n * d) + wg * L * R * d,
+                2 * n * L * R * d + 2 * n * R * d)
+            rows["contract_measure_bf16"].append(dict(
+                row, tier=tier, shape={"n": n, "L": L, "R": R, "d": d,
+                                       "gamma": str(g.dtype)}))
+            del tb, pbound, eb, gb2
+            torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=device).manual_seed(5)
+        smp = torch.randint(0, D, (n,), generator=gen, device=device)
+        present = int(torch.unique(smp).numel())
+        g2 = g_left.reshape(shard, CHI * D)
+        ob = torch.take_along_dim(
+            K.bf16_gemm_bound(env_s, g2).reshape(n, CHI, D),
+            smp[:, None, None], dim=2)[:, :, 0]
+        eb, gb2 = env_s.to(bf), g2.to(bf)
+        row = _bf16_numbers(
+            f"bf16 {tier} collapse_select {shard}→{CHI}",
+            lambda: CS.collapse_select(env_s, g_left, smp, bf),
+            lambda: CS.collapse_select_plain(env_s, g_left, smp, bf),
+            lambda: torch.matmul(eb, gb2),
+            [(CS.collapse_select(env_s, g_left, smp, bf),
+              CS.collapse_select_plain(env_s, g_left, smp, bf), ob)],
+            4 * (n * shard + n + n * CHI) + wg * shard * CHI * present,
+            2 * n * shard * CHI)
+        rows["collapse_select_bf16"].append(dict(
+            row, tier=tier, shape={"n": n, "L": shard, "R": CHI, "d": D,
+                                   "gamma": str(g_left.dtype),
+                                   "outcomes_present": present}))
+        del ob, eb, gb2, g2
+        if tier == "mxu_bf16":          # W is fp32 in both tiers
+            w = CS.measure_weights(g_left.float(), lam.float())
+            eb, wb = env_s.to(bf), w.to(bf)
+            row = _bf16_numbers(
+                f"bf16 measure_probs {shard}",
+                lambda: K.measure_probs(env_s, w, bf),
+                lambda: K.measure_first_plain(env_s, w, bf),
+                lambda: torch.matmul(eb, wb),
+                [(K.measure_probs(env_s, w, bf),
+                  K.measure_first_plain(env_s, w, bf),
+                  K.bf16_gemm_bound(env_s, w))],
+                4 * (n * shard + shard * D + n * D), 2 * n * shard * D)
+            rows["measure_probs_bf16"].append(dict(
+                row, tier="both", shape={"n": n, "L": shard, "d": D}))
+            del eb, wb, w
+        del env_s, g_right, lam_s
+        torch.cuda.empty_cache()
+
+    replaces = {"site_step_linear_bf16": "src/repro/kernels/site_step.py:181",
+                "contract_measure_bf16":
+                    "src/repro/kernels/contract_measure.py:92",
+                "measure_probs_bf16": "src/repro/kernels/site_step.py:379",
+                "collapse_select_bf16":
+                    "src/repro/kernels/collapse_select.py:83"}
+    mf = tp_launches["bf16 mxu_bf16 tp_single+measure_first"]
+    launches = {"site_step_linear_bf16": walks["mxu_bf16"]["launches"],
+                "contract_measure_bf16": tp_launches[
+                    "bf16 mxu_bf16 tp_single"]["contract_measure"],
+                "measure_probs_bf16": mf["measure_probs"],
+                "collapse_select_bf16": mf["collapse_select"]}
+    entries = []
+    for name, found in rows.items():
+        entries.append(dict(
+            found[0], name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/site_step.cu",
+            replaces=replaces[name], launches=launches[name],
+            other_shapes=found[1:]))
+    entries[0]["walks"] = walks
+    entries[1]["launches_tp_double"] = tp_launches[
+        "bf16 mxu_bf16 tp_double"]["contract_measure"]
+    del chains, finals
+    torch.cuda.empty_cache()
+    _phase("bf16", t0)
     return entries
 
 
@@ -1026,6 +1463,7 @@ def main() -> int:
         linear, mps, env = phase_full(device, "linear")
         walks = phase_tp(mesh, mps)
         tp_entries = phase_tp_kernels(device, mps, env, walks)
+        bf16_entries = phase_bf16(device, mesh, mps)
         del mps, env
         torch.cuda.empty_cache()
         born, mps, _ = phase_full(device, "born")
@@ -1044,10 +1482,14 @@ def main() -> int:
                  lm=lm)
     phase_cli()
     for entry, prefix in ((tp_entries[0], "contract_f64_kernel"),
+                          (bf16_entries[0], "tc_collapse_kernel"),
+                          (bf16_entries[1], "tc_contract_kernel"),
+                          (bf16_entries[3], "tc_collapse_kernel"),
                           (flash, "flash_tc_kernel")):
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.startswith(prefix)}
-    entries = [linear, born, *tp_entries, displacement, flash]
+    entries = [linear, born, *tp_entries, *bf16_entries, displacement,
+               flash]
     print("kernels:", json.dumps(entries))
     print(nvidia_smi())
     print(json.dumps({"kernels": entries}))

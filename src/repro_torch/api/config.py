@@ -13,6 +13,11 @@ that ports it.
 
 ``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
 PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
+
+``compute_dtype``: None or ``torch.bfloat16`` — bf16 GEMM inputs with fp32
+sums, on an fp32 chain (the ``mxu_bf16`` tier) or a bf16-stored Γ
+(``store_bf16``).  It applies to linear chains; the Born seq and dp walks
+ignore it, as the JAX package's do, and the Born TP schemes refuse it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.core.parallel import ParallelConfig
 from repro_torch.core.sampler import SamplerConfig as CoreSamplerConfig
 from repro_torch.kernels.dispatch import resolve_kernels
+from repro_torch.kernels.site_step import check_compute_dtype
 
 AUTO = "auto"
 
@@ -102,9 +108,6 @@ def _check_unported(config: SamplerConfig) -> None:
     if config.clamp:
         raise unported("clamp (conditional sampling)", 12,
                        "core/clamped.py + workloads")
-    if config.compute_dtype is not None:
-        raise unported("compute_dtype (bf16 GEMM inputs)", 7,
-                       "the compute_dtype / mxu_bf16 mode")
     if config.micro_batch == AUTO:
         raise unported("micro_batch='auto' (memory-model pick)", 9,
                        "perfmodel + planner")
@@ -132,6 +135,7 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
     if semantics not in ("linear", "born"):
         raise ValueError(f"unknown semantics {semantics!r}")
     kernels = resolve_kernels(config.kernels, device)
+    check_compute_dtype(config.compute_dtype, "SamplerConfig")
 
     p1, p2 = _mesh_sizes(mesh)
     scheme = config.scheme
@@ -156,6 +160,11 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
     if scheme in ("tp_single", "tp_double") and chi % p2:
         raise ValueError(f"χ={chi} does not divide over p₂={p2} "
                          f"tensor-parallel workers")
+    if (config.compute_dtype is not None and semantics == "born"
+            and scheme in ("tp_single", "tp_double")):
+        raise ValueError("compute_dtype applies to linear chains: the Born "
+                         "TP schedules would round complex amplitudes to a "
+                         "real bf16, dropping their imaginary part")
     if scheme == "tp_double" and n_sites % 2:
         raise ValueError("tp_double pairs sites (2j, 2j+1): the chain needs "
                          f"an even site count, got {n_sites}")
@@ -180,6 +189,7 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                                  micro_batch=micro)
     sampler_config = CoreSamplerConfig(semantics=semantics,
                                        scaling=config.scaling,
+                                       compute_dtype=config.compute_dtype,
                                        kernels=kernels)
     return SessionPlan(backend="inmem", runtime="local", scheme=scheme,
                        semantics=semantics, kernels=kernels,

@@ -13,23 +13,43 @@ from repro_torch.core.mps import MPS
 from repro_torch.device import DeviceLike, resolve_device
 
 
-def tensor_from_array(a, device: DeviceLike = None) -> torch.Tensor:
+def tensor_from_array(a, device: DeviceLike = None, *,
+                      view_as: torch.dtype | None = None) -> torch.Tensor:
     """Copy an array-like (numpy, or anything ``np.asarray`` takes,
-    complex128 and bfloat16 included) into a tensor on ``device``."""
+    complex128 and ``ml_dtypes.bfloat16`` included) into a tensor on
+    ``device``.  ``view_as=torch.bfloat16`` reads a uint16 array as bf16
+    bits, the form the JAX package's checkpoints and Γ stores keep."""
     a = np.array(a, copy=True)
     dev = resolve_device(device)
     if a.dtype.name == "bfloat16":       # numpy has no bf16: move the bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+        a, view_as = a.view(np.uint16), torch.bfloat16
+    if view_as is not None:
+        if a.dtype != np.uint16 or view_as != torch.bfloat16:
+            raise ValueError(f"view_as={view_as} reads uint16 bf16 bits; "
+                             f"got a {a.dtype} array")
+        return torch.from_numpy(a).view(torch.bfloat16).to(dev)
     return torch.from_numpy(a).to(dev)
 
 
+def array_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 comes out as its uint16
+    bits (numpy has no bf16: ``.view(ml_dtypes.bfloat16)`` reads them)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().copy()
+    return t.numpy().copy()
+
+
 def mps_from_arrays(gammas, lambdas, semantics: str = "linear",
-                    device: DeviceLike = None) -> MPS:
-    """``gammas (M, χ, χ, d)``, ``lambdas (M, χ)`` arrays → ``MPS``."""
+                    device: DeviceLike = None, *,
+                    gammas_view_as: torch.dtype | None = None) -> MPS:
+    """``gammas (M, χ, χ, d)``, ``lambdas (M, χ)`` arrays → ``MPS``; a bf16
+    Γ comes as ``ml_dtypes.bfloat16`` or as uint16 bits with
+    ``gammas_view_as=torch.bfloat16``."""
     if semantics not in ("linear", "born"):
         raise ValueError(f"semantics must be 'linear' or 'born', "
                          f"got {semantics!r}")
-    g = tensor_from_array(gammas, device)
+    g = tensor_from_array(gammas, device, view_as=gammas_view_as)
     lam = tensor_from_array(lambdas, device)
     if g.ndim != 4 or lam.shape != g.shape[:2]:
         raise ValueError(f"expected gammas (M, χ, χ, d) and lambdas (M, χ); "

@@ -9,14 +9,12 @@ Mirrors ``repro.core.mps``.  Two semantics (see that module's docstring):
 left bond ``l`` to right bond ``r`` on outcome ``s``) and ``lambdas (M, χ)``
 the per-site Λ / Schmidt weights.
 
-The linear builders (:func:`random_linear_mps`, :func:`gbs_like_mps`) take a
-key of the port's threefry (``core/prng.py``) and draw what the JAX builders
-draw from the same key, so a seed names the same chain in both packages.
-:func:`random_born_mps` takes a ``torch.Generator`` and matches the JAX
-builder in distribution only (see its docstring).  Each builder allocates
-the whole chain once on ``device`` (the card unless ``device="cpu"``) and
-fills it a site at a time, so the peak memory stays near the chain's own
-size.
+The builders take a key of the port's threefry (``core/prng.py``) and draw
+what the JAX builders draw from the same key, so a seed names the same
+chain in both packages (the Born builder to rounding: see its docstring).
+Each builder allocates the whole chain once on ``device`` (the card unless
+``device="cpu"``) and fills it a site at a time, so the peak memory stays
+near the chain's own size.
 """
 from __future__ import annotations
 
@@ -54,10 +52,14 @@ class MPS:
         return self.gammas.device
 
     def to(self, device=None, dtype=None) -> "MPS":
-        """Move and/or cast; Born Λ stays real when Γ is complex."""
+        """Move and/or cast.  Born Λ stays real when Γ is complex; a Γ cast
+        to a half type (the ``store_bf16`` tier) keeps Λ in fp32, since only
+        Γ's storage is halved."""
         lam_dtype = dtype
         if dtype is not None and dtype.is_complex:
             lam_dtype = torch.empty((), dtype=dtype).real.dtype
+        elif dtype in (torch.bfloat16, torch.float16):
+            lam_dtype = torch.float32
         return MPS(self.gammas.to(device=device, dtype=dtype),
                    self.lambdas.to(device=device, dtype=lam_dtype),
                    self.semantics)
@@ -103,25 +105,33 @@ def random_linear_mps(key, n_sites: int, chi: int, d: int,
     return MPS(gammas, lambdas, "linear")
 
 
-def random_born_mps(n_sites: int, chi: int, d: int, *,
-                    generator: torch.Generator,
-                    dtype: torch.dtype = torch.complex128) -> MPS:
-    """Random complex MPS in right-canonical form: each site's
-    ``(χ, χ·d)`` matrix has orthonormal rows (a QR of a complex Gaussian),
-    so ``Σ_s Γ^s Γ^s† = I``; λ = 1.  Built on ``generator``'s device.
+def random_born_mps(key, n_sites: int, chi: int, d: int,
+                    dtype: torch.dtype = torch.complex128,
+                    device: DeviceLike = None) -> MPS:
+    """Random complex MPS in right-canonical form, as ``repro.core.mps``'s
+    builder draws it from the same key: site i splits ``split(key, M)[i]``
+    into (kr, ki), draws a (χ, χ·d) matrix with real part ``normal(kr)``
+    and imaginary part ``normal(ki)``, and keeps the conjugate transpose of
+    the Q of its conjugate transpose's QR, so ``Σ_s Γ^s Γ^s† = I``; λ = 1.
 
-    Same distribution as the JAX builder only: its Gaussians come from
-    ``torch.Generator`` and its QR from another LAPACK call, so tests carry
-    the JAX package's Born chain across (``repro_torch.convert``) instead."""
+    The uniforms are the JAX package's bit for bit; erfinv and LAPACK's QR
+    round otherwise than XLA's, so the chain agrees to rounding only."""
     real = torch.float64 if dtype == torch.complex128 else torch.float32
-    dev = generator.device
+    dev = resolve_device(device)
+    keys = prng.split(key, n_sites)
+    size = chi * chi * d
     gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype, device=dev)
     for i in range(n_sites):
-        a = torch.complex(
-            torch.randn((chi, chi * d), generator=generator, dtype=real,
-                        device=dev),
-            torch.randn((chi, chi * d), generator=generator, dtype=real,
-                        device=dev))
+        planes = []
+        for k in prng.split(keys[i]):
+            plane = torch.empty(size, dtype=real, device=dev)
+            for o in range(0, size, _DRAW_CHUNK):
+                c = min(_DRAW_CHUNK, size - o)
+                plane[o:o + c] = prng.normal(k, (c,), dtype=real, device=dev,
+                                             offset=o)
+            planes.append(plane.reshape(chi, chi * d))
+        a = torch.complex(*planes)
+        del planes
         q, _ = torch.linalg.qr(a.conj().T, mode="reduced")   # (χ·d, χ)
         del a
         gammas[i].copy_(q.conj().T.reshape(chi, chi, d))

@@ -36,6 +36,11 @@ The per-site stages go through ``kernels/dispatch.py``: ``contract_measure``,
 ``measure`` and ``collapse`` (the Hopper kernels with ``kernels="cuda"``),
 and the fused ``site_step`` for dp.  The Born TP paths stay plain PyTorch,
 as they stay XLA in the JAX package by design.
+
+``SamplerConfig.compute_dtype`` (bf16 GEMM inputs, fp32 sums) reaches every
+linear stage; a bf16-stored Γ gets an fp32 environment.  The Born TP
+schedules refuse it (``site_impls.contract_parallel``), and the [19]
+baseline ignores it and walks in Γ's own dtype, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -347,8 +352,10 @@ def sample_segment(mesh, mps: MPS, env: torch.Tensor, key: torch.Tensor,
     every rank; ``log_scale=None`` starts the carry at zero.
     """
     if len(pconfig.data_axes) != 1:
-        raise ValueError("the port's meshes have one data axis; got "
-                         f"{pconfig.data_axes}")
+        from repro_torch.api.config import unported
+        raise unported(f"more than one data axis {pconfig.data_axes} (the "
+                       "reference's pod axis)", 10,
+                       "service and cluster layers")
     data = mesh.group(pconfig.data_axes[0])
     p1 = C.axis_size(data)
     n_samples, chi = env.shape

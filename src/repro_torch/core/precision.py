@@ -39,11 +39,15 @@ def rescale(env: torch.Tensor, mode: str = "per_sample"
     raise ValueError(f"unknown scaling mode: {mode}")
 
 
-# name: (storage dtype, GEMM input dtype, accumulation dtype).  The bf16
-# tiers of the JAX package (``mxu_bf16``, ``store_bf16``) are not ported yet.
+# name: (storage dtype, GEMM input dtype, accumulation dtype), the JAX
+# package's tiers: ``mxu_bf16`` feeds the GEMMs bf16 inputs and sums in fp32
+# (the paper's TF32 tier); ``store_bf16`` also stores Γ in bf16 (its
+# FP16-storage tier), while the environment stays fp32.
 POLICIES = {
     "fp64": (torch.float64, torch.float64, torch.float64),
     "fp32": (torch.float32, torch.float32, torch.float32),
+    "mxu_bf16": (torch.float32, torch.bfloat16, torch.float32),
+    "store_bf16": (torch.bfloat16, torch.bfloat16, torch.float32),
 }
 
 
@@ -53,3 +57,23 @@ def policy_dtypes(name: str):
     except KeyError:
         raise ValueError(f"unknown precision policy {name!r}; "
                          f"have {list(POLICIES)}") from None
+
+
+def rounded(x: torch.Tensor, dtype: torch.dtype,
+            acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` rounded to the GEMM input ``dtype`` and held in ``acc``.  fp64
+    rounds to a half type through fp32, as torch's and XLA's casts do on the
+    CPU.  A product of two bf16 values is exact in fp32, so an fp32 GEMM of
+    rounded operands is the bf16-input, fp32-accumulate GEMM."""
+    if dtype in (torch.bfloat16, torch.float16) and x.dtype == torch.float64:
+        x = x.to(torch.float32)
+    return x.to(dtype).to(acc)
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, policy: str = "fp32"
+         ) -> torch.Tensor:
+    """dot(a, b) under a named precision policy, contracting a's last axis
+    with b's first (``repro.core.precision.gemm``)."""
+    _, in_dt, acc_dt = policy_dtypes(policy)
+    return torch.tensordot(rounded(a, in_dt, acc_dt),
+                           rounded(b, in_dt, acc_dt), dims=([a.ndim - 1], [0]))

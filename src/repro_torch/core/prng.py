@@ -86,9 +86,11 @@ def _bits(key: torch.Tensor, size: int, device, offset: int = 0) -> tuple:
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
             dtype: torch.dtype = torch.float64, device=None,
-            offset: int = 0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, dtype)`` on ``[0, 1)``: random
-    mantissa bits under the exponent of 1.0, minus 1.
+            offset: int = 0, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``: random
+    mantissa bits under the exponent of 1.0, minus 1, on ``[0, 1)``; then
+    ``max(minval, u·(maxval − minval) + minval)`` in ``dtype``.
 
     ``offset`` starts the flat counters there: the draw is then the slice
     ``[offset, offset + prod(shape))`` of a larger draw with the same key
@@ -105,4 +107,23 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
         floats = (mant | one).view(torch.float64)
     else:
         raise ValueError(f"uniform covers float32 and float64, got {dtype}")
-    return (floats - 1.0).reshape(shape)
+    floats = (floats - 1.0).reshape(shape)
+    if (minval, maxval) == (0.0, 1.0):
+        return floats
+    lo = torch.tensor(minval, dtype=dtype, device=floats.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = (),
+           dtype: torch.dtype = torch.float64, device=None,
+           offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for a real dtype: √2 times
+    erfinv of a uniform on ``(nextafter(−1, 0), 1)``.  The uniforms are
+    jax's bit for bit; torch's erfinv rounds otherwise than XLA's, so the
+    normals agree to a few ulp.  ``offset`` as in :func:`uniform`."""
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                         torch.tensor(0.0, dtype=dtype)).item()
+    u = uniform(key, shape, dtype, device, offset, minval=lo, maxval=1.0)
+    return torch.erfinv(u) * torch.tensor(math.sqrt(2), dtype=dtype,
+                                          device=u.device)

@@ -46,7 +46,8 @@ class SampleResult(NamedTuple):
 class SamplerConfig:
     semantics: str = "linear"          # "linear" | "born"
     scaling: str = "per_sample"        # "none" | "global" | "per_sample"
-    compute_dtype: Optional[torch.dtype] = None   # not ported yet
+    # bf16 GEMM inputs with fp32 sums (linear; the mxu_bf16/store_bf16 tiers)
+    compute_dtype: Optional[torch.dtype] = None
     kernels: str = "auto"              # "cuda" | "torch" | "auto"
 
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library at first use, under ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags so an edited source
-rebuilds.  Importing this module needs no ``nvcc``: nothing is compiled until
-a kernel is first launched.  ``build_all`` compiles every source at once,
+checkout, named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header rebuilds.  Importing this
+module needs no ``nvcc``: nothing is compiled until a kernel is first
+launched.  ``build_all`` compiles every source at once,
 one ``nvcc`` per source, all started together.
 """
 from __future__ import annotations
@@ -49,6 +50,17 @@ SIGNATURES = {
         "fastmps_measure_probs_f32": _MEASURE,
         "fastmps_collapse_select_f64": _COLLAPSE,
         "fastmps_collapse_select_f32": _COLLAPSE,
+        "fastmps_site_step_linear_bf16_f32_f32": _LINEAR,
+        "fastmps_site_step_linear_bf16_f32_bf16": _LINEAR,
+        "fastmps_site_step_linear_bf16_f64_f64": _LINEAR,
+        "fastmps_contract_measure_bf16_f32_f32": _CONTRACT_MEASURE,
+        "fastmps_contract_measure_bf16_f32_bf16": _CONTRACT_MEASURE,
+        "fastmps_contract_measure_bf16_f64_f64": _CONTRACT_MEASURE,
+        "fastmps_measure_probs_bf16_f32": _MEASURE,
+        "fastmps_measure_probs_bf16_f64": _MEASURE,
+        "fastmps_collapse_select_bf16_f32_f32": _COLLAPSE,
+        "fastmps_collapse_select_bf16_f32_bf16": _COLLAPSE,
+        "fastmps_collapse_select_bf16_f64_f64": _COLLAPSE,
     },
     "displacement_expm": {
         "fastmps_displacement_expm_f64": _DISPLACEMENT,
@@ -77,7 +89,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

@@ -13,23 +13,34 @@ of the TPU kernel's d masked GEMMs.  It takes its plain version,
 :func:`collapse_select_plain` (the d masked GEMMs, op for op with the JAX
 package's ``collapse`` xla cell), only for tensors on the CPU.
 
-``LAUNCHES`` counts kernel launches; ``reset_launches`` sets it to 0.
+``compute_dtype=torch.bfloat16`` rounds env and Γ to bf16 and sums in
+fp32 on the tensor cores; env' is then fp32 whatever env's dtype, as the
+JAX package's ``collapse`` cell returns it.
+
+``LAUNCHES`` counts kernel launches (the bf16 entry apart);
+``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import precision
 from repro_torch.kernels import _build
-from repro_torch.kernels.site_step import supported
+from repro_torch.kernels.site_step import (_BF16, _F32, _F64,
+                                           check_compute_dtype, supported)
 
-LAUNCHES = {"collapse_select": 0}
+LAUNCHES = {"collapse_select": 0, "collapse_select_bf16": 0}
 
-_ENTRY = {torch.float64: "fastmps_collapse_select_f64",
-          torch.float32: "fastmps_collapse_select_f32"}
+_ENTRY = {(_F64, _F64): "fastmps_collapse_select_f64",
+          (_F32, _F32): "fastmps_collapse_select_f32"}
+_BF16_ENTRY = {(_F32, _F32): "fastmps_collapse_select_bf16_f32_f32",
+               (_F32, _BF16): "fastmps_collapse_select_bf16_f32_bf16",
+               (_F64, _F64): "fastmps_collapse_select_bf16_f64_f64"}
 
 
 def reset_launches() -> None:
-    LAUNCHES["collapse_select"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def measure_weights(gamma, lam):
@@ -37,31 +48,46 @@ def measure_weights(gamma, lam):
     return torch.einsum("lrs,r->ls", gamma, lam)
 
 
-def collapse_select_plain(env, gamma, samples):
+def collapse_select_plain(env, gamma, samples, compute_dtype=None):
     """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) as d masked
-    GEMMs; a row whose outcome is outside [0, d) comes out zero."""
+    GEMMs; a row whose outcome is outside [0, d) comes out zero.  Under
+    ``compute_dtype`` each GEMM takes inputs rounded to it and sums in
+    fp32 (the JAX package's ``collapse`` cell)."""
     acc = None
     for s in range(gamma.shape[2]):
         mask = (samples == s).to(env.dtype)[:, None]
-        part = (env * mask) @ gamma[:, :, s]
+        if compute_dtype is None:
+            dt = torch.promote_types(env.dtype, gamma.dtype)
+            part = (env * mask).to(dt) @ gamma[:, :, s].to(dt)
+        else:
+            part = (precision.rounded(env * mask, compute_dtype)
+                    @ precision.rounded(gamma[:, :, s], compute_dtype))
         acc = part if acc is None else acc + part
     return acc
 
 
-def collapse_select(env, gamma, samples):
-    """The kernel: env and Γ both fp32 or both fp64, samples (N,) integer →
-    env' (N, R) as :func:`collapse_select_plain`.  Bound by fp64 operations
-    (2·N·L·R) at the full width."""
-    if env.device.type == "cpu":
-        return collapse_select_plain(env, gamma, samples)
+def collapse_select(env, gamma, samples, compute_dtype=None):
+    """The kernel → env' (N, R) as :func:`collapse_select_plain`, samples
+    (N,) integers.  env and Γ both fp32 or both fp64, bound by fp64
+    operations (2·N·L·R) at the full width; with
+    ``compute_dtype=torch.bfloat16`` env and Γ fp32, env fp32 with a bf16
+    Γ, or both fp64, on the bf16 tensor cores, env' in fp32."""
     name = "collapse_select"
-    entry = supported(env, _ENTRY, name)
+    check_compute_dtype(compute_dtype, name)
+    if env.device.type == "cpu":
+        return collapse_select_plain(env, gamma, samples, compute_dtype)
+    if compute_dtype is None:
+        entry = supported(_ENTRY, name, env, gamma)
+        out_dtype = env.dtype
+    else:
+        entry = supported(_BF16_ENTRY, name + " (bf16 inputs)", env, gamma)
+        name, out_dtype = name + "_bf16", torch.float32
     if samples.dtype.is_floating_point or samples.dtype.is_complex:
         raise TypeError(f"{name}: samples must be integers, got "
                         f"{samples.dtype}")
     s32 = samples.to(torch.int32).contiguous()
     _build.check_operands(name, env.device, {
-        "env": (env, env.dtype), "gamma": (gamma, env.dtype),
+        "env": (env, env.dtype), "gamma": (gamma, gamma.dtype),
         "samples": (s32, torch.int32)})
     if (env.ndim != 2 or gamma.ndim != 3 or gamma.shape[0] != env.shape[1]
             or samples.shape != env.shape[:1]):
@@ -71,7 +97,7 @@ def collapse_select(env, gamma, samples):
     (n, chi_l), (chi_r, d) = env.shape, gamma.shape[1:]
     _build.check_sizes(name, d, n, chi_l, chi_r * d)
     dev = env.device
-    out = torch.empty((n, chi_r), dtype=env.dtype, device=dev)
+    out = torch.empty((n, chi_r), dtype=out_dtype, device=dev)
     perm = torch.empty((n,), dtype=torch.int32, device=dev)
     meta = torch.empty((3 * d + 1,), dtype=torch.int32, device=dev)
     _build.launch(entry, (env, gamma, s32, out, perm, meta),

@@ -11,43 +11,61 @@ the same and its even half-site a right-bond shard (χ → χ/p₂).
 says how the design differs) for CUDA tensors and takes its plain version,
 :func:`contract_measure_plain`, only for tensors on the CPU.
 
-``LAUNCHES`` counts kernel launches (one per call that reached the card);
-``reset_launches`` sets it to 0.
+``compute_dtype=torch.bfloat16`` (the ``mxu_bf16``/``store_bf16`` tiers)
+rounds env and Γ to bf16 and sums in fp32 on the tensor cores; temp comes
+out in env's dtype, as the JAX package's ``contract_parallel`` casts it.
+
+``LAUNCHES`` counts kernel launches (one per call that reached the card,
+the bf16 entry apart); ``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.site_step import supported
+from repro_torch.kernels.site_step import (_BF16, _F32, _F64,
+                                           check_compute_dtype,
+                                           contract_plain, linear_probs_plain,
+                                           supported)
 
-LAUNCHES = {"contract_measure": 0}
+LAUNCHES = {"contract_measure": 0, "contract_measure_bf16": 0}
 
-_ENTRY = {torch.float64: "fastmps_contract_measure_f64",
-          torch.float32: "fastmps_contract_measure_f32"}
+_ENTRY = {(_F64, _F64): "fastmps_contract_measure_f64",
+          (_F32, _F32): "fastmps_contract_measure_f32"}
+_BF16_ENTRY = {(_F32, _F32): "fastmps_contract_measure_bf16_f32_f32",
+               (_F32, _BF16): "fastmps_contract_measure_bf16_f32_bf16",
+               (_F64, _F64): "fastmps_contract_measure_bf16_f64_f64"}
 
 
 def reset_launches() -> None:
-    LAUNCHES["contract_measure"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def contract_measure_plain(env, gamma, lam):
+def contract_measure_plain(env, gamma, lam, compute_dtype=None):
     """env (N, L), Γ (L, R, d), Λ (R) → (temp (N, R, d), probs (N, d))."""
-    temp = torch.einsum("nl,lrs->nrs", env, gamma)
-    return temp, torch.einsum("nrs,r->ns", temp, lam)
+    temp = contract_plain(env, gamma, compute_dtype)
+    return temp, linear_probs_plain(temp, lam)
 
 
-def contract_measure(env, gamma, lam):
-    """The kernel: env, Γ and Λ all fp32 or all fp64 → (temp, probs) as
-    :func:`contract_measure_plain`.  A tiled GEMM writes temp; a second pass
-    sums probs per row in a fixed order.  Bound by fp64 operations
-    (2·N·L·R·d) at the full width."""
-    if env.device.type == "cpu":
-        return contract_measure_plain(env, gamma, lam)
+def contract_measure(env, gamma, lam, compute_dtype=None):
+    """The kernel → (temp, probs) as :func:`contract_measure_plain`.  env,
+    Γ and Λ all fp32 or all fp64: a tiled GEMM writes temp (on the fp64
+    tensor cores for fp64), bound by its operations (2·N·L·R·d) at the full
+    width.  ``compute_dtype=torch.bfloat16``: env and Γ fp32, env fp32
+    with a bf16 Γ, or both fp64 (Λ in env's dtype), on the bf16 tensor
+    cores.  Then a second pass sums probs per row in a fixed order."""
     name = "contract_measure"
-    entry = supported(env, _ENTRY, name)
+    check_compute_dtype(compute_dtype, name)
+    if env.device.type == "cpu":
+        return contract_measure_plain(env, gamma, lam, compute_dtype)
+    if compute_dtype is None:
+        entry = supported(_ENTRY, name, env, gamma)
+    else:
+        entry = supported(_BF16_ENTRY, name + " (bf16 inputs)", env, gamma)
+        name += "_bf16"
     _build.check_operands(name, env.device, {
-        "env": (env, env.dtype), "gamma": (gamma, env.dtype),
+        "env": (env, env.dtype), "gamma": (gamma, gamma.dtype),
         "lam": (lam, env.dtype)})
     if (env.ndim != 2 or gamma.ndim != 3 or gamma.shape[0] != env.shape[1]
             or lam.shape != gamma.shape[1:2]):

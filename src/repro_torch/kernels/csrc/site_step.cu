@@ -59,10 +59,48 @@
 //      outside [0, d) comes out zero, as with the masks.  Bound by fp64
 //      operations (2*N*L*R).
 //
+// bf16 inputs (the reference's compute_dtype=bf16: its mxu_bf16 and
+// store_bf16 tiers, the bf16 mode of _linear_kernel, _measure_kernel,
+// contract_measure and collapse_select).  Every GEMM operand is rounded to
+// bf16 (fp64 through fp32, as the frameworks round it) and its products are
+// summed in fp32; Gamma may be fp32, rounded on its way into shared memory
+// (mxu_bf16), or stored in bf16 beside an fp32 env (store_bf16, half its
+// bytes).  At the full width every step is bound by bytes: the linear
+// step's Gamma read (0.8 GB in bf16, 1.6 GB in fp32 at chi = 1e4, d = 4)
+// outweighs its 2*N*chi^2 flops at the 989 TFLOP/s bf16 rate.
+//   site_step_linear_bf16: the linear step above, measure first: W = sum_r
+//      bf16(Gamma) * Lambda (W itself is not rounded: the reference rounds
+//      temp's inputs, and sum_l bf16(env) * W is its sum_r [sum_l bf16(env)
+//      * bf16(Gamma)] * Lambda in another order), probs = bf16(env) . W in
+//      env's type, the draw and bucket sort unchanged, then the grouped
+//      collapse on bf16 tensor-core tiles (tc_collapse_kernel) and the
+//      rescale.
+//   contract_measure_bf16: temp by tc_contract_kernel, written in env's
+//      type (the reference casts its fp32 temp to env's dtype), then the
+//      fixed-order probs pass.
+//   measure_probs_bf16: probs = bf16(env) . bf16(W) in fp32.  Bound by
+//      env's bytes (d <= 16 columns), so it stays on the FMA units: a
+//      product of two bf16 values is exact in fp32, so the FMA sum is what
+//      the tensor cores would compute.
+//   collapse_select_bf16: the grouped collapse of the linear step on the
+//      caller's samples; env' in fp32 whatever env's type, as the
+//      reference's collapse returns it.
+// The tensor-core tiles (tc_gemm) are mma.sync m16n8k16 with fp32
+// accumulators, the instruction flash_tc_kernel uses.  Gamma[:, :, s] has
+// stride d in Gamma's (L, R, d) layout, and ldmatrix wants 16 contiguous
+// bytes a row, so the operands are gathered while they are staged into
+// shared memory: plain loads that round and pack, B stored [column][k].
+// The alternative, a bf16 (d, L, R) copy of Gamma written by the W pass,
+// would add 0.8 GB of writes and reads per site to a step bound by Gamma's
+// bytes; gathering reads Gamma once from memory as long as the row tiles of
+// one column panel meet in L2 (grid.x, the row tiles, runs fastest).  wgmma
+// and TMA-fed rings are a later step.
+//
 // The draw is op for op repro/kernels/site_impls.py::draw_from_uniform:
 // clip(probs, 0), row total, probs/total (1/d where the total is 0), a
 // sequential cumsum, count(u > cdf) with a strict '>', clipped to [0, d-1].
-// Every sum accumulates in the input's precision (fp64 stays fp64, no TF32).
+// Without bf16 inputs every sum accumulates in the input's precision (fp64
+// stays fp64, no TF32).
 //
 // What bounds the GEMMs is their fp64 operations (2*N*chi^2 and more at
 // chi = 1e4), which the card does at 67 TFLOP/s only on its fp64 tensor
@@ -79,6 +117,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -139,6 +179,29 @@ __device__ T block_max(T v, T* red) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 inputs: an operand rounded to bf16 to nearest even -- fp64 through
+// fp32, as torch's and XLA's casts round it on the CPU -- then read as the
+// sum's type (a product of two bf16 values is exact in fp32).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bf16 to_bf16(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ bf16 to_bf16(double x) {
+  return __float2bfloat16_rn(__double2float_rn(x));
+}
+__device__ __forceinline__ bf16 to_bf16(bf16 x) { return x; }
+
+// *p as T, rounded to bf16 first when RND
+template <typename T, bool RND, typename S>
+__device__ __forceinline__ T ld(const S* p) {
+  if constexpr (RND)
+    return T(__bfloat162float(to_bf16(*p)));
+  else
+    return T(*p);
+}
+
+// ---------------------------------------------------------------------------
 // The draw (Alg. 1 lines 2-4), op for op as draw_from_uniform
 // ---------------------------------------------------------------------------
 
@@ -166,24 +229,26 @@ __device__ int draw(const T* probs, int d, T u) {
 
 // ---------------------------------------------------------------------------
 // Linear step 1: W[l, s] = sum_r Gamma[l, r, s] * Lambda[r]   (grid: L)
+// RND: Gamma rounded to bf16 (the bf16-input step; W itself is not rounded)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename TG = T, bool RND = false>
 __global__ void __launch_bounds__(THREADS)
-measure_weights_kernel(const T* __restrict__ gamma, const T* __restrict__ lam,
-                       int R, int d, T* __restrict__ w) {
+measure_weights_kernel(const TG* __restrict__ gamma,
+                       const T* __restrict__ lam, int R, int d,
+                       T* __restrict__ w) {
   __shared__ T red[THREADS / 32];
   const int l = blockIdx.x;
-  const T* row = gamma + (size_t)l * R * d;
+  const TG* row = gamma + (size_t)l * R * d;
   T acc[MAX_D];
 #pragma unroll
   for (int s = 0; s < MAX_D; ++s) acc[s] = T(0);
   for (int r = threadIdx.x; r < R; r += THREADS) {
     const T lr = lam[r];
-    const T* g = row + (size_t)r * d;
+    const TG* g = row + (size_t)r * d;
 #pragma unroll
     for (int s = 0; s < MAX_D; ++s)
-      if (s < d) acc[s] += g[s] * lr;
+      if (s < d) acc[s] += ld<T, RND>(g + s) * lr;
   }
 #pragma unroll
   for (int s = 0; s < MAX_D; ++s)
@@ -198,14 +263,17 @@ measure_weights_kernel(const T* __restrict__ gamma, const T* __restrict__ lam,
 //   ENV_W:       probs[s] = sum_l env[n, l] * W[l, s]       (linear)
 //   TEMP_LINEAR: probs[s] = sum_r temp[n, r, s] * Lambda[r] (linear, TP)
 //   TEMP_BORN:   probs[s] = sum_r |temp[n, r, s] * lambda_r|^2
+// Sums in T.  ENV_W reads env as TS and W as TW, rounded to bf16 first
+// where RND has bit 1 (env) or bit 2 (W) set.
 // ---------------------------------------------------------------------------
 
 enum Measure { ENV_W, TEMP_LINEAR, TEMP_BORN };
 
 // probs of row blockIdx.x into probs[0..d) (written by thread 0)
-template <typename T, Measure M>
-__device__ void row_probs(const T* __restrict__ src, const T* __restrict__ w,
-                          int L, int d, T* probs, T* red) {
+template <typename T, Measure M, typename TS = T, typename TW = T, int RND = 0>
+__device__ void row_probs(const TS* __restrict__ src,
+                          const TW* __restrict__ w, int L, int d, T* probs,
+                          T* red) {
   const int n = blockIdx.x;
   T acc[MAX_D];
 #pragma unroll
@@ -235,12 +303,12 @@ __device__ void row_probs(const T* __restrict__ src, const T* __restrict__ w,
     }
   } else {
     // src: env (N, L); w: the (L, d) measure weights
-    const T* e = src + (size_t)n * L;
+    const TS* e = src + (size_t)n * L;
     for (int l = threadIdx.x; l < L; l += THREADS) {
-      const T el = e[l];
+      const T el = ld<T, (RND & 1) != 0>(e + l);
 #pragma unroll
       for (int s = 0; s < MAX_D; ++s)
-        if (s < d) acc[s] += el * w[(size_t)l * d + s];
+        if (s < d) acc[s] += el * ld<T, (RND & 2) != 0>(w + (size_t)l * d + s);
     }
   }
 #pragma unroll
@@ -251,36 +319,37 @@ __device__ void row_probs(const T* __restrict__ src, const T* __restrict__ w,
     }
 }
 
-template <typename T, Measure M>
+template <typename T, Measure M, typename TS = T, typename TW = T, int RND = 0>
 __global__ void __launch_bounds__(THREADS)
-probs_draw_kernel(const T* __restrict__ src, const T* __restrict__ w,
+probs_draw_kernel(const TS* __restrict__ src, const TW* __restrict__ w,
                   const T* __restrict__ u, int L, int d,
                   int32_t* __restrict__ samples) {
   __shared__ T red[THREADS / 32];
   __shared__ T probs[MAX_D];
-  row_probs<T, M>(src, w, L, d, probs, red);
+  row_probs<T, M, TS, TW, RND>(src, w, L, d, probs, red);
   if (threadIdx.x == 0) samples[blockIdx.x] = draw(probs, d, u[blockIdx.x]);
 }
 
 // the same probs written out (N, d): no draw
-template <typename T, Measure M>
+template <typename T, Measure M, typename TS = T, typename TW = T, int RND = 0>
 __global__ void __launch_bounds__(THREADS)
-probs_kernel(const T* __restrict__ src, const T* __restrict__ w, int L, int d,
-             T* __restrict__ out) {
+probs_kernel(const TS* __restrict__ src, const TW* __restrict__ w, int L,
+             int d, T* __restrict__ out) {
   __shared__ T red[THREADS / 32];
   __shared__ T probs[MAX_D];
-  row_probs<T, M>(src, w, L, d, probs, red);
+  row_probs<T, M, TS, TW, RND>(src, w, L, d, probs, red);
   if (threadIdx.x == 0)
     for (int s = 0; s < d; ++s) out[(size_t)blockIdx.x * d + s] = probs[s];
 }
 
 // ---------------------------------------------------------------------------
 // Step 3: stable counting sort of rows by outcome (one block).
-// meta: [count[d], offset[d], tile_start[d], total_tiles]
+// meta: [count[d], offset[d], tile_start[d], total_tiles], in tiles of bm
+// rows (the collapse GEMM's)
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
-bucket_kernel(const int32_t* __restrict__ samples, int n, int d,
+bucket_kernel(const int32_t* __restrict__ samples, int n, int d, int bm,
               int32_t* __restrict__ perm, int32_t* __restrict__ meta) {
   __shared__ int cnt[THREADS][MAX_D + 1];
   const int t = threadIdx.x;
@@ -306,7 +375,7 @@ bucket_kernel(const int32_t* __restrict__ samples, int n, int d,
       meta[d + s] = base;
       meta[2 * d + s] = tiles;
       base += tot;
-      tiles += (tot + BM - 1) / BM;
+      tiles += (tot + bm - 1) / bm;
     }
     meta[3 * d] = tiles;
   }
@@ -509,10 +578,6 @@ static_assert(LDA % 16 == 4 && LDB % 16 == 4, "conflict-free fragments");
 static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole fragments");
 }  // namespace dmma
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // W words global -> shared (W = 1 or 2); zero-filled when !pred
 template <int W>
 __device__ __forceinline__ void cp_async_words(uint32_t dst,
@@ -524,13 +589,6 @@ __device__ __forceinline__ void cp_async_words(uint32_t dst,
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                  "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // c (16 x 8) += a (16 x 8, row) . b (8 x 8, col), mma.sync m16n8k8.  Lane
@@ -674,6 +732,214 @@ int contract_f64(const double* env, const double* gamma, int n, int L,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 inputs on the tensor cores (compute_dtype=bf16): a block computes a
+// BM x BN tile of out = bf16(A) . bf16(B) with fp32 sums, as 8 warps of
+// 32 x 32, each (32/16) x (32/8) mma.sync m16n8k16 accumulators.  A is env
+// (L columns), its rows given per tile in shared memory (-1: none); B(k, c)
+// = Gamma[bofs + k * ldb + c * bstride].  Each BK step stages both tiles
+// through registers into shared memory, rounding to bf16 on the way: plain
+// loads, because the operands are converted, the grouped collapse gathers
+// its rows through perm, and its Gamma[:, :, s] columns are d elements
+// apart, none of which cp.async or TMA copies as they lie.  The next
+// step's loads are issued into registers before this step's products, so
+// they overlap (a first version that loaded and stored element by element
+// waited out each load's latency in turn: 10.9 ms for contract_measure at
+// 2500 -> 1e4, against 0.9 ms for cuBLAS).  B is stored
+// transposed, [column][k], so that ldmatrix reads both operands' fragments
+// (rows padded to 80 bytes: the eight rows of an ldmatrix phase fall in
+// distinct banks).  Every output adds its k terms in one fixed order.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+constexpr int BM = 128, BN = 64, BK = 32;        // block tile, k step
+constexpr int WM = 32, WN = 32;                  // warp tile
+constexpr int MI = WM / 16, NJ = WN / 8;         // m16n8 accumulators
+constexpr int NT = (BM / WM) * (BN / WN) * 32;   // 256 threads
+constexpr int LD = BK + 8;                       // bf16 per shared row
+static_assert(NJ % 2 == 0 && BK % 16 == 0, "whole fragments");
+static_assert(BM * BK % NT == 0 && BN * BK % NT == 0, "whole copies");
+}  // namespace tc
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (std::is_same_v<T, bf16>)
+    return __float2bfloat16_rn(0.f);
+  else
+    return T(0);
+}
+
+// one step's A elements: env[arow[it], k0 + ak], 0 outside
+template <int E, typename TA>
+__device__ __forceinline__ void tc_fetch_a(TA (&v)[E],
+                                           const TA* __restrict__ a,
+                                           const int (&arow)[E], int L,
+                                           int ak, int k0) {
+#pragma unroll
+  for (int it = 0; it < E; ++it)
+    v[it] = arow[it] >= 0 && k0 + ak < L ? a[(size_t)arow[it] * L + k0 + ak]
+                                         : zero_of<TA>();
+}
+
+// one step's B elements: column bp at k rows k0 + bk0 + STRIDE * it
+template <int E, int STRIDE, typename TB>
+__device__ __forceinline__ void tc_fetch_b(TB (&v)[E],
+                                           const TB* __restrict__ bp,
+                                           bool bcol, int L, size_t ldb,
+                                           int bk0, int k0) {
+#pragma unroll
+  for (int it = 0; it < E; ++it) {
+    const int gk = k0 + bk0 + STRIDE * it;
+    v[it] = bcol && gk < L ? bp[(size_t)gk * ldb] : zero_of<TB>();
+  }
+}
+
+template <typename TA, typename TB>
+__device__ __forceinline__ void tc_gemm(const TA* __restrict__ a, int L,
+                                        const int* rows,
+                                        const TB* __restrict__ b, size_t bofs,
+                                        size_t ldb, int bstride, int c0,
+                                        int ncols, bf16* As, bf16* Bs,
+                                        float (&acc)[tc::MI][tc::NJ][4]) {
+  using tc::BM, tc::BN, tc::BK, tc::WM, tc::WN, tc::MI, tc::NJ, tc::NT,
+      tc::LD;
+  constexpr int AE = BM * BK / NT, BE = BN * BK / NT;   // elements a thread
+  constexpr int AM = NT / BK, BKS = NT / BN;            // their row strides
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // a thread stages A column ak of rows am0 + AM * it (consecutive threads:
+  // consecutive k) and B column bc at k rows bk0 + BKS * it (consecutive
+  // threads: consecutive columns); its env rows are read once
+  const int ak = threadIdx.x % BK, am0 = threadIdx.x / BK;
+  const int bc = threadIdx.x % BN, bk0 = threadIdx.x / BN;
+  int arow[AE];
+#pragma unroll
+  for (int it = 0; it < AE; ++it) arow[it] = rows[am0 + AM * it];
+  const bool bcol = c0 + bc < ncols;
+  const TB* bp = b + bofs + (size_t)(bcol ? c0 + bc : 0) * bstride;
+  // the next step's operands as loaded (converted when stored), so that
+  // their loads are in flight while this step multiplies
+  TA va[AE];
+  TB vb[BE];
+  tc_fetch_a(va, a, arow, L, ak, 0);
+  tc_fetch_b<BE, BKS>(vb, bp, bcol, L, ldb, bk0, 0);
+  for (int k0 = 0; k0 < L; k0 += BK) {
+#pragma unroll
+    for (int it = 0; it < AE; ++it)
+      As[(am0 + AM * it) * LD + ak] = to_bf16(va[it]);
+#pragma unroll
+    for (int it = 0; it < BE; ++it)
+      Bs[bc * LD + bk0 + BKS * it] = to_bf16(vb[it]);
+    __syncthreads();
+    if (k0 + BK < L) {
+      tc_fetch_a(va, a, arow, L, ak, k0 + BK);
+      tc_fetch_b<BE, BKS>(vb, bp, bcol, L, ldb, bk0, k0 + BK);
+    }
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(smem_addr(As + (wm + 16 * i + (lane & 15)) * LD + kc * 16
+                          + (lane >> 4) * 8),
+                af[i]);
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+        uint32_t bfr[4];   // columns 8j.. and 8(j + 1).., k 16kc..16kc+15
+        ldsm_x4(smem_addr(Bs + (wn + 8 * j + (lane & 7) + ((lane >> 4) << 3))
+                                   * LD
+                          + kc * 16 + ((lane >> 3) & 1) * 8),
+                bfr);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(acc[i][j], af[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][j + 1], af[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// the tile's outputs: out[rows[m] * ldo + c0 + c] = acc as TO, c < ncols
+template <typename TO>
+__device__ __forceinline__ void tc_store(
+    const float (&acc)[tc::MI][tc::NJ][4], const int* rows, int c0,
+    int ncols, size_t ldo, TO* __restrict__ out) {
+  using tc::BM, tc::WM, tc::WN, tc::MI, tc::NJ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the 16
+      const int row = rows[wm + 16 * i + g + 8 * h];
+      if (row < 0) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = c0 + wn + 8 * j + 2 * t4;
+        TO* o = out + (size_t)row * ldo + col;
+        if (col < ncols) o[0] = TO(acc[i][j][2 * h]);
+        if (col + 1 < ncols) o[1] = TO(acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// contract_measure's bf16 GEMM: temp (n, ncols) = env (n, L) . Gamma
+// (L, ncols).  grid.x: row tiles; grid.y: column tiles.
+template <typename TA, typename TB, typename TO>
+__global__ void __launch_bounds__(tc::NT)
+tc_contract_kernel(const TA* __restrict__ env, const TB* __restrict__ gamma,
+                   int n, int L, int ncols, TO* __restrict__ temp) {
+  __shared__ __align__(16) unsigned char tiles[(tc::BM + tc::BN) * tc::LD * 2];
+  __shared__ int rows[tc::BM];
+  bf16* As = reinterpret_cast<bf16*>(tiles);
+  bf16* Bs = As + tc::BM * tc::LD;
+  const int r0 = blockIdx.x * tc::BM, c0 = blockIdx.y * tc::BN;
+  for (int m = threadIdx.x; m < tc::BM; m += tc::NT)
+    rows[m] = r0 + m < n ? r0 + m : -1;
+  __syncthreads();
+  float acc[tc::MI][tc::NJ][4];
+  tc_gemm(env, L, rows, gamma, 0, (size_t)ncols, 1, c0, ncols, As, Bs, acc);
+  tc_store(acc, rows, c0, ncols, (size_t)ncols, temp);
+}
+
+// the collapse on bf16 inputs: env'[n, :] = env[n, :] . Gamma[:, :, s_n]
+// grouped by outcome, as collapse_kernel (tiles of tc::BM rows)
+template <typename TA, typename TB, typename TO>
+__global__ void __launch_bounds__(tc::NT)
+tc_collapse_kernel(const TA* __restrict__ env, const TB* __restrict__ gamma,
+                   int L, int R, int d, const int32_t* __restrict__ perm,
+                   const int32_t* __restrict__ meta, TO* __restrict__ out) {
+  __shared__ __align__(16) unsigned char tiles[(tc::BM + tc::BN) * tc::LD * 2];
+  __shared__ int rows[tc::BM];
+  bf16* As = reinterpret_cast<bf16*>(tiles);
+  bf16* Bs = As + tc::BM * tc::LD;
+  const int bx = blockIdx.x;
+  if (bx >= meta[3 * d]) return;
+  int s = 0;
+  for (int q = 0; q < d; ++q)
+    if (meta[q] > 0 && meta[2 * d + q] <= bx) s = q;
+  const int count = meta[s], offset = meta[d + s];
+  const int r0 = (bx - meta[2 * d + s]) * tc::BM;   // first row of the tile
+  for (int m = threadIdx.x; m < tc::BM; m += tc::NT)
+    rows[m] = r0 + m < count ? perm[offset + r0 + m] : -1;
+  __syncthreads();
+  const int c0 = blockIdx.y * tc::BN;
+  float acc[tc::MI][tc::NJ][4];
+  tc_gemm(env, L, rows, gamma, (size_t)s, (size_t)R * d, d, c0, R, As, Bs,
+          acc);
+  tc_store(acc, rows, c0, R, (size_t)R, out);
+}
+
+// ---------------------------------------------------------------------------
 // Born step 3: env'[n, r] = temp[n, r, s_n] * lambda_r.  One block per row.
 // ---------------------------------------------------------------------------
 
@@ -739,7 +1005,7 @@ int site_step_linear(const T* env, const T* gamma, const T* lam, const T* u,
   probs_draw_kernel<T, ENV_W><<<n, THREADS, 0, stream>>>(env, w, u, L, d,
                                                          samples);
   RETURN_IF_ERROR();
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, perm, meta);
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, BM, perm, meta);
   RETURN_IF_ERROR();
   collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
                                                    meta, env_out);
@@ -813,10 +1079,91 @@ int collapse_select(const T* env, const T* gamma, const int32_t* samples,
   const cudaError_t zeroed =
       cudaMemsetAsync(out, 0, (size_t)n * R * sizeof(T), stream);
   if (zeroed != cudaSuccess) return (int)zeroed;
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, perm, meta);
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, BM, perm, meta);
   RETURN_IF_ERROR();
   collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
                                                    meta, out);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 inputs (compute_dtype=bf16): env TE (fp32 or fp64), Gamma TG (TE, or
+// bf16 beside an fp32 env); Lambda, u, W, env' and dlog in TE; sums in fp32
+// except where the reference sums in env's type (the draw's probs and W).
+// ---------------------------------------------------------------------------
+
+template <typename TE, typename TG>
+int site_step_linear_bf16(const TE* env, const TG* gamma, const TE* lam,
+                          const TE* u, TE* env_out, int32_t* samples,
+                          TE* dlog, TE* w, int32_t* perm, int32_t* meta,
+                          int n, int L, int R, int d, int per_sample,
+                          cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + tc::BM - 1) / tc::BM + d, (R + tc::BN - 1) / tc::BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  measure_weights_kernel<TE, TG, true><<<L, THREADS, 0, stream>>>(
+      gamma, lam, R, d, w);
+  RETURN_IF_ERROR();
+  probs_draw_kernel<TE, ENV_W, TE, TE, 1><<<n, THREADS, 0, stream>>>(
+      env, w, u, L, d, samples);
+  RETURN_IF_ERROR();
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, tc::BM, perm, meta);
+  RETURN_IF_ERROR();
+  tc_collapse_kernel<TE, TG, TE><<<grid, tc::NT, 0, stream>>>(
+      env, gamma, L, R, d, perm, meta, env_out);
+  RETURN_IF_ERROR();
+  rescale_kernel<TE, false><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
+                                                       dlog);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename TE, typename TG>
+int contract_measure_bf16(const TE* env, const TG* gamma, const TE* lam,
+                          TE* temp, TE* probs, int n, int L, int R, int d,
+                          cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + tc::BM - 1) / tc::BM, (R * d + tc::BN - 1) / tc::BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  tc_contract_kernel<TE, TG, TE><<<grid, tc::NT, 0, stream>>>(
+      env, gamma, n, L, R * d, temp);
+  RETURN_IF_ERROR();
+  probs_kernel<TE, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
+                                                           probs);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+// probs (fp32) = bf16(env) . bf16(W): bound by env's bytes (d <= 16
+// columns), so FMA, not the tensor cores: a product of two bf16 values is
+// exact in fp32, so the FMA sum is the tensor cores' arithmetic
+template <typename TE>
+int measure_probs_bf16(const TE* env, const TE* w, float* probs, int n, int L,
+                       int d, cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  probs_kernel<float, ENV_W, TE, TE, 3><<<n, THREADS, 0, stream>>>(
+      env, w, L, d, probs);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename TE, typename TG>
+int collapse_select_bf16(const TE* env, const TG* gamma,
+                         const int32_t* samples, float* out, int32_t* perm,
+                         int32_t* meta, int n, int L, int R, int d,
+                         cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + tc::BM - 1) / tc::BM + d, (R + tc::BN - 1) / tc::BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  // rows whose outcome is outside [0, d) join no group and stay zero
+  const cudaError_t zeroed =
+      cudaMemsetAsync(out, 0, (size_t)n * R * sizeof(float), stream);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, tc::BM, perm, meta);
+  RETURN_IF_ERROR();
+  tc_collapse_kernel<TE, TG, float><<<grid, tc::NT, 0, stream>>>(
+      env, gamma, L, R, d, perm, meta, out);
   RETURN_IF_ERROR();
   return 0;
 }
@@ -913,6 +1260,109 @@ int fastmps_collapse_select_f32(const float* env, const float* gamma,
                                 int R, int d, void* stream) {
   return collapse_select<float>(env, gamma, samples, out, perm, meta, n, L, R,
                                 d, (cudaStream_t)stream);
+}
+
+// bf16 inputs, named by (env, Gamma) types: f32_f32 (mxu_bf16), f32_bf16
+// (store_bf16), f64_f64 (an fp64 chain); measure_probs by env = W's type.
+// Arguments as the entries above; collapse_select's out and measure_probs'
+// probs are fp32 whatever env's type.
+int fastmps_site_step_linear_bf16_f32_f32(
+    const float* env, const float* gamma, const float* lam, const float* u,
+    float* env_out, int32_t* samples, float* dlog, float* w, int32_t* perm,
+    int32_t* meta, int n, int L, int R, int d, int per_sample, void* stream) {
+  return site_step_linear_bf16<float, float>(
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
+      per_sample, (cudaStream_t)stream);
+}
+
+int fastmps_site_step_linear_bf16_f32_bf16(
+    const float* env, const bf16* gamma, const float* lam, const float* u,
+    float* env_out, int32_t* samples, float* dlog, float* w, int32_t* perm,
+    int32_t* meta, int n, int L, int R, int d, int per_sample, void* stream) {
+  return site_step_linear_bf16<float, bf16>(
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
+      per_sample, (cudaStream_t)stream);
+}
+
+int fastmps_site_step_linear_bf16_f64_f64(
+    const double* env, const double* gamma, const double* lam,
+    const double* u, double* env_out, int32_t* samples, double* dlog,
+    double* w, int32_t* perm, int32_t* meta, int n, int L, int R, int d,
+    int per_sample, void* stream) {
+  return site_step_linear_bf16<double, double>(
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
+      per_sample, (cudaStream_t)stream);
+}
+
+int fastmps_contract_measure_bf16_f32_f32(const float* env,
+                                          const float* gamma,
+                                          const float* lam, float* temp,
+                                          float* probs, int n, int L, int R,
+                                          int d, void* stream) {
+  return contract_measure_bf16<float, float>(env, gamma, lam, temp, probs, n,
+                                             L, R, d, (cudaStream_t)stream);
+}
+
+int fastmps_contract_measure_bf16_f32_bf16(const float* env,
+                                           const bf16* gamma,
+                                           const float* lam, float* temp,
+                                           float* probs, int n, int L, int R,
+                                           int d, void* stream) {
+  return contract_measure_bf16<float, bf16>(env, gamma, lam, temp, probs, n,
+                                            L, R, d, (cudaStream_t)stream);
+}
+
+int fastmps_contract_measure_bf16_f64_f64(const double* env,
+                                          const double* gamma,
+                                          const double* lam, double* temp,
+                                          double* probs, int n, int L, int R,
+                                          int d, void* stream) {
+  return contract_measure_bf16<double, double>(
+      env, gamma, lam, temp, probs, n, L, R, d, (cudaStream_t)stream);
+}
+
+int fastmps_measure_probs_bf16_f32(const float* env, const float* w,
+                                   float* probs, int n, int L, int d,
+                                   void* stream) {
+  return measure_probs_bf16<float>(env, w, probs, n, L, d,
+                                   (cudaStream_t)stream);
+}
+
+int fastmps_measure_probs_bf16_f64(const double* env, const double* w,
+                                   float* probs, int n, int L, int d,
+                                   void* stream) {
+  return measure_probs_bf16<double>(env, w, probs, n, L, d,
+                                    (cudaStream_t)stream);
+}
+
+int fastmps_collapse_select_bf16_f32_f32(const float* env,
+                                         const float* gamma,
+                                         const int32_t* samples, float* out,
+                                         int32_t* perm, int32_t* meta, int n,
+                                         int L, int R, int d, void* stream) {
+  return collapse_select_bf16<float, float>(env, gamma, samples, out, perm,
+                                            meta, n, L, R, d,
+                                            (cudaStream_t)stream);
+}
+
+int fastmps_collapse_select_bf16_f32_bf16(const float* env,
+                                          const bf16* gamma,
+                                          const int32_t* samples, float* out,
+                                          int32_t* perm, int32_t* meta, int n,
+                                          int L, int R, int d, void* stream) {
+  return collapse_select_bf16<float, bf16>(env, gamma, samples, out, perm,
+                                           meta, n, L, R, d,
+                                           (cudaStream_t)stream);
+}
+
+int fastmps_collapse_select_bf16_f64_f64(const double* env,
+                                         const double* gamma,
+                                         const int32_t* samples, float* out,
+                                         int32_t* perm, int32_t* meta, int n,
+                                         int L, int R, int d, void* stream) {
+  return collapse_select_bf16<double, double>(env, gamma, samples, out, perm,
+                                              meta, n, L, R, d,
+                                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

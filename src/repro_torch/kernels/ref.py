@@ -1,16 +1,31 @@
-"""Plain oracles for the kernels (mirror ``repro.kernels.ref``)."""
+"""Plain oracles for the kernels (mirror ``repro.kernels.ref``).
+
+``compute_dtype=torch.bfloat16`` (linear stages): the GEMM operands are
+rounded to bf16 (fp64 through fp32) and their exact products summed in
+fp32, as the JAX package's xla cells compute the ``mxu_bf16`` and
+``store_bf16`` tiers; the contraction comes back in env's dtype, the
+``measure`` and ``collapse`` stages in fp32.
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.precision import real_dtype_of
+from repro_torch.core.precision import real_dtype_of, rounded
 
 
-def contract_measure_ref(env, gamma, lam):
+def _contract(env, gamma, compute_dtype):
+    """temp (N, R, d) = env · Γ, under bf16 inputs in env's dtype."""
+    if compute_dtype is None:
+        return torch.einsum("nl,lrs->nrs", env, gamma)
+    return torch.einsum("nl,lrs->nrs", rounded(env, compute_dtype),
+                        rounded(gamma, compute_dtype)).to(env.dtype)
+
+
+def contract_measure_ref(env, gamma, lam, compute_dtype=None):
     """Site contraction + linear measurement (paper Fig. 1 + Alg. 1 l.1):
     env (N, L) · Γ (L, R, d) → temp (N, R, d); probs (N, d) = temp · Λ."""
-    temp = torch.einsum("nl,lrs->nrs", env, gamma)
-    return temp, torch.einsum("nrs,r->ns", temp, lam)
+    temp = _contract(env, gamma, compute_dtype)
+    return temp, torch.einsum("nrs,r->ns", temp, lam.to(temp.dtype))
 
 
 def collapse_rescale_ref(temp, samples):
@@ -32,27 +47,38 @@ def displacement_zassenhaus_ref(mu_re, mu_im, d: int):
     return out.real.to(mu_re.dtype), out.imag.to(mu_re.dtype)
 
 
-def collapse_select_ref(env, gamma, samples):
-    """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) = env·Γ[:, :, s_n]."""
-    temp = torch.einsum("nl,lrs->nrs", env, gamma)
+def collapse_select_ref(env, gamma, samples, compute_dtype=None):
+    """env (N, L), Γ (L, R, d), samples (N,) → env' (N, R) = env·Γ[:, :, s_n]
+    (fp32 under bf16 inputs)."""
+    temp = _contract(env, gamma, compute_dtype)
+    if compute_dtype is not None:
+        temp = temp.to(torch.float32)
     return torch.take_along_dim(temp, samples[:, None, None].to(torch.int64),
                                 dim=2)[:, :, 0]
 
 
-def measure_first_probs_ref(env, gamma, lam):
+def measure_first_probs_ref(env, gamma, lam, compute_dtype=None):
     """probs via associativity: env @ (Γ·Λ) — equals
-    ``contract_measure_ref(...)[1]`` in exact arithmetic."""
-    return env @ torch.einsum("lrs,r->ls", gamma, lam)
+    ``contract_measure_ref(...)[1]`` in exact arithmetic.  Under bf16
+    inputs W = Γ·Λ is built in fp32 and rounded with env (the tp-3
+    ``measure`` cell), fp32 out."""
+    if compute_dtype is None:
+        return env @ torch.einsum("lrs,r->ls", gamma, lam)
+    w = torch.einsum("lrs,r->ls", gamma.to(torch.float32),
+                     lam.to(torch.float32))
+    return rounded(env, compute_dtype) @ rounded(w, compute_dtype)
 
 
 def site_step_ref(env, gamma, lam, u, semantics="linear",
-                  scaling="per_sample"):
+                  scaling="per_sample", compute_dtype=None):
     """contract → measure → normalise/cumsum/draw with the supplied
-    uniforms u (N,) → collapse (×λ for born) → per-sample rescale.
+    uniforms u (N,) → collapse (×λ for born) → per-sample rescale;
+    ``compute_dtype`` applies to linear only.
 
     Returns (env' (N, χ), samples (N,) int64, dlog (N,)).
     """
-    temp = torch.einsum("nl,lrs->nrs", env, gamma)
+    temp = _contract(env, gamma,
+                     compute_dtype if semantics == "linear" else None)
     if semantics == "linear":
         probs = torch.einsum("nrs,r->ns", temp, lam.to(temp.dtype))
     else:

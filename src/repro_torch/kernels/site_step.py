@@ -14,12 +14,18 @@ tensor it launches the kernel or raises.
 is the tensor-parallel measure-first stage: it replaces the Pallas
 ``repro/kernels/site_step.py::measure_probs``.
 
+``compute_dtype=torch.bfloat16`` (the JAX package's ``mxu_bf16`` and
+``store_bf16`` tiers, linear only) rounds the GEMM inputs to bf16 and sums
+in fp32, as the Pallas kernels' ``compute_dtype`` does; Γ may then be
+stored in bf16 beside an fp32 environment.  Its kernels are the bf16
+tensor-core entries of ``csrc/site_step.cu``, counted apart (``*_bf16``).
+
 Randomness stays outside: the caller passes the per-site uniforms ``u`` (N,)
 drawn from the folded key, so the kernels and the plain versions consume
 the same bits.
 
-``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
-the card); ``reset_launches`` sets them to 0.
+``LAUNCHES`` counts kernel launches per wrapper and entry (one per call
+that reached the card); ``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
 
@@ -29,8 +35,9 @@ from repro_torch.core import precision
 from repro_torch.core.precision import real_dtype_of
 from repro_torch.kernels import _build
 
-LAUNCHES = {"site_step_linear": 0, "site_step_born": 0,
-            "measure_probs": 0}
+LAUNCHES = {"site_step_linear": 0, "site_step_linear_bf16": 0,
+            "site_step_born": 0, "measure_probs": 0,
+            "measure_probs_bf16": 0}
 
 _FUSED_SCALING = ("per_sample", "none")
 
@@ -58,10 +65,41 @@ def draw_from_uniform(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 # Plain PyTorch versions (op for op with the JAX package's xla cells)
 # ---------------------------------------------------------------------------
 
-def _site_step_plain(env, gamma, lam, u, *, semantics: str, scaling: str):
-    temp = torch.einsum("nl,lrs->nrs", env, gamma)
-    if semantics == "linear":
-        probs = torch.einsum("nrs,r->ns", temp, lam)
+def check_compute_dtype(compute_dtype, name: str) -> None:
+    """The kernels take bf16 GEMM inputs or the operands' own dtype."""
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"{name}: compute_dtype={compute_dtype} is not a "
+                         "tier of the port; use None or torch.bfloat16")
+
+
+def contract_plain(env, gamma, compute_dtype=None):
+    """temp[n, r, s] = Σ_l env[n, l]·Γ[l, r, s] as the JAX package's
+    ``_contract_site`` and ``contract_parallel`` compute it: under
+    ``compute_dtype`` both operands rounded to it and summed in fp32, then
+    cast to env's dtype; without, in the operands' promoted dtype."""
+    if compute_dtype is None:
+        dt = torch.promote_types(env.dtype, gamma.dtype)
+        return torch.einsum("nl,lrs->nrs", env.to(dt), gamma.to(dt))
+    chi_l, chi_r, d = gamma.shape
+    temp = (precision.rounded(env, compute_dtype)
+            @ precision.rounded(gamma.reshape(chi_l, chi_r * d),
+                                compute_dtype))
+    return temp.reshape(env.shape[0], chi_r, d).to(env.dtype)
+
+
+def linear_probs_plain(temp, lam):
+    """probs[n, s] = Σ_r temp[n, r, s]·Λ[r] in the promoted dtype (Λ is
+    never rounded)."""
+    dt = torch.promote_types(temp.dtype, lam.dtype)
+    return torch.einsum("nrs,r->ns", temp.to(dt), lam.to(dt))
+
+
+def _site_step_plain(env, gamma, lam, u, *, semantics: str, scaling: str,
+                     compute_dtype=None):
+    linear = semantics == "linear"
+    temp = contract_plain(env, gamma, compute_dtype if linear else None)
+    if linear:
+        probs = linear_probs_plain(temp, lam)
     else:
         probs = torch.sum((temp * lam[None, :, None]).abs() ** 2, dim=1)
     samples = draw_from_uniform(probs, u[:, None])
@@ -72,11 +110,14 @@ def _site_step_plain(env, gamma, lam, u, *, semantics: str, scaling: str):
     return new_env, samples, dlog
 
 
-def site_step_linear_plain(env, gamma, lam, u, scaling: str = "per_sample"):
+def site_step_linear_plain(env, gamma, lam, u, scaling: str = "per_sample",
+                           compute_dtype=None):
     """env (N, χl), Γ (χl, χr, d), Λ (χr), u (N,) → (env' (N, χr),
-    samples (N,) int64, dlog (N,)); every scaling mode."""
+    samples (N,) int64, dlog (N,)); every scaling mode.  With
+    ``compute_dtype`` the contraction takes bf16-rounded inputs and sums in
+    fp32 (:func:`contract_plain`)."""
     return _site_step_plain(env, gamma, lam, u, semantics="linear",
-                            scaling=scaling)
+                            scaling=scaling, compute_dtype=compute_dtype)
 
 
 def site_step_born_plain(env, gamma, lam, u, scaling: str = "per_sample"):
@@ -86,38 +127,102 @@ def site_step_born_plain(env, gamma, lam, u, scaling: str = "per_sample"):
                             scaling=scaling)
 
 
-def measure_first_plain(env, w):
+def measure_first_plain(env, w, compute_dtype=None):
     """The measure-first partial probs of one bond shard: env (N, L) · W (L, d)
-    → (N, d); the caller sums them over the TP group."""
-    return env @ w
+    → (N, d); the caller sums them over the TP group.  Under
+    ``compute_dtype`` both are rounded to it and summed in fp32 (an fp32
+    result, as the JAX package's ``measure`` cell)."""
+    if compute_dtype is None:
+        return env @ w
+    return precision.rounded(env, compute_dtype) @ precision.rounded(
+        w, compute_dtype)
+
+
+def bf16_gemm_bound(a, b):
+    """Elementwise bound (fp64) on |kernel − plain| for a (M, K) · b (K, N)
+    on bf16-rounded inputs with fp32 sums.  The K products are exact in
+    fp32; each of the K − 1 additions rounds by at most 2⁻²⁴ of a partial
+    sum no larger than Σ_k |a||b|, in either version, so two summation
+    orders differ by at most 2·K·2⁻²⁴·Σ_k |a||b| (as
+    ``flash_attention.rounding_bound`` counts its fp32 sums)."""
+    ra = precision.rounded(a, torch.bfloat16, torch.float64).abs()
+    rb = precision.rounded(b, torch.bfloat16, torch.float64).abs()
+    return 2 * a.shape[-1] * 2.0 ** -24 * (ra @ rb)
+
+
+def site_step_bf16_bounds(env, gamma, lam):
+    """Elementwise bounds (fp64) on |kernel − plain| of the bf16-input
+    linear site step: (probs (N, d), temp (N, R, d) before the rescale).
+
+    The kernel measures first, Σ_l bf16(env)·W with W = Σ_r bf16(Γ)·Λ; the
+    plain version sums Σ_r [Σ_l bf16(env)·bf16(Γ)]·Λ.  Each adds L + R
+    rounded terms (in fp32, or fp64 where env is fp64), so the two differ
+    by at most 2·(L + R)·2⁻²⁴·Σ_l Σ_r |env||Γ|Λ.  temp is
+    :func:`bf16_gemm_bound`."""
+    chi_l, chi_r, d = gamma.shape
+    ra = precision.rounded(env, torch.bfloat16, torch.float64).abs()
+    rg = precision.rounded(gamma, torch.bfloat16, torch.float64).abs()
+    probs = 2 * (chi_l + chi_r) * 2.0 ** -24 * (
+        ra @ torch.einsum("lrs,r->ls", rg, lam.double().abs()))
+    temp = bf16_gemm_bound(env, gamma.reshape(chi_l, chi_r * d))
+    return probs, temp.reshape(env.shape[0], chi_r, d)
+
+
+def draw_margin(probs, u):
+    """Per row, how far the uniform lies from flipping the draw: the least
+    |u − cdf_k| over the inner CDF boundaries (k < d − 1); inf for d = 1.
+    A draw that differs between two versions is sound when this margin is
+    within the CDF's rounding bound."""
+    p = probs.double().clamp(min=0.0)
+    cdf = torch.cumsum(p / p.sum(dim=1, keepdim=True), dim=1)[:, :-1]
+    if cdf.shape[1] == 0:
+        return torch.full((p.shape[0],), float("inf"), dtype=torch.float64,
+                          device=p.device)
+    return (u.double()[:, None] - cdf).abs().amin(dim=1)
 
 
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-_LINEAR_ENTRY = {torch.float64: "fastmps_site_step_linear_f64",
-                 torch.float32: "fastmps_site_step_linear_f32"}
-_BORN_ENTRY = {torch.complex128: "fastmps_site_step_born_c128",
-               torch.complex64: "fastmps_site_step_born_c64"}
-_MEASURE_ENTRY = {torch.float64: "fastmps_measure_probs_f64",
-                  torch.float32: "fastmps_measure_probs_f32"}
+_F64, _F32, _BF16 = torch.float64, torch.float32, torch.bfloat16
+# C entries by the dtypes of (env, Γ) (measure: (env, W)); the bf16 tables
+# take the operands that the mxu_bf16 (fp32, fp32), store_bf16 (fp32, bf16)
+# and fp64-chain (fp64, fp64) walks hand them
+_LINEAR_ENTRY = {(_F64, _F64): "fastmps_site_step_linear_f64",
+                 (_F32, _F32): "fastmps_site_step_linear_f32"}
+_LINEAR_BF16_ENTRY = {
+    (_F32, _F32): "fastmps_site_step_linear_bf16_f32_f32",
+    (_F32, _BF16): "fastmps_site_step_linear_bf16_f32_bf16",
+    (_F64, _F64): "fastmps_site_step_linear_bf16_f64_f64"}
+_BORN_ENTRY = {(torch.complex128, torch.complex128):
+               "fastmps_site_step_born_c128",
+               (torch.complex64, torch.complex64):
+               "fastmps_site_step_born_c64"}
+_MEASURE_ENTRY = {(_F64, _F64): "fastmps_measure_probs_f64",
+                  (_F32, _F32): "fastmps_measure_probs_f32"}
+_MEASURE_BF16_ENTRY = {(_F64, _F64): "fastmps_measure_probs_bf16_f64",
+                       (_F32, _F32): "fastmps_measure_probs_bf16_f32"}
 
 
-def supported(env, entries: dict, name: str) -> str:
-    """The C entry for env's dtype; raises for a dtype the kernel lacks."""
-    if env.dtype not in entries:
-        raise TypeError(f"{name}: env dtype {env.dtype} not supported; "
-                        f"have {sorted(str(k) for k in entries)}")
-    return entries[env.dtype]
+def supported(entries: dict, name: str, *operands) -> str:
+    """The C entry for the operands' dtypes; raises for a combination the
+    kernel lacks."""
+    key = tuple(t.dtype for t in operands)
+    if key not in entries:
+        have = sorted("/".join(str(d) for d in k) for k in entries)
+        raise TypeError(f"{name}: operand dtypes "
+                        f"{'/'.join(str(d) for d in key)} not supported; "
+                        f"have {have}")
+    return entries[key]
 
 
-def _check_operands(env, gamma, lam, u, entries: dict, name: str):
-    """Validate what the kernel takes; returns (n, χl, χr, d)."""
-    supported(env, entries, name)
+def _check_operands(env, gamma, lam, u, name: str):
+    """Validate placement, contiguity and shapes (the dtypes are the
+    entry's); returns (n, χl, χr, d).  λ and u are env's real dtype."""
     rdt = real_dtype_of(env.dtype)
     _build.check_operands(name, env.device, {
-        "env": (env, env.dtype), "gamma": (gamma, env.dtype),
+        "env": (env, env.dtype), "gamma": (gamma, gamma.dtype),
         "lam": (lam, rdt), "u": (u, rdt)})
     if env.ndim != 2 or gamma.ndim != 3:
         raise ValueError(f"{name}: expected env (N, χl) and Γ (χl, χr, d); "
@@ -134,7 +239,8 @@ def _check_operands(env, gamma, lam, u, entries: dict, name: str):
 
 def _launch(entry: str, env, gamma, lam, u, scratch: list, n, chi_l, chi_r,
             d, scaling: str, name: str):
-    """Launch one site-step entry: operands, outputs, then ``scratch``."""
+    """Launch one site-step entry: operands, outputs, then ``scratch``;
+    counts the launch under ``name``."""
     dev = env.device
     env_out = torch.empty((n, chi_r), dtype=env.dtype, device=dev)
     samples = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -153,21 +259,32 @@ def _check_scaling(scaling: str, name: str) -> None:
                          "crosses row tiles); rescale outside")
 
 
-def site_step_linear(env, gamma, lam, u, scaling: str = "per_sample"):
-    """Fused linear site step: env (N, χl), Γ (χl, χr, d), Λ (χr), u (N,),
-    all fp32 or all fp64 → (env' (N, χr), samples (N,) int64, dlog (N,)).
-    ``scaling`` is ``per_sample`` or ``none``."""
-    _check_scaling(scaling, "site_step_linear")
+def site_step_linear(env, gamma, lam, u, scaling: str = "per_sample",
+                     compute_dtype=None):
+    """Fused linear site step: env (N, χl), Γ (χl, χr, d), Λ (χr), u (N,)
+    → (env' (N, χr), samples (N,) int64, dlog (N,)).  ``scaling`` is
+    ``per_sample`` or ``none``.  All fp32 or all fp64; with
+    ``compute_dtype=torch.bfloat16`` (Λ and u in env's dtype) env and Γ
+    fp32, env fp32 with a bf16 Γ, or both fp64."""
+    name = "site_step_linear"
+    _check_scaling(scaling, name)
+    check_compute_dtype(compute_dtype, name)
     if env.device.type == "cpu":
-        return site_step_linear_plain(env, gamma, lam, u, scaling=scaling)
-    n, chi_l, chi_r, d = _check_operands(env, gamma, lam, u, _LINEAR_ENTRY,
-                                         "site_step_linear")
+        return site_step_linear_plain(env, gamma, lam, u, scaling=scaling,
+                                      compute_dtype=compute_dtype)
+    if compute_dtype is None:
+        entry = supported(_LINEAR_ENTRY, name, env, gamma)
+    else:
+        entry = supported(_LINEAR_BF16_ENTRY, name + " (bf16 inputs)", env,
+                          gamma)
+        name += "_bf16"
+    n, chi_l, chi_r, d = _check_operands(env, gamma, lam, u, name)
     dev = env.device
     scratch = [torch.empty((chi_l, d), dtype=env.dtype, device=dev),   # W
                torch.empty((n,), dtype=torch.int32, device=dev),       # perm
                torch.empty((3 * d + 1,), dtype=torch.int32, device=dev)]
-    return _launch(_LINEAR_ENTRY[env.dtype], env, gamma, lam, u, scratch, n,
-                   chi_l, chi_r, d, scaling, "site_step_linear")
+    return _launch(entry, env, gamma, lam, u, scratch, n, chi_l, chi_r, d,
+                   scaling, name)
 
 
 def site_step_born(env, gamma, lam, u, scaling: str = "per_sample"):
@@ -177,30 +294,39 @@ def site_step_born(env, gamma, lam, u, scaling: str = "per_sample"):
     _check_scaling(scaling, "site_step_born")
     if env.device.type == "cpu":
         return site_step_born_plain(env, gamma, lam, u, scaling=scaling)
-    n, chi_l, chi_r, d = _check_operands(env, gamma, lam, u, _BORN_ENTRY,
-                                         "site_step_born")
+    entry = supported(_BORN_ENTRY, "site_step_born", env, gamma)
+    n, chi_l, chi_r, d = _check_operands(env, gamma, lam, u, "site_step_born")
     temp = torch.empty((n, chi_r, d), dtype=env.dtype, device=env.device)
-    return _launch(_BORN_ENTRY[env.dtype], env, gamma, lam, u, [temp], n,
-                   chi_l, chi_r, d, scaling, "site_step_born")
+    return _launch(entry, env, gamma, lam, u, [temp], n, chi_l, chi_r, d,
+                   scaling, "site_step_born")
 
 
-def measure_probs(env, w):
+def measure_probs(env, w, compute_dtype=None):
     """The tp-3 measure-first partial probs (replaces the Pallas
     ``repro/kernels/site_step.py::measure_probs``): env (N, L) · W (L, d),
-    both fp32 or both fp64 → (N, d).  One block per row sums its L terms in
-    a fixed order; bound by env's bytes."""
-    if env.device.type == "cpu":
-        return measure_first_plain(env, w)
+    both fp32 or both fp64 → (N, d) in their dtype; with
+    ``compute_dtype=torch.bfloat16`` both rounded to bf16 and summed in
+    fp32 → (N, d) fp32.  One block per row sums its L terms in a fixed
+    order; bound by env's bytes."""
     name = "measure_probs"
-    entry = supported(env, _MEASURE_ENTRY, name)
+    check_compute_dtype(compute_dtype, name)
+    if env.device.type == "cpu":
+        return measure_first_plain(env, w, compute_dtype)
+    if compute_dtype is None:
+        entry = supported(_MEASURE_ENTRY, name, env, w)
+        out_dtype = env.dtype
+    else:
+        entry = supported(_MEASURE_BF16_ENTRY, name + " (bf16 inputs)", env,
+                          w)
+        name, out_dtype = name + "_bf16", torch.float32
     _build.check_operands(name, env.device, {"env": (env, env.dtype),
-                                             "w": (w, env.dtype)})
+                                             "w": (w, w.dtype)})
     if env.ndim != 2 or w.ndim != 2 or w.shape[0] != env.shape[1]:
         raise ValueError(f"{name}: expected env (N, L) and W (L, d); got "
                          f"{tuple(env.shape)} and {tuple(w.shape)}")
     (n, chi_l), d = env.shape, w.shape[1]
     _build.check_sizes(name, d, n, chi_l, chi_l * d)
-    probs = torch.empty((n, d), dtype=env.dtype, device=env.device)
+    probs = torch.empty((n, d), dtype=out_dtype, device=env.device)
     _build.launch(entry, (env, w, probs), (n, chi_l, d), env.device, name)
     LAUNCHES[name] += 1
     return probs

@@ -19,10 +19,11 @@ them per tensor-parallel group:
       --scheme tp_single --model-parallel 2 ... --out OUT_DIR
 Every rank walks its shard; rank 0 writes the files.
 
-Flags of the JAX package's CLI that this slice does not carry (``--stream``,
-``--dynamic-bond``, ``--service*``, ``--clamp``, ``--runtime`` other than
-local, ``--precision mxu_bf16``) raise ``NotImplementedError`` naming the
-ROADMAP.md row that ports them.
+``--precision mxu_bf16`` walks the fp32 chain with bf16 GEMM inputs and
+fp32 sums, as the JAX package's CLI does.  Flags of the JAX package's CLI
+that this slice does not carry (``--stream``, ``--dynamic-bond``,
+``--service*``, ``--clamp``, ``--runtime`` other than local) raise
+``NotImplementedError`` naming the ROADMAP.md row that ports them.
 """
 from __future__ import annotations
 
@@ -93,9 +94,6 @@ def _reject_unported(args) -> None:
         raise unported("--clamp", 12, "core/clamped.py + workloads")
     if args.service or args.service_fleet or args.service_workers:
         raise unported("--service", 10, "service and cluster layers")
-    if args.precision == "mxu_bf16":
-        raise unported("--precision mxu_bf16", 7,
-                       "the compute_dtype / mxu_bf16 mode")
 
 
 def main(argv=None) -> None:
@@ -123,10 +121,11 @@ def _run(args, mesh, per_batch: int) -> None:
 
     # built in fp64 and cast, as the JAX package's CLI does
     dtype = precision.policy_dtypes(args.precision)[0]
+    compute = torch.bfloat16 if args.precision == "mxu_bf16" else None
     mps = M.gbs_like_mps(prng.key(args.seed), args.sites, args.chi, args.d,
                          dtype=torch.float64, device=device).to(dtype=dtype)
     config = api.SamplerConfig(scheme=args.scheme, backend="inmem",
-                               kernels=args.kernels,
+                               kernels=args.kernels, compute_dtype=compute,
                                micro_batch=args.micro_batch or None)
 
     # resume: macro batches already on disk are done (idempotent by id);

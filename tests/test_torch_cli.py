@@ -7,6 +7,7 @@ The JAX CLI does not turn on x64 itself, so it runs here with
 is.  Builders: ``rtol=1e-15`` (each row is normalised by a sum taken in
 another order); Λ is exact.
 """
+import json
 import os
 import subprocess
 import sys
@@ -59,14 +60,26 @@ def _cli(module: str, out: Path, *extra: str) -> None:
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
 
 
-@pytest.mark.parametrize("precision", ["fp64", "fp32"])
-def test_cli_batch_files_match_jax(tmp_path, precision):
-    _cli("repro.launch.sample", tmp_path / "jax", "--precision", precision)
+@pytest.mark.parametrize("precision,scheme", [
+    pytest.param("fp64", "dp", id="fp64"),
+    pytest.param("fp32", "dp", id="fp32"),
+    pytest.param("mxu_bf16", "dp", id="mxu_bf16-dp"),
+    pytest.param("mxu_bf16", "seq", id="mxu_bf16-seq")])
+def test_cli_batch_files_match_jax(tmp_path, precision, scheme):
+    """``--precision mxu_bf16`` casts the fp64-built chain to fp32 and walks
+    it with bf16 GEMM inputs in both CLIs.  The batch files hold the
+    samples (no log_scale); ``stats.json``'s per-site means follow them."""
+    flags = ("--precision", precision, "--scheme", scheme)
+    _cli("repro.launch.sample", tmp_path / "jax", *flags)
     _cli("repro_torch.launch.sample", tmp_path / "port", "--device", "cpu",
-         "--precision", precision)
+         *flags)
     for b in range(2):
         name = f"batch_{b:05d}.npy"
         want = np.load(tmp_path / "jax" / name)
         got = np.load(tmp_path / "port" / name)
         assert got.shape == want.shape == (32, 5)
         np.testing.assert_array_equal(got, want)
+    stats = [json.loads((tmp_path / side / "stats.json").read_text())
+             for side in ("jax", "port")]
+    for k in ("n_samples", "mean_photon_min", "mean_photon_max"):
+        assert stats[0][k] == stats[1][k], k

@@ -10,6 +10,10 @@ not need.)
 
 TF32 is turned off, so fp32 products stay full fp32.  Tolerances as
 ``tests/test_torch_site_step.py``, atol relative to the largest |env|.
+Under bf16 inputs each stage is held elementwise to its rounding bound
+(``site_step.bf16_gemm_bound``, ``site_step_bf16_bounds``: fp32 sums of
+the same bf16-exact products in two orders), and a draw may differ only
+where the uniform lies within the CDF's bound of a boundary.
 """
 import dataclasses
 
@@ -20,6 +24,8 @@ import torch
 from repro_torch import api
 from repro_torch.core import mps as M
 from repro_torch.core import prng
+from repro_torch.kernels import collapse_select as CS
+from repro_torch.kernels import contract_measure as CM
 from repro_torch.kernels import site_impls as SI
 from repro_torch.kernels import site_step as K
 
@@ -81,10 +87,9 @@ def test_kernel_matches_plain(card, semantics, real, scaling, n, chi, d):
 
 @pytest.mark.parametrize("semantics", ["linear", "born"])
 def test_session_walk_on_the_card(card, semantics):
-    gen = torch.Generator(device=card).manual_seed(0)
-    mps = (M.random_linear_mps(prng.key(0), 6, 40, 3, device=card)
-           if semantics == "linear"
-           else M.random_born_mps(6, 40, 3, generator=gen))
+    build = (M.random_linear_mps if semantics == "linear"
+             else M.random_born_mps)
+    mps = build(prng.key(0), 6, 40, 3, device=card)
     outs = {}
     for kernels in ("cuda", "torch"):
         with api.SamplingSession(mps, api.SamplerConfig(kernels=kernels),
@@ -383,3 +388,215 @@ def test_lm_prefill_runs_the_flash_kernel(card):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err.item() <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# bf16 inputs (compute_dtype): env and Γ fp32 (mxu_bf16), env fp32 with a
+# bf16 Γ (store_bf16), or both fp64
+# ---------------------------------------------------------------------------
+
+BF16_PAIRS = {"fp32+fp32": (torch.float32, torch.float32),
+              "fp32+bf16": (torch.float32, torch.bfloat16),
+              "fp64+fp64": (torch.float64, torch.float64)}
+
+
+def _bf16_operands(pair, n, chi_l, chi_r, d, device):
+    te, tg = BF16_PAIRS[pair]
+    gen = torch.Generator(device=device).manual_seed(n + 7 * chi_l + chi_r)
+    f64 = dict(generator=gen, device=device, dtype=torch.float64)
+    return (torch.rand((n, chi_l), **f64).to(te),
+            torch.rand((chi_l, chi_r, d), **f64).to(tg),
+            (torch.rand(chi_r, **f64) + 0.5).to(te),
+            torch.rand(n, **f64).to(te))
+
+
+def _within(got, want, bound):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert ((got.double() - want.double()).abs() <= bound).all(), \
+        ((got.double() - want.double()).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("n,chi,d", [(8, 4, 3), (37, 13, 5), (300, 130, 4),
+                                     (200, 256, 16)])
+@pytest.mark.parametrize("scaling", ["none", "per_sample"])
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_site_step_kernel(card, pair, scaling, n, chi, d):
+    env, gamma, lam, u = _bf16_operands(pair, n, chi, chi, d, card)
+    before = K.LAUNCHES["site_step_linear_bf16"]
+    e_k, s_k, d_k = K.site_step_linear(env, gamma, lam, u, scaling,
+                                       torch.bfloat16)
+    e_p, s_p, d_p = K.site_step_linear_plain(env, gamma, lam, u, scaling,
+                                             torch.bfloat16)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["site_step_linear_bf16"] == before + 1
+    pb, tb = K.site_step_bf16_bounds(env, gamma, lam)
+    probs = torch.einsum("nrs,r->ns", K.contract_plain(env, gamma,
+                                                       torch.bfloat16).double(),
+                         lam.double())
+    flip = (s_k != s_p).nonzero().flatten()
+    cdf_bound = 2 * pb.sum(dim=1) / probs.sum(dim=1)
+    assert (K.draw_margin(probs, u)[flip] <= cdf_bound[flip]).all()
+    keep = s_k == s_p
+    tb_s = torch.take_along_dim(tb, s_p[:, None, None], dim=2)[:, :, 0]
+    if scaling == "per_sample":       # both divided by their own row max
+        m = (torch.take_along_dim(K.contract_plain(env, gamma,
+                                                   torch.bfloat16),
+                                  s_p[:, None, None], dim=2)[:, :, 0]
+             .double().abs().amax(dim=1, keepdim=True))
+        env_bound = 2 * tb_s.amax(dim=1, keepdim=True) / m + 2.0 ** -23
+        # log10 in fp32 is within 2 ulp in each version
+        dlog_bound = (2 * tb_s.amax(dim=1) / m[:, 0]
+                      + 2.0 ** -20 * (m[:, 0].log10().abs() + 1))
+    else:
+        env_bound, dlog_bound = tb_s, torch.zeros_like(tb_s[:, 0])
+    _within(e_k[keep], e_p[keep], env_bound[keep])
+    _within(d_k[keep], d_p[keep], dlog_bound[keep])
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_tp_kernels(card, pair, n, chi_l, chi_r, d):
+    env, gamma, lam, _ = _bf16_operands(pair, n, chi_l, chi_r, d, card)
+    bf = torch.bfloat16
+    before = {**CM.LAUNCHES, **CS.LAUNCHES, **K.LAUNCHES}
+    t_k, p_k = CM.contract_measure(env, gamma, lam, bf)
+    t_p, p_p = CM.contract_measure_plain(env, gamma, lam, bf)
+    tb = K.bf16_gemm_bound(env, gamma.reshape(chi_l, chi_r * d)).reshape(
+        n, chi_r, d)
+    _within(t_k, t_p, tb)
+    eps = 2.0 ** -24 if env.dtype == torch.float32 else 2.0 ** -53
+    _within(p_k, p_p, torch.einsum(
+        "nrs,r->ns", tb + 2 * chi_r * eps * t_p.double().abs(),
+        lam.double()))
+    gen = torch.Generator(device=card).manual_seed(n)
+    samples = torch.randint(0, d, (n,), generator=gen, device=card)
+    samples[0] = -1 if n > 1 else samples[0]
+    o_k = CS.collapse_select(env, gamma, samples, bf)
+    o_p = CS.collapse_select_plain(env, gamma, samples, bf)
+    _within(o_k, o_p, torch.take_along_dim(
+        tb, samples.clamp(0, d - 1)[:, None, None], dim=2)[:, :, 0])
+    if gamma.dtype == env.dtype:
+        w = torch.rand((chi_l, d), generator=gen, device=card,
+                       dtype=torch.float64).to(env.dtype)
+        _within(K.measure_probs(env, w, bf), K.measure_first_plain(env, w, bf),
+                K.bf16_gemm_bound(env, w))
+    torch.cuda.synchronize()
+    after = {**CM.LAUNCHES, **CS.LAUNCHES, **K.LAUNCHES}
+    for name in ("contract_measure_bf16", "collapse_select_bf16"):
+        assert after[name] == before[name] + 1, name
+    assert after["measure_probs_bf16"] == before["measure_probs_bf16"] + int(
+        gamma.dtype == env.dtype)
+
+
+def test_bf16_kernels_round_fp64_through_fp32(card):
+    """1 + 2⁻⁸ + 2⁻⁴⁰ rounds to fp32's tie 1 + 2⁻⁸ and then to 1.0 (even),
+    as torch and XLA round it; one rounding would give 1.0078125."""
+    x = torch.full((4, 16), 1 + 2 ** -8 + 2 ** -40, dtype=torch.float64,
+                   device=card)
+    ones = torch.ones((16, 16, 2), dtype=torch.float64, device=card)
+    lam = torch.ones(16, dtype=torch.float64, device=card)
+    temp, _ = CM.contract_measure(x, ones, lam, torch.bfloat16)
+    assert (temp == 16.0).all()
+    probs = K.measure_probs(x, ones[:, :, 0].contiguous(), torch.bfloat16)
+    assert (probs == 16.0).all()
+
+
+@pytest.mark.parametrize("tier", ["mxu_bf16", "store_bf16"])
+@pytest.mark.parametrize("scheme", ["seq", "tp_single", "tp_single_mf"])
+def test_bf16_walks_on_the_card(card, tier, scheme, tmp_path):
+    """Each tier's walk with the kernels, site by site, against the plain
+    cells run from the kernel walk's own env: the same samples.  (Left to
+    run on their own, the two walks' envs differ in the last fp32 bits, and
+    where that moves a bf16 rounding of env the later draws may differ.)
+    The session walk launches each kernel once a site and draws the kernel
+    walk's samples."""
+    import torch.distributed as dist
+
+    from repro_torch.core import parallel as PP
+    from repro_torch.core import sampler as S
+    from repro_torch.core.mps import MPS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    bf, n, sites = torch.bfloat16, 256, 6
+    mps = M.random_linear_mps(prng.key(1), sites, 64, 3, dtype=torch.float32,
+                              device=card)
+    if tier == "store_bf16":
+        mps = mps.to(dtype=bf)
+    key, tp = prng.key(3), scheme != "seq"
+    pc = PP.ParallelConfig(scheme="tp_single",
+                           measure_first=scheme.endswith("_mf"))
+    if tp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, card) if tp else None
+        ops.reset_launches()
+        cfg = api.SamplerConfig(kernels="cuda", scheme="tp_single" if tp
+                                else "seq", measure_first=pc.measure_first,
+                                compute_dtype=bf)
+        with api.SamplingSession(mps, cfg, device=card, mesh=mesh) as s:
+            walked = s.sample(n, key)
+        counts = ops.launch_counts()
+        names = (("site_step_linear",) if not tp else
+                 ("measure_probs", "collapse_select") if pc.measure_first
+                 else ("contract_measure",))
+        assert {k: counts[k + "_bf16"] for k in names} == dict.fromkeys(
+            names, sites)
+
+        def step(kernels, env, ls, i):
+            c = S.SamplerConfig(kernels=kernels, compute_dtype=bf)
+            if not tp:
+                st, (smp, _) = S.site_step(
+                    S.SamplerState(env, key, ls),
+                    (mps.gammas[i], mps.lambdas[i], i), c)
+                return smp, st.env, st.log_scale
+            smp, env, ls = PP.sample_segment(
+                mesh, MPS(mps.gammas[i:i + 1], mps.lambdas[i:i + 1]), env,
+                key, i, pc, c, log_scale=ls)
+            return smp[0], env, ls
+
+        env = PP.segment_env_init(n, 64, mps.gammas.dtype, card)
+        ls = torch.zeros(n, device=card)
+        drawn = []
+        for i in range(sites):
+            s_p = step("torch", env, ls, i)[0]
+            s_k, env, ls = step("cuda", env, ls, i)
+            np.testing.assert_array_equal(s_k.cpu().numpy(),
+                                          s_p.cpu().numpy())
+            drawn.append(s_k)
+        np.testing.assert_array_equal(torch.stack(drawn).T.cpu().numpy(),
+                                      walked)
+    finally:
+        if tp:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("tier", ["mxu_bf16", "store_bf16"])
+def test_bf16_tp_double_is_tp_single_on_one_rank(card, tier, tmp_path):
+    """On a 1 × 1 mesh tp_double's half-sites are tp_single's sites (the
+    collectives copy), so its kernel walk repeats tp_single's bit for bit,
+    with ``contract_measure``'s bf16 entry launched once a site."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    mps = M.random_linear_mps(prng.key(2), 6, 64, 3, dtype=torch.float32,
+                              device=card)
+    if tier == "store_bf16":
+        mps = mps.to(dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh, outs = make_mesh(1, card), {}
+        for scheme in ("tp_single", "tp_double"):
+            ops.reset_launches()
+            cfg = api.SamplerConfig(kernels="cuda", scheme=scheme,
+                                    compute_dtype=torch.bfloat16)
+            with api.SamplingSession(mps, cfg, mesh=mesh) as s:
+                outs[scheme] = s.sample(256, prng.key(4))
+            assert ops.launch_counts()["contract_measure_bf16"] == 6
+        np.testing.assert_array_equal(outs["tp_double"], outs["tp_single"])
+    finally:
+        dist.destroy_process_group()

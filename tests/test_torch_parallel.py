@@ -10,9 +10,17 @@ carried across as numpy) and run the cases of ``CASES``.  The two jobs run
 at the same time; each has its own timeout, so a hung collective fails this
 module and nothing else.
 
+The bf16 tiers run on the same chains cast as they store them: ``mxu_bf16``
+on the chain in fp32, ``store_bf16`` on its Γ in bf16 (carried as uint16
+bits) with Λ in fp32, both with ``compute_dtype`` bf16, under every scheme
+and in [19] (which ignores ``compute_dtype`` and walks in Γ's dtype, in
+both packages).
+
 Samples must be equal.  Env and ``log_scale`` (``sample_segment`` cases)
 agree to ``rtol=1e-12, atol=1e-14`` in fp64: the contractions and the
-collectives sum in other orders in the two packages.
+collectives sum in other orders in the two packages; under bf16 inputs,
+within 1e-5 (env is at most 1 after the per-sample rescale; the fp32 sums
+of the same bf16-exact products differ in order).
 """
 import json
 import os
@@ -22,6 +30,7 @@ import textwrap
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -30,6 +39,7 @@ from repro.core import mps as JM
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 150
 TOL = dict(rtol=1e-12, atol=1e-14)
+BF16_TOL = dict(rtol=0, atol=1e-5)
 
 # name → what to run; both sides read these (see _JAX_CHILD and _PORT_RANK)
 CASES = {}
@@ -60,6 +70,22 @@ CASES["baseline19-linear-ring4"] = dict(mesh="ring4", chain="ring",
                                         scheme="baseline19")
 CASES["baseline19-born-ring4"] = dict(mesh="ring4", chain="born",
                                       scheme="baseline19")
+# the bf16 tiers: (chain, ring chain) as each stores the linear chains
+TIERS = {"mxu_bf16": ("linear32", "ring32"),
+         "store_bf16": ("linear_bf16", "ring_bf16")}
+for _tier, (_chain, _ring) in TIERS.items():
+    for _mesh in ("2x2", "1x4"):
+        for _scheme in ("dp", "tp_single", "tp_single_mf", "tp_double"):
+            CASES[f"{_scheme}-{_tier}-{_mesh}"] = dict(
+                mesh=_mesh, chain=_chain, scheme=_scheme, compute=True)
+    CASES[f"segment-tp_single-{_tier}-2x2"] = dict(
+        mesh="2x2", chain=_chain, scheme="tp_single", segment=True,
+        compute=True)
+    CASES[f"baseline19-{_tier}-ring4"] = dict(
+        mesh="ring4", chain=_ring, scheme="baseline19", compute=True)
+CASES["tp_single_mf-store_bf16-micro8-1x4"] = dict(
+    mesh="1x4", chain="linear_bf16", scheme="tp_single_mf", micro=8,
+    compute=True)
 
 _COMMON = """
 import json, sys
@@ -67,7 +93,12 @@ import numpy as np
 work = sys.argv[1]
 cases = json.load(open(work + "/cases.json"))
 arrays = np.load(work + "/chains.npz")
-N = {"linear": 64, "born": 32, "ring": 60}
+N = {"linear": 64, "born": 32, "ring": 60, "linear32": 64,
+     "linear_bf16": 64}
+CHAINS = {"linear": "linear", "born": "born", "ring": "linear",
+          "linear32": "linear", "linear_bf16": "linear", "ring32": "linear",
+          "ring_bf16": "linear"}
+BF16_BITS = ("linear_bf16", "ring_bf16")   # Γ stored as uint16 bits
 SPLIT = 2                               # segment cases: [0, 2) then [2, M)
 out = {}
 """
@@ -86,15 +117,18 @@ _JAX_CHILD = _COMMON + textwrap.dedent("""
     meshes = {"2x2": Mesh(devs.reshape(2, 2), ("data", "model")),
               "1x4": Mesh(devs.reshape(1, 4), ("data", "model")),
               "ring4": Mesh(devs, ("data",))}
-    chains = {c: MPS(jnp.asarray(arrays[c + "_g"]),
-                     jnp.asarray(arrays[c + "_l"]),
-                     "born" if c == "born" else "linear")
-              for c in ("linear", "born", "ring")}
+    import ml_dtypes
+    chains = {c: MPS(jnp.asarray(arrays[c + "_g"].view(ml_dtypes.bfloat16)
+                                 if c in BF16_BITS else arrays[c + "_g"]),
+                     jnp.asarray(arrays[c + "_l"]), sem)
+              for c, sem in CHAINS.items()}
     key = jax.random.key(7)
     for name, c in cases.items():
         mesh, mps = meshes[c["mesh"]], chains[c["chain"]]
         cfg = S.SamplerConfig(semantics=mps.semantics, kernels="xla",
-                              scaling=c.get("scaling", "per_sample"))
+                              scaling=c.get("scaling", "per_sample"),
+                              compute_dtype=jnp.bfloat16 if c.get("compute")
+                              else None)
         n = N[c["chain"]] if c["scheme"] != "baseline19" else N["ring"]
         if c["scheme"] == "baseline19":
             out[name + "/samples"] = PP._baseline19_sample(
@@ -118,7 +152,9 @@ _JAX_CHILD = _COMMON + textwrap.dedent("""
             out[f"{name}/samples{s0}"] = smp
             out[f"{name}/env{s0}"] = env
             out[f"{name}/log_scale{s0}"] = ls
-    np.savez(work + "/jax.npz", **{k: np.asarray(v) for k, v in out.items()})
+    np.savez(work + "/jax.npz",
+             **{k: np.asarray(v.astype(jnp.float32) if v.dtype == jnp.bfloat16
+                              else v) for k, v in out.items()})
 """)
 
 _PORT_RANK = _COMMON + textwrap.dedent("""
@@ -134,15 +170,18 @@ _PORT_RANK = _COMMON + textwrap.dedent("""
 
     meshes = {"2x2": make_mesh(2, "cpu"), "1x4": make_mesh(4, "cpu"),
               "ring4": device_mesh((4,), ("data",), "cpu")}
-    chains = {c: mps_from_arrays(arrays[c + "_g"], arrays[c + "_l"],
-                                 "born" if c == "born" else "linear",
-                                 device="cpu")
-              for c in ("linear", "born", "ring")}
+    chains = {c: mps_from_arrays(arrays[c + "_g"], arrays[c + "_l"], sem,
+                                 device="cpu",
+                                 gammas_view_as=torch.bfloat16
+                                 if c in BF16_BITS else None)
+              for c, sem in CHAINS.items()}
     key = prng.key(7)
     for name, c in cases.items():
         mesh, mps = meshes[c["mesh"]], chains[c["chain"]]
         cfg = S.SamplerConfig(semantics=mps.semantics, kernels="torch",
-                              scaling=c.get("scaling", "per_sample"))
+                              scaling=c.get("scaling", "per_sample"),
+                              compute_dtype=torch.bfloat16 if c.get("compute")
+                              else None)
         n = N[c["chain"]] if c["scheme"] != "baseline19" else N["ring"]
         if c["scheme"] == "baseline19":
             out[name + "/samples"] = PP._baseline19_sample(
@@ -167,7 +206,8 @@ _PORT_RANK = _COMMON + textwrap.dedent("""
             out[f"{name}/env{s0}"] = env
             out[f"{name}/log_scale{s0}"] = ls
     np.savez(f"{work}/port{rank}.npz",
-             **{k: v.numpy() for k, v in out.items()})
+             **{k: v.float().numpy() if v.dtype == torch.bfloat16
+                else v.numpy() for k, v in out.items()})
     dist.destroy_process_group()
 """)
 
@@ -198,10 +238,17 @@ def results(tmp_path_factory):
     chains = {"linear": JM.random_linear_mps(jax.random.key(0), 6, 8, 3),
               "born": JM.random_born_mps(jax.random.key(2), 4, 8, 2),
               "ring": JM.random_linear_mps(jax.random.key(1), 4, 8, 3)}
-    np.savez(work / "chains.npz",
-             **{f"{c}_{part}": np.asarray(getattr(m, attr))
-                for c, m in chains.items()
-                for part, attr in (("g", "gammas"), ("l", "lambdas"))})
+    arrays = {f"{c}_{part}": np.asarray(getattr(m, attr))
+              for c, m in chains.items()
+              for part, attr in (("g", "gammas"), ("l", "lambdas"))}
+    for c in ("linear", "ring"):         # the tiers' storage of each chain
+        g, lam = arrays[c + "_g"], arrays[c + "_l"].astype(np.float32)
+        arrays.update({c + "32_g": g.astype(np.float32), c + "32_l": lam,
+                       c + "_bf16_g": np.asarray(
+                           jnp.asarray(g).astype(jnp.bfloat16)).view(
+                               np.uint16),
+                       c + "_bf16_l": lam})
+    np.savez(work / "chains.npz", **arrays)
     (work / "cases.json").write_text(json.dumps(CASES))
     procs = [("the JAX reference", _spawn(_JAX_CHILD, work))]
     procs += [(f"port rank {r}", _spawn(_PORT_RANK, work, str(r)))
@@ -217,23 +264,28 @@ def test_port_matches_jax(results, case):
     want, got = results[0], results[1][0]
     keys = sorted(k for k in want if k.startswith(case + "/"))
     assert keys and keys == sorted(k for k in got if k.startswith(case + "/"))
+    tol = BF16_TOL if CASES[case].get("compute") else TOL
     for k in keys:
         if "/samples" in k:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         else:
-            np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
 
 
 def test_schemes_draw_alike(results):
     """§4.1 within the port: dp, tp_single (with and without measure-first)
-    and tp_double give the same samples on one mesh and seed."""
+    and tp_double give the same samples on one mesh and seed.  Under bf16
+    inputs measure-first draws from bf16(env)·bf16(W), rounding W as the
+    JAX package's measure cell does, so its probabilities differ from dp's
+    by that rounding and its draws are held to the JAX package's alone."""
     got = results[1][0]
-    for chain in ("linear", "born"):
+    for chain in ("linear", "born", *TIERS):
         for mesh in ("2x2", "1x4"):
             dp = got[f"dp-{chain}-{mesh}/samples"]
             for scheme in ("tp_single", "tp_single_mf", "tp_double"):
                 k = f"{scheme}-{chain}-{mesh}/samples"
-                if k in got:
+                if k in got and not (chain in TIERS
+                                     and scheme == "tp_single_mf"):
                     np.testing.assert_array_equal(got[k], dp, err_msg=k)
 
 

@@ -108,12 +108,11 @@ def test_resume_from_site_3_is_the_uninterrupted_walk(request, fixture):
 def test_random_builders_structure():
     """The port's builders keep the JAX builders' invariants: stochastic
     linear rows, right-canonical Born sites, a vacuum boost at the edges."""
-    gen = torch.Generator().manual_seed(0)
     lin = M.random_linear_mps(prng.key(0), 3, 5, 2, device="cpu")
     np.testing.assert_allclose(lin.gammas.sum(dim=(2, 3)).numpy(), 1.0,
                                rtol=1e-12)
     assert (lin.lambdas >= 1).all() and (lin.lambdas < 2).all()
-    born = M.random_born_mps(3, 5, 2, generator=gen)
+    born = M.random_born_mps(prng.key(0), 3, 5, 2, device="cpu")
     for g in born.gammas:
         a = g.reshape(5, 10)
         np.testing.assert_allclose((a @ a.conj().T).numpy(), np.eye(5),

@@ -7,7 +7,9 @@ at the one shape the Pallas kernels' blocks need.
 
 Tolerance: ``rtol=1e-12, atol=1e-14`` in fp64 and ``rtol=1e-5, atol=1e-6``
 in fp32, atol relative to the largest magnitude — the packages sum in other
-orders.  Samples and zero rows are exact.
+orders; under bf16 inputs (``compute_dtype``), within 1e-5 of the largest
+magnitude (fp32 sums of the same bf16-exact products).  Samples and zero
+rows are exact.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +170,40 @@ def test_oracles_and_ops_match_jax(prec):
         ops.contract_measure(_t(env), _t(gamma), _t(lam), kernels="cuda")
     with pytest.raises(ValueError, match="cuda"):
         ops.collapse_rescale(_t(env), _t(gamma), _t(samples), kernels="cuda")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("gamma_dtype", ["fp32", "bf16", "fp64"])
+def test_bf16_stages_on_bond_shards_match_xla(gamma_dtype, shape):
+    """The three TP stages under ``compute_dtype=bf16`` on ragged shards:
+    an fp32 env beside an fp32 Γ (mxu_bf16) or a bf16 Γ (store_bf16), or
+    an fp64 env and Γ; the stage output dtypes are the JAX cells'."""
+    prec = "fp64" if gamma_dtype == "fp64" else "fp32"
+    env, gamma, lam, samples = _operands(prec, *shape, seed=7)
+    w = np.random.default_rng(2).uniform(size=(shape[1], shape[3])).astype(
+        np.float32)
+    e, g, l_ = jnp.asarray(env), jnp.asarray(gamma), jnp.asarray(lam)
+    te, tg = _t(env), _t(gamma)
+    if gamma_dtype == "bf16":
+        g = g.astype(jnp.bfloat16)
+        tg = tg.to(torch.bfloat16)
+    bf, tbf = jnp.bfloat16, torch.bfloat16
+    pairs = [
+        (get_site_op("contract_measure", "linear", "torch")(
+            te, tg, _t(lam), semantics="linear", compute_dtype=tbf),
+         jax_impls.contract_measure_xla(e, g, l_, semantics="linear",
+                                        compute_dtype=bf)),
+        ((site_impls.measure_torch(te, _t(w), compute_dtype=tbf),),
+         (jax_impls.measure_xla(e, jnp.asarray(w), compute_dtype=bf),)),
+        ((site_impls.collapse_torch(te, tg, _t(samples),
+                                    compute_dtype=tbf),),
+         (jax_impls.collapse_xla(e, g, jnp.asarray(samples),
+                                 compute_dtype=bf),))]
+    for gots, wants in pairs:
+        for got, want in zip(gots, wants):
+            want = np.asarray(want)
+            assert got.numpy().dtype == want.dtype
+            scale = max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(got.double().numpy() / scale,
+                                       want.astype(np.float64) / scale,
+                                       rtol=0, atol=1e-5)
