@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one ``nvcc`` per source, all at once); print each kernel's
               registers and spill bytes (``-Xptxas -v``) and the tensor-core
-              instructions (``cuobjdump -sass``) of the bf16 flash and fp64
-              contract kernels, which must have them;
+              instructions (``cuobjdump -sass``) of the bf16 tiles and the
+              fp64 and complex128 DMMA GEMMs, which must have them and
+              spill nothing;
 3. small    — each kernel against its plain PyTorch version on awkward
               shapes, fp32/fp64, linear/Born, every scaling mode; the
               threefry uniforms on the card equal the CPU's bit for bit;
@@ -30,8 +31,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               log_scale allclose) and for its launches (M per kernel);
 6. tp kernels — contract_measure, measure_probs and collapse_select called
               at the bond-shard shapes of p₂ = 4 (N = 1024), against their
-              plain versions, with times and bounds, and the card's SM
-              clock, power and temperature while contract_measure runs;
+              plain versions, with times and bounds (measure_probs, fp64
+              and bf16, by its kernel's device time from torch.profiler:
+              CUDA events around a call this short time the host's launch),
+              and the card's SM clock, power and temperature while
+              contract_measure runs;
 7. bf16     — phase 4's chain cast to fp32 (``mxu_bf16``) and to bf16 Γ
               with fp32 Λ (``store_bf16``), walked through the session with
               ``compute_dtype=bf16`` (``site_step_linear``'s bf16 entry
@@ -42,7 +46,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               both tiers, with times, bounds and ``torch.matmul`` on the
               bf16 operands as the library yardstick;
 8. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
-              then a Born tp_double walk on the mesh against the dp walk;
+              with the site step's TFLOP/s beside cuBLAS's and the card's
+              SM clock and power while each runs; then a Born tp_double
+              walk on the mesh against the dp walk;
 9. displacement — ``ops.displacement_matrices`` (the main path of the
               displacement kernel) on B = 2²⁰ μ's with |μ| ≤ 1.5 and μ = 0,
               d ∈ {4 (jiuzhang2's cutoff), 16}, fp64 and fp32, against the
@@ -153,7 +159,9 @@ TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": "HMMA",
                        "tc_contract_kernel": "HMMA",
                        "tc_collapse_kernel": "HMMA",
                        "contract_f64_kernel<0>": "DMMA",
-                       "contract_f64_kernel<1>": "DMMA"}
+                       "contract_f64_kernel<1>": "DMMA",
+                       "contract_c128_kernel<0>": "DMMA",
+                       "contract_c128_kernel<1>": "DMMA"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -259,24 +267,62 @@ def device_state(fn, seconds: float = 1.0) -> dict:
     return dict(zip(("sm_mhz", "power_w", "temp_c"), cols))
 
 
-def device_breakdown(fn) -> dict:
-    """[device ms, launches] per CUDA kernel in one call (torch.profiler)."""
+def kernel_name(raw: str) -> str:
+    """A CUDA kernel's name as the profiler gives it, without ``void``, the
+    anonymous namespace and the parameter list: the function and its
+    template arguments, which may hold parentheses of their own
+    (``probs_draw_kernel<double, ((anonymous namespace)::Measure)2>``)."""
+    name = raw.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def device_breakdown(fn, expect: int | None = None, reps: int = 5) -> dict:
+    """{kernel: [device ms, launches]} of one call of ``fn``, from
+    torch.profiler over ``reps`` calls in one window after a warm-up call.
+    Late in a long process the profiler has left launches out of a window
+    (a call's first kernel or two, one launch of twenty; a spin kernel of
+    up to 200 ms before the calls did not stop it), so a kernel's time is
+    the mean over its launches listed, and its launches a call their count
+    over ``reps``, rounded; each launch left out is printed.  ``expect``:
+    the repo's own kernels a call (all but PyTorch's ``at::`` ones)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.events():            # the device-side kernel records
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.name.replace("void ", "").replace(
-            "(anonymous namespace)::", "").split("(")[0]
-        ms, count = out.get(name, (0.0, 0))
-        out[name] = [ms + ev.time_range.elapsed_us() / 1e3, count + 1]
-    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+    times: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            times.setdefault(kernel_name(ev.name), []).append(
+                ev.time_range.elapsed_us() / 1e3)
+    out = {k: [statistics.fmean(v), round(len(v) / reps)]
+           for k, v in times.items()}
+    missing = sum(max(0, c * reps - len(times[k])) for k, (_, c) in out.items())
+    if missing:
+        print(f"torch.profiler left out {missing} of the kernel launches of "
+              f"{reps} calls", flush=True)
+    if expect is not None:
+        ours = sum(c for k, (_, c) in out.items() if not k.startswith("at::"))
+        check(ours == expect, f"the profiler lists {ours} of the call's "
+              f"{expect} kernels: {sorted(out)}")
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0] * kv[1][1]))
+
+
+def device_time_ms(fn, reps: int = 20, kernels: int | None = None) -> float:
+    """Device time of one call: its kernels' durations (``device_breakdown``
+    over ``reps`` calls; ``kernels``: the repo's own a call).  For calls
+    whose kernels finish sooner than the host launches them, where CUDA
+    events around the call time the host."""
+    return sum(ms * c for ms, c in device_breakdown(fn, kernels, reps)
+               .values())
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +358,8 @@ def phase_build() -> dict:
     print(f"tensor-core instructions (cuobjdump -sass): {json.dumps(mma)}")
     for fn, op in TENSOR_CORE_KERNELS.items():
         check(mma.get(fn, {}).get(op, 0) > 0, f"{fn} has no {op} instruction")
+        spills = ptxas.get(fn, {}).get("spill_stores", 0)
+        check(spills == 0, f"{fn} spills {spills} bytes")
     _phase("build", t0)
     return ptxas
 
@@ -451,14 +499,17 @@ def phase_full(device, semantics: str):
     plain_fn = K.site_step_linear_plain if linear else K.site_step_born_plain
     err = compare(f"{semantics} full width site", wrapper(env, gamma, lam, u),
                   plain_fn(env, gamma, lam, u))
-    reps = 5 if linear else 3
+    reps = 5
     ms = time_ms(lambda: wrapper(env, gamma, lam, u), reps)
     plain_ms = time_ms(lambda: plain_fn(env, gamma, lam, u), reps)
     g2 = gamma.reshape(CHI, CHI * D)
     library_ms = time_ms(lambda: torch.matmul(env, g2), reps)
+    # linear: W pass, probs and draw, bucket sort, collapse, rescale; Born:
+    # contraction, probs and draw, gather, rescale
+    parts = device_breakdown(lambda: wrapper(env, gamma, lam, u),
+                             5 if linear else 4)
     print(f"{semantics}: device ms by kernel in one {name} call "
-          f"(torch.profiler): "
-          f"{json.dumps(device_breakdown(lambda: wrapper(env, gamma, lam, u)))}")
+          f"(torch.profiler): {json.dumps(parts)}")
 
     el = env.element_size()
     moved = (env.numel() * el + gamma.numel() * el + lam.numel() * 8
@@ -486,6 +537,26 @@ def phase_full(device, semantics: str):
           f"library_ms={library_ms:.3f} bound_ms={entry['bound_ms']:.3f} "
           f"({entry['bound_by']}: {moved / 1e9:.3f} GB, "
           f"{flops / 1e12:.4f} TFLOP)")
+    if not linear:
+        # the contraction's share of the step, from the profiler's kernels
+        gemm = sum(ms * c for k, (ms, c) in parts.items()
+                   if k.startswith("contract_c128_kernel"))
+        ours = sum(ms * c for k, (ms, c) in parts.items()
+                   if not k.startswith("at::"))
+        check(gemm > 0, "born: the profiler lists no contract_c128_kernel")
+        entry.update(
+            tflops=flops / ms / 1e9, library_tflops=flops / library_ms / 1e9,
+            of_bound=entry["bound_ms"] / ms, gemm_share=gemm / ours,
+            parts=parts,
+            device_state=device_state(lambda: wrapper(env, gamma, lam, u)),
+            library_device_state=device_state(lambda: torch.matmul(env, g2)))
+        print(f"born: {entry['tflops']:.2f} TFLOP/s (cuBLAS's complex "
+              f"matmul {entry['library_tflops']:.2f} in {library_ms:.3f} ms),"
+              f" {entry['of_bound']:.1%} of the {entry['bound_ms']:.3f} ms "
+              f"bound; the contraction {gemm:.3f} of {ours:.3f} device ms "
+              f"({entry['gemm_share']:.1%}); card while kernel and library "
+              f"run {json.dumps(entry['device_state'])}, "
+              f"{json.dumps(entry['library_device_state'])}", flush=True)
     del kern, plain, gamma, lam, u, g2
     torch.cuda.empty_cache()
     _phase(semantics, t0)
@@ -587,8 +658,25 @@ def phase_tp(mesh, mps) -> dict:
     return walks
 
 
-def _kernel_numbers(name, kernel, plain, library, moved, flops, reps=5):
-    """Kernel vs plain on the same inputs; times (CUDA events) and bound."""
+def _device_times(name, out, kernel, plain, library, reps) -> None:
+    """Replace ``out``'s CUDA-event times of kernel, plain and library by
+    their device times (``device_time_ms``; the kernel one launch a call),
+    kept beside them as ``events_*``."""
+    for k in ("ms", "plain_ms", "library_ms"):
+        out["events_" + k] = out[k]
+    out.update(ms=device_time_ms(kernel, reps, 1),
+               plain_ms=device_time_ms(plain, reps),
+               library_ms=device_time_ms(library, reps))
+    print(f"{name}: CUDA-event times (host launch included) "
+          f"ms={out['events_ms']:.4f} plain_ms={out['events_plain_ms']:.4f} "
+          f"library_ms={out['events_library_ms']:.4f}; device times follow",
+          flush=True)
+
+
+def _kernel_numbers(name, kernel, plain, library, moved, flops, reps=5,
+                    device=False):
+    """Kernel vs plain on the same inputs; times (CUDA events, or with
+    ``device`` ``_device_times``) and bound."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -608,6 +696,8 @@ def _kernel_numbers(name, kernel, plain, library, moved, flops, reps=5):
            "library_ms": time_ms(library, reps),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if device:
+        _device_times(name, out, kernel, plain, library, reps)
     print(f"{name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
           f"library_ms={out['library_ms']:.3f} bound_ms={out['bound_ms']:.3f}"
           f" ({out['bound_by']}: {moved / 1e9:.3f} GB, {flops / 1e12:.4f} "
@@ -665,10 +755,14 @@ def phase_tp_kernels(device, mps, env, walks) -> list:
 
     w = CS.measure_weights(g_left.to(torch.float32), lam.to(torch.float32)
                            ).to(torch.float64)      # as the walk builds W
+    moved = (n * shard + shard * D + n * D) * w8
     nums = _kernel_numbers(
         f"measure_probs {shard}", lambda: K.measure_probs(env_s, w),
         lambda: K.measure_first_plain(env_s, w), lambda: env_s @ w,
-        (n * shard + shard * D + n * D) * w8, 2 * n * shard * D)
+        moved, 2 * n * shard * D, reps=20, device=True)
+    print(f"measure_probs {shard}: {moved / nums['ms'] / 1e6:.1f} GB/s "
+          f"(library {moved / nums['library_ms'] / 1e6:.1f}), "
+          f"{nums['bound_ms'] / nums['ms']:.1%} of the bound", flush=True)
     mf = walks["tp_single+measure_first"]["launches"]
     entries.append(dict(nums, name="measure_probs", route="cuda",
                         source="src/repro_torch/kernels/csrc/site_step.cu",
@@ -837,11 +931,12 @@ def _bf16_lockstep(label, mps, n, ukey, run, seg, weights=None) -> dict:
 
 
 def _bf16_numbers(name, kernel, plain, library, checked, moved, flops,
-                  reps=5):
+                  reps=5, device=False):
     """A bf16-input kernel against its plain version on the same inputs:
     ``checked`` is [(kernel output, plain output, elementwise rounding
-    bound)]; times of kernel, plain and library, and the bound (bytes at
-    the HBM rate, operations at the bf16 tensor-core peak)."""
+    bound)]; times of kernel, plain and library (``device``: as
+    ``_kernel_numbers``), and the bound (bytes at the HBM rate, operations
+    at the bf16 tensor-core peak)."""
     err = excess = 0.0
     for g, w, b in checked:
         check(g.dtype == w.dtype and g.shape == w.shape,
@@ -861,6 +956,8 @@ def _bf16_numbers(name, kernel, plain, library, checked, moved, flops,
            "library_out_dtype": str(lib_out.dtype),
            "bound_ms": bound_ms, "bound_by": bound_by}
     del lib_out
+    if device:
+        _device_times(name, out, kernel, plain, library, reps)
     print(f"{name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
           f"library_ms={out['library_ms']:.3f} ({out['library_out_dtype']} "
           f"out) bound_ms={bound_ms:.3f} ({bound_by}: {moved / 1e9:.3f} GB, "
@@ -1011,7 +1108,8 @@ def phase_bf16(device, mesh, mps64) -> list:
             4 * (2 * n * CHI + CHI + 3 * n) + wg * CHI * CHI * D,
             2 * CHI * CHI * D + 2 * n * CHI * D + 2 * n * CHI * CHI)
         parts = device_breakdown(
-            lambda: K.site_step_linear(env, gamma, lam, u, compute_dtype=bf))
+            lambda: K.site_step_linear(env, gamma, lam, u, compute_dtype=bf),
+            5)
         print(f"bf16 {tier}: device ms by kernel in one site_step_linear "
               f"bf16 call (torch.profiler): {json.dumps(parts)}", flush=True)
         rows["site_step_linear_bf16"].append(dict(
@@ -1075,6 +1173,7 @@ def phase_bf16(device, mesh, mps64) -> list:
         if tier == "mxu_bf16":          # W is fp32 in both tiers
             w = CS.measure_weights(g_left.float(), lam.float())
             eb, wb = env_s.to(bf), w.to(bf)
+            moved = 4 * (n * shard + shard * D + n * D)
             row = _bf16_numbers(
                 f"bf16 measure_probs {shard}",
                 lambda: K.measure_probs(env_s, w, bf),
@@ -1083,7 +1182,11 @@ def phase_bf16(device, mesh, mps64) -> list:
                 [(K.measure_probs(env_s, w, bf),
                   K.measure_first_plain(env_s, w, bf),
                   K.bf16_gemm_bound(env_s, w))],
-                4 * (n * shard + shard * D + n * D), 2 * n * shard * D)
+                moved, 2 * n * shard * D, reps=20, device=True)
+            print(f"bf16 measure_probs {shard}: "
+                  f"{moved / row['ms'] / 1e6:.1f} GB/s, "
+                  f"{row['bound_ms'] / row['ms']:.1%} of the bound",
+                  flush=True)
             rows["measure_probs_bf16"].append(dict(
                 row, tier="both", shape={"n": n, "L": shard, "d": D}))
             del eb, wb, w
@@ -1405,8 +1508,8 @@ def phase_lm(device) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - tw) * 1e3)
     step_ms = statistics.median(walls[1:])
-    kernels = device_breakdown(one)
-    device_ms = sum(v[0] for v in kernels.values())
+    kernels = device_breakdown(one, reps=1)
+    device_ms = sum(ms * c for ms, c in kernels.values())
     n_kernels = sum(v[1] for v in kernels.values())
     top = dict(list(kernels.items())[:4])
     print(f"lm: serve again (warm) in {warm_s:.3f} s ({total / warm_s:.1f} "
@@ -1481,7 +1584,10 @@ def main() -> int:
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
                  lm=lm)
     phase_cli()
-    for entry, prefix in ((tp_entries[0], "contract_f64_kernel"),
+    for entry, prefix in ((born, "contract_c128_kernel"),
+                          (tp_entries[0], "contract_f64_kernel"),
+                          (tp_entries[1], "measure_probs_kernel"),
+                          (bf16_entries[2], "measure_probs_kernel"),
                           (bf16_entries[0], "tc_collapse_kernel"),
                           (bf16_entries[1], "tc_contract_kernel"),
                           (bf16_entries[3], "tc_collapse_kernel"),

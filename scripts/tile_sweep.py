@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Tile sweep of the two tensor-core kernels, on one GPU.
+"""Tile sweep of the tensor-core kernels, on one GPU.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
-    python3 scripts/tile_sweep.py
+    python3 scripts/tile_sweep.py [--only flash dmma c128 measure]
+                                  [--parent DIR]
 
 Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``
 (warps per block and 16-row query tiles per warp, by head dim, given as
-``FASTMPS_FLASH_TILES``) and of ``site_step.cu`` (the fp64 GEMM's block, k
-and warp tiles and its ring depth, given as ``FASTMPS_DMMA_TILE``): each
-variant is a file in ``build/tile_sweep/`` that defines the macro and
-includes the source, compiled with ``nvcc``, all at once.  Every variant is
-held against the plain PyTorch version (bf16 flash within
-``flash_attention.rounding_bound``, fp64 contract_measure within 1e-12 of the
-largest |temp|), then timed (CUDA events, median) at the shapes of
-``chip_smoke.py``: flash at granite-3-2b's prefill and its variants,
-contract_measure at the p₂ = 4 shard shapes of χ = 10⁴.  Prints the card's
-name and power limit first and last.  The variant the sources hold is the
-first of each list.
+``FASTMPS_FLASH_TILES``) and of ``site_step.cu`` (the block, k and warp
+tiles, ring depth and blocks an SM must hold of its fp64 GEMM,
+``FASTMPS_DMMA_TILE``, and of the Born step's complex128 GEMM,
+``FASTMPS_DMMA_C128_TILE``): each variant
+is a file in ``build/tile_sweep/`` that defines the macro and includes the
+source, compiled with ``nvcc``, all at once; ``--only`` builds and times
+some of them (``measure``: ``measure_probs`` as the source holds it, timed
+by its kernel's device time, torch.profiler).  ``--parent DIR`` also builds
+the sources of another checkout (an unpacked ``git archive`` of the parent
+commit) and times it first and last in each sweep, parent, variants,
+parent.  Every variant is held against the plain PyTorch
+version (bf16 flash within ``flash_attention.rounding_bound``, the fp64
+and complex128 GEMMs within 1e-12 of the largest |temp|), then timed (CUDA
+events, median) at the shapes of ``chip_smoke.py``: flash at granite-3-2b's
+prefill and its variants, contract_measure at the p₂ = 4 shard shapes of
+χ = 10⁴, the Born site step at N = 512, χ = 10⁴, d = 4, measure_probs at
+N = 1024, L = 2500, d = 4.  Prints each
+variant's registers and spill bytes, the card's name and power limit first
+and last.  The variant the sources hold is the first of each list.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -36,27 +46,37 @@ import chip_smoke as C  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import contract_measure as CM  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import site_step as K  # noqa: E402
 
 # flash: warps and query tiles per warp for Dh = 64, then for Dh = 128
 FLASH = [(4, 2, 8, 1), (4, 1, 4, 1), (8, 2, 4, 1)]
-# contract: BM, BN, BK, STAGES, WM, WN
-CONTRACT = [(128, 64, 16, 3, 32, 32), (64, 64, 16, 3, 32, 32),
-            (128, 128, 16, 3, 32, 64), (128, 64, 32, 2, 32, 32)]
+# contract: BM, BN, BK, STAGES, WM, WN, MINB (blocks an SM must hold)
+CONTRACT = [(128, 64, 16, 3, 32, 32, 2), (128, 64, 16, 3, 32, 32, 1),
+            (64, 64, 16, 3, 32, 32, 1), (128, 128, 16, 3, 32, 64, 1),
+            (128, 64, 32, 2, 32, 32, 1)]
+# the complex128 GEMM, the same fields
+C128 = [(64, 64, 16, 3, 32, 16, 1), (64, 64, 8, 4, 32, 16, 1),
+        (64, 32, 8, 4, 32, 16, 1), (128, 32, 8, 4, 32, 16, 1),
+        (128, 64, 8, 4, 32, 32, 1), (128, 64, 16, 3, 32, 32, 1),
+        (64, 128, 8, 4, 32, 32, 1)]
 FLASH_SHAPES = [c for c in C.FLASH_CASES if c[5] == torch.bfloat16]
 CONTRACT_SHAPES = [(1024, 2500, 10_000, 4), (1024, 10_000, 2500, 4)]
+BORN_SHAPE = (C.BORN_N, C.CHI, C.CHI, C.D)
+MEASURE_SHAPE = (C.LINEAR_N, C.CHI // C.TP_SHARDS, C.D)
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 
 def build(variants: dict) -> dict:
-    """name -> (source name, macro, value): compile all at once, load with
-    ctypes."""
+    """name -> (source name, macro or None, value, csrc directory): compile
+    all at once, load with ctypes."""
     out_dir = ROOT / "build" / "tile_sweep"
     procs = {}
-    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for i, (name, (source, macro, value)) in enumerate(variants.items()):
+    for i, (name, (source, macro, value, csrc)) in enumerate(
+            variants.items()):
         d = out_dir / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "k.cu").write_text(f"#define {macro} {value}\n"
-                                f'#include "{csrc / source}.cu"\n')
+        (d / "k.cu").write_text((f"#define {macro} {value}\n" if macro else "")
+                                + f'#include "{csrc / source}.cu"\n')
         procs[name] = (source, d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "k.so"),
              str(d / "k.cu")], stdout=subprocess.PIPE,
@@ -67,7 +87,8 @@ def build(variants: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
         regs = {k: v for k, v in _build.ptxas_kernels(log).items()
-                if "tc_kernel" in k or "f64_kernel" in k}
+                if "tc_kernel" in k or "f64_kernel" in k
+                or "c128_kernel" in k or "measure_probs_kernel<4" in k}
         print(f"{name}: ptxas {regs}", flush=True)
         lib = ctypes.CDLL(str(d / "k.so"))
         for fn, argtypes in _build.SIGNATURES[source].items():
@@ -85,7 +106,7 @@ def call(lib, entry, tensors, ints) -> None:
     C.check(err == 0, f"{entry}: cudaError {err}")
 
 
-def sweep_flash(libs: dict, device) -> None:
+def sweep_flash(libs: list, device) -> None:
     gen = torch.Generator(device=device).manual_seed(23)
     for b, s, h, kvh, dh, dt, causal in FLASH_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
@@ -95,7 +116,7 @@ def sweep_flash(libs: dict, device) -> None:
         bound = FA.rounding_bound(q, k, v, causal)
         flops = 4 * b * h * s * s * dh // (2 if causal else 1)
         row = []
-        for name, lib in libs.items():
+        for name, lib in libs:
             out = torch.empty_like(q)
 
             def run():
@@ -115,7 +136,7 @@ def sweep_flash(libs: dict, device) -> None:
         torch.cuda.empty_cache()
 
 
-def sweep_contract(libs: dict, device) -> None:
+def sweep_contract(libs: list, device) -> None:
     for n, L, R, d in CONTRACT_SHAPES:
         gen = torch.Generator(device=device).manual_seed(L)
         env = torch.rand((n, L), generator=gen, device=device,
@@ -127,7 +148,7 @@ def sweep_contract(libs: dict, device) -> None:
         want, _ = CM.contract_measure_plain(env, gamma, lam)
         flops = 2 * n * L * R * d
         row = []
-        for name, lib in libs.items():
+        for name, lib in libs:
             temp = torch.empty((n, R, d), dtype=torch.float64, device=device)
             probs = torch.empty((n, d), dtype=torch.float64, device=device)
 
@@ -149,25 +170,122 @@ def sweep_contract(libs: dict, device) -> None:
         torch.cuda.empty_cache()
 
 
+def sweep_c128(libs: list, device) -> None:
+    """The Born site step's entry at N = 512, χ = 10⁴, d = 4 (complex128):
+    its temp (the GEMM's output) against ``torch.matmul``, then its time,
+    beside the library's."""
+    n, L, R, d = BORN_SHAPE
+    gen = torch.Generator(device=device).manual_seed(L)
+    env = torch.randn((n, L), generator=gen, device=device,
+                      dtype=torch.complex128)
+    gamma = torch.randn((L, R, d), generator=gen, device=device,
+                        dtype=torch.complex128)
+    lam = torch.rand(R, generator=gen, device=device, dtype=torch.float64)
+    u = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+    g2 = gamma.reshape(L, R * d)
+    want = torch.matmul(env, g2).reshape(n, R, d)
+    flops = 8 * n * L * R * d
+    outs = (torch.empty((n, R), dtype=torch.complex128, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.float64, device=device),
+            torch.empty((n, R, d), dtype=torch.complex128, device=device))
+    row = []
+    for name, lib in libs:
+        def run():
+            call(lib, "fastmps_site_step_born_c128", (env, gamma, lam, u,
+                                                      *outs), (n, L, R, d, 1))
+        run()
+        torch.cuda.synchronize()
+        err = ((outs[3] - want).abs().max() / want.abs().max()).item()
+        C.check(err <= 1e-12, f"{name}: differs from plain ({err:.3e})")
+        ms = C.time_ms(run, 3)
+        row.append(f"{name}: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+    lib_ms = C.time_ms(lambda: torch.matmul(env, g2), 3)
+    print(f"site_step_born c128 N={n} χ={L} d={d}: library {lib_ms:.3f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s) | " + " | ".join(row),
+          flush=True)
+    del env, gamma, g2, want, outs
+    torch.cuda.empty_cache()
+
+
+def sweep_measure(libs: list, device) -> None:
+    """measure_probs at the p₂ = 4 shard shape (fp64, and bf16 inputs on
+    fp64 operands) against the plain version, then each kernel's device
+    time (torch.profiler, one kernel a call) beside ``env @ W``'s."""
+    n, L, d = MEASURE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(L)
+    env = torch.rand((n, L), generator=gen, device=device,
+                     dtype=torch.float64)
+    w = torch.rand((L, d), generator=gen, device=device, dtype=torch.float64)
+    moved = (n * L + L * d + n * d) * 8
+    for entry, cdt, dt in (("fastmps_measure_probs_f64", None, torch.float64),
+                           ("fastmps_measure_probs_bf16_f64", torch.bfloat16,
+                            torch.float32)):
+        want = K.measure_first_plain(env, w, cdt)
+        row = []
+        for name, lib in libs:
+            out = torch.empty((n, d), dtype=dt, device=device)
+
+            def run():
+                call(lib, entry, (env, w, out), (n, L, d))
+            run()
+            torch.cuda.synchronize()
+            bound = (K.bf16_gemm_bound(env, w) if cdt else
+                     1e-12 * want.abs().max())
+            C.check(bool(((out.double() - want.double()).abs() <= bound)
+                         .all()), f"{name}: {entry} differs from plain")
+            ms = C.device_time_ms(run, 20, 1)
+            row.append(f"{name}: {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s)")
+        lib_ms = C.device_time_ms(lambda: env @ w, 20)
+        print(f"{entry} N={n} L={L} d={d}: library (env @ W, fp64) "
+              f"{lib_ms:.4f} ms | " + " | ".join(row), flush=True)
+    del env, w
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    kinds = ("flash", "dmma", "c128", "measure")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", nargs="+", choices=kinds, default=kinds)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose kernels are timed beside these")
+    args = ap.parse_args()
     C.check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     print(C.nvidia_smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     variants = {}
-    for v in FLASH:
+    for v in FLASH if "flash" in args.only else ():
         variants[f"flash 64:{v[0]}x{v[1]} 128:{v[2]}x{v[3]}"] = (
             "flash_attention", "FASTMPS_FLASH_TILES",
-            ", ".join(map(str, v)))
-    for v in CONTRACT:
-        bm, bn, bk, st, wm, wn = v
-        variants[f"dmma {bm}x{bn}x{bk} s{st} w{wm}x{wn}"] = (
-            "site_step", "FASTMPS_DMMA_TILE", ", ".join(map(str, v)))
+            ", ".join(map(str, v)), CSRC)
+    for kind, macro, tiles in (("dmma", "FASTMPS_DMMA_TILE", CONTRACT),
+                               ("c128", "FASTMPS_DMMA_C128_TILE", C128)):
+        for v in tiles if kind in args.only else ():
+            bm, bn, bk, st, wm, wn, mb = v
+            variants[f"{kind} {bm}x{bn}x{bk} s{st} w{wm}x{wn} b{mb}"] = (
+                "site_step", macro, ", ".join(map(str, v)), CSRC)
+    if "measure" in args.only:
+        variants["measure"] = ("site_step", None, "", CSRC)
+    parents = {}
+    if args.parent is not None:
+        pcsrc = args.parent.resolve() / "src" / "repro_torch" / "kernels" \
+            / "csrc"
+        for source in {"flash_attention" if k == "flash" else "site_step"
+                       for k in args.only}:
+            variants[f"parent {source}"] = (source, None, "", pcsrc)
     libs = build(variants)
-    sweep_flash({k: v for k, v in libs.items() if k.startswith("flash")},
-                device)
-    sweep_contract({k: v for k, v in libs.items() if k.startswith("dmma")},
-                   device)
+    for source in ("flash_attention", "site_step"):
+        if f"parent {source}" in libs:
+            parents[source] = [("parent", libs.pop(f"parent {source}"))]
+    for kind, sweep, source in (("flash", sweep_flash, "flash_attention"),
+                                ("dmma", sweep_contract, "site_step"),
+                                ("c128", sweep_c128, "site_step"),
+                                ("measure", sweep_measure, "site_step")):
+        if kind in args.only:
+            mine = [(k, v) for k, v in libs.items() if k.startswith(kind)]
+            par = parents.get(source, [])
+            sweep(par + mine + par, device)
     print(C.nvidia_smi(), flush=True)
     return 0
 

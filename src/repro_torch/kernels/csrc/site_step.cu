@@ -32,6 +32,8 @@
 //      flattened (r, s) columns, written to global memory (N, chi_r, d) --
 //      the N*chi^2*d complex multiply-adds are the bound; writing and
 //      re-reading temp costs well under 1 % of that at the full width.
+//      complex128 runs it on the fp64 tensor cores (contract_c128_kernel,
+//      four real DMMA products per complex one, below).
 //   2. probs_draw: probs[n, s] = sum_r |temp[n, r, s] * lambda_r|^2 per row
 //      (fixed order), then the draw.
 //   3. born_collapse: env'[n, :] = temp[n, :, s_n] * lambda, a gather.
@@ -52,7 +54,8 @@
 //      m8n8k4 in the same kernel was about 1.7x slower.  fp32 keeps the FMA
 //      tile below (no TF32).
 //   measure_probs: probs = env . W, the probs half of probs_draw without
-//      the draw.  Bound by env's bytes.
+//      the draw.  Bound by env's bytes: measure_probs_kernel takes many
+//      rows a block and stages W in shared memory once for all of them.
 //   collapse_select: env'[n, :] = env[n, :] . Gamma[:, :, s_n] with s from
 //      the caller: the bucket sort and grouped collapse GEMM of the linear
 //      step (1/d of the TPU kernel's d masked GEMMs).  A row whose outcome is
@@ -78,10 +81,11 @@
 //   contract_measure_bf16: temp by tc_contract_kernel, written in env's
 //      type (the reference casts its fp32 temp to env's dtype), then the
 //      fixed-order probs pass.
-//   measure_probs_bf16: probs = bf16(env) . bf16(W) in fp32.  Bound by
-//      env's bytes (d <= 16 columns), so it stays on the FMA units: a
-//      product of two bf16 values is exact in fp32, so the FMA sum is what
-//      the tensor cores would compute.
+//   measure_probs_bf16: probs = bf16(env) . bf16(W) in fp32, by
+//      measure_probs_kernel with those roundings.  Bound by env's bytes
+//      (d <= 16 columns), so it stays on the FMA units: a product of two
+//      bf16 values is exact in fp32, so the FMA sum is what the tensor
+//      cores would compute.
 //   collapse_select_bf16: the grouped collapse of the linear step on the
 //      caller's samples; env' in fp32 whatever env's type, as the
 //      reference's collapse returns it.
@@ -104,11 +108,14 @@
 //
 // What bounds the GEMMs is their fp64 operations (2*N*chi^2 and more at
 // chi = 1e4), which the card does at 67 TFLOP/s only on its fp64 tensor
-// cores.  contract_measure's fp64 GEMM runs there (contract_f64_kernel);
-// the others -- the linear collapse, the Born complex contraction and
-// collapse_select -- are still plain shared-memory tiles with FMA (64x64
+// cores.  contract_measure's fp64 GEMM and the Born step's complex128
+// contraction run there (contract_f64_kernel, contract_c128_kernel: one
+// DMMA main loop, real or complex); the linear collapse and
+// collapse_select are still plain shared-memory tiles with FMA (64x64
 // output tile, 16-deep k step, 4x4 outputs per thread), at about a quarter
 // of that rate; the DMMA tile is their next step.  wgmma has no fp64 form.
+// The fp32 and complex64 GEMMs keep the FMA tile: without TF32, which
+// would round otherwise, the card has no fp32 tensor-core product.
 //
 // C interface (loaded with ctypes): each entry launches its kernels on the
 // given stream and returns cudaGetLastError().
@@ -132,7 +139,7 @@ constexpr int TN = 4;            // columns per thread: tx + 16 * j
 constexpr int APAD = BM + 1;     // padded A tile row (store without conflicts)
 constexpr int MAX_GRID_Y = 65535;
 
-// shared bytes: the double-complex GEMM tiles
+// shared bytes of the FMA GEMM tiles (sized for double-complex operands)
 constexpr int SMEM_BYTES = 2 * (BK * APAD + BK * BN) * 8;
 
 #define RETURN_IF_ERROR()                         \
@@ -192,13 +199,18 @@ __device__ __forceinline__ bf16 to_bf16(double x) {
 }
 __device__ __forceinline__ bf16 to_bf16(bf16 x) { return x; }
 
-// *p as T, rounded to bf16 first when RND
+// x as T, rounded to bf16 first when RND
+template <typename T, bool RND, typename S>
+__device__ __forceinline__ T as(S x) {
+  if constexpr (RND)
+    return T(__bfloat162float(to_bf16(x)));
+  else
+    return T(x);
+}
+
 template <typename T, bool RND, typename S>
 __device__ __forceinline__ T ld(const S* p) {
-  if constexpr (RND)
-    return T(__bfloat162float(to_bf16(*p)));
-  else
-    return T(*p);
+  return as<T, RND>(*p);
 }
 
 // ---------------------------------------------------------------------------
@@ -331,15 +343,135 @@ probs_draw_kernel(const TS* __restrict__ src, const TW* __restrict__ w,
 }
 
 // the same probs written out (N, d): no draw
-template <typename T, Measure M, typename TS = T, typename TW = T, int RND = 0>
+template <typename T, Measure M>
 __global__ void __launch_bounds__(THREADS)
-probs_kernel(const TS* __restrict__ src, const TW* __restrict__ w, int L,
-             int d, T* __restrict__ out) {
+probs_kernel(const T* __restrict__ src, const T* __restrict__ w, int L, int d,
+             T* __restrict__ out) {
   __shared__ T red[THREADS / 32];
   __shared__ T probs[MAX_D];
-  row_probs<T, M, TS, TW, RND>(src, w, L, d, probs, red);
+  row_probs<T, M>(src, w, L, d, probs, red);
   if (threadIdx.x == 0)
     for (int s = 0; s < d; ++s) out[(size_t)blockIdx.x * d + s] = probs[s];
+}
+
+// ---------------------------------------------------------------------------
+// measure_probs: probs (N, d) = env (N, L) . W (L, d), summed in T; env as
+// TS and W rounded to bf16 first where RND has bit 1 (env) or bit 2 (W)
+// set.  Bound by env's bytes (W is d columns).  A block takes RB = 32 / DB
+// rows (DB: d rounded up to 4, 8 or 16, so that a thread keeps RB x DB = 32
+// sums) and stages W through shared memory once for all of them, transposed
+// to [s][l] in chunks of LC = WORDS / DB l's.  Its threads walk l with
+// 16-byte loads of env (VEC: the rows are 16-byte aligned; else one element
+// at a time), each load of W from shared memory serving the RB rows.  The
+// sums are then reduced in a fixed order, a shuffle tree in each warp and
+// the warps' results in warp order: no atomics, runs repeat bit for bit.
+// ---------------------------------------------------------------------------
+
+namespace mp {
+constexpr int WORDS = 5120;     // W chunk in shared memory, elements of T
+}
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+template <typename T, int DB, typename TS, int RND, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+measure_probs_kernel(const TS* __restrict__ env, const TS* __restrict__ w,
+                     int n, int L, int d, T* __restrict__ out) {
+  constexpr int RB = 32 / DB;                    // rows of the block
+  constexpr int VW = VEC ? 16 / (int)sizeof(TS) : 1;   // env elements a load
+  constexpr int LC = mp::WORDS / DB;             // l's of a chunk
+  static_assert(LC % 4 == 0, "whole vectors in a chunk");
+  __shared__ __align__(16) T ws[mp::WORDS];
+  __shared__ T red[THREADS / 32][32];
+  const int r0 = blockIdx.x * RB;
+  T acc[RB][DB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int s = 0; s < DB; ++s) acc[r][s] = T(0);
+
+  for (int l0 = 0; l0 < L; l0 += LC) {
+    const int lc = L - l0 < LC ? L - l0 : LC;
+    __syncthreads();                             // the last chunk is used
+    for (int l = threadIdx.x; l < lc; l += THREADS) {
+      const TS* wl = w + (size_t)(l0 + l) * d;
+#pragma unroll
+      for (int s = 0; s < DB; ++s)
+        if (s < d) ws[s * LC + l] = ld<T, (RND & 2) != 0>(wl + s);
+    }
+    __syncthreads();
+    for (int l = threadIdx.x * VW; l < lc; l += THREADS * VW) {
+      Vec<TS, VW> e[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r0 + r < n) {
+          e[r] = *reinterpret_cast<const Vec<TS, VW>*>(
+              env + (size_t)(r0 + r) * L + l0 + l);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VW; ++j) e[r].v[j] = TS(0);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < DB; ++s) {
+        if (s >= d) break;
+        const Vec<T, VW> wv = *reinterpret_cast<const Vec<T, VW>*>(
+            ws + s * LC + l);
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int j = 0; j < VW; ++j)
+            acc[r][s] += as<T, (RND & 1) != 0>(e[r].v[j]) * wv.v[j];
+      }
+    }
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int s = 0; s < DB; ++s) {
+      T v = acc[r][s];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[warp][r * DB + s] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int r = threadIdx.x / DB, s = threadIdx.x % DB;
+    T tot = T(0);
+    for (int wp = 0; wp < THREADS / 32; ++wp) tot += red[wp][threadIdx.x];
+    if (r0 + r < n && s < d) out[(size_t)(r0 + r) * d + s] = tot;
+  }
+}
+
+template <typename T, int DB, typename TS, int RND>
+int measure_probs_db(const TS* env, const TS* w, T* probs, int n, int L,
+                     int d, cudaStream_t stream) {
+  constexpr int RB = 32 / DB;
+  const int blocks = (n + RB - 1) / RB;
+  const bool vec = (size_t)L * sizeof(TS) % 16 == 0 && (uintptr_t)env % 16 == 0;
+  if (vec)
+    measure_probs_kernel<T, DB, TS, RND, true>
+        <<<blocks, THREADS, 0, stream>>>(env, w, n, L, d, probs);
+  else
+    measure_probs_kernel<T, DB, TS, RND, false>
+        <<<blocks, THREADS, 0, stream>>>(env, w, n, L, d, probs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TS, int RND>
+int measure_probs_launch(const TS* env, const TS* w, T* probs, int n, int L,
+                         int d, cudaStream_t stream) {
+  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
+  if (d <= 4) return measure_probs_db<T, 4, TS, RND>(env, w, probs, n, L, d,
+                                                     stream);
+  if (d <= 8) return measure_probs_db<T, 8, TS, RND>(env, w, probs, n, L, d,
+                                                     stream);
+  return measure_probs_db<T, 16, TS, RND>(env, w, probs, n, L, d, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -510,8 +642,9 @@ collapse_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int L,
 }
 
 // ---------------------------------------------------------------------------
-// Born step 1 and contract_measure: temp = env . Gamma over columns
-// c = r * d + s, written out.  grid.x: row tiles; grid.y: column tiles.
+// The complex64 Born step 1 and the fp32 contract_measure: temp = env . Gamma
+// over columns c = r * d + s, written out.  grid.x: row tiles; grid.y:
+// column tiles.
 // ---------------------------------------------------------------------------
 
 template <typename T, bool CPLX>
@@ -546,37 +679,69 @@ contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int n,
 }
 
 // ---------------------------------------------------------------------------
-// contract_measure's fp64 GEMM on the fp64 tensor cores:
-// temp (n, ncols) = env (n, L) . Gamma (L, ncols), both row-major.
-// mma.sync m16n8k8 .f64 (DMMA); a block computes a BM x BN tile, each
-// warp a WM x WN part of it as (WM/16) x (WN/8) accumulators; env and Gamma
-// tiles come in by cp.async into a ring of STAGES, so the next tiles' copies
-// overlap this tile's products.  Every output adds its k terms in one fixed
-// order (no atomics, no split k): runs repeat bit for bit.
+// The fp64 GEMMs on the fp64 tensor cores: temp (n, ncols) = env (n, L) .
+// Gamma (L, ncols), both row-major, real (contract_measure's fp64 GEMM,
+// contract_f64_kernel) or complex128 with (re, im) interleaved (the Born
+// step's contraction, contract_c128_kernel).  mma.sync m16n8k8 .f64 (DMMA);
+// a block computes a BM x BN tile, each warp a WM x WN part of it as
+// (WM/16) x (WN/8) accumulators (two, re and im, when complex); env and
+// Gamma tiles come in by cp.async into a ring of STAGES, so the next tiles'
+// copies overlap this tile's products.  A complex multiply-add is the
+// reference's four real products (_born_kernel, mm(ere, gre) - mm(eim, gim)
+// and mm(ere, gim) + mm(eim, gre)) on the tensor cores:
+//   acc_re += a_re . b_re + (-a_im) . b_im
+//   acc_im += a_re . b_im + a_im . b_re
+// with a_im negated in registers (exact); not the 3M form, which rounds
+// otherwise.  Each fragment feeds two products, so a complex tile moves half
+// the shared-memory bytes per product of a real one.  Every output adds its
+// k terms in one fixed order (no atomics, no split k): runs repeat bit for
+// bit.
 // ---------------------------------------------------------------------------
 
-// The block, k and warp tiles: BM, BN, BK, STAGES, WM, WN.  A file that
-// defines FASTMPS_DMMA_TILE and then includes this one builds another tile
-// (scripts/tile_sweep.py).
+// The block, k and warp tiles, the ring depth and the blocks an SM must
+// hold on the 16-byte path (MINB, which caps a thread's registers at
+// 65536 / (MINB x threads)): BM, BN, BK, STAGES, WM, WN, MINB, of the real
+// and of the complex GEMM.  A file that defines FASTMPS_DMMA_TILE or
+// FASTMPS_DMMA_C128_TILE and then includes this one builds another tile
+// (scripts/tile_sweep.py).  The real tile asks for two blocks (128
+// registers; left to itself the allocator takes more, one block fits and
+// the GEMM runs about 1.2x slower); the 8-byte path would spill there and
+// keeps one.  The complex tile holds 32 x 16 outputs a warp: at 32 x 32
+// its accumulators and fragments pass 255 registers and spill.
 #ifndef FASTMPS_DMMA_TILE
-#define FASTMPS_DMMA_TILE 128, 64, 16, 3, 32, 32
+#define FASTMPS_DMMA_TILE 128, 64, 16, 3, 32, 32, 2
+#endif
+#ifndef FASTMPS_DMMA_C128_TILE
+#define FASTMPS_DMMA_C128_TILE 64, 64, 16, 3, 32, 16, 1
 #endif
 
-namespace dmma {
-constexpr int TILE[] = {FASTMPS_DMMA_TILE};
-constexpr int BM = TILE[0], BN = TILE[1], BK = TILE[2], STAGES = TILE[3];
-constexpr int WM = TILE[4], WN = TILE[5];        // warp tile
-constexpr int WARPS = (BM / WM) * (BN / WN);
-constexpr int NT = WARPS * 32;
-// rows padded to 4 mod 16 words: the 16 lanes of a half-warp that read a
-// fragment (4 rows x 4 words) hit 16 distinct 8-byte bank pairs
-constexpr int LDA = BK + 4;                      // env tile: BM rows of BK
-constexpr int LDB = BN + 4;                      // Gamma tile: BK rows of BN
-constexpr int STAGE = BM * LDA + BK * LDB;       // words per stage
-constexpr int SMEM_BYTES = STAGES * STAGE * 8;
-static_assert(LDA % 16 == 4 && LDB % 16 == 4, "conflict-free fragments");
-static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole fragments");
-}  // namespace dmma
+template <bool CPLX_, int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_,
+          int MINB_>
+struct DmmaTile {
+  static constexpr bool CPLX = CPLX_;
+  static constexpr int CW = CPLX ? 2 : 1;         // fp64 words per element
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int WM = WM_, WN = WN_;         // warp tile
+  static constexpr int MINB = MINB_;
+  static constexpr int MI = WM / 16, NJ = WN / 8;  // m16n8 accumulators
+  static constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  // Rows padded (in elements) so that the lanes of one fragment load hit
+  // distinct banks: 8-byte words are served 16 lanes at a time, so real
+  // rows are 4 mod 16 words (a fragment's 4 rows x 4 columns fall on 16
+  // distinct bank pairs); 16-byte complex elements 8 lanes at a time, so
+  // env rows (4 x 2 per phase) are 4 mod 8 elements and Gamma rows
+  // (2 columns x 4 k rows) 2 mod 8.
+  static constexpr int LDA = BK + 4;               // env tile: BM rows of BK
+  static constexpr int LDB = BN + (CPLX ? 2 : 4);  // Gamma tile: BK rows of BN
+  static constexpr int STAGE = (BM * LDA + BK * LDB) * CW;   // words
+  static constexpr int SMEM_BYTES = STAGES * STAGE * 8;
+  static_assert(CPLX ? LDA % 8 == 4 && LDB % 8 == 2
+                     : LDA % 16 == 4 && LDB % 16 == 4,
+                "conflict-free fragments");
+  static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole fragments");
+};
+using F64Tile = DmmaTile<false, FASTMPS_DMMA_TILE>;
+using C128Tile = DmmaTile<true, FASTMPS_DMMA_C128_TILE>;
 
 // W words global -> shared (W = 1 or 2); zero-filled when !pred
 template <int W>
@@ -604,67 +769,85 @@ __device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
 }
 
 // one stage: env rows [r0, r0 + BM) x k [k0, k0 + BK) and Gamma k rows
-// [k0, k0 + BK) x columns [c0, c0 + BN); out of range -> 0.  VEC copies two
-// words at a time (L and ncols even, operands 16-byte aligned).
-template <bool VEC>
+// [k0, k0 + BK) x columns [c0, c0 + BN); out of range -> 0.  Copies are of
+// words: VEC copies two at a time (16 bytes: one complex element, or two
+// real ones where L and ncols are even), from 16-byte aligned operands.
+template <class TL, bool VEC>
 __device__ __forceinline__ void dmma_load(double* As, double* Bs,
                                           const double* __restrict__ env,
                                           const double* __restrict__ gamma,
                                           int n, int L, int ncols, int r0,
                                           int c0, int k0) {
-  using dmma::BM, dmma::BN, dmma::BK, dmma::NT, dmma::LDA, dmma::LDB;
-  constexpr int W = VEC ? 2 : 1;
-  constexpr int ACH = BK / W, BCH = BN / W;    // copies per row
-  static_assert(BM * ACH % NT == 0 && BK * BCH % NT == 0, "whole copies");
+  constexpr int CW = TL::CW, W = VEC ? 2 : 1;
+  constexpr int ACH = TL::BK * CW / W, BCH = TL::BN * CW / W;  // per row
+  constexpr int NT = TL::NT;
+  static_assert(TL::BM * ACH % NT == 0 && TL::BK * BCH % NT == 0,
+                "whole copies");
 #pragma unroll
-  for (int it = 0; it < BM * ACH / NT; ++it) {
+  for (int it = 0; it < TL::BM * ACH / NT; ++it) {
     const int idx = threadIdx.x + it * NT;
-    const int r = idx / ACH, kc = (idx % ACH) * W;
-    const int row = r0 + r, k = k0 + kc;
+    const int r = idx / ACH, kw = (idx % ACH) * W;   // word in the row
+    const int row = r0 + r, k = k0 + kw / CW;
     const bool ok = row < n && k < L;
-    cp_async_words<W>(smem_addr(As + r * LDA + kc),
-                      ok ? env + (size_t)row * L + k : env, ok);
+    cp_async_words<W>(smem_addr(As + r * TL::LDA * CW + kw),
+                      ok ? env + ((size_t)row * L + k) * CW + kw % CW : env,
+                      ok);
   }
 #pragma unroll
-  for (int it = 0; it < BK * BCH / NT; ++it) {
+  for (int it = 0; it < TL::BK * BCH / NT; ++it) {
     const int idx = threadIdx.x + it * NT;
-    const int kr = idx / BCH, c = (idx % BCH) * W;
-    const int k = k0 + kr, col = c0 + c;
+    const int kr = idx / BCH, cw = (idx % BCH) * W;
+    const int k = k0 + kr, col = c0 + cw / CW;
     const bool ok = k < L && col < ncols;
-    cp_async_words<W>(smem_addr(Bs + kr * LDB + c),
-                      ok ? gamma + (size_t)k * ncols + col : gamma, ok);
+    cp_async_words<W>(smem_addr(Bs + kr * TL::LDB * CW + cw),
+                      ok ? gamma + ((size_t)k * ncols + col) * CW + cw % CW
+                         : gamma,
+                      ok);
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(dmma::NT)
-contract_f64_kernel(const double* __restrict__ env,
-                    const double* __restrict__ gamma, int n, int L, int ncols,
-                    double* __restrict__ temp) {
-  using dmma::BM, dmma::BN, dmma::BK, dmma::STAGES, dmma::WM, dmma::WN,
-      dmma::LDA, dmma::LDB, dmma::STAGE;
-  constexpr int MI = WM / 16, NJ = WN / 8;
-  extern __shared__ __align__(16) unsigned char dmma_smem[];
-  double* sm = reinterpret_cast<double*>(dmma_smem);
+// element idx of a stage's tile into v[0] (re) and, complex, v[1] (im)
+template <class TL>
+__device__ __forceinline__ void dmma_frag(const double* tile, int idx,
+                                          double& re, double& im) {
+  if constexpr (TL::CPLX) {
+    const double2 v = reinterpret_cast<const double2*>(tile)[idx];
+    re = v.x;
+    im = v.y;
+  } else {
+    re = tile[idx];
+  }
+}
+
+// The block's tile at (r0, c0): acc[0] the real parts, acc[1] the
+// imaginary ones (complex only)
+template <class TL, bool VEC>
+__device__ __forceinline__ void dmma_gemm(
+    const double* __restrict__ env, const double* __restrict__ gamma, int n,
+    int L, int ncols, int r0, int c0, double* sm,
+    double (&acc)[TL::CW][TL::MI][TL::NJ][4]) {
+  constexpr int BM = TL::BM, BK = TL::BK, STAGES = TL::STAGES;
+  constexpr int MI = TL::MI, NJ = TL::NJ, CW = TL::CW;
+  constexpr int LDA = TL::LDA, LDB = TL::LDB, STAGE = TL::STAGE;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
-  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int wm = (warp % (BM / TL::WM)) * TL::WM;
+  const int wn = (warp / (BM / TL::WM)) * TL::WN;
   const int n_k = (L + BK - 1) / BK;
-
-  double acc[MI][NJ][4];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int c = 0; c < CW; ++c)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][i][j][e] = 0.0;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_k)
-      dmma_load<VEC>(sm + s * STAGE, sm + s * STAGE + BM * LDA, env, gamma, n,
-                     L, ncols, r0, c0, s * BK);
+      dmma_load<TL, VEC>(sm + s * STAGE, sm + s * STAGE + BM * LDA * CW, env,
+                         gamma, n, L, ncols, r0, c0, s * BK);
     cp_commit();
   }
   for (int kt = 0; kt < n_k; ++kt) {
@@ -673,62 +856,157 @@ contract_f64_kernel(const double* __restrict__ env,
     const int nxt = kt + STAGES - 1;
     if (nxt < n_k) {
       double* st = sm + (nxt % STAGES) * STAGE;
-      dmma_load<VEC>(st, st + BM * LDA, env, gamma, n, L, ncols, r0, c0,
-                     nxt * BK);
+      dmma_load<TL, VEC>(st, st + BM * LDA * CW, env, gamma, n, L, ncols, r0,
+                         c0, nxt * BK);
     }
     cp_commit();
     const double* As = sm + (kt % STAGES) * STAGE;
-    const double* Bs = As + BM * LDA;
+    const double* Bs = As + BM * LDA * CW;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
-      double a[MI][4], b[NJ][2];
+      double a[CW][MI][4], b[CW][NJ][2];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          a[i][e] = As[(wm + 16 * i + g + 8 * (e % 2)) * LDA + kk + t4
-                       + 4 * (e / 2)];
+          dmma_frag<TL>(As, (wm + 16 * i + g + 8 * (e % 2)) * LDA + kk + t4
+                                + 4 * (e / 2),
+                        a[0][i][e], a[CW - 1][i][e]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          b[j][e] = Bs[(kk + t4 + 4 * e) * LDB + wn + 8 * j + g];
+          dmma_frag<TL>(Bs, (kk + t4 + 4 * e) * LDB + wn + 8 * j + g,
+                        b[0][j][e], b[CW - 1][j][e]);
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_f64(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < NJ; ++j) mma_f64(acc[0][i][j], a[0][i], b[0][j]);
+      if constexpr (TL::CPLX) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            mma_f64(acc[1][i][j], a[0][i], b[1][j]);
+            mma_f64(acc[1][i][j], a[1][i], b[0][j]);
+          }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[1][i][e] = -a[1][i][e];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_f64(acc[0][i][j], a[1][i], b[1][j]);
+      }
     }
   }
+}
 
+// the block's outputs: temp[row, col] (complex: its (re, im) pair)
+template <class TL>
+__device__ __forceinline__ void dmma_store(
+    const double (&acc)[TL::CW][TL::MI][TL::NJ][4], int n, int ncols, int r0,
+    int c0, double* __restrict__ temp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp % (TL::BM / TL::WM)) * TL::WM;
+  const int wn = (warp / (TL::BM / TL::WM)) * TL::WN;
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < TL::MI; ++i)
 #pragma unroll
     for (int e = 0; e < 4; e += 2) {
       const int row = r0 + wm + 16 * i + g + 8 * (e / 2);
       if (row >= n) continue;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
+      for (int j = 0; j < TL::NJ; ++j) {
         const int col = c0 + wn + 8 * j + 2 * t4;
-        double* o = temp + (size_t)row * ncols + col;
-        if (col < ncols) o[0] = acc[i][j][e];
-        if (col + 1 < ncols) o[1] = acc[i][j][e + 1];
+        if constexpr (TL::CPLX) {
+          double2* o = reinterpret_cast<double2*>(temp) +
+                       (size_t)row * ncols + col;
+          if (col < ncols)
+            o[0] = make_double2(acc[0][i][j][e], acc[1][i][j][e]);
+          if (col + 1 < ncols)
+            o[1] = make_double2(acc[0][i][j][e + 1], acc[1][i][j][e + 1]);
+        } else {
+          double* o = temp + (size_t)row * ncols + col;
+          if (col < ncols) o[0] = acc[0][i][j][e];
+          if (col + 1 < ncols) o[1] = acc[0][i][j][e + 1];
+        }
       }
     }
 }
 
+template <class TL, bool VEC>
+__device__ __forceinline__ void dmma_contract(const double* __restrict__ env,
+                                              const double* __restrict__ gamma,
+                                              int n, int L, int ncols,
+                                              double* __restrict__ temp,
+                                              double* sm) {
+  const int r0 = blockIdx.x * TL::BM, c0 = blockIdx.y * TL::BN;
+  double acc[TL::CW][TL::MI][TL::NJ][4];
+  dmma_gemm<TL, VEC>(env, gamma, n, L, ncols, r0, c0, sm, acc);
+  dmma_store<TL>(acc, n, ncols, r0, c0, temp);
+}
+
+// contract_measure's fp64 GEMM
+template <bool VEC>
+__global__ void __launch_bounds__(F64Tile::NT, VEC ? F64Tile::MINB : 1)
+contract_f64_kernel(const double* __restrict__ env,
+                    const double* __restrict__ gamma, int n, int L, int ncols,
+                    double* __restrict__ temp) {
+  extern __shared__ __align__(16) unsigned char dmma_smem[];
+  dmma_contract<F64Tile, VEC>(env, gamma, n, L, ncols, temp,
+                              reinterpret_cast<double*>(dmma_smem));
+}
+
+// the Born step's complex128 contraction (operands and temp interleaved)
+template <bool VEC>
+__global__ void __launch_bounds__(C128Tile::NT, VEC ? C128Tile::MINB : 1)
+contract_c128_kernel(const double* __restrict__ env,
+                     const double* __restrict__ gamma, int n, int L,
+                     int ncols, double* __restrict__ temp) {
+  extern __shared__ __align__(16) unsigned char dmma_smem[];
+  dmma_contract<C128Tile, VEC>(env, gamma, n, L, ncols, temp,
+                               reinterpret_cast<double*>(dmma_smem));
+}
+
+using DmmaKernel = void (*)(const double*, const double*, int, int, int,
+                            double*);
+
+// grid.x: row tiles (fastest, so the blocks in flight share Gamma's column
+// panel in L2); grid.y: column tiles
+template <class TL>
+int dmma_launch(DmmaKernel kernel, const double* env, const double* gamma,
+                int n, int L, int ncols, double* temp, cudaStream_t stream) {
+  const dim3 grid((n + TL::BM - 1) / TL::BM, (ncols + TL::BN - 1) / TL::BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, TL::NT, TL::SMEM_BYTES, stream>>>(env, gamma, n, L, ncols,
+                                                    temp);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
 int contract_f64(const double* env, const double* gamma, int n, int L,
                  int ncols, double* temp, cudaStream_t stream) {
-  using dmma::BM, dmma::BN, dmma::NT, dmma::SMEM_BYTES;
-  const dim3 grid((n + BM - 1) / BM, (ncols + BN - 1) / BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  const bool vec = L % 2 == 0 && ncols % 2 == 0 &&
-                   (uintptr_t)env % 16 == 0 && (uintptr_t)gamma % 16 == 0;
-  auto kernel = vec ? contract_f64_kernel<true> : contract_f64_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, SMEM_BYTES, stream>>>(env, gamma, n, L, ncols, temp);
-  return (int)cudaGetLastError();
+  const bool vec = L % 2 == 0 && ncols % 2 == 0 && aligned16(env) &&
+                   aligned16(gamma);
+  return dmma_launch<F64Tile>(
+      vec ? contract_f64_kernel<true> : contract_f64_kernel<false>, env,
+      gamma, n, L, ncols, temp, stream);
+}
+
+// n, L, ncols in complex elements; temp 16-byte aligned (the wrapper's)
+int contract_c128(const double* env, const double* gamma, int n, int L,
+                  int ncols, double* temp, cudaStream_t stream) {
+  const bool vec = aligned16(env) && aligned16(gamma);
+  return dmma_launch<C128Tile>(
+      vec ? contract_c128_kernel<true> : contract_c128_kernel<false>, env,
+      gamma, n, L, ncols, temp, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1021,11 +1299,16 @@ int site_step_born(const T* env, const T* gamma, const T* lam, const T* u,
                    T* env_out, int32_t* samples, T* dlog, T* temp, int n,
                    int L, int R, int d, int per_sample, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  contract_kernel<T, true><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
-                                                         R * d, temp);
-  RETURN_IF_ERROR();
+  if constexpr (std::is_same_v<T, double>) {   // the fp64 tensor cores
+    const int err = contract_c128(env, gamma, n, L, R * d, temp, stream);
+    if (err != 0) return err;
+  } else {                                      // complex64: FMA, no TF32
+    const dim3 grid((n + BM - 1) / BM, (R * d + BN - 1) / BN);
+    if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+    contract_kernel<T, true><<<grid, THREADS, 0, stream>>>(env, gamma, n, L,
+                                                           R * d, temp);
+    RETURN_IF_ERROR();
+  }
   probs_draw_kernel<T, TEMP_BORN><<<n, THREADS, 0, stream>>>(temp, lam, u, R,
                                                              d, samples);
   RETURN_IF_ERROR();
@@ -1055,15 +1338,6 @@ int contract_measure(const T* env, const T* gamma, const T* lam, T* temp,
   }
   probs_kernel<T, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
                                                           probs);
-  RETURN_IF_ERROR();
-  return 0;
-}
-
-template <typename T>
-int measure_probs(const T* env, const T* w, T* probs, int n, int L, int d,
-                  cudaStream_t stream) {
-  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  probs_kernel<T, ENV_W><<<n, THREADS, 0, stream>>>(env, w, L, d, probs);
   RETURN_IF_ERROR();
   return 0;
 }
@@ -1131,19 +1405,6 @@ int contract_measure_bf16(const TE* env, const TG* gamma, const TE* lam,
   RETURN_IF_ERROR();
   probs_kernel<TE, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
                                                            probs);
-  RETURN_IF_ERROR();
-  return 0;
-}
-
-// probs (fp32) = bf16(env) . bf16(W): bound by env's bytes (d <= 16
-// columns), so FMA, not the tensor cores: a product of two bf16 values is
-// exact in fp32, so the FMA sum is the tensor cores' arithmetic
-template <typename TE>
-int measure_probs_bf16(const TE* env, const TE* w, float* probs, int n, int L,
-                       int d, cudaStream_t stream) {
-  if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  probs_kernel<float, ENV_W, TE, TE, 3><<<n, THREADS, 0, stream>>>(
-      env, w, L, d, probs);
   RETURN_IF_ERROR();
   return 0;
 }
@@ -1238,12 +1499,14 @@ int fastmps_contract_measure_f32(const float* env, const float* gamma,
 int fastmps_measure_probs_f64(const double* env, const double* w,
                               double* probs, int n, int L, int d,
                               void* stream) {
-  return measure_probs<double>(env, w, probs, n, L, d, (cudaStream_t)stream);
+  return measure_probs_launch<double, double, 0>(env, w, probs, n, L, d,
+                                                 (cudaStream_t)stream);
 }
 
 int fastmps_measure_probs_f32(const float* env, const float* w, float* probs,
                               int n, int L, int d, void* stream) {
-  return measure_probs<float>(env, w, probs, n, L, d, (cudaStream_t)stream);
+  return measure_probs_launch<float, float, 0>(env, w, probs, n, L, d,
+                                               (cudaStream_t)stream);
 }
 
 int fastmps_collapse_select_f64(const double* env, const double* gamma,
@@ -1324,15 +1587,15 @@ int fastmps_contract_measure_bf16_f64_f64(const double* env,
 int fastmps_measure_probs_bf16_f32(const float* env, const float* w,
                                    float* probs, int n, int L, int d,
                                    void* stream) {
-  return measure_probs_bf16<float>(env, w, probs, n, L, d,
-                                   (cudaStream_t)stream);
+  return measure_probs_launch<float, float, 3>(env, w, probs, n, L, d,
+                                               (cudaStream_t)stream);
 }
 
 int fastmps_measure_probs_bf16_f64(const double* env, const double* w,
                                    float* probs, int n, int L, int d,
                                    void* stream) {
-  return measure_probs_bf16<double>(env, w, probs, n, L, d,
-                                    (cudaStream_t)stream);
+  return measure_probs_launch<float, double, 3>(env, w, probs, n, L, d,
+                                                (cudaStream_t)stream);
 }
 
 int fastmps_collapse_select_bf16_f32_f32(const float* env,

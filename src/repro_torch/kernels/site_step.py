@@ -306,8 +306,9 @@ def measure_probs(env, w, compute_dtype=None):
     ``repro/kernels/site_step.py::measure_probs``): env (N, L) · W (L, d),
     both fp32 or both fp64 → (N, d) in their dtype; with
     ``compute_dtype=torch.bfloat16`` both rounded to bf16 and summed in
-    fp32 → (N, d) fp32.  One block per row sums its L terms in a fixed
-    order; bound by env's bytes."""
+    fp32 → (N, d) fp32.  A block takes many rows and stages W in shared
+    memory once for all of them; every sum is taken in a fixed order.
+    Bound by env's bytes."""
     name = "measure_probs"
     check_compute_dtype(compute_dtype, name)
     if env.device.type == "cpu":

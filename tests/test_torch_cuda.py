@@ -210,6 +210,123 @@ def test_collapse_select_kernel(card, real, n, chi_l, chi_r, d, present):
     _close(got, want, real)
 
 
+# ---------------------------------------------------------------------------
+# The Born step's complex128 GEMM on the fp64 tensor cores, and measure_probs
+# with many rows a block: shapes that cut every tile edge (N, R·d and L off
+# the block, column and k tiles; L odd; d from 1 to 16; operands that start
+# off their storage)
+# ---------------------------------------------------------------------------
+
+def _born_operands(n, chi_l, chi_r, d, device):
+    rng = np.random.default_rng(n + 7 * chi_l + 31 * chi_r + d)
+    env = rng.normal(size=(n, chi_l)) + 1j * rng.normal(size=(n, chi_l))
+    gamma = (rng.normal(size=(chi_l, chi_r, d))
+             + 1j * rng.normal(size=(chi_l, chi_r, d)))
+    lam = rng.uniform(size=chi_r) + 0.5
+    u = rng.uniform(size=n)
+    return [torch.from_numpy(a).to(device) for a in (env, gamma, lam, u)]
+
+
+def _born_temp(env, gamma, lam, u, chi_l, d):
+    """The complex128 entry's temp = env · Γ (its contraction), launched
+    through the C entry on the tensors' own pointers (which may lie off
+    16 bytes, where no complex128 tensor can)."""
+    from repro_torch.kernels import _build
+
+    n, chi_r, dev = u.shape[0], lam.shape[0], u.device
+    temp = torch.empty((n, chi_r, d), dtype=torch.complex128, device=dev)
+    outs = (torch.empty((n, chi_r), dtype=torch.complex128, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.float64, device=dev))
+    _build.launch("fastmps_site_step_born_c128",
+                  (env, gamma, lam, u, *outs, temp), (n, chi_l, chi_r, d, 1),
+                  dev, "site_step_born")
+    return temp
+
+
+BORN_EDGES = [(65, 37, 29, 3), (129, 9, 13, 16), (7, 1, 5, 1),
+              (300, 130, 130, 4), (64, 64, 32, 2), (1, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d", BORN_EDGES
+                         + [(67, 37, 29, d) for d in range(1, 17)])
+def test_born_c128_kernel_at_tile_edges(card, n, chi_l, chi_r, d):
+    """The site step against ``site_step_born_plain``, and its whole temp
+    against the plain contraction, fp64 tolerances."""
+    env, gamma, lam, u = _born_operands(n, chi_l, chi_r, d, card)
+    before = K.LAUNCHES["site_step_born"]
+    e_k, s_k, d_k = K.site_step_born(env, gamma, lam, u)
+    e_p, s_p, d_p = K.site_step_born_plain(env, gamma, lam, u)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["site_step_born"] == before + 1
+    assert torch.equal(s_k, s_p)
+    _close(e_k, e_p, torch.float64)
+    _close(d_k, d_p, torch.float64)
+    _close(_born_temp(env, gamma, lam, u, chi_l, d),
+           K.contract_plain(env, gamma), torch.float64)
+
+
+def test_born_c128_operands_off_their_storage(card):
+    """env and Γ as views one element into their storage (16-byte aligned:
+    the 16-byte copies), and as fp64 words one word in (8-byte aligned, which
+    no complex128 tensor can be: the 8-byte copies): the same bits."""
+    env, gamma, lam, u = _born_operands(67, 37, 29, 5, card)
+    views = []
+    for x in (env, gamma):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        views.append(y)
+    want = K.site_step_born(env, gamma, lam, u)
+    got = K.site_step_born(*views, lam, u)
+    words = []
+    for x in (env, gamma):
+        buf = torch.empty(2 * x.numel() + 1, dtype=torch.float64, device=card)
+        y = buf[1:]
+        y.copy_(torch.view_as_real(x).flatten())
+        assert y.data_ptr() % 16 == 8
+        words.append(y)
+    temp = _born_temp(env, gamma, lam, u, 37, 5)
+    temp_words = _born_temp(*words, lam, u, 37, 5)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(torch.view_as_real(temp_words),
+                       torch.view_as_real(temp))
+
+
+MEASURE_ENTRIES = {"fp64": (torch.float64, None),
+                   "fp32": (torch.float32, None),
+                   "bf16 fp32": (torch.float32, torch.bfloat16),
+                   "bf16 fp64": (torch.float64, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("chi_l", [1283, 2500])
+@pytest.mark.parametrize("d", [1, 3, 16])
+@pytest.mark.parametrize("n", [1, 37, 1027])
+@pytest.mark.parametrize("entry", list(MEASURE_ENTRIES))
+def test_measure_probs_many_rows_a_block(card, entry, n, d, chi_l):
+    """Odd L (one element a load) and L = 2500 (16-byte loads), over more
+    than one W chunk; N off the block's rows.  fp32/fp64: the fp64
+    tolerances; bf16 inputs: ``bf16_gemm_bound``."""
+    dt, cdt = MEASURE_ENTRIES[entry]
+    gen = torch.Generator(device=card).manual_seed(n + chi_l + d)
+    env = torch.rand((n, chi_l), generator=gen, device=card,
+                     dtype=torch.float64).to(dt)
+    w = torch.rand((chi_l, d), generator=gen, device=card,
+                   dtype=torch.float64).to(dt)
+    name = "measure_probs" + ("" if cdt is None else "_bf16")
+    before = K.LAUNCHES[name]
+    got = K.measure_probs(env, w, cdt)
+    want = K.measure_first_plain(env, w, cdt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    if cdt is None:
+        _close(got, want, dt)
+    else:
+        _within(got, want, K.bf16_gemm_bound(env, w))
+
+
 def test_parallel_walks_on_the_card(card, tmp_path):
     """dp, tp_single (with measure-first) and tp_double through the session
     on a one-rank NCCL mesh: the kernels' samples equal the plain ones."""
@@ -349,7 +466,8 @@ def test_flash_attention_bf16_unaligned_operands(card):
     assert torch.equal(got, FA.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "contract_measure"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "contract_measure",
+                                    "site_step_born", "measure_probs"])
 def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
     """No atomics and a fixed order of every sum: two calls, same bits."""
     from repro_torch.kernels import contract_measure as CM
@@ -361,10 +479,17 @@ def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
         first = FA.flash_attention(q, k, v, causal=True)
         second = FA.flash_attention(q, k, v, causal=True)
         outs = [(first,), (second,)]
-    else:
+    elif kernel == "contract_measure":
         env, gamma, lam, _ = _tp_operands(torch.float64, 300, 130, 65, 4,
                                           card)
         outs = [CM.contract_measure(env, gamma, lam) for _ in range(2)]
+    elif kernel == "site_step_born":
+        ops = _born_operands(300, 130, 130, 4, card)
+        outs = [(*K.site_step_born(*ops), _born_temp(*ops, 130, 4))
+                for _ in range(2)]
+    else:
+        env, _, _, w = _tp_operands(torch.float64, 1027, 2500, 1, 4, card)
+        outs = [(K.measure_probs(env, w),) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
