@@ -13,8 +13,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               (one ``nvcc`` per source, all at once); print each kernel's
               registers and spill bytes (``-Xptxas -v``) and the tensor-core
               instructions (``cuobjdump -sass``) of the bf16 tiles and the
-              fp64 and complex128 DMMA GEMMs, which must have them and
-              spill nothing;
+              fp64 and complex128 DMMA GEMMs (the fp64 grouped collapse
+              among them), which must have them and spill nothing;
 3. small    — each kernel against its plain PyTorch version on awkward
               shapes, fp32/fp64, linear/Born, every scaling mode; the
               threefry uniforms on the card equal the CPU's bit for bit;
@@ -23,6 +23,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               holds the whole chain on the card), N=1024, walked through
               ``SamplingSession(kernels="cuda")`` and through the plain
               version; samples equal, log_scale allclose, launches = M;
+              one step's kernels by device time (torch.profiler: the
+              grouped collapse GEMM ``collapse_f64_kernel`` listed), its
+              rate and the card's clock and power under it and cuBLAS;
 5. tp       — a one-rank NCCL process group (a ``FileStore`` under
               ``build/``) and a 1×1 mesh; on phase 4's chain, the session
               walks dp, tp_single, tp_single with measure_first and
@@ -161,7 +164,9 @@ TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": "HMMA",
                        "contract_f64_kernel<0>": "DMMA",
                        "contract_f64_kernel<1>": "DMMA",
                        "contract_c128_kernel<0>": "DMMA",
-                       "contract_c128_kernel<1>": "DMMA"}
+                       "contract_c128_kernel<1>": "DMMA",
+                       **{f"collapse_f64_kernel<{a}, {b}>": "DMMA"
+                          for a in (0, 1) for b in (0, 1)}}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -343,8 +348,9 @@ def phase_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def phase_build() -> dict:
-    """Build every source; returns registers and spill bytes by kernel."""
+def phase_build() -> tuple[dict, dict]:
+    """Build every source; returns registers and spill bytes, and the
+    tensor-core instructions, by kernel."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -361,7 +367,7 @@ def phase_build() -> dict:
         spills = ptxas.get(fn, {}).get("spill_stores", 0)
         check(spills == 0, f"{fn} spills {spills} bytes")
     _phase("build", t0)
-    return ptxas
+    return ptxas, mma
 
 
 def tensor_core_instructions() -> dict:
@@ -537,26 +543,31 @@ def phase_full(device, semantics: str):
           f"library_ms={library_ms:.3f} bound_ms={entry['bound_ms']:.3f} "
           f"({entry['bound_by']}: {moved / 1e9:.3f} GB, "
           f"{flops / 1e12:.4f} TFLOP)")
-    if not linear:
-        # the contraction's share of the step, from the profiler's kernels
-        gemm = sum(ms * c for k, (ms, c) in parts.items()
-                   if k.startswith("contract_c128_kernel"))
-        ours = sum(ms * c for k, (ms, c) in parts.items()
-                   if not k.startswith("at::"))
-        check(gemm > 0, "born: the profiler lists no contract_c128_kernel")
-        entry.update(
-            tflops=flops / ms / 1e9, library_tflops=flops / library_ms / 1e9,
-            of_bound=entry["bound_ms"] / ms, gemm_share=gemm / ours,
-            parts=parts,
-            device_state=device_state(lambda: wrapper(env, gamma, lam, u)),
-            library_device_state=device_state(lambda: torch.matmul(env, g2)))
-        print(f"born: {entry['tflops']:.2f} TFLOP/s (cuBLAS's complex "
-              f"matmul {entry['library_tflops']:.2f} in {library_ms:.3f} ms),"
-              f" {entry['of_bound']:.1%} of the {entry['bound_ms']:.3f} ms "
-              f"bound; the contraction {gemm:.3f} of {ours:.3f} device ms "
-              f"({entry['gemm_share']:.1%}); card while kernel and library "
-              f"run {json.dumps(entry['device_state'])}, "
-              f"{json.dumps(entry['library_device_state'])}", flush=True)
+    # the GEMM's share of the step, from the profiler's kernels: the Born
+    # contraction, the linear step's grouped collapse (2·N·χ² flops)
+    gemm_kernel = "collapse_f64_kernel" if linear else "contract_c128_kernel"
+    gemm = sum(ms * c for k, (ms, c) in parts.items()
+               if k.startswith(gemm_kernel))
+    ours = sum(ms * c for k, (ms, c) in parts.items()
+               if not k.startswith("at::"))
+    check(gemm > 0, f"{semantics}: the profiler lists no {gemm_kernel}")
+    entry.update(
+        tflops=flops / ms / 1e9, library_tflops=flops / library_ms / 1e9,
+        of_bound=entry["bound_ms"] / ms, gemm_share=gemm / ours, parts=parts,
+        device_state=device_state(lambda: wrapper(env, gamma, lam, u)),
+        library_device_state=device_state(lambda: torch.matmul(env, g2)))
+    if linear:
+        entry["collapse_tflops"] = 2 * n * CHI * CHI / gemm / 1e9
+    print(f"{semantics}: {entry['tflops']:.2f} TFLOP/s (cuBLAS's "
+          f"{'' if linear else 'complex '}matmul of the whole contraction "
+          f"{entry['library_tflops']:.2f} in {library_ms:.3f} ms), "
+          f"{entry['of_bound']:.1%} of the {entry['bound_ms']:.3f} ms bound; "
+          f"{gemm_kernel} {gemm:.3f} of {ours:.3f} device ms "
+          f"({entry['gemm_share']:.1%}"
+          + (f", {entry['collapse_tflops']:.2f} TFLOP/s" if linear else "")
+          + f"); card while kernel and library run "
+          f"{json.dumps(entry['device_state'])}, "
+          f"{json.dumps(entry['library_device_state'])}", flush=True)
     del kern, plain, gamma, lam, u, g2
     torch.cuda.empty_cache()
     _phase(semantics, t0)
@@ -781,6 +792,9 @@ def phase_tp_kernels(device, mps, env, walks) -> list:
         lambda: torch.matmul(env_s, g2),
         (n * shard + shard * CHI * present + n + n * CHI) * w8,
         2 * n * shard * CHI)
+    nums["tflops"] = 2 * n * shard * CHI / nums["ms"] / 1e9
+    print(f"collapse_select {shard}→{CHI}: {nums['tflops']:.2f} TFLOP/s, "
+          f"{nums['bound_ms'] / nums['ms']:.1%} of the bound", flush=True)
     entries.append(dict(nums, name="collapse_select", route="cuda",
                         source="src/repro_torch/kernels/csrc/site_step.cu",
                         replaces="src/repro/kernels/collapse_select.py:83",
@@ -1559,7 +1573,7 @@ def main() -> int:
 
     device = phase_device()
     sys.path.insert(0, str(SRC))
-    ptxas = phase_build()
+    ptxas, mma = phase_build()
     phase_small(device)
     mesh = phase_nccl(device)
     try:
@@ -1584,8 +1598,10 @@ def main() -> int:
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
                  lm=lm)
     phase_cli()
-    for entry, prefix in ((born, "contract_c128_kernel"),
+    for entry, prefix in ((linear, "collapse_f64_kernel"),
+                          (born, "contract_c128_kernel"),
                           (tp_entries[0], "contract_f64_kernel"),
+                          (tp_entries[2], "collapse_f64_kernel"),
                           (tp_entries[1], "measure_probs_kernel"),
                           (bf16_entries[2], "measure_probs_kernel"),
                           (bf16_entries[0], "tc_collapse_kernel"),
@@ -1594,6 +1610,9 @@ def main() -> int:
                           (flash, "flash_tc_kernel")):
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.startswith(prefix)}
+        if prefix.endswith("f64_kernel") or prefix.endswith("c128_kernel"):
+            entry["dmma_instructions"] = {
+                k: v["DMMA"] for k, v in mma.items() if k.startswith(prefix)}
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,
                flash]
     print("kernels:", json.dumps(entries))

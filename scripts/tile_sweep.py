@@ -3,28 +3,34 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
-    python3 scripts/tile_sweep.py [--only flash dmma c128 measure]
-                                  [--parent DIR]
+    python3 scripts/tile_sweep.py [--only flash dmma c128 collapse measure]
+                                  [--shipped KIND ...] [--parent DIR]
 
 Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``
 (warps per block and 16-row query tiles per warp, by head dim, given as
 ``FASTMPS_FLASH_TILES``) and of ``site_step.cu`` (the block, k and warp
 tiles, ring depth and blocks an SM must hold of its fp64 GEMM,
-``FASTMPS_DMMA_TILE``, and of the Born step's complex128 GEMM,
-``FASTMPS_DMMA_C128_TILE``): each variant
+``FASTMPS_DMMA_TILE``, of the Born step's complex128 GEMM,
+``FASTMPS_DMMA_C128_TILE``, and of the fp64 grouped collapse,
+``FASTMPS_DMMA_COLLAPSE_TILE``): each variant
 is a file in ``build/tile_sweep/`` that defines the macro and includes the
 source, compiled with ``nvcc``, all at once; ``--only`` builds and times
 some of them (``measure``: ``measure_probs`` as the source holds it, timed
-by its kernel's device time, torch.profiler).  ``--parent DIR`` also builds
-the sources of another checkout (an unpacked ``git archive`` of the parent
-commit) and times it first and last in each sweep, parent, variants,
-parent.  Every variant is held against the plain PyTorch
-version (bf16 flash within ``flash_attention.rounding_bound``, the fp64
-and complex128 GEMMs within 1e-12 of the largest |temp|), then timed (CUDA
-events, median) at the shapes of ``chip_smoke.py``: flash at granite-3-2b's
-prefill and its variants, contract_measure at the p₂ = 4 shard shapes of
-χ = 10⁴, the Born site step at N = 512, χ = 10⁴, d = 4, measure_probs at
-N = 1024, L = 2500, d = 4.  Prints each
+by its kernel's device time, torch.profiler), ``--shipped`` only the
+variant the sources hold of the kinds it names.  ``--parent DIR`` also
+builds the sources of another checkout (an unpacked ``git archive`` of the
+parent commit) and times it first and last in each sweep, parent,
+variants, parent.  Every variant is held
+against the plain PyTorch version (bf16 flash within
+``flash_attention.rounding_bound``, the fp64 and complex128 GEMMs within
+1e-12 of the largest |temp| or |env'|, the linear step's samples equal),
+then timed (CUDA events, median) at the shapes of ``chip_smoke.py``: flash
+at granite-3-2b's prefill and its variants, contract_measure at the p₂ = 4
+shard shapes of χ = 10⁴, the Born site step at N = 512, χ = 10⁴, d = 4,
+the fp64 linear site step at N = 1024, χ = 10⁴, d = 4 and collapse_select
+at N = 1024, 2500 → 10⁴, d = 4 and, at χ = 10⁴, on fixed sizes of its
+outcome groups (with the device time of each kernel of a call,
+torch.profiler), measure_probs at N = 1024, L = 2500, d = 4.  Prints each
 variant's registers and spill bytes, the card's name and power limit first
 and last.  The variant the sources hold is the first of each list.
 """
@@ -36,6 +42,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,6 +51,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as C  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import collapse_select as CS  # noqa: E402
 from repro_torch.kernels import contract_measure as CM  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import site_step as K  # noqa: E402
@@ -59,10 +67,20 @@ C128 = [(64, 64, 16, 3, 32, 16, 1), (64, 64, 8, 4, 32, 16, 1),
         (64, 32, 8, 4, 32, 16, 1), (128, 32, 8, 4, 32, 16, 1),
         (128, 64, 8, 4, 32, 32, 1), (128, 64, 16, 3, 32, 32, 1),
         (64, 128, 8, 4, 32, 32, 1)]
+# the fp64 grouped collapse, the same fields
+COLLAPSE = [(128, 64, 16, 3, 32, 32, 2), (128, 64, 16, 3, 32, 32, 1),
+            (256, 64, 16, 3, 32, 32, 1), (128, 128, 16, 3, 64, 32, 1),
+            (64, 128, 16, 3, 32, 64, 2)]
 FLASH_SHAPES = [c for c in C.FLASH_CASES if c[5] == torch.bfloat16]
 CONTRACT_SHAPES = [(1024, 2500, 10_000, 4), (1024, 10_000, 2500, 4)]
 BORN_SHAPE = (C.BORN_N, C.CHI, C.CHI, C.D)
 MEASURE_SHAPE = (C.LINEAR_N, C.CHI // C.TP_SHARDS, C.D)
+LINEAR_SHAPE = (C.LINEAR_N, C.CHI, C.CHI, C.D)
+# outcome group sizes for the collapse at LINEAR_SHAPE: balanced and random
+# draws, chip_smoke.py's walk's draws at its site 0, and skewed draws
+GROUPS = [(256, 256, 256, 256), (252, 266, 256, 250), (268, 244, 262, 250),
+          (636, 131, 137, 120), (900, 100, 20, 4), (1000, 12, 8, 4)]
+SELECT_SHAPE = (C.LINEAR_N, C.CHI // C.TP_SHARDS, C.CHI, C.D)
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 
@@ -208,6 +226,101 @@ def sweep_c128(libs: list, device) -> None:
     torch.cuda.empty_cache()
 
 
+def _parts(parts: dict, flops: float) -> str:
+    """Device ms of each kernel of a call, and the collapse kernel's rate."""
+    gemm = sum(ms * c for k, (ms, c) in parts.items()
+               if k.startswith("collapse"))
+    return (f"collapse {flops / gemm / 1e9:.1f} TFLOP/s; parts "
+            + ", ".join(f"{k} {ms:.3f}" for k, (ms, _) in parts.items()))
+
+
+def _sweep_entry(libs, entry, args, ints, held, flops) -> str:
+    """One C entry of each variant on the same operands: held to the plain
+    version (``held(name)`` after the call), then its time (CUDA events)
+    and the device ms of each of its kernels (torch.profiler)."""
+    row = []
+    for name, lib in libs:
+        def run():
+            call(lib, entry, args, ints)
+        run()
+        torch.cuda.synchronize()
+        held(name)
+        ms = C.time_ms(run, 5)
+        row.append(f"{name}: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                   + _parts(C.device_breakdown(run), flops))
+    return " | ".join(row)
+
+
+def sweep_collapse(libs: list, device) -> None:
+    """The fp64 grouped collapse in its two entries: the linear site step
+    at N = 1024, χ = 10⁴, d = 4 (against ``site_step_linear_plain``: samples
+    equal, env' within 1e-12 of its largest |env'|) and collapse_select at
+    2500 → 10⁴ (against ``collapse_select_plain``, 1e-12 of the largest
+    |env'|); rates are of the collapse GEMM's 2·N·L·R flops."""
+    gen = torch.Generator(device=device).manual_seed(C.CHI)
+    f64 = dict(generator=gen, device=device, dtype=torch.float64)
+    for label, (n, L, R, d) in (("site_step_linear", LINEAR_SHAPE),
+                                ("collapse_select", SELECT_SHAPE)):
+        env, gamma = torch.rand((n, L), **f64), torch.rand((L, R, d), **f64)
+        out = torch.empty((n, R), dtype=torch.float64, device=device)
+        perm = torch.empty(n, dtype=torch.int32, device=device)
+        meta = torch.empty(3 * d + 1, dtype=torch.int32, device=device)
+        if label == "site_step_linear":
+            lam, u = torch.rand(R, **f64), torch.rand(n, **f64)
+            want, drawn, _ = K.site_step_linear_plain(env, gamma, lam, u)
+            samples = torch.empty(n, dtype=torch.int32, device=device)
+            args = (env, gamma, lam, u, out, samples,
+                    torch.empty(n, dtype=torch.float64, device=device),
+                    torch.empty((L, d), dtype=torch.float64, device=device),
+                    perm, meta)
+            ints = (n, L, R, d, 1)
+        else:
+            samples = torch.randint(0, d, (n,), generator=gen, device=device,
+                                    dtype=torch.int32)
+            want, drawn = CS.collapse_select_plain(env, gamma, samples), None
+            args, ints = (env, gamma, samples, out, perm, meta), (n, L, R, d)
+
+        def held(name):
+            C.check(drawn is None or torch.equal(samples.long(), drawn),
+                    f"{name}: samples differ from plain")
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            C.check(err <= 1e-12, f"{name}: env' differs from plain "
+                    f"({err:.3e})")
+        row = _sweep_entry(libs, f"fastmps_{label}_f64", args, ints, held,
+                           2 * n * L * R)
+        lib_ms = C.time_ms(lambda: torch.matmul(env, gamma.reshape(L, R * d)),
+                           5)
+        print(f"{label} f64 N={n} {L}→{R} d={d}: library (env @ Γ, d × the "
+              f"collapse's flops) {lib_ms:.3f} ms | {row}", flush=True)
+        del env, gamma, out, want, args
+        torch.cuda.empty_cache()
+
+    # the collapse's time by the sizes of its outcome groups (row tiles)
+    n, L, R, d = LINEAR_SHAPE
+    env, gamma = torch.rand((n, L), **f64), torch.rand((L, R, d), **f64)
+    out = torch.empty((n, R), dtype=torch.float64, device=device)
+    for sizes in GROUPS:
+        samples = torch.from_numpy(np.random.default_rng(0).permutation(
+            np.repeat(np.arange(d), sizes))).to(device, torch.int32)
+        want = CS.collapse_select_plain(env, gamma, samples)
+
+        def held(name):
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            C.check(err <= 1e-12, f"{name}: env' differs from plain "
+                    f"({err:.3e})")
+        row = _sweep_entry(libs, "fastmps_collapse_select_f64",
+                           (env, gamma, samples, out,
+                            torch.empty(n, dtype=torch.int32, device=device),
+                            torch.empty(3 * d + 1, dtype=torch.int32,
+                                        device=device)),
+                           (n, L, R, d), held, 2 * n * L * R)
+        print(f"collapse_select groups {list(sizes)} N={n} {L}→{R}: {row}",
+              flush=True)
+        del want
+    del env, gamma, out
+    torch.cuda.empty_cache()
+
+
 def sweep_measure(libs: list, device) -> None:
     """measure_probs at the p₂ = 4 shard shape (fp64, and bf16 inputs on
     fp64 operands) against the plain version, then each kernel's device
@@ -244,9 +357,11 @@ def sweep_measure(libs: list, device) -> None:
 
 
 def main() -> int:
-    kinds = ("flash", "dmma", "c128", "measure")
+    kinds = ("flash", "dmma", "c128", "collapse", "measure")
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+", choices=kinds, default=kinds)
+    ap.add_argument("--shipped", nargs="+", choices=kinds, default=(),
+                    help="time only the variant the sources hold of these")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout whose kernels are timed beside these")
     args = ap.parse_args()
@@ -255,13 +370,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     variants = {}
-    for v in FLASH if "flash" in args.only else ():
+    def tiles(kind, found):
+        return (found[:1] if kind in args.shipped else found) \
+            if kind in args.only else ()
+
+    for v in tiles("flash", FLASH):
         variants[f"flash 64:{v[0]}x{v[1]} 128:{v[2]}x{v[3]}"] = (
             "flash_attention", "FASTMPS_FLASH_TILES",
             ", ".join(map(str, v)), CSRC)
-    for kind, macro, tiles in (("dmma", "FASTMPS_DMMA_TILE", CONTRACT),
-                               ("c128", "FASTMPS_DMMA_C128_TILE", C128)):
-        for v in tiles if kind in args.only else ():
+    for kind, macro, found in (
+            ("dmma", "FASTMPS_DMMA_TILE", CONTRACT),
+            ("c128", "FASTMPS_DMMA_C128_TILE", C128),
+            ("collapse", "FASTMPS_DMMA_COLLAPSE_TILE", COLLAPSE)):
+        for v in tiles(kind, found):
             bm, bn, bk, st, wm, wn, mb = v
             variants[f"{kind} {bm}x{bn}x{bk} s{st} w{wm}x{wn} b{mb}"] = (
                 "site_step", macro, ", ".join(map(str, v)), CSRC)
@@ -281,6 +402,7 @@ def main() -> int:
     for kind, sweep, source in (("flash", sweep_flash, "flash_attention"),
                                 ("dmma", sweep_contract, "site_step"),
                                 ("c128", sweep_c128, "site_step"),
+                                ("collapse", sweep_collapse, "site_step"),
                                 ("measure", sweep_measure, "site_step")):
         if kind in args.only:
             mine = [(k, v) for k, v in libs.items() if k.startswith(kind)]

@@ -25,7 +25,8 @@
 //   3. bucket: a stable counting sort of the rows by drawn outcome.
 //   4. collapse: env'[n, :] = env[n, :] . Gamma[:, :, s_n] as a GEMM grouped
 //      by outcome -- 2*N*chi^2 flops, 1/d of the full contraction; bound by
-//      fp64 operations at the full width.
+//      fp64 operations at the full width (fp64: collapse_f64_kernel, on the
+//      fp64 tensor cores, below).
 //   5. rescale: per-row max (exact, order-free) and division.
 // Born (|sum|^2 != sum|.|^2, so measure-first is invalid):
 //   1. contract: the full complex GEMM temp = env . Gamma over the
@@ -108,14 +109,14 @@
 //
 // What bounds the GEMMs is their fp64 operations (2*N*chi^2 and more at
 // chi = 1e4), which the card does at 67 TFLOP/s only on its fp64 tensor
-// cores.  contract_measure's fp64 GEMM and the Born step's complex128
-// contraction run there (contract_f64_kernel, contract_c128_kernel: one
-// DMMA main loop, real or complex); the linear collapse and
-// collapse_select are still plain shared-memory tiles with FMA (64x64
-// output tile, 16-deep k step, 4x4 outputs per thread), at about a quarter
-// of that rate; the DMMA tile is their next step.  wgmma has no fp64 form.
-// The fp32 and complex64 GEMMs keep the FMA tile: without TF32, which
-// would round otherwise, the card has no fp32 tensor-core product.
+// cores.  Every fp64 GEMM runs there, on one DMMA main loop:
+// contract_measure's (contract_f64_kernel), the Born step's complex128
+// contraction (contract_c128_kernel) and the grouped collapse of the linear
+// step and collapse_select (collapse_f64_kernel, its rows gathered by
+// outcome).  wgmma has no fp64 form.  The fp32 and complex64 GEMMs keep a
+// plain shared-memory tile with FMA (64x64 output tile, 16-deep k step, 4x4
+// outputs per thread): without TF32, which would round otherwise, the card
+// has no fp32 tensor-core product.
 //
 // C interface (loaded with ctypes): each entry launches its kernels on the
 // given stream and returns cudaGetLastError().
@@ -600,9 +601,10 @@ __device__ void gemm_tile(const T* __restrict__ env, int L,
 }
 
 // ---------------------------------------------------------------------------
-// Linear step 4: the collapse, a GEMM grouped by drawn outcome.
-// grid.x: row tiles over the outcome groups (fastest, so the blocks in flight
-// share Gamma's column panel in L2); grid.y: column tiles over R.
+// Linear step 4 in fp32: the collapse, a GEMM grouped by drawn outcome (fp64
+// runs collapse_f64_kernel, below).  grid.x: row tiles over the outcome
+// groups (fastest, so the blocks in flight share Gamma's column panel in
+// L2); grid.y: column tiles over R.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -701,9 +703,10 @@ contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int n,
 // The block, k and warp tiles, the ring depth and the blocks an SM must
 // hold on the 16-byte path (MINB, which caps a thread's registers at
 // 65536 / (MINB x threads)): BM, BN, BK, STAGES, WM, WN, MINB, of the real
-// and of the complex GEMM.  A file that defines FASTMPS_DMMA_TILE or
-// FASTMPS_DMMA_C128_TILE and then includes this one builds another tile
-// (scripts/tile_sweep.py).  The real tile asks for two blocks (128
+// GEMM, of the complex GEMM and of the grouped collapse.  A file that
+// defines FASTMPS_DMMA_TILE, FASTMPS_DMMA_C128_TILE or
+// FASTMPS_DMMA_COLLAPSE_TILE and then includes this one builds another
+// tile (scripts/tile_sweep.py).  The real tiles ask for two blocks (128
 // registers; left to itself the allocator takes more, one block fits and
 // the GEMM runs about 1.2x slower); the 8-byte path would spill there and
 // keeps one.  The complex tile holds 32 x 16 outputs a warp: at 32 x 32
@@ -713,6 +716,9 @@ contract_kernel(const T* __restrict__ env, const T* __restrict__ gamma, int n,
 #endif
 #ifndef FASTMPS_DMMA_C128_TILE
 #define FASTMPS_DMMA_C128_TILE 64, 64, 16, 3, 32, 16, 1
+#endif
+#ifndef FASTMPS_DMMA_COLLAPSE_TILE
+#define FASTMPS_DMMA_COLLAPSE_TILE 128, 64, 16, 3, 32, 32, 2
 #endif
 
 template <bool CPLX_, int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_,
@@ -742,6 +748,7 @@ struct DmmaTile {
 };
 using F64Tile = DmmaTile<false, FASTMPS_DMMA_TILE>;
 using C128Tile = DmmaTile<true, FASTMPS_DMMA_C128_TILE>;
+using CollapseTile = DmmaTile<false, FASTMPS_DMMA_COLLAPSE_TILE>;
 
 // W words global -> shared (W = 1 or 2); zero-filled when !pred
 template <int W>
@@ -768,41 +775,60 @@ __device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// one stage: env rows [r0, r0 + BM) x k [k0, k0 + BK) and Gamma k rows
-// [k0, k0 + BK) x columns [c0, c0 + BN); out of range -> 0.  Copies are of
-// words: VEC copies two at a time (16 bytes: one complex element, or two
-// real ones where L and ncols are even), from 16-byte aligned operands.
-template <class TL, bool VEC>
+// one stage: env rows x k [k0, k0 + BK) and Gamma k rows [k0, k0 + BK) x
+// columns [c0, c0 + BN); out of range -> 0.  Copies are of words, WA of env
+// and WB of Gamma at a time: 2 is 16 bytes (one complex element, or two real
+// ones where the row is of even length), from 16-byte aligned operands.
+// Dense (!GATHER): env rows r0 + r below n, Gamma (L, ncols) row-major.
+// GATHER (real): env row rows[r], an index list in shared memory (-1: none),
+// and B(k, c) = gamma[(k * ncols + c) * cs] (cs 1 where WB is 2).
+template <class TL, int WA, int WB, bool GATHER>
 __device__ __forceinline__ void dmma_load(double* As, double* Bs,
                                           const double* __restrict__ env,
                                           const double* __restrict__ gamma,
                                           int n, int L, int ncols, int r0,
-                                          int c0, int k0) {
-  constexpr int CW = TL::CW, W = VEC ? 2 : 1;
-  constexpr int ACH = TL::BK * CW / W, BCH = TL::BN * CW / W;  // per row
+                                          int c0, int k0, const int* rows,
+                                          int cs) {
+  constexpr int CW = TL::CW;
+  constexpr int ACH = TL::BK * CW / WA, BCH = TL::BN * CW / WB;  // per row
   constexpr int NT = TL::NT;
+  static_assert(!(GATHER && TL::CPLX), "gathered operands are real");
   static_assert(TL::BM * ACH % NT == 0 && TL::BK * BCH % NT == 0,
                 "whole copies");
 #pragma unroll
   for (int it = 0; it < TL::BM * ACH / NT; ++it) {
     const int idx = threadIdx.x + it * NT;
-    const int r = idx / ACH, kw = (idx % ACH) * W;   // word in the row
-    const int row = r0 + r, k = k0 + kw / CW;
-    const bool ok = row < n && k < L;
-    cp_async_words<W>(smem_addr(As + r * TL::LDA * CW + kw),
-                      ok ? env + ((size_t)row * L + k) * CW + kw % CW : env,
-                      ok);
+    const int r = idx / ACH, kw = (idx % ACH) * WA;   // word in the row
+    if constexpr (GATHER) {
+      const int row = rows[r], k = k0 + kw;
+      const bool ok = row >= 0 && k < L;
+      cp_async_words<WA>(smem_addr(As + r * TL::LDA + kw),
+                         ok ? env + (size_t)row * L + k : env, ok);
+    } else {
+      const int row = r0 + r, k = k0 + kw / CW;
+      const bool ok = row < n && k < L;
+      cp_async_words<WA>(smem_addr(As + r * TL::LDA * CW + kw),
+                         ok ? env + ((size_t)row * L + k) * CW + kw % CW
+                            : env,
+                         ok);
+    }
   }
 #pragma unroll
   for (int it = 0; it < TL::BK * BCH / NT; ++it) {
     const int idx = threadIdx.x + it * NT;
-    const int kr = idx / BCH, cw = (idx % BCH) * W;
+    const int kr = idx / BCH, cw = (idx % BCH) * WB;
     const int k = k0 + kr, col = c0 + cw / CW;
     const bool ok = k < L && col < ncols;
-    cp_async_words<W>(smem_addr(Bs + kr * TL::LDB * CW + cw),
-                      ok ? gamma + ((size_t)k * ncols + col) * CW + cw % CW
-                         : gamma,
-                      ok);
+    if constexpr (GATHER)
+      cp_async_words<WB>(
+          smem_addr(Bs + kr * TL::LDB + cw),
+          ok ? gamma + ((size_t)k * ncols + col) * (WB == 2 ? 1 : cs) : gamma,
+          ok);
+    else
+      cp_async_words<WB>(smem_addr(Bs + kr * TL::LDB * CW + cw),
+                         ok ? gamma + ((size_t)k * ncols + col) * CW + cw % CW
+                            : gamma,
+                         ok);
   }
 }
 
@@ -820,12 +846,13 @@ __device__ __forceinline__ void dmma_frag(const double* tile, int idx,
 }
 
 // The block's tile at (r0, c0): acc[0] the real parts, acc[1] the
-// imaginary ones (complex only)
-template <class TL, bool VEC>
+// imaginary ones (complex only).  Operands as dmma_load's.
+template <class TL, int WA, int WB, bool GATHER = false>
 __device__ __forceinline__ void dmma_gemm(
     const double* __restrict__ env, const double* __restrict__ gamma, int n,
     int L, int ncols, int r0, int c0, double* sm,
-    double (&acc)[TL::CW][TL::MI][TL::NJ][4]) {
+    double (&acc)[TL::CW][TL::MI][TL::NJ][4], const int* rows = nullptr,
+    int cs = 0) {
   constexpr int BM = TL::BM, BK = TL::BK, STAGES = TL::STAGES;
   constexpr int MI = TL::MI, NJ = TL::NJ, CW = TL::CW;
   constexpr int LDA = TL::LDA, LDB = TL::LDB, STAGE = TL::STAGE;
@@ -834,6 +861,11 @@ __device__ __forceinline__ void dmma_gemm(
   const int wm = (warp % (BM / TL::WM)) * TL::WM;
   const int wn = (warp / (BM / TL::WM)) * TL::WN;
   const int n_k = (L + BK - 1) / BK;
+  // gathered rows come first in a tile, -1 after: a fragment whose first
+  // row is -1 is padding, and its products are skipped
+  bool live[MI];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) live[i] = !GATHER || rows[wm + 16 * i] >= 0;
 #pragma unroll
   for (int c = 0; c < CW; ++c)
 #pragma unroll
@@ -846,8 +878,10 @@ __device__ __forceinline__ void dmma_gemm(
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_k)
-      dmma_load<TL, VEC>(sm + s * STAGE, sm + s * STAGE + BM * LDA * CW, env,
-                         gamma, n, L, ncols, r0, c0, s * BK);
+      dmma_load<TL, WA, WB, GATHER>(sm + s * STAGE,
+                                    sm + s * STAGE + BM * LDA * CW, env,
+                                    gamma, n, L, ncols, r0, c0, s * BK, rows,
+                                    cs);
     cp_commit();
   }
   for (int kt = 0; kt < n_k; ++kt) {
@@ -856,8 +890,8 @@ __device__ __forceinline__ void dmma_gemm(
     const int nxt = kt + STAGES - 1;
     if (nxt < n_k) {
       double* st = sm + (nxt % STAGES) * STAGE;
-      dmma_load<TL, VEC>(st, st + BM * LDA * CW, env, gamma, n, L, ncols, r0,
-                         c0, nxt * BK);
+      dmma_load<TL, WA, WB, GATHER>(st, st + BM * LDA * CW, env, gamma, n, L,
+                                    ncols, r0, c0, nxt * BK, rows, cs);
     }
     cp_commit();
     const double* As = sm + (kt % STAGES) * STAGE;
@@ -879,9 +913,12 @@ __device__ __forceinline__ void dmma_gemm(
           dmma_frag<TL>(Bs, (kk + t4 + 4 * e) * LDB + wn + 8 * j + g,
                         b[0][j][e], b[CW - 1][j][e]);
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+      for (int i = 0; i < MI; ++i) {
+        if constexpr (GATHER)
+          if (!live[i]) continue;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) mma_f64(acc[0][i][j], a[0][i], b[0][j]);
+      }
       if constexpr (TL::CPLX) {
 #pragma unroll
         for (int i = 0; i < MI; ++i)
@@ -903,11 +940,12 @@ __device__ __forceinline__ void dmma_gemm(
   }
 }
 
-// the block's outputs: temp[row, col] (complex: its (re, im) pair)
-template <class TL>
+// the block's outputs: temp[row, col] (complex: its (re, im) pair), rows
+// r0 + m below n, or (GATHER) rows[m] where it is not -1
+template <class TL, bool GATHER = false>
 __device__ __forceinline__ void dmma_store(
     const double (&acc)[TL::CW][TL::MI][TL::NJ][4], int n, int ncols, int r0,
-    int c0, double* __restrict__ temp) {
+    int c0, double* __restrict__ temp, const int* rows = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = (warp % (TL::BM / TL::WM)) * TL::WM;
@@ -916,8 +954,9 @@ __device__ __forceinline__ void dmma_store(
   for (int i = 0; i < TL::MI; ++i)
 #pragma unroll
     for (int e = 0; e < 4; e += 2) {
-      const int row = r0 + wm + 16 * i + g + 8 * (e / 2);
-      if (row >= n) continue;
+      const int m = wm + 16 * i + g + 8 * (e / 2);
+      const int row = GATHER ? rows[m] : r0 + m;
+      if (GATHER ? row < 0 : row >= n) continue;
 #pragma unroll
       for (int j = 0; j < TL::NJ; ++j) {
         const int col = c0 + wn + 8 * j + 2 * t4;
@@ -945,7 +984,8 @@ __device__ __forceinline__ void dmma_contract(const double* __restrict__ env,
                                               double* sm) {
   const int r0 = blockIdx.x * TL::BM, c0 = blockIdx.y * TL::BN;
   double acc[TL::CW][TL::MI][TL::NJ][4];
-  dmma_gemm<TL, VEC>(env, gamma, n, L, ncols, r0, c0, sm, acc);
+  dmma_gemm<TL, VEC ? 2 : 1, VEC ? 2 : 1>(env, gamma, n, L, ncols, r0, c0, sm,
+                                          acc);
   dmma_store<TL>(acc, n, ncols, r0, c0, temp);
 }
 
@@ -1007,6 +1047,82 @@ int contract_c128(const double* env, const double* gamma, int n, int L,
   return dmma_launch<C128Tile>(
       vec ? contract_c128_kernel<true> : contract_c128_kernel<false>, env,
       gamma, n, L, ncols, temp, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The fp64 grouped collapse on the fp64 tensor cores (the linear step's and
+// collapse_select's): env'[n, :] = env[n, :] . Gamma_s for the rows n of
+// each outcome group s, by the DMMA main loop above with A's rows gathered
+// through the bucket sort's perm (staged once in shared memory, a group's
+// rows spread evenly over its row tiles; -1 past them, zero-filled, not
+// stored, their 16-row fragments' products skipped) and B(k, c) =
+// Gamma[k, c, s], read as it lies: column stride d, a word at a time
+// (8-byte cp.async; 16 bytes where d = 1), so that each word costs its whole
+// 32-byte sector from L2 (at d = 4, four times the bytes of a contiguous
+// B).  A (d, L, R) copy of Gamma's planes would make B contiguous, but
+// writing it costs more than it saves (PERF.md §6).  grid.x: the
+// groups' row tiles (fastest, so that the row tiles of one column panel run
+// together and share it in L2); grid.y: column tiles.  VA, VB: 16-byte
+// copies of env (L even, env aligned) and of Gamma (d = 1, R even, aligned).
+// ---------------------------------------------------------------------------
+
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(CollapseTile::NT,
+                                  VA ? CollapseTile::MINB : 1)
+collapse_f64_kernel(const double* __restrict__ env,
+                    const double* __restrict__ gamma, int L, int R, int d,
+                    const int32_t* __restrict__ perm,
+                    const int32_t* __restrict__ meta,
+                    double* __restrict__ out) {
+  using TL = CollapseTile;
+  extern __shared__ __align__(16) unsigned char dmma_smem[];
+  __shared__ int rows[TL::BM];
+  const int bx = blockIdx.x;
+  if (bx >= meta[3 * d]) return;
+  int s = 0;
+  for (int q = 0; q < d; ++q)
+    if (meta[q] > 0 && meta[2 * d + q] <= bx) s = q;
+  const int count = meta[s], offset = meta[d + s];
+  // the group's rows spread evenly over its row tiles, h a tile: tiles of a
+  // group's last few rows alone, which skip most of their products, slowed
+  // the whole collapse by a third on a walk's draws (PERF.md §6)
+  const int tiles = (count + TL::BM - 1) / TL::BM;
+  const int h = (count + tiles - 1) / tiles;
+  const int r0 = (bx - meta[2 * d + s]) * h;   // first row of the tile
+  for (int m = threadIdx.x; m < TL::BM; m += TL::NT)
+    rows[m] = m < h && r0 + m < count ? perm[offset + r0 + m] : -1;
+  __syncthreads();
+  const int c0 = blockIdx.y * TL::BN;
+  double acc[1][TL::MI][TL::NJ][4];
+  dmma_gemm<TL, VA ? 2 : 1, VB ? 2 : 1, true>(
+      env, gamma + s, 0, L, R, 0, c0, reinterpret_cast<double*>(dmma_smem),
+      acc, rows, d);
+  dmma_store<TL, true>(acc, 0, R, 0, c0, out, rows);
+}
+
+using CollapseKernel = void (*)(const double*, const double*, int, int, int,
+                                const int32_t*, const int32_t*, double*);
+
+// after bucket_kernel with CollapseTile::BM
+int collapse_f64(const double* env, const double* gamma, const int32_t* perm,
+                 const int32_t* meta, int n, int L, int R, int d, double* out,
+                 cudaStream_t stream) {
+  using TL = CollapseTile;
+  const dim3 grid((n + TL::BM - 1) / TL::BM + d, (R + TL::BN - 1) / TL::BN);
+  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  const bool va = L % 2 == 0 && aligned16(env);
+  const bool vb = d == 1 && R % 2 == 0 && aligned16(gamma);
+  const CollapseKernel kernel =
+      va ? (vb ? collapse_f64_kernel<true, true>
+               : collapse_f64_kernel<true, false>)
+         : (vb ? collapse_f64_kernel<false, true>
+               : collapse_f64_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, TL::NT, TL::SMEM_BYTES, stream>>>(env, gamma, L, R, d, perm,
+                                                    meta, out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1270,24 +1386,44 @@ rescale_kernel(T* __restrict__ env, int R, int per_sample,
   if (threadIdx.x == 0) dlog[n] = log10(factor);
 }
 
+// Linear steps 3-4: the rows bucketed by outcome, then the grouped
+// collapse GEMM, fp64 on the fp64 tensor cores (collapse_f64_kernel), fp32
+// on the FMA tile (no TF32)
+template <typename T>
+int grouped_collapse(const T* env, const T* gamma, const int32_t* samples,
+                     int32_t* perm, int32_t* meta, int n, int L, int R, int d,
+                     T* out, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, double>) {
+    bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, CollapseTile::BM,
+                                             perm, meta);
+    RETURN_IF_ERROR();
+    return collapse_f64(env, gamma, perm, meta, n, L, R, d, out, stream);
+  } else {
+    const dim3 grid((n + BM - 1) / BM + d, (R + BN - 1) / BN);
+    if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+    bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, BM, perm, meta);
+    RETURN_IF_ERROR();
+    collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d,
+                                                     perm, meta, out);
+    RETURN_IF_ERROR();
+    return 0;
+  }
+}
+
 template <typename T>
 int site_step_linear(const T* env, const T* gamma, const T* lam, const T* u,
                      T* env_out, int32_t* samples, T* dlog, T* w,
                      int32_t* perm, int32_t* meta, int n, int L, int R, int d,
                      int per_sample, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BM - 1) / BM + d, (R + BN - 1) / BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
   measure_weights_kernel<T><<<L, THREADS, 0, stream>>>(gamma, lam, R, d, w);
   RETURN_IF_ERROR();
   probs_draw_kernel<T, ENV_W><<<n, THREADS, 0, stream>>>(env, w, u, L, d,
                                                          samples);
   RETURN_IF_ERROR();
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, BM, perm, meta);
-  RETURN_IF_ERROR();
-  collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
-                                                   meta, env_out);
-  RETURN_IF_ERROR();
+  const int err = grouped_collapse(env, gamma, samples, perm, meta, n, L, R, d,
+                                   env_out, stream);
+  if (err != 0) return err;
   rescale_kernel<T, false><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
                                                       dlog);
   RETURN_IF_ERROR();
@@ -1347,18 +1483,12 @@ int collapse_select(const T* env, const T* gamma, const int32_t* samples,
                     T* out, int32_t* perm, int32_t* meta, int n, int L, int R,
                     int d, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BM - 1) / BM + d, (R + BN - 1) / BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
   // rows whose outcome is outside [0, d) join no group and stay zero
   const cudaError_t zeroed =
       cudaMemsetAsync(out, 0, (size_t)n * R * sizeof(T), stream);
   if (zeroed != cudaSuccess) return (int)zeroed;
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, BM, perm, meta);
-  RETURN_IF_ERROR();
-  collapse_kernel<T><<<grid, THREADS, 0, stream>>>(env, gamma, L, R, d, perm,
-                                                   meta, out);
-  RETURN_IF_ERROR();
-  return 0;
+  return grouped_collapse(env, gamma, samples, perm, meta, n, L, R, d, out,
+                          stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -295,6 +295,112 @@ def test_born_c128_operands_off_their_storage(card):
                        torch.view_as_real(temp))
 
 
+# ---------------------------------------------------------------------------
+# The fp64 grouped collapse on the fp64 tensor cores (collapse_f64_kernel),
+# in collapse_select and in the linear step: outcome groups of 0 and 1 rows
+# and of 65, 129 and 257 rows (one row past 64 and past one and two 128-row
+# tiles, so spread over two and three tiles), N off the row tile, R off the
+# 64-column tile, L odd (8-byte env copies) and off the 16-deep k step,
+# d = 1 (Γ's columns contiguous: 16-byte copies) and d = 16
+# ---------------------------------------------------------------------------
+
+# (n, chi_l, chi_r, d, rows of the first groups; the rest go to the others)
+COLLAPSE_EDGES = [(300, 130, 130, 4, (0, 1, 129)),
+                  (420, 37, 29, 4, (0, 1, 257)),
+                  (200, 48, 70, 3, (65, 0)),
+                  (150, 64, 64, 1, ()), (150, 37, 29, 1, ()),
+                  (300, 130, 65, 16, (0, 1, 129)), (1, 3, 1, 2, (0,))]
+
+
+def _collapse_samples(n, d, counts, device):
+    """Outcomes in a shuffled order with ``counts`` rows in the first
+    groups and the other rows spread over the rest."""
+    sizes = list(counts) + [0] * (d - len(counts))
+    for i in range(n - sum(counts)):
+        sizes[len(counts) + i % (d - len(counts))] += 1
+    drawn = np.random.default_rng(n + d).permutation(
+        np.repeat(np.arange(d), sizes))
+    return torch.from_numpy(drawn).to(device)
+
+
+def _forced_linear(env, gamma, samples):
+    """env and Γ kept only where l ≡ s (mod d) for env's row outcome s and
+    Γ's outcome s, so that a row's probs are positive at its outcome alone
+    and every draw gives it."""
+    d = gamma.shape[2]
+    l_mod = torch.arange(env.shape[1], device=env.device) % d
+    e = env * (l_mod[None, :] == samples[:, None])
+    g = gamma * (l_mod[:, None] == torch.arange(d, device=env.device)
+                 )[:, None, :]
+    return e, g
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d,counts", COLLAPSE_EDGES)
+def test_collapse_f64_at_tile_edges(card, n, chi_l, chi_r, d, counts):
+    """collapse_select on given outcomes, and the linear step on operands
+    that force its draws to the same outcomes, against their plain
+    versions (fp64 tolerances); the draws equal the forced outcomes."""
+    env, gamma, lam, _ = _tp_operands(torch.float64, n, chi_l, chi_r, d, card)
+    samples = _collapse_samples(n, d, counts, card)
+    before = CS.LAUNCHES["collapse_select"]
+    got = CS.collapse_select(env, gamma, samples)
+    _close(got, CS.collapse_select_plain(env, gamma, samples), torch.float64)
+    assert CS.LAUNCHES["collapse_select"] == before + 1
+    e, g = _forced_linear(env, gamma, samples)
+    u = torch.rand(n, dtype=torch.float64, device=card) * 0.98 + 0.01
+    e_k, s_k, d_k = K.site_step_linear(e, g, lam, u)
+    e_p, s_p, d_p = K.site_step_linear_plain(e, g, lam, u)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, samples) and torch.equal(s_p, samples)
+    _close(e_k, e_p, torch.float64)
+    _close(d_k, d_p, torch.float64)
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_collapse_f64_operands_off_their_storage(card, d):
+    """env and Γ 8 bytes into their storage: the kernel copies them a word
+    at a time (at d = 1 Γ too), with the same bits."""
+    env, gamma, lam, _ = _tp_operands(torch.float64, 300, 130, 66, d, card)
+    u = torch.rand(300, dtype=torch.float64, device=card)
+    samples = _collapse_samples(300, d, (), card)
+    moved = []
+    for x in (env, gamma):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0
+        moved.append(y)
+    pairs = [(CS.collapse_select(*moved, samples),
+              CS.collapse_select(env, gamma, samples))]
+    pairs += zip(K.site_step_linear(*moved, lam, u),
+                 K.site_step_linear(env, gamma, lam, u))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+def test_fp64_collapse_runs_on_the_tensor_cores(card):
+    """torch.profiler lists collapse_f64_kernel for fp64 and no fp64 FMA
+    collapse; fp32 keeps collapse_kernel<float>."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dt in (torch.float64, torch.float32):
+        env, gamma, lam, _ = _tp_operands(dt, 300, 130, 65, 4, card)
+        u = torch.rand(300, dtype=dt, device=card)
+        samples = _collapse_samples(300, 4, (), card)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            K.site_step_linear(env, gamma, lam, u)
+            CS.collapse_select(env, gamma, samples)
+            torch.cuda.synchronize()
+        names[dt] = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    f64 = [x for x in names[torch.float64] if "collapse" in x]
+    f32 = [x for x in names[torch.float32] if "collapse" in x]
+    assert f64 and all("collapse_f64_kernel" in x for x in f64)
+    assert f32 and all("collapse_kernel<float>" in x for x in f32)
+
+
 MEASURE_ENTRIES = {"fp64": (torch.float64, None),
                    "fp32": (torch.float32, None),
                    "bf16 fp32": (torch.float32, torch.bfloat16),
@@ -467,7 +573,8 @@ def test_flash_attention_bf16_unaligned_operands(card):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "contract_measure",
-                                    "site_step_born", "measure_probs"])
+                                    "site_step_born", "measure_probs",
+                                    "collapse_select", "site_step_linear"])
 def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
     """No atomics and a fixed order of every sum: two calls, same bits."""
     from repro_torch.kernels import contract_measure as CM
@@ -487,9 +594,16 @@ def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
         ops = _born_operands(300, 130, 130, 4, card)
         outs = [(*K.site_step_born(*ops), _born_temp(*ops, 130, 4))
                 for _ in range(2)]
-    else:
+    elif kernel == "measure_probs":
         env, _, _, w = _tp_operands(torch.float64, 1027, 2500, 1, 4, card)
         outs = [(K.measure_probs(env, w),) for _ in range(2)]
+    elif kernel == "collapse_select":
+        env, gamma, _, _ = _tp_operands(torch.float64, 300, 130, 65, 4, card)
+        samples = _collapse_samples(300, 4, (0, 1, 129), card)
+        outs = [(CS.collapse_select(env, gamma, samples),) for _ in range(2)]
+    else:
+        ops = _operands("linear", torch.float64, 300, 130, 4, card)
+        outs = [K.site_step_linear(*ops) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
