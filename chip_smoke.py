@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one ``nvcc`` per source, all at once); print each kernel's
               registers and spill bytes (``-Xptxas -v``) and the tensor-core
-              instructions (``cuobjdump -sass``) of the bf16 tiles and the
-              fp64 and complex128 DMMA GEMMs (the fp64 grouped collapse
+              instructions (``cuobjdump -sass``) of the bf16 GEMMs (wgmma
+              fed by TMA: HGMMA and UTMALDG; the mma.sync tiles: HMMA) and
+              the fp64 and complex128 DMMA GEMMs (the fp64 grouped collapse
               among them), which must have them and spill nothing;
 3. small    — each kernel against its plain PyTorch version on awkward
               shapes, fp32/fp64, linear/Born, every scaling mode; the
@@ -46,8 +47,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               tp_single (± measure_first) and tp_double in mxu_bf16 on the
               mesh, the same way; the four bf16 kernels against their
               plain versions at the walk's and the p₂ = 4 shard shapes in
-              both tiers, with times, bounds and ``torch.matmul`` on the
-              bf16 operands as the library yardstick;
+              both tiers, with times, bounds, TFLOP/s and ``torch.matmul``
+              on the bf16 operands as the library yardstick; the site
+              step's and contract_measure's kernels by device time (the W
+              and planes pass, the bf16 copies, the wgmma GEMM apart) with
+              the card's clock and power under them;
 8. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
               with the site step's TFLOP/s beside cuBLAS's and the card's
               SM clock and power while each runs; then a Born tp_double
@@ -156,17 +160,20 @@ TP_WALKS = {("dp", False): ("site_step_linear",),
             ("tp_single", True): ("measure_probs", "collapse_select"),
             ("tp_double", False): ("contract_measure",)}
 TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
-# the kernels that run on the tensor cores, and their instruction
-TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": "HMMA",
-                       "flash_tc_kernel<128>": "HMMA",
-                       "tc_contract_kernel": "HMMA",
-                       "tc_collapse_kernel": "HMMA",
-                       "contract_f64_kernel<0>": "DMMA",
-                       "contract_f64_kernel<1>": "DMMA",
-                       "contract_c128_kernel<0>": "DMMA",
-                       "contract_c128_kernel<1>": "DMMA",
-                       **{f"collapse_f64_kernel<{a}, {b}>": "DMMA"
+# the kernels that run on the tensor cores, by name prefix (each must match
+# a built kernel), and the instructions each must hold: mma.sync (HMMA, and
+# DMMA for fp64), or wgmma (HGMMA) fed by TMA loads (UTMALDG)
+TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": ("HMMA",),
+                       "flash_tc_kernel<128>": ("HMMA",),
+                       "wgmma_bf16_kernel": ("HGMMA", "UTMALDG"),
+                       "tc_collapse_kernel": ("HMMA",),
+                       "contract_f64_kernel<0>": ("DMMA",),
+                       "contract_f64_kernel<1>": ("DMMA",),
+                       "contract_c128_kernel<0>": ("DMMA",),
+                       "contract_c128_kernel<1>": ("DMMA",),
+                       **{f"collapse_f64_kernel<{a}, {b}>": ("DMMA",)
                           for a in (0, 1) for b in (0, 1)}}
+SASS_OPS = ("HMMA", "DMMA", "HGMMA", "UTMALDG")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -321,6 +328,33 @@ def device_breakdown(fn, expect: int | None = None, reps: int = 5) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1][0] * kv[1][1]))
 
 
+def breakdown_of(fn, names, expect: int, reps: int = 5) -> dict:
+    """``device_breakdown`` of ``fn``, held to ``expect`` of the repo's own
+    kernels a call and to every kernel named by a prefix in ``names``.  A
+    window is taken again (up to five) while it falls short: late in a
+    long process the profiler has left a kernel, or most launches of a
+    window, out; a call that launches other kernels fails every window."""
+    for _ in range(5):
+        parts = device_breakdown(fn, reps=reps)
+        missing = [p for p in names if not any(k.startswith(p) for k in parts)]
+        ours = sum(c for k, (_, c) in parts.items()
+                   if not k.startswith("at::"))
+        if not missing and ours == expect:
+            return parts
+        print(f"torch.profiler listed {ours} of {expect} kernels a call"
+              + (f", none of {missing}" if missing else "")
+              + "; another window", flush=True)
+    check(False, f"the profiler lists {ours} of the call's {expect} "
+          f"kernels: {sorted(parts)}")
+
+
+def _rate(flops: float, parts: dict, prefix: str):
+    """TFLOP/s of the kernels named ``prefix`` in a breakdown, None if the
+    profiler listed none."""
+    ms = sum(t * c for k, (t, c) in parts.items() if k.startswith(prefix))
+    return flops / ms / 1e9 if ms > 0 else None
+
+
 def device_time_ms(fn, reps: int = 20, kernels: int | None = None) -> float:
     """Device time of one call: its kernels' durations (``device_breakdown``
     over ``reps`` calls; ``kernels``: the repo's own a call).  For calls
@@ -362,16 +396,21 @@ def phase_build() -> tuple[dict, dict]:
     print(f"ptxas (registers, spill bytes) by kernel: {json.dumps(ptxas)}")
     mma = tensor_core_instructions()
     print(f"tensor-core instructions (cuobjdump -sass): {json.dumps(mma)}")
-    for fn, op in TENSOR_CORE_KERNELS.items():
-        check(mma.get(fn, {}).get(op, 0) > 0, f"{fn} has no {op} instruction")
-        spills = ptxas.get(fn, {}).get("spill_stores", 0)
-        check(spills == 0, f"{fn} spills {spills} bytes")
+    for prefix, ops in TENSOR_CORE_KERNELS.items():
+        found = [fn for fn in mma if fn.startswith(prefix)]
+        check(bool(found), f"no built kernel named {prefix}")
+        for fn in found:
+            for op in ops:
+                check(mma[fn].get(op, 0) > 0, f"{fn} has no {op} instruction")
+            spills = ptxas.get(fn, {}).get("spill_stores", 0)
+            check(spills == 0, f"{fn} spills {spills} bytes")
     _phase("build", t0)
     return ptxas, mma
 
 
 def tensor_core_instructions() -> dict:
-    """HMMA and DMMA instructions per kernel in the built libraries."""
+    """Tensor-core and TMA instructions (``SASS_OPS``) per kernel in the
+    built libraries."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -385,7 +424,7 @@ def tensor_core_instructions() -> dict:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = _build._short_name(m.group(1))
-            m = re.search(r"\b([HD]MMA)\.", line)
+            m = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
             if fn and m:
                 per = counts.setdefault(fn, {})
                 per[m.group(1)] = per.get(m.group(1), 0) + 1
@@ -972,10 +1011,13 @@ def _bf16_numbers(name, kernel, plain, library, checked, moved, flops,
     del lib_out
     if device:
         _device_times(name, out, kernel, plain, library, reps)
+    out["tflops"] = flops / out["ms"] / 1e9
+    out["of_bound"] = bound_ms / out["ms"]
     print(f"{name}: ms={out['ms']:.3f} plain_ms={out['plain_ms']:.3f} "
           f"library_ms={out['library_ms']:.3f} ({out['library_out_dtype']} "
           f"out) bound_ms={bound_ms:.3f} ({bound_by}: {moved / 1e9:.3f} GB, "
-          f"{flops / 1e12:.4f} TFLOP) max_abs_err={err:.3e} "
+          f"{flops / 1e12:.4f} TFLOP) {out['tflops']:.1f} TFLOP/s, "
+          f"{out['of_bound']:.1%} of the bound; max_abs_err={err:.3e} "
           f"({excess:.4f} of the rounding bound)", flush=True)
     return out
 
@@ -1121,13 +1163,22 @@ def phase_bf16(device, mesh, mps64) -> list:
             lambda: torch.matmul(eb, gb2), checked,
             4 * (2 * n * CHI + CHI + 3 * n) + wg * CHI * CHI * D,
             2 * CHI * CHI * D + 2 * n * CHI * D + 2 * n * CHI * CHI)
-        parts = device_breakdown(
-            lambda: K.site_step_linear(env, gamma, lam, u, compute_dtype=bf),
-            5)
+        step = lambda: K.site_step_linear(env, gamma, lam, u,  # noqa: E731
+                                          compute_dtype=bf)
+        parts = breakdown_of(step, ("weights_planes_kernel",
+                                    "bf16_rows_kernel", "wgmma_bf16_kernel"),
+                             6)
+        rate = _rate(2 * n * CHI * CHI, parts, "wgmma_bf16_kernel")
+        state = device_state(step)
         print(f"bf16 {tier}: device ms by kernel in one site_step_linear "
-              f"bf16 call (torch.profiler): {json.dumps(parts)}", flush=True)
+              f"bf16 call (torch.profiler; weights_planes_kernel: W and Γ's "
+              f"bf16 planes, bf16_rows_kernel: env in bucket order, "
+              f"wgmma_bf16_kernel: the grouped collapse at {rate} TFLOP/s): "
+              f"{json.dumps(parts)}; the card under the step: "
+              f"{json.dumps(state)}", flush=True)
         rows["site_step_linear_bf16"].append(dict(
             row, tier=tier, draws_differing=int(flip.numel()), parts=parts,
+            collapse_tflops=rate, device=state,
             shape={"n": n, "chi": CHI, "d": D, "env": str(env.dtype),
                    "gamma": str(gamma.dtype)}))
         del e_k, e_p, eb, gb2, g2
@@ -1156,9 +1207,24 @@ def phase_bf16(device, mesh, mps64) -> list:
                          (tb, pbound))),
                 4 * (n * L + R + n * R * d + n * d) + wg * L * R * d,
                 2 * n * L * R * d + 2 * n * R * d)
+            call = lambda: CM.contract_measure(e, g, l_, bf)  # noqa: E731
+            copied = (g.dtype != bf or R * d % 8 != 0
+                      or g.data_ptr() % 16 != 0)      # Γ's bf16 copy
+            parts = breakdown_of(call, ("bf16_rows_kernel",
+                                        "wgmma_bf16_kernel", "probs_kernel"),
+                                 3 + copied)
+            rate = _rate(2 * n * L * R * d, parts, "wgmma_bf16_kernel")
+            state = device_state(call) if L < R else None
+            print(f"bf16 {tier} contract_measure {L}→{R}: device ms by "
+                  f"kernel (torch.profiler; bf16_rows_kernel: env's and Γ's "
+                  f"bf16 copies, wgmma_bf16_kernel: the GEMM at {rate} "
+                  f"TFLOP/s): {json.dumps(parts)}"
+                  + (f"; the card under it: {json.dumps(state)}"
+                     if state else ""), flush=True)
             rows["contract_measure_bf16"].append(dict(
-                row, tier=tier, shape={"n": n, "L": L, "R": R, "d": d,
-                                       "gamma": str(g.dtype)}))
+                row, tier=tier, parts=parts, device=state, gemm_tflops=rate,
+                shape={"n": n, "L": L, "R": R, "d": d,
+                       "gamma": str(g.dtype)}))
             del tb, pbound, eb, gb2
             torch.cuda.empty_cache()
 
@@ -1604,8 +1670,8 @@ def main() -> int:
                           (tp_entries[2], "collapse_f64_kernel"),
                           (tp_entries[1], "measure_probs_kernel"),
                           (bf16_entries[2], "measure_probs_kernel"),
-                          (bf16_entries[0], "tc_collapse_kernel"),
-                          (bf16_entries[1], "tc_contract_kernel"),
+                          (bf16_entries[0], "wgmma_bf16_kernel"),
+                          (bf16_entries[1], "wgmma_bf16_kernel"),
                           (bf16_entries[3], "tc_collapse_kernel"),
                           (flash, "flash_tc_kernel")):
         entry["ptxas"] = {k: v for k, v in ptxas.items()
@@ -1613,6 +1679,9 @@ def main() -> int:
         if prefix.endswith("f64_kernel") or prefix.endswith("c128_kernel"):
             entry["dmma_instructions"] = {
                 k: v["DMMA"] for k, v in mma.items() if k.startswith(prefix)}
+        if prefix == "wgmma_bf16_kernel":
+            entry["sass"] = {k: v for k, v in mma.items()
+                             if k.startswith(prefix)}
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,
                flash]
     print("kernels:", json.dumps(entries))

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
-    python3 scripts/tile_sweep.py [--only flash dmma c128 collapse measure]
+    python3 scripts/tile_sweep.py [--only flash dmma c128 collapse measure
+                                         bf16]
                                   [--shipped KIND ...] [--parent DIR]
 
 Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``
@@ -12,8 +13,9 @@ Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``
 tiles, ring depth and blocks an SM must hold of its fp64 GEMM,
 ``FASTMPS_DMMA_TILE``, of the Born step's complex128 GEMM,
 ``FASTMPS_DMMA_C128_TILE``, and of the fp64 grouped collapse,
-``FASTMPS_DMMA_COLLAPSE_TILE``): each variant
-is a file in ``build/tile_sweep/`` that defines the macro and includes the
+``FASTMPS_DMMA_COLLAPSE_TILE``; the wgmma bf16 GEMM's column tile and ring
+depth, ``FASTMPS_WGMMA_TILE``): each variant
+is a file in ``build/tile_sweep/`` that defines the macros and includes the
 source, compiled with ``nvcc``, all at once; ``--only`` builds and times
 some of them (``measure``: ``measure_probs`` as the source holds it, timed
 by its kernel's device time, torch.profiler), ``--shipped`` only the
@@ -30,7 +32,11 @@ shard shapes of χ = 10⁴, the Born site step at N = 512, χ = 10⁴, d = 4,
 the fp64 linear site step at N = 1024, χ = 10⁴, d = 4 and collapse_select
 at N = 1024, 2500 → 10⁴, d = 4 and, at χ = 10⁴, on fixed sizes of its
 outcome groups (with the device time of each kernel of a call,
-torch.profiler), measure_probs at N = 1024, L = 2500, d = 4.  Prints each
+torch.profiler), measure_probs at N = 1024, L = 2500, d = 4, and (bf16)
+the bf16 entries of contract_measure at the shard shapes, of the linear
+site step at χ = 10⁴ and of collapse_select at 2500 → 10⁴ in both bf16
+tiers, each within its rounding bound, beside ``torch.matmul`` of the
+bf16 operands and ``Γ.to(bf16)`` (the planes pass's bytes).  Prints each
 variant's registers and spill bytes, the card's name and power limit first
 and last.  The variant the sources hold is the first of each list.
 """
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -71,6 +78,8 @@ C128 = [(64, 64, 16, 3, 32, 16, 1), (64, 64, 8, 4, 32, 16, 1),
 COLLAPSE = [(128, 64, 16, 3, 32, 32, 2), (128, 64, 16, 3, 32, 32, 1),
             (256, 64, 16, 3, 32, 32, 1), (128, 128, 16, 3, 64, 32, 1),
             (64, 128, 16, 3, 32, 64, 2)]
+# the wgmma bf16 GEMM of kernels 3 and 1: BN, STAGES
+BF16 = [(256, 3), (256, 4), (256, 2), (128, 4)]
 FLASH_SHAPES = [c for c in C.FLASH_CASES if c[5] == torch.bfloat16]
 CONTRACT_SHAPES = [(1024, 2500, 10_000, 4), (1024, 10_000, 2500, 4)]
 BORN_SHAPE = (C.BORN_N, C.CHI, C.CHI, C.D)
@@ -85,15 +94,16 @@ CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 
 def build(variants: dict) -> dict:
-    """name -> (source name, macro or None, value, csrc directory): compile
-    all at once, load with ctypes."""
+    """name -> (source name, {macro: value}, csrc directory): compile all at
+    once, load with ctypes (a parent checkout's entries with its own
+    argument types)."""
     out_dir = ROOT / "build" / "tile_sweep"
     procs = {}
-    for i, (name, (source, macro, value, csrc)) in enumerate(
-            variants.items()):
+    for i, (name, (source, defines, csrc)) in enumerate(variants.items()):
         d = out_dir / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "k.cu").write_text((f"#define {macro} {value}\n" if macro else "")
+        (d / "k.cu").write_text("".join(f"#define {k} {v}\n"
+                                        for k, v in defines.items())
                                 + f'#include "{csrc / source}.cu"\n')
         procs[name] = (source, d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "k.so"),
@@ -105,20 +115,33 @@ def build(variants: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
         regs = {k: v for k, v in _build.ptxas_kernels(log).items()
-                if "tc_kernel" in k or "f64_kernel" in k
-                or "c128_kernel" in k or "measure_probs_kernel<4" in k}
+                if "tc_kernel" in k or "f64_kernel" in k or "wgmma" in k
+                or "c128_kernel" in k or "measure_probs_kernel<4" in k
+                or "planes" in k or "tc_collapse" in k}
         print(f"{name}: ptxas {regs}", flush=True)
         lib = ctypes.CDLL(str(d / "k.so"))
-        for fn, argtypes in _build.SIGNATURES[source].items():
+        csrc = variants[name][2]
+        signatures = (_build.SIGNATURES if csrc == CSRC
+                      else _signatures(csrc.parent / "_build.py"))
+        for fn, argtypes in signatures[source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
+def _signatures(path: Path) -> dict:
+    """``SIGNATURES`` of another checkout's ``_build.py``."""
+    spec = importlib.util.spec_from_file_location("other_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SIGNATURES
+
+
 def call(lib, entry, tensors, ints) -> None:
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*(ctypes.c_void_p(t.data_ptr())
+    err = getattr(lib, entry)(*(ctypes.c_void_p(None if t is None
+                                                else t.data_ptr())
                                 for t in tensors), *ints,
                               ctypes.c_void_p(stream))
     C.check(err == 0, f"{entry}: cudaError {err}")
@@ -356,8 +379,142 @@ def sweep_measure(libs: list, device) -> None:
     torch.cuda.empty_cache()
 
 
+def _bf16_run(libs, entry, args, extra, ints, held, flops):
+    """One bf16 entry of each variant (``extra(name)``: its scratch, a
+    parent's none): held to the plain version, then its time and the device
+    ms of its GEMM and of its other kernels."""
+    row = []
+    for name, lib in libs:
+        full = (*args, *extra(name))
+
+        def run():
+            call(lib, entry, full, ints)
+        run()
+        torch.cuda.synchronize()
+        note = held(name)
+        ms = C.time_ms(run, 10)
+        for _ in range(3):    # the profiler leaves a launch out now and then
+            parts = C.device_breakdown(run)
+            gemm = sum(t * c for k, (t, c) in parts.items()
+                       if k.startswith(("wgmma", "tc_")))
+            if gemm > 0:
+                break
+        rate = f"{flops / gemm / 1e9:.0f} TFLOP/s" if gemm > 0 else \
+            "not listed by the profiler"
+        row.append(f"{name}: {ms:.3f} ms{note}, GEMM {gemm:.3f} ms "
+                   f"({rate}); "
+                   + ", ".join(f"{C.kernel_name(k).split('<')[0]} {t:.3f}"
+                               for k, (t, _) in parts.items()))
+    return " | ".join(row)
+
+
+def sweep_bf16(libs: list, device) -> None:
+    """The bf16 entries in both tiers (mxu_bf16: fp32 env and Γ; store_bf16:
+    Γ bf16), N = 1024, d = 4: contract_measure at the p₂ = 4 shard shapes
+    (temp within ``bf16_gemm_bound`` of the plain version), the linear site
+    step at χ = 10⁴ (env' of the rows drawn alike within the bound, draws
+    that differ counted) and collapse_select at 2500 → 10⁴, whose
+    ``tc_collapse_kernel`` is unchanged; ``torch.matmul`` of the bf16
+    operands as the library.  Rates are of each GEMM's flops."""
+    bf, f32 = torch.bfloat16, torch.float32
+    n, d = C.LINEAR_N, C.D
+    gen = torch.Generator(device=device).manual_seed(19)
+    rand = dict(generator=gen, device=device, dtype=f32)
+    tiers = {"mxu_bf16": "f32", "store_bf16": "bf16"}
+    for L, R in ((C.CHI // C.TP_SHARDS, C.CHI), (C.CHI, C.CHI // C.TP_SHARDS)):
+        env, g32 = torch.rand((n, L), **rand), torch.rand((L, R, d), **rand)
+        lam = torch.rand(R, **rand) + 0.5
+        bound = K.bf16_gemm_bound(env, g32.reshape(L, R * d)).reshape(n, R, d)
+        temp = torch.empty((n, R, d), dtype=f32, device=device)
+        probs = torch.empty((n, d), dtype=f32, device=device)
+        for tier, tg in tiers.items():
+            gamma = g32 if tg == "f32" else g32.to(bf)
+            want, _ = CM.contract_measure_plain(env, gamma, lam, bf)
+
+            def held(name):
+                share = ((temp.double() - want.double()).abs() / bound).max()
+                C.check(share.item() <= 1.0, f"{name}: temp beyond the bound")
+                return f" ({share.item():.3f} of the bound)"
+            scratch = CM.gemm_scratch(env, gamma)
+            row = _bf16_run(libs, f"fastmps_contract_measure_bf16_f32_{tg}",
+                            (env, gamma, lam, temp, probs),
+                            lambda name: () if name == "parent" else scratch,
+                            (n, L, R, d), held, 2 * n * L * R * d)
+            eb, gb = env.to(bf), gamma.reshape(L, R * d).to(bf)
+            lib_ms = C.time_ms(lambda: torch.matmul(eb, gb), 10)
+            print(f"contract_measure bf16 {tier} {L}→{R}: library "
+                  f"{lib_ms:.3f} ms | {row}", flush=True)
+            del want, eb, gb, scratch
+        del env, g32, bound, temp, lam
+        torch.cuda.empty_cache()
+
+    L = R = C.CHI
+    env, g32 = torch.rand((n, L), **rand), torch.rand((L, R, d), **rand)
+    lam, u = torch.rand(R, **rand) + 0.5, torch.rand(n, **rand)
+    out = torch.empty((n, R), dtype=f32, device=device)
+    samples = torch.empty(n, dtype=torch.int32, device=device)
+    dlog = torch.empty(n, dtype=f32, device=device)
+    for tier, tg in tiers.items():
+        gamma = g32 if tg == "f32" else g32.to(bf)
+        want, drawn, _ = K.site_step_linear_plain(env, gamma, lam, u, "none",
+                                                  bf)
+        bound = torch.empty((n, R), dtype=torch.float64, device=device)
+        for s in range(d):
+            rows = (drawn == s).nonzero().flatten()
+            bound[rows] = K.bf16_gemm_bound(env[rows], g32[:, :, s])
+        mine = K.linear_scratch(n, L, R, d, f32, device, bf)
+        theirs = K.linear_scratch(n, L, R, d, f32, device)
+
+        def held(name):
+            keep = samples.long() == drawn
+            share = ((out[keep].double() - want[keep].double()).abs()
+                     / bound[keep]).max().item()
+            C.check(share <= 1.0, f"{name}: env' beyond the bound")
+            return (f" ({share:.3f} of the bound, {int((~keep).sum())} draws"
+                    " differ)")
+        row = _bf16_run(libs, f"fastmps_site_step_linear_bf16_f32_{tg}",
+                        (env, gamma, lam, u, out, samples, dlog),
+                        lambda name: theirs if name == "parent" else mine,
+                        (n, L, R, d, 0), held, 2 * n * L * R)
+        groups = torch.bincount(drawn, minlength=d).tolist()
+        cast_ms = C.time_ms(lambda: gamma.to(bf), 10)
+        print(f"site_step_linear bf16 {tier} N={n} χ={L} d={d} (groups "
+              f"{groups}; scaling none; Γ.to(bf16), the planes' bytes: "
+              f"{cast_ms:.3f} ms) | {row}", flush=True)
+        del want, bound, mine, theirs
+        torch.cuda.empty_cache()
+    del env, g32, out
+    torch.cuda.empty_cache()
+
+    n, L, R, d = SELECT_SHAPE
+    env, g32 = torch.rand((n, L), **rand), torch.rand((L, R, d), **rand)
+    picks = torch.randint(0, d, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+    out = torch.empty((n, R), dtype=f32, device=device)
+    scratch = (torch.empty(n, dtype=torch.int32, device=device),
+               torch.empty(3 * d + 1, dtype=torch.int32, device=device))
+    for tier, tg in tiers.items():
+        gamma = g32 if tg == "f32" else g32.to(bf)
+        want = CS.collapse_select_plain(env, gamma, picks, bf)
+        bound = torch.take_along_dim(
+            K.bf16_gemm_bound(env, g32.reshape(L, R * d)).reshape(n, R, d),
+            picks.long()[:, None, None], dim=2)[:, :, 0]
+
+        def held(name):
+            share = ((out.double() - want.double()).abs() / bound).max()
+            C.check(share.item() <= 1.0, f"{name}: env' beyond the bound")
+            return f" ({share.item():.3f} of the bound)"
+        row = _bf16_run(libs, f"fastmps_collapse_select_bf16_f32_{tg}",
+                        (env, gamma, picks, out), lambda name: scratch,
+                        (n, L, R, d), held, 2 * n * L * R)
+        print(f"collapse_select bf16 {tier} {L}→{R}: {row}", flush=True)
+        del want, bound
+    del env, g32, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
-    kinds = ("flash", "dmma", "c128", "collapse", "measure")
+    kinds = ("flash", "dmma", "c128", "collapse", "measure", "bf16")
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     ap.add_argument("--shipped", nargs="+", choices=kinds, default=(),
@@ -376,8 +533,8 @@ def main() -> int:
 
     for v in tiles("flash", FLASH):
         variants[f"flash 64:{v[0]}x{v[1]} 128:{v[2]}x{v[3]}"] = (
-            "flash_attention", "FASTMPS_FLASH_TILES",
-            ", ".join(map(str, v)), CSRC)
+            "flash_attention",
+            {"FASTMPS_FLASH_TILES": ", ".join(map(str, v))}, CSRC)
     for kind, macro, found in (
             ("dmma", "FASTMPS_DMMA_TILE", CONTRACT),
             ("c128", "FASTMPS_DMMA_C128_TILE", C128),
@@ -385,16 +542,19 @@ def main() -> int:
         for v in tiles(kind, found):
             bm, bn, bk, st, wm, wn, mb = v
             variants[f"{kind} {bm}x{bn}x{bk} s{st} w{wm}x{wn} b{mb}"] = (
-                "site_step", macro, ", ".join(map(str, v)), CSRC)
+                "site_step", {macro: ", ".join(map(str, v))}, CSRC)
+    for bn, st in tiles("bf16", BF16):
+        variants[f"bf16 128x{bn} s{st}"] = (
+            "site_step", {"FASTMPS_WGMMA_TILE": f"{bn}, {st}"}, CSRC)
     if "measure" in args.only:
-        variants["measure"] = ("site_step", None, "", CSRC)
+        variants["measure"] = ("site_step", {}, CSRC)
     parents = {}
     if args.parent is not None:
         pcsrc = args.parent.resolve() / "src" / "repro_torch" / "kernels" \
             / "csrc"
         for source in {"flash_attention" if k == "flash" else "site_step"
                        for k in args.only}:
-            variants[f"parent {source}"] = (source, None, "", pcsrc)
+            variants[f"parent {source}"] = (source, {}, pcsrc)
     libs = build(variants)
     for source in ("flash_attention", "site_step"):
         if f"parent {source}" in libs:
@@ -403,7 +563,8 @@ def main() -> int:
                                 ("dmma", sweep_contract, "site_step"),
                                 ("c128", sweep_c128, "site_step"),
                                 ("collapse", sweep_collapse, "site_step"),
-                                ("measure", sweep_measure, "site_step")):
+                                ("measure", sweep_measure, "site_step"),
+                                ("bf16", sweep_bf16, "site_step")):
         if kind in args.only:
             mine = [(k, v) for k, v in libs.items() if k.startswith(kind)]
             par = parents.get(source, [])

@@ -31,8 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # are c_void_p (a bare Python int would be cut to 32 bits), sizes c_int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LINEAR = [_P] * 10 + [_I] * 5 + [_P]
+_LINEAR_BF16 = [_P] * 12 + [_I] * 5 + [_P]      # + env16, planes
 _BORN = [_P] * 8 + [_I] * 5 + [_P]
 _CONTRACT_MEASURE = [_P] * 5 + [_I] * 4 + [_P]
+_CONTRACT_MEASURE_BF16 = [_P] * 7 + [_I] * 4 + [_P]   # + env16, gamma16
 _MEASURE = [_P] * 3 + [_I] * 3 + [_P]
 _COLLAPSE = [_P] * 6 + [_I] * 4 + [_P]
 _DISPLACEMENT = [_P] * 5 + [_I] * 2 + [_P]
@@ -50,12 +52,12 @@ SIGNATURES = {
         "fastmps_measure_probs_f32": _MEASURE,
         "fastmps_collapse_select_f64": _COLLAPSE,
         "fastmps_collapse_select_f32": _COLLAPSE,
-        "fastmps_site_step_linear_bf16_f32_f32": _LINEAR,
-        "fastmps_site_step_linear_bf16_f32_bf16": _LINEAR,
-        "fastmps_site_step_linear_bf16_f64_f64": _LINEAR,
-        "fastmps_contract_measure_bf16_f32_f32": _CONTRACT_MEASURE,
-        "fastmps_contract_measure_bf16_f32_bf16": _CONTRACT_MEASURE,
-        "fastmps_contract_measure_bf16_f64_f64": _CONTRACT_MEASURE,
+        "fastmps_site_step_linear_bf16_f32_f32": _LINEAR_BF16,
+        "fastmps_site_step_linear_bf16_f32_bf16": _LINEAR_BF16,
+        "fastmps_site_step_linear_bf16_f64_f64": _LINEAR_BF16,
+        "fastmps_contract_measure_bf16_f32_f32": _CONTRACT_MEASURE_BF16,
+        "fastmps_contract_measure_bf16_f32_bf16": _CONTRACT_MEASURE_BF16,
+        "fastmps_contract_measure_bf16_f64_f64": _CONTRACT_MEASURE_BF16,
         "fastmps_measure_probs_bf16_f32": _MEASURE,
         "fastmps_measure_probs_bf16_f64": _MEASURE,
         "fastmps_collapse_select_bf16_f32_f32": _COLLAPSE,
@@ -228,12 +230,14 @@ def check_sizes(name: str, d: int, *sizes: int) -> None:
 def launch(entry: str, tensors, ints, device: torch.device, name: str,
            source: str = "site_step") -> None:
     """Call one C entry of ``csrc/<source>.cu`` on the current stream of
-    ``device``: the tensors' pointers, then the ints, then the stream.
-    Raises if the entry returns a CUDA error (a refused launch)."""
+    ``device``: the tensors' pointers (None: a null pointer), then the ints,
+    then the stream.  Raises if the entry returns a CUDA error (a refused
+    launch)."""
     fn = getattr(library(source), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors),
+        err = fn(*(ctypes.c_void_p(None if t is None else t.data_ptr())
+                   for t in tensors),
                  *(int(i) for i in ints), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "

@@ -12,8 +12,11 @@ says how the design differs) for CUDA tensors and takes its plain version,
 :func:`contract_measure_plain`, only for tensors on the CPU.
 
 ``compute_dtype=torch.bfloat16`` (the ``mxu_bf16``/``store_bf16`` tiers)
-rounds env and Γ to bf16 and sums in fp32 on the tensor cores; temp comes
-out in env's dtype, as the JAX package's ``contract_parallel`` casts it.
+rounds env and Γ to bf16 and sums in fp32 on the tensor cores (the wgmma
+kernel, fed by TMA from bf16 operands in scratch: env's rounded copy and,
+unless Γ is bf16 with 16-byte aligned rows, Γ's, :func:`gemm_scratch`);
+temp comes out in env's dtype, as the JAX package's ``contract_parallel``
+casts it.
 
 ``LAUNCHES`` counts kernel launches (one per call that reached the card,
 the bf16 entry apart); ``reset_launches`` sets them to 0.
@@ -26,7 +29,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.site_step import (_BF16, _F32, _F64,
                                            check_compute_dtype,
                                            contract_plain, linear_probs_plain,
-                                           supported)
+                                           padded, supported)
 
 LAUNCHES = {"contract_measure": 0, "contract_measure_bf16": 0}
 
@@ -76,7 +79,24 @@ def contract_measure(env, gamma, lam, compute_dtype=None):
     _build.check_sizes(name, d, n, chi_l, chi_r * d)
     temp = torch.empty((n, chi_r, d), dtype=env.dtype, device=env.device)
     probs = torch.empty((n, d), dtype=env.dtype, device=env.device)
-    _build.launch(entry, (env, gamma, lam, temp, probs), (n, chi_l, chi_r, d),
-                  env.device, name)
+    scratch = () if compute_dtype is None else gemm_scratch(env, gamma)
+    _build.launch(entry, (env, gamma, lam, temp, probs, *scratch),
+                  (n, chi_l, chi_r, d), env.device, name)
     LAUNCHES[name] += 1
     return temp, probs
+
+
+def gemm_scratch(env, gamma):
+    """The bf16 entry's scratch: env rounded to bf16 (N, padded(L)), and Γ's
+    rounded copy (L, padded(R·d)) — or None, where Γ is bf16 with rows of
+    16-byte aligned length and address, which TMA reads as it lies (200 MB
+    of copy at the p₂ = 4 shard shapes saved in store_bf16)."""
+    n, chi_l = env.shape
+    ncols = gamma.shape[1] * gamma.shape[2]
+    env16 = torch.empty((n, padded(chi_l)), dtype=torch.bfloat16,
+                        device=env.device)
+    if (gamma.dtype == torch.bfloat16 and ncols % 8 == 0
+            and gamma.data_ptr() % 16 == 0):
+        return env16, None
+    return env16, torch.empty((chi_l, padded(ncols)), dtype=torch.bfloat16,
+                              device=env.device)

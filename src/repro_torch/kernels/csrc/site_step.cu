@@ -67,21 +67,27 @@
 // store_bf16 tiers, the bf16 mode of _linear_kernel, _measure_kernel,
 // contract_measure and collapse_select).  Every GEMM operand is rounded to
 // bf16 (fp64 through fp32, as the frameworks round it) and its products are
-// summed in fp32; Gamma may be fp32, rounded on its way into shared memory
-// (mxu_bf16), or stored in bf16 beside an fp32 env (store_bf16, half its
-// bytes).  At the full width every step is bound by bytes: the linear
-// step's Gamma read (0.8 GB in bf16, 1.6 GB in fp32 at chi = 1e4, d = 4)
-// outweighs its 2*N*chi^2 flops at the 989 TFLOP/s bf16 rate.
+// summed in fp32; Gamma may be fp32 (mxu_bf16) or stored in bf16 beside an
+// fp32 env (store_bf16, half its bytes).  At the full width a GEMM of
+// 2*N*chi^2 flops takes ~0.2 ms at the 989 TFLOP/s bf16 rate, about what
+// the linear step's Gamma read takes (0.8 GB in bf16, 1.6 GB in fp32 at
+// chi = 1e4, d = 4), so a GEMM has to run near that rate: on wgmma, fed by
+// TMA (wgmma_bf16_kernel, below), from bf16 operands prepared in device
+// memory (TMA copies bytes as they lie: it neither converts nor gathers).
 //   site_step_linear_bf16: the linear step above, measure first: W = sum_r
 //      bf16(Gamma) * Lambda (W itself is not rounded: the reference rounds
 //      temp's inputs, and sum_l bf16(env) * W is its sum_r [sum_l bf16(env)
-//      * bf16(Gamma)] * Lambda in another order), probs = bf16(env) . W in
-//      env's type, the draw and bucket sort unchanged, then the grouped
-//      collapse on bf16 tensor-core tiles (tc_collapse_kernel) and the
-//      rescale.
-//   contract_measure_bf16: temp by tc_contract_kernel, written in env's
-//      type (the reference casts its fp32 temp to env's dtype), then the
-//      fixed-order probs pass.
+//      * bf16(Gamma)] * Lambda in another order), the W pass also writing
+//      the rounded Gamma as bf16 planes (d, L, R), plane s contiguous along
+//      r (0.8 GB at chi = 1e4, d = 4); probs = bf16(env) . W in env's type,
+//      the draw and bucket sort unchanged; env rounded to bf16 in bucket
+//      order (bf16_rows_kernel, so that a group's rows are one TMA range);
+//      the grouped collapse on wgmma_bf16_kernel (plane s the B of group
+//      s's tiles), then the rescale.
+//   contract_measure_bf16: env rounded to bf16, Gamma too unless it is
+//      stored in bf16 with 16-byte aligned rows (then read as it lies);
+//      temp by wgmma_bf16_kernel, written in env's type (the reference
+//      casts its fp32 temp to env's dtype), then the fixed-order probs pass.
 //   measure_probs_bf16: probs = bf16(env) . bf16(W) in fp32, by
 //      measure_probs_kernel with those roundings.  Bound by env's bytes
 //      (d <= 16 columns), so it stays on the FMA units: a product of two
@@ -89,17 +95,10 @@
 //      cores would compute.
 //   collapse_select_bf16: the grouped collapse of the linear step on the
 //      caller's samples; env' in fp32 whatever env's type, as the
-//      reference's collapse returns it.
-// The tensor-core tiles (tc_gemm) are mma.sync m16n8k16 with fp32
-// accumulators, the instruction flash_tc_kernel uses.  Gamma[:, :, s] has
-// stride d in Gamma's (L, R, d) layout, and ldmatrix wants 16 contiguous
-// bytes a row, so the operands are gathered while they are staged into
-// shared memory: plain loads that round and pack, B stored [column][k].
-// The alternative, a bf16 (d, L, R) copy of Gamma written by the W pass,
-// would add 0.8 GB of writes and reads per site to a step bound by Gamma's
-// bytes; gathering reads Gamma once from memory as long as the row tiles of
-// one column panel meet in L2 (grid.x, the row tiles, runs fastest).  wgmma
-// and TMA-fed rings are a later step.
+//      reference's collapse returns it.  Still on the mma.sync tile
+//      (tc_gemm, tc_collapse_kernel): m16n8k16 with fp32 accumulators, the
+//      operands gathered, rounded and packed through registers into shared
+//      memory, Gamma[:, :, s] read as it lies (stride d).
 //
 // The draw is op for op repro/kernels/site_impls.py::draw_from_uniform:
 // clip(probs, 0), row total, probs/total (1/d where the total is 0), a
@@ -121,7 +120,9 @@
 // C interface (loaded with ctypes): each entry launches its kernels on the
 // given stream and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -200,6 +201,14 @@ __device__ __forceinline__ bf16 to_bf16(double x) {
 }
 __device__ __forceinline__ bf16 to_bf16(bf16 x) { return x; }
 
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (std::is_same_v<T, bf16>)
+    return __float2bfloat16_rn(0.f);
+  else
+    return T(0);
+}
+
 // x as T, rounded to bf16 first when RND
 template <typename T, bool RND, typename S>
 __device__ __forceinline__ T as(S x) {
@@ -242,29 +251,143 @@ __device__ int draw(const T* probs, int d, T u) {
 
 // ---------------------------------------------------------------------------
 // Linear step 1: W[l, s] = sum_r Gamma[l, r, s] * Lambda[r]   (grid: L)
-// RND: Gamma rounded to bf16 (the bf16-input step; W itself is not rounded)
 // ---------------------------------------------------------------------------
 
-template <typename T, typename TG = T, bool RND = false>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-measure_weights_kernel(const TG* __restrict__ gamma,
-                       const T* __restrict__ lam, int R, int d,
-                       T* __restrict__ w) {
+measure_weights_kernel(const T* __restrict__ gamma, const T* __restrict__ lam,
+                       int R, int d, T* __restrict__ w) {
   __shared__ T red[THREADS / 32];
   const int l = blockIdx.x;
-  const TG* row = gamma + (size_t)l * R * d;
+  const T* row = gamma + (size_t)l * R * d;
   T acc[MAX_D];
 #pragma unroll
   for (int s = 0; s < MAX_D; ++s) acc[s] = T(0);
   for (int r = threadIdx.x; r < R; r += THREADS) {
     const T lr = lam[r];
-    const TG* g = row + (size_t)r * d;
+    const T* g = row + (size_t)r * d;
 #pragma unroll
     for (int s = 0; s < MAX_D; ++s)
-      if (s < d) acc[s] += ld<T, RND>(g + s) * lr;
+      if (s < d) acc[s] += g[s] * lr;
   }
 #pragma unroll
   for (int s = 0; s < MAX_D; ++s)
+    if (s < d) {
+      T tot = block_sum(acc[s], red);
+      if (threadIdx.x == 0) w[(size_t)l * d + s] = tot;
+    }
+}
+
+
+// Gamma[l, r, :] (d values) of one r into g, zeros where !in: VEC, as
+// 16-byte vectors (8 for bf16) where d fills them and the row is aligned
+template <typename TG> struct RVec;
+template <> struct RVec<float> {
+  using V = float4;
+  static constexpr int N = 4;
+  __device__ static float at(const V& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+template <> struct RVec<double> {
+  using V = double2;
+  static constexpr int N = 2;
+  __device__ static double at(const V& v, int i) { return i == 0 ? v.x : v.y; }
+};
+template <> struct RVec<bf16> {
+  using V = uint2;
+  static constexpr int N = 4;
+  __device__ static bf16 at(const V& v, int i) {
+    const uint32_t word = i < 2 ? v.x : v.y;
+    return __ushort_as_bfloat16((unsigned short)(word >> (16 * (i & 1))));
+  }
+};
+
+template <typename TG, int DB, bool VEC>
+__device__ __forceinline__ void load_r(TG (&g)[DB], const TG* __restrict__ p,
+                                       int d, bool in) {
+  using RV = RVec<TG>;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < DB / RV::N; ++q)
+      if (q * RV::N < d) {
+        typename RV::V v{};
+        if (in) v = reinterpret_cast<const typename RV::V*>(p)[q];
+#pragma unroll
+        for (int i = 0; i < RV::N; ++i) g[q * RV::N + i] = RV::at(v, i);
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < DB; ++s)
+      if (s < d) g[s] = in ? p[s] : zero_of<TG>();
+  }
+}
+
+// the bf16 step's W pass: W[l, s] = sum_r bf16(Gamma[l, r, s]) Lambda[r]
+// (W itself is not rounded), and the rounded values written out as Gamma's
+// bf16 planes (d, L, ldp): plane s holds them contiguous along r, rows
+// padded with zeros to ldp, the B operands of the bf16 grouped collapse.  Bound by
+// Gamma's bytes read and the planes' written.  A warp takes 64 neighbouring
+// r at a time, lane i the r of 64 w + i and 64 w + 32 + i, each read as
+// vectors of its d values (neighbouring lanes, neighbouring bytes); a plane
+// is then written as 4-byte pairs of neighbouring r, exchanged between
+// lanes by shuffles (128 bytes a warp's store).  DB bounds d at compile
+// time (4: the GBS cutoff, or MAX_D), so that d <= 4 holds few registers
+// and keeps U windows of loads in flight a warp: with one window and
+// arrays of MAX_D the pass waited on its loads, at 2.2 TB/s (fp32 Gamma)
+// and 1.3 TB/s (bf16) where Gamma.to(bf16) moves the same bytes at 3.0
+// (PERF.md section 6).
+template <typename T, typename TG, int DB, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+weights_planes_kernel(const TG* __restrict__ gamma,
+                      const T* __restrict__ lam, int R, int d,
+                      T* __restrict__ w, bf16* __restrict__ planes,
+                      int ldp) {
+  constexpr int U = DB <= 4 ? 4 : 1;            // windows in flight a warp
+  constexpr int STEP = 64 * (THREADS / 32);     // a block's r a window
+  __shared__ T red[THREADS / 32];
+  const int l = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TG* row = gamma + (size_t)l * R * d;
+  const int src = (2 * lane) & 31;   // holds r 2 lane and 2 lane + 1 of 64
+  T acc[DB];
+#pragma unroll
+  for (int s = 0; s < DB; ++s) acc[s] = T(0);
+  for (int r0 = 64 * warp; r0 < ldp; r0 += STEP * U) {
+    TG ga[U][DB], gb[U][DB];
+    T la[U], lb[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ra = r0 + STEP * u + lane, rb = ra + 32;
+      load_r<TG, DB, VEC>(ga[u], row + (size_t)ra * d, d, ra < R);
+      load_r<TG, DB, VEC>(gb[u], row + (size_t)rb * d, d, rb < R);
+      la[u] = ra < R ? lam[ra] : T(0);
+      lb[u] = rb < R ? lam[rb] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rw = r0 + STEP * u;               // the window's first r
+#pragma unroll
+      for (int s = 0; s < DB; ++s)
+        if (s < d) {
+          const bf16 a = to_bf16(ga[u][s]), b = to_bf16(gb[u][s]);
+          acc[s] += T(__bfloat162float(a)) * la[u];
+          acc[s] += T(__bfloat162float(b)) * lb[u];
+          const uint32_t mine = (uint32_t)__bfloat16_as_ushort(a) |
+                                ((uint32_t)__bfloat16_as_ushort(b) << 16);
+          const uint32_t x0 = __shfl_sync(0xffffffffu, mine, src);
+          const uint32_t x1 = __shfl_sync(0xffffffffu, mine, src + 1);
+          const int half = lane < 16 ? 0 : 16;   // a of lanes src.. or b
+          const uint32_t pair =
+              ((x0 >> half) & 0xffffu) | ((x1 >> half) << 16);
+          if (rw + 2 * lane < ldp)
+            *reinterpret_cast<uint32_t*>(
+                planes + ((size_t)s * gridDim.x + l) * ldp + rw + 2 * lane) =
+                pair;
+        }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < DB; ++s)
     if (s < d) {
       T tot = block_sum(acc[s], red);
       if (threadIdx.x == 0) w[(size_t)l * d + s] = tot;
@@ -1126,7 +1249,8 @@ int collapse_f64(const double* env, const double* gamma, const int32_t* perm,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs on the tensor cores (compute_dtype=bf16): a block computes a
+// collapse_select's bf16 GEMM on mma.sync (its redesign onto the wgmma
+// kernel below is later work): a block computes a
 // BM x BN tile of out = bf16(A) . bf16(B) with fp32 sums, as 8 warps of
 // 32 x 32, each (32/16) x (32/8) mma.sync m16n8k16 accumulators.  A is env
 // (L columns), its rows given per tile in shared memory (-1: none); B(k, c)
@@ -1153,14 +1277,6 @@ constexpr int LD = BK + 8;                       // bf16 per shared row
 static_assert(NJ % 2 == 0 && BK % 16 == 0, "whole fragments");
 static_assert(BM * BK % NT == 0 && BN * BK % NT == 0, "whole copies");
 }  // namespace tc
-
-template <typename T>
-__device__ __forceinline__ T zero_of() {
-  if constexpr (std::is_same_v<T, bf16>)
-    return __float2bfloat16_rn(0.f);
-  else
-    return T(0);
-}
 
 // one step's A elements: env[arow[it], k0 + ak], 0 outside
 template <int E, typename TA>
@@ -1286,25 +1402,6 @@ __device__ __forceinline__ void tc_store(
     }
 }
 
-// contract_measure's bf16 GEMM: temp (n, ncols) = env (n, L) . Gamma
-// (L, ncols).  grid.x: row tiles; grid.y: column tiles.
-template <typename TA, typename TB, typename TO>
-__global__ void __launch_bounds__(tc::NT)
-tc_contract_kernel(const TA* __restrict__ env, const TB* __restrict__ gamma,
-                   int n, int L, int ncols, TO* __restrict__ temp) {
-  __shared__ __align__(16) unsigned char tiles[(tc::BM + tc::BN) * tc::LD * 2];
-  __shared__ int rows[tc::BM];
-  bf16* As = reinterpret_cast<bf16*>(tiles);
-  bf16* Bs = As + tc::BM * tc::LD;
-  const int r0 = blockIdx.x * tc::BM, c0 = blockIdx.y * tc::BN;
-  for (int m = threadIdx.x; m < tc::BM; m += tc::NT)
-    rows[m] = r0 + m < n ? r0 + m : -1;
-  __syncthreads();
-  float acc[tc::MI][tc::NJ][4];
-  tc_gemm(env, L, rows, gamma, 0, (size_t)ncols, 1, c0, ncols, As, Bs, acc);
-  tc_store(acc, rows, c0, ncols, (size_t)ncols, temp);
-}
-
 // the collapse on bf16 inputs: env'[n, :] = env[n, :] . Gamma[:, :, s_n]
 // grouped by outcome, as collapse_kernel (tiles of tc::BM rows)
 template <typename TA, typename TB, typename TO>
@@ -1332,6 +1429,498 @@ tc_collapse_kernel(const TA* __restrict__ env, const TB* __restrict__ gamma,
           acc);
   tc_store(acc, rows, c0, R, (size_t)R, out);
 }
+
+// ---------------------------------------------------------------------------
+// bf16 GEMMs on wgmma fed by TMA (kernels 1 and 3 in bf16): out = A . B with
+// A a bf16 env (rows, L) and B a bf16 (L, columns) matrix, both prepared in
+// device memory (below), fp32 sums in registers.  Bound by bf16 operations
+// at the full width (2 N chi^2, 0.2 ms at 989 TFLOP/s): the GEMM has to run
+// near the tensor cores' rate, which only wgmma reaches.
+//
+// A block of 384 threads computes 128 x BN tiles over k steps of BK = 64:
+// warpgroup 0 is the producer, one thread of which keeps a ring of STAGES
+// shared-memory stages filled by TMA (A as a 64 x 128 box, B as BN / 64
+// boxes of 64 x 64, each row 128 bytes, 128-byte swizzled), each stage's
+// "full" mbarrier counting its bytes; warpgroups 1 and 2 are the consumers,
+// each 64 rows of the tile, issuing four wgmma.m64nBNk16 a stage (A
+// K-major, B MN-major: wgmma's transpose bit), then releasing the stage
+// before on its "empty" mbarrier (one arrival a consumer) once the products
+// reading it have completed (wgmma.wait_group 1), so that one stage's
+// products overlap the next stage's wait.  setmaxnreg moves registers from
+// the producer (40) to the consumers (232): BN = 256 holds 128 fp32
+// accumulators a thread.  Tails of K, of the columns and of the rows are
+// zero-filled by TMA's out-of-bounds fill: the tensor maps carry the true
+// extents, the padded strides only align rows to 16 bytes, as TMA needs.
+// Each output adds its K terms in one fixed order (no split-K, no atomics),
+// so two calls give the same bits.  The epilogue stages each consumer's
+// outputs through shared memory of its own and stores 16-byte row pieces
+// in env's type (wgmma_store).
+//
+// Dense (contract_measure): row tile bx holds rows 128 bx + m.  COLLAPSE
+// (the linear step): A's rows are env's in the bucket sort's order, so that
+// an outcome group's rows are one range TMA can copy; the tiles of group s
+// are as collapse_f64_kernel's (its rows spread evenly over them) and B is
+// Gamma's plane s, a 3-D tensor map; row m of a tile is stored to
+// env'[perm[offset + r0 + m]], the rows past the group's unstored.  Tiles
+// are numbered row tile fastest, so that the tiles of one column panel run
+// together and share B in L2; a block an SM (persistent) takes every
+// gridDim.x-th, its ring running on from one tile into the next, so that
+// one tile's epilogue overlaps the next one's loads (a tile a block was up
+// to 10 % slower, PERF.md section 6).
+//
+// The tile (BN, STAGES) is FASTMPS_WGMMA_TILE; a file that defines it and
+// then includes this one builds another (scripts/tile_sweep.py).
+// ---------------------------------------------------------------------------
+
+#ifndef FASTMPS_WGMMA_TILE
+#define FASTMPS_WGMMA_TILE 256, 3
+#endif
+
+template <int BN_, int STAGES_>
+struct WgmmaTile {
+  static constexpr int BM = 128, BN = BN_, BK = 64, STAGES = STAGES_;
+  static constexpr int NT = 384;                       // 3 warpgroups
+  static constexpr int A_BYTES = BM * BK * 2;          // 128 rows x 128 B
+  static constexpr int B_BOX = BK * 128;               // 64 x 64 bf16
+  static constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * B_BOX;
+  // the epilogue's staging, a consumer's 64 rows x 128 bytes of outputs at
+  // a time (EC columns of TO), rows padded by 32 bytes (the fp32 pairs a
+  // warp writes fall in distinct banks)
+  template <typename TO>
+  static constexpr int EC = 128 / (int)sizeof(TO);
+  template <typename TO>
+  static constexpr int LDE = EC<TO> + 32 / (int)sizeof(TO);
+  static constexpr int EPI_BYTES = 2 * 64 * 160;
+  // the stages, 1024-byte aligned (the swizzle's period), the epilogue's
+  // staging, then 2 x STAGES mbarriers
+  static constexpr int SMEM_BYTES =
+      1024 + STAGES * STAGE_BYTES + EPI_BYTES + 16 * STAGES;
+  static_assert(BN == 128 || BN == 256, "a wgmma N of 128 or 256");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
+};
+using WgTile = WgmmaTile<FASTMPS_WGMMA_TILE>;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a wait of
+// more than 2^32 cycles (seconds) traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 32))
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: the start address, the
+// leading and stride byte offsets (all in 16-byte units).  A, K-major:
+// 8-row groups 1024 bytes apart (stride), the leading offset unused.  B,
+// MN-major: 64-column boxes B_BOX apart (leading), 8 k rows 1024 bytes
+// apart (stride).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lead,
+                                              uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define FASTMPS_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FASTMPS_D16(i) \
+  FASTMPS_D4(i), FASTMPS_D4(i + 4), FASTMPS_D4(i + 8), FASTMPS_D4(i + 12)
+
+// d (64 x N, fp32, the warpgroup's accumulator layout) += A (64 x 16, bf16,
+// K-major) . B (16 x N, bf16, MN-major), from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db) {
+  static_assert(N == 128 || N == 256, "N");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : FASTMPS_D16(0), FASTMPS_D16(16), FASTMPS_D16(32), FASTMPS_D16(48)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : FASTMPS_D16(0), FASTMPS_D16(16), FASTMPS_D16(32), FASTMPS_D16(48),
+          FASTMPS_D16(64), FASTMPS_D16(80), FASTMPS_D16(96), FASTMPS_D16(112)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+#undef FASTMPS_D16
+#undef FASTMPS_D4
+
+// tile t of the GEMM: row tile t % rt (fastest, so that the tiles of one
+// column panel run together and share B in L2), column tile t / rt
+struct WgmmaTileAt {
+  int s = 0, count, offset = 0, h, r0, c0;   // A's first row: offset + r0
+};
+
+template <class TL, bool COLLAPSE>
+__device__ __forceinline__ WgmmaTileAt wgmma_tile_at(
+    int t, int rt, int n, int d, const int32_t* __restrict__ meta) {
+  WgmmaTileAt at;
+  const int bx = t % rt;
+  at.c0 = (t / rt) * TL::BN;
+  if constexpr (COLLAPSE) {
+    for (int q = 0; q < d; ++q)
+      if (meta[q] > 0 && meta[2 * d + q] <= bx) at.s = q;
+    at.count = meta[at.s];
+    at.offset = meta[d + at.s];
+    const int tiles = (at.count + TL::BM - 1) / TL::BM;
+    at.h = (at.count + tiles - 1) / tiles;
+    at.r0 = (bx - meta[2 * d + at.s]) * at.h;
+  } else {
+    at.count = n;
+    at.h = TL::BM;
+    at.r0 = bx * TL::BM;
+  }
+  return at;
+}
+
+// A consumer's 64 x BN outputs to out in TO, through shared memory: EC
+// columns at a time are written there from the accumulators (thread (warp
+// w, lane l) holds, for each 8-column block j, rows 16 w + l / 4 (+ 8) and
+// columns 8 j + 2 (l % 4) (+ 1)), then read back as 16-byte row pieces and
+// stored (a 4-byte store an output, straight from the accumulators, cost
+// about a quarter of a K = 2500 tile's time).  Rows past the tile's (or the
+// group's) are not stored; columns past ncols neither.
+template <class TL, bool COLLAPSE, typename TO>
+__device__ __forceinline__ void wgmma_store(
+    const float (&acc)[TL::BN / 2], const WgmmaTileAt& at, int c, int n,
+    int ncols, const int32_t* __restrict__ perm, TO* __restrict__ out,
+    uint32_t buf) {
+  constexpr int EC = TL::template EC<TO>, LDE = TL::template LDE<TO>;
+  constexpr int V = 16 / (int)sizeof(TO);          // a piece's outputs
+  const int t = threadIdx.x % 128, lane = t & 31, w = t / 32;
+  TO* sbuf = reinterpret_cast<TO*>(__cvta_shared_to_generic(buf));
+  // the global rows of this thread's pieces: tile rows 64 c + t / 8 + 16 q
+  int rows[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = 64 * c + t / 8 + 16 * q;
+    if constexpr (COLLAPSE)
+      rows[q] = m < at.h && at.r0 + m < at.count
+                    ? perm[at.offset + at.r0 + m] : -1;
+    else
+      rows[q] = at.r0 + m < n ? at.r0 + m : -1;
+  }
+  const bool vec = ncols % V == 0 && (uintptr_t)out % 16 == 0;
+#pragma unroll
+  for (int cc = 0; cc < TL::BN / EC; ++cc) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll
+    for (int jj = 0; jj < EC / 8; ++jj) {
+      const int j = cc * (EC / 8) + jj;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        TO* p = sbuf + (16 * w + lane / 4 + 8 * hh) * LDE + 8 * jj +
+                2 * (lane & 3);
+        p[0] = TO(acc[4 * j + 2 * hh]);
+        p[1] = TO(acc[4 * j + 2 * hh + 1]);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (rows[q] < 0) continue;
+      const int piece = t % 8, col = at.c0 + cc * EC + V * piece;
+      const TO* src = sbuf + (t / 8 + 16 * q) * LDE + V * piece;
+      TO* dst = out + (size_t)rows[q] * ncols + col;
+      if (vec && col + V <= ncols) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          if (col + e < ncols) dst[e] = src[e];
+      }
+    }
+  }
+}
+
+template <class TL, typename TO, bool COLLAPSE>
+__global__ void __launch_bounds__(TL::NT, 1)
+wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, int n, int L,
+                  int ncols, int d, const int32_t* __restrict__ perm,
+                  const int32_t* __restrict__ meta, TO* __restrict__ out) {
+  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, STAGES = TL::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_addr(wg_smem) + 1023) & ~1023u;
+  const uint32_t epi = base + STAGES * TL::STAGE_BYTES;
+  const uint32_t bars = epi + TL::EPI_BYTES;
+  // full[st] at bars + 8 st, empty[st] at bars + 8 (STAGES + st); the ring
+  // position it (k steps over this block's tiles so far) is at stage
+  // it % STAGES in round it / STAGES, whose parity the waits take
+  const int rt = COLLAPSE ? meta[3 * d] : (n + BM - 1) / BM;
+  const int n_tiles = rt * ((ncols + BN - 1) / BN);
+  if ((int)blockIdx.x >= n_tiles) return;
+  const int n_k = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);                   // the producer
+      mbar_init(bars + 8 * (STAGES + st), 2);        // the two consumers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {   // the producer: one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WgmmaTileAt at = wgmma_tile_at<TL, COLLAPSE>(t, rt, n, d, meta);
+      for (int i = 0; i < n_k; ++i, ++it) {
+        const int st = it % STAGES;
+        const uint32_t full = bars + 8 * st;
+        mbar_wait(bars + 8 * (STAGES + st), ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, TL::STAGE_BYTES);
+        const uint32_t sa = base + st * TL::STAGE_BYTES;
+        tma_load(sa, &map_a, full, i * BK, at.offset + at.r0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j) {
+          const uint32_t sb = sa + TL::A_BYTES + j * TL::B_BOX;
+          if constexpr (COLLAPSE)
+            tma_load(sb, &map_b, full, at.c0 + 64 * j, i * BK, at.s);
+          else
+            tma_load(sb, &map_b, full, at.c0 + 64 * j, i * BK);
+        }
+      }
+    }
+  } else {         // the consumers: rows 64 (wg - 1) .. of each tile
+    // what the producer frees: 384 x 168 registers at launch hold 128 x 40
+    // + 256 x 232 (an increase beyond what the pool holds waits for ever)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const bool signals = threadIdx.x % 128 == 0;   // one arrival a consumer
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const WgmmaTileAt at = wgmma_tile_at<TL, COLLAPSE>(t, rt, n, d, meta);
+      float acc[BN / 2];
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+      for (int i = 0; i < n_k; ++i, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(bars + 8 * st, (it / STAGES) & 1);
+        const uint32_t sa = base + st * TL::STAGE_BYTES + (wg - 1) * 64 * 128;
+        const uint32_t sb = base + st * TL::STAGE_BYTES + TL::A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)   // 16 k: 32 bytes of A's rows,
+          wgmma_bf16<BN>(acc, gmma_desc(sa + 32 * kk, 16, 1024),  // 16 of B's
+                         gmma_desc(sb + 2048 * kk, TL::B_BOX, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();                       // position it - 1 is read
+        if (i > 0 && signals)
+          mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
+      }
+      wgmma_wait<0>();
+      if (signals) mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        asm volatile("" : "+f"(acc[e])::"memory");
+      wgmma_store<TL, COLLAPSE>(acc, at, wg - 1, n, ncols, perm, out,
+                                epi + (wg - 1) * (TL::EPI_BYTES / 2));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 operands in device memory, rounded as the frameworks round them
+// (to_bf16): bytes-bound passes of their own, and the W pass's planes above.
+// bf16_rows_kernel: out[m, k] = bf16(src[row(m), k]) for k < K and 0 for
+// K <= k < ldo, row(m) = perm[m] (the collapse's env, in bucket order) or
+// m.  One block a row, two columns a thread (ldo is even).
+// ---------------------------------------------------------------------------
+
+template <typename TS>
+__global__ void __launch_bounds__(THREADS)
+bf16_rows_kernel(const TS* __restrict__ src, const int32_t* __restrict__ perm,
+                 int K, int ldo, bf16* __restrict__ out) {
+  const int m = blockIdx.x;
+  const TS* row = src + (size_t)(perm != nullptr ? perm[m] : m) * K;
+  __nv_bfloat162* o =
+      reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * ldo);
+  for (int k = 2 * threadIdx.x; k < ldo; k += 2 * THREADS) {
+    __nv_bfloat162 v;
+    v.x = k < K ? to_bf16(row[k]) : zero_of<bf16>();
+    v.y = k + 1 < K ? to_bf16(row[k + 1]) : zero_of<bf16>();
+    o[k / 2] = v;
+  }
+}
+
+// k rounded up to 16 bytes of bf16: TMA's unit of a row stride
+int padded(int k) { return (k + 7) / 8 * 8; }
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry, found through the CUDA runtime
+// (the library links no libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map, 128-byte swizzle, zeros out of bounds: dims innermost
+// first, the byte strides of dims 1.., the box
+int bf16_map(CUtensorMap* map, const bf16* ptr, int rank,
+             const cuuint64_t* dims, const cuuint64_t* strides,
+             const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(ptr),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// out (rows, ncols) in TO = a (rows, L; row stride lda) . b, on the wgmma
+// kernel.  Dense: b (L, ncols; row stride ldb), rows = n.  COLLAPSE: b the
+// planes (d, L, ldb) of ncols = R columns, a in bucket order; after
+// bucket_kernel with WgTile::BM.  The host's part (tensor maps, the
+// kernel's shared-memory attribute, the grid: a block an SM, or fewer
+// where there are fewer tiles) is made up by the constructor, before an
+// entry's first launch; launch() then enqueues the kernel.
+template <typename TO, bool COLLAPSE>
+struct WgmmaGemm {
+  using TL = WgTile;
+  CUtensorMap map_a, map_b;
+  int blocks = 0, err = 0;
+
+  WgmmaGemm(const bf16* a, int lda, const bf16* b, int ldb, int n, int L,
+            int ncols, int d) {
+    const cuuint64_t a_dims[2] = {(cuuint64_t)L, (cuuint64_t)n};
+    const cuuint64_t a_strides[1] = {(cuuint64_t)lda * 2};
+    const cuuint32_t a_box[2] = {TL::BK, TL::BM};
+    // B: (L, ncols), or the planes (d, L, ldb) as (ncols, L, d), innermost
+    // first; boxes of 64 columns x BK rows
+    const cuuint64_t b_dims[3] = {(cuuint64_t)ncols, (cuuint64_t)L,
+                                  (cuuint64_t)d};
+    const cuuint64_t b_strides[2] = {(cuuint64_t)ldb * 2,
+                                     (cuuint64_t)ldb * 2 * L};
+    const cuuint32_t b_box[3] = {64, TL::BK, 1};
+    err = bf16_map(&map_a, a, 2, a_dims, a_strides, a_box);
+    if (err == 0)
+      err = bf16_map(&map_b, b, COLLAPSE ? 3 : 2, b_dims, b_strides, b_box);
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          wgmma_bf16_kernel<TL, TO, COLLAPSE>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
+    // the collapse's row tiles are known on the device only (meta), so its
+    // tiles are counted at the most they can be
+    const long long tiles = (long long)((n + TL::BM - 1) / TL::BM +
+                                        (COLLAPSE ? d : 0)) *
+                            ((ncols + TL::BN - 1) / TL::BN);
+    int dev = 0, sms = 0;
+    if (err == 0) err = (int)cudaGetDevice(&dev);
+    if (err == 0)
+      err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    blocks = tiles < sms ? (int)tiles : sms;
+  }
+
+  int launch(int n, int L, int ncols, int d, const int32_t* perm,
+             const int32_t* meta, TO* out, cudaStream_t stream) const {
+    if (err != 0) return err;
+    wgmma_bf16_kernel<TL, TO, COLLAPSE>
+        <<<blocks, TL::NT, TL::SMEM_BYTES, stream>>>(
+            map_a, map_b, n, L, ncols, d, perm, meta, out);
+    return (int)cudaGetLastError();
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Born step 3: env'[n, r] = temp[n, r, s_n] * lambda_r.  One block per row.
@@ -1501,38 +2090,70 @@ template <typename TE, typename TG>
 int site_step_linear_bf16(const TE* env, const TG* gamma, const TE* lam,
                           const TE* u, TE* env_out, int32_t* samples,
                           TE* dlog, TE* w, int32_t* perm, int32_t* meta,
-                          int n, int L, int R, int d, int per_sample,
-                          cudaStream_t stream) {
+                          bf16* env16, bf16* planes, int n, int L, int R,
+                          int d, int per_sample, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + tc::BM - 1) / tc::BM + d, (R + tc::BN - 1) / tc::BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  measure_weights_kernel<TE, TG, true><<<L, THREADS, 0, stream>>>(
-      gamma, lam, R, d, w);
+  const int lda = padded(L), ldp = padded(R);
+  const WgmmaGemm<TE, true> collapse(env16, lda, planes, ldp, n, L, R, d);
+  if (collapse.err != 0) return collapse.err;
+  using RV = RVec<TG>;
+  const bool vec = d % RV::N == 0 &&
+                   (uintptr_t)gamma % sizeof(typename RV::V) == 0;
+  const auto planes_pass =
+      d <= 4 ? (vec ? weights_planes_kernel<TE, TG, 4, true>
+                    : weights_planes_kernel<TE, TG, 4, false>)
+             : (vec ? weights_planes_kernel<TE, TG, MAX_D, true>
+                    : weights_planes_kernel<TE, TG, MAX_D, false>);
+  planes_pass<<<L, THREADS, 0, stream>>>(gamma, lam, R, d, w, planes, ldp);
   RETURN_IF_ERROR();
   probs_draw_kernel<TE, ENV_W, TE, TE, 1><<<n, THREADS, 0, stream>>>(
       env, w, u, L, d, samples);
   RETURN_IF_ERROR();
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, tc::BM, perm, meta);
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, WgTile::BM, perm,
+                                           meta);
   RETURN_IF_ERROR();
-  tc_collapse_kernel<TE, TG, TE><<<grid, tc::NT, 0, stream>>>(
-      env, gamma, L, R, d, perm, meta, env_out);
+  bf16_rows_kernel<TE><<<n, THREADS, 0, stream>>>(env, perm, L, lda, env16);
   RETURN_IF_ERROR();
+  const int err = collapse.launch(n, L, R, d, perm, meta, env_out, stream);
+  if (err != 0) return err;
   rescale_kernel<TE, false><<<n, THREADS, 0, stream>>>(env_out, R, per_sample,
                                                        dlog);
   RETURN_IF_ERROR();
   return 0;
 }
 
+// gamma16: the bf16 copy of Gamma (L, padded(R d)) to write, or null to
+// read a bf16 Gamma as it lies (R d a multiple of 8, 16-byte aligned)
 template <typename TE, typename TG>
 int contract_measure_bf16(const TE* env, const TG* gamma, const TE* lam,
-                          TE* temp, TE* probs, int n, int L, int R, int d,
-                          cudaStream_t stream) {
+                          TE* temp, TE* probs, bf16* env16, bf16* gamma16,
+                          int n, int L, int R, int d, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + tc::BM - 1) / tc::BM, (R * d + tc::BN - 1) / tc::BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  tc_contract_kernel<TE, TG, TE><<<grid, tc::NT, 0, stream>>>(
-      env, gamma, n, L, R * d, temp);
+  const int lda = padded(L), ncols = R * d;
+  const bf16* b = gamma16;
+  int ldb = padded(ncols);
+  if (gamma16 == nullptr) {
+    if constexpr (!std::is_same_v<TG, bf16>) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (ncols % 8 != 0 || !aligned16(gamma))
+        return (int)cudaErrorInvalidValue;
+      b = gamma;
+      ldb = ncols;
+    }
+  }
+  const WgmmaGemm<TE, false> gemm(env16, lda, b, ldb, n, L, ncols, 1);
+  if (gemm.err != 0) return gemm.err;
+  bf16_rows_kernel<TE><<<n, THREADS, 0, stream>>>(env, nullptr, L, lda,
+                                                  env16);
   RETURN_IF_ERROR();
+  if (gamma16 != nullptr) {
+    bf16_rows_kernel<TG><<<L, THREADS, 0, stream>>>(gamma, nullptr, ncols,
+                                                    ldb, gamma16);
+    RETURN_IF_ERROR();
+  }
+  const int err = gemm.launch(n, L, ncols, 1, nullptr, nullptr, temp, stream);
+  if (err != 0) return err;
   probs_kernel<TE, TEMP_LINEAR><<<n, THREADS, 0, stream>>>(temp, lam, R, d,
                                                            probs);
   RETURN_IF_ERROR();
@@ -1658,60 +2279,71 @@ int fastmps_collapse_select_f32(const float* env, const float* gamma,
 // bf16 inputs, named by (env, Gamma) types: f32_f32 (mxu_bf16), f32_bf16
 // (store_bf16), f64_f64 (an fp64 chain); measure_probs by env = W's type.
 // Arguments as the entries above; collapse_select's out and measure_probs'
-// probs are fp32 whatever env's type.
+// probs are fp32 whatever env's type.  The site step's and contract_measure's
+// bf16 scratch: env16 (N, padded(L)) the rounded env; planes (d, L,
+// padded(R)) Gamma's rounded planes; gamma16 (L, padded(R d)) Gamma's
+// rounded copy, or null for a bf16 Gamma read as it lies.
 int fastmps_site_step_linear_bf16_f32_f32(
     const float* env, const float* gamma, const float* lam, const float* u,
     float* env_out, int32_t* samples, float* dlog, float* w, int32_t* perm,
-    int32_t* meta, int n, int L, int R, int d, int per_sample, void* stream) {
+    int32_t* meta, bf16* env16, bf16* planes, int n, int L, int R, int d,
+    int per_sample, void* stream) {
   return site_step_linear_bf16<float, float>(
-      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
-      per_sample, (cudaStream_t)stream);
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, env16,
+      planes, n, L, R, d, per_sample, (cudaStream_t)stream);
 }
 
 int fastmps_site_step_linear_bf16_f32_bf16(
     const float* env, const bf16* gamma, const float* lam, const float* u,
     float* env_out, int32_t* samples, float* dlog, float* w, int32_t* perm,
-    int32_t* meta, int n, int L, int R, int d, int per_sample, void* stream) {
+    int32_t* meta, bf16* env16, bf16* planes, int n, int L, int R, int d,
+    int per_sample, void* stream) {
   return site_step_linear_bf16<float, bf16>(
-      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
-      per_sample, (cudaStream_t)stream);
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, env16,
+      planes, n, L, R, d, per_sample, (cudaStream_t)stream);
 }
 
 int fastmps_site_step_linear_bf16_f64_f64(
     const double* env, const double* gamma, const double* lam,
     const double* u, double* env_out, int32_t* samples, double* dlog,
-    double* w, int32_t* perm, int32_t* meta, int n, int L, int R, int d,
-    int per_sample, void* stream) {
+    double* w, int32_t* perm, int32_t* meta, bf16* env16, bf16* planes,
+    int n, int L, int R, int d, int per_sample, void* stream) {
   return site_step_linear_bf16<double, double>(
-      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, n, L, R, d,
-      per_sample, (cudaStream_t)stream);
+      env, gamma, lam, u, env_out, samples, dlog, w, perm, meta, env16,
+      planes, n, L, R, d, per_sample, (cudaStream_t)stream);
 }
 
 int fastmps_contract_measure_bf16_f32_f32(const float* env,
                                           const float* gamma,
                                           const float* lam, float* temp,
-                                          float* probs, int n, int L, int R,
+                                          float* probs, bf16* env16,
+                                          bf16* gamma16, int n, int L, int R,
                                           int d, void* stream) {
-  return contract_measure_bf16<float, float>(env, gamma, lam, temp, probs, n,
-                                             L, R, d, (cudaStream_t)stream);
+  return contract_measure_bf16<float, float>(env, gamma, lam, temp, probs,
+                                             env16, gamma16, n, L, R, d,
+                                             (cudaStream_t)stream);
 }
 
 int fastmps_contract_measure_bf16_f32_bf16(const float* env,
                                            const bf16* gamma,
                                            const float* lam, float* temp,
-                                           float* probs, int n, int L, int R,
+                                           float* probs, bf16* env16,
+                                           bf16* gamma16, int n, int L, int R,
                                            int d, void* stream) {
-  return contract_measure_bf16<float, bf16>(env, gamma, lam, temp, probs, n,
-                                            L, R, d, (cudaStream_t)stream);
+  return contract_measure_bf16<float, bf16>(env, gamma, lam, temp, probs,
+                                            env16, gamma16, n, L, R, d,
+                                            (cudaStream_t)stream);
 }
 
 int fastmps_contract_measure_bf16_f64_f64(const double* env,
                                           const double* gamma,
                                           const double* lam, double* temp,
-                                          double* probs, int n, int L, int R,
+                                          double* probs, bf16* env16,
+                                          bf16* gamma16, int n, int L, int R,
                                           int d, void* stream) {
   return contract_measure_bf16<double, double>(
-      env, gamma, lam, temp, probs, n, L, R, d, (cudaStream_t)stream);
+      env, gamma, lam, temp, probs, env16, gamma16, n, L, R, d,
+      (cudaStream_t)stream);
 }
 
 int fastmps_measure_probs_bf16_f32(const float* env, const float* w,

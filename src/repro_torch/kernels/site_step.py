@@ -18,7 +18,11 @@ is the tensor-parallel measure-first stage: it replaces the Pallas
 ``store_bf16`` tiers, linear only) rounds the GEMM inputs to bf16 and sums
 in fp32, as the Pallas kernels' ``compute_dtype`` does; Γ may then be
 stored in bf16 beside an fp32 environment.  Its kernels are the bf16
-tensor-core entries of ``csrc/site_step.cu``, counted apart (``*_bf16``).
+tensor-core entries of ``csrc/site_step.cu``, counted apart (``*_bf16``);
+the site step's grouped collapse runs on the wgmma kernel from bf16
+operands that the entry prepares in scratch the wrapper allocates: env in
+bucket order and Γ's planes, whose plain versions are
+:func:`bf16_rows_plain` and :func:`bf16_planes_plain`.
 
 Randomness stays outside: the caller passes the per-site uniforms ``u`` (N,)
 drawn from the folded key, so the kernels and the plain versions consume
@@ -136,6 +140,38 @@ def measure_first_plain(env, w, compute_dtype=None):
         return env @ w
     return precision.rounded(env, compute_dtype) @ precision.rounded(
         w, compute_dtype)
+
+
+def padded(k: int) -> int:
+    """``k`` rounded up to a whole 16 bytes of bf16: a row stride TMA
+    takes."""
+    return -(-k // 8) * 8
+
+
+def bf16_rows_plain(x, perm=None):
+    """The bf16 env (or Γ) operand of the wgmma GEMM as the kernels'
+    preparation pass writes it: (rows, K) → (rows, ``padded(K)``) bf16, row
+    m = ``x[perm[m]]`` (the collapse's bucket order) or ``x[m]``, rounded as
+    :func:`precision.rounded` rounds (fp64 through fp32), zeros past K."""
+    if perm is not None:
+        x = x[perm.long()]
+    rows, k = x.shape
+    out = torch.zeros((rows, padded(k)), dtype=torch.bfloat16,
+                      device=x.device)
+    out[:, :k] = precision.rounded(x, torch.bfloat16, torch.bfloat16)
+    return out
+
+
+def bf16_planes_plain(gamma):
+    """Γ's bf16 planes as the bf16 site step's W pass writes them: Γ (L, R,
+    d) → P (d, L, ``padded(R)``), P[s, l, r] = bf16(Γ[l, r, s]), zeros past
+    R."""
+    chi_l, chi_r, d = gamma.shape
+    out = torch.zeros((d, chi_l, padded(chi_r)), dtype=torch.bfloat16,
+                      device=gamma.device)
+    out[:, :, :chi_r] = precision.rounded(gamma, torch.bfloat16,
+                                          torch.bfloat16).permute(2, 0, 1)
+    return out
 
 
 def bf16_gemm_bound(a, b):
@@ -279,12 +315,26 @@ def site_step_linear(env, gamma, lam, u, scaling: str = "per_sample",
                           gamma)
         name += "_bf16"
     n, chi_l, chi_r, d = _check_operands(env, gamma, lam, u, name)
-    dev = env.device
-    scratch = [torch.empty((chi_l, d), dtype=env.dtype, device=dev),   # W
-               torch.empty((n,), dtype=torch.int32, device=dev),       # perm
-               torch.empty((3 * d + 1,), dtype=torch.int32, device=dev)]
-    return _launch(entry, env, gamma, lam, u, scratch, n, chi_l, chi_r, d,
-                   scaling, name)
+    return _launch(entry, env, gamma, lam, u,
+                   linear_scratch(n, chi_l, chi_r, d, env.dtype, env.device,
+                                  compute_dtype),
+                   n, chi_l, chi_r, d, scaling, name)
+
+
+def linear_scratch(n, chi_l, chi_r, d, dtype, device, compute_dtype=None):
+    """The linear step's scratch, in its C entry's order: W (χl, d), perm
+    (N,) and the bucket sort's meta (3d + 1,); under bf16 inputs also the
+    bf16 env in bucket order (N, padded(χl)) and Γ's bf16 planes (d, χl,
+    padded(χr)), the wgmma collapse's operands (0.8 GB at χ = 10⁴, d = 4)."""
+    scratch = [torch.empty((chi_l, d), dtype=dtype, device=device),
+               torch.empty((n,), dtype=torch.int32, device=device),
+               torch.empty((3 * d + 1,), dtype=torch.int32, device=device)]
+    if compute_dtype is not None:
+        scratch += [torch.empty((n, padded(chi_l)), dtype=torch.bfloat16,
+                                device=device),
+                    torch.empty((d, chi_l, padded(chi_r)),
+                                dtype=torch.bfloat16, device=device)]
+    return scratch
 
 
 def site_step_born(env, gamma, lam, u, scaling: str = "per_sample"):

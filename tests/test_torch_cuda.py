@@ -572,15 +572,26 @@ def test_flash_attention_bf16_unaligned_operands(card):
     assert torch.equal(got, FA.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "contract_measure",
-                                    "site_step_born", "measure_probs",
-                                    "collapse_select", "site_step_linear"])
+@pytest.mark.parametrize("kernel", [
+    "flash_attention", "contract_measure", "site_step_born", "measure_probs",
+    "collapse_select", "site_step_linear",
+    *(f"{k}_bf16 {pair}" for k in ("contract_measure", "site_step_linear")
+      for pair in ("fp32+fp32", "fp32+bf16", "fp64+fp64"))])
 def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
     """No atomics and a fixed order of every sum: two calls, same bits."""
     from repro_torch.kernels import contract_measure as CM
     from repro_torch.kernels import flash_attention as FA
 
-    if kernel == "flash_attention":
+    if kernel.startswith("contract_measure_bf16"):
+        env, gamma, lam, _ = _bf16_operands(kernel.split()[1], 300, 1000,
+                                            130, 4, card)
+        outs = [CM.contract_measure(env, gamma, lam, torch.bfloat16)
+                for _ in range(2)]
+    elif kernel.startswith("site_step_linear_bf16"):
+        ops = _bf16_operands(kernel.split()[1], 300, 600, 600, 4, card)
+        outs = [K.site_step_linear(*ops, compute_dtype=torch.bfloat16)
+                for _ in range(2)]
+    elif kernel == "flash_attention":
         q, k, v = _flash_operands(torch.bfloat16, 2, 333, 333, 2, 4, 64,
                                   card, 5)
         first = FA.flash_attention(q, k, v, causal=True)
@@ -655,12 +666,34 @@ def _within(got, want, bound):
         ((got.double() - want.double()).abs() / bound).max().item()
 
 
+# (1024, 512, 4) and (1024, 2000, 4): TMA-aligned rows, several k stages
+# and column tiles of the wgmma collapse
 @pytest.mark.parametrize("n,chi,d", [(8, 4, 3), (37, 13, 5), (300, 130, 4),
-                                     (200, 256, 16)])
+                                     (200, 256, 16), (1024, 512, 4),
+                                     (1024, 2000, 4)])
 @pytest.mark.parametrize("scaling", ["none", "per_sample"])
 @pytest.mark.parametrize("pair", list(BF16_PAIRS))
 def test_bf16_site_step_kernel(card, pair, scaling, n, chi, d):
     env, gamma, lam, u = _bf16_operands(pair, n, chi, chi, d, card)
+    _bf16_site_step_within_bounds(env, gamma, lam, u, scaling)
+
+
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_site_step_groups_of_a_few_rows(card, pair):
+    """Outcome groups of 1000, 12, 8 and 4 rows (forced by operands whose
+    probs are positive at one outcome a row): the wgmma collapse's tiles of
+    a few rows, each stored to its own rows of env'."""
+    env, gamma, lam, u = _bf16_operands(pair, 1024, 520, 520, 4, card)
+    samples = _collapse_samples(1024, 4, (1000, 12, 8), card)
+    env, gamma = _forced_linear(env, gamma, samples)
+    s_k = _bf16_site_step_within_bounds(env, gamma, lam, u, "per_sample")
+    assert torch.equal(s_k, samples)
+
+
+def _bf16_site_step_within_bounds(env, gamma, lam, u, scaling):
+    """The bf16 site step against its plain version: draws alike but where
+    the uniform lies within the CDF's rounding bound of a boundary, env' and
+    dlog of the rows drawn alike within their bounds; returns the draws."""
     before = K.LAUNCHES["site_step_linear_bf16"]
     e_k, s_k, d_k = K.site_step_linear(env, gamma, lam, u, scaling,
                                        torch.bfloat16)
@@ -690,9 +723,53 @@ def test_bf16_site_step_kernel(card, pair, scaling, n, chi, d):
         env_bound, dlog_bound = tb_s, torch.zeros_like(tb_s[:, 0])
     _within(e_k[keep], e_p[keep], env_bound[keep])
     _within(d_k[keep], d_p[keep], dlog_bound[keep])
+    return s_k
 
 
-@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES)
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_operands_prepared_on_the_card(card, pair):
+    """The preparation passes of the two wgmma entries against their plain
+    versions, bit for bit: env in bucket order and Γ's planes (the site
+    step), env and Γ's copy (contract_measure; a bf16 Γ with 16-byte rows is
+    read as it lies)."""
+    from repro_torch.kernels import _build
+
+    n, chi, d = 300, 130, 4
+    env, gamma, lam, u = _bf16_operands(pair, n, chi, chi, d, card)
+    scratch = K.linear_scratch(n, chi, chi, d, env.dtype, card,
+                               torch.bfloat16)
+    K._launch(K._LINEAR_BF16_ENTRY[(env.dtype, gamma.dtype)], env, gamma,
+              lam, u, scratch, n, chi, chi, d, "per_sample",
+              "site_step_linear_bf16")
+    _, perm, _, env16, planes = scratch
+    torch.cuda.synchronize()
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(n, dtype=torch.int32, device=card))
+    assert torch.equal(env16.view(torch.int16),
+                       K.bf16_rows_plain(env, perm).view(torch.int16))
+    assert torch.equal(planes.view(torch.int16),
+                       K.bf16_planes_plain(gamma).view(torch.int16))
+    for chi_r in (65, 130):    # R·d 260 is copied; 520, a bf16 Γ as it lies
+        g = gamma[:, :chi_r].contiguous()
+        env16, g16 = CM.gemm_scratch(env, g)
+        temp = torch.empty((n, chi_r, d), dtype=env.dtype, device=card)
+        probs = torch.empty((n, d), dtype=env.dtype, device=card)
+        _build.launch(CM._BF16_ENTRY[(env.dtype, g.dtype)],
+                      (env, g, lam[:chi_r].contiguous(), temp, probs, env16,
+                       g16), (n, chi, chi_r, d), card, "contract_measure_bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(env16.view(torch.int16),
+                           K.bf16_rows_plain(env).view(torch.int16))
+        assert (g16 is None) == (g.dtype == torch.bfloat16 and chi_r == 130)
+        if g16 is not None:
+            assert torch.equal(g16.view(torch.int16), K.bf16_rows_plain(
+                g.reshape(chi, chi_r * d)).view(torch.int16))
+
+
+# beside TP_SHAPES, the TMA-aligned path over several k stages and column
+# tiles, and 10⁴-wide slices of the p₂ = 4 shard shapes
+@pytest.mark.parametrize("n,chi_l,chi_r,d", TP_SHAPES + [
+    (1024, 512, 640, 4), (256, 2500, 10_000, 4), (256, 10_000, 2500, 4)])
 @pytest.mark.parametrize("pair", list(BF16_PAIRS))
 def test_bf16_tp_kernels(card, pair, n, chi_l, chi_r, d):
     env, gamma, lam, _ = _bf16_operands(pair, n, chi_l, chi_r, d, card)
