@@ -13,9 +13,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               (one ``nvcc`` per source, all at once); print each kernel's
               registers and spill bytes (``-Xptxas -v``) and the tensor-core
               instructions (``cuobjdump -sass``) of the bf16 GEMMs (wgmma
-              fed by TMA: HGMMA and UTMALDG; the mma.sync tiles: HMMA) and
-              the fp64 and complex128 DMMA GEMMs (the fp64 grouped collapse
-              among them), which must have them and spill nothing;
+              fed by TMA: HGMMA and UTMALDG; flash's mma.sync tiles: HMMA)
+              and the fp64 and complex128 DMMA GEMMs (the fp64 grouped
+              collapse among them), which must have them and spill nothing;
 3. small    — each kernel against its plain PyTorch version on awkward
               shapes, fp32/fp64, linear/Born, every scaling mode; the
               threefry uniforms on the card equal the CPU's bit for bit;
@@ -49,17 +49,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               plain versions at the walk's and the p₂ = 4 shard shapes in
               both tiers, with times, bounds, TFLOP/s and ``torch.matmul``
               on the bf16 operands as the library yardstick; the site
-              step's and contract_measure's kernels by device time (the W
-              and planes pass, the bf16 copies, the wgmma GEMM apart) with
-              the card's clock and power under them;
+              step's, contract_measure's and collapse_select's kernels by
+              device time (the W and planes pass or the planes pass, the
+              bucket sort, the bf16 copies, the wgmma GEMM apart) with the
+              card's clock and power under them;
 8. born     — χ=10⁴, d=4, complex128, M=4, N=512, the same checks as 4,
               with the site step's TFLOP/s beside cuBLAS's and the card's
               SM clock and power while each runs; then a Born tp_double
               walk on the mesh against the dp walk;
 9. displacement — ``ops.displacement_matrices`` (the main path of the
-              displacement kernel) on B = 2²⁰ μ's with |μ| ≤ 1.5 and μ = 0,
-              d ∈ {4 (jiuzhang2's cutoff), 16}, fp64 and fp32, against the
-              plain version, with times and the bound;
+              displacement kernel: its complex entry, one kernel and no
+              other) on B = 2²⁰ μ's with |μ| ≤ 1.5 and μ = 0, d ∈ {4
+              (jiuzhang2's cutoff), 16}, complex128 and complex64, against
+              the plain version and the planes entry's bits; the planes
+              entry's and the main path's times by CUDA events and by
+              device time (torch.profiler), and the bound;
 10. flash   — the flash-attention kernel against its plain version at the
               granite-3-2b shapes (B = 2, S = T = 4096, H = 32, KVH = 8,
               Dh = 64, bf16, causal), non-causal, Dh = 128 with KVH = H,
@@ -166,7 +170,6 @@ TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
 TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": ("HMMA",),
                        "flash_tc_kernel<128>": ("HMMA",),
                        "wgmma_bf16_kernel": ("HGMMA", "UTMALDG"),
-                       "tc_collapse_kernel": ("HMMA",),
                        "contract_f64_kernel<0>": ("DMMA",),
                        "contract_f64_kernel<1>": ("DMMA",),
                        "contract_c128_kernel<0>": ("DMMA",),
@@ -359,9 +362,22 @@ def device_time_ms(fn, reps: int = 20, kernels: int | None = None) -> float:
     """Device time of one call: its kernels' durations (``device_breakdown``
     over ``reps`` calls; ``kernels``: the repo's own a call).  For calls
     whose kernels finish sooner than the host launches them, where CUDA
-    events around the call time the host."""
-    return sum(ms * c for ms, c in device_breakdown(fn, kernels, reps)
-               .values())
+    events around the call time the host.  A window in which the profiler
+    lists no kernel at all is taken again (up to five): it has left a whole
+    window out, and a call on the card launches at least one kernel."""
+    for _ in range(5):
+        parts = device_breakdown(fn, reps=reps)
+        if parts:
+            break
+        print("torch.profiler listed no kernel of the call; taking the "
+              "window again", flush=True)
+    check(bool(parts), "torch.profiler listed no kernel of the call in five "
+          "windows")
+    if kernels is not None:
+        ours = sum(c for k, (_, c) in parts.items() if not k.startswith("at::"))
+        check(ours == kernels, f"the profiler lists {ours} of the call's "
+              f"{kernels} kernels: {sorted(parts)}")
+    return sum(ms * c for ms, c in parts.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1245,10 +1261,27 @@ def phase_bf16(device, mesh, mps64) -> list:
               CS.collapse_select_plain(env_s, g_left, smp, bf), ob)],
             4 * (n * shard + n + n * CHI) + wg * shard * CHI * present,
             2 * n * shard * CHI)
+        call = lambda: CS.collapse_select(  # noqa: E731
+            env_s, g_left, smp, bf)
+        parts = breakdown_of(call, ("weights_planes_kernel", "bucket_kernel",
+                                    "zero_rows_kernel", "bf16_rows_kernel",
+                                    "wgmma_bf16_kernel"), 5)
+        rate = _rate(2 * n * shard * CHI, parts, "wgmma_bf16_kernel")
+        state = device_state(call)
+        scratch_bytes = 2 * (n * K.padded(shard) + D * shard * K.padded(CHI))
+        print(f"bf16 {tier} collapse_select {shard}→{CHI}: device ms by "
+              f"kernel (torch.profiler; weights_planes_kernel: Γ's bf16 "
+              f"planes, bucket_kernel: the rows by outcome, zero_rows_kernel:"
+              f" env' of rows of no outcome, bf16_rows_kernel: env in bucket "
+              f"order, wgmma_bf16_kernel: the grouped collapse at {rate} "
+              f"TFLOP/s): {json.dumps(parts)}; scratch {scratch_bytes} "
+              f"bytes; the card under it: {json.dumps(state)}", flush=True)
         rows["collapse_select_bf16"].append(dict(
-            row, tier=tier, shape={"n": n, "L": shard, "R": CHI, "d": D,
-                                   "gamma": str(g_left.dtype),
-                                   "outcomes_present": present}))
+            row, tier=tier, parts=parts, gemm_tflops=rate, device=state,
+            device_ms=sum(t * c for t, c in parts.values()),
+            scratch_bytes=scratch_bytes,
+            shape={"n": n, "L": shard, "R": CHI, "d": D,
+                   "gamma": str(g_left.dtype), "outcomes_present": present}))
         del ob, eb, gb2, g2
         if tier == "mxu_bf16":          # W is fp32 in both tiers
             w = CS.measure_weights(g_left.float(), lam.float())
@@ -1337,8 +1370,11 @@ def _bound(moved: float, flops: float, peak: float) -> tuple[float, str]:
 
 def phase_displacement(device) -> dict:
     """``ops.displacement_matrices`` on B = 2²⁰ μ's against the plain version,
-    at d = 4 and 16 in fp64 and fp32; returns the kernels-line entry (d = 4,
-    fp64, with the other shapes beside it)."""
+    at d = 4 and 16 in complex128 and complex64; returns the kernels-line
+    entry (d = 4, fp64, with the other shapes beside it).  Each shape's
+    planes entry (the TPU kernel's layout) and main path timed by CUDA
+    events and by device time; the main path must run one kernel, the
+    complex entry, and nothing else (no join of planes, no copies of μ)."""
     from repro_torch.kernels import displacement_expm as DE
     from repro_torch.kernels import ops
 
@@ -1352,16 +1388,17 @@ def phase_displacement(device) -> dict:
     mu64 = torch.polar(r, phi)
     shapes = [(d, cd) for d in DISP_DS
               for cd in (torch.complex128, torch.complex64)]
+    mus = {cd: mu64.to(cd) for cd in (torch.complex128, torch.complex64)}
     # the main path: counts set to 0 just before, read just after
     ops.reset_launches()
-    outs = [ops.displacement_matrices(mu64.to(cd), d) for d, cd in shapes]
+    outs = [ops.displacement_matrices(mus[cd], d) for d, cd in shapes]
     torch.cuda.synchronize()
     launches = ops.launch_counts()["displacement_expm"]
     check(launches == len(shapes), f"displacement_expm launched {launches} "
           f"times on the main path, expected {len(shapes)}")
     rows = []
     for (d, cd), out in zip(shapes, outs):
-        mu = mu64.to(cd)
+        mu = mus[cd]
         mre, mim = mu.real.contiguous(), mu.imag.contiguous()
         plain = DE.displacement_expm_plain(mre, mim, d)
         bound = DE.rounding_bound(mre, mim, d)
@@ -1375,29 +1412,50 @@ def phase_displacement(device) -> dict:
               f"differ beyond the rounding bound ({excess:.3f} of it)")
         eye = torch.eye(d, dtype=cd, device=device)
         check(torch.equal(out[0], eye), f"displacement d={d} {cd}: D(0) ≠ I")
-        check(bool(torch.isfinite(out.real).all()), "displacement: not finite")
-        del out, plain, bound
+        check(bool(torch.isfinite(torch.view_as_real(out)).all()),
+              "displacement: not finite")
+        planes = torch.view_as_real(torch.complex(
+            *DE.displacement_expm(mre, mim, d)))
+        check(torch.equal(torch.view_as_real(out).view(torch.uint8),
+                          planes.view(torch.uint8)),
+              f"displacement d={d} {cd}: the complex entry's bits differ "
+              "from the planes entry's")
+        del out, plain, bound, planes
+        torch.cuda.empty_cache()
         w = mre.element_size()
         dd = sum(min(j, k) + 1 for j in range(d) for k in range(d))
         moved = (2 * DISP_BATCH + 2 * DISP_BATCH * d * d) * w
         flops = 8 * dd * DISP_BATCH        # complex multiply-adds of L·U
         bound_ms, bound_by = _bound(moved, flops, PEAK_FP64_FLOPS
                                     if w == 8 else PEAK_FP32_FLOPS)
+        kernel = lambda: DE.displacement_expm(mre, mim, d)  # noqa: E731
+        main = lambda: ops.displacement_matrices(mu, d)  # noqa: E731
+        parts = breakdown_of(main, ("displacement_kernel",), 1, reps=10)
+        check(len(parts) == 1, f"displacement d={d} {cd}: the main path "
+              f"runs {sorted(parts)}, not the complex entry alone")
         row = {"max_abs_err": err, "of_rounding_bound": excess,
-               "ms": time_ms(lambda: DE.displacement_expm(mre, mim, d), 10),
+               "ms": time_ms(kernel, 10),
+               "device_ms": device_time_ms(kernel, 10, 1),
+               "main_path_ms": time_ms(main, 10),
+               "main_path_device_ms": sum(t * c for t, c in parts.values()),
                "plain_ms": time_ms(
                    lambda: DE.displacement_expm_plain(mre, mim, d), 3),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None,
                "shape": {"b": DISP_BATCH, "d": d, "dtype": str(mre.dtype)}}
+        row["of_bound_device"] = bound_ms / row["device_ms"]
         print(f"displacement d={d} {mre.dtype}: ms={row['ms']:.4f} "
+              f"(device {row['device_ms']:.4f}, "
+              f"{row['of_bound_device']:.1%} of the bound) main path "
+              f"ops.displacement_matrices ms={row['main_path_ms']:.4f} "
+              f"(device {row['main_path_device_ms']:.4f}, {sorted(parts)}) "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}: {moved / 1e9:.4f} GB, {flops / 1e12:.5f} TFLOP) "
               f"max_abs_err={err:.3e} ({excess:.4f} of the rounding bound)",
               flush=True)
         rows.append(row)
         torch.cuda.empty_cache()
-    del outs, mu64, r, phi
+    del outs, mus, mu64, r, phi
     torch.cuda.empty_cache()
     _phase("displacement", t0)
     return dict(rows[0], name="displacement_expm", route="cuda",
@@ -1672,7 +1730,7 @@ def main() -> int:
                           (bf16_entries[2], "measure_probs_kernel"),
                           (bf16_entries[0], "wgmma_bf16_kernel"),
                           (bf16_entries[1], "wgmma_bf16_kernel"),
-                          (bf16_entries[3], "tc_collapse_kernel"),
+                          (bf16_entries[3], "wgmma_bf16_kernel"),
                           (flash, "flash_tc_kernel")):
         entry["ptxas"] = {k: v for k, v in ptxas.items()
                           if k.startswith(prefix)}

@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc:
 
     python3 scripts/tile_sweep.py [--only flash dmma c128 collapse measure
-                                         bf16]
+                                         bf16 collapse_bf16 displacement]
                                   [--shipped KIND ...] [--parent DIR]
 
 Builds variants of ``src/repro_torch/kernels/csrc/flash_attention.cu``
@@ -18,8 +18,10 @@ depth, ``FASTMPS_WGMMA_TILE``): each variant
 is a file in ``build/tile_sweep/`` that defines the macros and includes the
 source, compiled with ``nvcc``, all at once; ``--only`` builds and times
 some of them (``measure``: ``measure_probs`` as the source holds it, timed
-by its kernel's device time, torch.profiler), ``--shipped`` only the
-variant the sources hold of the kinds it names.  ``--parent DIR`` also
+by its kernel's device time, torch.profiler; ``collapse_bf16``:
+collapse_select's bf16 entry as the source holds it; ``displacement``:
+``displacement_expm.cu`` as the source holds it), ``--shipped`` only
+the variant the sources hold of the kinds it names.  ``--parent DIR`` also
 builds the sources of another checkout (an unpacked ``git archive`` of the
 parent commit) and times it first and last in each sweep, parent,
 variants, parent.  Every variant is held
@@ -33,10 +35,19 @@ the fp64 linear site step at N = 1024, χ = 10⁴, d = 4 and collapse_select
 at N = 1024, 2500 → 10⁴, d = 4 and, at χ = 10⁴, on fixed sizes of its
 outcome groups (with the device time of each kernel of a call,
 torch.profiler), measure_probs at N = 1024, L = 2500, d = 4, and (bf16)
-the bf16 entries of contract_measure at the shard shapes, of the linear
-site step at χ = 10⁴ and of collapse_select at 2500 → 10⁴ in both bf16
-tiers, each within its rounding bound, beside ``torch.matmul`` of the
-bf16 operands and ``Γ.to(bf16)`` (the planes pass's bytes).  Prints each
+the bf16 entries of contract_measure at the shard shapes and of the
+linear site step at χ = 10⁴ in both bf16 tiers, each within its rounding
+bound, beside ``torch.matmul`` of the bf16 operands and ``Γ.to(bf16)``
+(the planes pass's bytes), (collapse_bf16) collapse_select's bf16 entry
+at 2500 → 10⁴ in both tiers, on random outcomes and on groups of 1000, 12,
+8 and 4 rows, and (displacement) displacement_expm at B = 2²⁰, d = 4 and
+16, fp64 and fp32: its planes entry and the main path
+(``ops.displacement_matrices``: the complex entry here, the parent's as
+its wrapper ran it: the coefficient table built, μ's parts copied, the
+planes entry, ``torch.complex``), each within ``rounding_bound`` of the
+plain version, by CUDA events and by device time, then the planes entry
+on μ's whose sums reach below the smallest normal number (its share of
+the bound and the elements beyond it, reported, not held).  Prints each
 variant's registers and spill bytes, the card's name and power limit first
 and last.  The variant the sources hold is the first of each list.
 """
@@ -59,7 +70,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as C  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import collapse_select as CS  # noqa: E402
+from repro_torch.core.displacement import _tri_factor_log_coeffs  # noqa: E402
 from repro_torch.kernels import contract_measure as CM  # noqa: E402
+from repro_torch.kernels import displacement_expm as DE  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import site_step as K  # noqa: E402
 
@@ -117,7 +130,7 @@ def build(variants: dict) -> dict:
         regs = {k: v for k, v in _build.ptxas_kernels(log).items()
                 if "tc_kernel" in k or "f64_kernel" in k or "wgmma" in k
                 or "c128_kernel" in k or "measure_probs_kernel<4" in k
-                or "planes" in k or "tc_collapse" in k}
+                or "planes" in k or "displacement" in k}
         print(f"{name}: ptxas {regs}", flush=True)
         lib = ctypes.CDLL(str(d / "k.so"))
         csrc = variants[name][2]
@@ -413,9 +426,8 @@ def sweep_bf16(libs: list, device) -> None:
     Γ bf16), N = 1024, d = 4: contract_measure at the p₂ = 4 shard shapes
     (temp within ``bf16_gemm_bound`` of the plain version), the linear site
     step at χ = 10⁴ (env' of the rows drawn alike within the bound, draws
-    that differ counted) and collapse_select at 2500 → 10⁴, whose
-    ``tc_collapse_kernel`` is unchanged; ``torch.matmul`` of the bf16
-    operands as the library.  Rates are of each GEMM's flops."""
+    that differ counted); ``torch.matmul`` of the bf16 operands as the
+    library.  Rates are of each GEMM's flops."""
     bf, f32 = torch.bfloat16, torch.float32
     n, d = C.LINEAR_N, C.D
     gen = torch.Generator(device=device).manual_seed(19)
@@ -486,35 +498,186 @@ def sweep_bf16(libs: list, device) -> None:
     del env, g32, out
     torch.cuda.empty_cache()
 
+
+def sweep_collapse_bf16(libs: list, device) -> None:
+    """collapse_select's bf16 entry at N = 1024, 2500 → 10⁴, d = 4 in both
+    tiers, on random outcomes and on groups of 1000, 12, 8 and 4 rows,
+    within ``bf16_gemm_bound`` of the plain version; a parent's entry takes
+    no bf16 scratch.  Rates are of the collapse's 2·N·L·R flops."""
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(29)
+    rand = dict(generator=gen, device=device, dtype=f32)
     n, L, R, d = SELECT_SHAPE
     env, g32 = torch.rand((n, L), **rand), torch.rand((L, R, d), **rand)
-    picks = torch.randint(0, d, (n,), generator=gen, device=device,
-                          dtype=torch.int32)
     out = torch.empty((n, R), dtype=f32, device=device)
     scratch = (torch.empty(n, dtype=torch.int32, device=device),
                torch.empty(3 * d + 1, dtype=torch.int32, device=device))
-    for tier, tg in tiers.items():
+    mine = (*scratch, *CS.bf16_scratch(n, L, R, d, device))
+    draws = {"random": torch.randint(0, d, (n,), generator=gen,
+                                     device=device, dtype=torch.int32),
+             "groups [1000, 12, 8, 4]": torch.from_numpy(
+                 np.random.default_rng(0).permutation(np.repeat(
+                     np.arange(d), GROUPS[-1]))).to(device, torch.int32)}
+    bound_all = K.bf16_gemm_bound(env, g32.reshape(L, R * d)).reshape(
+        n, R, d)
+    for tier, tg in (("mxu_bf16", "f32"), ("store_bf16", "bf16")):
         gamma = g32 if tg == "f32" else g32.to(bf)
-        want = CS.collapse_select_plain(env, gamma, picks, bf)
-        bound = torch.take_along_dim(
-            K.bf16_gemm_bound(env, g32.reshape(L, R * d)).reshape(n, R, d),
-            picks.long()[:, None, None], dim=2)[:, :, 0]
+        for label, picks in draws.items():
+            want = CS.collapse_select_plain(env, gamma, picks, bf)
+            bound = torch.take_along_dim(bound_all, picks.long()[:, None,
+                                                                 None],
+                                         dim=2)[:, :, 0]
 
-        def held(name):
-            share = ((out.double() - want.double()).abs() / bound).max()
-            C.check(share.item() <= 1.0, f"{name}: env' beyond the bound")
-            return f" ({share.item():.3f} of the bound)"
-        row = _bf16_run(libs, f"fastmps_collapse_select_bf16_f32_{tg}",
-                        (env, gamma, picks, out), lambda name: scratch,
-                        (n, L, R, d), held, 2 * n * L * R)
-        print(f"collapse_select bf16 {tier} {L}→{R}: {row}", flush=True)
-        del want, bound
-    del env, g32, out
+            def held(name):
+                share = ((out.double() - want.double()).abs() / bound).max()
+                C.check(share.item() <= 1.0, f"{name}: env' beyond the bound")
+                return f" ({share.item():.3f} of the bound)"
+            row = _bf16_run(libs, f"fastmps_collapse_select_bf16_f32_{tg}",
+                            (env, gamma, picks, out),
+                            lambda name: scratch if name == "parent"
+                            else mine, (n, L, R, d), held, 2 * n * L * R)
+            print(f"collapse_select bf16 {tier} {L}→{R} {label}: {row}",
+                  flush=True)
+            del want, bound
+    del env, g32, out, mine, bound_all
     torch.cuda.empty_cache()
 
 
+def _disp_planes(name, lib, re, im, d, out_re, out_im) -> None:
+    """A planes entry: a parent's with its d × d table, this one's with the
+    coefficient table of its sums and c."""
+    dt, dev = re.dtype, re.device
+    tables = ((DE.coeff_table(d, dt, dev),) if name == "parent"
+              else (DE.horner_table(dt, dev),
+                    DE.coeff_table(DE.MAX_D, dt, dev)))
+    call(lib, "fastmps_displacement_expm_"
+         + ("f64" if dt == torch.float64 else "f32"),
+         (re, im, *tables, out_re, out_im), (re.numel(), d))
+
+
+# |μ| where a sample's least summed magnitude falls below the smallest
+# normal number at d = 16: tiny (the corner) and large (e^{−|μ|²/2})
+BELOW_NORMAL = {torch.float32: ((1e-3, 1e-2), (13.2, 14.2)),
+                torch.float64: ((1e-22, 1e-19), (37.7, 38.5))}
+
+
+def report_below_normal(libs: list, device) -> None:
+    """2¹⁶ μ's in each range of ``BELOW_NORMAL`` (tiny |μ| log-uniform,
+    large |μ| uniform), d = 2, 4 and 16: each variant's planes entry
+    against the plain version, its largest finite share of
+    ``rounding_bound`` and the elements beyond it.  Reported, not held:
+    there both versions round in subnormal steps."""
+    rng = np.random.default_rng(5)
+    n = 2 ** 16
+    variants = dict(libs)
+    for dt, ((t0, t1), (l0, l1)) in BELOW_NORMAL.items():
+        for label, r in (("tiny", np.exp(rng.uniform(np.log(t0), np.log(t1),
+                                                     n))),
+                         ("large", rng.uniform(l0, l1, n))):
+            mu = torch.polar(torch.from_numpy(r), torch.from_numpy(
+                rng.uniform(0, 2 * np.pi, n))).to(device)
+            mre, mim = mu.real.to(dt).contiguous(), mu.imag.to(dt).contiguous()
+            for d in (2, 4, 16):
+                want = DE.displacement_expm_plain(mre, mim, d)
+                bound = DE.rounding_bound(mre, mim, d)
+                out_re = torch.empty((n, d, d), dtype=dt, device=device)
+                out_im = torch.empty_like(out_re)
+                row = []
+                for name, lib in variants.items():
+                    _disp_planes(name, lib, mre, mim, d, out_re, out_im)
+                    torch.cuda.synchronize()
+                    share, beyond = 0.0, 0
+                    for g, w in ((out_re, want[0]), (out_im, want[1])):
+                        diff = (g - w).abs().double()
+                        beyond += int((diff > bound).sum())
+                        ratio = (diff / bound)[bound > 0]
+                        share = max(share, ratio.max().item()
+                                    if ratio.numel() else 0.0)
+                    row.append(f"{name}: {share:.4g} of the bound, "
+                               f"{beyond} elements beyond")
+                print(f"displacement below the smallest normal, {label} |μ| "
+                      f"in [{r.min():.3g}, {r.max():.3g}], d={d} {dt}: "
+                      + " | ".join(row), flush=True)
+                del want, bound, out_re, out_im
+            torch.cuda.empty_cache()
+
+
+def sweep_displacement(libs: list, device) -> None:
+    """displacement_expm at B = 2²⁰ μ's (|μ| ≤ 1.5), d = 4 and 16, fp64 and
+    fp32: the planes entry (a parent's with its d × d table, this one's with
+    the coefficient table of its sums and c) and the main path, each within
+    ``rounding_bound`` of the plain version; CUDA events and device time
+    (torch.profiler: every kernel of a call, PyTorch's among them).  The
+    variants run in turns, forward then backward, each timed twice.  Then
+    ``report_below_normal``."""
+    b = C.DISP_BATCH
+    gen = torch.Generator(device=device).manual_seed(17)
+    r = 1.5 * torch.sqrt(torch.rand(b, generator=gen, device=device,
+                                    dtype=torch.float64))
+    phi = 2 * np.pi * torch.rand(b, generator=gen, device=device,
+                                 dtype=torch.float64)
+    mu64 = torch.polar(r, phi)
+    for d in C.DISP_DS:
+        for cd, tag in ((torch.complex128, "f64"), (torch.complex64, "f32")):
+            mu = mu64.to(cd)
+            mre, mim = mu.real.contiguous(), mu.imag.contiguous()
+            dt = mre.dtype
+            want = DE.displacement_expm_plain(mre, mim, d)
+            bound = DE.rounding_bound(mre, mim, d)
+            out_re = torch.empty((b, d, d), dtype=dt, device=device)
+            out_im = torch.empty_like(out_re)
+            out = torch.empty((b, d, d), dtype=cd, device=device)
+            row = []
+            for name, lib in libs + libs[::-1]:
+                parent = name == "parent"
+
+                def planes():
+                    _disp_planes(name, lib, mre, mim, d, out_re, out_im)
+
+                def main():
+                    if parent:      # its wrapper: table, copies, join
+                        table = _tri_factor_log_coeffs(
+                            d, torch.float64, device)[1].to(dt)
+                        re, im = mu.real.contiguous(), mu.imag.contiguous()
+                        call(lib, f"fastmps_displacement_expm_{tag}",
+                             (re, im, table, out_re, out_im), (b, d))
+                        return torch.complex(out_re, out_im)
+                    real = torch.view_as_real
+                    call(lib, "fastmps_displacement_expm_"
+                         + ("c128" if tag == "f64" else "c64"),
+                         (real(mu), DE.horner_table(dt, device),
+                          DE.coeff_table(DE.MAX_D, dt, device), real(out)),
+                         (b, d))
+                    return out
+                planes()
+                got = main()
+                torch.cuda.synchronize()
+                share = 0.0
+                for g, w in ((out_re, want[0]), (out_im, want[1]),
+                             (got.real, want[0]), (got.imag, want[1])):
+                    share = max(share, ((g - w).abs().double() / bound)
+                                .nan_to_num(0.0).max().item())
+                C.check(share <= 1.0, f"{name}: beyond the rounding bound")
+                del got
+                parts = C.device_breakdown(main, reps=10)
+                row.append(
+                    f"{name}: planes {C.time_ms(planes, 10):.4f} ms "
+                    f"(device {C.device_time_ms(planes, 10, 1):.4f}), main "
+                    f"path {C.time_ms(main, 10):.4f} ms (device "
+                    f"{sum(t * c for t, c in parts.values()):.4f}, "
+                    f"{len(parts)} kernels), {share:.3f} of the bound")
+            print(f"displacement B={b} d={d} {dt}: " + " | ".join(row),
+                  flush=True)
+            del want, bound, out_re, out_im, out, mu, mre, mim
+            torch.cuda.empty_cache()
+    del mu64, r, phi
+    torch.cuda.empty_cache()
+    report_below_normal(libs, device)
+
+
 def main() -> int:
-    kinds = ("flash", "dmma", "c128", "collapse", "measure", "bf16")
+    kinds = ("flash", "dmma", "c128", "collapse", "measure", "bf16",
+             "collapse_bf16", "displacement")
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     ap.add_argument("--shipped", nargs="+", choices=kinds, default=(),
@@ -546,27 +709,32 @@ def main() -> int:
     for bn, st in tiles("bf16", BF16):
         variants[f"bf16 128x{bn} s{st}"] = (
             "site_step", {"FASTMPS_WGMMA_TILE": f"{bn}, {st}"}, CSRC)
-    if "measure" in args.only:
-        variants["measure"] = ("site_step", {}, CSRC)
+    sweeps = (("flash", sweep_flash, "flash_attention"),
+              ("dmma", sweep_contract, "site_step"),
+              ("c128", sweep_c128, "site_step"),
+              ("collapse", sweep_collapse, "site_step"),
+              ("measure", sweep_measure, "site_step"),
+              ("bf16", sweep_bf16, "site_step"),
+              ("collapse_bf16", sweep_collapse_bf16, "site_step"),
+              ("displacement", sweep_displacement, "displacement_expm"))
+    source_of = {kind: source for kind, _, source in sweeps}
+    for kind in ("measure", "collapse_bf16", "displacement"):
+        if kind in args.only:
+            variants[kind] = (source_of[kind], {}, CSRC)
     parents = {}
     if args.parent is not None:
         pcsrc = args.parent.resolve() / "src" / "repro_torch" / "kernels" \
             / "csrc"
-        for source in {"flash_attention" if k == "flash" else "site_step"
-                       for k in args.only}:
+        for source in {source_of[k] for k in args.only}:
             variants[f"parent {source}"] = (source, {}, pcsrc)
     libs = build(variants)
-    for source in ("flash_attention", "site_step"):
+    for source in set(source_of.values()):
         if f"parent {source}" in libs:
             parents[source] = [("parent", libs.pop(f"parent {source}"))]
-    for kind, sweep, source in (("flash", sweep_flash, "flash_attention"),
-                                ("dmma", sweep_contract, "site_step"),
-                                ("c128", sweep_c128, "site_step"),
-                                ("collapse", sweep_collapse, "site_step"),
-                                ("measure", sweep_measure, "site_step"),
-                                ("bf16", sweep_bf16, "site_step")):
+    for kind, sweep, source in sweeps:
         if kind in args.only:
-            mine = [(k, v) for k, v in libs.items() if k.startswith(kind)]
+            mine = [(k, v) for k, v in libs.items()
+                    if k == kind or k.startswith(kind + " ")]
             par = parents.get(source, [])
             sweep(par + mine + par, device)
     print(C.nvidia_smi(), flush=True)

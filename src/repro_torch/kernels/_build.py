@@ -37,7 +37,9 @@ _CONTRACT_MEASURE = [_P] * 5 + [_I] * 4 + [_P]
 _CONTRACT_MEASURE_BF16 = [_P] * 7 + [_I] * 4 + [_P]   # + env16, gamma16
 _MEASURE = [_P] * 3 + [_I] * 3 + [_P]
 _COLLAPSE = [_P] * 6 + [_I] * 4 + [_P]
-_DISPLACEMENT = [_P] * 5 + [_I] * 2 + [_P]
+_COLLAPSE_BF16 = [_P] * 8 + [_I] * 4 + [_P]      # + env16, planes
+_DISPLACEMENT = [_P] * 6 + [_I] * 2 + [_P]
+_DISPLACEMENT_COMPLEX = [_P] * 4 + [_I] * 2 + [_P]
 _FLASH = [_P] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
     "site_step": {
@@ -60,13 +62,15 @@ SIGNATURES = {
         "fastmps_contract_measure_bf16_f64_f64": _CONTRACT_MEASURE_BF16,
         "fastmps_measure_probs_bf16_f32": _MEASURE,
         "fastmps_measure_probs_bf16_f64": _MEASURE,
-        "fastmps_collapse_select_bf16_f32_f32": _COLLAPSE,
-        "fastmps_collapse_select_bf16_f32_bf16": _COLLAPSE,
-        "fastmps_collapse_select_bf16_f64_f64": _COLLAPSE,
+        "fastmps_collapse_select_bf16_f32_f32": _COLLAPSE_BF16,
+        "fastmps_collapse_select_bf16_f32_bf16": _COLLAPSE_BF16,
+        "fastmps_collapse_select_bf16_f64_f64": _COLLAPSE_BF16,
     },
     "displacement_expm": {
         "fastmps_displacement_expm_f64": _DISPLACEMENT,
         "fastmps_displacement_expm_f32": _DISPLACEMENT,
+        "fastmps_displacement_expm_c128": _DISPLACEMENT_COMPLEX,
+        "fastmps_displacement_expm_c64": _DISPLACEMENT_COMPLEX,
     },
     "flash_attention": {
         "fastmps_flash_attention_bf16": _FLASH,

@@ -14,8 +14,10 @@ of the TPU kernel's d masked GEMMs.  It takes its plain version,
 package's ``collapse`` xla cell), only for tensors on the CPU.
 
 ``compute_dtype=torch.bfloat16`` rounds env and Γ to bf16 and sums in
-fp32 on the tensor cores; env' is then fp32 whatever env's dtype, as the
-JAX package's ``collapse`` cell returns it.
+fp32 on the tensor cores (the bf16 site step's collapse on ``wgmma``, fed
+by TMA from bf16 operands it writes into :func:`bf16_scratch`: env in the
+bucket sort's order and Γ's planes); env' is then fp32 whatever env's
+dtype, as the JAX package's ``collapse`` cell returns it.
 
 ``LAUNCHES`` counts kernel launches (the bf16 entry apart);
 ``reset_launches`` sets them to 0.
@@ -27,7 +29,8 @@ import torch
 from repro_torch.core import precision
 from repro_torch.kernels import _build
 from repro_torch.kernels.site_step import (_BF16, _F32, _F64,
-                                           check_compute_dtype, supported)
+                                           check_compute_dtype, padded,
+                                           supported)
 
 LAUNCHES = {"collapse_select": 0, "collapse_select_bf16": 0}
 
@@ -100,7 +103,19 @@ def collapse_select(env, gamma, samples, compute_dtype=None):
     out = torch.empty((n, chi_r), dtype=out_dtype, device=dev)
     perm = torch.empty((n,), dtype=torch.int32, device=dev)
     meta = torch.empty((3 * d + 1,), dtype=torch.int32, device=dev)
-    _build.launch(entry, (env, gamma, s32, out, perm, meta),
+    scratch = () if compute_dtype is None else bf16_scratch(n, chi_l, chi_r,
+                                                            d, dev)
+    _build.launch(entry, (env, gamma, s32, out, perm, meta, *scratch),
                   (n, chi_l, chi_r, d), dev, name)
     LAUNCHES[name] += 1
     return out
+
+
+def bf16_scratch(n, chi_l, chi_r, d, device):
+    """The bf16 entry's operands to write, in its C entry's order: env
+    rounded in bucket order (N, padded(χl)) and Γ's bf16 planes (d, χl,
+    padded(χr)); 205 MB at N = 1024, 2500 → 10⁴, d = 4."""
+    return (torch.empty((n, padded(chi_l)), dtype=torch.bfloat16,
+                        device=device),
+            torch.empty((d, chi_l, padded(chi_r)), dtype=torch.bfloat16,
+                        device=device))

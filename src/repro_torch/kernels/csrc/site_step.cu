@@ -93,12 +93,17 @@
 //      (d <= 16 columns), so it stays on the FMA units: a product of two
 //      bf16 values is exact in fp32, so the FMA sum is what the tensor
 //      cores would compute.
-//   collapse_select_bf16: the grouped collapse of the linear step on the
-//      caller's samples; env' in fp32 whatever env's type, as the
-//      reference's collapse returns it.  Still on the mma.sync tile
-//      (tc_gemm, tc_collapse_kernel): m16n8k16 with fp32 accumulators, the
-//      operands gathered, rounded and packed through registers into shared
-//      memory, Gamma[:, :, s] read as it lies (stride d).
+//   collapse_select_bf16: the bf16 step's collapse on the caller's
+//      samples: Gamma's bf16 planes by the W pass without W
+//      (weights_planes_kernel<.., false>), the bucket sort (rows of no
+//      outcome in [0, d) last), their rows of env' zeroed, env rounded in
+//      bucket order and the grouped collapse on wgmma_bf16_kernel; env' in
+//      fp32 whatever env's type, as the reference's collapse returns it.
+//      Gamma[:, :, s] is not read by TMA as it lies: with the 128-byte
+//      swizzle a box's inner extent is at most 128 bytes, 16 useful bf16
+//      values at d = 4 with element strides, and each 32-byte sector of
+//      Gamma carries all d outcomes, so every group's tiles would fetch d
+//      times their bytes; the planes pass reads Gamma once.
 //
 // The draw is op for op repro/kernels/site_impls.py::draw_from_uniform:
 // clip(probs, 0), row total, probs/total (1/d where the total is 0), a
@@ -336,8 +341,9 @@ __device__ __forceinline__ void load_r(TG (&g)[DB], const TG* __restrict__ p,
 // and keeps U windows of loads in flight a warp: with one window and
 // arrays of MAX_D the pass waited on its loads, at 2.2 TB/s (fp32 Gamma)
 // and 1.3 TB/s (bf16) where Gamma.to(bf16) moves the same bytes at 3.0
-// (PERF.md section 6).
-template <typename T, typename TG, int DB, bool VEC>
+// (PERF.md section 6).  Without MEASURE it writes the planes alone (lam
+// and w unused): collapse_select's bf16 entry, whose caller drew already.
+template <typename T, typename TG, int DB, bool VEC, bool MEASURE = true>
 __global__ void __launch_bounds__(THREADS)
 weights_planes_kernel(const TG* __restrict__ gamma,
                       const T* __restrict__ lam, int R, int d,
@@ -360,8 +366,8 @@ weights_planes_kernel(const TG* __restrict__ gamma,
       const int ra = r0 + STEP * u + lane, rb = ra + 32;
       load_r<TG, DB, VEC>(ga[u], row + (size_t)ra * d, d, ra < R);
       load_r<TG, DB, VEC>(gb[u], row + (size_t)rb * d, d, rb < R);
-      la[u] = ra < R ? lam[ra] : T(0);
-      lb[u] = rb < R ? lam[rb] : T(0);
+      la[u] = MEASURE && ra < R ? lam[ra] : T(0);
+      lb[u] = MEASURE && rb < R ? lam[rb] : T(0);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -370,8 +376,10 @@ weights_planes_kernel(const TG* __restrict__ gamma,
       for (int s = 0; s < DB; ++s)
         if (s < d) {
           const bf16 a = to_bf16(ga[u][s]), b = to_bf16(gb[u][s]);
-          acc[s] += T(__bfloat162float(a)) * la[u];
-          acc[s] += T(__bfloat162float(b)) * lb[u];
+          if constexpr (MEASURE) {
+            acc[s] += T(__bfloat162float(a)) * la[u];
+            acc[s] += T(__bfloat162float(b)) * lb[u];
+          }
           const uint32_t mine = (uint32_t)__bfloat16_as_ushort(a) |
                                 ((uint32_t)__bfloat16_as_ushort(b) << 16);
           const uint32_t x0 = __shfl_sync(0xffffffffu, mine, src);
@@ -386,12 +394,14 @@ weights_planes_kernel(const TG* __restrict__ gamma,
         }
     }
   }
+  if constexpr (MEASURE) {
 #pragma unroll
-  for (int s = 0; s < DB; ++s)
-    if (s < d) {
-      T tot = block_sum(acc[s], red);
-      if (threadIdx.x == 0) w[(size_t)l * d + s] = tot;
-    }
+    for (int s = 0; s < DB; ++s)
+      if (s < d) {
+        T tot = block_sum(acc[s], red);
+        if (threadIdx.x == 0) w[(size_t)l * d + s] = tot;
+      }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -601,32 +611,35 @@ int measure_probs_launch(const TS* env, const TS* w, T* probs, int n, int L,
 // ---------------------------------------------------------------------------
 // Step 3: stable counting sort of rows by outcome (one block).
 // meta: [count[d], offset[d], tile_start[d], total_tiles], in tiles of bm
-// rows (the collapse GEMM's)
+// rows (the collapse GEMM's).  Rows whose outcome is outside [0, d) join no
+// group: they come last in perm (in order), which is then a permutation of
+// all n rows.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
 bucket_kernel(const int32_t* __restrict__ samples, int n, int d, int bm,
               int32_t* __restrict__ perm, int32_t* __restrict__ meta) {
-  __shared__ int cnt[THREADS][MAX_D + 1];
+  __shared__ int cnt[THREADS][MAX_D + 1];   // slot d: rows of no group
   const int t = threadIdx.x;
   const int chunk = (n + THREADS - 1) / THREADS;
   const int lo = t * chunk < n ? t * chunk : n;
   const int hi = lo + chunk < n ? lo + chunk : n;
-  for (int s = 0; s < d; ++s) cnt[t][s] = 0;
+  for (int s = 0; s <= d; ++s) cnt[t][s] = 0;
   for (int i = lo; i < hi; ++i) {
     const int s = samples[i];
-    if (s >= 0 && s < d) cnt[t][s] += 1;   // other rows join no group
+    cnt[t][s >= 0 && s < d ? s : d] += 1;
   }
   __syncthreads();
   if (t == 0) {
     int base = 0, tiles = 0;
-    for (int s = 0; s < d; ++s) {
+    for (int s = 0; s <= d; ++s) {
       int tot = 0;
       for (int tt = 0; tt < THREADS; ++tt) {
         const int c = cnt[tt][s];
         cnt[tt][s] = base + tot;
         tot += c;
       }
+      if (s == d) break;
       meta[s] = tot;
       meta[d + s] = base;
       meta[2 * d + s] = tiles;
@@ -638,7 +651,7 @@ bucket_kernel(const int32_t* __restrict__ samples, int n, int d, int bm,
   __syncthreads();
   for (int i = lo; i < hi; ++i) {
     const int s = samples[i];
-    if (s >= 0 && s < d) perm[cnt[t][s]++] = i;
+    perm[cnt[t][s >= 0 && s < d ? s : d]++] = i;
   }
 }
 
@@ -1249,188 +1262,6 @@ int collapse_f64(const double* env, const double* gamma, const int32_t* perm,
 }
 
 // ---------------------------------------------------------------------------
-// collapse_select's bf16 GEMM on mma.sync (its redesign onto the wgmma
-// kernel below is later work): a block computes a
-// BM x BN tile of out = bf16(A) . bf16(B) with fp32 sums, as 8 warps of
-// 32 x 32, each (32/16) x (32/8) mma.sync m16n8k16 accumulators.  A is env
-// (L columns), its rows given per tile in shared memory (-1: none); B(k, c)
-// = Gamma[bofs + k * ldb + c * bstride].  Each BK step stages both tiles
-// through registers into shared memory, rounding to bf16 on the way: plain
-// loads, because the operands are converted, the grouped collapse gathers
-// its rows through perm, and its Gamma[:, :, s] columns are d elements
-// apart, none of which cp.async or TMA copies as they lie.  The next
-// step's loads are issued into registers before this step's products, so
-// they overlap (a first version that loaded and stored element by element
-// waited out each load's latency in turn: 10.9 ms for contract_measure at
-// 2500 -> 1e4, against 0.9 ms for cuBLAS).  B is stored
-// transposed, [column][k], so that ldmatrix reads both operands' fragments
-// (rows padded to 80 bytes: the eight rows of an ldmatrix phase fall in
-// distinct banks).  Every output adds its k terms in one fixed order.
-// ---------------------------------------------------------------------------
-
-namespace tc {
-constexpr int BM = 128, BN = 64, BK = 32;        // block tile, k step
-constexpr int WM = 32, WN = 32;                  // warp tile
-constexpr int MI = WM / 16, NJ = WN / 8;         // m16n8 accumulators
-constexpr int NT = (BM / WM) * (BN / WN) * 32;   // 256 threads
-constexpr int LD = BK + 8;                       // bf16 per shared row
-static_assert(NJ % 2 == 0 && BK % 16 == 0, "whole fragments");
-static_assert(BM * BK % NT == 0 && BN * BK % NT == 0, "whole copies");
-}  // namespace tc
-
-// one step's A elements: env[arow[it], k0 + ak], 0 outside
-template <int E, typename TA>
-__device__ __forceinline__ void tc_fetch_a(TA (&v)[E],
-                                           const TA* __restrict__ a,
-                                           const int (&arow)[E], int L,
-                                           int ak, int k0) {
-#pragma unroll
-  for (int it = 0; it < E; ++it)
-    v[it] = arow[it] >= 0 && k0 + ak < L ? a[(size_t)arow[it] * L + k0 + ak]
-                                         : zero_of<TA>();
-}
-
-// one step's B elements: column bp at k rows k0 + bk0 + STRIDE * it
-template <int E, int STRIDE, typename TB>
-__device__ __forceinline__ void tc_fetch_b(TB (&v)[E],
-                                           const TB* __restrict__ bp,
-                                           bool bcol, int L, size_t ldb,
-                                           int bk0, int k0) {
-#pragma unroll
-  for (int it = 0; it < E; ++it) {
-    const int gk = k0 + bk0 + STRIDE * it;
-    v[it] = bcol && gk < L ? bp[(size_t)gk * ldb] : zero_of<TB>();
-  }
-}
-
-template <typename TA, typename TB>
-__device__ __forceinline__ void tc_gemm(const TA* __restrict__ a, int L,
-                                        const int* rows,
-                                        const TB* __restrict__ b, size_t bofs,
-                                        size_t ldb, int bstride, int c0,
-                                        int ncols, bf16* As, bf16* Bs,
-                                        float (&acc)[tc::MI][tc::NJ][4]) {
-  using tc::BM, tc::BN, tc::BK, tc::WM, tc::WN, tc::MI, tc::NJ, tc::NT,
-      tc::LD;
-  constexpr int AE = BM * BK / NT, BE = BN * BK / NT;   // elements a thread
-  constexpr int AM = NT / BK, BKS = NT / BN;            // their row strides
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // a thread stages A column ak of rows am0 + AM * it (consecutive threads:
-  // consecutive k) and B column bc at k rows bk0 + BKS * it (consecutive
-  // threads: consecutive columns); its env rows are read once
-  const int ak = threadIdx.x % BK, am0 = threadIdx.x / BK;
-  const int bc = threadIdx.x % BN, bk0 = threadIdx.x / BN;
-  int arow[AE];
-#pragma unroll
-  for (int it = 0; it < AE; ++it) arow[it] = rows[am0 + AM * it];
-  const bool bcol = c0 + bc < ncols;
-  const TB* bp = b + bofs + (size_t)(bcol ? c0 + bc : 0) * bstride;
-  // the next step's operands as loaded (converted when stored), so that
-  // their loads are in flight while this step multiplies
-  TA va[AE];
-  TB vb[BE];
-  tc_fetch_a(va, a, arow, L, ak, 0);
-  tc_fetch_b<BE, BKS>(vb, bp, bcol, L, ldb, bk0, 0);
-  for (int k0 = 0; k0 < L; k0 += BK) {
-#pragma unroll
-    for (int it = 0; it < AE; ++it)
-      As[(am0 + AM * it) * LD + ak] = to_bf16(va[it]);
-#pragma unroll
-    for (int it = 0; it < BE; ++it)
-      Bs[bc * LD + bk0 + BKS * it] = to_bf16(vb[it]);
-    __syncthreads();
-    if (k0 + BK < L) {
-      tc_fetch_a(va, a, arow, L, ak, k0 + BK);
-      tc_fetch_b<BE, BKS>(vb, bp, bcol, L, ldb, bk0, k0 + BK);
-    }
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldsm_x4(smem_addr(As + (wm + 16 * i + (lane & 15)) * LD + kc * 16
-                          + (lane >> 4) * 8),
-                af[i]);
-#pragma unroll
-      for (int j = 0; j < NJ; j += 2) {
-        uint32_t bfr[4];   // columns 8j.. and 8(j + 1).., k 16kc..16kc+15
-        ldsm_x4(smem_addr(Bs + (wn + 8 * j + (lane & 7) + ((lane >> 4) << 3))
-                                   * LD
-                          + kc * 16 + ((lane >> 3) & 1) * 8),
-                bfr);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma_bf16(acc[i][j], af[i], bfr[0], bfr[1]);
-          mma_bf16(acc[i][j + 1], af[i], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// the tile's outputs: out[rows[m] * ldo + c0 + c] = acc as TO, c < ncols
-template <typename TO>
-__device__ __forceinline__ void tc_store(
-    const float (&acc)[tc::MI][tc::NJ][4], const int* rows, int c0,
-    int ncols, size_t ldo, TO* __restrict__ out) {
-  using tc::BM, tc::WM, tc::WN, tc::MI, tc::NJ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the 16
-      const int row = rows[wm + 16 * i + g + 8 * h];
-      if (row < 0) continue;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = c0 + wn + 8 * j + 2 * t4;
-        TO* o = out + (size_t)row * ldo + col;
-        if (col < ncols) o[0] = TO(acc[i][j][2 * h]);
-        if (col + 1 < ncols) o[1] = TO(acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
-// the collapse on bf16 inputs: env'[n, :] = env[n, :] . Gamma[:, :, s_n]
-// grouped by outcome, as collapse_kernel (tiles of tc::BM rows)
-template <typename TA, typename TB, typename TO>
-__global__ void __launch_bounds__(tc::NT)
-tc_collapse_kernel(const TA* __restrict__ env, const TB* __restrict__ gamma,
-                   int L, int R, int d, const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ meta, TO* __restrict__ out) {
-  __shared__ __align__(16) unsigned char tiles[(tc::BM + tc::BN) * tc::LD * 2];
-  __shared__ int rows[tc::BM];
-  bf16* As = reinterpret_cast<bf16*>(tiles);
-  bf16* Bs = As + tc::BM * tc::LD;
-  const int bx = blockIdx.x;
-  if (bx >= meta[3 * d]) return;
-  int s = 0;
-  for (int q = 0; q < d; ++q)
-    if (meta[q] > 0 && meta[2 * d + q] <= bx) s = q;
-  const int count = meta[s], offset = meta[d + s];
-  const int r0 = (bx - meta[2 * d + s]) * tc::BM;   // first row of the tile
-  for (int m = threadIdx.x; m < tc::BM; m += tc::NT)
-    rows[m] = r0 + m < count ? perm[offset + r0 + m] : -1;
-  __syncthreads();
-  const int c0 = blockIdx.y * tc::BN;
-  float acc[tc::MI][tc::NJ][4];
-  tc_gemm(env, L, rows, gamma, (size_t)s, (size_t)R * d, d, c0, R, As, Bs,
-          acc);
-  tc_store(acc, rows, c0, R, (size_t)R, out);
-}
-
-// ---------------------------------------------------------------------------
 // bf16 GEMMs on wgmma fed by TMA (kernels 1 and 3 in bf16): out = A . B with
 // A a bf16 env (rows, L) and B a bf16 (L, columns) matrix, both prepared in
 // device memory (below), fp32 sums in registers.  Bound by bf16 operations
@@ -1821,6 +1652,18 @@ bf16_rows_kernel(const TS* __restrict__ src, const int32_t* __restrict__ perm,
   }
 }
 
+// out[n, :] = 0 for the rows n whose outcome is outside [0, d): they join
+// no group of the collapse (collapse_select's rows "of no outcome").  One
+// block a row; the other rows' blocks return at once.
+__global__ void __launch_bounds__(THREADS)
+zero_rows_kernel(const int32_t* __restrict__ samples, int R, int d,
+                 float* __restrict__ out) {
+  const int s = samples[blockIdx.x];
+  if (s >= 0 && s < d) return;
+  float* row = out + (size_t)blockIdx.x * R;
+  for (int r = threadIdx.x; r < R; r += THREADS) row[r] = 0.f;
+}
+
 // k rounded up to 16 bytes of bf16: TMA's unit of a row stride
 int padded(int k) { return (k + 7) / 8 * 8; }
 
@@ -2160,24 +2003,37 @@ int contract_measure_bf16(const TE* env, const TG* gamma, const TE* lam,
   return 0;
 }
 
+// env16 (n, padded(L)) and planes (d, L, padded(R)): the bf16 operands to
+// write.  Rows of no outcome in [0, d) are zeroed alone (zero_rows_kernel),
+// not the whole of env'.
 template <typename TE, typename TG>
 int collapse_select_bf16(const TE* env, const TG* gamma,
                          const int32_t* samples, float* out, int32_t* perm,
-                         int32_t* meta, int n, int L, int R, int d,
-                         cudaStream_t stream) {
+                         int32_t* meta, bf16* env16, bf16* planes, int n,
+                         int L, int R, int d, cudaStream_t stream) {
   if (n <= 0 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + tc::BM - 1) / tc::BM + d, (R + tc::BN - 1) / tc::BN);
-  if (grid.y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
-  // rows whose outcome is outside [0, d) join no group and stay zero
-  const cudaError_t zeroed =
-      cudaMemsetAsync(out, 0, (size_t)n * R * sizeof(float), stream);
-  if (zeroed != cudaSuccess) return (int)zeroed;
-  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, tc::BM, perm, meta);
+  const int lda = padded(L), ldp = padded(R);
+  const WgmmaGemm<float, true> collapse(env16, lda, planes, ldp, n, L, R, d);
+  if (collapse.err != 0) return collapse.err;
+  using RV = RVec<TG>;
+  const bool vec = d % RV::N == 0 &&
+                   (uintptr_t)gamma % sizeof(typename RV::V) == 0;
+  const auto planes_pass =
+      d <= 4 ? (vec ? weights_planes_kernel<float, TG, 4, true, false>
+                    : weights_planes_kernel<float, TG, 4, false, false>)
+             : (vec ? weights_planes_kernel<float, TG, MAX_D, true, false>
+                    : weights_planes_kernel<float, TG, MAX_D, false, false>);
+  planes_pass<<<L, THREADS, 0, stream>>>(gamma, nullptr, R, d, nullptr,
+                                         planes, ldp);
   RETURN_IF_ERROR();
-  tc_collapse_kernel<TE, TG, float><<<grid, tc::NT, 0, stream>>>(
-      env, gamma, L, R, d, perm, meta, out);
+  bucket_kernel<<<1, THREADS, 0, stream>>>(samples, n, d, WgTile::BM, perm,
+                                           meta);
   RETURN_IF_ERROR();
-  return 0;
+  zero_rows_kernel<<<n, THREADS, 0, stream>>>(samples, R, d, out);
+  RETURN_IF_ERROR();
+  bf16_rows_kernel<TE><<<n, THREADS, 0, stream>>>(env, perm, L, lda, env16);
+  RETURN_IF_ERROR();
+  return collapse.launch(n, L, R, d, perm, meta, out, stream);
 }
 
 }  // namespace
@@ -2279,10 +2135,11 @@ int fastmps_collapse_select_f32(const float* env, const float* gamma,
 // bf16 inputs, named by (env, Gamma) types: f32_f32 (mxu_bf16), f32_bf16
 // (store_bf16), f64_f64 (an fp64 chain); measure_probs by env = W's type.
 // Arguments as the entries above; collapse_select's out and measure_probs'
-// probs are fp32 whatever env's type.  The site step's and contract_measure's
-// bf16 scratch: env16 (N, padded(L)) the rounded env; planes (d, L,
-// padded(R)) Gamma's rounded planes; gamma16 (L, padded(R d)) Gamma's
-// rounded copy, or null for a bf16 Gamma read as it lies.
+// probs are fp32 whatever env's type.  The bf16 scratch of the site step,
+// contract_measure and collapse_select: env16 (N, padded(L)) the rounded
+// env; planes (d, L, padded(R)) Gamma's rounded planes; gamma16 (L,
+// padded(R d)) Gamma's rounded copy, or null for a bf16 Gamma read as it
+// lies.
 int fastmps_site_step_linear_bf16_f32_f32(
     const float* env, const float* gamma, const float* lam, const float* u,
     float* env_out, int32_t* samples, float* dlog, float* w, int32_t* perm,
@@ -2360,34 +2217,31 @@ int fastmps_measure_probs_bf16_f64(const double* env, const double* w,
                                                 (cudaStream_t)stream);
 }
 
-int fastmps_collapse_select_bf16_f32_f32(const float* env,
-                                         const float* gamma,
-                                         const int32_t* samples, float* out,
-                                         int32_t* perm, int32_t* meta, int n,
-                                         int L, int R, int d, void* stream) {
-  return collapse_select_bf16<float, float>(env, gamma, samples, out, perm,
-                                            meta, n, L, R, d,
-                                            (cudaStream_t)stream);
+int fastmps_collapse_select_bf16_f32_f32(
+    const float* env, const float* gamma, const int32_t* samples, float* out,
+    int32_t* perm, int32_t* meta, bf16* env16, bf16* planes, int n, int L,
+    int R, int d, void* stream) {
+  return collapse_select_bf16<float, float>(
+      env, gamma, samples, out, perm, meta, env16, planes, n, L, R, d,
+      (cudaStream_t)stream);
 }
 
-int fastmps_collapse_select_bf16_f32_bf16(const float* env,
-                                          const bf16* gamma,
-                                          const int32_t* samples, float* out,
-                                          int32_t* perm, int32_t* meta, int n,
-                                          int L, int R, int d, void* stream) {
-  return collapse_select_bf16<float, bf16>(env, gamma, samples, out, perm,
-                                           meta, n, L, R, d,
-                                           (cudaStream_t)stream);
+int fastmps_collapse_select_bf16_f32_bf16(
+    const float* env, const bf16* gamma, const int32_t* samples, float* out,
+    int32_t* perm, int32_t* meta, bf16* env16, bf16* planes, int n, int L,
+    int R, int d, void* stream) {
+  return collapse_select_bf16<float, bf16>(
+      env, gamma, samples, out, perm, meta, env16, planes, n, L, R, d,
+      (cudaStream_t)stream);
 }
 
-int fastmps_collapse_select_bf16_f64_f64(const double* env,
-                                         const double* gamma,
-                                         const int32_t* samples, float* out,
-                                         int32_t* perm, int32_t* meta, int n,
-                                         int L, int R, int d, void* stream) {
-  return collapse_select_bf16<double, double>(env, gamma, samples, out, perm,
-                                              meta, n, L, R, d,
-                                              (cudaStream_t)stream);
+int fastmps_collapse_select_bf16_f64_f64(
+    const double* env, const double* gamma, const int32_t* samples, float* out,
+    int32_t* perm, int32_t* meta, bf16* env16, bf16* planes, int n, int L,
+    int R, int d, void* stream) {
+  return collapse_select_bf16<double, double>(
+      env, gamma, samples, out, perm, meta, env16, planes, n, L, R, d,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

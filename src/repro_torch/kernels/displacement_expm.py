@@ -11,14 +11,27 @@ space, with closed-form triangular factors
 ``repro/kernels/displacement_expm.py::displacement_expm``; the source's
 header says how the design differs) for CUDA tensors, and takes its plain
 version, :func:`displacement_expm_plain`, only for tensors on the CPU.
+Inputs are the (B,) real and imaginary parts of μ, fp32 or fp64; outputs
+the (B, d, d) real and imaginary planes, the TPU kernel's layout.
+:func:`displacement_expm_complex` is the same kernel on a complex (B,) μ,
+writing the (B, d, d) complex tensor's memory directly (its plain version
+:func:`displacement_expm_complex_plain`); ``ops.displacement_matrices``
+calls it.
 
-Both build the powers μ^p as repeated products (``cumprod``), so μ = 0
-gives the identity exactly.  Inputs are the (B,) real and imaginary parts
-of μ, fp32 or fp64; outputs the (B, d, d) real and imaginary planes.
+The kernel sums each element as a real polynomial in −|μ|² (the terms of
+L·U with their common power of μ taken out) from :func:`horner_table`;
+a sample whose sums reach below the dtype's smallest normal number it
+forms as the plain version does, from :func:`coeff_table`.
+Both versions build the powers μ^p as repeated products, so μ = 0 gives
+the identity exactly.  The tables are computed once per (d, dtype,
+device) and cached.
 
-``LAUNCHES`` counts kernel launches; ``reset_launches`` sets it to 0.
+``LAUNCHES`` counts kernel launches (both layouts); ``reset_launches``
+sets it to 0.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,16 +44,53 @@ MAX_D = 16
 
 _ENTRY = {torch.float64: "fastmps_displacement_expm_f64",
           torch.float32: "fastmps_displacement_expm_f32"}
+_COMPLEX_ENTRY = {torch.complex128: "fastmps_displacement_expm_c128",
+                  torch.complex64: "fastmps_displacement_expm_c64"}
 
 
 def reset_launches() -> None:
     LAUNCHES["displacement_expm"] = 0
 
 
+def _device(device) -> torch.device:
+    return torch.device("cpu" if device is None else device)
+
+
 def coeff_table(d: int, dtype=torch.float64, device=None) -> torch.Tensor:
     """c[j, m] = √(j!/m!)/(j−m)! for j ≥ m, else 0: (d, d), from lgamma in
-    float64 (as the reference's table), cast to ``dtype``."""
+    float64 (as the reference's table), cast to ``dtype``; computed once
+    per (d, dtype, device), the same tensor after that (not to be written)."""
+    return _coeff_table(d, dtype, _device(device))
+
+
+@functools.cache
+def _coeff_table(d: int, dtype, device: torch.device) -> torch.Tensor:
     return _tri_factor_log_coeffs(d, torch.float64, device)[1].to(dtype)
+
+
+def horner_offset(j: int, k: int) -> int:
+    """Where Q_jk's coefficients start in :func:`horner_table` (j ≥ k):
+    pairs in order of j, then k, k + 1 coefficients each."""
+    return j * (j + 1) * (j + 2) // 6 + k * (k + 1) // 2
+
+
+def horner_table(dtype=torch.float64, device=None) -> torch.Tensor:
+    """The kernel's coefficients: for j ≥ k (j < ``MAX_D``) the polynomial
+    Q_jk(x) = Σ_{m ≤ k} c[j, m]·c[k, m]·x^{k−m}, so that D(μ)[j, k] =
+    e^{−|μ|²/2}·z^{|j−k|}·Q_jk(−|μ|²) (z = μ below the diagonal, −μ* above
+    it), its coefficient of x^k first; products in float64, cast to
+    ``dtype``.  One table serves every d ≤ ``MAX_D``; cached as
+    :func:`coeff_table`."""
+    return _horner_table(dtype, _device(device))
+
+
+@functools.cache
+def _horner_table(dtype, device: torch.device) -> torch.Tensor:
+    c = coeff_table(MAX_D).tolist()
+    q = [c[j][m] * c[k][m] for j in range(MAX_D) for k in range(j + 1)
+         for m in range(k + 1)]
+    assert len(q) == horner_offset(MAX_D, 0)
+    return torch.tensor(q, dtype=torch.float64).to(dtype).to(device)
 
 
 def displacement_expm_plain(mu_re, mu_im, d: int):
@@ -55,6 +105,13 @@ def displacement_expm_plain(mu_re, mu_im, d: int):
     pref = torch.exp(-0.5 * (mu_re * mu_re + mu_im * mu_im))
     out = torch.matmul(lower, upper) * pref[:, None, None]
     return out.real.contiguous(), out.imag.contiguous()
+
+
+def displacement_expm_complex_plain(mu, d: int):
+    """(B,) complex μ → (B, d, d) complex D(μ): the planes of
+    :func:`displacement_expm_plain`, joined."""
+    return torch.complex(*displacement_expm_plain(
+        mu.real.contiguous(), mu.imag.contiguous(), d))
 
 
 def rounding_bound(mu_re, mu_im, d: int) -> torch.Tensor:
@@ -73,31 +130,70 @@ def rounding_bound(mu_re, mu_im, d: int) -> torch.Tensor:
     return 8 * d * torch.finfo(mu_re.dtype).eps * summed
 
 
-def displacement_expm(mu_re, mu_im, d: int):
-    """The kernel: μ re/im (B,), both fp32 or both fp64 → (B, d, d) re/im
-    planes as :func:`displacement_expm_plain`.  d ≤ 16.  One thread per
-    output element; bound by the output bytes."""
+def _check_d(d: int) -> None:
     if not 1 <= d <= MAX_D:
         raise ValueError(f"displacement_expm: d={d} outside 1..{MAX_D}")
+
+
+def _check_batch(name: str, b: int) -> None:
+    if not 1 <= b < 2 ** 31:
+        raise ValueError(f"{name}: batch {b} outside the kernel's grid")
+
+
+def _entry(name: str, table: dict, dtype) -> str:
+    if dtype not in table:
+        raise TypeError(f"{name}: dtype {dtype} not supported; have "
+                        f"{sorted(str(k) for k in table)}")
+    return table[dtype]
+
+
+def displacement_expm(mu_re, mu_im, d: int):
+    """The kernel: μ re/im (B,), both fp32 or both fp64 → (B, d, d) re/im
+    planes as :func:`displacement_expm_plain`.  d ≤ 16.  A thread a sample;
+    bound by the output bytes."""
+    _check_d(d)
     if mu_re.device.type == "cpu":
         return displacement_expm_plain(mu_re, mu_im, d)
     name = "displacement_expm"
-    if mu_re.dtype not in _ENTRY:
-        raise TypeError(f"{name}: dtype {mu_re.dtype} not supported; have "
-                        f"{sorted(str(k) for k in _ENTRY)}")
     dev, dt = mu_re.device, mu_re.dtype
-    coeff = coeff_table(d, dt, dev)
+    entry = _entry(name, _ENTRY, dt)
     _build.check_operands(name, dev, {"mu_re": (mu_re, dt),
                                       "mu_im": (mu_im, dt)})
     if mu_re.ndim != 1 or mu_im.shape != mu_re.shape:
         raise ValueError(f"{name}: expected μ re/im (B,); got "
                          f"{tuple(mu_re.shape)} and {tuple(mu_im.shape)}")
     b = mu_re.shape[0]
-    if not 1 <= b < 2 ** 31:
-        raise ValueError(f"{name}: batch {b} outside the kernel's grid")
+    _check_batch(name, b)
     out_re = torch.empty((b, d, d), dtype=dt, device=dev)
     out_im = torch.empty((b, d, d), dtype=dt, device=dev)
-    _build.launch(_ENTRY[dt], (mu_re, mu_im, coeff, out_re, out_im), (b, d),
-                  dev, name, source="displacement_expm")
+    _build.launch(entry, (mu_re, mu_im, horner_table(dt, dev),
+                          coeff_table(MAX_D, dt, dev), out_re, out_im),
+                  (b, d), dev, name, source="displacement_expm")
     LAUNCHES[name] += 1
     return out_re, out_im
+
+
+def displacement_expm_complex(mu, d: int):
+    """The kernel on a complex μ (B,), complex64 or complex128 →
+    (B, d, d) complex D(μ), written as the complex tensor's (re, im) pairs:
+    no planes to join and no copies of μ's parts."""
+    _check_d(d)
+    if mu.device.type == "cpu":
+        return displacement_expm_complex_plain(mu, d)
+    name = "displacement_expm"
+    dev, dt = mu.device, mu.dtype
+    entry = _entry(name, _COMPLEX_ENTRY, dt)
+    _build.check_operands(name, dev, {"mu": (mu, dt)})
+    if mu.ndim != 1 or mu.is_conj():
+        raise ValueError(f"{name}: expected μ (B,) complex without a "
+                         f"conjugate bit; got {tuple(mu.shape)}")
+    b = mu.shape[0]
+    _check_batch(name, b)
+    out = torch.empty((b, d, d), dtype=dt, device=dev)
+    real = torch.view_as_real
+    rdt = real(mu).dtype
+    _build.launch(entry, (real(mu), horner_table(rdt, dev),
+                          coeff_table(MAX_D, rdt, dev), real(out)), (b, d),
+                  dev, name, source="displacement_expm")
+    LAUNCHES[name] += 1
+    return out

@@ -35,13 +35,12 @@ def contract_measure(env, gamma, lam, kernels: str = "auto"):
 
 def displacement_matrices(mu, d: int, kernels: str = "auto"):
     """Batched D(μ) (B, d, d) complex from complex μ (B,): the CUDA kernel
-    on the card, its plain version for ``kernels="torch"`` or on the CPU."""
-    mre, mim = mu.real.contiguous(), mu.imag.contiguous()
+    on the card (its complex entry, which reads μ and writes D(μ) as they
+    lie), its plain version for ``kernels="torch"`` or on the CPU."""
+    mu = mu.resolve_conj().contiguous()
     if resolve_kernels(kernels, mu.device) == "cuda":
-        ore, oim = DE.displacement_expm(mre, mim, d)
-    else:
-        ore, oim = DE.displacement_expm_plain(mre, mim, d)
-    return torch.complex(ore, oim)
+        return DE.displacement_expm_complex(mu, d)
+    return DE.displacement_expm_complex_plain(mu, d)
 
 
 def flash_attention(q, k, v, causal: bool = True, kernels: str = "auto"):

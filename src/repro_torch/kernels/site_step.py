@@ -148,6 +148,14 @@ def padded(k: int) -> int:
     return -(-k // 8) * 8
 
 
+def bucket_plain(samples, d: int):
+    """The rows in the bucket sort's order, as its kernel writes ``perm``:
+    stable by outcome, then the rows whose outcome is outside [0, d) (they
+    join no group), in order; int32."""
+    key = torch.where((samples >= 0) & (samples < d), samples, d)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
 def bf16_rows_plain(x, perm=None):
     """The bf16 env (or Γ) operand of the wgmma GEMM as the kernels'
     preparation pass writes it: (rows, K) → (rows, ``padded(K)``) bf16, row

@@ -7,8 +7,9 @@ memory (TMA neither converts nor gathers): env in the bucket sort's order
 bf16 planes P[s, l, r] (the collapse's B, written by the W pass).  Each
 row is padded with zeros to a whole 16 bytes, a row stride TMA takes.
 Their plain versions, ``site_step.bf16_rows_plain`` and
-``site_step.bf16_planes_plain``, are what the card tests hold the passes
-to; here they are held bit for bit against the JAX package's rounding of
+``site_step.bf16_planes_plain`` (and ``site_step.bucket_plain``, the
+bucket sort's order, rows of no outcome in [0, d) last), are what the card
+tests hold the passes to; here they are held bit for bit against the JAX package's rounding of
 the same numpy inputs (``astype(jnp.bfloat16)``; fp64 rounds through fp32
 there, as in the port), with the padding and the row order.  Then the GEMMs
 of the prepared operands, summed in fp64 (the bf16 products are exact),
@@ -25,6 +26,7 @@ import torch
 from repro.kernels import collapse_select as jax_cs
 from repro.kernels import contract_measure as jax_cm
 from repro_torch import convert
+from repro_torch.kernels import collapse_select as CS
 from repro_torch.kernels import contract_measure as CM
 from repro_torch.kernels import site_step as K
 
@@ -190,3 +192,56 @@ def test_linear_scratch(compute_dtype):
     if compute_dtype is not None:
         want += [((37, 16), torch.bfloat16), ((5, 13, 32), torch.bfloat16)]
     assert shapes == want
+
+
+def test_bucket_order_puts_rows_of_no_group_last():
+    """Stable by outcome, then the rows whose outcome is outside [0, d) in
+    their order: a permutation of all the rows (group 2 empty)."""
+    samples = torch.tensor([3, -1, 0, 4, 1, 0, 3, 9, 1, -7, 0])
+    got = K.bucket_plain(samples, 4)
+    assert got.dtype == torch.int32
+    assert got.tolist() == [2, 5, 10, 4, 8, 0, 6, 1, 3, 7, 9]
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 8, 3), (40, 24, 16, 5),
+                                   (24, 16, 24, 4)])
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_prepared_collapse_matches_jax_with_rows_of_no_group(pair, shape):
+    """collapse_select's bf16 entry on its prepared operands (env in bucket
+    order, Γ's planes): rows of each group by plane s, the rows of no
+    outcome (−1 and d) zero, one group empty, against the JAX package's
+    Pallas ``collapse_select`` on bf16 operands (interpret mode) within
+    ``bf16_gemm_bound``; those rows exactly zero in both."""
+    n, chi_l, chi_r, d = shape
+    env, gamma, _, samples = _operands(pair, *shape, seed=7 * n + d)
+    samples[samples == 1] = 0                   # group 1 empty
+    samples[::5] = -1
+    samples[3::7] = d
+    te, tg = (convert.tensor_from_array(a, "cpu") for a in (env, gamma))
+    s = torch.from_numpy(samples).long()
+    perm = K.bucket_plain(s, d)
+    sorted16 = K.bf16_rows_plain(te, perm).double()
+    planes = K.bf16_planes_plain(tg).double()
+    out = torch.zeros((n, chi_r), dtype=torch.float64)
+    for m, row in enumerate(perm.tolist()):
+        if 0 <= s[row] < d:
+            out[row] = sorted16[m, :chi_l] @ planes[s[row], :, :chi_r]
+    bf = jnp.bfloat16
+    want = np.asarray(jax_cs.collapse_select(
+        jnp.asarray(env).astype(bf), jnp.asarray(gamma).astype(bf),
+        jnp.asarray(samples), bn=8, br=8, bl=8, interpret=True))
+    none = (s < 0) | (s >= d)
+    assert none.any() and (want[none.numpy()] == 0).all()
+    bound = K.bf16_gemm_bound(te, tg.reshape(chi_l, chi_r * d))
+    _within(out, want, torch.take_along_dim(
+        bound.reshape(n, chi_r, d), s.clamp(0, d - 1)[:, None, None],
+        dim=2)[:, :, 0])
+    assert (out[none] == 0).all()
+
+
+def test_collapse_scratch():
+    """collapse_select's bf16 operands: env in bucket order (N, padded(L))
+    and Γ's planes (d, L, padded(R)), bf16."""
+    got = CS.bf16_scratch(37, 13, 29, 5, "cpu")
+    assert [(t.shape, t.dtype) for t in got] == [
+        ((37, 16), torch.bfloat16), ((5, 13, 32), torch.bfloat16)]

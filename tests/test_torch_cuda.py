@@ -493,6 +493,85 @@ def test_displacement_kernel(card, real, d):
                                               device=card))
 
 
+def _disp_mu(b, dtype, device, seed):
+    """b complex μ's with |μ| ≤ 1.5, μ[0] = 0."""
+    rng = np.random.default_rng(seed)
+    r = 1.5 * np.sqrt(rng.uniform(size=b))
+    r[0] = 0.0
+    mu = r * np.exp(1j * rng.uniform(0, 2 * np.pi, size=b))
+    return torch.from_numpy(mu).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("b", [1, 127, 129, 1003])
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 16])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_displacement_complex_entry(card, dtype, d, b):
+    """The complex entry (μ and D(μ) interleaved, as the complex tensors
+    lie) gives the planes entry's bits (one kernel, two layouts), within
+    ``rounding_bound`` of the plain version and D(0) = I, for B off the
+    block's 128 samples; ``ops.displacement_matrices`` goes through it,
+    one launch a call."""
+    from repro_torch.kernels import displacement_expm as DE
+    from repro_torch.kernels import ops
+
+    mu = _disp_mu(b, dtype, card, seed=b + d)
+    mre, mim = mu.real.contiguous(), mu.imag.contiguous()
+    before = DE.LAUNCHES["displacement_expm"]
+    got = DE.displacement_expm_complex(mu, d)
+    via_ops = ops.displacement_matrices(mu, d)
+    planes = DE.displacement_expm(mre, mim, d)
+    plain = DE.displacement_expm_complex_plain(mu, d)
+    torch.cuda.synchronize()
+    assert DE.LAUNCHES["displacement_expm"] == before + 3
+    assert got.dtype == dtype and got.shape == (b, d, d)
+    bits = torch.view_as_real(got).view(torch.uint8)
+    assert torch.equal(bits, torch.view_as_real(via_ops).view(torch.uint8))
+    assert torch.equal(bits, torch.view_as_real(torch.complex(*planes))
+                       .view(torch.uint8))
+    bound = DE.rounding_bound(mre, mim, d)
+    for g, w in ((got.real, plain.real), (got.imag, plain.imag)):
+        assert bool(((g - w).abs().double() <= bound).all())
+    assert torch.equal(got[0], torch.eye(d, dtype=dtype, device=card))
+
+
+# |μ| where a sample's least summed magnitude falls below the smallest
+# normal number at d = 16: the corner (tiny |μ|) and e^{−|μ|²/2} (large |μ|)
+_BELOW_NORMAL = {torch.float32: ((1e-3, 1e-2), (13.2, 14.2)),
+                 torch.float64: ((1e-22, 1e-19), (37.7, 38.5))}
+
+
+@pytest.mark.parametrize("d", [2, 4, 16])
+@pytest.mark.parametrize("real", [torch.float64, torch.float32])
+def test_displacement_sums_below_the_smallest_normal(card, real, d):
+    """Samples whose sums reach below the dtype's smallest normal number,
+    where the kernel forms the elements as the plain version does (tiny
+    |μ|, log-uniform, and |μ| where e^{−|μ|²/2} is subnormal), mixed with
+    ordinary ones (|μ| ≤ 1.5) in every warp: both entries within
+    ``displacement_expm.rounding_bound`` of the plain version and giving
+    the same bits."""
+    from repro_torch.kernels import displacement_expm as DE
+
+    rng = np.random.default_rng(40 + d)
+    (t0, t1), (h0, h1) = _BELOW_NORMAL[real]
+    r = np.concatenate([np.exp(rng.uniform(np.log(t0), np.log(t1), 400)),
+                        rng.uniform(h0, h1, 300),
+                        1.5 * np.sqrt(rng.uniform(size=303))])
+    r = rng.permutation(r)
+    phi = rng.uniform(0, 2 * np.pi, size=r.size)
+    mre, mim = (torch.from_numpy(a).to(real).to(card)
+                for a in (r * np.cos(phi), r * np.sin(phi)))
+    got = DE.displacement_expm(mre, mim, d)
+    joined = DE.displacement_expm_complex(torch.complex(mre, mim), d)
+    want = DE.displacement_expm_plain(mre, mim, d)
+    torch.cuda.synchronize()
+    bound = DE.rounding_bound(mre, mim, d)
+    for g, w in zip(got, want):
+        assert bool(((g - w).abs().double() <= bound).all())
+    assert torch.equal(torch.view_as_real(joined).view(torch.uint8),
+                       torch.view_as_real(torch.complex(*got))
+                       .view(torch.uint8))
+
+
 def _flash_close(got, want, qkv, causal):
     """fp32: 1e-5 of the largest |out|.  bf16: within
     ``flash_attention.rounding_bound``: the kernel rounds the weights to
@@ -574,8 +653,9 @@ def test_flash_attention_bf16_unaligned_operands(card):
 
 @pytest.mark.parametrize("kernel", [
     "flash_attention", "contract_measure", "site_step_born", "measure_probs",
-    "collapse_select", "site_step_linear",
-    *(f"{k}_bf16 {pair}" for k in ("contract_measure", "site_step_linear")
+    "collapse_select", "site_step_linear", "displacement_expm",
+    *(f"{k}_bf16 {pair}" for k in ("contract_measure", "site_step_linear",
+                                   "collapse_select")
       for pair in ("fp32+fp32", "fp32+bf16", "fp64+fp64"))])
 def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
     """No atomics and a fixed order of every sum: two calls, same bits."""
@@ -586,6 +666,21 @@ def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
         env, gamma, lam, _ = _bf16_operands(kernel.split()[1], 300, 1000,
                                             130, 4, card)
         outs = [CM.contract_measure(env, gamma, lam, torch.bfloat16)
+                for _ in range(2)]
+    elif kernel.startswith("collapse_select_bf16"):
+        env, gamma, _, _ = _bf16_operands(kernel.split()[1], 300, 600, 520,
+                                          4, card)
+        samples = _collapse_samples(300, 4, (0, 1, 129), card)
+        samples[::9] = -1
+        outs = [(CS.collapse_select(env, gamma, samples, torch.bfloat16),)
+                for _ in range(2)]
+    elif kernel == "displacement_expm":
+        from repro_torch.kernels import displacement_expm as DE
+
+        mu = _disp_mu(1003, torch.complex128, card, seed=3)
+        outs = [(DE.displacement_expm_complex(mu, 16),
+                 *DE.displacement_expm(mu.real.contiguous(),
+                                       mu.imag.contiguous(), 4))
                 for _ in range(2)]
     elif kernel.startswith("site_step_linear_bf16"):
         ops = _bf16_operands(kernel.split()[1], 300, 600, 600, 4, card)
@@ -617,6 +712,8 @@ def test_tensor_core_kernels_repeat_bit_for_bit(card, kernel):
         outs = [K.site_step_linear(*ops) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
@@ -802,6 +899,77 @@ def test_bf16_tp_kernels(card, pair, n, chi_l, chi_r, d):
         assert after[name] == before[name] + 1, name
     assert after["measure_probs_bf16"] == before["measure_probs_bf16"] + int(
         gamma.dtype == env.dtype)
+
+
+@pytest.mark.parametrize("n,chi_l,chi_r,d,counts", COLLAPSE_EDGES)
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_collapse_select_at_tile_edges(card, pair, n, chi_l, chi_r, d,
+                                            counts):
+    """collapse_select's bf16 entry on the wgmma collapse at the fp64
+    collapse's tile edges (groups of 0 and 1 rows, and of 65, 129 and 257
+    spread over two and three 128-row tiles; N, L, R off the tiles; d = 1
+    and 16), with rows of no outcome (−1 and d): within the bound of the
+    plain version, those rows exactly zero, one launch."""
+    env, gamma, _, _ = _bf16_operands(pair, n, chi_l, chi_r, d, card)
+    samples = _collapse_samples(n, d, counts, card)
+    if n > 2:
+        samples[1], samples[-1] = -1, d
+    before = CS.LAUNCHES["collapse_select_bf16"]
+    got = CS.collapse_select(env, gamma, samples, torch.bfloat16)
+    want = CS.collapse_select_plain(env, gamma, samples, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert CS.LAUNCHES["collapse_select_bf16"] == before + 1
+    tb = K.bf16_gemm_bound(env, gamma.reshape(chi_l, chi_r * d)).reshape(
+        n, chi_r, d)
+    _within(got, want, torch.take_along_dim(
+        tb, samples.clamp(0, d - 1)[:, None, None], dim=2)[:, :, 0])
+    none = (samples < 0) | (samples >= d)
+    assert bool((got[none] == 0).all())
+
+
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+def test_bf16_collapse_operands_prepared_on_the_card(card, pair):
+    """collapse_select's bf16 entry writes its operands as their plain
+    versions give them, bit for bit: perm in the bucket order (rows of no
+    outcome last), env rounded in that order, Γ's planes; torch.profiler
+    lists its kernels (planes pass, bucket sort, zeroed rows, env16, the
+    wgmma collapse) and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    n, chi_l, chi_r, d = 300, 130, 65, 4
+    env, gamma, _, _ = _bf16_operands(pair, n, chi_l, chi_r, d, card)
+    samples = _collapse_samples(n, d, (0, 1, 129), card)
+    samples[::7] = -1
+    s32 = samples.to(torch.int32)
+    out = torch.empty((n, chi_r), dtype=torch.float32, device=card)
+    perm = torch.empty(n, dtype=torch.int32, device=card)
+    meta = torch.empty(3 * d + 1, dtype=torch.int32, device=card)
+    env16, planes = CS.bf16_scratch(n, chi_l, chi_r, d, card)
+    _build.launch(CS._BF16_ENTRY[(env.dtype, gamma.dtype)],
+                  (env, gamma, s32, out, perm, meta, env16, planes),
+                  (n, chi_l, chi_r, d), card, "collapse_select_bf16")
+    torch.cuda.synchronize()
+    want_perm = K.bucket_plain(samples, d)
+    assert torch.equal(perm, want_perm)
+    assert meta[:d].tolist() == torch.bincount(
+        samples[samples >= 0], minlength=d).tolist()
+    assert torch.equal(env16.view(torch.int16),
+                       K.bf16_rows_plain(env, want_perm).view(torch.int16))
+    assert torch.equal(planes.view(torch.int16),
+                       K.bf16_planes_plain(gamma).view(torch.int16))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        CS.collapse_select(env, gamma, samples, torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel in ("weights_planes_kernel", "bucket_kernel",
+                   "zero_rows_kernel", "bf16_rows_kernel",
+                   "wgmma_bf16_kernel"):
+        assert sum(kernel in x for x in names) == 1, (kernel, names)
+    assert len(names) == 5 + sum("at::" in x or "elementwise" in x
+                                 for x in names), names
 
 
 def test_bf16_kernels_round_fp64_through_fp32(card):

@@ -1,7 +1,10 @@
 """The port's displacement operator (paper §3.4.1) against the JAX package:
 each function of ``core/displacement.py``, the plain version of the
 ``displacement_expm`` kernel against the reference's Pallas kernel in
-interpret mode and its oracle, μ = 0, and the ``ops`` entry point.
+interpret mode and its oracle, μ = 0, the cached coefficient tables, the
+kernel's sums (real polynomials in −|μ|² from ``horner_table``, evaluated
+here as the CUDA kernel does), and the ``ops`` entry point (the complex
+entry's plain version) against the reference's.
 
 Tolerances.  The factors and tables: ``rtol=1e-12`` (the packages build
 μ^m otherwise: repeated products here, a complex power there).  D(μ) is a
@@ -16,6 +19,9 @@ the reference, whose ``jax.scipy.linalg.expm`` differs from both by up to
 the reference off by up to 1.1e-11, torch's ``matrix_exp`` and scipy's
 within 2e-15).
 """
+import math
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +31,7 @@ import torch
 from repro.core import displacement as jax_D
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro.kernels.displacement_expm import _coeff_table as jax_coeff_table
 from repro.kernels.displacement_expm import displacement_expm as jax_kernel
 from repro_torch.core import displacement as D
 from repro_torch.kernels import displacement_expm as DE
@@ -181,3 +188,115 @@ def test_ops_displacement_matrices_on_cpu():
                                               use_kernel=False))
     with pytest.raises(ValueError, match="cuda"):
         ops.displacement_matrices(t, 6, kernels="cuda")
+
+
+@pytest.mark.parametrize("d", [1, *DS])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_coefficient_tables_are_cached(d, dtype):
+    """c[j, m] (float64, exp of a sum of three lgammas) within 1e-15
+    (relative) of its exact value √(j!/m!)/(j−m)! and of the reference's
+    table (scipy's gammaln) for d ≤ 8, and within 1e-14 at d = 16: exp
+    carries the error of its argument into c, the rounding of log c (up to
+    13 in magnitude) and, in the reference, gammaln's own error (up to
+    3.6e-15 of log(n!) at these n) in each term: 2.4e-15 from exact here,
+    5.4e-15 from the reference.  The same tensor on a second call, in each
+    dtype (the float64 table cast); the kernel's table of c[j, m]·c[k, m]
+    once for all d, cached the same way."""
+    got = DE.coeff_table(d, dtype)
+    assert got is DE.coeff_table(d, dtype, "cpu")
+    assert got.dtype == dtype and got.shape == (d, d)
+    assert torch.equal(got, DE.coeff_table(d).to(dtype))
+    f = math.factorial
+    exact = np.array([[math.sqrt(Fraction(f(j), f(m))) / f(j - m) if j >= m
+                       else 0.0 for m in range(d)] for j in range(d)])
+    tol = 1e-15 if d <= 8 else 1e-14
+    np.testing.assert_allclose(DE.coeff_table(d).numpy(), exact, rtol=tol,
+                               atol=0)
+    np.testing.assert_allclose(DE.coeff_table(d).numpy(),
+                               jax_coeff_table(d)[1], rtol=tol, atol=0)
+    q = DE.horner_table(dtype)
+    assert q is DE.horner_table(dtype, torch.device("cpu"))
+    assert q.shape == (DE.horner_offset(DE.MAX_D, 0),) and q.dtype == dtype
+    c = DE.coeff_table(DE.MAX_D)
+    for j, k in ((d - 1, 0), (d - 1, d - 1), (DE.MAX_D - 1, DE.MAX_D - 2)):
+        start = DE.horner_offset(j, k)
+        np.testing.assert_array_equal(
+            q[start:start + k + 1].numpy(),
+            (c[j, :k + 1] * c[k, :k + 1]).to(dtype).numpy())
+
+
+def _kernel_sums(mre, mim, d):
+    """D(μ) as the CUDA kernel sums it: pref·z^{|j−k|}·Q_jk(−|μ|²), Q by
+    Horner from ``horner_table``, z = μ below the diagonal and −μ* above
+    it, pref·μ^p as repeated products (float64)."""
+    q = DE.horner_table().tolist()
+    x = -(mre * mre + mim * mim)
+    w = [np.exp(-0.5 * (mre * mre + mim * mim)) + 0j]
+    for _ in range(1, d):
+        w.append(w[-1] * (mre + 1j * mim))
+    out = np.zeros((len(mre), d, d), np.complex128)
+    for j in range(d):
+        for k in range(d):
+            hi, lo = max(j, k), min(j, k)
+            coef = q[DE.horner_offset(hi, lo):][:lo + 1]
+            acc = np.full(len(mre), coef[0])
+            for a in coef[1:]:
+                acc = acc * x + a
+            p = hi - lo
+            z = w[p] if j >= k else (-1) ** p * np.conj(w[p])
+            out[:, j, k] = acc * z
+    return out
+
+
+@pytest.mark.parametrize("d", DS)
+def test_kernel_sums_match_pallas(d):
+    """The kernel's form of the sums, with its table, against the
+    reference's Pallas kernel (interpret mode) within 1e-12 of the summed
+    magnitudes, and μ = 0 → I exactly."""
+    mu = _mu(256, scale=0.6, seed=20 + d)
+    got = _kernel_sums(mu.real.copy(), mu.imag.copy(), d)
+    pre, pim = jax_kernel(jnp.asarray(mu.real), jnp.asarray(mu.imag), d,
+                          bb=128, interpret=True)
+    _close_summed(got.real, pre, mu, d)
+    _close_summed(got.imag, pim, mu, d)
+    assert np.array_equal(got[0], np.eye(d))
+
+
+@pytest.mark.parametrize("d", DS)
+def test_least_summed_magnitude_is_the_diagonal_or_the_corner(d):
+    """The kernel forms a sample as the plain version does when its least
+    summed magnitude e^{−|μ|²/2}·(|L| @ |U|) is below the smallest normal
+    number, and finds that least one at (0, 0) (e^{−|μ|²/2}) or at the
+    corner (d − 1, 0) (e^{−|μ|²/2}·|μ|^{d−1}·c[d−1, 0]): so it is, for
+    |μ| from 10⁻³ to 20."""
+    rng = np.random.default_rng(d)
+    r = np.exp(rng.uniform(np.log(1e-3), np.log(20.0), 512))
+    mu = r * np.exp(1j * rng.uniform(0, 2 * np.pi, r.size))
+    summed = _summed(mu, d)
+    pref = np.exp(-0.5 * r * r)
+    corner = pref * r ** (d - 1) * DE.coeff_table(d)[d - 1, 0].item()
+    np.testing.assert_allclose(summed.min(axis=(1, 2)),
+                               np.minimum(pref, corner), rtol=1e-12)
+
+
+@pytest.mark.parametrize("b", [1, 3, 257])
+@pytest.mark.parametrize("d", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [np.complex128, np.complex64])
+def test_complex_entry_plain_matches_pallas(dtype, d, b):
+    """``ops.displacement_matrices(kernels="torch")``, the complex entry's
+    plain version, against the reference's
+    ``ops.displacement_matrices(use_kernel=True)`` (its Pallas kernel in
+    interpret mode) in the input's precision."""
+    mu = (0.8 * _mu(b, seed=b + d)).astype(dtype)
+    got = ops.displacement_matrices(torch.from_numpy(mu), d, kernels="torch")
+    assert got.dtype == torch.from_numpy(mu).dtype and got.shape == (b, d, d)
+    assert torch.equal(got, DE.displacement_expm_complex_plain(
+        torch.from_numpy(mu), d))
+    want = np.asarray(jax_ops.displacement_matrices(jnp.asarray(mu), d,
+                                                    use_kernel=True))
+    assert want.dtype == mu.dtype
+    if dtype == np.complex64:
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-5 * d)
+    else:
+        _close_summed(got.real, want.real, mu, d)
+        _close_summed(got.imag, want.imag, mu, d)
