@@ -1,11 +1,15 @@
 """Data-plane registry for :class:`repro_torch.api.SamplingSession`.
 
-This slice carries the ``inmem`` data plane: the whole stacked Γ is on the
-device; scheme ``seq`` walks it with ``core/sampler`` (micro-batched or not),
-``dp``/``tp_single``/``tp_double`` and ``baseline19`` with
-``core/parallel`` over the session's mesh.  The dynamic-χ branch waits for
-ROADMAP.md §1 row 8; other data planes register the same way when they are
-ported (rows 9-10).
+* ``inmem`` — the whole stacked Γ on the device: scheme ``seq`` walks it
+  with ``core/sampler`` (micro-batched or not) or, with a χ-profile, with
+  ``dynamic_bond``'s staged walk; ``dp``/``tp_*`` with ``core/parallel``'s
+  segment runner over the session's mesh (with a χ-profile, one call per
+  χ-stage after ``fit_env``), and ``baseline19`` with the [19] ring;
+* ``streamed`` — ``engine.StreamingEngine`` walks the chain from a
+  :class:`~repro_torch.data.gamma_store.GammaStore` in device-budgeted
+  segments, with every scheme above, per-segment checkpoints and resume.
+
+The service and remote data planes wait for ROADMAP.md §1 row 10.
 """
 from __future__ import annotations
 
@@ -39,12 +43,21 @@ def get_backend(name: str) -> "Backend":
 
 @dataclasses.dataclass
 class SampleRequest:
-    """Everything a backend needs for one ``sample()`` execution."""
+    """Everything a backend needs for one ``sample()`` execution.  ``mps``
+    and ``store`` are zero-argument callables, so a backend pays only for
+    the source it walks (a streamed session never loads the chain, an
+    in-memory one never writes a store)."""
     plan: SessionPlan
     n_samples: int
     key: torch.Tensor
-    mps: MPS
+    mps: Callable[[], MPS]
+    store: Optional[Callable[[], object]] = None
     mesh: Optional[object] = None      # launch.mesh.Mesh for dp/tp/[19]
+    resume: bool = False
+    checkpoint_dir: Optional[str] = None
+    stop_after_segments: Optional[int] = None
+    stats: dict = dataclasses.field(default_factory=dict)
+    engines: Optional[dict] = None     # the session's streamed engines
 
 
 class Backend:
@@ -61,19 +74,94 @@ class InMemBackend(Backend):
     name = "inmem"
 
     def sample(self, req: SampleRequest) -> np.ndarray:
+        from repro_torch.core import dynamic_bond as DB
         from repro_torch.core import parallel as PP
         from repro_torch.core import sampler as S
 
-        plan, cfg, n = req.plan, req.plan.sampler_config, req.n_samples
+        plan, cfg, n, key = (req.plan, req.plan.sampler_config,
+                             req.n_samples, req.key)
+        if req.resume:
+            raise ValueError("mid-chain resume needs the streamed backend "
+                             "(it owns the per-segment checkpoints)")
+        mps = req.mps()
         if plan.scheme == "seq":
-            if plan.micro_batch is not None:
-                out = S.sample_batched(req.mps, n, req.key, plan.micro_batch,
-                                       cfg)
+            if plan.stages is not None:
+                prof = np.asarray(plan.chi_profile)
+                if plan.micro_batch is not None:
+                    out = DB.sample_staged_batched(mps, prof, n, key,
+                                                   plan.micro_batch, cfg)
+                else:
+                    out = DB.sample_staged(mps, prof, n, key, cfg)
+            elif plan.micro_batch is not None:
+                out = S.sample_batched(mps, n, key, plan.micro_batch, cfg)
             else:
-                out = S.sample(req.mps, n, req.key, cfg)
+                out = S.sample(mps, n, key, cfg)
         elif plan.scheme == "baseline19":
-            out = PP._baseline19_sample(req.mesh, req.mps, n, req.key, cfg)
-        else:
-            out = PP._multilevel_sample(req.mesh, req.mps, n, req.key,
+            out = PP._baseline19_sample(req.mesh, mps, n, key, cfg)
+        elif plan.stages is None:
+            out = PP._multilevel_sample(req.mesh, mps, n, key,
                                         plan.pconfig, cfg)
+        else:
+            # dynamic χ under DP/TP: one segment-runner call per χ-stage,
+            # the environment through fit_env at each boundary — the port's
+            # segment runner takes the full environment, so this works
+            # under TP too
+            env = PP.segment_env_init(n, plan.stages[0][2], mps.gammas.dtype,
+                                      mps.device)
+            log_scale, blocks = None, []
+            for s0, s1, chi_s in plan.stages:
+                env = DB.fit_env(env, chi_s)
+                samples, env, log_scale = PP.sample_segment(
+                    req.mesh, DB.stage_mps(mps, s0, s1, chi_s), env, key, s0,
+                    plan.pconfig, cfg, log_scale=log_scale)
+                blocks.append(samples)
+            out = torch.cat(blocks, dim=0).T
         return out.cpu().numpy()
+
+
+@register_backend("streamed")
+class StreamedBackend(Backend):
+    """Segment-streamed execution through :class:`engine.StreamingEngine`:
+    one engine per constructor identity, kept for the session's life."""
+    name = "streamed"
+
+    def sample(self, req: SampleRequest) -> np.ndarray:
+        from repro_torch.engine.streaming import StreamingEngine, StreamPlan
+
+        plan = req.plan
+        store = req.store()
+        scheme = "inmem" if plan.scheme == "seq" else plan.scheme
+
+        def build() -> StreamingEngine:
+            return StreamingEngine(
+                store, semantics=plan.semantics, config=plan.sampler_config,
+                plan=StreamPlan(segment_len=plan.segment_len, scheme=scheme,
+                                micro_batch=plan.micro_batch,
+                                checkpoint_every=plan.checkpoint_every),
+                mesh=req.mesh if scheme != "inmem" else None,
+                pconfig=plan.pconfig, chi_profile=plan.chi_profile,
+                device=plan.device)
+
+        kw = dict(resume=req.resume,
+                  stop_after_segments=req.stop_after_segments,
+                  checkpoint_dir=req.checkpoint_dir)
+        if req.engines is None:         # direct use: walk and release
+            eng = build()
+            try:
+                out, stats = eng.sample_with_stats(req.n_samples, req.key,
+                                                   **kw)
+            finally:
+                eng.close(close_store=False)
+        else:
+            # n_samples is not part of the key: batches of other sizes
+            # share the engine and its pool thread
+            eng_key = (scheme, plan.semantics, plan.segment_len,
+                       plan.micro_batch, plan.chi_profile,
+                       plan.checkpoint_every, plan.sampler_config,
+                       plan.pconfig, plan.device)
+            eng = req.engines.get(eng_key)
+            if eng is None:
+                eng = req.engines[eng_key] = build()
+            out, stats = eng.sample_with_stats(req.n_samples, req.key, **kw)
+        req.stats.update(stats)
+        return out

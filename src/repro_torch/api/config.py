@@ -1,15 +1,20 @@
 """Config schema and resolution for the sampling front door.
 
 :class:`SamplerConfig` keeps the JAX package's field names
-(``repro.api.config``).  This slice of the port resolves the in-memory walk:
-backend ``inmem``, runtime ``local``, a static χ, an explicit
-``micro_batch``, and the schemes ``seq``, ``dp``, ``tp_single``,
-``tp_double`` and ``baseline19`` over a session's mesh (with ``wire_dtype``
-and ``measure_first``).  ``auto`` resolves to ``seq`` without a mesh (or on
-a 1×1 mesh) and to ``dp`` when the mesh has no model axis; with p₂ > 1 the
-JAX package picks a TP schedule by its Eq. 7 model, which is not ported yet.
-Every other value raises ``NotImplementedError`` naming the ROADMAP.md row
-that ports it.
+(``repro.api.config``).  The port resolves runtime ``local``, the data
+planes ``inmem`` (the whole chain on the device) and ``streamed`` (a
+:class:`~repro_torch.data.gamma_store.GammaStore` walked segment by segment
+by ``engine.StreamingEngine``), and the schemes ``seq``, ``dp``,
+``tp_single``, ``tp_double`` and ``baseline19`` over a session's mesh (with
+``wire_dtype`` and ``measure_first``).  ``auto`` resolves to ``seq``
+without a mesh (or on a 1×1 mesh), to ``dp`` when the mesh has no model
+axis, and with p₂ > 1 to the TP schedule of the lower Eq. 7 overhead
+(``core/perfmodel.choose_tp_scheme``).  ``chi_profile`` (§3.4.2) splits the
+walk into χ-stages; ``micro_batch="auto"`` takes Eq. 3's pick and
+``segment_len="auto"`` the streaming planner's, both against
+``hardware`` (an H100 by default) or ``device_budget``.  The runtimes
+``multihost``/``remote``, the ``remote`` backend, ``shard`` and ``clamp``
+raise ``NotImplementedError`` naming the ROADMAP.md row that ports them.
 
 ``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
 PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
@@ -24,9 +29,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
+from repro_torch.core.dynamic_bond import stages_from_profile
 from repro_torch.core.parallel import ParallelConfig
+from repro_torch.core.perfmodel import H100, Hardware, Workload, \
+    choose_tp_scheme
 from repro_torch.core.sampler import SamplerConfig as CoreSamplerConfig
 from repro_torch.kernels.dispatch import resolve_kernels
 from repro_torch.kernels.site_step import check_compute_dtype
@@ -55,16 +64,22 @@ class SamplerConfig:
     scheme: str = AUTO
     backend: str = AUTO
     runtime: str = AUTO
-    micro_batch: Union[int, str, None] = None
-    chi_profile: Optional[tuple[int, ...]] = None
+    micro_batch: Union[int, str, None] = None      # N₂ per data shard
+    chi_profile: Optional[tuple[int, ...]] = None  # bucketed χ per site
+    segment_len: Union[int, str] = AUTO            # streamed: sites/segment
     shard: Union[int, str, None] = None
     clamp: Optional[Any] = None
+    store_root: Optional[str] = None       # where a streamed MPS is written
+    checkpoint_dir: Optional[str] = None   # streamed: per-segment checkpoints
+    checkpoint_every: int = 1              # segments between checkpoints
+    hardware: Hardware = H100              # what the AUTO fields plan for
+    device_budget: Optional[float] = None  # device bytes, overrides hardware
 
 
 @dataclasses.dataclass(frozen=True)
 class SessionPlan:
     """Fully-resolved execution record for one ``session.sample(n, key)``."""
-    backend: str                       # "inmem"
+    backend: str                       # "inmem" | "streamed"
     runtime: str                       # "local"
     scheme: str                        # "seq" | "dp" | "tp_*" | "baseline19"
     semantics: str
@@ -76,6 +91,10 @@ class SessionPlan:
     sampler_config: CoreSamplerConfig  # the kernel-level config
     pconfig: Optional[ParallelConfig]  # the DP × TP placement (dp, tp_*)
     device: str
+    segment_len: Optional[int] = None  # streamed backend only
+    chi_profile: Optional[tuple[int, ...]] = None
+    stages: Optional[tuple[tuple[int, int, int], ...]] = None  # (s0, s1, χ)
+    checkpoint_every: int = 1
 
 
 def _mesh_sizes(mesh) -> tuple[int, int]:
@@ -90,37 +109,73 @@ def _mesh_sizes(mesh) -> tuple[int, int]:
     return p1, p2
 
 
+def _auto_micro_batch(n_local: int, chi: int, d: int, budget: float,
+                      bytes_per_elt: int = 8) -> Optional[int]:
+    """Eq. 3's pick: the largest divisor of the local batch whose
+    unmeasured (N₂, χ, d) intermediate stays under 10 % of the budget."""
+    target = max(1, int(0.1 * budget // (chi * d * bytes_per_elt)))
+    if target >= n_local:
+        return None                     # the whole shard fits
+    for k in range(target, 0, -1):
+        if n_local % k == 0:
+            return k
+    return None
+
+
 def _check_unported(config: SamplerConfig) -> None:
-    if config.backend in ("streamed", "remote"):
-        raise unported(f"backend={config.backend!r}", 9 if
-                       config.backend == "streamed" else 10,
-                       "GammaStore + streaming engine" if
-                       config.backend == "streamed" else
-                       "service and cluster layers")
+    if config.backend == "remote":
+        raise unported("backend='remote'", 10, "service and cluster layers")
     if config.runtime not in (AUTO, "local"):
         raise unported(f"runtime={config.runtime!r}", 10,
                        "service and cluster layers")
     if config.shard is not None:
         raise unported("chain sharding (shard=...)", 10,
                        "service and cluster layers")
-    if config.chi_profile is not None:
-        raise unported("chi_profile (dynamic χ)", 8, "core/dynamic_bond.py")
     if config.clamp:
         raise unported("clamp (conditional sampling)", 12,
                        "core/clamped.py + workloads")
-    if config.micro_batch == AUTO:
-        raise unported("micro_batch='auto' (memory-model pick)", 9,
-                       "perfmodel + planner")
+
+
+def _stages(chi_profile, n_sites: int, chi: int, scheme: str, p2: int):
+    """The χ-stages of a profile, checked against the chain and scheme."""
+    chi_profile = tuple(int(c) for c in chi_profile)
+    if len(chi_profile) != n_sites:
+        raise ValueError(f"chi_profile covers {len(chi_profile)} of "
+                         f"{n_sites} sites")
+    if max(chi_profile) > chi:
+        raise ValueError(f"chi_profile exceeds the chain's χ "
+                         f"({max(chi_profile)} > {chi})")
+    if scheme == "baseline19":
+        raise ValueError("dynamic χ does not compose with the [19] pipeline "
+                         "baseline")
+    stages = tuple((st.start, st.stop, st.chi) for st in
+                   stages_from_profile(np.asarray(chi_profile)))
+    if scheme in ("tp_single", "tp_double"):
+        for _, _, chi_s in stages:
+            if chi_s % p2:
+                raise ValueError(f"χ bucket {chi_s} does not divide over "
+                                 f"p₂={p2} tensor-parallel workers")
+    if scheme == "tp_double":
+        for s0, s1, _ in stages:
+            if s0 % 2 or s1 % 2:
+                raise ValueError("tp_double pairs sites (2j, 2j+1): χ-stage "
+                                 f"boundaries must be even (got [{s0}, {s1}))")
+    return chi_profile, stages
 
 
 def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                  chi: int, d: int, source_semantics: Optional[str] = None,
-                 device: torch.device, mesh=None) -> SessionPlan:
+                 device: torch.device, mesh=None,
+                 backend_hint: str = "inmem",
+                 elt_bytes: int = 8) -> SessionPlan:
     """Resolve every AUTO field of ``config`` into a :class:`SessionPlan`;
     raises ``ValueError`` for malformed requests and ``NotImplementedError``
-    for values this slice of the port does not carry."""
+    for values the port does not carry yet.  ``backend_hint`` is the
+    source's natural data plane (``streamed`` for a store), ``elt_bytes``
+    the bytes of one of its Γ elements as walked."""
     _check_unported(config)
-    if config.backend not in (AUTO, "inmem"):
+    backend = backend_hint if config.backend == AUTO else config.backend
+    if backend not in ("inmem", "streamed"):
         raise ValueError(f"unknown backend {config.backend!r}")
     if config.scheme not in (AUTO,) + _SCHEMES:
         raise ValueError(f"unknown scheme {config.scheme!r}; have {_SCHEMES}")
@@ -138,14 +193,18 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
     check_compute_dtype(config.compute_dtype, "SamplerConfig")
 
     p1, p2 = _mesh_sizes(mesh)
+    hw = config.hardware
+    budget = config.device_budget if config.device_budget else \
+        hw.mem_capacity
     scheme = config.scheme
     if scheme == AUTO:
         if mesh is None or (p1 == 1 and p2 == 1):
             scheme = "seq"
         elif p2 > 1:
-            raise unported("scheme='auto' on a mesh with a model axis (the "
-                           "Eq. 7 TP selector)", 9,
-                           "core/perfmodel.py choose_tp_scheme")
+            w_probe = Workload(n_samples=n_samples, n_sites=n_sites, chi=chi,
+                               d=d, macro_batch=n_samples,
+                               micro_batch=max(1, n_samples // p1))
+            scheme = "tp_" + choose_tp_scheme(w_probe, hw, p2)
         else:
             scheme = "dp"
     if scheme != "seq" and mesh is None:
@@ -168,17 +227,49 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
     if scheme == "tp_double" and n_sites % 2:
         raise ValueError("tp_double pairs sites (2j, 2j+1): the chain needs "
                          f"an even site count, got {n_sites}")
+    if scheme == "baseline19" and backend != "inmem":
+        raise ValueError("the [19] pipeline exists for comparison only and "
+                         "has no streamed backend")
     n_local = n_samples // p1 if sharded else n_samples
 
+    chi_profile = stages = None
+    if config.chi_profile is not None:
+        chi_profile, stages = _stages(config.chi_profile, n_sites, chi,
+                                      scheme, p2)
+
     micro = config.micro_batch
+    micro_was_auto = micro == AUTO
+    if micro_was_auto:
+        micro = (None if scheme == "baseline19" else
+                 _auto_micro_batch(n_local, chi, d, budget, elt_bytes))
     if micro is not None:
         micro = int(micro)
         if micro <= 0 or n_local % micro != 0:
             raise ValueError(f"micro_batch={micro} must divide the local "
                              f"batch {n_local}")
+        if micro == n_local and micro_was_auto:
+            micro = None
         if scheme == "baseline19":
             raise ValueError("micro batching does not compose with the [19] "
                              "pipeline baseline")
+
+    segment_len = None
+    if backend == "streamed":
+        if config.segment_len == AUTO:
+            from repro_torch.engine.planner import plan_stream
+            w = Workload(n_samples=n_samples, n_sites=n_sites, chi=chi, d=d,
+                         macro_batch=n_samples,
+                         micro_batch=(micro * p1 if micro else n_samples))
+            segment_len = plan_stream(
+                w, hw, p1=p1, p2=p2, compute_bytes=elt_bytes,
+                device_budget=config.device_budget).segment_len
+        else:
+            segment_len = int(config.segment_len)
+            if segment_len < 1:
+                raise ValueError(f"segment_len must be ≥ 1, got "
+                                 f"{segment_len}")
+        if scheme == "tp_double" and segment_len % 2:
+            segment_len += 1            # pairs never straddle segments
 
     pconfig = None
     if sharded:
@@ -191,8 +282,10 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                                        scaling=config.scaling,
                                        compute_dtype=config.compute_dtype,
                                        kernels=kernels)
-    return SessionPlan(backend="inmem", runtime="local", scheme=scheme,
+    return SessionPlan(backend=backend, runtime="local", scheme=scheme,
                        semantics=semantics, kernels=kernels,
                        n_samples=n_samples, p1=p1, p2=p2, micro_batch=micro,
                        sampler_config=sampler_config, pconfig=pconfig,
-                       device=str(device))
+                       device=str(device), segment_len=segment_len,
+                       chi_profile=chi_profile, stages=stages,
+                       checkpoint_every=config.checkpoint_every)

@@ -1,8 +1,9 @@
 """`SamplingSession` — the port's front door for chain sampling.
 
-The session owns an in-memory :class:`MPS` on its device, resolves a
-:class:`SamplerConfig` against it, and routes ``sample(n, key)`` to the
-registered data plane::
+The session owns the source — an in-memory :class:`MPS` (moved to the
+session's device), a :class:`~repro_torch.data.gamma_store.GammaStore`, or
+a store's path — resolves a :class:`SamplerConfig` against it, and routes
+``sample(n, key)`` to the registered data plane::
 
     from repro_torch import api
     from repro_torch.core import prng
@@ -10,91 +11,220 @@ registered data plane::
     with api.SamplingSession(mps) as session:          # on the CUDA card
         samples = session.sample(4096, prng.key(0))    # (N, M) outcomes
 
-``device`` defaults to the card; without a GPU the session raises unless
-``device="cpu"`` is passed.  ``mesh`` (``launch.mesh.make_mesh``) places the
-walk over DP × TP ranks: every rank of the job builds the same session and
-calls ``sample`` with the same key, and every rank gets the full (N, M)
-array back, as the JAX package's controller does; the session then runs on
-the mesh's device.  Without a mesh the session walks the chain in this
-process (scheme ``seq``).  ``sample`` uses its key unchanged (the JAX
-package's one-batch service job); ``run_queue`` derives macro batch b's key
-as ``fold_in(base, b)``.  The service layer is a later slice.
+    cfg = api.SamplerConfig(backend="streamed", checkpoint_dir=ckpt)
+    with api.SamplingSession(store, cfg) as session:   # Γ streamed
+        samples = session.sample(4096, key)
+        resumed = session.sample(4096, key, resume=True)
+
+A store source walks ``streamed`` by default (``backend="inmem"`` loads the
+whole chain instead); an MPS source with ``backend="streamed"`` is written
+once to a store of its own dtype in ``store_root`` (a temporary directory,
+removed on ``close``, by default).  ``device`` defaults to the card;
+without a GPU the session raises unless ``device="cpu"`` is passed.
+``mesh`` (``launch.mesh.make_mesh``) places the walk over DP × TP ranks:
+every rank of the job builds the same session and calls ``sample`` with the
+same key, and every rank gets the full (N, M) array back, as the JAX
+package's controller does; the session then runs on the mesh's device.
+``sample`` uses its key unchanged (the JAX package's one-batch service
+job); ``run_queue`` derives macro batch b's key as ``fold_in(base, b)``.
+``stats`` holds the last streamed walk's engine statistics.  The service
+layer is a later slice.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import os
+import shutil
+import tempfile
+import threading
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.api.backends import SampleRequest, get_backend
-from repro_torch.api.config import (SamplerConfig, SessionPlan, resolve_plan,
-                                    unported)
+from repro_torch.api.config import SamplerConfig, SessionPlan, resolve_plan
 from repro_torch.core import prng
 from repro_torch.core.mps import MPS
+from repro_torch.data.gamma_store import GammaStore
 from repro_torch.device import DeviceLike, resolve_device
 
 
 class SamplingSession:
     """Facade over the data-plane registry; see module docstring."""
 
-    def __init__(self, source: MPS, config: Optional[SamplerConfig] = None,
-                 *, device: DeviceLike = None, mesh=None):
-        if not isinstance(source, MPS):
-            raise unported(f"a {type(source).__name__} source (only an "
-                           f"in-memory MPS is)", 9,
-                           "GammaStore + streaming engine")
+    def __init__(self, source: Union[MPS, GammaStore, str, os.PathLike],
+                 config: Optional[SamplerConfig] = None, *,
+                 device: DeviceLike = None, mesh=None):
         self.config = config or SamplerConfig()
         self.mesh = mesh
         self.device = (resolve_device(device) if device is not None
                        or mesh is None else mesh.device)
-        # moving is explicit here: the chain lives on the session's device
-        self._mps: Optional[MPS] = (source if source.device == self.device
-                                    else source.to(self.device))
-        self.n_sites, self.chi, self.d = (source.n_sites, source.chi,
-                                          source.phys_dim)
-        self._semantics = source.semantics
+        self._mps: Optional[MPS] = None
+        self._store: Optional[GammaStore] = None
+        self._owns_store = False
+        self._tmp_store_root: Optional[str] = None
         self._plans: dict[int, SessionPlan] = {}
+        self._engines: dict = {}
+        self._lock = threading.RLock()
+        self._closed = False
+        self.stats: dict = {}
+        if isinstance(source, (str, os.PathLike)):
+            source = GammaStore(str(source))
+            self._owns_store = True
+        if isinstance(source, GammaStore):
+            if source.n_sites == 0:
+                raise ValueError(f"empty GammaStore at {source.root}")
+            self._store = source
+            shape = source.meta(0)          # the header, no Γ payload
+            self.n_sites, self.chi, self.d = (source.n_sites, shape[0],
+                                              shape[2])
+            self._semantics, self._hint = None, "streamed"
+            self._elt_bytes = torch.empty(
+                (), dtype=source.compute_dtype).element_size()
+        elif isinstance(source, MPS):
+            # moving is explicit here: the chain lives on the session's device
+            self._mps = (source if source.device == self.device
+                         else source.to(self.device))
+            self.n_sites, self.chi, self.d = (source.n_sites, source.chi,
+                                              source.phys_dim)
+            self._semantics, self._hint = source.semantics, "inmem"
+            self._elt_bytes = source.gammas.element_size()
+        else:
+            raise TypeError(f"source must be an MPS, a GammaStore or a store "
+                            f"path — got {type(source).__name__}")
 
     def plan(self, n_samples: int) -> SessionPlan:
         """The fully-resolved execution plan for ``sample(n_samples, ...)``."""
-        if n_samples not in self._plans:
-            self._plans[n_samples] = resolve_plan(
-                self.config, n_samples=n_samples, n_sites=self.n_sites,
-                chi=self.chi, d=self.d, source_semantics=self._semantics,
-                device=self.device, mesh=self.mesh)
-        return self._plans[n_samples]
+        with self._lock:
+            if n_samples not in self._plans:
+                self._plans[n_samples] = resolve_plan(
+                    self.config, n_samples=n_samples, n_sites=self.n_sites,
+                    chi=self.chi, d=self.d, source_semantics=self._semantics,
+                    device=self.device, mesh=self.mesh,
+                    backend_hint=self._hint, elt_bytes=self._elt_bytes)
+            return self._plans[n_samples]
 
-    def sample(self, n_samples: int, key: torch.Tensor) -> np.ndarray:
-        """Draw ``n_samples`` chains; returns (N, M) int64 outcomes."""
-        if self._mps is None:
+    def explain(self, n_samples: int) -> dict:
+        """The plan's choices, and for a streamed plan the perfmodel's §3.1
+        overlap accounting behind them (``engine.explain_plan``)."""
+        plan = self.plan(n_samples)
+        stages = plan.stages or ((0, self.n_sites, self.chi),)
+        info = {"backend": plan.backend, "scheme": plan.scheme,
+                "kernels": plan.kernels, "semantics": plan.semantics,
+                "p1": plan.p1, "p2": plan.p2,
+                "micro_batch": plan.micro_batch, "n_stages": len(stages),
+                "chi_buckets": sorted({c for _, _, c in stages})}
+        if plan.backend == "streamed":
+            from repro_torch.core.perfmodel import Workload
+            from repro_torch.engine.planner import explain_plan
+            from repro_torch.engine.streaming import StreamPlan
+            w = Workload(n_samples=n_samples, n_sites=self.n_sites,
+                         chi=self.chi, d=self.d, macro_batch=n_samples,
+                         micro_batch=plan.micro_batch or n_samples)
+            more = explain_plan(
+                StreamPlan(segment_len=plan.segment_len,
+                           micro_batch=plan.micro_batch),
+                w, self.config.hardware, compute_bytes=self._elt_bytes)
+            more.pop("scheme")
+            info.update(more)
+        return info
+
+    # -- sources, made at most once ------------------------------------------
+    def _ensure_mps(self) -> MPS:
+        with self._lock:
+            if self._mps is None:
+                g, lam = self._store.get_segment(0, self.n_sites,
+                                                 prefetch_next_segment=False)
+                semantics = (self.config.semantics
+                             if self.config.semantics != "auto" else "linear")
+                self._mps = MPS(g.to(self.device), lam.to(self.device),
+                                semantics)
+            return self._mps
+
+    def _ensure_store(self) -> GammaStore:
+        with self._lock:
+            if self._store is None:
+                root = self.config.store_root
+                if root is None:
+                    root = self._tmp_store_root = tempfile.mkdtemp(
+                        prefix="fastmps_session_")
+                # the identity storage dtype: the streamed walk sees the
+                # in-memory chain's values bit for bit
+                dt = self._mps.gammas.dtype
+                self._store = GammaStore(root, storage_dtype=dt,
+                                         compute_dtype=dt)
+                if self._store.n_sites == 0:
+                    self._store.write_mps(self._mps)
+                self._owns_store = True
+            return self._store
+
+    def sample(self, n_samples: int, key: torch.Tensor, *,
+               resume: bool = False, checkpoint_dir: Optional[str] = None,
+               stop_after_segments: Optional[int] = None) -> np.ndarray:
+        """Draw ``n_samples`` chains; returns (N, M) int64 outcomes.
+        ``resume=True`` continues a streamed walk from its newest
+        checkpoint; ``checkpoint_dir`` overrides the config's;
+        ``stop_after_segments`` stops a streamed walk there, as a kill
+        would."""
+        if self._closed:
             raise RuntimeError("the session is closed")
         plan = self.plan(n_samples)
-        req = SampleRequest(plan=plan, n_samples=n_samples, key=key,
-                            mps=self._mps, mesh=self.mesh)
-        return get_backend(plan.backend).sample(req)
+        req = SampleRequest(
+            plan=plan, n_samples=n_samples, key=key, mps=self._ensure_mps,
+            store=self._ensure_store, mesh=self.mesh, resume=resume,
+            checkpoint_dir=(self.config.checkpoint_dir
+                            if checkpoint_dir is None else checkpoint_dir),
+            stop_after_segments=stop_after_segments, engines=self._engines)
+        out = get_backend(plan.backend).sample(req)
+        self.stats = req.stats
+        return out
 
     def run_queue(self, queue, per_batch: int, base_key: torch.Tensor, *,
                   worker: str = "session",
+                  checkpoint_root: Optional[str] = None,
                   on_batch: Optional[Callable[[int, np.ndarray], None]] = None
                   ) -> dict[int, np.ndarray]:
         """Macro batches (paper N₁) as idempotent work items: batch b is
-        ``sample(per_batch, fold_in(base_key, b))``.  ``on_batch(b, samples)``
-        is called per finished batch; without it the samples are returned."""
+        ``sample(per_batch, fold_in(base_key, b))``.  With
+        ``checkpoint_root`` a streamed batch checkpoints into its own
+        directory, and a batch killed mid-chain resumes from its last
+        segment boundary.  ``on_batch(b, samples)`` is called per finished
+        batch; without it the samples are returned."""
+        streamed = self.plan(per_batch).backend == "streamed"
         out: dict[int, np.ndarray] = {}
         while (b := queue.claim(worker)) is not None:
-            res = self.sample(per_batch, prng.fold_in(base_key, b))
+            ck, resume = None, False
+            if checkpoint_root and streamed:
+                ck = os.path.join(checkpoint_root, f"batch_{b:05d}")
+                os.makedirs(ck, exist_ok=True)
+                resume = any(f.startswith("site_") for f in os.listdir(ck))
+            res = self.sample(per_batch, prng.fold_in(base_key, b),
+                              resume=resume, checkpoint_dir=ck)
             if on_batch is not None:
                 on_batch(b, res)
             else:
                 out[b] = res
+            if ck:
+                shutil.rmtree(ck, ignore_errors=True)   # the batch is out
             queue.complete(b)
         return out
 
     def close(self) -> None:
-        """Drop the session's reference to the chain (its device memory is
-        freed once the caller drops theirs)."""
+        """Release what the session owns: its engines, a store it opened or
+        wrote (and a temporary store's directory), and its reference to the
+        chain; a store passed in stays open."""
+        for eng in self._engines.values():
+            eng.close(close_store=False)
+        self._engines.clear()
+        if self._owns_store and self._store is not None:
+            self._store.close()
+            self._store = None
+            self._owns_store = False
+        if self._tmp_store_root is not None:
+            shutil.rmtree(self._tmp_store_root, ignore_errors=True)
+            self._tmp_store_root = None
         self._mps = None
+        self._closed = True
 
     def __enter__(self) -> "SamplingSession":
         return self

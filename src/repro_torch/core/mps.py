@@ -86,23 +86,29 @@ def random_linear_mps(key, n_sites: int, chi: int, d: int,
     bits are the same."""
     dev = resolve_device(device)
     kg, kl, kd = prng.split(key, 3)
-    site = chi * chi * d
-    rows = max(1, _DRAW_CHUNK // (chi * d))
     gammas = torch.empty((n_sites, chi, chi, d), dtype=dtype, device=dev)
     scale = (prng.uniform(kd, (n_sites,), dtype=dtype, device=dev)
              if decay else None)
     for i in range(n_sites):
-        g = gammas[i]
-        for r0 in range(0, chi, rows):
-            r1 = min(chi, r0 + rows)
-            g[r0:r1] = prng.uniform(kg, (r1 - r0, chi, d), dtype=dtype,
-                                    device=dev,
-                                    offset=i * site + r0 * chi * d)
-        g /= g.sum(dim=(1, 2), keepdim=True)
+        _linear_site(kg, i, gammas[i])
         if decay:
-            g *= 10.0 ** (-decay * (1.0 + scale[i]))
+            gammas[i] *= 10.0 ** (-decay * (1.0 + scale[i]))
     lambdas = 1.0 + prng.uniform(kl, (n_sites, chi), dtype=dtype, device=dev)
     return MPS(gammas, lambdas, "linear")
+
+
+def _linear_site(kg, i: int, g: torch.Tensor) -> None:
+    """Fill ``g`` (χ, χ, d) with site i of ``uniform(kg, (M, χ, χ, d))``, each
+    row normalised so that Σ_(r,s) Γ = 1; drawn in pieces whose counters
+    are the whole-array draw's."""
+    chi, _, d = g.shape
+    rows = max(1, _DRAW_CHUNK // (chi * d))
+    for r0 in range(0, chi, rows):
+        r1 = min(chi, r0 + rows)
+        g[r0:r1] = prng.uniform(kg, (r1 - r0, chi, d), dtype=g.dtype,
+                                device=g.device,
+                                offset=(i * chi + r0) * chi * d)
+    g /= g.sum(dim=(1, 2), keepdim=True)
 
 
 def random_born_mps(key, n_sites: int, chi: int, d: int,
@@ -149,13 +155,39 @@ def gbs_like_mps(key, n_sites: int, chi: int, d: int,
     (s = 0) is boosted towards the chain's edges."""
     mps = random_linear_mps(key, n_sites, chi, d, decay=photon_decay * 50,
                             dtype=dtype, device=device)
-    centre = (n_sites - 1) / 2.0
     for i in range(n_sites):
-        edge = abs(i - centre) / centre if centre else 0.0
-        g = mps.gammas[i]
-        g[:, :, 0] *= 1.0 + 4.0 * edge
-        g /= g.sum(dim=(1, 2), keepdim=True)
+        _edge_boost(mps.gammas[i], i, n_sites)
     return mps
+
+
+def _edge_boost(g: torch.Tensor, i: int, n_sites: int) -> None:
+    """Boost site i's vacuum outcome towards the chain's edges."""
+    centre = (n_sites - 1) / 2.0
+    edge = abs(i - centre) / centre if centre else 0.0
+    g[:, :, 0] *= 1.0 + 4.0 * edge
+    g /= g.sum(dim=(1, 2), keepdim=True)
+
+
+def gbs_like_site(key, i: int, n_sites: int, chi: int, d: int,
+                  photon_decay: float = 0.002,
+                  dtype: torch.dtype = torch.float64,
+                  device: DeviceLike = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Site i of ``gbs_like_mps(key, n_sites, ...)`` alone: (Γ (χ, χ, d),
+    Λ (χ,)), bit for bit, so a chain larger than the device is made a site
+    at a time (e.g. straight into a ``GammaStore``)."""
+    dev = resolve_device(device)
+    kg, kl, kd = prng.split(key, 3)
+    g = torch.empty((chi, chi, d), dtype=dtype, device=dev)
+    _linear_site(kg, i, g)
+    decay = photon_decay * 50
+    if decay:
+        scale = prng.uniform(kd, (1,), dtype=dtype, device=dev, offset=i)
+        g *= 10.0 ** (-decay * (1.0 + scale[0]))
+    _edge_boost(g, i, n_sites)
+    lam = 1.0 + prng.uniform(kl, (chi,), dtype=dtype, device=dev,
+                             offset=i * chi)
+    return g, lam
 
 
 # ---------------------------------------------------------------------------

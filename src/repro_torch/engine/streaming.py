@@ -1,0 +1,444 @@
+"""Segment-streamed MPS sampling with compute/I-O overlap (paper §3.1,
+§3.3.2).
+
+The in-memory walk needs the whole stacked Γ on the device: at χ = 10⁴ one
+fp64 site is 3.2 GB and jiuzhang2's 144 sites are 460 GB.  This engine
+splits the chain into site *segments* and, while the card walks segment k,
+a pool thread has the store read segment k+1 (the store's own worker runs
+a segment further ahead) and copy it to the card on the store's copy
+stream, in the storage format, where it is upcast
+(:meth:`~repro_torch.data.gamma_store.GammaStore.get_segment_on_device`).
+At most two segments are on the device at a time, the one being walked and
+the one being fetched.
+
+Behind :meth:`StreamingEngine.sample`:
+
+* ``inmem`` — the ``core/sampler`` walk, the samples of ``sampler.sample``
+  for the same key (``micro_batch=None``) or of ``sampler.sample_batched``
+  (``micro_batch=N₂``: chunk c walks on ``split(key, n_micro)[c]``);
+* ``dp`` / ``tp_single`` / ``tp_double`` — ``core/parallel``'s segment
+  runner over the engine's mesh (each rank of the job runs an engine that
+  reads the store itself);
+* dynamic bond dimensions (§3.4.2): a bucketed ``chi_profile`` splits the
+  walk into χ-stages, segments never cross a stage, the environment goes
+  through ``dynamic_bond.fit_env`` at each boundary and each site reaches
+  the card cut to its stage's χ;
+* per-segment checkpoints (``checkpoint/sampler_state`` plus one sample
+  block file per segment) and ``resume=True``: a killed walk resumes at
+  its last segment boundary and emits the uninterrupted samples (§4.1);
+* macro batches as idempotent :class:`WorkQueue` items (:meth:`run_queue`).
+
+A tail segment shorter than ``segment_len`` is walked as it is: the JAX
+package pads it with identity sites so that one jit compilation serves
+every segment and discards their draws, which leaves env, the rescale and
+the key untouched — the port compiles nothing per shape, so it skips them
+and gives the same samples.
+
+``state`` is the last walk's final :class:`~repro_torch.core.sampler.
+SamplerState` (env, key, log_scale) and ``stats`` describes that walk:
+``segments``, ``max_live_segments``,
+``io_wait_s`` (the walk waiting for a segment), ``compute_s``,
+``store_io_s`` and ``io_bytes`` (the store's read seconds and payload
+bytes), ``h2d_s`` and ``h2d_bytes`` (the copies to the card, by CUDA
+events on the copy stream), ``wall_s`` and ``io_hidden_frac``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.api.runtime import LocalRuntime
+from repro_torch.checkpoint.sampler_state import (load_sampler_state,
+                                                  save_sampler_state)
+from repro_torch.core import dynamic_bond as DB
+from repro_torch.core import parallel as PP
+from repro_torch.core import prng
+from repro_torch.core import sampler as S
+from repro_torch.core.mps import MPS
+from repro_torch.core.precision import real_dtype_of
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """How to walk the chain (``engine.planner.plan_stream`` makes one)."""
+    segment_len: int                    # sites per device-resident segment
+    scheme: str = "inmem"               # "inmem" | "dp" | "tp_single" | "tp_double"
+    micro_batch: Optional[int] = None   # N₂; composes with every scheme
+    checkpoint_every: int = 0           # segments between checkpoints; 0 = off
+
+
+def chain_segments(n_sites: int, segment_len: int,
+                   stages: Optional[Sequence] = None) -> list[tuple]:
+    """The walk's segments: ``segment_len``-sized chunks that never cross
+    a χ-stage; ``stages`` entries are ``(start, stop, chi)``, None one
+    fixed-χ stage.  (A copy of ``repro.shard.shardmap.chain_segments``.)"""
+    if stages is None:
+        stages = [(0, n_sites, None)]
+    out = []
+    for s0, s1, chi_s in stages:
+        c = s0
+        while c < s1:
+            out.append((c, min(c + segment_len, s1), chi_s))
+            c = min(c + segment_len, s1)
+    return out
+
+
+def _unported(what: str, row: int, topic: str):
+    from repro_torch.api.config import unported
+    return unported(what, row, topic)
+
+
+class StreamingEngine:
+    """Walks a chain stored in a :class:`GammaStore` under any DP × TP
+    placement, never holding more than two segments on the device."""
+
+    def __init__(self, store, *, semantics: str = "linear",
+                 config: S.SamplerConfig = S.SamplerConfig(),
+                 plan: StreamPlan = StreamPlan(segment_len=64),
+                 mesh=None, pconfig: Optional[PP.ParallelConfig] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 chi_profile=None, runtime=None, shard=None, clamp=None,
+                 device: DeviceLike = None):
+        if shard is not None:
+            raise _unported("chain sharding (shard=...)", 10,
+                            "service and cluster layers")
+        if clamp:
+            raise _unported("clamp (conditional sampling)", 12,
+                            "core/clamped.py + workloads")
+        self.runtime = runtime or LocalRuntime()
+        if self.runtime.process_count > 1:
+            raise _unported("a multi-process runtime", 10,
+                            "service and cluster layers")
+        self.store = store
+        self.n_sites = store.n_sites
+        if self.n_sites == 0:
+            raise ValueError(f"empty GammaStore at {store.root}")
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
+        # pinned reads make the copies to the card asynchronous
+        store.pin_memory = self.device.type == "cuda"
+        shape = store.meta(0)             # the npz header, no Γ payload
+        self.chi, self.d = shape[0], shape[2]
+        self.gamma_dtype = store.compute_dtype
+        self.semantics = semantics
+        self.config = config
+        self.plan = plan
+        if plan.scheme != "inmem" and mesh is None:
+            raise ValueError(f"scheme {plan.scheme!r} needs a mesh")
+        self.mesh = mesh
+        self.pconfig = pconfig or PP.ParallelConfig(scheme=plan.scheme)
+        if plan.scheme != "inmem" and plan.micro_batch is not None:
+            self.pconfig = dataclasses.replace(self.pconfig,
+                                               micro_batch=plan.micro_batch)
+        self.chi_profile = (None if chi_profile is None
+                            else np.asarray(chi_profile, dtype=np.int64))
+        if self.chi_profile is not None:
+            if len(self.chi_profile) != self.n_sites:
+                raise ValueError(f"chi_profile covers "
+                                 f"{len(self.chi_profile)} of "
+                                 f"{self.n_sites} sites")
+            if int(self.chi_profile.max()) > self.chi:
+                raise ValueError("chi_profile exceeds the stored χ "
+                                 f"({int(self.chi_profile.max())} > "
+                                 f"{self.chi})")
+        self.checkpoint_dir = checkpoint_dir
+        if checkpoint_dir:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._live_lock = threading.Lock()
+        self._live = 0
+        self._walk_lock = threading.Lock()
+        self.stats: dict = {}
+        self.state: Optional[S.SamplerState] = None
+        self._begin_walk()
+
+    # -- chain schedule ------------------------------------------------------
+    def _segment_schedule(self) -> list[tuple[int, int, int]]:
+        """[(start, stop, χ_stage)]: ``plan.segment_len`` chunks that never
+        cross a χ-stage."""
+        if self.chi_profile is None:
+            stages = [(0, self.n_sites, self.chi)]
+        else:
+            stages = [(st.start, st.stop, st.chi)
+                      for st in DB.stages_from_profile(self.chi_profile)]
+        for s0, s1, _ in stages:
+            if self.pconfig.scheme == "tp_double" and (s0 % 2 or s1 % 2):
+                raise ValueError(
+                    "tp_double pairs sites (2j, 2j+1): χ-stage boundaries "
+                    f"must be even (got stage [{s0}, {s1}))")
+        return chain_segments(self.n_sites, self.plan.segment_len, stages)
+
+    # -- segment fetch (on the pool thread) ---------------------------------
+    def _fetch(self, start: int, stop: int, chi_s: int) -> dict:
+        seg = self.store.get_segment_on_device(
+            start, stop - start, self.device,
+            chi=chi_s if chi_s < self.chi else None)
+        with self._live_lock:
+            self._live += 1
+            self.stats["max_live_segments"] = max(
+                self.stats["max_live_segments"], self._live)
+        return seg
+
+    def _take(self, seg: dict) -> MPS:
+        """Hand a fetched segment to the walk's stream: wait for its copy
+        and tell the allocator the walk's stream uses its memory."""
+        if seg["ready"] is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(seg["ready"])
+            seg["gammas"].record_stream(cur)
+            seg["lambdas"].record_stream(cur)
+        return MPS(seg["gammas"], seg["lambdas"], self.semantics)
+
+    def _release(self, seg: dict) -> None:
+        if seg["copy"] is not None:      # the walk waited on the copy
+            h2d0, h2d1 = seg["copy"]
+            self.stats["h2d_s"] += h2d0.elapsed_time(h2d1) / 1e3
+        self.stats["h2d_bytes"] += seg["bytes"]
+        seg.clear()
+        with self._live_lock:
+            self._live -= 1
+
+    def _drop(self, seg: dict) -> None:
+        """Release a segment the walk will not use, once its copy is done."""
+        if seg["ready"] is not None:
+            seg["ready"].synchronize()
+        self._release(seg)
+
+    def _drop_pending(self, fut: Optional[Future], seg: Optional[dict]
+                      ) -> None:
+        """After a walk that raised: wait for the prefetch in flight and
+        release it and the segment the walk held (a failed fetch holds
+        nothing)."""
+        if seg:
+            self._drop(seg)
+        if fut is not None:
+            try:
+                pending = fut.result()
+            except Exception:
+                return
+            self._drop(pending)
+
+    # -- one segment of the data plane --------------------------------------
+    def _run_segment(self, seg: MPS, env, log_scale, key, start: int):
+        if self.plan.scheme != "inmem":
+            return PP.sample_segment(self.mesh, seg, env, key, start,
+                                     self.pconfig, self.config,
+                                     log_scale=log_scale)
+
+        def chain(k, e, ls):
+            res = S.sample_chain(seg, S.SamplerState(e, k, ls), self.config,
+                                 start_site=start)
+            return res.samples, res.state.env, res.state.log_scale
+        # chunk c of N₂ on split(key, n_micro)[c]: sample_batched's schedule
+        return PP._with_micro(chain, key, env, log_scale,
+                              self.plan.micro_batch)
+
+    def _load_sample_blocks(self, up_to_site: int,
+                            ckpt_dir: str) -> list[np.ndarray]:
+        """The per-segment sample blocks covering [0, up_to_site)."""
+        blocks, cursor = [], 0
+        names = sorted(f for f in os.listdir(ckpt_dir)
+                       if f.startswith("samples_") and f.endswith(".npy"))
+        for fn in names:
+            offset = int(fn[len("samples_"):-len(".npy")])
+            if offset >= up_to_site:
+                break
+            if offset != cursor:
+                raise ValueError(f"sample blocks in {ckpt_dir} leave a gap "
+                                 f"at site {cursor}")
+            blk = np.load(os.path.join(ckpt_dir, fn))
+            blocks.append(blk)
+            cursor += blk.shape[0]
+        if cursor != up_to_site:
+            raise ValueError(f"sample blocks in {ckpt_dir} cover {cursor} "
+                             f"of the checkpoint's {up_to_site} sites")
+        return blocks
+
+    # -- per-walk bookkeeping ------------------------------------------------
+    def _begin_walk(self) -> None:
+        """Zero the per-walk stats and anchor the store's counters."""
+        self._store_io0 = (self.store.io_seconds, self.store.io_bytes)
+        with self._live_lock:
+            self._live = 0
+        self.stats.update(segments=0, io_wait_s=0.0, compute_s=0.0,
+                          max_live_segments=0, store_io_s=0.0, io_bytes=0,
+                          io_hidden_frac=0.0, h2d_s=0.0, h2d_bytes=0,
+                          wall_s=0.0)
+
+    def _finish_walk(self, t_walk: float) -> None:
+        self.stats["wall_s"] = time.perf_counter() - t_walk
+        self.stats["store_io_s"] = self.store.io_seconds - self._store_io0[0]
+        self.stats["io_bytes"] = self.store.io_bytes - self._store_io0[1]
+        if self.stats["store_io_s"] > 0:
+            hidden = max(0.0,
+                         self.stats["store_io_s"] - self.stats["io_wait_s"])
+            self.stats["io_hidden_frac"] = hidden / self.stats["store_io_s"]
+        self.runtime.barrier()
+
+    # -- the walk ------------------------------------------------------------
+    _UNSET = object()
+
+    def sample(self, n_samples: int, key: torch.Tensor, *,
+               resume: bool = False,
+               stop_after_segments: Optional[int] = None,
+               checkpoint_dir=_UNSET) -> np.ndarray:
+        """Walk the whole chain; returns (N, M) int64 outcomes.
+
+        ``resume=True`` continues from the newest checkpoint (the
+        uninterrupted run's samples); ``checkpoint_dir`` overrides the
+        engine's for this walk; ``stop_after_segments`` stops the walk
+        there as a kill would, after checkpointing the boundary, and
+        returns the (N, sites_done) block walked so far."""
+        return self.sample_with_stats(
+            n_samples, key, resume=resume,
+            stop_after_segments=stop_after_segments,
+            checkpoint_dir=checkpoint_dir)[0]
+
+    def sample_with_stats(self, n_samples: int, key: torch.Tensor, *,
+                          resume: bool = False,
+                          stop_after_segments: Optional[int] = None,
+                          checkpoint_dir=_UNSET) -> tuple[np.ndarray, dict]:
+        """:meth:`sample` and a copy of its stats, taken under the walk
+        lock (a session shares one engine across its macro batches)."""
+        with self._walk_lock:
+            out = self._sample_locked(n_samples, key, resume=resume,
+                                      stop_after_segments=stop_after_segments,
+                                      checkpoint_dir=checkpoint_dir)
+            return out, dict(self.stats)
+
+    def _sample_locked(self, n_samples: int, key: torch.Tensor, *,
+                       resume: bool, stop_after_segments: Optional[int],
+                       checkpoint_dir) -> np.ndarray:
+        ckpt_dir = (self.checkpoint_dir if checkpoint_dir is self._UNSET
+                    else checkpoint_dir)
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
+        self._begin_walk()
+        t_walk = time.perf_counter()
+        if self.plan.micro_batch is not None and \
+                n_samples % self.plan.micro_batch:
+            raise ValueError(f"micro_batch={self.plan.micro_batch} must "
+                             f"divide n_samples={n_samples}")
+
+        schedule = self._segment_schedule()
+        boundaries = {s for s, _, _ in schedule} | {self.n_sites}
+        idx = 0
+        done: list[np.ndarray] = []       # site-major (L_i, N) blocks
+        persisted = 0                     # blocks already on disk
+        env = PP.segment_env_init(n_samples, schedule[0][2], self.gamma_dtype,
+                                  self.device)
+        log_scale = torch.zeros((n_samples,), dtype=real_dtype_of(env.dtype),
+                                device=self.device)
+        if resume:
+            if not ckpt_dir:
+                raise ValueError("resume=True needs a checkpoint_dir")
+            site, state, _ = load_sampler_state(ckpt_dir, device=self.device)
+            if site not in boundaries:
+                raise ValueError(f"checkpoint at site {site} is not a "
+                                 f"segment boundary of this plan "
+                                 f"({sorted(boundaries)})")
+            # a mismatched key would splice two runs into one batch
+            if not torch.equal(key.cpu(), state.key):
+                raise ValueError("resume key does not match the "
+                                 "checkpointed run")
+            env, key, log_scale = state.env, state.key, state.log_scale
+            idx = next((i for i, (s, _, _) in enumerate(schedule)
+                        if s == site), len(schedule))
+            done = self._load_sample_blocks(site, ckpt_dir)
+            persisted = len(done)
+
+        fut: Optional[Future] = None      # the segment being fetched
+        seg: Optional[dict] = None        # the segment the walk holds
+        try:
+            if idx < len(schedule):
+                fut = self._pool.submit(self._fetch, *schedule[idx])
+            seg_idx = 0
+            while idx < len(schedule):
+                start, stop, chi_s = schedule[idx]
+                t0 = time.perf_counter()
+                seg, fut = fut.result(), None
+                self.stats["io_wait_s"] += time.perf_counter() - t0
+                if idx + 1 < len(schedule):   # double buffer: fetch k+1 now
+                    fut = self._pool.submit(self._fetch, *schedule[idx + 1])
+
+                t0 = time.perf_counter()
+                with self.runtime.compute_lock():
+                    part = self._take(seg)
+                    env = DB.fit_env(env, chi_s)   # χ-stage transition
+                    samples, env, log_scale = self._run_segment(
+                        part, env, log_scale, key, start)
+                    del part
+                    samples = samples.cpu().numpy().astype(np.int32)
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                self.stats["compute_s"] += time.perf_counter() - t0
+                self._release(seg)
+                seg = None
+                done.append(samples)
+                self.stats["segments"] += 1
+                idx += 1
+                seg_idx += 1
+
+                stopping = (stop_after_segments is not None
+                            and seg_idx >= stop_after_segments
+                            and idx < len(schedule))
+                ckpt_due = (self.plan.checkpoint_every
+                            and seg_idx % self.plan.checkpoint_every == 0)
+                if ckpt_dir and (ckpt_due or stopping):
+                    # one block file per segment, written once
+                    cursor = stop - sum(b.shape[0] for b in done[persisted:])
+                    for blk in done[persisted:]:
+                        np.save(os.path.join(ckpt_dir,
+                                             f"samples_{cursor:06d}.npy"),
+                                blk)
+                        cursor += blk.shape[0]
+                    persisted = len(done)
+                    save_sampler_state(
+                        ckpt_dir, stop, S.SamplerState(env, key, log_scale),
+                        np.zeros((0, n_samples), dtype=np.int32), keep=3)
+                if stopping:              # the prefetch we no longer need
+                    pending, fut = fut.result(), None
+                    self._drop(pending)
+                    break
+        except BaseException:
+            self._drop_pending(fut, seg)
+            raise
+
+        self.state = S.SamplerState(env, key, log_scale)
+        self._finish_walk(t_walk)
+        if not done:
+            return np.zeros((n_samples, 0), dtype=np.int64)
+        return np.concatenate(done, axis=0).T.astype(np.int64)
+
+    def run_queue(self, queue, per_batch: int, base_key: torch.Tensor,
+                  worker: str = "engine") -> dict[int, np.ndarray]:
+        """Macro batches (paper N₁) as work items: batch b walks on
+        ``fold_in(base_key, b)``, so a restarted queue recomputes only the
+        batches it has not completed, with the same results."""
+        out: dict[int, np.ndarray] = {}
+        while (b := queue.claim(worker)) is not None:
+            out[b] = self.sample(per_batch, prng.fold_in(base_key, b))
+            queue.complete(b)
+        return out
+
+    def close(self, close_store: bool = True) -> None:
+        """Join the pool thread; ``close_store=False`` leaves a (shared)
+        store open."""
+        self._pool.shutdown(wait=True)
+        if close_store:
+            self.store.close()
+
+    def __enter__(self) -> "StreamingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+

@@ -20,10 +20,18 @@ them per tensor-parallel group:
 Every rank walks its shard; rank 0 writes the files.
 
 ``--precision mxu_bf16`` walks the fp32 chain with bf16 GEMM inputs and
-fp32 sums, as the JAX package's CLI does.  Flags of the JAX package's CLI
-that this slice does not carry (``--stream``, ``--dynamic-bond``,
-``--service*``, ``--clamp``, ``--runtime`` other than local) raise
-``NotImplementedError`` naming the ROADMAP.md row that ports them.
+fp32 sums, as the JAX package's CLI does.
+
+``--stream`` walks the chain from a bf16 :class:`GammaStore` (``--store``,
+by default ``OUT_DIR/gamma_store``, written from the chain when empty,
+with its digest manifest, so every read is verified) in segments of
+``--segment-len`` sites (0: the planner's pick), checkpointing each macro
+batch per segment under ``OUT_DIR/chain_ckpt``.  ``--dynamic-bond`` walks
+the area-law χ profile bucketed to {χ/4, χ/2, χ} (§3.4.2), as the JAX
+package's CLI does; both compose with every scheme.  Flags of the JAX
+package's CLI that later slices port (``--service*``, ``--clamp``,
+``--runtime`` other than local) raise ``NotImplementedError`` naming the
+ROADMAP.md row that ports them.
 """
 from __future__ import annotations
 
@@ -38,8 +46,10 @@ import torch.distributed as dist
 
 from repro_torch import api
 from repro_torch.api.config import unported
+from repro_torch.core import dynamic_bond as DB
 from repro_torch.core import mps as M
 from repro_torch.core import precision, prng
+from repro_torch.data.gamma_store import MANIFEST_NAME, GammaStore
 from repro_torch.kernels import dispatch, ops
 from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
 from repro_torch.runtime.elastic import WorkQueue
@@ -70,11 +80,18 @@ def _parser() -> argparse.ArgumentParser:
                              "baseline19"])
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="p₂: ranks per tensor-parallel group")
+    ap.add_argument("--stream", action="store_true",
+                    help="segment-streamed engine (Γ from --store, §3.1)")
+    ap.add_argument("--store", default=None,
+                    help="GammaStore dir; built from the synthetic MPS if "
+                         "empty (default OUT_DIR/gamma_store)")
+    ap.add_argument("--segment-len", type=int, default=0,
+                    help="sites per streamed segment (0 = the planner's)")
+    ap.add_argument("--dynamic-bond", action="store_true",
+                    help="area-law χ profile in buckets (§3.4.2)")
     # the JAX package's CLI flags that later slices port
     ap.add_argument("--runtime", default="auto",
                     choices=["auto", "local", "multihost", "remote"])
-    ap.add_argument("--stream", action="store_true")
-    ap.add_argument("--dynamic-bond", action="store_true")
     ap.add_argument("--clamp", default=None)
     ap.add_argument("--service", action="store_true")
     ap.add_argument("--service-workers", type=int, default=None)
@@ -86,10 +103,6 @@ def _reject_unported(args) -> None:
     if args.runtime not in ("auto", "local"):
         raise unported(f"--runtime {args.runtime}", 10,
                        "service and cluster layers")
-    if args.stream:
-        raise unported("--stream", 9, "GammaStore + streaming engine")
-    if args.dynamic_bond:
-        raise unported("--dynamic-bond", 8, "core/dynamic_bond.py")
     if args.clamp:
         raise unported("--clamp", 12, "core/clamped.py + workloads")
     if args.service or args.service_fleet or args.service_workers:
@@ -122,11 +135,40 @@ def _run(args, mesh, per_batch: int) -> None:
     # built in fp64 and cast, as the JAX package's CLI does
     dtype = precision.policy_dtypes(args.precision)[0]
     compute = torch.bfloat16 if args.precision == "mxu_bf16" else None
-    mps = M.gbs_like_mps(prng.key(args.seed), args.sites, args.chi, args.d,
-                         dtype=torch.float64, device=device).to(dtype=dtype)
-    config = api.SamplerConfig(scheme=args.scheme, backend="inmem",
-                               kernels=args.kernels, compute_dtype=compute,
-                               micro_batch=args.micro_batch or None)
+
+    def build_mps():
+        return M.gbs_like_mps(prng.key(args.seed), args.sites, args.chi,
+                              args.d, dtype=torch.float64,
+                              device=device).to(dtype=dtype)
+
+    if args.stream:        # streaming never holds the whole chain
+        root = args.store or os.path.join(args.out, "gamma_store")
+        source = GammaStore(root, compute_dtype=dtype)
+        if source.n_sites == 0 and lead:
+            print(f"writing Γ store ({args.sites} sites) to {root}")
+            source.write_mps(build_mps())
+            source.write_digest_manifest()
+        dist.barrier()                       # rank 0 wrote it
+        if source.n_sites == 0:
+            source.close()
+            source = GammaStore(root, compute_dtype=dtype)
+        # with a digest manifest every site read is checked against it
+        source.verify = os.path.exists(os.path.join(root, MANIFEST_NAME))
+    else:
+        source = build_mps()
+    chi_profile = None
+    if args.dynamic_bond:
+        prof = DB.area_law_profile(args.sites, args.chi, n_photon=1.0)
+        buck = DB.bucketize(prof, sorted({max(args.model_parallel,
+                                              args.chi // 4),
+                                          args.chi // 2, args.chi}))
+        chi_profile = tuple(int(c) for c in buck)
+        print("table1:", DB.table1_metrics(prof, args.chi))
+    config = api.SamplerConfig(
+        scheme=args.scheme, kernels=args.kernels, compute_dtype=compute,
+        backend="streamed" if args.stream else "inmem",
+        micro_batch=args.micro_batch or None, chi_profile=chi_profile,
+        segment_len=args.segment_len or api.AUTO)
 
     # resume: macro batches already on disk are done (idempotent by id);
     # rank 0 looks, so every rank walks the same batches
@@ -141,10 +183,11 @@ def _run(args, mesh, per_batch: int) -> None:
 
     base = prng.key(args.seed + 1)
     t0 = time.perf_counter()
-    with api.SamplingSession(mps, config, device=device,
+    with api.SamplingSession(source, config, device=device,
                              mesh=mesh) as session:
         plan = session.plan(per_batch)
         print("plan:", plan)
+        print("why:", session.explain(per_batch))
         print(f"kernel dispatch: requested={args.kernels!r} → resolved "
               f"{plan.kernels!r} (device={device}; registered ops: "
               f"{dispatch.registered_ops()})")
@@ -156,7 +199,13 @@ def _run(args, mesh, per_batch: int) -> None:
             print(f"macro batch {b} done ({per_batch} samples)", flush=True)
 
         session.run_queue(queue, per_batch, base, worker="cli",
+                          checkpoint_root=os.path.join(args.out,
+                                                       "chain_ckpt"),
                           on_batch=save_batch)
+        if session.stats:
+            print("streaming stats:", session.stats)
+    if args.stream:
+        source.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print("kernel launches:", json.dumps(ops.launch_counts()))
@@ -169,6 +218,7 @@ def _run(args, mesh, per_batch: int) -> None:
     mean_photons = samples.mean(axis=0)
     stats = {"n_samples": int(samples.shape[0]), "sites": args.sites,
              "chi": args.chi, "device": str(device), "scheme": plan.scheme,
+             "backend": plan.backend,
              "mesh": mesh.shape, "walltime_s": time.perf_counter() - t0,
              "mean_photon_min": float(mean_photons.min()),
              "mean_photon_max": float(mean_photons.max())}

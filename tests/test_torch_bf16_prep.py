@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import collapse_select as jax_cs
 from repro.kernels import contract_measure as jax_cm

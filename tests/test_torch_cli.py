@@ -16,7 +16,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import mps as JM
 from repro_torch.core import mps as M

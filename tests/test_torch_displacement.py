@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.linalg
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import displacement as jax_D
 from repro.kernels import ops as jax_ops
@@ -300,3 +300,57 @@ def test_complex_entry_plain_matches_pallas(dtype, d, b):
     else:
         _close_summed(got.real, want.real, mu, d)
         _close_summed(got.imag, want.imag, mu, d)
+
+
+# the four ranges of |μ| where D(μ)'s sums reach below the smallest normal
+# number, as the tile sweep reports them (PERF.md §6): (dtype, low, high,
+# log-uniform)
+SUBNORMAL_RANGES = [(torch.float32, 1e-3, 1e-2, True),
+                (torch.float32, 13.2, 14.2, False),
+                (torch.float64, 1e-22, 1e-19, True),
+                (torch.float64, 37.7, 38.5, False)]
+
+
+def _subnormal_mu(real, lo, hi, log, b, seed):
+    rng = np.random.default_rng(seed)
+    r = (np.exp(rng.uniform(np.log(lo), np.log(hi), b)) if log
+         else rng.uniform(lo, hi, b))
+    phi = rng.uniform(0, 2 * np.pi, b)
+    return (torch.from_numpy(a).to(real)
+            for a in (r * np.cos(phi), r * np.sin(phi)))
+
+
+@pytest.mark.parametrize("real,lo,hi,log", SUBNORMAL_RANGES,
+                         ids=[f"{r}-{lo}-{hi}".replace("torch.", "")
+                              for r, lo, hi, _ in SUBNORMAL_RANGES])
+def test_check_rounding_holds_the_plain_version(real, lo, hi, log):
+    """``check_rounding``'s rule for elements whose exact value is below the
+    smallest normal number holds the plain version itself in the four
+    ranges (the subnormal elements stand up to 3.3·10⁵ spacings from the
+    exact value in fp32 at |μ| ≈ 14, 7·10¹³ in fp64 at |μ| ≈ 38, where
+    e^{−|μ|²/2} is subnormal); moving one subnormal element by its whole
+    allowance, or a normal one by twice the bound, fails it."""
+    mre, mim = _subnormal_mu(real, lo, hi, log, 2 ** 11, seed=3)
+    plain = DE.displacement_expm_plain(mre, mim, 16)
+    res = DE.check_rounding(plain, plain, mre, mim, 16)
+    assert res["beyond_bound"] == res["beyond_spacings"] == 0, res
+    assert res["subnormal_elements"] > 0
+    exact = DE.exact_values(mre, mim, 16)
+    small = (exact[0].abs() < torch.finfo(real).smallest_normal)
+    i = small.flatten().nonzero()[0].item()
+    bad = plain[0].clone()
+    bad.view(-1)[i] = torch.finfo(real).smallest_normal
+    res = DE.check_rounding((bad, plain[1]), plain, mre, mim, 16)
+    assert res["beyond_spacings"] >= 1
+
+
+def test_check_rounding_holds_normal_elements_to_the_bound():
+    mre, mim = _subnormal_mu(torch.float64, 0.1, 1.5, False, 64, seed=4)
+    plain = DE.displacement_expm_plain(mre, mim, 4)
+    bound = DE.rounding_bound(mre, mim, 4)
+    near = plain[0] + 0.5 * bound
+    far = plain[0] + 2 * bound
+    ok = DE.check_rounding((near, plain[1]), plain, mre, mim, 4)
+    assert ok["beyond_bound"] == 0 and 0.4 < ok["of_bound"] < 0.6
+    assert DE.check_rounding((far, plain[1]), plain, mre, mim,
+                             4)["beyond_bound"] > 0

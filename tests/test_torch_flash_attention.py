@@ -17,7 +17,7 @@ each, the fp32 sums, and one output rounding (its docstring derives it).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash

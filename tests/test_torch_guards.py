@@ -1,7 +1,7 @@
 """Guards of the port: it imports neither JAX nor the JAX package, its entry
 points never fall back to the CPU silently, ``cuda`` never runs on CPU
-tensors, unported config values say so, and the C interface the wrappers
-bind matches the CUDA source."""
+tensors, unported config values say so (and the ported ones resolve), and
+the C interface the wrappers bind matches the CUDA source."""
 import ast
 import os
 import re
@@ -12,12 +12,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch import api, configs
 from repro_torch.api.config import SamplerConfig
 from repro_torch.core import mps as M
+from repro_torch.core import perfmodel as PM
 from repro_torch.core import prng
+from repro_torch.core import sampler as S
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops, site_impls
 from repro_torch.launch import sample as cli
@@ -106,16 +108,13 @@ def _mesh(p1: int, p2: int):
 
 
 @pytest.mark.parametrize("fields,mesh", [
-    ({"scheme": "auto"}, (1, 2)),
-    ({"scheme": "tp_single", "chi_profile": (4, 4, 4)}, (1, 1)),
     ({"scheme": "dp", "clamp": {0: 1}}, (1, 1)),
     ({"scheme": "dp", "runtime": "multihost"}, (1, 1)),
-    ({"backend": "streamed"}, None), ({"backend": "remote"}, None),
+    ({"backend": "remote"}, None),
     ({"runtime": "multihost"}, None), ({"runtime": "remote"}, None),
-    ({"chi_profile": (4, 4, 4)}, None), ({"clamp": {0: 1}}, None),
+    ({"clamp": {0: 1}}, None),
     ({"shard": 2}, None),
     ({"scheme": "tp_single", "shard": 2}, (1, 1)),
-    ({"micro_batch": "auto"}, None),
 ], ids=lambda v: "-".join(f"{k}={v[k]}" for k in v) if isinstance(v, dict)
    else f"mesh{v}")
 def test_unported_config_values_raise(fields, mesh):
@@ -124,6 +123,70 @@ def test_unported_config_values_raise(fields, mesh):
                                   mesh=mesh and _mesh(*mesh))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
         session.plan(8)
+
+
+def _chain4():
+    return M.random_linear_mps(prng.key(0), 4, 4, 2, device="cpu")
+
+
+def _auto_tp(plan):
+    w = PM.Workload(n_samples=8, n_sites=4, chi=4, d=2, macro_batch=8,
+                    micro_batch=8)
+    assert plan.scheme == "tp_" + PM.choose_tp_scheme(w, PM.H100, 2)
+    assert plan.pconfig.scheme == plan.scheme and plan.p2 == 2
+
+
+def _staged_tp(plan):
+    assert (plan.scheme, plan.stages) == ("tp_single", ((0, 4, 4),))
+    assert plan.chi_profile == (4, 4, 4, 4)
+
+
+def _streamed(plan, session):
+    assert (plan.backend, plan.segment_len) == ("streamed", 4)
+    got = session.sample(8, prng.key(0))
+    want = api.SamplingSession(_chain4(), SamplerConfig(kernels="torch"),
+                               device="cpu").sample(8, prng.key(0))
+    np.testing.assert_array_equal(got, want)
+    assert session.stats["segments"] == 1
+
+
+def _staged_seq(plan, session):
+    assert (plan.scheme, plan.stages) == ("seq", ((0, 4, 4),))
+    want = api.SamplingSession(_chain4(), SamplerConfig(kernels="torch"),
+                               device="cpu").sample(8, prng.key(0))
+    np.testing.assert_array_equal(session.sample(8, prng.key(0)), want)
+
+
+def _auto_micro(plan, session):
+    assert plan.micro_batch is None          # the whole batch fits
+    tight = api.SamplingSession(_chain4(), SamplerConfig(
+        micro_batch="auto", device_budget=2 * 4 * 2 * 8 * 10), device="cpu")
+    assert tight.plan(8).micro_batch == 2
+    np.testing.assert_array_equal(
+        tight.sample(8, prng.key(0)),
+        S.sample_batched(_chain4(), 8, prng.key(0), 2).numpy())
+
+
+@pytest.mark.parametrize("fields,mesh,check", [
+    ({"scheme": "auto"}, (1, 2), _auto_tp),
+    ({"scheme": "tp_single", "chi_profile": (4, 4, 4, 4)}, (1, 1),
+     _staged_tp),
+    ({"backend": "streamed"}, None, _streamed),
+    ({"chi_profile": (4, 4, 4, 4)}, None, _staged_seq),
+    ({"micro_batch": "auto"}, None, _auto_micro),
+], ids=["scheme=auto-mesh(1, 2)", "scheme=tp_single-chi_profile",
+        "backend=streamed", "chi_profile", "micro_batch=auto"])
+def test_ported_config_values_resolve(fields, mesh, check):
+    """What ROADMAP.md §1 rows 8 and 9 ported: the Eq. 7 selector, dynamic
+    χ, the streamed backend and the Eq. 3 micro batch, as plans and, where
+    a walk needs no mesh, as CPU runs against the plain walk."""
+    with api.SamplingSession(_chain4(), SamplerConfig(**fields),
+                             device="cpu", mesh=mesh and _mesh(*mesh)) as s:
+        plan = s.plan(8)
+        if mesh:
+            check(plan)
+        else:
+            check(plan, s)
 
 
 def test_a_second_data_axis_is_unported():
@@ -183,13 +246,34 @@ def test_bad_parallel_requests_raise(fields, mesh, match):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dynamic-bond", "--scheme", "tp_double"], ["--runtime", "remote"],
-    ["--stream"], ["--dynamic-bond"], ["--clamp", "0=1"], ["--service"],
+    ["--runtime", "remote"], ["--clamp", "0=1"], ["--service"],
 ])
 def test_unported_cli_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
         cli.main(["--sites", "3", "--chi", "4", "--out", str(tmp_path),
                   "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dynamic-bond", "--scheme", "tp_double"], ["--stream"],
+    ["--dynamic-bond"],
+])
+def test_ported_cli_flags_run(flags, tmp_path, capsys):
+    """``--stream`` and ``--dynamic-bond`` walk on the CPU; the area-law
+    profile's first stage is one site, which tp_double cannot pair, so that
+    plan is refused as the JAX package refuses it."""
+    argv = ["--sites", "4", "--chi", "4", "--samples", "16",
+            "--macro-batches", "2", "--out", str(tmp_path), "--device",
+            "cpu", *flags]
+    if "tp_double" in flags:
+        with pytest.raises(ValueError, match="boundaries must be even"):
+            cli.main(argv)
+        return
+    cli.main(argv)
+    out = capsys.readouterr().out
+    assert np.load(tmp_path / "batch_00001.npy").shape == (8, 4)
+    assert ("'backend': 'streamed'" in out) == ("--stream" in flags)
+    assert ("table1:" in out) == ("--dynamic-bond" in flags)
 
 
 def test_cli_runs_and_resumes_on_cpu(tmp_path):

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import configs as jax_configs
 from repro.launch import serve_lm as jax_serve

@@ -42,7 +42,7 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import api as jax_api
 from repro.core import mps as JM

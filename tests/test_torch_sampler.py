@@ -9,7 +9,7 @@ Samples must be equal; ``log_scale`` and the per-site stats agree to
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import api as jax_api
 from repro.core import mps as jax_mps_oracles

@@ -11,7 +11,7 @@ in different orders, so env agrees to rounding, not bitwise.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import precision as jax_precision
 from repro.kernels import dispatch as jax_dispatch
