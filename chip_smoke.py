@@ -19,6 +19,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 3. small    — each kernel against its plain PyTorch version on awkward
               shapes, fp32/fp64, linear/Born, every scaling mode; the
               threefry uniforms on the card equal the CPU's bit for bit;
+              the clamped walk (``core/clamped.py``, kernel 3 a site)
+              against its plain walk at N = 1 and odd N, χ off the tiles,
+              d = 3, a scalar and a per-sample clamp;
    stream   — (after a one-rank NCCL group and 1×1 mesh are made) jiuzhang2
               at full width with the depth cut to M = 24, drawn site by
               site on the card into a bf16 ``GammaStore`` under ``build/``
@@ -42,7 +45,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               (c) (a) stopped after 3 segments and resumed, bit for bit;
               (d) dp, tp_single ± measure_first and tp_double streamed on
               the mesh over the first 8 sites against their in-memory
-              walks, with each kernel's launches; (e) one timed walk at
+              walks, with each kernel's launches; (f) clamped seq and dp
+              walks streamed over those 8 sites against the in-memory
+              clamped walk (``contract_measure`` × 8); (e) one timed walk at
               N₁ = ``min_macro_batch_for_overlap`` at the measured read
               rate, capped at 65,536: wall, read, H2D and compute seconds,
               GB/s and the overlap share beside ``explain_plan``'s
@@ -61,6 +66,19 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               tp_double with ``kernels="cuda"``, each checked against the
               same walk with the plain cells (samples equal, env and
               log_scale allclose) and for its launches (M per kernel);
+   clamp    — conditional sampling on phase 4's chain: (a) the clamp
+              {1: 0, 4: 1, 6: 0} and (b) a per-sample clamp on site 5
+              through the session with the kernels (``contract_measure``
+              × M, the fused step never), each in lockstep with the plain
+              cells (samples equal; env, dlog and dlog_prob within TOL),
+              the clamp enforced and every draw it does not force equal to
+              the unclamped walk's; (c) ``clamp={}`` is the unclamped walk
+              bit for bit; (d) dp, tp_single ± measure_first and tp_double
+              on the mesh (the dp walk) equal the seq clamped walk on the
+              shard key ``split(key, 1)[0]`` bit for bit; (f) the clamped
+              and unclamped walks' wall times with the card's name and
+              power limit; (e), after phase 8, a Born clamped walk on its
+              chain the same way;
 6. tp kernels — contract_measure, measure_probs and collapse_select called
               at the bond-shard shapes of p₂ = 4 (N = 1024), against their
               plain versions, with times and bounds (measure_probs, fp64
@@ -111,7 +129,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               tokens, cache 64), cold and again warm; one decode step's
               wall time against its device time (torch.profiler); peak
               memory and wall times;
-12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess;
+12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
+              again with ``--clamp 1=0,3=1``, and ``python -m
+              repro_torch.launch.scenarios --scenario all --json ''``
+              (every scenario must pass);
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line.
@@ -220,6 +241,16 @@ TP_WALKS = {("dp", False): ("site_step_linear",),
             ("tp_single", True): ("measure_probs", "collapse_select"),
             ("tp_double", False): ("contract_measure",)}
 TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
+# the clamp phase: outcomes forced on phase 4's chain (scalar on three
+# sites; per sample, (7·n) mod d, on one) and on the Born chain
+CLAMP_SCALAR = {1: 0, 4: 1, 6: 0}
+CLAMP_PER_SAMPLE_SITE = 5
+CLAMP_BORN = {2: 3}
+CLAMP_SCHEMES = (("dp", False), ("tp_single", False), ("tp_single", True),
+                 ("tp_double", False))
+# the small phase's clamped walks: (N, χ, d) with N = 1 and odd, χ off the
+# kernels' tiles, d = 3
+CLAMP_SMALL = [(1, 13, 3), (37, 130, 3), (301, 257, 4)]
 # the kernels that run on the tensor cores, by name prefix (each must match
 # a built kernel), and the instructions each must hold: mma.sync (HMMA, and
 # DMMA for fp64), or wgmma (HGMMA) fed by TMA loads (UTMALDG)
@@ -533,7 +564,64 @@ def phase_small(device) -> None:
         check(torch.equal(on_card.view(torch.uint8), on_cpu.view(torch.uint8)),
               f"threefry uniform {dt}: card and CPU bits differ")
     print("threefry uniform: card == CPU bit for bit (float32, float64)")
+    _small_clamped(device)
     _phase("small", t0)
+
+
+def _clamp_arrays(spec, n_sites: int, n: int, start: int = 0):
+    """A clamp spec's (mask (L,), vals (L, N)) for sites [start, start+L)."""
+    from repro_torch.workloads import clamp as WC
+
+    return WC.segment_clamp_arrays(WC.clamp_map(WC.normalize_clamp(spec)),
+                                   start, n_sites, n)
+
+
+def _small_clamped(device) -> None:
+    """The clamped walk with the kernels against its plain walk on
+    awkward shapes (``CLAMP_SMALL``), fp64 and fp32, a scalar and a
+    per-sample clamp: samples equal, env, log_scale and log_prob within
+    TOL, ``contract_measure`` launched once a site."""
+    from repro_torch.core import clamped as CL
+    from repro_torch.core import mps as M
+    from repro_torch.core import prng
+    from repro_torch.core import sampler as S
+    from repro_torch.kernels import contract_measure as CM
+
+    sites, worst, cases = 5, 0.0, 0
+    for n, chi, d in CLAMP_SMALL:
+        for real in (torch.float64, torch.float32):
+            mps = M.random_linear_mps(prng.key(n + chi), sites, chi, d,
+                                      dtype=real, device=device)
+            for spec in ({1: 0, 3: d - 1},
+                         {2: [(7 * i) % d for i in range(n)]}):
+                mask, vals = _clamp_arrays(spec, sites, n)
+                out = {}
+                for kernels in ("cuda", "torch"):
+                    cfg = S.SamplerConfig(kernels=kernels)
+                    st = S.init_state(mps, n, prng.key(4), cfg)
+                    before = CM.LAUNCHES["contract_measure"]
+                    out[kernels] = CL.clamped_segment(
+                        mps.gammas, mps.lambdas, st.env, st.key, 0, mask,
+                        vals, cfg, log_scale=st.log_scale)
+                    out[kernels + "/launches"] = (
+                        CM.LAUNCHES["contract_measure"] - before)
+                torch.cuda.synchronize()
+                label = f"clamped {real} {(n, chi, d)} {sorted(spec)}"
+                check(out["cuda/launches"] == sites, f"{label}: "
+                      f"contract_measure launched {out['cuda/launches']}")
+                (s_k, e_k, l_k, p_k), (s_p, e_p, l_p, p_p) = (out["cuda"],
+                                                             out["torch"])
+                check(bool((s_k.cpu().numpy()[mask] == vals[mask]).all()),
+                      f"{label}: the clamp does not hold")
+                worst = max(worst, compare(label, (e_k, s_k, l_k),
+                                           (e_p, s_p, l_p)))
+                check(torch.allclose(p_k, p_p, **TOL[real]),
+                      f"{label}: log_prob differs (max abs "
+                      f"{(p_k - p_p).abs().max().item():.3e})")
+                worst = max(worst, (p_k - p_p).abs().max().item())
+                cases += 1
+    print(f"clamped walk: kernels = plain on {cases} small cases (max abs "
+          f"err {worst:.3e})", flush=True)
 
 
 def _walk(mps, n, key, kernels: str):
@@ -1112,8 +1200,54 @@ def _stream_tp(root, device, mesh, build) -> dict:
                 print(f"stream (d) {label}: streamed walk N={n} "
                       f"M={STREAM_TP_SITES} == in-memory walk; "
                       f"{json.dumps(walks[label])}", flush=True)
+            walks.update(_stream_clamped(store, mps, mesh, n, key))
             del mps
     torch.cuda.empty_cache()
+    return walks
+
+
+def _stream_clamped(store, mps, mesh, n, key) -> dict:
+    """(f) Clamped seq and dp walks streamed from the 8-site sub-store
+    against the in-memory clamped walk of the same decoded sites: samples
+    equal, log_prob within TOL, ``contract_measure`` launched once a
+    site."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    walks = {}
+    for scheme in ("seq", "dp"):
+        label = f"clamp {scheme}"
+        cfg = dict(kernels="cuda", scheme=scheme, clamp=CLAMP_SCALAR)
+        ops.reset_launches()
+        with api.SamplingSession(store, api.SamplerConfig(
+                backend="streamed", device_budget=STREAM_BUDGET, **cfg),
+                mesh=mesh) as session:
+            streamed = session.sample(n, key)
+            stats = dict(session.stats)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        check(launches == {"contract_measure": STREAM_TP_SITES},
+              f"stream (f) {label}: launches {launches}")
+        with api.SamplingSession(mps, api.SamplerConfig(**cfg),
+                                 mesh=mesh) as session:
+            inmem = session.sample(n, key)
+            lp = session.stats["log_prob"]
+        bad = int((streamed != inmem).sum())
+        check(bad == 0, f"stream (f) {label}: streamed and in-memory walks "
+              f"differ in {bad} draws")
+        lp_err = float(np.abs(stats["log_prob"] - lp).max())
+        check(np.allclose(stats["log_prob"], lp, **TOL[torch.float64])
+              and np.isfinite(lp).all(),
+              f"stream (f) {label}: log_prob differs (max abs {lp_err:.3e})")
+        for site, v in CLAMP_SCALAR.items():
+            check(bool((streamed[:, site] == v).all()),
+                  f"stream (f) {label}: site {site} is not clamped")
+        walks[label] = {"launches": launches, "segments": stats["segments"],
+                        "max_live_segments": stats["max_live_segments"],
+                        "wall_s": stats["wall_s"], "log_prob_err": lp_err}
+        print(f"stream (f) {label}: clamped streamed walk N={n} "
+              f"M={STREAM_TP_SITES} == in-memory clamped walk; "
+              f"{json.dumps(walks[label])}", flush=True)
     return walks
 
 
@@ -1225,6 +1359,259 @@ def phase_tp(mesh, mps) -> dict:
               f"log_scale max abs diff {ls_err:.3e}", flush=True)
     _phase("tp", t0)
     return walks
+
+
+# ---------------------------------------------------------------------------
+# clamp: conditional sampling, kernel 3 on every linear clamped site
+# ---------------------------------------------------------------------------
+
+def _clamp_lockstep(label, mps, n, key, mask, vals) -> dict:
+    """The clamped walk with the kernels, site by site, each site also run
+    by the plain cells from the kernel walk's own env with the same
+    uniforms: samples equal (a differing draw is printed with its margin
+    to the CDF boundary, and fails), env and dlog within TOL (``compare``),
+    dlog_prob within TOL.  Returns the kernel walk's samples (M, N), env,
+    log_scale and log_prob, and the largest differences."""
+    from repro_torch.core import clamped as CL
+    from repro_torch.core import prng
+    from repro_torch.core import sampler as S
+    from repro_torch.core.parallel import segment_env_init
+    from repro_torch.kernels import site_impls as SI
+    from repro_torch.kernels import site_step as K
+
+    cfg = {k: S.SamplerConfig(semantics=mps.semantics, kernels=k)
+           for k in ("cuda", "torch")}
+    env = segment_env_init(n, mps.chi, mps.gammas.dtype, mps.device)
+    rdt = torch.float64
+    ls = torch.zeros(n, dtype=rdt, device=env.device)
+    lp = torch.zeros(n, dtype=rdt, device=env.device)
+    vals_t = torch.as_tensor(vals, dtype=torch.int64, device=env.device)
+    samples, env_err, lp_err = [], 0.0, 0.0
+    for i in range(mps.n_sites):
+        g, lam = mps.gammas[i], mps.lambdas[i]
+        u = prng.uniform(prng.fold_in(key, i), (n, 1),
+                         dtype=SI.site_probs_dtype(env, g, lam,
+                                                   mps.semantics, None),
+                         device=env.device)
+        k, p = (CL._clamped_site_update(env, g, lam, u, bool(mask[i]),
+                                        vals_t[i], cfg[c])
+                for c in ("cuda", "torch"))
+        torch.cuda.synchronize()
+        bad = (k[1] != p[1]).nonzero().flatten()
+        if bad.numel():
+            probs = CL._contract_measure(env, g, lam, cfg["torch"])[1]
+            margin = K.draw_margin(probs[bad], u[bad, 0])
+            for r, m in zip(bad[:16].tolist(), margin[:16].tolist()):
+                print(f"{label}: site {i} row {r} draws differ: margin "
+                      f"|u − cdf| {m:.3e}", flush=True)
+        env_err = max(env_err, compare(f"{label} site {i}", k[:3], p[:3]))
+        d_lp = (k[3] - p[3]).abs().max().item()
+        check(torch.allclose(k[3], p[3], **TOL[rdt]),
+              f"{label} site {i}: dlog_prob differs (max abs {d_lp:.3e})")
+        lp_err = max(lp_err, d_lp)
+        env, ls, lp = k[0], ls + k[2], lp + k[3]
+        samples.append(k[1])
+    print(f"{label}: kernel walk == plain walk in lockstep ({mps.n_sites} "
+          f"sites × {n}): env/dlog max abs diff {env_err:.3e}, dlog_prob "
+          f"{lp_err:.3e}", flush=True)
+    return {"samples": torch.stack(samples), "env": env, "log_scale": ls,
+            "log_prob": lp, "env_err": env_err, "log_prob_err": lp_err}
+
+
+def _clamped_session(mps, n, key, clamp, mesh=None, scheme="seq",
+                     measure_first=False):
+    """One clamped session walk with the kernels, its launch counts set to
+    0 just before and read just after: (samples, log_prob, launches,
+    wall seconds)."""
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    cfg = api.SamplerConfig(kernels="cuda", scheme=scheme,
+                            measure_first=measure_first, clamp=clamp)
+    ops.reset_launches()
+    tw = time.perf_counter()
+    with api.SamplingSession(mps, cfg, device=mps.device,
+                             mesh=mesh) as session:
+        samples = session.sample(n, key)
+        lp = session.stats.get("log_prob")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    return samples, lp, {k: v for k, v in ops.launch_counts().items()
+                         if v}, wall
+
+
+def _untouched(label, clamped, free, clamp) -> int:
+    """A clamp changes no draw it does not force: every site before the
+    first clamped one equals the unclamped walk's, and so does every row
+    whose unclamped walk drew the clamped outcomes already.  Returns that
+    row count."""
+    first = min(clamp)
+    check(np.array_equal(clamped[:, :first], free[:, :first]),
+          f"{label}: a site before the clamp differs from the free walk")
+    hit = np.ones(free.shape[0], dtype=bool)
+    for site, v in clamp.items():
+        hit &= free[:, site] == np.asarray(v)
+    check(np.array_equal(clamped[hit], free[hit]),
+          f"{label}: rows whose free walk drew the clamp differ")
+    return int(hit.sum())
+
+
+def phase_clamp(mesh, mps) -> dict:
+    """Conditional sampling on phase 4's chain (jiuzhang2 width, fp64,
+    M = 8, N = 1024): (a) a scalar clamp on three sites and (b) a
+    per-sample clamp on one, through the session with the kernels (M
+    launches of ``contract_measure``, none of the fused step) and in
+    lockstep with the plain cells; (c) an empty clamp is the unclamped
+    walk bit for bit; (d) dp, tp_single (± measure_first) and tp_double on
+    the 1×1 mesh are one dp walk: equal bit for bit to the seq walk on the
+    shard key ``split(key, 1)[0]``; (f) the clamped and unclamped walks'
+    wall times."""
+    from repro_torch.core import prng
+
+    t0 = time.perf_counter()
+    n, key, sites = LINEAR_N, prng.key(17), mps.n_sites
+    out = {}
+    # the unclamped walk: the reference the clamp must leave alone, timed
+    free, _, free_launches, free_s = _clamped_session(mps, n, key, None)
+    free, _, free_launches, free_s = _clamped_session(mps, n, key, None)
+    check(free_launches == {"site_step_linear": sites},
+          f"clamp: the unclamped walk launched {free_launches}")
+    per_sample = {CLAMP_PER_SAMPLE_SITE: [(7 * i) % D for i in range(n)]}
+    for part, clamp in (("a", CLAMP_SCALAR), ("b", per_sample)):
+        label = f"clamp ({part})"
+        samples, lp, launches, wall = _clamped_session(mps, n, key, clamp)
+        if part == "a":       # timed warm, as the unclamped walk was
+            samples, lp, launches, wall = _clamped_session(mps, n, key,
+                                                           clamp)
+        check(launches == {"contract_measure": sites},
+              f"{label}: launches {launches} on the walk, expected "
+              f"contract_measure × {sites}")
+        for site, v in clamp.items():
+            check(bool((samples[:, site] == np.asarray(v)).all()),
+                  f"{label}: site {site} is not clamped")
+        check(np.isfinite(lp).all() and (lp < 0).all(),
+              f"{label}: log_prob not finite and negative")
+        mask, vals = _clamp_arrays(clamp, sites, n)
+        ls = _clamp_lockstep(label, mps, n, key, mask, vals)
+        check(np.array_equal(ls["samples"].T.cpu().numpy(), samples),
+              f"{label}: the session and the lockstep walk differ")
+        check(np.array_equal(ls["log_prob"].cpu().numpy(), lp),
+              f"{label}: the session's and the lockstep walk's log_prob "
+              f"differ")
+        hit = _untouched(label, samples, free, clamp)
+        out[part] = {"launches": launches, "wall_s": wall,
+                     "env_err": ls["env_err"],
+                     "log_prob_err": ls["log_prob_err"],
+                     "log_prob_mean": float(lp.mean()),
+                     "p_clamp": float(np.exp(lp).mean()),
+                     "rows_untouched": hit}
+        print(f"{label}: session walk N={n} M={sites} in {wall:.3f} s; "
+              f"{json.dumps(out[part])}", flush=True)
+
+    empty, lp, launches, _ = _clamped_session(mps, n, key, {})
+    check(np.array_equal(empty, free) and lp is None
+          and launches == {"site_step_linear": sites},
+          f"clamp (c): the empty clamp is not the unclamped walk "
+          f"(launches {launches})")
+    print(f"clamp (c): clamp={{}} == the unclamped walk bit for bit "
+          f"({n * sites} draws, {launches})", flush=True)
+
+    shard_key = prng.split(key, 1)[0]
+    seq, seq_lp, _, _ = _clamped_session(mps, n, shard_key, CLAMP_SCALAR)
+    out["d"] = {}
+    for scheme, mf in CLAMP_SCHEMES:
+        label = scheme + ("+measure_first" if mf else "")
+        samples, lp, launches, wall = _clamped_session(
+            mps, n, key, CLAMP_SCALAR, mesh, scheme, mf)
+        check(launches == {"contract_measure": sites},
+              f"clamp (d) {label}: launches {launches}")
+        check(np.array_equal(samples, seq) and np.array_equal(lp, seq_lp),
+              f"clamp (d) {label}: differs from the seq walk on the shard "
+              f"key")
+        out["d"][label] = {"launches": launches, "wall_s": wall}
+    print(f"clamp (d): {', '.join(out['d'])} == the seq clamped walk on "
+          f"split(key, 1)[0], bit for bit (samples and log_prob); "
+          f"{json.dumps(out['d'])}", flush=True)
+
+    out["unclamped_wall_s"] = free_s
+    out["per_site_ms"] = {"clamped": out["a"]["wall_s"] / sites * 1e3,
+                          "unclamped": free_s / sites * 1e3}
+    out["square"] = _clamp_kernel_numbers(mps, n)
+    out["card"] = nvidia_smi()
+    print(f"clamp (f): N={n} M={sites} walk {out['a']['wall_s']:.3f} s "
+          f"clamped ({out['per_site_ms']['clamped']:.3f} ms a site, "
+          f"contract_measure + draw + gather + rescale) vs "
+          f"{free_s:.3f} s unclamped ({out['per_site_ms']['unclamped']:.3f} "
+          f"ms a site, site_step_linear); {out['card']}", flush=True)
+    _phase("clamp", t0)
+    return out
+
+
+def _clamp_kernel_numbers(mps, n) -> dict:
+    """Kernel 3 at the clamped walk's shape, the full square χ → χ, on the
+    walk's boundary env pushed through site 0 (a rescaled env of one
+    sample path a row), against its plain version and ``torch.matmul``."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import contract_measure as CM
+    from repro_torch.kernels import site_step as K
+
+    g0, lam0 = mps.gammas[0], mps.lambdas[0]
+    env = torch.zeros((n, CHI), dtype=torch.float64, device=g0.device)
+    env[:, 0] = 1.0
+    u = prng.uniform(prng.key(29), (n,), dtype=torch.float64,
+                     device=g0.device)
+    env = K.site_step_linear_plain(env, g0, lam0, u)[0]
+    gamma, lam = mps.gammas[1], mps.lambdas[1]
+    g2 = gamma.reshape(CHI, CHI * D)
+    moved = (n * CHI + CHI * CHI * D + CHI + n * CHI * D + n * D) * 8
+    flops = 2 * n * CHI * CHI * D + 2 * n * CHI * D
+    nums = _kernel_numbers(
+        f"contract_measure {CHI}→{CHI} (clamped walk)",
+        lambda: CM.contract_measure(env, gamma, lam),
+        lambda: CM.contract_measure_plain(env, gamma, lam),
+        lambda: torch.matmul(env, g2), moved, flops)
+    nums["tflops"] = flops / nums["ms"] / 1e9
+    print(f"contract_measure {CHI}→{CHI}: {nums['tflops']:.2f} TFLOP/s "
+          f"(library {flops / nums['library_ms'] / 1e9:.2f}), "
+          f"{nums['bound_ms'] / nums['ms']:.1%} of the bound; "
+          f"{nvidia_smi()}", flush=True)
+    del env, g2
+    torch.cuda.empty_cache()
+    return dict(nums, shape={"n": n, "L": CHI, "R": CHI, "d": D})
+
+
+def phase_clamp_born(mps) -> dict:
+    """(e) A Born clamped walk on the Born phase's chain (complex128, M = 4,
+    N = 512; its contraction is the plain complex product, as the Born TP
+    steps'): in lockstep with the plain cells, the clamp enforced, and the
+    draws it does not force equal to the unclamped kernel walk's."""
+    from repro_torch.core import prng
+
+    t0 = time.perf_counter()
+    n, key, sites = BORN_N, prng.key(19), mps.n_sites
+    free, _, free_launches, free_s = _clamped_session(mps, n, key, None)
+    samples, lp, launches, wall = _clamped_session(mps, n, key, CLAMP_BORN)
+    check(free_launches == {"site_step_born": sites} and not launches,
+          f"clamp (e): launches {free_launches}, {launches}")
+    for site, v in CLAMP_BORN.items():
+        check(bool((samples[:, site] == v).all()),
+              f"clamp (e): site {site} is not clamped")
+    check(np.isfinite(lp).all() and (lp < 0).all(),
+          "clamp (e): log_prob not finite and negative")
+    mask, vals = _clamp_arrays(CLAMP_BORN, sites, n)
+    ls = _clamp_lockstep("clamp (e) born", mps, n, key, mask, vals)
+    check(np.array_equal(ls["samples"].T.cpu().numpy(), samples)
+          and np.array_equal(ls["log_prob"].cpu().numpy(), lp),
+          "clamp (e): the session and the lockstep walk differ")
+    hit = _untouched("clamp (e)", samples, free, CLAMP_BORN)
+    out = {"wall_s": wall, "unclamped_wall_s": free_s,
+           "env_err": ls["env_err"], "log_prob_err": ls["log_prob_err"],
+           "p_clamp": float(np.exp(lp).mean()), "rows_untouched": hit,
+           "card": nvidia_smi()}
+    print(f"clamp (e) born: N={n} M={sites} clamped walk {wall:.3f} s vs "
+          f"unclamped {free_s:.3f} s; {json.dumps(out)}", flush=True)
+    _phase("clamp born", t0)
+    return out
 
 
 def _device_times(name, out, kernel, plain, library, reps) -> None:
@@ -2222,6 +2609,36 @@ def phase_cli() -> None:
         counts = json.loads(line[0].split(":", 1)[1])
         check(counts["site_step_linear"] > 0,
               f"CLI launched no kernel: {counts}")
+        clamped = os.path.join(out, "clamped")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sample", "--sites",
+             "8", "--chi", "256", "--d", "4", "--samples", "4096",
+             "--macro-batches", "2", "--clamp", "1=0,3=1", "--out",
+             clamped], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        print(proc.stdout[-1500:])
+        check(proc.returncode == 0,
+              f"clamped CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        counts = json.loads([ln for ln in lines if ln.startswith(
+            "kernel launches:")][0].split(":", 1)[1])
+        check(counts["contract_measure"] == 16 and
+              counts["site_step_linear"] == 0,
+              f"clamped CLI launches {counts}, expected contract_measure "
+              f"× 16 (8 sites, 2 batches)")
+        check(any(ln.startswith("clamp log_prob: n=4096") for ln in lines),
+              "clamped CLI printed no log_prob line")
+        batch = np.load(os.path.join(clamped, "batch_00000.npy"))
+        check(bool((batch[:, 1] == 0).all() and (batch[:, 3] == 1).all()),
+              "clamped CLI: the clamp does not hold in batch 0")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.scenarios",
+             "--scenario", "all", "--json", ""], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        print(proc.stdout[-2500:])
+        check(proc.returncode == 0 and proc.stdout.count("[PASS]") == 3,
+              f"scenarios exited {proc.returncode}: {proc.stdout[-2000:]} "
+              f"{proc.stderr[-2000:]}")
     _phase("cli", t0)
 
 
@@ -2237,12 +2654,14 @@ def main() -> int:
         stream = phase_stream(device, mesh)
         linear, mps, env = phase_full(device, "linear")
         walks = phase_tp(mesh, mps)
+        clamp = phase_clamp(mesh, mps)
         tp_entries = phase_tp_kernels(device, mps, env, walks)
         bf16_entries = phase_bf16(device, mesh, mps)
         del mps, env
         torch.cuda.empty_cache()
         born, mps, _ = phase_full(device, "born")
         phase_tp_born(mesh, mps)
+        clamp["e"] = phase_clamp_born(mps)
         del mps
         torch.cuda.empty_cache()
     finally:
@@ -2282,6 +2701,15 @@ def main() -> int:
             label: w["launches"][entry["name"]]
             for label, w in stream["tp"].items()
             if entry["name"] in w["launches"]}
+    tp_entries[0]["clamp_launches"] = {
+        "seq": clamp["a"]["launches"]["contract_measure"],
+        "seq_per_sample": clamp["b"]["launches"]["contract_measure"],
+        **{label: w["launches"]["contract_measure"]
+           for label, w in clamp["d"].items()}}
+    tp_entries[0]["other_shapes"].append(
+        dict(clamp.pop("square"), launches=clamp["a"]["launches"][
+            "contract_measure"]))
+    tp_entries[0]["clamp"] = clamp
     print("stream:", json.dumps(stream))
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,
                flash]

@@ -4,7 +4,9 @@
   with ``core/sampler`` (micro-batched or not) or, with a χ-profile, with
   ``dynamic_bond``'s staged walk; ``dp``/``tp_*`` with ``core/parallel``'s
   segment runner over the session's mesh (with a χ-profile, one call per
-  χ-stage after ``fit_env``), and ``baseline19`` with the [19] ring;
+  χ-stage after ``fit_env``), and ``baseline19`` with the [19] ring; a
+  clamped plan walks ``core/clamped.py`` in one χ-stage loop for every
+  scheme and leaves the per-sample ``log_prob`` in the request's stats;
 * ``streamed`` — ``engine.StreamingEngine`` walks the chain from a
   :class:`~repro_torch.data.gamma_store.GammaStore` in device-budgeted
   segments, with every scheme above, per-segment checkpoints and resume.
@@ -84,6 +86,8 @@ class InMemBackend(Backend):
             raise ValueError("mid-chain resume needs the streamed backend "
                              "(it owns the per-segment checkpoints)")
         mps = req.mps()
+        if plan.clamp is not None:
+            return self._sample_clamped(req, mps)
         if plan.scheme == "seq":
             if plan.stages is not None:
                 prof = np.asarray(plan.chi_profile)
@@ -118,6 +122,45 @@ class InMemBackend(Backend):
             out = torch.cat(blocks, dim=0).T
         return out.cpu().numpy()
 
+    def _sample_clamped(self, req: SampleRequest, mps: MPS) -> np.ndarray:
+        """Conditional sampling: one χ-stage loop over the clamped segment
+        runner for every scheme — seq the in-memory segment, dp the dp
+        segment, tp_* the dp walk over the mesh's data axes
+        (``clamped.dp_equivalent_pconfig``: every schedule draws the same
+        samples per seed)."""
+        from repro_torch.core import clamped as CL
+        from repro_torch.core import dynamic_bond as DB
+        from repro_torch.core import parallel as PP
+        from repro_torch.workloads.clamp import (clamp_map,
+                                                 segment_clamp_arrays)
+
+        plan, cfg, n, key = (req.plan, req.plan.sampler_config,
+                             req.n_samples, req.key)
+        cmap = clamp_map(plan.clamp)
+        pconf = (CL.dp_equivalent_pconfig(plan.pconfig)
+                 if plan.pconfig is not None else None)
+        stages = plan.stages or ((0, mps.n_sites, mps.chi),)
+        env = PP.segment_env_init(n, stages[0][2], mps.gammas.dtype,
+                                  mps.device)
+        log_scale = log_prob = None
+        blocks = []
+        for s0, s1, chi_s in stages:
+            seg = DB.stage_mps(mps, s0, s1, chi_s)
+            env = DB.fit_env(env, chi_s)
+            mask, vals = segment_clamp_arrays(cmap, s0, s1 - s0, n)
+            if pconf is None:
+                samples, env, log_scale, log_prob = CL.clamped_segment(
+                    seg.gammas, seg.lambdas, env, key, s0, mask, vals, cfg,
+                    log_scale=log_scale, log_prob=log_prob,
+                    micro_batch=plan.micro_batch)
+            else:
+                samples, env, log_scale, log_prob = CL.sample_segment_clamped(
+                    req.mesh, seg, env, key, s0, mask, vals, pconf, cfg,
+                    log_scale=log_scale, log_prob=log_prob)
+            blocks.append(samples)
+        req.stats["log_prob"] = log_prob.cpu().numpy()
+        return torch.cat(blocks, dim=0).T.cpu().numpy()
+
 
 @register_backend("streamed")
 class StreamedBackend(Backend):
@@ -140,7 +183,7 @@ class StreamedBackend(Backend):
                                 checkpoint_every=plan.checkpoint_every),
                 mesh=req.mesh if scheme != "inmem" else None,
                 pconfig=plan.pconfig, chi_profile=plan.chi_profile,
-                device=plan.device)
+                clamp=plan.clamp, device=plan.device)
 
         kw = dict(resume=req.resume,
                   stop_after_segments=req.stop_after_segments,
@@ -158,7 +201,7 @@ class StreamedBackend(Backend):
             eng_key = (scheme, plan.semantics, plan.segment_len,
                        plan.micro_batch, plan.chi_profile,
                        plan.checkpoint_every, plan.sampler_config,
-                       plan.pconfig, plan.device)
+                       plan.pconfig, plan.clamp, plan.device)
             eng = req.engines.get(eng_key)
             if eng is None:
                 eng = req.engines[eng_key] = build()

@@ -12,9 +12,14 @@ axis, and with p₂ > 1 to the TP schedule of the lower Eq. 7 overhead
 (``core/perfmodel.choose_tp_scheme``).  ``chi_profile`` (§3.4.2) splits the
 walk into χ-stages; ``micro_batch="auto"`` takes Eq. 3's pick and
 ``segment_len="auto"`` the streaming planner's, both against
-``hardware`` (an H100 by default) or ``device_budget``.  The runtimes
-``multihost``/``remote``, the ``remote`` backend, ``shard`` and ``clamp``
-raise ``NotImplementedError`` naming the ROADMAP.md row that ports them.
+``hardware`` (an H100 by default) or ``device_budget``.  ``clamp``
+(conditional sampling, ``workloads.clamp``) is normalised when the config
+is made (``None``/``{}`` plan the unchanged unclamped path) and checked
+against the chain and batch at plan time; a clamped plan walks
+``core/clamped.py`` under every scheme but ``baseline19`` and returns the
+per-sample ``log_prob`` in ``session.stats``.  The runtimes
+``multihost``/``remote``, the ``remote`` backend and ``shard`` raise
+``NotImplementedError`` naming the ROADMAP.md row that ports them.
 
 ``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
 PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
@@ -39,6 +44,7 @@ from repro_torch.core.perfmodel import H100, Hardware, Workload, \
 from repro_torch.core.sampler import SamplerConfig as CoreSamplerConfig
 from repro_torch.kernels.dispatch import resolve_kernels
 from repro_torch.kernels.site_step import check_compute_dtype
+from repro_torch.workloads.clamp import normalize_clamp, validate_clamp
 
 AUTO = "auto"
 
@@ -75,6 +81,10 @@ class SamplerConfig:
     hardware: Hardware = H100              # what the AUTO fields plan for
     device_budget: Optional[float] = None  # device bytes, overrides hardware
 
+    def __post_init__(self):
+        # the canonical hashable spec; a malformed one raises ValueError
+        object.__setattr__(self, "clamp", normalize_clamp(self.clamp))
+
 
 @dataclasses.dataclass(frozen=True)
 class SessionPlan:
@@ -95,6 +105,7 @@ class SessionPlan:
     chi_profile: Optional[tuple[int, ...]] = None
     stages: Optional[tuple[tuple[int, int, int], ...]] = None  # (s0, s1, χ)
     checkpoint_every: int = 1
+    clamp: Optional[tuple] = None      # the normalised spec; None: unclamped
 
 
 def _mesh_sizes(mesh) -> tuple[int, int]:
@@ -131,9 +142,6 @@ def _check_unported(config: SamplerConfig) -> None:
     if config.shard is not None:
         raise unported("chain sharding (shard=...)", 10,
                        "service and cluster layers")
-    if config.clamp:
-        raise unported("clamp (conditional sampling)", 12,
-                       "core/clamped.py + workloads")
 
 
 def _stages(chi_profile, n_sites: int, chi: int, scheme: str, p2: int):
@@ -271,6 +279,17 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
         if scheme == "tp_double" and segment_len % 2:
             segment_len += 1            # pairs never straddle segments
 
+    clamp = config.clamp                # normalised by __post_init__
+    if clamp is not None:
+        validate_clamp(clamp, n_sites=n_sites, d=d, n_samples=n_samples)
+        if scheme == "baseline19":
+            raise ValueError("clamped sampling does not compose with the "
+                             "[19] pipeline baseline")
+        if config.compute_dtype is not None and semantics == "born":
+            raise ValueError("compute_dtype applies to linear chains: the "
+                             "clamped Born walk would round complex "
+                             "amplitudes to a real bf16")
+
     pconfig = None
     if sharded:
         data_axes = tuple(ax for ax in mesh.axis_names if ax != "model")
@@ -288,4 +307,4 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                        sampler_config=sampler_config, pconfig=pconfig,
                        device=str(device), segment_len=segment_len,
                        chi_profile=chi_profile, stages=stages,
-                       checkpoint_every=config.checkpoint_every)
+                       checkpoint_every=config.checkpoint_every, clamp=clamp)

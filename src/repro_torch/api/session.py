@@ -27,8 +27,9 @@ same key, and every rank gets the full (N, M) array back, as the JAX
 package's controller does; the session then runs on the mesh's device.
 ``sample`` uses its key unchanged (the JAX package's one-batch service
 job); ``run_queue`` derives macro batch b's key as ``fold_in(base, b)``.
-``stats`` holds the last streamed walk's engine statistics.  The service
-layer is a later slice.
+``stats`` holds the last streamed walk's engine statistics and, after a
+clamped call (``SamplerConfig(clamp=...)``), the per-sample ``log_prob``
+of the clamped branch.  The service layer is a later slice.
 """
 from __future__ import annotations
 
@@ -177,7 +178,8 @@ class SamplingSession:
             stop_after_segments=stop_after_segments, engines=self._engines)
         out = get_backend(plan.backend).sample(req)
         self.stats = req.stats
-        return out
+        # row-major (N, M), the layout the JAX package's session returns
+        return np.ascontiguousarray(out)
 
     def run_queue(self, queue, per_batch: int, base_key: torch.Tensor, *,
                   worker: str = "session",

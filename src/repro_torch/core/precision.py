@@ -8,7 +8,8 @@ Scaling modes, as in ``repro.core.precision``:
   normalised right after, so the factor cancels.
 
 ``rescale`` also returns the per-sample log10 of the factor, which the
-sampler accumulates as ``log_scale``.
+sampler accumulates as ``log_scale``; ``sample_range_stats`` gives the
+axes of the paper's Fig. 5.
 """
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ def rescale(env: torch.Tensor, mode: str = "per_sample"
         factor = torch.where(m > 0, m, 1.0).to(rdt)
         return env / factor, torch.log10(factor[:, 0])
     raise ValueError(f"unknown scaling mode: {mode}")
+
+
+def sample_range_stats(env: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The Fig. 5 axes: per-sample max and max/min-nonzero ratio."""
+    a = env.abs()
+    smax = a.amax(dim=1)
+    smin = torch.where(a > 0, a, torch.inf).amin(dim=1)
+    return {"sample_max": smax, "range_ratio": smax / smin}
 
 
 # name: (storage dtype, GEMM input dtype, accumulation dtype), the JAX

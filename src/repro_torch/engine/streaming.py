@@ -26,7 +26,13 @@ Behind :meth:`StreamingEngine.sample`:
 * per-segment checkpoints (``checkpoint/sampler_state`` plus one sample
   block file per segment) and ``resume=True``: a killed walk resumes at
   its last segment boundary and emits the uninterrupted samples (§4.1);
-* macro batches as idempotent :class:`WorkQueue` items (:meth:`run_queue`).
+* macro batches as idempotent :class:`WorkQueue` items (:meth:`run_queue`);
+* conditional sampling (``clamp``, a ``workloads.clamp`` spec): each
+  segment walks ``core/clamped.py`` (the dp walk for every parallel
+  scheme) with the segment's clamp arrays, ``log_prob`` is a carry across
+  segments and ``stats["log_prob"]`` the walk's per-sample value.  A
+  clamped walk neither checkpoints nor resumes (the sampler state has no
+  ``log_prob``): its macro batches are rerun instead.
 
 A tail segment shorter than ``segment_len`` is walked as it is: the JAX
 package pads it with identity sites so that one jit compilation serves
@@ -64,6 +70,8 @@ from repro_torch.core import sampler as S
 from repro_torch.core.mps import MPS
 from repro_torch.core.precision import real_dtype_of
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.workloads.clamp import (clamp_map, normalize_clamp,
+                                         segment_clamp_arrays, validate_clamp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +118,7 @@ class StreamingEngine:
         if shard is not None:
             raise _unported("chain sharding (shard=...)", 10,
                             "service and cluster layers")
-        if clamp:
-            raise _unported("clamp (conditional sampling)", 12,
-                            "core/clamped.py + workloads")
+        self.clamp = normalize_clamp(clamp)   # None: the unclamped walk
         self.runtime = runtime or LocalRuntime()
         if self.runtime.process_count > 1:
             raise _unported("a multi-process runtime", 10,
@@ -241,6 +247,25 @@ class StreamingEngine:
         return PP._with_micro(chain, key, env, log_scale,
                               self.plan.micro_batch)
 
+    def _run_segment_clamped(self, seg: MPS, env, log_scale, log_prob, key,
+                             start: int):
+        """The clamped twin of ``_run_segment``: the segment's (mask, vals)
+        from the clamp spec, the dp walk for every parallel scheme.
+        Returns ``(samples, env', log_scale', log_prob')``."""
+        from repro_torch.core import clamped as CL
+
+        mask, vals = segment_clamp_arrays(clamp_map(self.clamp), start,
+                                          seg.n_sites, env.shape[0])
+        if self.plan.scheme == "inmem":
+            return CL.clamped_segment(
+                seg.gammas, seg.lambdas, env, key, start, mask, vals,
+                self.config, log_scale=log_scale, log_prob=log_prob,
+                micro_batch=self.plan.micro_batch)
+        return CL.sample_segment_clamped(
+            self.mesh, seg, env, key, start, mask, vals,
+            CL.dp_equivalent_pconfig(self.pconfig), self.config,
+            log_scale=log_scale, log_prob=log_prob)
+
     def _load_sample_blocks(self, up_to_site: int,
                             ckpt_dir: str) -> list[np.ndarray]:
         """The per-segment sample blocks covering [0, up_to_site)."""
@@ -272,6 +297,7 @@ class StreamingEngine:
                           max_live_segments=0, store_io_s=0.0, io_bytes=0,
                           io_hidden_frac=0.0, h2d_s=0.0, h2d_bytes=0,
                           wall_s=0.0)
+        self.stats.pop("log_prob", None)    # a clamped walk sets it
 
     def _finish_walk(self, t_walk: float) -> None:
         self.stats["wall_s"] = time.perf_counter() - t_walk
@@ -319,6 +345,14 @@ class StreamingEngine:
                        checkpoint_dir) -> np.ndarray:
         ckpt_dir = (self.checkpoint_dir if checkpoint_dir is self._UNSET
                     else checkpoint_dir)
+        if self.clamp is not None:
+            if resume or ckpt_dir:
+                raise ValueError(
+                    "clamped walks do not checkpoint or resume (the sampler "
+                    "state has no log_prob slot) — drop checkpoint_dir/"
+                    "resume and rely on idempotent macro batches")
+            validate_clamp(self.clamp, n_sites=self.n_sites, d=self.d,
+                           n_samples=n_samples)
         if ckpt_dir:
             os.makedirs(ckpt_dir, exist_ok=True)
         self._begin_walk()
@@ -337,6 +371,8 @@ class StreamingEngine:
                                   self.device)
         log_scale = torch.zeros((n_samples,), dtype=real_dtype_of(env.dtype),
                                 device=self.device)
+        log_prob = (None if self.clamp is None else
+                    torch.zeros_like(log_scale))
         if resume:
             if not ckpt_dir:
                 raise ValueError("resume=True needs a checkpoint_dir")
@@ -373,8 +409,13 @@ class StreamingEngine:
                 with self.runtime.compute_lock():
                     part = self._take(seg)
                     env = DB.fit_env(env, chi_s)   # χ-stage transition
-                    samples, env, log_scale = self._run_segment(
-                        part, env, log_scale, key, start)
+                    if self.clamp is None:
+                        samples, env, log_scale = self._run_segment(
+                            part, env, log_scale, key, start)
+                    else:
+                        samples, env, log_scale, log_prob = \
+                            self._run_segment_clamped(part, env, log_scale,
+                                                      log_prob, key, start)
                     del part
                     samples = samples.cpu().numpy().astype(np.int32)
                     if self.device.type == "cuda":
@@ -413,6 +454,8 @@ class StreamingEngine:
             raise
 
         self.state = S.SamplerState(env, key, log_scale)
+        if log_prob is not None:
+            self.stats["log_prob"] = log_prob.cpu().numpy()
         self._finish_walk(t_walk)
         if not done:
             return np.zeros((n_samples, 0), dtype=np.int64)

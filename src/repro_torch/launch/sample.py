@@ -28,10 +28,13 @@ with its digest manifest, so every read is verified) in segments of
 ``--segment-len`` sites (0: the planner's pick), checkpointing each macro
 batch per segment under ``OUT_DIR/chain_ckpt``.  ``--dynamic-bond`` walks
 the area-law χ profile bucketed to {χ/4, χ/2, χ} (§3.4.2), as the JAX
-package's CLI does; both compose with every scheme.  Flags of the JAX
-package's CLI that later slices port (``--service*``, ``--clamp``,
-``--runtime`` other than local) raise ``NotImplementedError`` naming the
-ROADMAP.md row that ports them.
+package's CLI does; both compose with every scheme.  ``--clamp
+1=0,3=1`` forces those outcomes (conditional sampling, every scheme but
+``baseline19``): the batches skip chain checkpoints (a clamped macro batch
+is rerun whole) and the run prints the clamped branch's ``log_prob`` and
+the estimate of P(clamp).  Flags of the JAX package's CLI that later
+slices port (``--service*``, ``--runtime`` other than local) raise
+``NotImplementedError`` naming the ROADMAP.md row that ports them.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.data.gamma_store import MANIFEST_NAME, GammaStore
 from repro_torch.kernels import dispatch, ops
 from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
 from repro_torch.runtime.elastic import WorkQueue
+from repro_torch.workloads.clamp import parse_clamp_arg
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -89,10 +93,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="sites per streamed segment (0 = the planner's)")
     ap.add_argument("--dynamic-bond", action="store_true",
                     help="area-law χ profile in buckets (§3.4.2)")
+    ap.add_argument("--clamp", default=None,
+                    help="conditional sampling: site=outcome,... forced")
     # the JAX package's CLI flags that later slices port
     ap.add_argument("--runtime", default="auto",
                     choices=["auto", "local", "multihost", "remote"])
-    ap.add_argument("--clamp", default=None)
     ap.add_argument("--service", action="store_true")
     ap.add_argument("--service-workers", type=int, default=None)
     ap.add_argument("--service-fleet", action="store_true")
@@ -103,8 +108,6 @@ def _reject_unported(args) -> None:
     if args.runtime not in ("auto", "local"):
         raise unported(f"--runtime {args.runtime}", 10,
                        "service and cluster layers")
-    if args.clamp:
-        raise unported("--clamp", 12, "core/clamped.py + workloads")
     if args.service or args.service_fleet or args.service_workers:
         raise unported("--service", 10, "service and cluster layers")
 
@@ -164,11 +167,15 @@ def _run(args, mesh, per_batch: int) -> None:
                                           args.chi // 2, args.chi}))
         chi_profile = tuple(int(c) for c in buck)
         print("table1:", DB.table1_metrics(prof, args.chi))
+    clamp = parse_clamp_arg(args.clamp) if args.clamp else None
+    if clamp is not None:
+        print(f"clamp: {clamp} (clamped walks skip chain checkpoints — "
+              f"macro-batch idempotence is the restart story)")
     config = api.SamplerConfig(
         scheme=args.scheme, kernels=args.kernels, compute_dtype=compute,
         backend="streamed" if args.stream else "inmem",
         micro_batch=args.micro_batch or None, chi_profile=chi_profile,
-        segment_len=args.segment_len or api.AUTO)
+        segment_len=args.segment_len or api.AUTO, clamp=clamp)
 
     # resume: macro batches already on disk are done (idempotent by id);
     # rank 0 looks, so every rank walks the same batches
@@ -192,18 +199,34 @@ def _run(args, mesh, per_batch: int) -> None:
               f"{plan.kernels!r} (device={device}; registered ops: "
               f"{dispatch.registered_ops()})")
 
+        lp_blocks: dict[int, np.ndarray] = {}
+
         def save_batch(b: int, out: np.ndarray) -> None:
             if lead:
                 np.save(os.path.join(args.out, f"batch_{b:05d}.npy"),
                         out.astype(np.int8))
+            if clamp is not None:
+                lp_blocks[b] = np.asarray(session.stats["log_prob"],
+                                          dtype=np.float64)
             print(f"macro batch {b} done ({per_batch} samples)", flush=True)
 
         session.run_queue(queue, per_batch, base, worker="cli",
-                          checkpoint_root=os.path.join(args.out,
-                                                       "chain_ckpt"),
+                          checkpoint_root=(None if clamp is not None else
+                                           os.path.join(args.out,
+                                                        "chain_ckpt")),
                           on_batch=save_batch)
-        if session.stats:
-            print("streaming stats:", session.stats)
+        engine_stats = {k: v for k, v in session.stats.items()
+                        if k != "log_prob"}
+        if engine_stats:
+            print("streaming stats:", engine_stats)
+        if lp_blocks:
+            # ln P(clamped outcomes | earlier sites) per sample: the mean
+            # of exp estimates the clamp's probability
+            lp = np.concatenate([lp_blocks[b] for b in sorted(lp_blocks)])
+            w = np.exp(lp)
+            print(f"clamp log_prob: n={lp.size} mean={lp.mean():.6f} "
+                  f"min={lp.min():.6f} max={lp.max():.6f}  "
+                  f"P(clamp) ≈ {w.mean():.6g}")
     if args.stream:
         source.close()
     if device.type == "cuda":

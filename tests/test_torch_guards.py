@@ -1,7 +1,8 @@
-"""Guards of the port: it imports neither JAX nor the JAX package, its entry
-points never fall back to the CPU silently, ``cuda`` never runs on CPU
-tensors, unported config values say so (and the ported ones resolve), and
-the C interface the wrappers bind matches the CUDA source."""
+"""Guards of the port: it imports neither JAX, the JAX package nor its
+benchmarks, its entry points never fall back to the CPU silently, ``cuda``
+never runs on CPU tensors, unported config values say so (and the ported
+ones resolve), and the C interface the wrappers bind matches the CUDA
+source."""
 import ast
 import os
 import re
@@ -44,7 +45,8 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (path,
+                                                                     mod)
 
 
 def _tiny_mps(device="cpu"):
@@ -108,11 +110,9 @@ def _mesh(p1: int, p2: int):
 
 
 @pytest.mark.parametrize("fields,mesh", [
-    ({"scheme": "dp", "clamp": {0: 1}}, (1, 1)),
     ({"scheme": "dp", "runtime": "multihost"}, (1, 1)),
     ({"backend": "remote"}, None),
     ({"runtime": "multihost"}, None), ({"runtime": "remote"}, None),
-    ({"clamp": {0: 1}}, None),
     ({"shard": 2}, None),
     ({"scheme": "tp_single", "shard": 2}, (1, 1)),
 ], ids=lambda v: "-".join(f"{k}={v[k]}" for k in v) if isinstance(v, dict)
@@ -167,6 +167,25 @@ def _auto_micro(plan, session):
         S.sample_batched(_chain4(), 8, prng.key(0), 2).numpy())
 
 
+def _clamped_dp(plan):
+    assert (plan.scheme, plan.clamp) == ("dp", ((0, 1),))
+    assert plan.pconfig.scheme == "dp"
+
+
+def _clamped_seq(plan, session):
+    from repro_torch.core import clamped as CL
+
+    assert (plan.scheme, plan.clamp) == ("seq", ((0, 1),))
+    got = session.sample(8, prng.key(0))
+    mask = np.array([True, False, False, False])
+    vals = np.ones((4, 8), dtype=np.int32)
+    want, lp = CL.sample_clamped(_chain4(), 8, prng.key(0),
+                                 S.SamplerConfig(kernels="torch"), mask, vals)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (got[:, 0] == 1).all()
+    np.testing.assert_array_equal(session.stats["log_prob"], lp.numpy())
+
+
 @pytest.mark.parametrize("fields,mesh,check", [
     ({"scheme": "auto"}, (1, 2), _auto_tp),
     ({"scheme": "tp_single", "chi_profile": (4, 4, 4, 4)}, (1, 1),
@@ -174,12 +193,16 @@ def _auto_micro(plan, session):
     ({"backend": "streamed"}, None, _streamed),
     ({"chi_profile": (4, 4, 4, 4)}, None, _staged_seq),
     ({"micro_batch": "auto"}, None, _auto_micro),
+    ({"scheme": "dp", "clamp": {0: 1}}, (1, 1), _clamped_dp),
+    ({"clamp": {0: 1}}, None, _clamped_seq),
 ], ids=["scheme=auto-mesh(1, 2)", "scheme=tp_single-chi_profile",
-        "backend=streamed", "chi_profile", "micro_batch=auto"])
+        "backend=streamed", "chi_profile", "micro_batch=auto",
+        "scheme=dp-clamp={0: 1}", "clamp={0: 1}"])
 def test_ported_config_values_resolve(fields, mesh, check):
-    """What ROADMAP.md §1 rows 8 and 9 ported: the Eq. 7 selector, dynamic
-    χ, the streamed backend and the Eq. 3 micro batch, as plans and, where
-    a walk needs no mesh, as CPU runs against the plain walk."""
+    """What ROADMAP.md §1 rows 8, 9 and 12 ported: the Eq. 7 selector,
+    dynamic χ, the streamed backend, the Eq. 3 micro batch and the clamp,
+    as plans and, where a walk needs no mesh, as CPU runs against the plain
+    walk."""
     with api.SamplingSession(_chain4(), SamplerConfig(**fields),
                              device="cpu", mesh=mesh and _mesh(*mesh)) as s:
         plan = s.plan(8)
@@ -246,7 +269,7 @@ def test_bad_parallel_requests_raise(fields, mesh, match):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--runtime", "remote"], ["--clamp", "0=1"], ["--service"],
+    ["--runtime", "remote"], ["--service"],
 ])
 def test_unported_cli_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
@@ -256,12 +279,12 @@ def test_unported_cli_flags_raise(flags, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--dynamic-bond", "--scheme", "tp_double"], ["--stream"],
-    ["--dynamic-bond"],
+    ["--dynamic-bond"], ["--clamp", "0=1"],
 ])
 def test_ported_cli_flags_run(flags, tmp_path, capsys):
-    """``--stream`` and ``--dynamic-bond`` walk on the CPU; the area-law
-    profile's first stage is one site, which tp_double cannot pair, so that
-    plan is refused as the JAX package refuses it."""
+    """``--stream``, ``--dynamic-bond`` and ``--clamp`` walk on the CPU;
+    the area-law profile's first stage is one site, which tp_double cannot
+    pair, so that plan is refused as the JAX package refuses it."""
     argv = ["--sites", "4", "--chi", "4", "--samples", "16",
             "--macro-batches", "2", "--out", str(tmp_path), "--device",
             "cpu", *flags]
@@ -274,6 +297,10 @@ def test_ported_cli_flags_run(flags, tmp_path, capsys):
     assert np.load(tmp_path / "batch_00001.npy").shape == (8, 4)
     assert ("'backend': 'streamed'" in out) == ("--stream" in flags)
     assert ("table1:" in out) == ("--dynamic-bond" in flags)
+    assert ("clamp log_prob: n=16" in out) == ("--clamp" in flags)
+    if "--clamp" in flags:
+        assert (np.load(tmp_path / "batch_00000.npy")[:, 0] == 1).all()
+        assert not (tmp_path / "chain_ckpt").exists()
 
 
 def test_cli_runs_and_resumes_on_cpu(tmp_path):

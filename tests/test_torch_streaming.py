@@ -571,6 +571,32 @@ def test_gbs_like_site_is_site_i_of_the_chain():
 def test_unported_engine_options_name_their_rows(stores):
     root = stores[("linear", "fp64")]
     with GammaStore(root, torch.float64, torch.float64) as store:
-        for kw, row in (({"shard": 2}, 10), ({"clamp": {0: 1}}, 12)):
+        for kw, row in (({"shard": 2}, 10),):
             with pytest.raises(NotImplementedError, match=f"row {row}"):
                 StreamingEngine(store, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("clamp", [{0: 1}, {3: 2, 8: 0}],
+                         ids=["clamp={0: 1}", "clamp={3: 2, 8: 0}"])
+def test_ported_engine_options_walk(stores, clamp):
+    """ROADMAP.md §1 row 12: ``clamp`` walks, segment by segment, the
+    in-memory clamped walk of the same chain, ``log_prob`` with it."""
+    from repro_torch.core import clamped as CL
+    from repro_torch.workloads import clamp as WC
+
+    root = stores[("linear", "fp64")]
+    with GammaStore(root, torch.float64, torch.float64) as store:
+        g, lam = store.get_segment(0, store.n_sites)
+        with StreamingEngine(store, config=S.SamplerConfig(kernels="torch"),
+                             plan=StreamPlan(segment_len=3), clamp=clamp,
+                             device="cpu") as e:
+            got = e.sample(N, prng.key(2))
+            lp = e.stats["log_prob"]
+    from repro_torch.core.mps import MPS
+    mask, vals = WC.segment_clamp_arrays(
+        WC.clamp_map(WC.normalize_clamp(clamp)), 0, g.shape[0], N)
+    want, want_lp = CL.sample_clamped(MPS(g, lam), N, prng.key(2),
+                                      S.SamplerConfig(kernels="torch"),
+                                      mask, vals)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(lp, want_lp.numpy())
