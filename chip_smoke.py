@@ -44,14 +44,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               (kernel 1 held per stage at χ = 256, 1024, 4096 and 10⁴);
               (c) (a) stopped after 3 segments and resumed, bit for bit;
               (d) dp, tp_single ± measure_first and tp_double streamed on
-              the mesh over the first 8 sites against their in-memory
+              the mesh over the first 4 sites against their in-memory
               walks, with each kernel's launches; (f) clamped seq and dp
-              walks streamed over those 8 sites against the in-memory
-              clamped walk (``contract_measure`` × 8); (e) one timed walk at
+              walks streamed over those 4 sites against the in-memory
+              clamped walk (``contract_measure`` × 4); (e) one timed walk at
               N₁ = ``min_macro_batch_for_overlap`` at the measured read
               rate, capped at 65,536: wall, read, H2D and compute seconds,
               GB/s and the overlap share beside ``explain_plan``'s
-              prediction; the phase frees its memory before phase 4;
+              prediction; then phase service's streamed parts (c, d) on
+              the first 2 of those sites (below); the phase frees its
+              memory before phase 4;
 4. linear   — the GBS preset ``jiuzhang2`` at its full width (χ=10⁴, d=4,
               fp64) with the depth cut to M=8 sites (the in-memory slice
               holds the whole chain on the card), N=1024, walked through
@@ -79,6 +81,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               and unclamped walks' wall times with the card's name and
               power limit; (e), after phase 8, a Born clamped walk on its
               chain the same way;
+   service  — the job service, fleet workers and the broadcast plane (the
+              counts set to 0 just before each walk and read just after):
+              (a) ``session.sample`` through the session's one-lane
+              ``SamplingService`` on phase 4's chain == the direct core
+              walk (``site_step_linear`` × 8), and the wall time the
+              service adds; (b) a 4-batch job (N = 1024 a batch) on 1 and
+              2 thread lanes == ``sample(N, fold_in(key, b))`` per block
+              (× 32 launches), a lane removed mid-job, a clamped 2-batch
+              job (``contract_measure`` × 8 a batch, ``log_prob`` == the
+              clamped session walk's); (c) on the first 2 sites of phase
+              stream's store (bf16, fp64 walked, a site a segment): 2 fleet
+              worker processes on the card (``WorkerPool``), 4 batches ==
+              the in-process streamed job bit for bit after a dropped
+              result (the worker killed, respawned, the batch requeued),
+              each batch's 2 launches reported by its worker; the
+              ``remote`` runtime's persistent worker, the same payload
+              cold and warm; (d) the broadcast plane on
+              ``emulated_cluster(2)`` (batch 1's key, then an unclean stop
+              at different boundaries and a resume of the last segment)
+              and on 2 ``torch.distributed`` processes sharing the card
+              over gloo (spawned, a ``FileStore`` under ``build/``): a
+              pipelined 2-batch job on a one-lane service whose batch 1
+              resumes from the same stop; every block == the in-process
+              job's: broadcast bytes, GB/s, the root's read GB/s, each
+              process's fetch and compute seconds and overlap share;
+              (e) the metrics registry's counters over (b) and (c);
 6. tp kernels — contract_measure, measure_probs and collapse_select called
               at the bond-shard shapes of p₂ = 4 (N = 1024), against their
               plain versions, with times and bounds (measure_probs, fp64
@@ -132,7 +160,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
               again with ``--clamp 1=0,3=1``, and ``python -m
               repro_torch.launch.scenarios --scenario all --json ''``
-              (every scenario must pass);
+              (every scenario must pass); then, three at once, ``--service
+              --service-workers 2`` (the plain run's batch files),
+              ``--service-fleet`` and ``--runtime remote`` (a worker
+              process on the card each: the seq walks' batch files, 16
+              launches reported by the worker);
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line.
@@ -210,7 +242,7 @@ STREAM_BUDGET = 16e9          # plan_stream's segment length 2 at N = 1024
 STREAM_BUCKETS = (256, 1024, 4096, 10_000)
 STREAM_STAGES = [(0, 5, 256), (5, 7, 1024), (7, 8, 4096), (8, 15, 10_000),
                  (15, 16, 4096), (16, 18, 1024), (18, 24, 256)]
-STREAM_TP_SITES = 8           # the dp / tp walks stream the first 8 sites
+STREAM_TP_SITES = 4           # the dp / tp walks stream the first 4 sites
 STREAM_STOP = 3               # resume: stopped after 3 segments
 STREAM_DECODE = (7, 2)        # the read path checked on sites 7 and 8
 TIMED_N_CAP = 65_536
@@ -246,11 +278,21 @@ TP_SHARDS = 4                     # the kernels are timed at p₂ = 4 shards
 CLAMP_SCALAR = {1: 0, 4: 1, 6: 0}
 CLAMP_PER_SAMPLE_SITE = 5
 CLAMP_BORN = {2: 3}
+CLAMP_STREAM = {1: 0, 3: 1}       # stream (f), on the 4-site sub-store
 CLAMP_SCHEMES = (("dp", False), ("tp_single", False), ("tp_single", True),
                  ("tp_double", False))
 # the small phase's clamped walks: (N, χ, d) with N = 1 and odd, χ off the
 # kernels' tiles, d = 3
 CLAMP_SMALL = [(1, 13, 3), (37, 130, 3), (301, 257, 4)]
+# the service phase: macro batches of a job, thread lanes, fleet workers
+SERVICE_BATCHES = 4
+SERVICE_LANES = 2
+SERVICE_WORKERS = 2
+SERVICE_SEED = 13             # the streamed jobs' key
+SERVICE_SITES = 2             # its streamed parts: the first 2 sites,
+SERVICE_SEGMENT = 1           # one site (800 MB) a segment
+STOP_CUTS = (SERVICE_SITES, 1)  # (d)'s unclean stop: each process's last
+#                                 boundary
 # the kernels that run on the tensor cores, by name prefix (each must match
 # a built kernel), and the instructions each must hold: mma.sync (HMMA, and
 # DMMA for fp64), or wgmma (HGMMA) fed by TMA loads (UTMALDG)
@@ -840,14 +882,14 @@ def _stream_io(stats) -> dict:
             "segments": stats["segments"]}
 
 
-def phase_stream(device, mesh) -> dict:
+def phase_stream(device, mesh, registry) -> dict:
     """jiuzhang2 at full width (χ = 10⁴, d = 4, fp64) with the depth cut to
     24 sites, written to a bf16 GammaStore (19.2 GB; 76.8 GB decoded, more
     than the card holds), its read path on the card checked bit for bit
     against an independent decode, and streamed: (a) the flat-χ seq walk through the
     session with the kernels, and with the plain cells; (b) dyn-χ, against
     the in-memory staged walk; (c) stop and resume; (d) dp and the TP
-    schemes on the one-rank mesh over the first 8 sites; (e) one timed walk
+    schemes on the one-rank mesh over the first 4 sites; (e) one timed walk
     at the macro batch that should hide the reads."""
     from repro_torch.data.gamma_store import GammaStore
 
@@ -864,7 +906,8 @@ def phase_stream(device, mesh) -> dict:
             out["dyn"] = _stream_dyn(store, device)
             out["resume"] = _stream_resume(store, device, build,
                                            out["flat"].pop("samples"))
-            out["tp"] = _stream_tp(root, device, mesh, build)
+            out["tp"], out["service"] = _stream_tp(root, device, mesh,
+                                                   build, registry)
             out["timed"] = _stream_timed(store, device,
                                          out["flat"]["io"]["read_gbps"])
         finally:
@@ -1147,10 +1190,11 @@ def _stream_resume(store, device, build, flat) -> dict:
     return {"stopped_sites": part.shape[1], "resumed_segments": segments}
 
 
-def _stream_tp(root, device, mesh, build) -> dict:
+def _stream_tp(root, device, mesh, build, registry) -> tuple[dict, dict]:
     """(d) dp, tp_single (± measure_first) and tp_double streamed on the
-    mesh over the first 8 sites, each against the in-memory walk of the
-    same 8 decoded sites."""
+    mesh over the first 4 sites, each against the in-memory walk of the
+    same 4 decoded sites; then phase service's streamed parts on the
+    first 2 of them (``service_streamed``)."""
     from repro_torch import api
     from repro_torch.core import prng
     from repro_torch.core.mps import MPS
@@ -1202,12 +1246,14 @@ def _stream_tp(root, device, mesh, build) -> dict:
                       f"{json.dumps(walks[label])}", flush=True)
             walks.update(_stream_clamped(store, mps, mesh, n, key))
             del mps
+        torch.cuda.empty_cache()
+        service = service_streamed(sub, device, registry)
     torch.cuda.empty_cache()
-    return walks
+    return walks, service
 
 
 def _stream_clamped(store, mps, mesh, n, key) -> dict:
-    """(f) Clamped seq and dp walks streamed from the 8-site sub-store
+    """(f) Clamped seq and dp walks streamed from the 4-site sub-store
     against the in-memory clamped walk of the same decoded sites: samples
     equal, log_prob within TOL, ``contract_measure`` launched once a
     site."""
@@ -1217,7 +1263,7 @@ def _stream_clamped(store, mps, mesh, n, key) -> dict:
     walks = {}
     for scheme in ("seq", "dp"):
         label = f"clamp {scheme}"
-        cfg = dict(kernels="cuda", scheme=scheme, clamp=CLAMP_SCALAR)
+        cfg = dict(kernels="cuda", scheme=scheme, clamp=CLAMP_STREAM)
         ops.reset_launches()
         with api.SamplingSession(store, api.SamplerConfig(
                 backend="streamed", device_budget=STREAM_BUDGET, **cfg),
@@ -1239,7 +1285,7 @@ def _stream_clamped(store, mps, mesh, n, key) -> dict:
         check(np.allclose(stats["log_prob"], lp, **TOL[torch.float64])
               and np.isfinite(lp).all(),
               f"stream (f) {label}: log_prob differs (max abs {lp_err:.3e})")
-        for site, v in CLAMP_SCALAR.items():
+        for site, v in CLAMP_STREAM.items():
             check(bool((streamed[:, site] == v).all()),
                   f"stream (f) {label}: site {site} is not clamped")
         walks[label] = {"launches": launches, "segments": stats["segments"],
@@ -1359,6 +1405,606 @@ def phase_tp(mesh, mps) -> dict:
               f"log_scale max abs diff {ls_err:.3e}", flush=True)
     _phase("tp", t0)
     return walks
+
+
+# ---------------------------------------------------------------------------
+# service: the job service, fleet workers and the broadcast plane
+# ---------------------------------------------------------------------------
+
+def _instrument(svc, registry) -> None:
+    """Bind ``registry`` to a service (its counters are read in (e))."""
+    from repro_torch.obs import instrument_service
+    instrument_service(svc, registry)
+
+
+def _io_share(stats) -> dict:
+    """A walk's fetch (read or broadcast, checks, copies started),
+    compute and overlap share (fetch + compute − wall) / min of the two."""
+    fetch, comp, wall = stats["fetch_s"], stats["compute_s"], \
+        stats["wall_s"]
+    return {"wall_s": wall, "fetch_s": fetch, "compute_s": comp,
+            "io_wait_s": stats["io_wait_s"],
+            "overlap": ((fetch + comp - wall) / min(fetch, comp)
+                        if min(fetch, comp) > 0 else None)}
+
+
+def _broadcast_numbers(stats_by_proc: dict) -> dict:
+    """(d)'s numbers from each process's walk stats: the bytes broadcast
+    ((p − 1) × the segments' bytes), their rate over the root's broadcast
+    seconds, the root's read rate, each process's compute seconds and
+    overlap share."""
+    root = stats_by_proc[0]
+    p = len(stats_by_proc)
+    check(root["broadcast_send_bytes"] >= (p - 1) * root["io_bytes"]
+          and root["broadcast_send_bytes"] - (p - 1) * root["io_bytes"]
+          < 2 ** 20 * root["broadcast_segments"],
+          f"service (d): {root['broadcast_send_bytes']} bytes broadcast for "
+          f"{p - 1} × {root['io_bytes']} bytes of segments")
+    out = {"broadcast_bytes": root["broadcast_send_bytes"],
+           "segment_bytes": root["io_bytes"],
+           "broadcast_s": root["broadcast_s"],
+           "broadcast_gbps": (root["broadcast_send_bytes"]
+                              / root["broadcast_s"] / 1e9
+                              if root["broadcast_s"] else None),
+           "root_read_gb": root["io_bytes"] / 1e9,
+           "root_read_gbps": (root["io_bytes"] / root["store_io_s"] / 1e9
+                              if root["store_io_s"] else None),
+           "processes": {}}
+    for p, st in sorted(stats_by_proc.items()):
+        out["processes"][str(p)] = dict(
+            _io_share(st), broadcast_s=st["broadcast_s"],
+            recv_bytes=st["broadcast_recv_bytes"], segments=st["segments"])
+    return out
+
+
+def service_streamed(sub, device, registry) -> dict:
+    """Phase service's streamed parts, on the first 2 sites of phase
+    stream's store (bf16 on disk, fp64 walked, a site a segment), before
+    the store is removed: (c) fleet lanes of worker processes on the card
+    and the ``remote`` runtime; (d) the broadcast plane on an emulated
+    2-process cluster and on 2 ``torch.distributed`` processes (gloo); each
+    against the in-process streamed job of the same key, bit for bit.  The
+    gloo processes are spawned first, so that their start-up overlaps
+    (c)."""
+    from repro_torch import api
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import GammaStore, site_filename
+
+    t0 = time.perf_counter()
+    n, k, key = LINEAR_N, SERVICE_BATCHES, prng.key(SERVICE_SEED)
+    cfg = api.SamplerConfig(backend="streamed", segment_len=SERVICE_SEGMENT)
+    out = {}
+    build = ROOT / "build"
+    with tempfile.TemporaryDirectory(dir=build, prefix="svc_") as svc, \
+            tempfile.TemporaryDirectory(dir=build, prefix="gloo_") as gloo:
+        for i in range(SERVICE_SITES):
+            os.symlink(os.path.realpath(os.path.join(sub, site_filename(i))),
+                       os.path.join(svc, site_filename(i)))
+        ranks = _gloo_spawn(svc, gloo, n, device)
+        try:
+            store = GammaStore(svc, torch.bfloat16, torch.float64)
+            try:
+                local = _service_streamed(store, device, registry, n, k,
+                                          key, cfg, out)
+            finally:
+                store.close()
+            torch.cuda.empty_cache()
+            # (d) the broadcast plane: an emulated 2-process cluster on
+            # batch 1's key, whose unclean stop the gloo job's batch 1
+            # resumes from; then the pipelined 2-batch gloo job
+            out["emulated"] = _emulated_broadcast(svc, device, n, local[1],
+                                                  gloo)
+            out["gloo"] = _gloo_broadcast(ranks, gloo, n, local)
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"service (c, d) on {SERVICE_SITES} sites of the store in "
+          f"{out['seconds']:.3f} s", flush=True)
+    return out
+
+
+def _service_streamed(store, device, registry, n, k, key, cfg, out) -> dict:
+    """(c); returns the in-process job's blocks by batch."""
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.kernels import ops
+
+    # (c) fleet lanes: 2 worker processes on the card, spawned now so that
+    # they start (interpreter, torch) while the in-process job runs; a
+    # result dropped on batch 2 is a lane fault: the service kills that
+    # worker, respawns it and recomputes the batch
+    pool = api.WorkerPool()
+    drop = _chaos_drop({2})
+    pool.injectors.append(drop)
+    fleet_svc = api.SamplingService(workers=0, pool=pool, straggler_k=None)
+    _instrument(fleet_svc, registry)      # the spawns below are counted
+    for _ in range(SERVICE_WORKERS):
+        fleet_svc.add_worker()
+    try:
+        # the in-process streamed job (one thread lane): the reference
+        ops.reset_launches()
+        tw = time.perf_counter()
+        with api.SamplingService(workers=1, device=device) as svc:
+            h = svc.submit(store, cfg, n_samples=n * k, key=key,
+                           macro_batches=k)
+            local = dict(h.stream(timeout=600))
+            local_stats = h.stats
+        torch.cuda.synchronize()
+        out["local"] = {"wall_s": time.perf_counter() - tw,
+                        "launches": {x: v for x, v in
+                                     ops.launch_counts().items() if v},
+                        "walk_s": [local_stats[b]["wall_s"]
+                                   for b in range(k)],
+                        "io_hidden_frac": [local_stats[b]["io_hidden_frac"]
+                                           for b in range(k)]}
+        check(out["local"]["launches"] == {"site_step_linear":
+                                           k * SERVICE_SITES},
+              f"service (c): the in-process streamed job launched "
+              f"{out['local']['launches']}")
+
+        tw = time.perf_counter()
+        h = fleet_svc.submit(store, cfg, n_samples=n * k, key=key,
+                             macro_batches=k)
+        arrivals, fleet = {}, {}
+        for b, block in h.stream(timeout=900):
+            arrivals[b] = time.perf_counter() - tw
+            fleet[b] = block
+        fleet_stats, st = h.stats, fleet_svc.stats()
+        requeues = h.progress["requeues"]
+    finally:
+        fleet_svc.close()
+        pool.close()
+    for b in range(k):
+        bad = int((fleet[b] != local[b]).sum())
+        check(bad == 0, f"service (c): fleet block {b} differs from the "
+              f"in-process job in {bad} draws")
+    check(bool(drop.fired) and st["transport"]["lane_faults"] >= 1
+          and st["transport"]["spawned"] >= SERVICE_WORKERS + 1
+          and requeues >= 1,
+          f"service (c): the dropped result did not requeue and respawn "
+          f"({drop.fired}, {st['transport']}, {requeues} requeues)")
+    worker_launches = {}
+    for b in range(k):
+        for x, v in fleet_stats[b]["launches"].items():
+            worker_launches[x] = worker_launches.get(x, 0) + v
+    check(all(fleet_stats[b]["launches"] == {"site_step_linear":
+                                             SERVICE_SITES}
+              for b in range(k)),
+          f"service (c): worker launches per batch "
+          f"{[fleet_stats[b]['launches'] for b in range(k)]}")
+    walls = sorted(fleet_stats[b]["wall_s"] for b in range(k))
+    out["fleet"] = {"first_result_s": min(arrivals.values()),
+                    "warm_walk_s": walls[len(walls) // 2],
+                    "walk_s": [fleet_stats[b]["wall_s"] for b in range(k)],
+                    "job_wall_s": max(arrivals.values()),
+                    "worker_launches": worker_launches,
+                    "lane_faults": st["transport"]["lane_faults"],
+                    "spawned": st["transport"]["spawned"],
+                    "requeues": requeues,
+                    "dropped": drop.fired,
+                    "dispatch_bytes": st["transport"]["dispatch_bytes"]}
+    print(f"service (c): fleet of {SERVICE_WORKERS} worker processes on the "
+          f"card, {k} batches of N={n} streamed from {SERVICE_SITES} sites "
+          f"of the store == the in-process job bit for "
+          f"bit, after batch 2's result was dropped (its worker killed and "
+          f"respawned, the batch requeued); {json.dumps(out['fleet'])}",
+          flush=True)
+
+    # the remote runtime: one persistent worker, the same payload twice
+    key0 = batch_key(key, 0, k)
+    rt = api.RemoteRuntime()
+    with api.SamplingSession(store, api.SamplerConfig(
+            runtime=rt, segment_len=SERVICE_SEGMENT),
+            device=device) as session:
+        tw = time.perf_counter()
+        cold = session.sample(n, key0)
+        cold_s = time.perf_counter() - tw
+        tw = time.perf_counter()
+        warm = session.sample(n, key0)
+        warm_s = time.perf_counter() - tw
+        launches = dict(rt.worker.launches)
+        counters = rt.io_counters()
+    rt.close()
+    check(np.array_equal(cold, local[0]) and np.array_equal(warm, local[0]),
+          "service (c): the remote runtime's walks differ from batch 0")
+    check(launches == {"site_step_linear": 2 * SERVICE_SITES},
+          f"service (c): the remote worker launched {launches}")
+    out["remote"] = {"cold_s": cold_s, "warm_s": warm_s,
+                     "worker_launches": launches,
+                     "dispatch_bytes": counters["dispatch_bytes"]}
+    print(f"service (c): remote runtime, one persistent worker: the payload "
+          f"cold {cold_s:.3f} s (spawn, CUDA, kernels loaded, walk), again "
+          f"warm {warm_s:.3f} s, both == batch 0; {json.dumps(out['remote'])}",
+          flush=True)
+    return local
+
+
+def _chaos_drop(batch_ids):
+    """A transport injector that drops the first result of a batch (a
+    lane fault: the batch requeues and the worker respawns)."""
+    class DropResult:
+        def __init__(self):
+            self.fired = []
+
+        def after(self, worker, payload, result):
+            b = (payload.get("job") or {}).get("batch_id")
+            if b in batch_ids and not self.fired:
+                self.fired.append((worker, b))
+                return "drop"
+            return None
+    return DropResult()
+
+
+def _drop_after(ckpt_dir: str, site: int) -> None:
+    """What an unclean stop after ``site`` leaves of a multi-process walk's
+    checkpoints (it keeps every boundary): the boundaries past it are gone
+    (the sample blocks past it are written again by the resumed walk)."""
+    for f in os.listdir(ckpt_dir):
+        if f.startswith("site_") and f.endswith(".npz") and \
+                int(f[len("site_"):-len(".npz")]) > site:
+            os.remove(os.path.join(ckpt_dir, f))
+
+
+def _gloo_checkpoints(gloo_dir: str) -> list:
+    """Each gloo rank's checkpoint directory of the 2-batch job's batch 1
+    (the job's ``checkpoint_root`` is ``ck<rank>``)."""
+    from repro_torch.api.service import batch_checkpoint_dir
+    return [batch_checkpoint_dir(os.path.join(gloo_dir, f"ck{r}"), 1)
+            for r in range(2)]
+
+
+def _emulated_broadcast(sub, device, n, want, gloo_dir) -> dict:
+    """(d) on ``emulated_cluster(2)``: both members walk batch 1's key
+    (checkpointing into the gloo ranks' batch-1 directories), == the
+    local walk; then an unclean stop leaves member 0 at the chain's end and
+    member 1 a segment before it (``STOP_CUTS``), and the resume walks the
+    last segment only.  The same stop is left for the gloo job's batch
+    1."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import GammaStore
+
+    key = batch_key(prng.key(SERVICE_SEED), 1, SERVICE_BATCHES)
+    cks = _gloo_checkpoints(gloo_dir)
+    members = api.emulated_cluster(2)
+
+    def run(rt, results, resume=False):
+        try:
+            cfg = api.SamplerConfig(runtime=rt, backend="streamed",
+                                    segment_len=SERVICE_SEGMENT,
+                                    checkpoint_dir=cks[rt.process_index])
+            with GammaStore(sub, torch.bfloat16, torch.float64) as st, \
+                    api.SamplingSession(st, cfg, device=device) as s:
+                got = s.sample(n, key, resume=resume)
+                results[rt.process_index] = (got, dict(s.stats))
+        except BaseException as e:   # noqa: BLE001 — checked below
+            results[rt.process_index] = e
+
+    def cluster(resume=False):
+        results = {}
+        threads = [threading.Thread(target=run, args=(rt, results, resume))
+                   for rt in members]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        for p, r in results.items():
+            check(not isinstance(r, BaseException),
+                  f"service (d) emulated: process {p} raised {r!r}")
+        check(len(results) == 2, "service (d) emulated: a member hung")
+        return results
+
+    first = cluster()
+    for ck, cut in zip(cks, STOP_CUTS):
+        _drop_after(ck, cut)
+    resumed = cluster(resume=True)
+    for ck, cut in zip(cks, STOP_CUTS):
+        _drop_after(ck, cut)              # the gloo job's batch 1 resumes
+    for p in (0, 1):
+        check(np.array_equal(first[p][0], want)
+              and np.array_equal(resumed[p][0], want)
+              and resumed[p][1]["segments"] == 1,
+              f"service (d) emulated: process {p} differs from the local "
+              f"walk, or resumed {resumed[p][1]['segments']} segments")
+    out = _broadcast_numbers({p: first[p][1] for p in (0, 1)})
+    out["resumed_segments"] = [resumed[p][1]["segments"] for p in (0, 1)]
+    print(f"service (d) emulated_cluster(2): both members == the local "
+          f"walk, and after an unclean stop (members at sites "
+          f"{STOP_CUTS[0]} and {STOP_CUTS[1]}) the resume agreed on site "
+          f"{min(STOP_CUTS)}; {json.dumps(out)}", flush=True)
+    return out
+
+
+def _gloo_spawn(sub, gloo_dir, n, device):
+    """Start phase service's 2 gloo processes (``torch.multiprocessing``,
+    start method spawn: CUDA is initialised here); they wait for
+    ``go``."""
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(_gloo_rank,
+                              args=(sub, gloo_dir, n, str(device)),
+                              nprocs=2, join=False, start_method="spawn")
+
+
+def _gloo_rank(rank: int, sub: str, gloo_dir: str, n: int,
+               device: str) -> None:
+    """One process of (d)'s ``torch.distributed`` job, both on ``device``:
+    it joins a gloo group on a ``FileStore`` under ``gloo_dir``, opens the
+    store ``sub`` through a ``TorchMultiHostRuntime`` and, once the
+    parent writes ``go``, runs the 2-batch job (keys of ``SERVICE_SEED``)
+    on a one-lane ``SamplingService`` with ``checkpoint_root=ck<rank>``:
+    pipelined (batch 1's first segment is broadcast behind batch 0's
+    walk), batch 1 resuming from the stop (d)'s emulated cluster left.  It
+    writes its blocks, each batch's walk stats and its launches under
+    ``gloo_dir``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import api
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import GammaStore
+    from repro_torch.kernels import ops
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(gloo_dir, "filestore"), 2),
+        rank=rank, world_size=2, timeout=datetime.timedelta(seconds=600))
+    runtime = api.TorchMultiHostRuntime()
+    rec = {"rank": rank, "device": str(device)}
+    try:
+        with GammaStore(sub, torch.bfloat16, torch.float64) as store, \
+                api.SamplingSession(store, api.SamplerConfig(
+                    backend="streamed", runtime=runtime,
+                    segment_len=SERVICE_SEGMENT),
+                    device=device) as session:
+            while not os.path.exists(os.path.join(gloo_dir, "go")):
+                time.sleep(0.05)
+            ops.reset_launches()
+            tw = time.perf_counter()
+            with api.SamplingService(workers=1) as svc:
+                h = svc.submit(session, n_samples=2 * n,
+                               key=prng.key(SERVICE_SEED), macro_batches=2,
+                               checkpoint_root=os.path.join(gloo_dir,
+                                                            f"ck{rank}"))
+                blocks = dict(h.stream(timeout=600))
+                stats = h.stats
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            rec["job_s"] = time.perf_counter() - tw
+            rec["launches"] = {x: v for x, v in ops.launch_counts().items()
+                               if v}
+            rec["stats"] = {str(b): {x: v for x, v in st.items()
+                                     if isinstance(v, (int, float))}
+                            for b, st in stats.items()}
+            # the job's totals: the warm fetch behind batch 0 belongs to
+            # neither walk's stats
+            rec["job"] = dict(runtime.io_counters(), io_bytes=store.io_bytes,
+                              store_io_s=store.io_seconds)
+            for b, blk in blocks.items():
+                np.save(os.path.join(gloo_dir, f"rank{rank}_{b}.npy"), blk)
+        dist.barrier()                  # every rank is done with the groups
+    finally:
+        runtime.close()
+        dist.destroy_process_group()
+    with open(os.path.join(gloo_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _gloo_broadcast(ranks, gloo_dir, n, local) -> dict:
+    """(d) on 2 gloo processes: let them go, wait, and hold their blocks
+    against the in-process job's and their launches against the sites they
+    walked (batch 0's, and batch 1's after the stop)."""
+    open(os.path.join(gloo_dir, "go"), "w").close()
+    tw = time.perf_counter()
+    deadline = time.monotonic() + 900
+    while not ranks.join(timeout=max(1.0, deadline - time.monotonic())):
+        check(time.monotonic() < deadline,
+              "service (d) gloo: a process did not finish")
+    wall = time.perf_counter() - tw
+    recs = []
+    for r in range(2):
+        with open(os.path.join(gloo_dir, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        recs.append(rec)
+        for b in (0, 1):
+            got = np.load(os.path.join(gloo_dir, f"rank{r}_{b}.npy"))
+            check(np.array_equal(got, local[b]),
+                  f"service (d) gloo: rank {r}'s batch {b} differs from the "
+                  f"in-process job")
+        resumed = rec["stats"]["1"]["segments"]
+        want = {"site_step_linear": SERVICE_SITES
+                + SERVICE_SEGMENT * resumed}
+        check(resumed == 1 and rec["launches"] == want
+              and rec["device"].startswith("cuda"),
+              f"service (d) gloo: rank {r} on {rec['device']} resumed "
+              f"{resumed} segments and launched {rec['launches']}")
+    # bytes and rates over the job (batch 0's 2 segments, the warm one
+    # batch 1 dropped, batch 1's last); fetch, compute and overlap of the
+    # whole walk, batch 0
+    out = _broadcast_numbers({r["rank"]: dict(r["stats"]["0"], **r["job"])
+                              for r in recs})
+    out.update(launches=[r["launches"] for r in recs], job_wall_s=wall,
+               rank_job_s=[r["job_s"] for r in recs],
+               resumed_segments=[r["stats"]["1"]["segments"] for r in recs],
+               resumed_wall_s=[r["stats"]["1"]["wall_s"] for r in recs])
+    print(f"service (d) torch.distributed, 2 processes on the card over "
+          f"gloo: a pipelined 2-batch job, both ranks' blocks == the "
+          f"in-process job's, batch 1 resumed from the stop at sites "
+          f"{STOP_CUTS[0]} and {STOP_CUTS[1]}; {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def phase_service(mps, streamed, registry) -> dict:
+    """The job service on phase 4's chain (jiuzhang2 width, fp64, M = 8,
+    N = 1024 a batch): (a) ``session.sample`` through its one-lane
+    service == the direct core walk, its added wall time; (b) a 4-batch
+    job on 1 and on 2 thread lanes == the one-shot walks on the batch
+    keys, a lane removed mid-job, a clamped 2-batch job; (e) the metrics
+    registry's counters over (b) and (c)."""
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.core import prng
+    from repro_torch.core import sampler as S
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    n, sites, key = LINEAR_N, mps.n_sites, prng.key(7)
+    out = {"streamed": streamed}
+    cfg = api.SamplerConfig(kernels="cuda")
+
+    # (a) one job on the session's one-lane service vs the direct walk
+    with api.SamplingSession(mps, cfg, device=mps.device) as session:
+        ops.reset_launches()
+        got = session.sample(n, key)
+        torch.cuda.synchronize()
+        launches = {x: v for x, v in ops.launch_counts().items() if v}
+        direct = S.sample(mps, n, key, S.SamplerConfig(kernels="cuda"))
+        check(np.array_equal(got, direct.cpu().numpy())
+              and launches == {"site_step_linear": sites},
+              f"service (a): the service's walk differs from the direct "
+              f"walk, or launched {launches}")
+        via, plain = [], []
+        for _ in range(3):
+            tw = time.perf_counter()
+            session.sample(n, key)
+            torch.cuda.synchronize()
+            via.append(time.perf_counter() - tw)
+            tw = time.perf_counter()
+            S.sample(mps, n, key, S.SamplerConfig(kernels="cuda"))
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - tw)
+    walk_s, via_s = statistics.median(plain), statistics.median(via)
+    out["a"] = {"walk_s": walk_s, "service_walk_s": via_s,
+                "added_s": via_s - walk_s, "launches": launches}
+    print(f"service (a): session.sample through the one-lane service == the "
+          f"direct walk ({launches}); the walk {walk_s * 1e3:.3f} ms, "
+          f"through the service {via_s * 1e3:.3f} ms: "
+          f"{(via_s - walk_s) * 1e3:.3f} ms added per job", flush=True)
+
+    # (b) 4 batches on 1 and 2 thread lanes
+    k = SERVICE_BATCHES
+    with api.SamplingSession(mps, cfg, device=mps.device) as session:
+        refs = [session.sample(n, batch_key(key, b, k)) for b in range(k)]
+    lanes = {}
+    # no straggler reclaim in (b): a duplicated batch would launch its
+    # kernels twice, and the launch counts are held exactly
+    for workers in (1, SERVICE_LANES):
+        with api.SamplingService(workers=workers, straggler_k=None,
+                                 device=mps.device) as svc:
+            if workers > 1:
+                _instrument(svc, registry)
+            svc.submit(mps, cfg, n_samples=n, key=key).result(timeout=600)
+            ops.reset_launches()
+            tw = time.perf_counter()
+            h = svc.submit(mps, cfg, n_samples=n * k, key=key,
+                           macro_batches=k)
+            blocks = dict(h.stream(timeout=600))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tw
+            launches = {x: v for x, v in ops.launch_counts().items() if v}
+            st = svc.stats()
+        for b in range(k):
+            check(np.array_equal(blocks[b], refs[b]),
+                  f"service (b): block {b} on {workers} lane(s) differs "
+                  f"from sample(N, fold_in(key, {b}))")
+        check(launches == {"site_step_linear": k * sites},
+              f"service (b): {workers} lane(s) launched {launches}")
+        lanes[str(workers)] = {"wall_s": wall,
+                               "samples_per_s": n * k / wall,
+                               "launches": launches,
+                               "lane_batches": st["lane_batches"]}
+    # a lane removed mid-job: its batch requeues, the result is the same
+    with api.SamplingService(workers=SERVICE_LANES, straggler_k=None,
+                             device=mps.device) as svc:
+        _instrument(svc, registry)
+        removed = []
+
+        def hook(job, b, worker):
+            if b == 2 and not removed:
+                removed.append(worker)
+                svc.remove_worker(worker)
+        svc.batch_hook = hook
+        h = svc.submit(mps, cfg, n_samples=n * k, key=key, macro_batches=k)
+        blocks = dict(h.stream(timeout=600))
+        requeues = h.progress["requeues"]
+    check(bool(removed) and requeues >= 1
+          and all(np.array_equal(blocks[b], refs[b]) for b in range(k)),
+          f"service (b): after removing {removed} the job differs "
+          f"(requeues {requeues})")
+    # a clamped 2-batch job: contract_measure × M a batch, each batch's
+    # log_prob the clamped session walk's on its key (phase clamp's path)
+    ccfg = api.SamplerConfig(kernels="cuda", clamp=CLAMP_SCALAR)
+    with api.SamplingService(workers=SERVICE_LANES, straggler_k=None,
+                             device=mps.device) as svc:
+        ops.reset_launches()
+        h = svc.submit(mps, ccfg, n_samples=2 * n, key=key, macro_batches=2)
+        cblocks = dict(h.stream(timeout=600))
+        torch.cuda.synchronize()
+        claunches = {x: v for x, v in ops.launch_counts().items() if v}
+        cstats = h.stats
+    check(claunches == {"contract_measure": 2 * sites},
+          f"service (b) clamped: launches {claunches}")
+    for b in range(2):
+        want, lp, _, _ = _clamped_session(mps, n, batch_key(key, b, 2),
+                                          CLAMP_SCALAR)
+        check(np.array_equal(cblocks[b], want)
+              and np.array_equal(cstats[b]["log_prob"], lp),
+              f"service (b) clamped: batch {b} differs from the clamped "
+              f"session walk (samples or log_prob)")
+    out["b"] = {"lanes": lanes, "removed_lane": removed[0],
+                "requeues": requeues,
+                "clamped_launches": claunches,
+                "speedup": lanes["1"]["wall_s"] / lanes[str(
+                    SERVICE_LANES)]["wall_s"]}
+    print(f"service (b): {k} batches of N={n} == sample(N, fold_in(key, b)) "
+          f"on 1 and {SERVICE_LANES} thread lanes, after a lane removed "
+          f"mid-job ({removed[0]}, {requeues} requeue), and the clamped "
+          f"2-batch job (contract_measure × {sites} a batch, log_prob == "
+          f"the clamped session walk's); {json.dumps(out['b'])}; "
+          f"{nvidia_smi()}", flush=True)
+
+    # (e) the registry over (b) and (c)
+    text = registry.render()
+    keep = ("fastmps_jobs_submitted_total", "fastmps_batches_total",
+            "fastmps_queue_events_total", "fastmps_transport_events_total",
+            "fastmps_jobs_finished_total", "fastmps_transport_lane_faults")
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(keep)]
+    snap = registry.snapshot()
+    requeued = snap["fastmps_queue_events_total"].get(
+        ("", (("event", "requeue"),)), 0)
+    spawns = snap["fastmps_transport_events_total"].get(
+        ("", (("event", "spawn"),)), 0)
+    check(snap["fastmps_jobs_submitted_total"][("", ())] >= 4
+          and snap["fastmps_batches_total"][("", ())] >= 3 * k
+          and requeued >= 2 and spawns >= SERVICE_WORKERS + 1,
+          f"service (e): the counters missed events: {lines}")
+    out["e"] = {"jobs": snap["fastmps_jobs_submitted_total"][("", ())],
+                "batches": snap["fastmps_batches_total"][("", ())],
+                "requeues": requeued, "worker_spawns": spawns}
+    print("service (e): metrics registry over (b) and (c):\n"
+          + "\n".join(lines), flush=True)
+    import threading
+    lanes = [t.name for t in threading.enumerate()
+             if t.name.startswith("sampling-service")]
+    check(not lanes, f"service: lane threads left running: {lanes}")
+    out["threads_after"] = [t.name for t in threading.enumerate()]
+    print(f"service: threads alive after the phase: "
+          f"{out['threads_after']}", flush=True)
+    _phase("service", t0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2587,39 +3233,79 @@ def phase_lm(device) -> dict:
 
 
 def phase_cli() -> None:
+    """The sampling CLI on the card, its runs all started at once: plain;
+    ``--clamp 1=0,3=1``; ``--service --service-workers 2`` (thread lanes,
+    the default dp scheme), which writes the plain run's batch files;
+    ``--service-fleet`` and ``--runtime remote`` (a worker process on the
+    card each, which places its walk itself: seq), which write the seq
+    walks' on the same batch keys, with the workers' kernel launches
+    reported; and ``repro_torch.launch.scenarios``."""
+    from repro_torch import api
+    from repro_torch.core import mps as M
+    from repro_torch.core import prng
+
     t0 = time.perf_counter()
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
+    sample = [sys.executable, "-m", "repro_torch.launch.sample", "--sites",
+              "8", "--chi", "256", "--d", "4", "--samples", "4096",
+              "--macro-batches", "2"]
     with tempfile.TemporaryDirectory(dir=build) as out:
+        runs = {"plain": sample + ["--out", out],
+                "clamped": sample + ["--clamp", "1=0,3=1", "--out",
+                                     os.path.join(out, "clamped")]}
+        flags = {"service": ["--service", "--service-workers", "2"],
+                 "fleet": ["--service-fleet"],
+                 "remote": ["--runtime", "remote"]}
+        for name, f in flags.items():
+            runs[name] = sample + ["--out", os.path.join(out, name), *f]
+        runs["scenarios"] = [sys.executable, "-m",
+                             "repro_torch.launch.scenarios", "--scenario",
+                             "all", "--json", ""]
         env = dict(os.environ, PYTHONPATH=str(SRC))
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.sample", "--sites",
-             "8", "--chi", "256", "--d", "4", "--samples", "4096",
-             "--macro-batches", "2", "--out", out], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        print(proc.stdout[-1500:])
-        check(proc.returncode == 0,
-              f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                 for name, cmd in runs.items()}
+        try:
+            # the seq walks on the CLI's chain and batch keys, meanwhile
+            device = torch.device("cuda", torch.cuda.current_device())
+            chain = M.gbs_like_mps(prng.key(0), 8, 256, 4,
+                                   dtype=torch.float64, device=device)
+            with api.SamplingSession(chain, api.SamplerConfig(
+                    kernels="cuda"), device=device) as session:
+                seq = [session.sample(2048, prng.fold_in(prng.key(1), b))
+                       for b in (0, 1)]
+            res = {name: proc.communicate(timeout=600)
+                   for name, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(f"cli: {len(runs)} runs at once in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        stdout, stderr = res["plain"]
+        print(stdout[-1500:])
+        check(procs["plain"].returncode == 0,
+              f"CLI exited {procs['plain'].returncode}: {stderr[-3000:]}")
         for b in (0, 1):
             check(os.path.exists(os.path.join(out, f"batch_{b:05d}.npy")),
                   f"CLI wrote no batch {b}")
-        line = [ln for ln in proc.stdout.splitlines()
+        line = [ln for ln in stdout.splitlines()
                 if ln.startswith("kernel launches:")]
         check(len(line) == 1, "CLI printed no launch counts")
         counts = json.loads(line[0].split(":", 1)[1])
         check(counts["site_step_linear"] > 0,
               f"CLI launched no kernel: {counts}")
-        clamped = os.path.join(out, "clamped")
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.sample", "--sites",
-             "8", "--chi", "256", "--d", "4", "--samples", "4096",
-             "--macro-batches", "2", "--clamp", "1=0,3=1", "--out",
-             clamped], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=600)
-        print(proc.stdout[-1500:])
-        check(proc.returncode == 0,
-              f"clamped CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-        lines = proc.stdout.splitlines()
+
+        stdout, stderr = res["clamped"]
+        print(stdout[-1500:])
+        check(procs["clamped"].returncode == 0,
+              f"clamped CLI exited {procs['clamped'].returncode}: "
+              f"{stderr[-3000:]}")
+        lines = stdout.splitlines()
         counts = json.loads([ln for ln in lines if ln.startswith(
             "kernel launches:")][0].split(":", 1)[1])
         check(counts["contract_measure"] == 16 and
@@ -2628,17 +3314,41 @@ def phase_cli() -> None:
               f"× 16 (8 sites, 2 batches)")
         check(any(ln.startswith("clamp log_prob: n=4096") for ln in lines),
               "clamped CLI printed no log_prob line")
-        batch = np.load(os.path.join(clamped, "batch_00000.npy"))
+        batch = np.load(os.path.join(out, "clamped", "batch_00000.npy"))
         check(bool((batch[:, 1] == 0).all() and (batch[:, 3] == 1).all()),
               "clamped CLI: the clamp does not hold in batch 0")
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.scenarios",
-             "--scenario", "all", "--json", ""], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        print(proc.stdout[-2500:])
-        check(proc.returncode == 0 and proc.stdout.count("[PASS]") == 3,
-              f"scenarios exited {proc.returncode}: {proc.stdout[-2000:]} "
-              f"{proc.stderr[-2000:]}")
+
+        plain = [np.load(os.path.join(out, f"batch_{b:05d}.npy"))
+                 for b in (0, 1)]
+        for name, f in flags.items():
+            want = plain if name == "service" else seq
+            stdout, stderr = res[name]
+            lines = stdout.splitlines()
+            print("\n".join(ln for ln in lines if ln.startswith(
+                ("[service]", "worker kernel launches", "runtime counters",
+                 "kernel launches")))[-1500:])
+            check(procs[name].returncode == 0, f"CLI {' '.join(f)} exited "
+                  f"{procs[name].returncode}: {stderr[-3000:]}")
+            for b in (0, 1):
+                got = np.load(os.path.join(out, name, f"batch_{b:05d}.npy"))
+                check(np.array_equal(got, np.asarray(want[b]).astype(
+                    np.int8)), f"CLI {' '.join(f)}: batch {b} differs from "
+                    f"the {'plain run' if name == 'service' else 'seq walk'}")
+            counts = json.loads([ln for ln in lines if ln.startswith(
+                "worker kernel launches:" if name != "service" else
+                "kernel launches:")][0].split(":", 1)[1])
+            check(counts["site_step_linear"] == 16, f"CLI {' '.join(f)}: "
+                  f"launches {counts}, expected site_step_linear × 16")
+            print(f"cli {' '.join(f)}: batch files == the "
+                  f"{'plain run' if name == 'service' else 'seq walks'}; "
+                  f"launches {counts}", flush=True)
+
+        stdout, stderr = res["scenarios"]
+        print(stdout[-2500:])
+        check(procs["scenarios"].returncode == 0
+              and stdout.count("[PASS]") == 3,
+              f"scenarios exited {procs['scenarios'].returncode}: "
+              f"{stdout[-2000:]} {stderr[-2000:]}")
     _phase("cli", t0)
 
 
@@ -2647,14 +3357,18 @@ def main() -> int:
 
     device = phase_device()
     sys.path.insert(0, str(SRC))
+    from repro_torch.obs import MetricsRegistry
+
     ptxas, mma = phase_build()
     phase_small(device)
     mesh = phase_nccl(device)
+    registry = MetricsRegistry()
     try:
-        stream = phase_stream(device, mesh)
+        stream = phase_stream(device, mesh, registry)
         linear, mps, env = phase_full(device, "linear")
         walks = phase_tp(mesh, mps)
         clamp = phase_clamp(mesh, mps)
+        service = phase_service(mps, stream.pop("service"), registry)
         tp_entries = phase_tp_kernels(device, mps, env, walks)
         bf16_entries = phase_bf16(device, mesh, mps)
         del mps, env
@@ -2710,7 +3424,21 @@ def main() -> int:
         dict(clamp.pop("square"), launches=clamp["a"]["launches"][
             "contract_measure"]))
     tp_entries[0]["clamp"] = clamp
+    streamed = service["streamed"]
+    linear["service_launches"] = {
+        "session": service["a"]["launches"]["site_step_linear"],
+        "lanes": service["b"]["lanes"][str(SERVICE_LANES)]["launches"][
+            "site_step_linear"],
+        "fleet_workers": streamed["fleet"]["worker_launches"][
+            "site_step_linear"],
+        "remote_worker": streamed["remote"]["worker_launches"][
+            "site_step_linear"],
+        "gloo_ranks": [r["site_step_linear"]
+                       for r in streamed["gloo"]["launches"]]}
+    tp_entries[0]["service_launches"] = {
+        "clamped_job": service["b"]["clamped_launches"]["contract_measure"]}
     print("stream:", json.dumps(stream))
+    print("service:", json.dumps(service))
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,
                flash]
     print("kernels:", json.dumps(entries))

@@ -9,9 +9,15 @@
   scheme and leaves the per-sample ``log_prob`` in the request's stats;
 * ``streamed`` — ``engine.StreamingEngine`` walks the chain from a
   :class:`~repro_torch.data.gamma_store.GammaStore` in device-budgeted
-  segments, with every scheme above, per-segment checkpoints and resume.
+  segments, with every scheme above, per-segment checkpoints and resume,
+  on the session's runtime (on a multi-process runtime the root reads
+  each segment and broadcasts it, paper §3.1);
+* ``remote`` — no walk here: the request is serialized
+  (``api/remote.py``) and dispatched through the runtime's ``submit``.
 
-The service and remote data planes wait for ROADMAP.md §1 row 10.
+A (data plane × runtime) cell is config, not a class:
+``SamplerConfig(backend="streamed", runtime="multihost")`` is the paper's
+multi-host broadcast run.
 """
 from __future__ import annotations
 
@@ -35,6 +41,10 @@ def register_backend(name: str) -> Callable[[type], type]:
     return deco
 
 
+def available_backends() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def get_backend(name: str) -> "Backend":
     try:
         return _REGISTRY[name]
@@ -45,10 +55,14 @@ def get_backend(name: str) -> "Backend":
 
 @dataclasses.dataclass
 class SampleRequest:
-    """Everything a backend needs for one ``sample()`` execution.  ``mps``
-    and ``store`` are zero-argument callables, so a backend pays only for
-    the source it walks (a streamed session never loads the chain, an
-    in-memory one never writes a store)."""
+    """Everything a backend needs for one batch.  ``mps`` and ``store``
+    are zero-argument callables, so a backend pays only for the source it
+    walks (a streamed session never loads the chain, an in-memory one never
+    writes a store).  ``runtime`` is the session's resolved runtime,
+    ``config`` its session-level config (what the remote plane ships),
+    ``job`` the ``service.JobBatch`` this request runs, and ``pipeline``
+    whether the streamed engine fetches the next batch's first segment
+    behind this batch's last one."""
     plan: SessionPlan
     n_samples: int
     key: torch.Tensor
@@ -60,6 +74,10 @@ class SampleRequest:
     stop_after_segments: Optional[int] = None
     stats: dict = dataclasses.field(default_factory=dict)
     engines: Optional[dict] = None     # the session's streamed engines
+    runtime: Optional[object] = None   # api.runtime.ClusterRuntime
+    config: Optional[object] = None    # api.config.SamplerConfig
+    job: Optional[object] = None       # api.service.JobBatch
+    pipeline: bool = False
 
 
 class Backend:
@@ -165,7 +183,9 @@ class InMemBackend(Backend):
 @register_backend("streamed")
 class StreamedBackend(Backend):
     """Segment-streamed execution through :class:`engine.StreamingEngine`:
-    one engine per constructor identity, kept for the session's life."""
+    one engine per constructor identity, kept for the session's life (a
+    service's batches reuse it, and its pool fetches batch b+1's first
+    segment behind batch b's last)."""
     name = "streamed"
 
     def sample(self, req: SampleRequest) -> np.ndarray:
@@ -183,7 +203,7 @@ class StreamedBackend(Backend):
                                 checkpoint_every=plan.checkpoint_every),
                 mesh=req.mesh if scheme != "inmem" else None,
                 pconfig=plan.pconfig, chi_profile=plan.chi_profile,
-                clamp=plan.clamp, device=plan.device)
+                runtime=req.runtime, clamp=plan.clamp, device=plan.device)
 
         kw = dict(resume=req.resume,
                   stop_after_segments=req.stop_after_segments,
@@ -204,7 +224,45 @@ class StreamedBackend(Backend):
                        plan.pconfig, plan.clamp, plan.device)
             eng = req.engines.get(eng_key)
             if eng is None:
-                eng = req.engines[eng_key] = build()
-            out, stats = eng.sample_with_stats(req.n_samples, req.key, **kw)
+                new = build()
+                eng = req.engines.setdefault(eng_key, new)   # a lost race
+                if eng is not new:
+                    new.close(close_store=False)
+            out, stats = eng.sample_with_stats(req.n_samples, req.key,
+                                               pipeline=req.pipeline, **kw)
         req.stats.update(stats)
         return out
+
+
+@register_backend("remote")
+class RemoteBackend(Backend):
+    """Dispatch the serialized request through the runtime (no walk here):
+    ``LocalRuntime`` runs it in this process, ``RemoteRuntime`` in a worker
+    process.  The dispatch unit is the job batch: ``req.key`` is the job's
+    key and ``req.job`` its identity, and the worker folds the batch key
+    itself, so every batch equals its local counterpart."""
+    name = "remote"
+
+    def sample(self, req: SampleRequest) -> np.ndarray:
+        from repro_torch.api.remote import build_payload
+
+        if req.resume:
+            raise ValueError("resume is local to the worker's checkpoint "
+                             "dir — re-dispatch the batch instead (macro "
+                             "batches are idempotent work items)")
+        if req.checkpoint_dir is not None:
+            raise ValueError("backend='remote' does not ship a "
+                             "checkpoint_dir (see resolve_plan) — remote "
+                             "fault tolerance is per macro batch")
+        # the store is the hand-off: an MPS source is written once (its own
+        # dtype) and only its location rides the payload
+        store = req.store()
+        payload = build_payload(req.config, store, req.n_samples, req.key,
+                                job=req.job)
+        before = dict(req.runtime.io_counters())
+        out = req.runtime.submit(payload, device=req.plan.device)
+        req.stats.update({f"runtime_{k}": v - before.get(k, 0)
+                          for k, v in req.runtime.io_counters().items()
+                          if isinstance(v, (int, float))
+                          and not isinstance(v, bool)})
+        return np.asarray(out)

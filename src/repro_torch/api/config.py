@@ -1,10 +1,14 @@
 """Config schema and resolution for the sampling front door.
 
 :class:`SamplerConfig` keeps the JAX package's field names
-(``repro.api.config``).  The port resolves runtime ``local``, the data
-planes ``inmem`` (the whole chain on the device) and ``streamed`` (a
+(``repro.api.config``).  The port resolves the runtimes ``local``,
+``multihost`` (a ``torch.distributed`` job of ≥ 2 ranks), ``remote`` (a
+worker process) or a runtime instance (``api.runtime``), the data planes
+``inmem`` (the whole chain on the device), ``streamed`` (a
 :class:`~repro_torch.data.gamma_store.GammaStore` walked segment by segment
-by ``engine.StreamingEngine``), and the schemes ``seq``, ``dp``,
+by ``engine.StreamingEngine``) and ``remote`` (the request dispatched
+through the runtime; AUTO on a remote runtime), and the schemes ``seq``,
+``dp``,
 ``tp_single``, ``tp_double`` and ``baseline19`` over a session's mesh (with
 ``wire_dtype`` and ``measure_first``).  ``auto`` resolves to ``seq``
 without a mesh (or on a 1×1 mesh), to ``dp`` when the mesh has no model
@@ -17,9 +21,12 @@ walk into χ-stages; ``micro_batch="auto"`` takes Eq. 3's pick and
 is made (``None``/``{}`` plan the unchanged unclamped path) and checked
 against the chain and batch at plan time; a clamped plan walks
 ``core/clamped.py`` under every scheme but ``baseline19`` and returns the
-per-sample ``log_prob`` in ``session.stats``.  The runtimes
-``multihost``/``remote``, the ``remote`` backend and ``shard`` raise
-``NotImplementedError`` naming the ROADMAP.md row that ports them.
+per-sample ``log_prob`` in ``session.stats``.  A runtime of more than one
+process needs the ``streamed`` plane (the §3.1 broadcast), and
+``backend="remote"`` takes no mesh, no scheme but seq and no
+``checkpoint_dir``, as the JAX package refuses them.  ``shard`` (the
+sharded plane) raises ``NotImplementedError`` naming the ROADMAP.md row
+that ports it.
 
 ``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
 PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
@@ -37,6 +44,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.api.runtime import ClusterRuntime, resolve_runtime
 from repro_torch.core.dynamic_bond import stages_from_profile
 from repro_torch.core.parallel import ParallelConfig
 from repro_torch.core.perfmodel import H100, Hardware, Workload, \
@@ -52,7 +60,7 @@ _SCHEMES = ("seq", "dp", "tp_single", "tp_double", "baseline19")
 _SCALINGS = ("none", "global", "per_sample")
 
 
-def unported(what: str, row: int, topic: str) -> NotImplementedError:
+def unported(what: str, row, topic: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet "
         f"(ROADMAP.md §1 row {row}: {topic})")
@@ -69,7 +77,7 @@ class SamplerConfig:
     measure_first: bool = False
     scheme: str = AUTO
     backend: str = AUTO
-    runtime: str = AUTO
+    runtime: Union[str, ClusterRuntime] = AUTO
     micro_batch: Union[int, str, None] = None      # N₂ per data shard
     chi_profile: Optional[tuple[int, ...]] = None  # bucketed χ per site
     segment_len: Union[int, str] = AUTO            # streamed: sites/segment
@@ -89,8 +97,8 @@ class SamplerConfig:
 @dataclasses.dataclass(frozen=True)
 class SessionPlan:
     """Fully-resolved execution record for one ``session.sample(n, key)``."""
-    backend: str                       # "inmem" | "streamed"
-    runtime: str                       # "local"
+    backend: str                       # "inmem" | "streamed" | "remote"
+    runtime: str                       # the runtime's name
     scheme: str                        # "seq" | "dp" | "tp_*" | "baseline19"
     semantics: str
     kernels: str                       # resolved dispatch: "cuda" | "torch"
@@ -106,6 +114,13 @@ class SessionPlan:
     stages: Optional[tuple[tuple[int, int, int], ...]] = None  # (s0, s1, χ)
     checkpoint_every: int = 1
     clamp: Optional[tuple] = None      # the normalised spec; None: unclamped
+
+    @property
+    def cell(self) -> tuple[str, str, str, str, str]:
+        """backend × runtime × scheme × semantics × kernels: the config
+        cell the service coalesces jobs on."""
+        return (self.backend, self.runtime, self.scheme, self.semantics,
+                self.kernels)
 
 
 def _mesh_sizes(mesh) -> tuple[int, int]:
@@ -134,14 +149,39 @@ def _auto_micro_batch(n_local: int, chi: int, d: int, budget: float,
 
 
 def _check_unported(config: SamplerConfig) -> None:
-    if config.backend == "remote":
-        raise unported("backend='remote'", 10, "service and cluster layers")
-    if config.runtime not in (AUTO, "local"):
-        raise unported(f"runtime={config.runtime!r}", 10,
-                       "service and cluster layers")
     if config.shard is not None:
-        raise unported("chain sharding (shard=...)", 10,
-                       "service and cluster layers")
+        raise unported("chain sharding (shard=...)", "10b",
+                       "sharded plane, serving and gateway")
+
+
+def _check_cell(runtime: ClusterRuntime, backend: str, config: SamplerConfig,
+                mesh) -> None:
+    """The runtime × data-plane cells the JAX package refuses."""
+    if runtime.process_count > 1 and backend != "streamed":
+        raise ValueError(
+            f"runtime {runtime.name!r} spans {runtime.process_count} "
+            f"processes — the §3.1 Γ broadcast needs the 'streamed' data "
+            f"plane (got backend={backend!r})")
+    if runtime.name == "remote" and backend != "remote":
+        raise ValueError(
+            f"a remote runtime dispatches serialized configs — use "
+            f"backend='remote' (or AUTO), not {backend!r}")
+    if backend != "remote":
+        return
+    if config.scheme not in (AUTO, "seq"):
+        raise ValueError(
+            f"backend='remote' resolves placement on the worker — scheme "
+            f"must stay AUTO/'seq' on the dispatching side (got "
+            f"{config.scheme!r})")
+    if mesh is not None:
+        raise ValueError("backend='remote' takes no local mesh — the worker "
+                         "builds its own from its runtime")
+    if config.checkpoint_dir is not None:
+        raise ValueError(
+            "backend='remote' does not ship checkpoint_dir — the worker's "
+            "checkpoints would be local to it and resume could not find "
+            "them; rely on idempotent macro batches (run_queue) for remote "
+            "fault tolerance")
 
 
 def _stages(chi_profile, n_sites: int, chi: int, scheme: str, p2: int):
@@ -175,16 +215,28 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                  chi: int, d: int, source_semantics: Optional[str] = None,
                  device: torch.device, mesh=None,
                  backend_hint: str = "inmem",
-                 elt_bytes: int = 8) -> SessionPlan:
+                 elt_bytes: int = 8,
+                 runtime: Optional[ClusterRuntime] = None) -> SessionPlan:
     """Resolve every AUTO field of ``config`` into a :class:`SessionPlan`;
     raises ``ValueError`` for malformed requests and ``NotImplementedError``
     for values the port does not carry yet.  ``backend_hint`` is the
     source's natural data plane (``streamed`` for a store), ``elt_bytes``
-    the bytes of one of its Γ elements as walked."""
+    the bytes of one of its Γ elements as walked, ``runtime`` the session's
+    resolved runtime (None: resolve ``config.runtime`` here)."""
+    from repro_torch.api.backends import available_backends
+
     _check_unported(config)
-    backend = backend_hint if config.backend == AUTO else config.backend
-    if backend not in ("inmem", "streamed"):
-        raise ValueError(f"unknown backend {config.backend!r}")
+    if runtime is None:
+        runtime = resolve_runtime(config.runtime)
+    backend = config.backend
+    if backend == AUTO:
+        # a remote runtime runs only dispatched payloads: the worker picks
+        # the data plane on its side
+        backend = "remote" if runtime.name == "remote" else backend_hint
+    if backend not in available_backends():
+        raise ValueError(f"unknown backend {backend!r}; have "
+                         f"{available_backends()}")
+    _check_cell(runtime, backend, config, mesh)
     if config.scheme not in (AUTO,) + _SCHEMES:
         raise ValueError(f"unknown scheme {config.scheme!r}; have {_SCHEMES}")
     if config.scaling not in _SCALINGS:
@@ -281,7 +333,9 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
 
     clamp = config.clamp                # normalised by __post_init__
     if clamp is not None:
-        validate_clamp(clamp, n_sites=n_sites, d=d, n_samples=n_samples)
+        if backend != "remote":         # the worker checks it against its
+            validate_clamp(clamp, n_sites=n_sites, d=d,        # store
+                           n_samples=n_samples)
         if scheme == "baseline19":
             raise ValueError("clamped sampling does not compose with the "
                              "[19] pipeline baseline")
@@ -301,7 +355,7 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                                        scaling=config.scaling,
                                        compute_dtype=config.compute_dtype,
                                        kernels=kernels)
-    return SessionPlan(backend=backend, runtime="local", scheme=scheme,
+    return SessionPlan(backend=backend, runtime=runtime.name, scheme=scheme,
                        semantics=semantics, kernels=kernels,
                        n_samples=n_samples, p1=p1, p2=p2, micro_batch=micro,
                        sampler_config=sampler_config, pconfig=pconfig,

@@ -25,14 +25,21 @@ without a GPU the session raises unless ``device="cpu"`` is passed.
 every rank of the job builds the same session and calls ``sample`` with the
 same key, and every rank gets the full (N, M) array back, as the JAX
 package's controller does; the session then runs on the mesh's device.
-``sample`` uses its key unchanged (the JAX package's one-batch service
-job); ``run_queue`` derives macro batch b's key as ``fold_in(base, b)``.
-``stats`` holds the last streamed walk's engine statistics and, after a
+``sample`` is a one-batch job on the session's private one-lane
+:class:`~repro_torch.api.service.SamplingService`, drawn on its key
+unchanged; ``run_queue`` runs macro batch b as ``sample(per_batch,
+fold_in(base, b))``; :meth:`_execute_batch` is the one place a data plane
+is called.  ``stats`` holds the last walk's statistics (the streamed
+engine's, the runtime's counters for ``backend="remote"``) and, after a
 clamped call (``SamplerConfig(clamp=...)``), the per-sample ``log_prob``
-of the clamped branch.  The service layer is a later slice.
+of the clamped branch.  ``config.runtime`` places the session: ``local``,
+``multihost`` (one session per rank, the root reads and broadcasts each
+segment), ``remote`` (the ``remote`` data plane dispatches to a worker)
+or a runtime instance (an ``emulated_cluster`` member).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
@@ -44,7 +51,7 @@ import torch
 
 from repro_torch.api.backends import SampleRequest, get_backend
 from repro_torch.api.config import SamplerConfig, SessionPlan, resolve_plan
-from repro_torch.core import prng
+from repro_torch.api.runtime import ClusterRuntime, resolve_runtime
 from repro_torch.core.mps import MPS
 from repro_torch.data.gamma_store import GammaStore
 from repro_torch.device import DeviceLike, resolve_device
@@ -68,7 +75,16 @@ class SamplingSession:
         self._engines: dict = {}
         self._lock = threading.RLock()
         self._closed = False
+        self._service = None            # the one-lane service behind sample
+        # a process group's collectives are issued in one order: walks over
+        # the mesh take turns when several lanes share the session
+        self._mesh_lock = threading.Lock()
         self.stats: dict = {}
+        # the runtime is session state (it may hold worker processes); a
+        # runtime resolved from a name is the session's to close
+        self.runtime = resolve_runtime(self.config.runtime)
+        self._owns_runtime = not isinstance(self.config.runtime,
+                                            ClusterRuntime)
         if isinstance(source, (str, os.PathLike)):
             source = GammaStore(str(source))
             self._owns_store = True
@@ -102,7 +118,8 @@ class SamplingSession:
                     self.config, n_samples=n_samples, n_sites=self.n_sites,
                     chi=self.chi, d=self.d, source_semantics=self._semantics,
                     device=self.device, mesh=self.mesh,
-                    backend_hint=self._hint, elt_bytes=self._elt_bytes)
+                    backend_hint=self._hint, elt_bytes=self._elt_bytes,
+                    runtime=self.runtime)
             return self._plans[n_samples]
 
     def explain(self, n_samples: int) -> dict:
@@ -110,7 +127,9 @@ class SamplingSession:
         overlap accounting behind them (``engine.explain_plan``)."""
         plan = self.plan(n_samples)
         stages = plan.stages or ((0, self.n_sites, self.chi),)
-        info = {"backend": plan.backend, "scheme": plan.scheme,
+        info = {"backend": plan.backend, "runtime": plan.runtime,
+                "processes": self.runtime.process_count,
+                "scheme": plan.scheme,
                 "kernels": plan.kernels, "semantics": plan.semantics,
                 "p1": plan.p1, "p2": plan.p2,
                 "micro_batch": plan.micro_batch, "n_stages": len(stages),
@@ -159,47 +178,99 @@ class SamplingSession:
                 self._owns_store = True
             return self._store
 
+    def _default_service(self):
+        """The session's private one-lane service: ``sample`` and
+        ``run_queue`` are synchronous wrappers over it, so a batch has one
+        execution path (the service's batch runner)."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the session is closed")
+            if self._service is None:
+                from repro_torch.api.service import SamplingService
+                self._service = SamplingService(workers=1)
+            return self._service
+
     def sample(self, n_samples: int, key: torch.Tensor, *,
                resume: bool = False, checkpoint_dir: Optional[str] = None,
                stop_after_segments: Optional[int] = None) -> np.ndarray:
         """Draw ``n_samples`` chains; returns (N, M) int64 outcomes.
-        ``resume=True`` continues a streamed walk from its newest
-        checkpoint; ``checkpoint_dir`` overrides the config's;
+
+        A one-batch job on the session's private service, drawn on ``key``
+        unchanged.  ``resume=True`` continues a streamed walk from its
+        newest checkpoint; ``checkpoint_dir`` overrides the config's;
         ``stop_after_segments`` stops a streamed walk there, as a kill
         would."""
+        handle = self._default_service().submit(
+            self, n_samples=n_samples, key=key, macro_batches=1,
+            resume=resume, checkpoint_dir=checkpoint_dir,
+            stop_after_segments=stop_after_segments)
+        return handle.result()
+
+    def _execute_batch(self, n_samples: int, key: torch.Tensor, *, job=None,
+                       resume: bool = False,
+                       checkpoint_dir: Optional[str] = None,
+                       stop_after_segments: Optional[int] = None,
+                       pipeline: bool = False) -> tuple[np.ndarray, dict]:
+        """Run ONE macro batch on the data plane — the service's batch
+        runner and the only place a backend is called.  ``key`` is the
+        job's key: the local planes fold it (``service.batch_key``), the
+        remote plane ships it with the ``job`` identity and the worker
+        folds it.  Returns ``(samples, stats)``, the stats by value, so
+        concurrent lanes never read another batch's numbers (``self.stats``
+        keeps the last walk's for the synchronous facade)."""
+        from repro_torch.api.service import batch_key
+
         if self._closed:
             raise RuntimeError("the session is closed")
         plan = self.plan(n_samples)
+        if job is not None and plan.backend != "remote":
+            key = batch_key(key, job.batch_id, job.n_batches)
+        # the config's checkpoint_dir names ONE walk's directory: a
+        # multi-batch job must not fall back to it (every batch would write
+        # the same files); checkpoint_root gives per-batch directories
+        if checkpoint_dir is None and (job is None or job.n_batches == 1):
+            checkpoint_dir = self.config.checkpoint_dir
         req = SampleRequest(
             plan=plan, n_samples=n_samples, key=key, mps=self._ensure_mps,
-            store=self._ensure_store, mesh=self.mesh, resume=resume,
-            checkpoint_dir=(self.config.checkpoint_dir
-                            if checkpoint_dir is None else checkpoint_dir),
-            stop_after_segments=stop_after_segments, engines=self._engines)
-        out = get_backend(plan.backend).sample(req)
+            store=self._ensure_store, mesh=self.mesh, runtime=self.runtime,
+            config=self.config, resume=resume, checkpoint_dir=checkpoint_dir,
+            stop_after_segments=stop_after_segments, job=job,
+            pipeline=pipeline, engines=self._engines)
+        # a lane thread's current card is cuda:0: make it the session's
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else contextlib.nullcontext()), \
+                (self._mesh_lock if plan.scheme != "seq"
+                 else contextlib.nullcontext()):
+            out = get_backend(plan.backend).sample(req)
         self.stats = req.stats
         # row-major (N, M), the layout the JAX package's session returns
-        return np.ascontiguousarray(out)
+        return np.ascontiguousarray(out), dict(req.stats)
 
     def run_queue(self, queue, per_batch: int, base_key: torch.Tensor, *,
                   worker: str = "session",
                   checkpoint_root: Optional[str] = None,
                   on_batch: Optional[Callable[[int, np.ndarray], None]] = None
                   ) -> dict[int, np.ndarray]:
-        """Macro batches (paper N₁) as idempotent work items: batch b is
-        ``sample(per_batch, fold_in(base_key, b))``.  With
-        ``checkpoint_root`` a streamed batch checkpoints into its own
-        directory, and a batch killed mid-chain resumes from its last
-        segment boundary.  ``on_batch(b, samples)`` is called per finished
-        batch; without it the samples are returned."""
+        """Macro batches (paper N₁) as idempotent work items claimed from
+        the caller's queue (its state is the restart unit: two sessions on
+        one queue split the work): batch b is ``sample(per_batch,
+        fold_in(base_key, b))``.  With ``checkpoint_root`` a streamed batch
+        checkpoints into its own directory, and a batch killed mid-chain
+        resumes from its last segment boundary.  ``on_batch(b, samples)``
+        is called per finished batch; without it the samples are
+        returned."""
+        from repro_torch.api.service import (batch_checkpoint_dir,
+                                             has_chain_checkpoint)
+        from repro_torch.core import prng
+
         streamed = self.plan(per_batch).backend == "streamed"
         out: dict[int, np.ndarray] = {}
         while (b := queue.claim(worker)) is not None:
             ck, resume = None, False
             if checkpoint_root and streamed:
-                ck = os.path.join(checkpoint_root, f"batch_{b:05d}")
+                ck = batch_checkpoint_dir(checkpoint_root, b)
                 os.makedirs(ck, exist_ok=True)
-                resume = any(f.startswith("site_") for f in os.listdir(ck))
+                resume = has_chain_checkpoint(ck)
             res = self.sample(per_batch, prng.fold_in(base_key, b),
                               resume=resume, checkpoint_dir=ck)
             if on_batch is not None:
@@ -212,9 +283,13 @@ class SamplingSession:
         return out
 
     def close(self) -> None:
-        """Release what the session owns: its engines, a store it opened or
-        wrote (and a temporary store's directory), and its reference to the
-        chain; a store passed in stays open."""
+        """Release what the session owns: its service lane, its engines, a
+        store it opened or wrote (and a temporary store's directory), a
+        runtime it resolved from a name, and its reference to the chain; a
+        store or runtime passed in stays open."""
+        if self._service is not None:
+            self._service.close()       # joins the lane: no walk in flight
+            self._service = None
         for eng in self._engines.values():
             eng.close(close_store=False)
         self._engines.clear()
@@ -225,6 +300,8 @@ class SamplingSession:
         if self._tmp_store_root is not None:
             shutil.rmtree(self._tmp_store_root, ignore_errors=True)
             self._tmp_store_root = None
+        if self._owns_runtime and not self._closed:
+            self.runtime.close()        # reap its worker processes
         self._mps = None
         self._closed = True
 

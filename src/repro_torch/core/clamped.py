@@ -214,8 +214,8 @@ def sample_segment_clamped(mesh, mps: MPS, env: torch.Tensor,
     if len(pconfig.data_axes) != 1:
         from repro_torch.api.config import unported
         raise unported(f"more than one data axis {pconfig.data_axes} (the "
-                       "reference's pod axis)", 10,
-                       "service and cluster layers")
+                       "reference's pod axis)", "10b",
+                       "sharded plane, serving and gateway")
     data = mesh.group(pconfig.data_axes[0])
     p1, me = C.axis_size(data), C.axis_index(data)
     n = env.shape[0]

@@ -354,8 +354,8 @@ def sample_segment(mesh, mps: MPS, env: torch.Tensor, key: torch.Tensor,
     if len(pconfig.data_axes) != 1:
         from repro_torch.api.config import unported
         raise unported(f"more than one data axis {pconfig.data_axes} (the "
-                       "reference's pod axis)", 10,
-                       "service and cluster layers")
+                       "reference's pod axis)", "10b",
+                       "sharded plane, serving and gateway")
     data = mesh.group(pconfig.data_axes[0])
     p1 = C.axis_size(data)
     n_samples, chi = env.shape

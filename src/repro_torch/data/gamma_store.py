@@ -220,17 +220,19 @@ def decode_gamma(raw: np.ndarray, gshape: tuple, two_byte: bool,
     return g.to(compute_dtype)
 
 
+def _bytes_of(a: np.ndarray) -> memoryview:
+    """An array's bytes, without the copy ``tobytes`` makes."""
+    return memoryview(np.ascontiguousarray(a)).cast("B")
+
+
 def segment_checksum(gamma: np.ndarray, lam: np.ndarray) -> int:
     """CRC-32 over a segment payload's packed Γ and Λ bytes."""
-    return zlib.crc32(np.ascontiguousarray(lam).tobytes(),
-                      zlib.crc32(np.ascontiguousarray(gamma).tobytes()))
+    return zlib.crc32(_bytes_of(lam), zlib.crc32(_bytes_of(gamma)))
 
 
-def decode_segment(payload: dict, compute_dtype: Optional[torch.dtype] = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A segment payload (:meth:`GammaStore.get_segment_raw`) → stacked
-    (gammas (L, χ, χ, d), lambdas (L, χ)) host tensors; a payload whose
-    ``crc`` does not match raises :class:`CorruptSegment`."""
+def _check_crc(payload: dict) -> None:
+    """Raise :class:`CorruptSegment` if a payload's ``crc`` does not match
+    its bytes (a payload without one passes)."""
     if payload.get("crc") is not None:
         want = int(np.asarray(payload["crc"]))
         got = segment_checksum(payload["gamma"], payload["lam"])
@@ -241,11 +243,82 @@ def decode_segment(payload: dict, compute_dtype: Optional[torch.dtype] = None
                 message=f"segment payload at site {start} failed its "
                         f"checksum (crc {got:#010x} != {want:#010x}) — "
                         f"rejected at decode, not sampled from"))
+
+
+def decode_segment(payload: dict, compute_dtype: Optional[torch.dtype] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A segment payload (:meth:`GammaStore.get_segment_raw`) → stacked
+    (gammas (L, χ, χ, d), lambdas (L, χ)) host tensors; a payload whose
+    ``crc`` does not match raises :class:`CorruptSegment`."""
+    _check_crc(payload)
     compute = payload["compute_dtype"] if compute_dtype is None \
         else compute_dtype
     g = decode_gamma(payload["gamma"], tuple(payload["gshape"]),
                      bool(payload["two_byte"]), compute)
     return g, torch.from_numpy(np.ascontiguousarray(payload["lam"]))
+
+
+def payload_on_device(payload: dict, device: torch.device, *,
+                      chi: Optional[int] = None,
+                      compute_dtype: Optional[torch.dtype] = None,
+                      stream=None) -> dict:
+    """A segment payload (a store's :meth:`GammaStore.get_segment_raw`, or
+    one a runtime broadcast) on ``device``, both bonds cut to ``chi``, in
+    :meth:`GammaStore.get_segment_on_device`'s form.  The ``crc`` is
+    checked first.  On the card the storage-format bytes are copied on
+    ``stream`` and upcast there; on the CPU they are decoded on the
+    host."""
+    _check_crc(payload)
+    device = torch.device(device)
+    raw = np.asarray(payload["gamma"])
+    gshape = tuple(int(x) for x in payload["gshape"])
+    c = gshape[0] if chi is None else chi
+    two_byte = bool(payload["two_byte"])
+    compute = payload["compute_dtype"] if compute_dtype is None \
+        else compute_dtype
+    lam = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(payload["lam"])[:, :c]))
+    if c != gshape[0]:
+        raw = raw[:, :c, :c, :]
+    if device.type != "cuda":
+        g = decode_gamma(raw, (c, c, gshape[2]), two_byte, compute)
+        return {"gammas": g, "lambdas": lam.to(device), "ready": None,
+                "copy": None, "bytes": 0}
+    host = torch.from_numpy(np.ascontiguousarray(raw).reshape(-1)
+                            .view(np.uint8))
+    stored = torch.bfloat16 if two_byte else _TORCH[raw.dtype]
+    return _segment_to_device([host], (raw.shape[0], c, c, gshape[2]),
+                              stored, compute, lam, device, stream)
+
+
+def _segment_to_device(chunks: list, shape: tuple, stored: torch.dtype,
+                       compute: torch.dtype, lam: torch.Tensor,
+                       device: torch.device, stream) -> dict:
+    """Host storage-format bytes (uint8 tensors, pinned for an asynchronous
+    copy) → one device buffer on ``stream``, viewed as ``stored`` in
+    ``shape`` and upcast to ``compute`` there: the card's half of
+    :meth:`GammaStore.get_segment_on_device` and :func:`payload_on_device`.
+    """
+    h2d0 = torch.cuda.Event(enable_timing=True)
+    h2d1 = torch.cuda.Event(enable_timing=True)
+    ready = torch.cuda.Event()
+    with torch.cuda.stream(stream):
+        dev = torch.empty(sum(ch.numel() for ch in chunks),
+                          dtype=torch.uint8, device=device)
+        h2d0.record(stream)
+        o = 0
+        for ch in chunks:
+            dev[o:o + ch.numel()].copy_(ch, non_blocking=True)
+            o += ch.numel()
+        h2d1.record(stream)
+        g = dev.view(stored).view(*shape)
+        g = g.to(compute) if g.dtype != compute else g
+        lam_d = lam.to(device)
+        del dev
+        ready.record(stream)
+    return {"gammas": g, "lambdas": lam_d, "ready": ready,
+            "copy": (h2d0, h2d1),
+            "bytes": o + lam.numel() * lam.element_size()}
 
 
 class GammaStore:
@@ -593,30 +666,11 @@ class GammaStore:
                 part.numpy().view(r.dtype).reshape(c, c, gshape[2])[...] = \
                     r.view()[:c, :c, :]
                 chunks.append(part)
-        two_byte = raws[0].two_byte
-        stream = self.copy_stream(device)
-        h2d0 = torch.cuda.Event(enable_timing=True)
-        h2d1 = torch.cuda.Event(enable_timing=True)
-        ready = torch.cuda.Event()
-        with torch.cuda.stream(stream):
-            dev = torch.empty(sum(ch.numel() for ch in chunks),
-                              dtype=torch.uint8, device=device)
-            h2d0.record(stream)
-            o = 0
-            for ch in chunks:
-                dev[o:o + ch.numel()].copy_(ch, non_blocking=True)
-                o += ch.numel()
-            h2d1.record(stream)
-            stored = torch.bfloat16 if two_byte else _TORCH[raws[0].dtype]
-            g = dev.view(stored).view(len(raws), c, c, gshape[2])
-            g = g.to(self.compute_dtype) if g.dtype != self.compute_dtype \
-                else g
-            lam_d = lam.to(device)
-            del dev
-            ready.record(stream)
-        return {"gammas": g, "lambdas": lam_d, "ready": ready,
-                "copy": (h2d0, h2d1), "bytes": o + lam.numel() *
-                lam.element_size()}
+        stored = torch.bfloat16 if raws[0].two_byte else \
+            _TORCH[raws[0].dtype]
+        return _segment_to_device(chunks, (len(raws), c, c, gshape[2]),
+                                  stored, self.compute_dtype, lam, device,
+                                  self.copy_stream(device))
 
     def get_segment_raw(self, start: int, length: int) -> dict:
         """Storage-format payload for sites [start, start+length), stamped

@@ -17,15 +17,28 @@ Behind :meth:`StreamingEngine.sample`:
   for the same key (``micro_batch=None``) or of ``sampler.sample_batched``
   (``micro_batch=N₂``: chunk c walks on ``split(key, n_micro)[c]``);
 * ``dp`` / ``tp_single`` / ``tp_double`` — ``core/parallel``'s segment
-  runner over the engine's mesh (each rank of the job runs an engine that
-  reads the store itself);
+  runner over the engine's mesh;
+* a multi-process ``runtime`` (``api/runtime.py``: an emulated cluster's
+  member or a ``torch.distributed`` rank): the paper's §3.1 broadcast
+  plane — only the root reads each segment from the store and broadcasts
+  it in storage format on the prefetch thread, so the broadcast of
+  segment k+1 overlaps the walk of segment k; a root read fault crosses
+  the wire as an error frame, and every process raises it in the same
+  round.  Each process's engine walks the segment it received; the
+  segment's device work runs under ``runtime.compute_lock()``;
 * dynamic bond dimensions (§3.4.2): a bucketed ``chi_profile`` splits the
   walk into χ-stages, segments never cross a stage, the environment goes
   through ``dynamic_bond.fit_env`` at each boundary and each site reaches
   the card cut to its stage's χ;
 * per-segment checkpoints (``checkpoint/sampler_state`` plus one sample
   block file per segment) and ``resume=True``: a killed walk resumes at
-  its last segment boundary and emits the uninterrupted samples (§4.1);
+  its last segment boundary and emits the uninterrupted samples (§4.1).
+  On a multi-process runtime every boundary is kept, and the processes
+  resume from the newest boundary all of them hold
+  (``runtime.allreduce_min``);
+* ``pipeline=True`` (the service's multi-batch jobs): once the walk's last
+  segment is fetched, the pool fetches (or broadcasts) the first segment
+  again for the next macro batch, behind this batch's last compute;
 * macro batches as idempotent :class:`WorkQueue` items (:meth:`run_queue`);
 * conditional sampling (``clamp``, a ``workloads.clamp`` spec): each
   segment walks ``core/clamped.py`` (the dp walk for every parallel
@@ -43,10 +56,14 @@ and gives the same samples.
 ``state`` is the last walk's final :class:`~repro_torch.core.sampler.
 SamplerState` (env, key, log_scale) and ``stats`` describes that walk:
 ``segments``, ``max_live_segments``,
-``io_wait_s`` (the walk waiting for a segment), ``compute_s``,
+``io_wait_s`` (the walk waiting for a segment), ``fetch_s`` (the pool
+thread's time in fetching segments: the read or the broadcast, the
+checks, the copy to the device started), ``compute_s``,
 ``store_io_s`` and ``io_bytes`` (the store's read seconds and payload
 bytes), ``h2d_s`` and ``h2d_bytes`` (the copies to the card, by CUDA
-events on the copy stream), ``wall_s`` and ``io_hidden_frac``.
+events on the copy stream), ``wall_s``, ``io_hidden_frac`` and the
+runtime's counters over the walk (``broadcast_send_bytes``,
+``broadcast_recv_bytes``, ``broadcast_segments``, ``broadcast_s``).
 """
 from __future__ import annotations
 
@@ -62,6 +79,7 @@ import torch
 
 from repro_torch.api.runtime import LocalRuntime
 from repro_torch.checkpoint.sampler_state import (load_sampler_state,
+                                                  newest_checkpoint_site,
                                                   save_sampler_state)
 from repro_torch.core import dynamic_bond as DB
 from repro_torch.core import parallel as PP
@@ -69,7 +87,9 @@ from repro_torch.core import prng
 from repro_torch.core import sampler as S
 from repro_torch.core.mps import MPS
 from repro_torch.core.precision import real_dtype_of
+from repro_torch.data.gamma_store import payload_on_device
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime.faults import CorruptSegment, Fault
 from repro_torch.workloads.clamp import (clamp_map, normalize_clamp,
                                          segment_clamp_arrays, validate_clamp)
 
@@ -116,14 +136,15 @@ class StreamingEngine:
                  chi_profile=None, runtime=None, shard=None, clamp=None,
                  device: DeviceLike = None):
         if shard is not None:
-            raise _unported("chain sharding (shard=...)", 10,
-                            "service and cluster layers")
+            raise _unported("chain sharding (shard=...)", "10b",
+                            "sharded plane, serving and gateway")
         self.clamp = normalize_clamp(clamp)   # None: the unclamped walk
         self.runtime = runtime or LocalRuntime()
-        if self.runtime.process_count > 1:
-            raise _unported("a multi-process runtime", 10,
-                            "service and cluster layers")
         self.store = store
+        # bytes that cross processes are verified: a flipped bit must
+        # surface as a CorruptSegment before any sample is drawn
+        if self.runtime.process_count > 1:
+            store.verify = True
         self.n_sites = store.n_sites
         if self.n_sites == 0:
             raise ValueError(f"empty GammaStore at {store.root}")
@@ -162,6 +183,9 @@ class StreamingEngine:
         self._live_lock = threading.Lock()
         self._live = 0
         self._walk_lock = threading.Lock()
+        # the next walk's first segment, fetched behind this walk's last
+        # compute: ((start, stop, χ), Future)
+        self._warm: Optional[tuple] = None
         self.stats: dict = {}
         self.state: Optional[S.SamplerState] = None
         self._begin_walk()
@@ -183,10 +207,50 @@ class StreamingEngine:
         return chain_segments(self.n_sites, self.plan.segment_len, stages)
 
     # -- segment fetch (on the pool thread) ---------------------------------
+    def _fetch_via_runtime(self, start: int, stop: int, chi_s: int) -> dict:
+        """Paper §3.1: the root reads the segment once and broadcasts it.
+
+        Only the root touches the store; the wire carries the storage
+        format (bf16 Γ stays two bytes), and every process, the root
+        included, checks the payload's checksum and moves it to its device
+        through ``gamma_store.payload_on_device``, so the walk equals a
+        single-process one bit for bit.  A root read fault crosses the wire
+        as an error frame: every process raises the same structured fault
+        in the same round instead of waiting in the collective."""
+        payload = None
+        if self.runtime.is_root:
+            try:
+                payload = self.store.get_segment_raw(start, stop - start)
+            except CorruptSegment as e:
+                payload = {"start": start, "error": str(e),
+                           "fault": e.fault.to_dict()}
+        payload = self.runtime.broadcast_segment(payload)
+        if payload.get("error") is not None:
+            fd = dict(payload.get("fault") or {})
+            raise CorruptSegment(Fault(
+                kind=fd.get("kind", "corruption"),
+                message=fd.get("message", str(payload["error"])),
+                site=fd.get("site"), store=fd.get("store")))
+        if int(payload["start"]) != start:
+            raise RuntimeError(
+                f"broadcast schedule desync: this process expected segment "
+                f"start {start} but received {payload['start']} — are all "
+                f"processes walking the same plan?")
+        return payload_on_device(
+            payload, self.device, chi=chi_s if chi_s < self.chi else None,
+            compute_dtype=self.gamma_dtype,
+            stream=(self.store.copy_stream(self.device)
+                    if self.device.type == "cuda" else None))
+
     def _fetch(self, start: int, stop: int, chi_s: int) -> dict:
-        seg = self.store.get_segment_on_device(
-            start, stop - start, self.device,
-            chi=chi_s if chi_s < self.chi else None)
+        t0 = time.perf_counter()
+        if self.runtime.process_count > 1:
+            seg = self._fetch_via_runtime(start, stop, chi_s)
+        else:
+            seg = self.store.get_segment_on_device(
+                start, stop - start, self.device,
+                chi=chi_s if chi_s < self.chi else None)
+        self.stats["fetch_s"] += time.perf_counter() - t0
         with self._live_lock:
             self._live += 1
             self.stats["max_live_segments"] = max(
@@ -217,6 +281,22 @@ class StreamingEngine:
         if seg["ready"] is not None:
             seg["ready"].synchronize()
         self._release(seg)
+
+    def _take_warm(self, seg_key) -> Optional[Future]:
+        """Claim the gang-scheduled first-segment fetch if it is this
+        walk's first segment; release a stale one (a failed speculative
+        fetch does not fail a walk that never needed it)."""
+        if self._warm is None:
+            return None
+        key, fut = self._warm
+        self._warm = None
+        if key == seg_key:
+            return fut
+        try:
+            self._drop(fut.result())
+        except Exception:
+            pass
+        return None
 
     def _drop_pending(self, fut: Optional[Future], seg: Optional[dict]
                       ) -> None:
@@ -289,14 +369,19 @@ class StreamingEngine:
 
     # -- per-walk bookkeeping ------------------------------------------------
     def _begin_walk(self) -> None:
-        """Zero the per-walk stats and anchor the store's counters."""
+        """Zero the per-walk stats and anchor the store's and the
+        runtime's counters."""
         self._store_io0 = (self.store.io_seconds, self.store.io_bytes)
+        self._runtime_io0 = dict(self.runtime.io_counters())
         with self._live_lock:
-            self._live = 0
+            live = self._live           # a warm prefetched segment counts
         self.stats.update(segments=0, io_wait_s=0.0, compute_s=0.0,
-                          max_live_segments=0, store_io_s=0.0, io_bytes=0,
-                          io_hidden_frac=0.0, h2d_s=0.0, h2d_bytes=0,
-                          wall_s=0.0)
+                          max_live_segments=live, store_io_s=0.0,
+                          io_bytes=0, io_hidden_frac=0.0, h2d_s=0.0,
+                          h2d_bytes=0, fetch_s=0.0, wall_s=0.0)
+        for k, v in self._runtime_io0.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                self.stats[k] = 0
         self.stats.pop("log_prob", None)    # a clamped walk sets it
 
     def _finish_walk(self, t_walk: float) -> None:
@@ -307,6 +392,11 @@ class StreamingEngine:
             hidden = max(0.0,
                          self.stats["store_io_s"] - self.stats["io_wait_s"])
             self.stats["io_hidden_frac"] = hidden / self.stats["store_io_s"]
+        counters = self.runtime.io_counters()
+        for k, v0 in self._runtime_io0.items():
+            if k in self.stats:
+                self.stats[k] = counters[k] - v0
+        # every process finishes macro batch b before any starts b+1
         self.runtime.barrier()
 
     # -- the walk ------------------------------------------------------------
@@ -315,34 +405,38 @@ class StreamingEngine:
     def sample(self, n_samples: int, key: torch.Tensor, *,
                resume: bool = False,
                stop_after_segments: Optional[int] = None,
-               checkpoint_dir=_UNSET) -> np.ndarray:
+               checkpoint_dir=_UNSET, pipeline: bool = False) -> np.ndarray:
         """Walk the whole chain; returns (N, M) int64 outcomes.
 
         ``resume=True`` continues from the newest checkpoint (the
         uninterrupted run's samples); ``checkpoint_dir`` overrides the
         engine's for this walk; ``stop_after_segments`` stops the walk
         there as a kill would, after checkpointing the boundary, and
-        returns the (N, sites_done) block walked so far."""
+        returns the (N, sites_done) block walked so far; ``pipeline=True``
+        fetches the first segment again behind the last one, for the next
+        macro batch."""
         return self.sample_with_stats(
             n_samples, key, resume=resume,
             stop_after_segments=stop_after_segments,
-            checkpoint_dir=checkpoint_dir)[0]
+            checkpoint_dir=checkpoint_dir, pipeline=pipeline)[0]
 
     def sample_with_stats(self, n_samples: int, key: torch.Tensor, *,
                           resume: bool = False,
                           stop_after_segments: Optional[int] = None,
-                          checkpoint_dir=_UNSET) -> tuple[np.ndarray, dict]:
+                          checkpoint_dir=_UNSET, pipeline: bool = False
+                          ) -> tuple[np.ndarray, dict]:
         """:meth:`sample` and a copy of its stats, taken under the walk
         lock (a session shares one engine across its macro batches)."""
         with self._walk_lock:
             out = self._sample_locked(n_samples, key, resume=resume,
                                       stop_after_segments=stop_after_segments,
-                                      checkpoint_dir=checkpoint_dir)
+                                      checkpoint_dir=checkpoint_dir,
+                                      pipeline=pipeline)
             return out, dict(self.stats)
 
     def _sample_locked(self, n_samples: int, key: torch.Tensor, *,
                        resume: bool, stop_after_segments: Optional[int],
-                       checkpoint_dir) -> np.ndarray:
+                       checkpoint_dir, pipeline: bool) -> np.ndarray:
         ckpt_dir = (self.checkpoint_dir if checkpoint_dir is self._UNSET
                     else checkpoint_dir)
         if self.clamp is not None:
@@ -361,6 +455,12 @@ class StreamingEngine:
                 n_samples % self.plan.micro_batch:
             raise ValueError(f"micro_batch={self.plan.micro_batch} must "
                              f"divide n_samples={n_samples}")
+        multi = self.runtime.process_count > 1
+        if multi and stop_after_segments is not None:
+            raise ValueError(
+                "stop_after_segments injects a single-process kill — on a "
+                "multi-process runtime the peers would block on the "
+                "broadcast")
 
         schedule = self._segment_schedule()
         boundaries = {s for s, _, _ in schedule} | {self.n_sites}
@@ -376,7 +476,19 @@ class StreamingEngine:
         if resume:
             if not ckpt_dir:
                 raise ValueError("resume=True needs a checkpoint_dir")
-            site, state, _ = load_sampler_state(ckpt_dir, device=self.device)
+            if multi:
+                # the processes' newest boundaries may differ after an
+                # unclean stop: resume from the newest one they all hold
+                # (every boundary is kept, keep=0); 0 starts afresh
+                agreed = self.runtime.allreduce_min(
+                    newest_checkpoint_site(ckpt_dir))
+                loaded = (load_sampler_state(ckpt_dir, site=agreed,
+                                             device=self.device)
+                          if agreed > 0 else None)
+            else:
+                loaded = load_sampler_state(ckpt_dir, device=self.device)
+        if resume and loaded is not None:
+            site, state, _ = loaded
             if site not in boundaries:
                 raise ValueError(f"checkpoint at site {site} is not a "
                                  f"segment boundary of this plan "
@@ -395,7 +507,9 @@ class StreamingEngine:
         seg: Optional[dict] = None        # the segment the walk holds
         try:
             if idx < len(schedule):
-                fut = self._pool.submit(self._fetch, *schedule[idx])
+                fut = self._take_warm(schedule[idx])
+                if fut is None:
+                    fut = self._pool.submit(self._fetch, *schedule[idx])
             seg_idx = 0
             while idx < len(schedule):
                 start, stop, chi_s = schedule[idx]
@@ -404,6 +518,11 @@ class StreamingEngine:
                 self.stats["io_wait_s"] += time.perf_counter() - t0
                 if idx + 1 < len(schedule):   # double buffer: fetch k+1 now
                     fut = self._pool.submit(self._fetch, *schedule[idx + 1])
+                elif pipeline and stop_after_segments is None:
+                    # the pool is idle for the rest of this walk: fetch (or
+                    # broadcast) the next macro batch's first segment now
+                    self._warm = (schedule[0], self._pool.submit(
+                        self._fetch, *schedule[0]))
 
                 t0 = time.perf_counter()
                 with self.runtime.compute_lock():
@@ -442,9 +561,12 @@ class StreamingEngine:
                                 blk)
                         cursor += blk.shape[0]
                     persisted = len(done)
+                    # a multi-process walk keeps every boundary: the resume
+                    # agreement may pick one a slower process is still at
                     save_sampler_state(
                         ckpt_dir, stop, S.SamplerState(env, key, log_scale),
-                        np.zeros((0, n_samples), dtype=np.int32), keep=3)
+                        np.zeros((0, n_samples), dtype=np.int32),
+                        keep=0 if multi else 3)
                 if stopping:              # the prefetch we no longer need
                     pending, fut = fut.result(), None
                     self._drop(pending)
@@ -473,8 +595,15 @@ class StreamingEngine:
         return out
 
     def close(self, close_store: bool = True) -> None:
-        """Join the pool thread; ``close_store=False`` leaves a (shared)
-        store open."""
+        """Release a gang-scheduled segment still in its slot and join the
+        pool thread; ``close_store=False`` leaves a (shared) store open."""
+        if self._warm is not None:
+            _, fut = self._warm
+            self._warm = None
+            try:
+                self._drop(fut.result())
+            except Exception:           # the fetch failed: nothing is live
+                pass
         self._pool.shutdown(wait=True)
         if close_store:
             self.store.close()

@@ -206,6 +206,16 @@ def _short_name(mangled: str) -> str:
     return name + (f"<{', '.join(args)}>" if args else "")
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch to ``counts[name]`` (a wrapper's ``LAUNCHES``): the
+    service's thread lanes launch from several threads at once."""
+    with _count_lock:
+        counts[name] += 1
+
+
 def check_operands(name: str, device: torch.device, operands: dict) -> None:
     """Raise unless every ``operands[arg] = (tensor, dtype)`` lies on
     ``device``, has that dtype and is contiguous."""

@@ -107,7 +107,7 @@ def collapse_select(env, gamma, samples, compute_dtype=None):
                                                             d, dev)
     _build.launch(entry, (env, gamma, s32, out, perm, meta, *scratch),
                   (n, chi_l, chi_r, d), dev, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 

@@ -82,7 +82,7 @@ def contract_measure(env, gamma, lam, compute_dtype=None):
     scratch = () if compute_dtype is None else gemm_scratch(env, gamma)
     _build.launch(entry, (env, gamma, lam, temp, probs, *scratch),
                   (n, chi_l, chi_r, d), env.device, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return temp, probs
 
 

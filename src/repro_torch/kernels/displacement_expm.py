@@ -310,7 +310,7 @@ def displacement_expm(mu_re, mu_im, d: int):
     _build.launch(entry, (mu_re, mu_im, horner_table(dt, dev),
                           coeff_table(MAX_D, dt, dev), out_re, out_im),
                   (b, d), dev, name, source="displacement_expm")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out_re, out_im
 
 
@@ -336,5 +336,5 @@ def displacement_expm_complex(mu, d: int):
     _build.launch(entry, (real(mu), horner_table(rdt, dev),
                           coeff_table(MAX_D, rdt, dev), real(out)), (b, d),
                   dev, name, source="displacement_expm")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out

@@ -127,5 +127,5 @@ def flash_attention(q, k, v, causal: bool = True):
     _build.launch(_ENTRY[q.dtype], (q, k, v, out),
                   (b, s, t, h, kvh, dh, int(causal)), q.device, name,
                   source="flash_attention")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out

@@ -293,7 +293,7 @@ def _launch(entry: str, env, gamma, lam, u, scratch: list, n, chi_l, chi_r,
                           *scratch),
                   (n, chi_l, chi_r, d, int(scaling == "per_sample")), dev,
                   name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return env_out, samples.to(torch.int64), dlog
 
 
@@ -387,5 +387,5 @@ def measure_probs(env, w, compute_dtype=None):
     _build.check_sizes(name, d, n, chi_l, chi_l * d)
     probs = torch.empty((n, d), dtype=out_dtype, device=env.device)
     _build.launch(entry, (env, w, probs), (n, chi_l, d), env.device, name)
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return probs

@@ -102,3 +102,12 @@ def make_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:
         raise ValueError(f"--model-parallel {model} must divide the "
                          f"{world} ranks of the job")
     return device_mesh((world // model, model), ("data", "model"), dev)
+
+
+def make_host_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:
+    """The mesh over whatever this job has, as the JAX package's
+    ``launch/mesh.make_host_mesh`` builds it (``ClusterRuntime.mesh`` calls
+    it): one data axis and the model axis.  The JAX package's multi-pod
+    "pod" axis is folded into the data axis here; a mesh a caller builds
+    with two data axes is refused by ``core/parallel``."""
+    return make_mesh(model, device)

@@ -26,21 +26,34 @@ fp32 sums, as the JAX package's CLI does.
 by default ``OUT_DIR/gamma_store``, written from the chain when empty,
 with its digest manifest, so every read is verified) in segments of
 ``--segment-len`` sites (0: the planner's pick), checkpointing each macro
-batch per segment under ``OUT_DIR/chain_ckpt``.  ``--dynamic-bond`` walks
+batch per segment under ``OUT_DIR/chain_ckpt`` (rank r of a job of
+several under ``OUT_DIR/chain_ckpt_rank<r>``: each rank checkpoints its
+own walk).  ``--dynamic-bond`` walks
 the area-law χ profile bucketed to {χ/4, χ/2, χ} (§3.4.2), as the JAX
 package's CLI does; both compose with every scheme.  ``--clamp
 1=0,3=1`` forces those outcomes (conditional sampling, every scheme but
 ``baseline19``): the batches skip chain checkpoints (a clamped macro batch
 is rerun whole) and the run prints the clamped branch's ``log_prob`` and
-the estimate of P(clamp).  Flags of the JAX package's CLI that later
-slices port (``--service*``, ``--runtime`` other than local) raise
-``NotImplementedError`` naming the ROADMAP.md row that ports them.
+the estimate of P(clamp).
+
+``--service`` runs the whole run as one multi-batch job of a
+:class:`~repro_torch.api.SamplingService` over ``--service-workers``
+thread lanes (the same batch files: batch b's key is the same), printing a
+progress line per batch; ``--service-fleet`` backs each lane with a
+persistent worker process (``repro_torch.runtime.transport``) on the same
+device.  ``--runtime remote`` dispatches each macro batch to a worker
+process (``repro_torch.api.remote``); ``--runtime multihost`` needs a
+``torch.distributed`` job of ≥ 2 ranks (``torchrun``) and ``--stream``:
+rank 0 reads each segment and broadcasts it over a gloo group.  A fault of
+the taxonomy (a rotted Γ site, a dead-lettered batch) exits with code 2
+and a JSON fault record on stderr.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -48,14 +61,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import api
-from repro_torch.api.config import unported
 from repro_torch.core import dynamic_bond as DB
 from repro_torch.core import mps as M
 from repro_torch.core import precision, prng
 from repro_torch.data.gamma_store import MANIFEST_NAME, GammaStore
 from repro_torch.kernels import dispatch, ops
-from repro_torch.launch.mesh import init_distributed, local_device, make_mesh
+from repro_torch.launch.mesh import init_distributed, local_device
 from repro_torch.runtime.elastic import WorkQueue
+from repro_torch.runtime.faults import DeadLetter, FaultError
 from repro_torch.workloads.clamp import parse_clamp_arg
 
 
@@ -95,43 +108,69 @@ def _parser() -> argparse.ArgumentParser:
                     help="area-law χ profile in buckets (§3.4.2)")
     ap.add_argument("--clamp", default=None,
                     help="conditional sampling: site=outcome,... forced")
-    # the JAX package's CLI flags that later slices port
     ap.add_argument("--runtime", default="auto",
-                    choices=["auto", "local", "multihost", "remote"])
-    ap.add_argument("--service", action="store_true")
-    ap.add_argument("--service-workers", type=int, default=None)
-    ap.add_argument("--service-fleet", action="store_true")
+                    choices=["auto", "local", "multihost", "remote"],
+                    help="where the processes live and how Γ bytes move "
+                         "(auto = local)")
+    ap.add_argument("--service", action="store_true",
+                    help="run as one multi-batch job of the SamplingService")
+    ap.add_argument("--service-workers", type=int, default=1,
+                    help="service lanes")
+    ap.add_argument("--service-fleet", action="store_true",
+                    help="back each service lane with a persistent worker "
+                         "process instead of a thread")
     return ap
 
 
-def _reject_unported(args) -> None:
-    if args.runtime not in ("auto", "local"):
-        raise unported(f"--runtime {args.runtime}", 10,
-                       "service and cluster layers")
-    if args.service or args.service_fleet or args.service_workers:
-        raise unported("--service", 10, "service and cluster layers")
-
-
 def main(argv=None) -> None:
+    try:
+        _main(argv)
+    except FaultError as e:
+        # a structured fault (a rotted Γ site, a dead-lettered batch):
+        # a machine-readable record and exit code 2, not a stack trace
+        record = {"fault": e.fault.to_dict(), "error": str(e)}
+        if isinstance(e, DeadLetter):
+            record["report"] = e.report.to_dict()
+        print(json.dumps(record, indent=1), file=sys.stderr)
+        raise SystemExit(2)
+
+
+def _main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    _reject_unported(args)
+    if args.service_fleet:
+        args.service = True
     device = local_device(args.device)
     if args.samples % args.macro_batches:
         raise ValueError(f"--samples {args.samples} must divide over "
                          f"--macro-batches {args.macro_batches}")
     per_batch = args.samples // args.macro_batches
     created = init_distributed(device)      # a caller's group stays theirs
+    runtime = None
     try:
-        _run(args, make_mesh(args.model_parallel, device), per_batch)
+        runtime = (api.RemoteRuntime(device=str(device))
+                   if args.runtime == "remote" else
+                   api.TorchMultiHostRuntime()
+                   if args.runtime == "multihost" else api.LocalRuntime())
+        # a remote runtime or fleet lanes dispatch whole batches: the
+        # workers place the walk, there is no local mesh
+        mesh = (None if args.runtime == "remote" or args.service_fleet
+                else runtime.mesh(args.model_parallel, device))
+        _run(args, mesh, device, runtime, per_batch)
+        if dist.get_world_size() > 1:
+            dist.barrier()              # every rank is done with the groups
     finally:
+        if runtime is not None:
+            runtime.close()
         if created:
             dist.destroy_process_group()
 
 
-def _run(args, mesh, per_batch: int) -> None:
-    device, lead = mesh.device, dist.get_rank() == 0
-    print(f"rank {dist.get_rank()}/{dist.get_world_size()} mesh "
-          f"{mesh.shape} scheme {args.scheme} device {device}")
+def _run(args, mesh, device, runtime, per_batch: int) -> None:
+    lead = dist.get_rank() == 0
+    print(f"rank {dist.get_rank()}/{dist.get_world_size()} runtime "
+          f"{runtime.name} mesh "
+          f"{mesh.shape if mesh else None} scheme {args.scheme} device "
+          f"{device}")
     if lead:
         os.makedirs(args.out, exist_ok=True)
 
@@ -171,9 +210,18 @@ def _run(args, mesh, per_batch: int) -> None:
     if clamp is not None:
         print(f"clamp: {clamp} (clamped walks skip chain checkpoints — "
               f"macro-batch idempotence is the restart story)")
+    scheme = args.scheme
+    if mesh is None and scheme not in ("auto", "seq"):
+        print(f"the workers place the walk (--runtime {args.runtime}"
+              f"{' --service-fleet' if args.service_fleet else ''}) — "
+              f"overriding scheme {scheme!r} to auto")
+        scheme = "auto"
+    remote = runtime.name == "remote"
     config = api.SamplerConfig(
-        scheme=args.scheme, kernels=args.kernels, compute_dtype=compute,
-        backend="streamed" if args.stream else "inmem",
+        scheme=scheme, kernels=args.kernels, compute_dtype=compute,
+        runtime=runtime,
+        backend=("auto" if remote else
+                 "streamed" if args.stream else "inmem"),
         micro_batch=args.micro_batch or None, chi_profile=chi_profile,
         segment_len=args.segment_len or api.AUTO, clamp=clamp)
 
@@ -200,21 +248,30 @@ def _run(args, mesh, per_batch: int) -> None:
               f"{dispatch.registered_ops()})")
 
         lp_blocks: dict[int, np.ndarray] = {}
+        worker_launches: dict[str, int] = {}
 
-        def save_batch(b: int, out: np.ndarray) -> None:
+        def save_batch(b: int, out: np.ndarray, stats: dict) -> None:
             if lead:
                 np.save(os.path.join(args.out, f"batch_{b:05d}.npy"),
                         out.astype(np.int8))
-            if clamp is not None:
-                lp_blocks[b] = np.asarray(session.stats["log_prob"],
+            if clamp is not None and stats.get("log_prob") is not None:
+                lp_blocks[b] = np.asarray(stats["log_prob"],
                                           dtype=np.float64)
+            for k, v in (stats.get("launches") or {}).items():
+                worker_launches[k] = worker_launches.get(k, 0) + v
             print(f"macro batch {b} done ({per_batch} samples)", flush=True)
 
-        session.run_queue(queue, per_batch, base, worker="cli",
-                          checkpoint_root=(None if clamp is not None else
-                                           os.path.join(args.out,
-                                                        "chain_ckpt")),
-                          on_batch=save_batch)
+        if args.service:
+            _run_service(args, session, base, queue, save_batch, device,
+                         clamp is not None)
+        else:
+            session.run_queue(
+                queue, per_batch, base, worker="cli",
+                checkpoint_root=(None if clamp is not None or remote
+                                 else _checkpoint_root(args.out)),
+                on_batch=lambda b, out: save_batch(b, out, session.stats))
+        if remote and runtime.worker is not None:
+            worker_launches = dict(runtime.worker.launches)
         engine_stats = {k: v for k, v in session.stats.items()
                         if k != "log_prob"}
         if engine_stats:
@@ -232,6 +289,10 @@ def _run(args, mesh, per_batch: int) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print("kernel launches:", json.dumps(ops.launch_counts()))
+    if worker_launches:
+        print("worker kernel launches:", json.dumps(worker_launches))
+    if runtime.name != "local":
+        print("runtime counters:", json.dumps(runtime.io_counters()))
     if not lead:
         return
 
@@ -242,12 +303,62 @@ def _run(args, mesh, per_batch: int) -> None:
     stats = {"n_samples": int(samples.shape[0]), "sites": args.sites,
              "chi": args.chi, "device": str(device), "scheme": plan.scheme,
              "backend": plan.backend,
-             "mesh": mesh.shape, "walltime_s": time.perf_counter() - t0,
+             "mesh": mesh.shape if mesh else None,
+             "walltime_s": time.perf_counter() - t0,
              "mean_photon_min": float(mean_photons.min()),
              "mean_photon_max": float(mean_photons.max())}
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=1)
     print(json.dumps(stats, indent=1))
+
+
+def _checkpoint_root(out: str) -> str:
+    """Where this rank checkpoints its walks: every rank of a job walks
+    (and checkpoints) its own copy of each batch's state."""
+    if dist.get_world_size() == 1:
+        return os.path.join(out, "chain_ckpt")
+    return os.path.join(out, f"chain_ckpt_rank{dist.get_rank()}")
+
+
+def _run_service(args, session, base, queue, save_batch, device,
+                 clamped: bool) -> None:
+    """The run as ONE job of a SamplingService: its batches over the
+    lanes, each block saved and a progress line printed as it completes.
+    The batch files equal the synchronous run's: a one-batch job draws on
+    its key unchanged (``service.batch_key``), so batch 0's key is folded
+    here."""
+    from repro_torch.core import prng
+
+    n1 = args.macro_batches
+    job_key = prng.fold_in(base, 0) if n1 == 1 else base
+    done = [b for b in range(n1) if b not in queue.pending]
+    # fleet lanes have no walk here: skip_batches is their restart story
+    ck_root = (None if args.service_fleet or clamped
+               or session.plan(args.samples // n1).backend == "remote"
+               else _checkpoint_root(args.out))
+    pool = (api.WorkerPool(device=str(device)) if args.service_fleet
+            else None)
+    with api.SamplingService(workers=args.service_workers,
+                             pool=pool) as svc:
+        handle = svc.submit(session, n_samples=args.samples, key=job_key,
+                            macro_batches=n1, skip_batches=done,
+                            checkpoint_root=ck_root)
+        for b, block in handle.stream():
+            save_batch(b, block, handle.stats.get(b, {}))
+            p, st = handle.progress, svc.stats()
+            adm = st["admission"]
+            lanes = " ".join(f"{n}:{c}" for n, c in
+                             sorted(st["lane_batches"].items()))
+            print(f"[service] {p['done']}/{p['total']} batches "
+                  f"(claims={p['claims']} requeues={p['requeues']} "
+                  f"lanes={p['workers']}) queue_depth={st['queue_depth']} "
+                  f"backpressure={'yes' if adm['backpressure'] else 'no'} "
+                  f"(admitted={adm['admitted_jobs']} queued="
+                  f"{adm['queued_jobs']}) per-lane: {lanes}", flush=True)
+        final = svc.stats()
+        print("[service] final:", handle.status(), json.dumps(final))
+    if pool is not None:
+        pool.close()
 
 
 if __name__ == "__main__":

@@ -1348,3 +1348,138 @@ def test_clamped_sessions_on_the_card(card, tmp_path):
     np.testing.assert_allclose(outs["cuda"][1], outs["torch"][1],
                                **TOL[torch.float64])
     assert (outs["cuda"][0][:, 3] == 2).all()
+
+
+# ---------------------------------------------------------------------------
+# the service and cluster runtimes on the card
+# ---------------------------------------------------------------------------
+
+def _service_chain(card):
+    return M.random_linear_mps(prng.key(3), 6, 64, 3, dtype=torch.float64,
+                               device=card)
+
+
+def test_thread_lanes_on_the_card(card):
+    """Two thread lanes share the card's stream and the launch counters: a
+    4-batch job equals the one-shot kernel walks on the batch keys, and
+    every launch is counted once."""
+    from repro_torch.api.service import batch_key
+    from repro_torch.kernels import ops
+
+    mps, key = _service_chain(card), prng.key(5)
+    cfg = api.SamplerConfig(kernels="cuda")
+    with api.SamplingSession(mps, cfg, device=card) as s:
+        refs = [s.sample(64, batch_key(key, b, 4)) for b in range(4)]
+    ops.reset_launches()
+    # no straggler reclaim: a duplicated batch would launch twice
+    with api.SamplingService(workers=2, straggler_k=None, device=card) as svc:
+        out = svc.submit(mps, cfg, n_samples=256, key=key,
+                         macro_batches=4).result(timeout=300)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out, np.concatenate(refs))
+    assert ops.launch_counts()["site_step_linear"] == 4 * mps.n_sites
+
+
+def test_fleet_worker_walks_on_the_card(card, tmp_path):
+    """A fleet worker process walks on the card (its launches reported in
+    the result header) and gives the in-process walk's samples."""
+    from repro_torch.data.gamma_store import GammaStore
+
+    mps, key = _service_chain(card), prng.key(8)
+    with GammaStore(str(tmp_path), torch.float64, torch.float64) as st:
+        st.write_mps(mps)
+        cfg = api.SamplerConfig(segment_len=2)
+        with api.SamplingSession(st, cfg, device=card) as s:
+            want = s.sample(64, key)
+        pool = api.WorkerPool()
+        with api.SamplingService(workers=1, pool=pool) as svc:
+            h = svc.submit(st, cfg, n_samples=64, key=key)
+            got = h.result(timeout=300)
+            stats = h.stats[0]
+        pool.close()
+    np.testing.assert_array_equal(got, want)
+    assert stats["launches"] == {"site_step_linear": mps.n_sites}
+
+
+_GLOO_RANK = """
+import datetime, json, os, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import api
+from repro_torch.core import prng
+from repro_torch.data.gamma_store import GammaStore
+from repro_torch.kernels import ops
+rank, root, out, n = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, "fs"), 2),
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=300))
+rt = api.TorchMultiHostRuntime()
+with GammaStore(root, torch.bfloat16, torch.float64) as st, \\
+        api.SamplingSession(st, api.SamplerConfig(
+            backend="streamed", runtime=rt, segment_len=2),
+            device="cuda:0") as s:
+    ops.reset_launches()
+    with api.SamplingService(workers=1) as svc:
+        h = svc.submit(s, n_samples=2 * n, key=prng.key(0), macro_batches=2,
+                       checkpoint_root=os.path.join(out, f"ck{rank}"))
+        blocks = dict(h.stream(timeout=300))
+        segs = h.stats[1]["segments"]
+    torch.cuda.synchronize()
+    for b, blk in blocks.items():
+        np.save(os.path.join(out, f"rank{rank}_{b}.npy"), blk)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": {k: v for k, v in ops.launch_counts().items()
+                                if v}, "resumed_segments": segs}, f)
+dist.barrier()
+rt.close()
+dist.destroy_process_group()
+"""
+
+
+def test_broadcast_plane_on_the_card(card, tmp_path):
+    """``runtime="multihost"`` on 2 gloo processes sharing the card, one
+    pipelined 2-batch job on a one-lane service each: batch 1 resumes
+    from an unclean stop at different boundaries (sites 4 and 2), and
+    every block equals the local kernel walk, each process launching the
+    site step once a site it walked."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.api.service import batch_checkpoint_dir, batch_key
+    from repro_torch.data.gamma_store import GammaStore
+
+    mps, n = _service_chain(card), 64
+    root, out = str(tmp_path / "store"), tmp_path / "out"
+    out.mkdir()
+    keys = [batch_key(prng.key(0), b, 2) for b in (0, 1)]
+    with GammaStore(root, torch.bfloat16, torch.float64) as st:
+        st.write_mps(mps)
+        cfg = api.SamplerConfig(segment_len=2)
+        with api.SamplingSession(st, cfg, device=card) as s:
+            want = [s.sample(n, k) for k in keys]
+        for rank, cut in ((0, 4), (1, 2)):
+            ck = batch_checkpoint_dir(str(out / f"ck{rank}"), 1)
+            with api.SamplingSession(st, cfg, device=card) as s:
+                s.sample(n, keys[1], checkpoint_dir=ck)
+            for f in os.listdir(ck):            # the stop after ``cut``
+                if f.startswith("site_") and f.endswith(".npz") and \
+                        int(f[len("site_"):-len(".npz")]) > cut:
+                    os.remove(os.path.join(ck, f))
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_RANK, str(r),
+                               root, str(out), str(n)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), errs
+    for r in (0, 1):
+        for b in (0, 1):
+            np.testing.assert_array_equal(
+                np.load(out / f"rank{r}_{b}.npy"), want[b])
+        rec = json.loads((out / f"rank{r}.json").read_text())
+        assert rec["resumed_segments"] == 2                # sites 2..6
+        assert rec["launches"] == {"site_step_linear": mps.n_sites + 4}

@@ -109,20 +109,61 @@ def _mesh(p1: int, p2: int):
                            device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("fields,mesh", [
-    ({"scheme": "dp", "runtime": "multihost"}, (1, 1)),
-    ({"backend": "remote"}, None),
-    ({"runtime": "multihost"}, None), ({"runtime": "remote"}, None),
-    ({"shard": 2}, None),
-    ({"scheme": "tp_single", "shard": 2}, (1, 1)),
-], ids=lambda v: "-".join(f"{k}={v[k]}" for k in v) if isinstance(v, dict)
-   else f"mesh{v}")
-def test_unported_config_values_raise(fields, mesh):
-    session = api.SamplingSession(_tiny_mps(), SamplerConfig(**fields),
-                                  device="cpu",
-                                  mesh=mesh and _mesh(*mesh))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
+def _one_process_multihost(make):
+    """The JAX package's own error: ``multihost`` needs ≥ 2 processes (the
+    session resolves its runtime when it is made)."""
+    with pytest.raises(ValueError, match="≥ 2 processes"):
+        make()
+
+
+def _remote_loopback(make):
+    """backend='remote' on the local runtime: the payload runs in this
+    process and gives the in-memory walk's samples."""
+    session = make()
+    plan = session.plan(8)
+    assert (plan.backend, plan.runtime, plan.scheme) == ("remote", "local",
+                                                         "seq")
+    want = api.SamplingSession(_tiny_mps(), SamplerConfig(kernels="torch"),
+                               device="cpu").sample(8, prng.key(0))
+    np.testing.assert_array_equal(session.sample(8, prng.key(0)), want)
+    assert session.stats["runtime_dispatches"] == 1
+    session.close()
+
+
+def _remote_runtime(make):
+    """runtime='remote' resolves the remote data plane (the walk itself,
+    in a worker process, is tests/test_torch_fleet.py's)."""
+    with make() as session:
+        plan = session.plan(8)
+        assert (plan.backend, plan.runtime) == ("remote", "remote")
+        assert isinstance(session.runtime, api.RemoteRuntime)
+        assert session.runtime.worker is None    # spawned on first submit
+
+
+def _sharded(make):
+    with make() as session, pytest.raises(
+            NotImplementedError, match=r"ROADMAP\.md §1 row 10b"):
         session.plan(8)
+
+
+@pytest.mark.parametrize("fields,mesh,check", [
+    ({"scheme": "dp", "runtime": "multihost"}, (1, 1),
+     _one_process_multihost),
+    ({"backend": "remote"}, None, _remote_loopback),
+    ({"runtime": "multihost"}, None, _one_process_multihost),
+    ({"runtime": "remote"}, None, _remote_runtime),
+    ({"shard": 2}, None, _sharded),
+    ({"scheme": "tp_single", "shard": 2}, (1, 1), _sharded),
+], ids=["scheme=dp-runtime=multihost-mesh(1, 1)", "backend=remote-meshNone",
+        "runtime=multihost-meshNone", "runtime=remote-meshNone",
+        "shard=2-meshNone", "scheme=tp_single-shard=2-mesh(1, 1)"])
+def test_unported_config_values_raise(fields, mesh, check):
+    """The config values ROADMAP.md §1 row 10 named: the sharded plane
+    (row 10b) still raises; the runtimes and the remote plane (row 10a)
+    now hold their ported path, or the JAX package's own error."""
+    check(lambda: api.SamplingSession(_tiny_mps(), SamplerConfig(**fields),
+                                      device="cpu",
+                                      mesh=mesh and _mesh(*mesh)))
 
 
 def _chain4():
@@ -271,10 +312,25 @@ def test_bad_parallel_requests_raise(fields, mesh, match):
 @pytest.mark.parametrize("flags", [
     ["--runtime", "remote"], ["--service"],
 ])
-def test_unported_cli_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
-        cli.main(["--sites", "3", "--chi", "4", "--out", str(tmp_path),
-                  "--device", "cpu", *flags])
+def test_unported_cli_flags_raise(flags, tmp_path, capsys):
+    """The CLI flags ROADMAP.md §1 row 10a ported: ``--runtime remote`` (a
+    CPU worker process) and ``--service`` write the plain run's batch
+    files (a worker places its walk itself: seq, as the JAX package's CLI
+    overrides the scheme for it)."""
+    argv = ["--sites", "3", "--chi", "4", "--samples", "32",
+            "--macro-batches", "2", "--device", "cpu"]
+    plain = ["--scheme", "seq"] if flags[0] == "--runtime" else []
+    cli.main([*argv, "--out", str(tmp_path / "plain"), *plain])
+    cli.main([*argv, "--out", str(tmp_path / "flag"), *flags])
+    for b in range(2):
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "flag" / f"batch_{b:05d}.npy"),
+            np.load(tmp_path / "plain" / f"batch_{b:05d}.npy"))
+    out = capsys.readouterr().out
+    if flags[0] == "--service":
+        assert "[service] 2/2 batches" in out
+    else:
+        assert '"dispatches": 2' in out
 
 
 @pytest.mark.parametrize("flags", [
