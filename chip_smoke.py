@@ -54,6 +54,36 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               prediction; then phase service's streamed parts (c, d) on
               the first 2 of those sites (below); the phase frees its
               memory before phase 4;
+   shard    — (inside phase stream, on its 4-site sub-store, a site a
+              segment and a block, N = 1024) the sharded plane: (a)
+              ``shard="auto"`` through the session on
+              ``emulated_cluster(2)`` and ``(4)``: every process == the
+              local walk bit for bit, each reads only its own sites (the
+              store's bytes and segments), the handoffs those of
+              ``ShardMap.handoffs`` and their bytes ``shard_wire_bytes``'s
+              plus each payload's ``log_scale``, key and site,
+              ``site_step_linear`` × 4 in all; (b) stream (f)'s clamp on
+              ``emulated_cluster(2)``: samples and ``log_prob`` == the
+              clamped streamed walk, ``contract_measure`` × 4; (c) on the 2
+              gloo processes of phase service (d): a pipelined 2-batch
+              sharded job on a one-lane service == the local walks, each
+              rank reading its 2 sites a batch, × 4 launches a rank; the
+              wall, read, handoff (copy, send, wait) and compute seconds,
+              the handoff GB/s and the peak memory; (d) rank 0 on its
+              ``materialize_shard`` slice with a rotted copy of an owned
+              site: the pre-walk round writes it again from rank 1's copy
+              (repaired 1 / 0) and the samples == (a)'s; then a rotted
+              site no peer holds fails both ranks with
+              ``kind="corruption"``;
+   gateway  — (inside phase stream, on the first 2 sites) an in-process
+              ``Gateway`` over a one-lane ``SamplingService`` on the card,
+              2 tenants and a disk ``ResultCache``: a 2-batch job's frames
+              == the session's walks of the same batches (× 4 launches);
+              the same request a hit (byte-identical, no execution, no
+              launch); an identical request attaches; 429 with
+              Retry-After over a quota; 404 for another tenant's job; the
+              owner's DELETE of a running job streams the error frame;
+              ``/metrics``;
 4. linear   — the GBS preset ``jiuzhang2`` at its full width (χ=10⁴, d=4,
               fp64) with the depth cut to M=8 sites (the in-memory slice
               holds the whole chain on the card), N=1024, walked through
@@ -164,7 +194,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               --service-workers 2`` (the plain run's batch files),
               ``--service-fleet`` and ``--runtime remote`` (a worker
               process on the card each: the seq walks' batch files, 16
-              launches reported by the worker);
+              launches reported by the worker); beside them
+              ``repro_torch.launch.gateway --port 0 --serve-s`` over phase
+              gateway's 2 sites (hard-linked under ``build/``), whose one
+              request by the store's name gives the in-process job's
+              samples;
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line.
@@ -285,6 +319,12 @@ CLAMP_SCHEMES = (("dp", False), ("tp_single", False), ("tp_single", True),
 # kernels' tiles, d = 3
 CLAMP_SMALL = [(1, 13, 3), (37, 130, 3), (301, 257, 4)]
 # the service phase: macro batches of a job, thread lanes, fleet workers
+SHARD_SEED = 29               # phase shard's 2-batch job key (4 sites)
+SHARD_HOSTS = (2, 4)          # (a)'s emulated clusters, a site a block
+SHARD_ROT = (2, 3)            # (d): rank 0's rotted copy, then rank 1's
+GATEWAY_SEED = 17             # phase gateway's first job (2 sites)
+GATEWAY_N = 1024              # its N (the job total), in 2 batches
+GATEWAY_TENANTS = (("alice", "alice-key", None), ("bob", "bob-key", 1))
 SERVICE_BATCHES = 4
 SERVICE_LANES = 2
 SERVICE_WORKERS = 2
@@ -906,8 +946,8 @@ def phase_stream(device, mesh, registry) -> dict:
             out["dyn"] = _stream_dyn(store, device)
             out["resume"] = _stream_resume(store, device, build,
                                            out["flat"].pop("samples"))
-            out["tp"], out["service"] = _stream_tp(root, device, mesh,
-                                                   build, registry)
+            out["tp"], out["service"], out["shard"], out["gateway"] = \
+                _stream_tp(root, device, mesh, build, registry)
             out["timed"] = _stream_timed(store, device,
                                          out["flat"]["io"]["read_gbps"])
         finally:
@@ -1190,66 +1230,95 @@ def _stream_resume(store, device, build, flat) -> dict:
     return {"stopped_sites": part.shape[1], "resumed_segments": segments}
 
 
-def _stream_tp(root, device, mesh, build, registry) -> tuple[dict, dict]:
+def _stream_tp(root, device, mesh, build, registry) -> tuple:
     """(d) dp, tp_single (± measure_first) and tp_double streamed on the
     mesh over the first 4 sites, each against the in-memory walk of the
     same 4 decoded sites; then phase service's streamed parts on the
-    first 2 of them (``service_streamed``)."""
-    from repro_torch import api
+    first 2 of them (``service_streamed``), phase shard on the 4 and
+    phase gateway on the 2.  Returns (walks, service, shard, gateway)."""
     from repro_torch.core import prng
-    from repro_torch.core.mps import MPS
-    from repro_torch.data.gamma_store import GammaStore, site_filename
-    from repro_torch.kernels import ops
+    from repro_torch.data.gamma_store import site_filename
 
     n, key = LINEAR_N, prng.key(11)
     walks = {}
-    with tempfile.TemporaryDirectory(dir=build, prefix="sub_") as sub:
+    with tempfile.TemporaryDirectory(dir=build, prefix="sub_") as sub, \
+            tempfile.TemporaryDirectory(dir=build, prefix="svc_") as svc, \
+            tempfile.TemporaryDirectory(dir=build, prefix="gloo_") as gloo:
         for i in range(STREAM_TP_SITES):
             os.symlink(os.path.join(root, site_filename(i)),
                        os.path.join(sub, site_filename(i)))
-        with GammaStore(sub, torch.bfloat16, torch.float64) as store:
-            seg = store.get_segment_on_device(0, STREAM_TP_SITES, device)
-            cur = torch.cuda.current_stream(device)
-            cur.wait_event(seg["ready"])
-            seg["gammas"].record_stream(cur)
-            seg["lambdas"].record_stream(cur)
-            mps = MPS(seg["gammas"], seg["lambdas"])
-            del seg
-            for (scheme, mf), kernels in TP_WALKS.items():
-                label = scheme + ("+measure_first" if mf else "")
-                cfg = api.SamplerConfig(backend="streamed", kernels="cuda",
-                                        scheme=scheme, measure_first=mf,
-                                        device_budget=STREAM_BUDGET)
-                ops.reset_launches()
-                with api.SamplingSession(store, cfg, mesh=mesh) as session:
-                    streamed = session.sample(n, key)
-                    stats = dict(session.stats)
-                torch.cuda.synchronize()
-                launches = {k: ops.launch_counts()[k] for k in kernels}
-                for k in kernels:
-                    check(launches[k] == STREAM_TP_SITES, f"stream (d) "
-                          f"{label}: {k} launched {launches[k]} times")
-                with api.SamplingSession(mps, api.SamplerConfig(
-                        kernels="cuda", scheme=scheme, measure_first=mf),
-                        mesh=mesh) as session:
-                    inmem = session.sample(n, key)
-                bad = int((streamed != inmem).sum())
-                check(bad == 0, f"stream (d) {label}: streamed and in-memory "
-                      f"walks differ in {bad} draws")
-                walks[label] = {"launches": launches,
-                                "segments": stats["segments"],
-                                "max_live_segments":
-                                    stats["max_live_segments"],
-                                "wall_s": stats["wall_s"]}
-                print(f"stream (d) {label}: streamed walk N={n} "
-                      f"M={STREAM_TP_SITES} == in-memory walk; "
-                      f"{json.dumps(walks[label])}", flush=True)
-            walks.update(_stream_clamped(store, mps, mesh, n, key))
-            del mps
-        torch.cuda.empty_cache()
-        service = service_streamed(sub, device, registry)
+            if i < SERVICE_SITES:
+                os.symlink(os.path.join(root, site_filename(i)),
+                           os.path.join(svc, site_filename(i)))
+        # the 2 gloo ranks of phases service (d) and shard (c, d), spawned
+        # now: their start-up overlaps the walks below
+        ranks = _gloo_spawn(sub, svc, gloo, n, device)
+        try:
+            service, shard, gateway = _stream_tp_walks(
+                sub, svc, gloo, ranks, device, mesh, registry, n, key,
+                walks)
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
     torch.cuda.empty_cache()
-    return walks, service
+    return walks, service, shard, gateway
+
+
+def _stream_tp_walks(sub, svc, gloo, ranks, device, mesh, registry, n, key,
+                     walks) -> tuple[dict, dict, dict]:
+    from repro_torch import api
+    from repro_torch.core.mps import MPS
+    from repro_torch.data.gamma_store import GammaStore
+    from repro_torch.kernels import ops
+
+    with GammaStore(sub, torch.bfloat16, torch.float64) as store:
+        seg = store.get_segment_on_device(0, STREAM_TP_SITES, device)
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(seg["ready"])
+        seg["gammas"].record_stream(cur)
+        seg["lambdas"].record_stream(cur)
+        mps = MPS(seg["gammas"], seg["lambdas"])
+        del seg
+        for (scheme, mf), kernels in TP_WALKS.items():
+            label = scheme + ("+measure_first" if mf else "")
+            cfg = api.SamplerConfig(backend="streamed", kernels="cuda",
+                                    scheme=scheme, measure_first=mf,
+                                    device_budget=STREAM_BUDGET)
+            ops.reset_launches()
+            with api.SamplingSession(store, cfg, mesh=mesh) as session:
+                streamed = session.sample(n, key)
+                stats = dict(session.stats)
+            torch.cuda.synchronize()
+            launches = {k: ops.launch_counts()[k] for k in kernels}
+            for k in kernels:
+                check(launches[k] == STREAM_TP_SITES, f"stream (d) "
+                      f"{label}: {k} launched {launches[k]} times")
+            with api.SamplingSession(mps, api.SamplerConfig(
+                    kernels="cuda", scheme=scheme, measure_first=mf),
+                    mesh=mesh) as session:
+                inmem = session.sample(n, key)
+            bad = int((streamed != inmem).sum())
+            check(bad == 0, f"stream (d) {label}: streamed and in-memory "
+                  f"walks differ in {bad} draws")
+            walks[label] = {"launches": launches,
+                            "segments": stats["segments"],
+                            "max_live_segments":
+                                stats["max_live_segments"],
+                            "wall_s": stats["wall_s"]}
+            print(f"stream (d) {label}: streamed walk N={n} "
+                  f"M={STREAM_TP_SITES} == in-memory walk; "
+                  f"{json.dumps(walks[label])}", flush=True)
+        clamped = _stream_clamped(store, mps, mesh, n, key)
+        clamped_seq = clamped["clamp seq"].pop("result")
+        walks.update(clamped)
+        del mps
+    torch.cuda.empty_cache()
+    service = service_streamed(svc, gloo, ranks, device, registry)
+    shard = phase_shard(sub, gloo, ranks, device, clamped_seq)
+    gateway = phase_gateway(svc, device)
+    return service, shard, gateway
 
 
 def _stream_clamped(store, mps, mesh, n, key) -> dict:
@@ -1294,6 +1363,8 @@ def _stream_clamped(store, mps, mesh, n, key) -> dict:
         print(f"stream (f) {label}: clamped streamed walk N={n} "
               f"M={STREAM_TP_SITES} == in-memory clamped walk; "
               f"{json.dumps(walks[label])}", flush=True)
+        if scheme == "seq":               # phase shard (b)'s reference
+            walks[label]["result"] = (streamed, stats["log_prob"])
     return walks
 
 
@@ -1457,49 +1528,34 @@ def _broadcast_numbers(stats_by_proc: dict) -> dict:
     return out
 
 
-def service_streamed(sub, device, registry) -> dict:
+def service_streamed(svc, gloo, ranks, device, registry) -> dict:
     """Phase service's streamed parts, on the first 2 sites of phase
-    stream's store (bf16 on disk, fp64 walked, a site a segment), before
-    the store is removed: (c) fleet lanes of worker processes on the card
-    and the ``remote`` runtime; (d) the broadcast plane on an emulated
-    2-process cluster and on 2 ``torch.distributed`` processes (gloo); each
-    against the in-process streamed job of the same key, bit for bit.  The
-    gloo processes are spawned first, so that their start-up overlaps
-    (c)."""
+    stream's store (``svc``: bf16 on disk, fp64 walked, a site a segment),
+    before the store is removed: (c) fleet lanes of worker processes on
+    the card and the ``remote`` runtime; (d) the broadcast plane on an
+    emulated 2-process cluster and on the 2 ``torch.distributed``
+    processes (gloo) ``ranks``; each against the in-process streamed job of
+    the same key, bit for bit."""
     from repro_torch import api
     from repro_torch.core import prng
-    from repro_torch.data.gamma_store import GammaStore, site_filename
+    from repro_torch.data.gamma_store import GammaStore
 
     t0 = time.perf_counter()
     n, k, key = LINEAR_N, SERVICE_BATCHES, prng.key(SERVICE_SEED)
     cfg = api.SamplerConfig(backend="streamed", segment_len=SERVICE_SEGMENT)
     out = {}
-    build = ROOT / "build"
-    with tempfile.TemporaryDirectory(dir=build, prefix="svc_") as svc, \
-            tempfile.TemporaryDirectory(dir=build, prefix="gloo_") as gloo:
-        for i in range(SERVICE_SITES):
-            os.symlink(os.path.realpath(os.path.join(sub, site_filename(i))),
-                       os.path.join(svc, site_filename(i)))
-        ranks = _gloo_spawn(svc, gloo, n, device)
-        try:
-            store = GammaStore(svc, torch.bfloat16, torch.float64)
-            try:
-                local = _service_streamed(store, device, registry, n, k,
-                                          key, cfg, out)
-            finally:
-                store.close()
-            torch.cuda.empty_cache()
-            # (d) the broadcast plane: an emulated 2-process cluster on
-            # batch 1's key, whose unclean stop the gloo job's batch 1
-            # resumes from; then the pipelined 2-batch gloo job
-            out["emulated"] = _emulated_broadcast(svc, device, n, local[1],
-                                                  gloo)
-            out["gloo"] = _gloo_broadcast(ranks, gloo, n, local)
-        finally:
-            for proc in ranks.processes:
-                if proc.is_alive():
-                    proc.terminate()
-                proc.join()
+    store = GammaStore(svc, torch.bfloat16, torch.float64)
+    try:
+        local = _service_streamed(store, device, registry, n, k, key, cfg,
+                                  out)
+    finally:
+        store.close()
+    torch.cuda.empty_cache()
+    # (d) the broadcast plane: an emulated 2-process cluster on batch 1's
+    # key, whose unclean stop the gloo job's batch 1 resumes from; then the
+    # pipelined 2-batch gloo job
+    out["emulated"] = _emulated_broadcast(svc, device, n, local[1], gloo)
+    out["gloo"] = _gloo_broadcast(ranks, gloo, n, local)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"service (c, d) on {SERVICE_SITES} sites of the store in "
@@ -1722,28 +1778,42 @@ def _emulated_broadcast(sub, device, n, want, gloo_dir) -> dict:
     return out
 
 
-def _gloo_spawn(sub, gloo_dir, n, device):
-    """Start phase service's 2 gloo processes (``torch.multiprocessing``,
-    start method spawn: CUDA is initialised here); they wait for
-    ``go``."""
+def _gloo_spawn(sub, svc, gloo_dir, n, device):
+    """Start the 2 gloo processes of phases service (d) and shard (c, d)
+    (``torch.multiprocessing``, start method spawn: CUDA is initialised
+    here); they wait for ``go``, then for ``go_shard``."""
     import torch.multiprocessing as mp
 
     return mp.start_processes(_gloo_rank,
-                              args=(sub, gloo_dir, n, str(device)),
+                              args=(sub, svc, gloo_dir, n, str(device)),
                               nprocs=2, join=False, start_method="spawn")
 
 
-def _gloo_rank(rank: int, sub: str, gloo_dir: str, n: int,
+def _wait_for(path: str, ranks, what: str, seconds: float = 900) -> None:
+    """Wait for a file the gloo ranks write; fail when a rank has exited
+    without it or the time is up."""
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        dead = [p.exitcode for p in ranks.processes
+                if p.exitcode not in (None, 0)]
+        check(not dead, f"{what}: a gloo process exited {dead}")
+        check(time.monotonic() < deadline, f"{what}: no {path}")
+        time.sleep(0.05)
+
+
+def _gloo_rank(rank: int, sub: str, svc: str, gloo_dir: str, n: int,
                device: str) -> None:
-    """One process of (d)'s ``torch.distributed`` job, both on ``device``:
-    it joins a gloo group on a ``FileStore`` under ``gloo_dir``, opens the
-    store ``sub`` through a ``TorchMultiHostRuntime`` and, once the
-    parent writes ``go``, runs the 2-batch job (keys of ``SERVICE_SEED``)
-    on a one-lane ``SamplingService`` with ``checkpoint_root=ck<rank>``:
-    pipelined (batch 1's first segment is broadcast behind batch 0's
-    walk), batch 1 resuming from the stop (d)'s emulated cluster left.  It
-    writes its blocks, each batch's walk stats and its launches under
-    ``gloo_dir``."""
+    """One process of the ``torch.distributed`` job, both on ``device``:
+    it joins a gloo group on a ``FileStore`` under ``gloo_dir`` with a
+    ``TorchMultiHostRuntime``.  Phase service (d): once the parent writes
+    ``go``, it runs the 2-batch job (keys of ``SERVICE_SEED``) on the
+    store ``svc`` on a one-lane ``SamplingService`` with
+    ``checkpoint_root=ck<rank>``: pipelined (batch 1's first segment is
+    broadcast behind batch 0's walk), batch 1 resuming from the stop (d)'s
+    emulated cluster left.  It writes its blocks, each batch's walk stats
+    and its launches under ``gloo_dir``.  Phase shard: once the parent
+    writes ``go_shard``, it runs (c) and (d) (``_gloo_shard``) on the
+    4-site store ``sub``."""
     import datetime
 
     import torch.distributed as dist
@@ -1763,7 +1833,7 @@ def _gloo_rank(rank: int, sub: str, gloo_dir: str, n: int,
     runtime = api.TorchMultiHostRuntime()
     rec = {"rank": rank, "device": str(device)}
     try:
-        with GammaStore(sub, torch.bfloat16, torch.float64) as store, \
+        with GammaStore(svc, torch.bfloat16, torch.float64) as store, \
                 api.SamplingSession(store, api.SamplerConfig(
                     backend="streamed", runtime=runtime,
                     segment_len=SERVICE_SEGMENT),
@@ -1793,12 +1863,19 @@ def _gloo_rank(rank: int, sub: str, gloo_dir: str, n: int,
                               store_io_s=store.io_seconds)
             for b, blk in blocks.items():
                 np.save(os.path.join(gloo_dir, f"rank{rank}_{b}.npy"), blk)
+        with open(os.path.join(gloo_dir, f"rank{rank}.json.tmp"), "w") as f:
+            json.dump(rec, f)
+        os.replace(os.path.join(gloo_dir, f"rank{rank}.json.tmp"),
+                   os.path.join(gloo_dir, f"rank{rank}.json"))
+        while not os.path.exists(os.path.join(gloo_dir, "go_shard")):
+            time.sleep(0.05)
+        shard = _gloo_shard(rank, sub, gloo_dir, n, device, runtime)
+        with open(os.path.join(gloo_dir, f"shard{rank}.json"), "w") as f:
+            json.dump(shard, f)
         dist.barrier()                  # every rank is done with the groups
     finally:
         runtime.close()
         dist.destroy_process_group()
-    with open(os.path.join(gloo_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(rec, f)
 
 
 def _gloo_broadcast(ranks, gloo_dir, n, local) -> dict:
@@ -1807,10 +1884,9 @@ def _gloo_broadcast(ranks, gloo_dir, n, local) -> dict:
     walked (batch 0's, and batch 1's after the stop)."""
     open(os.path.join(gloo_dir, "go"), "w").close()
     tw = time.perf_counter()
-    deadline = time.monotonic() + 900
-    while not ranks.join(timeout=max(1.0, deadline - time.monotonic())):
-        check(time.monotonic() < deadline,
-              "service (d) gloo: a process did not finish")
+    for r in range(2):
+        _wait_for(os.path.join(gloo_dir, f"rank{r}.json"), ranks,
+                  "service (d) gloo")
     wall = time.perf_counter() - tw
     recs = []
     for r in range(2):
@@ -1843,6 +1919,582 @@ def _gloo_broadcast(ranks, gloo_dir, n, local) -> dict:
           f"in-process job's, batch 1 resumed from the stop at sites "
           f"{STOP_CUTS[0]} and {STOP_CUTS[1]}; {json.dumps(out)}",
           flush=True)
+    return out
+
+
+def _flip_bytes(path: str, n: int = 8) -> None:
+    """Rot a file: invert ``n`` bytes in its middle."""
+    with open(path, "r+b") as f:
+        f.seek(0, os.SEEK_END)
+        f.seek(f.tell() // 2)
+        chunk = f.read(n)
+        f.seek(-len(chunk), os.SEEK_CUR)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+def _gloo_shard(rank: int, sub: str, gloo_dir: str, n: int, device,
+                runtime) -> dict:
+    """Phase shard in a gloo rank.  (c) The sharded 2-batch job (keys of
+    ``SHARD_SEED``) on a one-lane service, pipelined (batch 1's first owned
+    segment is read behind batch 0's walk), on the shared 4-site store: a
+    site a block, so this rank walks and reads 2 sites a batch and hands
+    the env on at 3 boundaries.  (d) The same walk on batch 0's key from
+    the roots of ``shard_roots.json``: rank 0's slice holds a rotted copy
+    of site ``SHARD_ROT[0]``, which the pre-walk round writes again from
+    rank 1's; then rank 1 rots its own copy of ``SHARD_ROT[1]``, which no
+    peer holds, and both ranks must fail that round."""
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import GammaStore, site_filename
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import CorruptSegment
+    from repro_torch.shard import ShardMap, ShardedGammaStore
+
+    def numbers(st):
+        return {x: v for x, v in st.items() if isinstance(v, (int, float))
+                and not isinstance(v, bool)}
+
+    rec = {"rank": rank}
+    cfg = api.SamplerConfig(backend="streamed", runtime=runtime,
+                            segment_len=1, shard="auto")
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    with GammaStore(sub, torch.bfloat16, torch.float64) as store, \
+            api.SamplingSession(store, cfg, device=device) as session:
+        ops.reset_launches()
+        tw = time.perf_counter()
+        with api.SamplingService(workers=1) as svc:
+            h = svc.submit(session, n_samples=2 * n,
+                           key=prng.key(SHARD_SEED), macro_batches=2)
+            blocks = dict(h.stream(timeout=600))
+            stats = h.stats
+        if on_card:
+            torch.cuda.synchronize(device)
+        rec["job_s"] = time.perf_counter() - tw
+        rec["launches"] = {x: v for x, v in ops.launch_counts().items() if v}
+        rec["stats"] = {str(b): numbers(st) for b, st in stats.items()}
+        view = next(iter(session._engines.values())).store  # the owned view
+        rec["reads"] = {"payload_reads": view.payload_reads,
+                        "io_bytes": view.io_bytes,
+                        "read_s": view.io_seconds}
+        if on_card:
+            rec["peak_gb"] = (torch.cuda.max_memory_allocated(device)
+                              - base) / 1e9
+        for b, blk in blocks.items():
+            np.save(os.path.join(gloo_dir, f"shard_rank{rank}_{b}.npy"), blk)
+
+    with open(os.path.join(gloo_dir, "shard_roots.json")) as f:
+        roots = json.load(f)
+    sm = ShardMap(STREAM_TP_SITES, 2, 1)
+    key0 = batch_key(prng.key(SHARD_SEED), 0, 2)
+
+    def walk():
+        src = (ShardedGammaStore(roots["host0"], sm, 0, torch.bfloat16,
+                                 torch.float64) if rank == 0 else
+               GammaStore(roots["host1"], torch.bfloat16, torch.float64))
+        with src, api.SamplingSession(src, cfg, device=device) as s:
+            ops.reset_launches()
+            tw = time.perf_counter()
+            got = s.sample(n, key0)
+            return got, dict(numbers(s.stats),
+                             job_s=time.perf_counter() - tw,
+                             launches={x: v for x, v in
+                                       ops.launch_counts().items() if v})
+
+    got, rec["repair"] = walk()
+    np.save(os.path.join(gloo_dir, f"repair_rank{rank}.npy"), got)
+    if rank == 1:
+        path = os.path.join(roots["host1"], site_filename(SHARD_ROT[1]))
+        real = os.path.realpath(path)
+        os.remove(path)
+        shutil.copyfile(real, path)
+        _flip_bytes(path)
+    runtime.barrier()
+    try:
+        walk()
+        rec["unrepairable"] = {"error": None}
+    except CorruptSegment as e:
+        rec["unrepairable"] = {"error": type(e).__name__,
+                               "kind": e.fault.kind, "site": e.fault.site,
+                               "message": e.fault.message}
+    return rec
+
+
+def _shard_emulated(sub, device, hosts, n, key, want, site_bytes,
+                    clamp=None) -> dict:
+    """(a) / (b): one sharded walk (a site a block) on
+    ``emulated_cluster(hosts)``, a session per member in its own thread,
+    against ``want`` (samples, or samples and log_prob)."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.core.perfmodel import Workload, shard_wire_bytes
+    from repro_torch.data.gamma_store import GammaStore
+    from repro_torch.kernels import ops
+    from repro_torch.shard import ShardMap, chain_segments
+
+    label = f"shard ({'b' if clamp else 'a'}) emulated_cluster({hosts})"
+    members = api.emulated_cluster(hosts, timeout=600)
+    results = {}
+
+    def run(rt):
+        try:
+            cfg = api.SamplerConfig(runtime=rt, backend="streamed",
+                                    segment_len=1, shard="auto", clamp=clamp)
+            with GammaStore(sub, torch.bfloat16, torch.float64) as st, \
+                    api.SamplingSession(st, cfg, device=device) as s:
+                results[rt.process_index] = (s.sample(n, key),
+                                             dict(s.stats))
+        except BaseException as e:   # noqa: BLE001 — checked below
+            results[rt.process_index] = e
+
+    ops.reset_launches()
+    tw = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(rt,)) for rt in members]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    launches = {x: v for x, v in ops.launch_counts().items() if v}
+    check(len(results) == hosts, f"{label}: a member hung")
+    for p, r in results.items():
+        check(not isinstance(r, BaseException),
+              f"{label}: process {p} raised {r!r}")
+    sm = ShardMap(STREAM_TP_SITES, hosts, 1)
+    handoffs = sm.handoffs(chain_segments(STREAM_TP_SITES, 1))
+    wire = shard_wire_bytes(Workload(n_samples=n, n_sites=STREAM_TP_SITES,
+                                     chi=CHI, d=D), hosts, block=1)
+    # a handoff's payload: env (wire's handoff_bytes), log_scale (fp64),
+    # the key's two uint32 words and the boundary site; log_prob if clamped
+    extra = n * 8 + 16 + (n * 8 if clamp else 0)
+    kernel = "contract_measure" if clamp else "site_step_linear"
+    check(launches == {kernel: STREAM_TP_SITES},
+          f"{label}: launches {launches}, expected {kernel} × "
+          f"{STREAM_TP_SITES}")
+    sent = sum(r[1]["handoff_send_bytes"] for r in results.values())
+    check(sent == wire["handoff_bytes"] + len(handoffs) * extra,
+          f"{label}: {sent} handoff bytes sent, the model's "
+          f"{wire['handoff_bytes']} env bytes + {len(handoffs)} × {extra}")
+    want_samples = want[0] if clamp else want
+    hosts_out = {}
+    for p, (got, st) in sorted(results.items()):
+        owned = sm.owned_sites(p)
+        check(np.array_equal(got, want_samples),
+              f"{label}: process {p}'s samples differ from the local walk")
+        check(st["io_bytes"] == site_bytes * len(owned)
+              and st["segments"] == len(owned)
+              and st["owned_segments"] == len(owned),
+              f"{label}: process {p} read {st['io_bytes']} bytes in "
+              f"{st['segments']} segments, owning sites {owned}")
+        check(st["handoffs"] == sum(p in (a, b) for _, a, b in handoffs)
+              and st["broadcast_recv_bytes"] == 0
+              and st["broadcast_send_bytes"] == 0,
+              f"{label}: process {p}: {st['handoffs']} handoffs, "
+              f"broadcast {st['broadcast_recv_bytes']} bytes")
+        if clamp:
+            err = float(np.abs(st["log_prob"] - want[1]).max())
+            check(np.allclose(st["log_prob"], want[1], **TOL[torch.float64]),
+                  f"{label}: process {p}'s log_prob differs ({err:.3e})")
+            for site, v in clamp.items():
+                check(bool((got[:, site] == v).all()),
+                      f"{label}: site {site} is not clamped")
+        hosts_out[str(p)] = {
+            "owned_sites": owned, "wall_s": st["wall_s"],
+            "read_s": st["store_io_s"], "read_gb": st["io_bytes"] / 1e9,
+            "compute_s": st["compute_s"], "handoffs": st["handoffs"],
+            "handoff_send_bytes": st["handoff_send_bytes"],
+            "handoff_send_s": st["handoff_send_s"],
+            "handoff_wait_s": st["handoff_wait_s"],
+            "handoff_copy_s": st["handoff_copy_s"],
+            "gather_bytes": st["gather_bytes"]}
+    out = {"wall_s": wall, "launches": launches, "handoff_bytes": sent,
+           "model": wire, "hosts": hosts_out}
+    print(f"{label}: every process == the local walk, each read only its "
+          f"sites; {json.dumps(out)}", flush=True)
+    return out
+
+
+def _shard_roots(sub, gloo) -> dict:
+    """(d)'s roots: host 0's slice (``materialize_shard``: its sites hard-
+    linked, the manifest) with site ``SHARD_ROT[0]`` a rotted copy, and
+    host 1's root holding every site (links to the store) and the
+    manifest."""
+    from repro_torch.data.gamma_store import MANIFEST_NAME, site_filename
+    from repro_torch.shard import ShardMap, materialize_shard
+
+    sm = ShardMap(STREAM_TP_SITES, 2, 1)
+    host0 = materialize_shard(sub, os.path.join(gloo, "host0"), sm, 0)
+    host1 = os.path.join(gloo, "host1")
+    os.makedirs(host1)
+    for i in range(STREAM_TP_SITES):
+        os.symlink(os.path.realpath(os.path.join(sub, site_filename(i))),
+                   os.path.join(host1, site_filename(i)))
+    shutil.copyfile(os.path.join(host0, MANIFEST_NAME),
+                    os.path.join(host1, MANIFEST_NAME))
+    # a hard link shares the store's file: copy it, then rot the copy
+    path = os.path.join(host0, site_filename(SHARD_ROT[0]))
+    os.remove(path)
+    shutil.copyfile(os.path.realpath(os.path.join(
+        sub, site_filename(SHARD_ROT[0]))), path)
+    _flip_bytes(path)
+    roots = {"host0": host0, "host1": host1}
+    with open(os.path.join(gloo, "shard_roots.json"), "w") as f:
+        json.dump(roots, f)
+    return roots
+
+
+def phase_shard(sub, gloo, ranks, device, clamped_seq) -> dict:
+    """The sharded data plane on phase stream's 4-site sub-store (3.2 GB
+    bf16, fp64 walked, a site a segment and a block, N = 1024): (a)
+    ``shard="auto"`` on ``emulated_cluster(2)`` and ``(4)``; (b) the
+    clamped walk (stream (f)'s clamp) on ``emulated_cluster(2)``; (c) a
+    pipelined 2-batch service job on the 2 gloo processes; (d) peer repair
+    on them, then an unrepairable site.  Each process's samples equal the
+    local walk's bit for bit."""
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import GammaStore
+
+    t0 = time.perf_counter()
+    n = LINEAR_N
+    keys = [batch_key(prng.key(SHARD_SEED), b, 2) for b in (0, 1)]
+    local, lstats = [], []
+    with GammaStore(sub, torch.bfloat16, torch.float64) as store, \
+            api.SamplingSession(store, api.SamplerConfig(
+                backend="streamed", segment_len=1), device=device) as s:
+        for k in keys:
+            local.append(s.sample(n, k))
+            lstats.append(dict(s.stats))
+    site_bytes = lstats[0]["io_bytes"] // STREAM_TP_SITES
+    out = {"local": [{"wall_s": st["wall_s"], "read_s": st["store_io_s"],
+                      "compute_s": st["compute_s"]} for st in lstats]}
+    for hosts in SHARD_HOSTS:
+        out[f"emulated_{hosts}"] = _shard_emulated(
+            sub, device, hosts, n, keys[0], local[0], site_bytes)
+    out["clamped"] = _shard_emulated(sub, device, 2, n, prng.key(11),
+                                     clamped_seq, site_bytes,
+                                     clamp=CLAMP_STREAM)
+    torch.cuda.empty_cache()
+
+    tr = time.perf_counter()
+    _shard_roots(sub, gloo)
+    out["roots_s"] = time.perf_counter() - tr
+    open(os.path.join(gloo, "go_shard"), "w").close()
+    tw = time.perf_counter()
+    for r in range(2):
+        _wait_for(os.path.join(gloo, f"shard{r}.json"), ranks,
+                  "shard (c, d) gloo")
+    out["gloo_wall_s"] = time.perf_counter() - tw
+    deadline = time.monotonic() + 120
+    while not ranks.join(timeout=max(1.0, deadline - time.monotonic())):
+        check(time.monotonic() < deadline, "shard: a gloo process did not "
+              "finish")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(gloo, f"shard{r}.json")) as f:
+            recs.append(json.load(f))
+    gloo_out = {}
+    for r, rec in enumerate(recs):
+        for b in (0, 1):
+            got = np.load(os.path.join(gloo, f"shard_rank{r}_{b}.npy"))
+            check(np.array_equal(got, local[b]), f"shard (c) gloo: rank "
+                  f"{r}'s batch {b} differs from the local walk")
+        reads = rec["reads"]
+        check(rec["launches"] == {"site_step_linear": 4}
+              and reads["payload_reads"] == 4
+              and reads["io_bytes"] == 4 * site_bytes,
+              f"shard (c) gloo: rank {r} launched {rec['launches']} and "
+              f"read {reads}, expected 2 owned sites a batch")
+        per = {}
+        for b, st in rec["stats"].items():
+            per[b] = {x: st[x] for x in (
+                "wall_s", "store_io_s", "io_bytes", "compute_s",
+                "handoffs", "handoff_send_bytes", "handoff_recv_bytes",
+                "handoff_send_s", "handoff_wait_s", "handoff_copy_s",
+                "gather_s", "gather_bytes", "io_wait_s")}
+            sent = st["handoff_send_bytes"]
+            per[b]["handoff_gbps"] = (sent / st["handoff_send_s"] / 1e9
+                                      if st["handoff_send_s"] else None)
+        gloo_out[str(r)] = {"job_s": rec["job_s"], "batches": per,
+                            "read_gb": reads["io_bytes"] / 1e9,
+                            "read_gbps": (reads["io_bytes"]
+                                          / reads["read_s"] / 1e9),
+                            "peak_gb": rec.get("peak_gb"),
+                            "launches": rec["launches"]}
+    out["gloo"] = gloo_out
+    print(f"shard (c) torch.distributed, 2 processes on the card over gloo: "
+          f"a pipelined 2-batch sharded job, both ranks' blocks == the local "
+          f"walks, each rank reading its 2 sites a batch "
+          f"({2 * site_bytes / 1e9:.3f} GB); {json.dumps(gloo_out)}",
+          flush=True)
+
+    rep = [rec["repair"] for rec in recs]
+    for r in range(2):
+        got = np.load(os.path.join(gloo, f"repair_rank{r}.npy"))
+        check(np.array_equal(got, local[0]), f"shard (d): rank {r}'s "
+              f"repaired walk differs from the local walk")
+    check(rep[0]["repaired_sites"] == 1 and rep[1]["repaired_sites"] == 0
+          and rep[0]["quarantined_sites"] == 1,
+          f"shard (d): repaired {[x['repaired_sites'] for x in rep]}, "
+          f"quarantined {[x['quarantined_sites'] for x in rep]}")
+    bad = [rec["unrepairable"] for rec in recs]
+    for r, u in enumerate(bad):
+        check(u["error"] == "CorruptSegment" and u["kind"] == "corruption"
+              and u["site"] == SHARD_ROT[1]
+              and "no peer holds a healthy copy" in u["message"],
+              f"shard (d): rank {r} on the unrepairable site: {u}")
+    out["repair"] = {str(r): {x: rep[r][x] for x in (
+        "job_s", "wall_s", "repaired_sites", "quarantined_sites",
+        "store_io_s", "io_bytes", "compute_s")} for r in range(2)}
+    out["repair_launches"] = [x["launches"] for x in rep]
+    out["unrepairable"] = bad
+    print(f"shard (d): rank 0's rotted copy of site {SHARD_ROT[0]} written "
+          f"again from rank 1's before the walk (repaired 1 / 0), the "
+          f"samples == the local walk; a rotted site no peer holds (site "
+          f"{SHARD_ROT[1]}) failed both ranks with kind=corruption; "
+          f"{json.dumps(out['repair'])}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    _phase("shard", t0)
+    return out
+
+
+class _GatewayClient:
+    """A real-socket client of the gateway: JSON requests and the chunked
+    frame stream."""
+
+    def __init__(self, url: str, api_key=None):
+        import http.client
+        host, port = url.removeprefix("http://").split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+        self.api_key = api_key
+
+    def _headers(self) -> dict:
+        return {"x-api-key": self.api_key} if self.api_key else {}
+
+    def request(self, method, path, body=None):
+        self.conn.request(method, path, None if body is None
+                          else json.dumps(body), self._headers())
+        resp = self.conn.getresponse()
+        return resp.status, dict(resp.getheaders()), \
+            json.loads(resp.read() or b"{}")
+
+    def submit(self, store, seed, config):
+        return self.request("POST", "/v1/jobs", {
+            "store": store, "n_samples": GATEWAY_N, "seed": seed,
+            "macro_batches": 2, "config": config})
+
+    def stream_frames(self, gid):
+        """[npy frame bytes, ...] and the terminal header."""
+        from repro_torch.runtime import transport
+
+        class Exact:
+            def __init__(self, resp):
+                self.resp = resp
+
+            def read(self, n):
+                buf = b""
+                while len(buf) < n:
+                    chunk = self.resp.read(n - len(buf))
+                    if not chunk:
+                        break
+                    buf += chunk
+                return buf
+
+        self.conn.request("GET", f"/v1/jobs/{gid}/stream", None,
+                          self._headers())
+        resp = self.conn.getresponse()
+        check(resp.status == 200, f"gateway: stream {gid} answered "
+              f"{resp.status}")
+        rx, frames, terminal = Exact(resp), [], None
+        while terminal is None:
+            head = json.loads(transport.read_frame(rx))
+            if head["kind"] == "block":
+                frames.append(transport.read_frame(rx))
+            else:
+                terminal = head
+        resp.read()
+        return frames, terminal
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def phase_gateway(svc, device) -> dict:
+    """The serving stack on the first 2 sites of phase stream's store, at
+    the jiuzhang2 width: an in-process ``Gateway`` over a one-lane
+    ``SamplingService`` on the card, 2 tenants, a disk ``ResultCache``
+    under ``build/``; a real-socket client.  A job of N = 1024 in 2 batches
+    (the store opened as the gateway opens it: fp32 walked) == the
+    session's walks of the same batches; the same request again is a hit
+    (byte-identical frames, no execution, no launch); an identical request
+    attaches; a tenant over its quota gets 429 with Retry-After; another
+    tenant's GET answers 404; the owner's DELETE of a running job streams
+    the error frame; ``/metrics`` shows the gateway's and the service's
+    counters.  The store's 2 sites are hard-linked under ``build/`` for
+    phase cli's launcher run."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.api.service import batch_key
+    from repro_torch.core import prng
+    from repro_torch.data.gamma_store import site_filename
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, instrument_service
+    from repro_torch.runtime import transport
+    from repro_torch.serve import Gateway, ResultCache, Tenant, TenantTable
+
+    t0 = time.perf_counter()
+    build = ROOT / "build"
+    root = tempfile.mkdtemp(dir=build, prefix="gateway_stores_")
+    name = "jiuzhang2_2sites"
+    os.makedirs(os.path.join(root, name))
+    for i in range(SERVICE_SITES):
+        os.link(os.path.realpath(os.path.join(svc, site_filename(i))),
+                os.path.join(root, name, site_filename(i)))
+    config = {"segment_len": 1}
+    k = 2
+    with api.SamplingSession(os.path.join(root, name), api.SamplerConfig(
+            segment_len=1), device=device) as s:
+        want = [s.sample(GATEWAY_N // k, batch_key(prng.key(GATEWAY_SEED), b,
+                                                   k)) for b in range(k)]
+    out = {"store_root": root, "name": name,
+           "samples": np.concatenate(want, axis=0)}
+    registry = MetricsRegistry()
+    tenants = TenantTable([Tenant(name=t, api_key=key, max_active_jobs=m)
+                           for t, key, m in GATEWAY_TENANTS])
+    cache_dir = tempfile.mkdtemp(dir=build, prefix="gateway_cache_")
+    try:
+        with api.SamplingService(workers=1) as service:
+            instrument_service(service, registry)
+            with Gateway(service, tenants=tenants,
+                         cache=ResultCache(cache_dir=cache_dir),
+                         registry=registry, store_root=root) as gw:
+                alice = _GatewayClient(gw.url, "alice-key")
+                bob = _GatewayClient(gw.url, "bob-key")
+                ops.reset_launches()
+                tw = time.perf_counter()
+                code, _, first = alice.submit(name, GATEWAY_SEED, config)
+                frames, term = alice.stream_frames(first["id"])
+                torch.cuda.synchronize()
+                out["miss_s"] = time.perf_counter() - tw
+                launches = {x: v for x, v in ops.launch_counts().items()
+                            if v}
+                check(code == 201 and first["cache"] == "miss"
+                      and term["kind"] == "end",
+                      f"gateway: first request {code} {first} {term}")
+                check(launches == {"site_step_linear": k * SERVICE_SITES},
+                      f"gateway: the job launched {launches}")
+                check(frames == [transport.array_to_frame(w) for w in want],
+                      "gateway: the streamed frames differ from the "
+                      "session's walks of the same batches")
+                done = service.stats()["jobs"]["done"]
+                ops.reset_launches()
+                tw = time.perf_counter()
+                code, _, hit = alice.submit(name, GATEWAY_SEED, config)
+                frames2, _ = alice.stream_frames(hit["id"])
+                out["hit_s"] = time.perf_counter() - tw
+                check(code == 201 and hit["cache"] == "hit"
+                      and frames2 == frames
+                      and service.stats()["jobs"]["done"] == done
+                      and not any(ops.launch_counts().values()),
+                      f"gateway: the repeat was {hit['cache']}, its frames "
+                      f"{'equal' if frames2 == frames else 'differ'}, "
+                      f"launches {ops.launch_counts()}")
+
+                # held batches: an attach, bob's own job, his quota, a
+                # foreign GET, the owner's DELETE of a running job
+                gates = {}
+
+                def hold(job, b, w):
+                    gates.setdefault(job.job_id, threading.Event()).wait(
+                        timeout=300)
+                service.batch_hook = hold
+
+                def job_of(gid):
+                    return gw._records[gid].handle.job_id
+
+                def release(gid):
+                    gates.setdefault(job_of(gid), threading.Event()).set()
+                try:
+                    _, _, a = alice.submit(name, GATEWAY_SEED + 1, config)
+                    _, _, b = bob.submit(name, GATEWAY_SEED + 1, config)
+                    _, _, c = bob.submit(name, GATEWAY_SEED + 2, config)
+                    code_q, headers, _ = bob.submit(name, GATEWAY_SEED + 3,
+                                                    config)
+                    code_f, _, _ = bob.request("GET", f"/v1/jobs/{a['id']}")
+                    release(a["id"])
+                    deadline = time.monotonic() + 300
+                    while bob.request("GET", f"/v1/jobs/{c['id']}")[2][
+                            "state"] != "running":
+                        check(time.monotonic() < deadline,
+                              "gateway: bob's job never ran")
+                        time.sleep(0.02)
+                    code_d, _, dele = bob.request("DELETE",
+                                                  f"/v1/jobs/{c['id']}")
+                finally:
+                    service.batch_hook = None
+                    for e in list(gates.values()):
+                        e.set()
+                a_frames, a_term = alice.stream_frames(a["id"])
+                b_frames, b_term = bob.stream_frames(b["id"])
+                _, c_term = bob.stream_frames(c["id"])
+                check((a["cache"], b["cache"], c["cache"])
+                      == ("miss", "attach", "miss")
+                      and a_term["kind"] == b_term["kind"] == "end"
+                      and a_frames == b_frames,
+                      f"gateway: attach {a['cache']}/{b['cache']}, "
+                      f"{a_term} {b_term}")
+                check(code_q == 429 and int(headers["Retry-After"]) >= 1,
+                      f"gateway: bob over his quota got {code_q}")
+                check(code_f == 404, f"gateway: bob's GET of alice's job "
+                      f"got {code_f}")
+                check(code_d == 200 and dele["cancelled"] is True
+                      and c_term["kind"] == "error",
+                      f"gateway: bob's DELETE {code_d} {dele}, then "
+                      f"{c_term}")
+                alice.conn.request("GET", "/metrics")
+                text = alice.conn.getresponse().read().decode()
+                values = {ln.split(" ")[0]: float(ln.split(" ")[-1])
+                          for ln in text.splitlines()
+                          if ln and not ln.startswith("#")}
+                shown = {x: values.get(x) for x in (
+                    'fastmps_http_requests_total{route="submit",code="429"}',
+                    'fastmps_cache_events_total{event="hit"}',
+                    'fastmps_cache_events_total{event="attach"}',
+                    'fastmps_cache_events_total{event="miss"}',
+                    "fastmps_tenant_rejections_total",
+                    "fastmps_jobs_submitted_total",
+                    "fastmps_batches_total")}
+                check(shown['fastmps_http_requests_total{route="submit",'
+                            'code="429"}'] == 1
+                      and shown['fastmps_cache_events_total{event="hit"}']
+                      == 1 and shown["fastmps_jobs_submitted_total"] == 3
+                      and shown["fastmps_tenant_rejections_total"] == 1
+                      and (shown["fastmps_batches_total"] or 0) >= 4,
+                      f"gateway: /metrics shows {shown}")
+                out["metrics"] = shown
+                out["stats"] = {x: gw.stats()["cache"][x] for x in (
+                    "hits", "misses", "attaches", "disk_entries",
+                    "disk_bytes")}
+                for cl in (alice, bob):
+                    cl.close()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"gateway: N={GATEWAY_N} in 2 batches over {SERVICE_SITES} sites "
+          f"== the session's walks; the repeat a hit (same bytes, no "
+          f"execution, no launch); attach, 429, 404 and the owner's "
+          f"cancel held; {json.dumps({x: v for x, v in out.items() if x != 'samples'})}",
+          flush=True)
+    _phase("gateway", t0)
     return out
 
 
@@ -3232,14 +3884,48 @@ def phase_lm(device) -> dict:
             "decode_step_kernels": n_kernels, "peak_gb": peak}
 
 
-def phase_cli() -> None:
+def _launcher_request(proc, gateway) -> dict:
+    """The gateway launcher's one request: wait for its URL, ask for phase
+    gateway's first job by the store's name under ``--store-root`` and
+    hold the samples against the in-process job's."""
+    from repro_torch.runtime import transport
+
+    tw = time.perf_counter()
+    url = None
+    for line in proc.stdout:
+        if line.startswith("gateway listening on "):
+            url = line.split()[-1]
+            break
+    check(url is not None, f"gateway launcher printed no URL: "
+          f"{proc.stderr.read()[-3000:] if proc.poll() is not None else ''}")
+    up = time.perf_counter() - tw
+    client = _GatewayClient(url)
+    code, _, sub = client.submit(gateway["name"], GATEWAY_SEED,
+                                 {"segment_len": 1})
+    check(code == 201, f"gateway launcher: submit answered {code} {sub}")
+    frames, term = client.stream_frames(sub["id"])
+    client.close()
+    check(term["kind"] == "end", f"gateway launcher: {term}")
+    got = np.concatenate([transport.array_from_frame(f) for f in frames])
+    check(np.array_equal(got, gateway["samples"]),
+          "gateway launcher: its samples differ from the in-process job's")
+    out = {"up_s": up, "request_s": time.perf_counter() - tw - up}
+    print(f"cli gateway launcher: up in {out['up_s']:.3f} s, one request "
+          f"for {gateway['name']} by name == the in-process job in "
+          f"{out['request_s']:.3f} s", flush=True)
+    return out
+
+
+def phase_cli(gateway) -> dict:
     """The sampling CLI on the card, its runs all started at once: plain;
     ``--clamp 1=0,3=1``; ``--service --service-workers 2`` (thread lanes,
     the default dp scheme), which writes the plain run's batch files;
     ``--service-fleet`` and ``--runtime remote`` (a worker process on the
     card each, which places its walk itself: seq), which write the seq
     walks' on the same batch keys, with the workers' kernel launches
-    reported; and ``repro_torch.launch.scenarios``."""
+    reported; ``repro_torch.launch.scenarios``; and ``repro_torch.launch.
+    gateway --port 0 --serve-s`` over phase gateway's 2-site store, which
+    serves one request for it by name (the in-process job's samples)."""
     from repro_torch import api
     from repro_torch.core import mps as M
     from repro_torch.core import prng
@@ -3267,7 +3953,15 @@ def phase_cli() -> None:
                                         stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True)
                  for name, cmd in runs.items()}
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.gateway", "--port",
+             "0", "--serve-s", "600", "--workers", "1", "--stats-every",
+             "0", "--store-root", gateway["store_root"]], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
+            served = _launcher_request(launcher, gateway)
+            launcher.terminate()
+            launcher.communicate(timeout=120)
             # the seq walks on the CLI's chain and batch keys, meanwhile
             device = torch.device("cuda", torch.cuda.current_device())
             chain = M.gbs_like_mps(prng.key(0), 8, 256, 4,
@@ -3279,11 +3973,11 @@ def phase_cli() -> None:
             res = {name: proc.communicate(timeout=600)
                    for name, proc in procs.items()}
         finally:
-            for proc in procs.values():
+            for proc in [*procs.values(), launcher]:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"cli: {len(runs)} runs at once in "
+        print(f"cli: {len(runs) + 1} runs at once in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
         stdout, stderr = res["plain"]
@@ -3350,6 +4044,7 @@ def phase_cli() -> None:
               f"scenarios exited {procs['scenarios'].returncode}: "
               f"{stdout[-2000:]} {stderr[-2000:]}")
     _phase("cli", t0)
+    return served
 
 
 def main() -> int:
@@ -3363,8 +4058,10 @@ def main() -> int:
     phase_small(device)
     mesh = phase_nccl(device)
     registry = MetricsRegistry()
+    gateway = None
     try:
         stream = phase_stream(device, mesh, registry)
+        gateway = stream["gateway"]
         linear, mps, env = phase_full(device, "linear")
         walks = phase_tp(mesh, mps)
         clamp = phase_clamp(mesh, mps)
@@ -3388,7 +4085,11 @@ def main() -> int:
                  replaces="src/repro/kernels/flash_attention.py:111",
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
                  lm=lm)
-    phase_cli()
+    try:
+        gateway["launcher"] = phase_cli(gateway)
+    finally:
+        shutil.rmtree(gateway["store_root"], ignore_errors=True)
+    del gateway["samples"]
     for entry, prefix in ((linear, "collapse_f64_kernel"),
                           (born, "contract_c128_kernel"),
                           (tp_entries[0], "contract_f64_kernel"),
@@ -3437,6 +4138,19 @@ def main() -> int:
                        for r in streamed["gloo"]["launches"]]}
     tp_entries[0]["service_launches"] = {
         "clamped_job": service["b"]["clamped_launches"]["contract_measure"]}
+    # the sharded plane's and the gateway's walks (phase shard, gateway)
+    shard = stream["shard"]
+    linear["shard_launches"] = {
+        **{f"emulated_{h}": shard[f"emulated_{h}"]["launches"][
+            "site_step_linear"] for h in SHARD_HOSTS},
+        "gloo_ranks": [r["launches"]["site_step_linear"]
+                       for r in shard["gloo"].values()],
+        "repair_ranks": [r.get("site_step_linear", 0)
+                         for r in shard["repair_launches"]]}
+    linear["gateway_launches"] = gateway["launches"]["site_step_linear"]
+    tp_entries[0]["shard_launches"] = {
+        "clamped_emulated_2": shard["clamped"]["launches"][
+            "contract_measure"]}
     print("stream:", json.dumps(stream))
     print("service:", json.dumps(service))
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,

@@ -194,6 +194,15 @@ class StreamedBackend(Backend):
         plan = req.plan
         store = req.store()
         scheme = "inmem" if plan.scheme == "seq" else plan.scheme
+        shard = None
+        if plan.shard_block:
+            # the host count binds here, to the executing runtime: the same
+            # plan on a lone remote worker walks the 1-host map locally
+            from repro_torch.shard.shardmap import ShardMap
+            n_hosts = (req.runtime.process_count
+                       if req.runtime is not None else 1)
+            shard = ShardMap(n_sites=store.n_sites, n_hosts=max(1, n_hosts),
+                             block=plan.shard_block)
 
         def build() -> StreamingEngine:
             return StreamingEngine(
@@ -203,7 +212,8 @@ class StreamedBackend(Backend):
                                 checkpoint_every=plan.checkpoint_every),
                 mesh=req.mesh if scheme != "inmem" else None,
                 pconfig=plan.pconfig, chi_profile=plan.chi_profile,
-                runtime=req.runtime, clamp=plan.clamp, device=plan.device)
+                runtime=req.runtime, shard=shard, clamp=plan.clamp,
+                device=plan.device)
 
         kw = dict(resume=req.resume,
                   stop_after_segments=req.stop_after_segments,
@@ -221,7 +231,7 @@ class StreamedBackend(Backend):
             eng_key = (scheme, plan.semantics, plan.segment_len,
                        plan.micro_batch, plan.chi_profile,
                        plan.checkpoint_every, plan.sampler_config,
-                       plan.pconfig, plan.clamp, plan.device)
+                       plan.pconfig, plan.clamp, plan.device, shard)
             eng = req.engines.get(eng_key)
             if eng is None:
                 new = build()

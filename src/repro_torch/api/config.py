@@ -24,9 +24,14 @@ against the chain and batch at plan time; a clamped plan walks
 per-sample ``log_prob`` in ``session.stats``.  A runtime of more than one
 process needs the ``streamed`` plane (the §3.1 broadcast), and
 ``backend="remote"`` takes no mesh, no scheme but seq and no
-``checkpoint_dir``, as the JAX package refuses them.  ``shard`` (the
-sharded plane) raises ``NotImplementedError`` naming the ROADMAP.md row
-that ports it.
+``checkpoint_dir``, as the JAX package refuses them.  ``shard`` turns on
+the sharded plane (``repro_torch.shard``): an int block of sites (block-
+cyclic site → host ownership, a whole number of segments) or AUTO (one
+segment a block), streamed backend only; the plan's ``shard_block`` is
+checked against the engine's real schedule (every segment one owner), and
+the host count binds to the executing runtime (a lone remote worker walks
+the 1-host map).  A mesh with more data axes than one (the JAX package's
+("pod", "data", "model")) splits the batch over all of them, pod-major.
 
 ``kernels``: ``"cuda"`` (the Hopper kernels), ``"torch"`` (the plain
 PyTorch cells) or AUTO (cuda on the card, torch on the CPU).
@@ -58,12 +63,6 @@ AUTO = "auto"
 
 _SCHEMES = ("seq", "dp", "tp_single", "tp_double", "baseline19")
 _SCALINGS = ("none", "global", "per_sample")
-
-
-def unported(what: str, row, topic: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md §1 row {row}: {topic})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +112,7 @@ class SessionPlan:
     chi_profile: Optional[tuple[int, ...]] = None
     stages: Optional[tuple[tuple[int, int, int], ...]] = None  # (s0, s1, χ)
     checkpoint_every: int = 1
+    shard_block: Optional[int] = None  # sites per ownership block; None: off
     clamp: Optional[tuple] = None      # the normalised spec; None: unclamped
 
     @property
@@ -146,12 +146,6 @@ def _auto_micro_batch(n_local: int, chi: int, d: int, budget: float,
         if n_local % k == 0:
             return k
     return None
-
-
-def _check_unported(config: SamplerConfig) -> None:
-    if config.shard is not None:
-        raise unported("chain sharding (shard=...)", "10b",
-                       "sharded plane, serving and gateway")
 
 
 def _check_cell(runtime: ClusterRuntime, backend: str, config: SamplerConfig,
@@ -218,14 +212,12 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                  elt_bytes: int = 8,
                  runtime: Optional[ClusterRuntime] = None) -> SessionPlan:
     """Resolve every AUTO field of ``config`` into a :class:`SessionPlan`;
-    raises ``ValueError`` for malformed requests and ``NotImplementedError``
-    for values the port does not carry yet.  ``backend_hint`` is the
+    raises ``ValueError`` for malformed requests.  ``backend_hint`` is the
     source's natural data plane (``streamed`` for a store), ``elt_bytes``
     the bytes of one of its Γ elements as walked, ``runtime`` the session's
     resolved runtime (None: resolve ``config.runtime`` here)."""
     from repro_torch.api.backends import available_backends
 
-    _check_unported(config)
     if runtime is None:
         runtime = resolve_runtime(config.runtime)
     backend = config.backend
@@ -331,6 +323,31 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
         if scheme == "tp_double" and segment_len % 2:
             segment_len += 1            # pairs never straddle segments
 
+    shard_block = None
+    if config.shard is not None and backend != "remote":
+        # a remote payload carries the shard untouched: the worker
+        # resolves it against its own runtime
+        if backend != "streamed":
+            raise ValueError(
+                f"chain sharding distributes the streamed Γ walk — it needs "
+                f"backend='streamed', got {backend!r}")
+        shard_block = (segment_len if config.shard == AUTO
+                       else int(config.shard))
+        if shard_block < 1:
+            raise ValueError(f"shard block must be ≥ 1 site, got "
+                             f"{shard_block}")
+        if shard_block % segment_len:
+            raise ValueError(
+                f"shard block ({shard_block} sites) must be a whole number "
+                f"of segments (segment_len={segment_len}) — a segment "
+                f"walked on one host cannot straddle two owners")
+        # single ownership, proved on the engine's real schedule
+        from repro_torch.shard.shardmap import ShardMap, chain_segments
+        smap = ShardMap(n_sites=n_sites,
+                        n_hosts=max(1, runtime.process_count),
+                        block=shard_block)
+        smap.owners_for(chain_segments(n_sites, segment_len, stages))
+
     clamp = config.clamp                # normalised by __post_init__
     if clamp is not None:
         if backend != "remote":         # the worker checks it against its
@@ -361,4 +378,5 @@ def resolve_plan(config: SamplerConfig, *, n_samples: int, n_sites: int,
                        sampler_config=sampler_config, pconfig=pconfig,
                        device=str(device), segment_len=segment_len,
                        chi_profile=chi_profile, stages=stages,
-                       checkpoint_every=config.checkpoint_every, clamp=clamp)
+                       checkpoint_every=config.checkpoint_every,
+                       shard_block=shard_block, clamp=clamp)

@@ -17,6 +17,9 @@ Every runtime implements one small protocol::
     runtime.broadcast_segment(payload) # root sends, everyone returns it
     runtime.barrier()                  # line the processes up
     runtime.allreduce_min(value)       # the resume agreement
+    runtime.send(dst, payload, tag) / runtime.recv(src, tag)
+    runtime.observe_handoff(src, tag)  # a bystander of a handoff
+    runtime.allgather_payloads(payload)
     runtime.io_counters()              # interconnect / dispatch bytes
     runtime.submit(payload)            # remote dispatch (see remote.py)
 
@@ -40,6 +43,15 @@ Two multi-process transports:
   variable-size payload crosses in two rounds, its length and then its
   npz-framed bytes as a uint8 tensor, as the JAX package's
   ``JaxMultiHostRuntime`` sends them.
+
+The sharded data plane (``repro_torch.shard``) adds point-to-point
+traffic: :meth:`ClusterRuntime.send`/:meth:`~ClusterRuntime.recv` of a
+dict of host arrays (the env handoff and the peer repair, tagged by
+boundary site or by ``("repair", site)``), and
+:meth:`~ClusterRuntime.allgather_payloads` (the sample-block gather).  On
+the emulated fabric they run on queues of their own; on gloo they are true
+``dist.send``/``dist.recv`` (so :meth:`~ClusterRuntime.observe_handoff`,
+the bystander's hook for a transport built on broadcasts, does nothing).
 """
 from __future__ import annotations
 
@@ -227,6 +239,29 @@ class ClusterRuntime:
         """The minimum of one int per process (the resume agreement)."""
         return int(value)
 
+    # -- point-to-point (the sharded plane, repro_torch.shard) ---------------
+    def send(self, dst: int, payload: dict, tag=None) -> None:
+        """Ship a dict of host arrays to process ``dst`` (the env handoff);
+        ``tag`` tells streams between one pair apart (the walk tags by
+        boundary site)."""
+        raise NotImplementedError(f"runtime {self.name!r} has no "
+                                  f"point-to-point transport")
+
+    def recv(self, src: int, tag=None) -> dict:
+        """Blocking receive of the matching :meth:`send` from ``src``."""
+        raise NotImplementedError(f"runtime {self.name!r} has no "
+                                  f"point-to-point transport")
+
+    def observe_handoff(self, src: int, tag=None) -> None:
+        """Called by every process that is neither end of a handoff: a
+        transport built on broadcasts needs every process in every
+        transfer; a true point-to-point one does nothing."""
+
+    def allgather_payloads(self, payload: dict) -> list[dict]:
+        """Every process gives one dict of arrays and gets all of them, in
+        rank order (the sharded walk's sample-block gather)."""
+        return [payload]
+
     def compute_lock(self):
         """Held around one segment's device work: a no-op except on the
         emulated cluster, whose members share one process and one card and
@@ -240,7 +275,8 @@ class ClusterRuntime:
         or dispatched to a worker; engines report per-walk deltas."""
         return {"broadcast_send_bytes": 0, "broadcast_recv_bytes": 0,
                 "broadcast_segments": 0, "broadcast_s": 0.0,
-                "dispatch_bytes": 0}
+                "dispatch_bytes": 0, "p2p_send_bytes": 0,
+                "p2p_recv_bytes": 0, "p2p_msgs": 0}
 
     # -- remote dispatch ------------------------------------------------------
     def submit(self, payload: dict, device=None) -> np.ndarray:
@@ -291,6 +327,9 @@ class _Interconnect:
         self.n = n_processes
         self.timeout = timeout
         self.queues = [queue_mod.Queue() for _ in range(n_processes)]
+        # point-to-point traffic has queues of its own: a handoff must not
+        # dequeue a broadcast segment another plan left in flight
+        self.p2p_queues = [queue_mod.Queue() for _ in range(n_processes)]
         self.barrier = threading.Barrier(n_processes)
         # allreduce scratch: each member writes its own slot before the
         # first barrier and reads between the two, so rounds never clear it
@@ -308,6 +347,17 @@ class _Interconnect:
             raise TimeoutError(
                 f"process {dst} waited >{self.timeout}s for a broadcast — "
                 f"is the root walking the same segment schedule?") from None
+
+    def send_p2p(self, dst: int, msg) -> None:
+        self.p2p_queues[dst].put(msg)
+
+    def recv_p2p(self, dst: int):
+        try:
+            return self.p2p_queues[dst].get(timeout=self.timeout)
+        except queue_mod.Empty:
+            raise TimeoutError(
+                f"process {dst} waited >{self.timeout}s for a point-to-point "
+                f"payload — is the predecessor owner still walking?") from None
 
 
 class MultiHostRuntime(ClusterRuntime):
@@ -328,6 +378,11 @@ class MultiHostRuntime(ClusterRuntime):
         self._recv_bytes = 0
         self._segments = 0
         self._bcast_s = 0.0
+        self._p2p_send = 0
+        self._p2p_recv = 0
+        self._p2p_msgs = 0
+        # messages that arrived while waiting for another (src, tag)
+        self._p2p_buf: dict = {}
 
     @property
     def process_index(self) -> int:
@@ -374,6 +429,44 @@ class MultiHostRuntime(ClusterRuntime):
         f.barrier.wait(timeout=f.timeout)
         return out
 
+    # -- point-to-point (the sharded plane) ----------------------------------
+    def _check_dst(self, dst: int) -> None:
+        if not 0 <= dst < self._count:
+            raise ValueError(f"send dst {dst} outside [0, {self._count})")
+        if dst == self._index:
+            raise ValueError(f"process {self._index} sending to itself — "
+                             f"an owner handoff never loops back")
+
+    def send(self, dst: int, payload: dict, tag=None) -> None:
+        self._check_dst(dst)
+        self._fabric.send_p2p(dst, (self._index, tag, payload))
+        self._p2p_send += _payload_nbytes(payload)
+        self._p2p_msgs += 1
+
+    def recv(self, src: int, tag=None) -> dict:
+        want, buf = (src, tag), self._p2p_buf
+        while not buf.get(want):
+            s, t, payload = self._fabric.recv_p2p(self._index)
+            # counted on arrival, buffered or not
+            self._p2p_recv += _payload_nbytes(payload)
+            self._p2p_msgs += 1
+            buf.setdefault((s, t), []).append(payload)
+        return buf[want].pop(0)
+
+    def allgather_payloads(self, payload: dict) -> list[dict]:
+        # rank-ordered rounds; a send never blocks (unbounded queues), so
+        # each process sends in its own round and receives in the others'
+        out = []
+        for r in range(self._count):
+            if r == self._index:
+                for dst in range(self._count):
+                    if dst != self._index:
+                        self.send(dst, payload, tag=("allgather", r))
+                out.append(payload)
+            else:
+                out.append(self.recv(r, tag=("allgather", r)))
+        return out
+
     def compute_lock(self):
         if self._fabric is not None:
             return self._fabric.compute
@@ -384,7 +477,10 @@ class MultiHostRuntime(ClusterRuntime):
         out.update(broadcast_send_bytes=self._send_bytes,
                    broadcast_recv_bytes=self._recv_bytes,
                    broadcast_segments=self._segments,
-                   broadcast_s=self._bcast_s)
+                   broadcast_s=self._bcast_s,
+                   p2p_send_bytes=self._p2p_send,
+                   p2p_recv_bytes=self._p2p_recv,
+                   p2p_msgs=self._p2p_msgs)
         return out
 
 
@@ -415,7 +511,17 @@ class TorchMultiHostRuntime(MultiHostRuntime):
     must never share one group (nor the default group, where the walk may
     run collectives of its own).  A segment crosses in two rounds, a (1,)
     int64 length and then the npz-framed bytes (:func:`payload_to_bytes`)
-    as a uint8 tensor."""
+    as a uint8 tensor.
+
+    The sharded plane's traffic runs on the walk thread, so on
+    ``_sync_group``: :meth:`send`/:meth:`recv` are gloo's true
+    ``dist.send``/``dist.recv`` (a (1,) int64 length, then the
+    :func:`dict_to_bytes` bytes, both under the message's int tag,
+    :func:`wire_tag`), and :meth:`allgather_payloads` two all-gathers
+    (the lengths, then the bytes padded to the longest).  Gloo pairs a
+    send with its receive, so between two ranks messages are received in
+    the order they were sent (the walk and the repair round keep that
+    order; the emulated fabric also buffers messages that come early)."""
 
     def __init__(self):
         import torch.distributed as dist
@@ -464,6 +570,53 @@ class TorchMultiHostRuntime(MultiHostRuntime):
         import torch.distributed as dist
         dist.barrier(group=self._sync_group)
 
+    def send(self, dst: int, payload: dict, tag=None) -> None:
+        import torch.distributed as dist
+        self._check_dst(dst)
+        blob = torch.from_numpy(dict_to_bytes(payload))
+        t = wire_tag(tag)
+        dist.send(torch.tensor([blob.numel()], dtype=torch.int64), dst=dst,
+                  group=self._sync_group, tag=t)
+        dist.send(blob, dst=dst, group=self._sync_group, tag=t)
+        self._p2p_send += _payload_nbytes(payload)
+        self._p2p_msgs += 1
+
+    def recv(self, src: int, tag=None) -> dict:
+        import torch.distributed as dist
+        t = wire_tag(tag)
+        length = torch.zeros(1, dtype=torch.int64)
+        dist.recv(length, src=src, group=self._sync_group, tag=t)
+        blob = torch.empty(int(length[0]), dtype=torch.uint8)
+        dist.recv(blob, src=src, group=self._sync_group, tag=t)
+        payload = dict_from_bytes(blob.numpy())
+        self._p2p_recv += _payload_nbytes(payload)
+        self._p2p_msgs += 1
+        return payload
+
+    def allgather_payloads(self, payload: dict) -> list[dict]:
+        import torch.distributed as dist
+        blob = torch.from_numpy(dict_to_bytes(payload))
+        lengths = [torch.zeros(1, dtype=torch.int64)
+                   for _ in range(self._count)]
+        dist.all_gather(lengths, torch.tensor([blob.numel()],
+                                              dtype=torch.int64),
+                        group=self._sync_group)
+        size = max(int(n[0]) for n in lengths)
+        mine = torch.zeros(size, dtype=torch.uint8)
+        mine[:blob.numel()] = blob
+        bufs = [torch.empty(size, dtype=torch.uint8)
+                for _ in range(self._count)]
+        dist.all_gather(bufs, mine, group=self._sync_group)
+        out = [payload if r == self._index else
+               dict_from_bytes(bufs[r][:int(lengths[r][0])].numpy())
+               for r in range(self._count)]
+        n_in = sum(_payload_nbytes(p) for r, p in enumerate(out)
+                   if r != self._index)
+        self._p2p_send += _payload_nbytes(payload) * (self._count - 1)
+        self._p2p_recv += n_in
+        self._p2p_msgs += 2 * (self._count - 1)
+        return out
+
     def allreduce_min(self, value: int) -> int:
         import torch.distributed as dist
         t = torch.tensor([int(value)], dtype=torch.int64)
@@ -481,6 +634,27 @@ class TorchMultiHostRuntime(MultiHostRuntime):
         self._group = self._sync_group = None
 
 
+_TAG_SPACE = 1 << 27     # boundary sites; each tuple kind has a range above
+
+
+def wire_tag(tag) -> int:
+    """A message tag as gloo's int: None → 0, a boundary site → itself,
+    ``("repair", site)`` and ``("allgather", rank)`` → disjoint ranges
+    above every site."""
+    if tag is None:
+        return 0
+    if isinstance(tag, (int, np.integer)):
+        if not 0 <= int(tag) < _TAG_SPACE:
+            raise ValueError(f"tag {tag} outside [0, {_TAG_SPACE})")
+        return int(tag)
+    kinds = {"repair": 1, "allgather": 2}
+    if (isinstance(tag, tuple) and len(tag) == 2 and tag[0] in kinds
+            and 0 <= int(tag[1]) < _TAG_SPACE):
+        return kinds[tag[0]] * _TAG_SPACE + int(tag[1])
+    raise ValueError(f"tag {tag!r} has no wire form (an int site, or "
+                     f"('repair' | 'allgather', int))")
+
+
 @register_runtime("multihost")
 def torch_multihost_runtime() -> MultiHostRuntime:
     """The real multi-process entry: a ``torch.distributed`` job of ≥ 2
@@ -493,5 +667,5 @@ __all__ = [
     "TorchMultiHostRuntime", "available_runtimes", "dict_from_bytes",
     "dict_to_bytes", "dtype_from_name", "dtype_name", "emulated_cluster",
     "get_runtime", "payload_from_bytes", "payload_to_bytes",
-    "register_runtime", "resolve_runtime",
+    "register_runtime", "resolve_runtime", "wire_tag",
 ]

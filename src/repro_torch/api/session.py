@@ -147,6 +147,12 @@ class SamplingSession:
                 w, self.config.hardware, compute_bytes=self._elt_bytes)
             more.pop("scheme")
             info.update(more)
+            if plan.shard_block:
+                from repro_torch.core.perfmodel import shard_wire_bytes
+                hosts = self.runtime.process_count
+                info["shard"] = {"block": plan.shard_block, "hosts": hosts,
+                                 **shard_wire_bytes(w, hosts,
+                                                    block=plan.shard_block)}
         return info
 
     # -- sources, made at most once ------------------------------------------

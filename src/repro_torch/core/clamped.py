@@ -211,12 +211,9 @@ def sample_segment_clamped(mesh, mps: MPS, env: torch.Tensor,
     if pconfig.scheme != "dp":
         raise ValueError(f"the clamped segment runs the dp placement; got "
                          f"{pconfig.scheme!r} (see dp_equivalent_pconfig)")
-    if len(pconfig.data_axes) != 1:
-        from repro_torch.api.config import unported
-        raise unported(f"more than one data axis {pconfig.data_axes} (the "
-                       "reference's pod axis)", "10b",
-                       "sharded plane, serving and gateway")
-    data = mesh.group(pconfig.data_axes[0])
+    # several data axes ("pod", "data") split the batch over their
+    # flattened line, pod-major
+    data = mesh.group(pconfig.data_axes)
     p1, me = C.axis_size(data), C.axis_index(data)
     n = env.shape[0]
     if n % p1:

@@ -351,12 +351,9 @@ def sample_segment(mesh, mps: MPS, env: torch.Tensor, key: torch.Tensor,
     the full (samples (L, N) site-major, env' (N, χ), log_scale' (N,)) on
     every rank; ``log_scale=None`` starts the carry at zero.
     """
-    if len(pconfig.data_axes) != 1:
-        from repro_torch.api.config import unported
-        raise unported(f"more than one data axis {pconfig.data_axes} (the "
-                       "reference's pod axis)", "10b",
-                       "sharded plane, serving and gateway")
-    data = mesh.group(pconfig.data_axes[0])
+    # several data axes ("pod", "data") split the batch over their
+    # flattened line, pod-major
+    data = mesh.group(pconfig.data_axes)
     p1 = C.axis_size(data)
     n_samples, chi = env.shape
     if n_samples % p1:

@@ -354,6 +354,8 @@ class GammaStore:
         self.payload_reads = 0     # site payload reads (meta() excluded)
         self.verified_reads = 0    # payload reads checked against a manifest
         self.quarantined_sites = 0
+        self.repaired_sites = 0    # sites restored from a peer's copy
+        self.repair_read_bytes = 0  # bytes read to serve a peer's repair
         self._digest: Optional[str] = None
         self._sigleaves: dict[str, tuple[tuple, str]] = {}
         self._manifest: Optional[tuple[tuple, dict]] = None
@@ -486,6 +488,66 @@ class GammaStore:
                 self.quarantine_site(i)
                 bad.append(i)
         return bad
+
+    # -- peer repair (the sharded plane's pre-walk round) --------------------
+    def has_healthy_copy(self, i: int) -> bool:
+        """Does this root hold site i's file with the manifest's bytes?  A
+        metadata read, never a Γ payload read."""
+        f = site_filename(i)
+        if not os.path.exists(os.path.join(self.root, f)):
+            return False
+        expected = self.manifest_leaves().get(f)
+        if expected is None:
+            return False
+        try:
+            return self._leaf_for(f) == expected
+        except OSError:
+            return False
+
+    def read_repair_bytes(self, i: int) -> bytes:
+        """Site i's file bytes for a peer's repair, checked against the
+        manifest before they leave this host (rot is never shipped).  It
+        bypasses shard ownership on purpose (a healthy copy of a foreign
+        site is what a repair needs) and counts apart from payload reads
+        (:attr:`repair_read_bytes`)."""
+        f = site_filename(i)
+        with open(os.path.join(self.root, f), "rb") as fh:
+            data = fh.read()
+        expected = self.manifest_leaves().get(f)
+        if expected is not None and leaf_digest(f, data) != expected:
+            raise CorruptSegment(Fault(
+                kind="corruption", site=i, store=self.root,
+                message=f"repair source for Γ site {i} is itself corrupt"))
+        with self._lock:
+            self.repair_read_bytes += len(data)
+        return data
+
+    def restore_site(self, i: int, data: bytes) -> None:
+        """Write site i from repair bytes atomically (checked against the
+        manifest when there is one) and drop a quarantined copy: the
+        receiving end of a peer repair."""
+        f = site_filename(i)
+        expected = self.manifest_leaves().get(f)
+        if expected is not None and leaf_digest(f, data) != expected:
+            raise CorruptSegment(Fault(
+                kind="corruption", site=i, store=self.root,
+                message=f"repair payload for Γ site {i} failed "
+                        f"verification — refusing to install it"))
+        path = self._path(i)
+        tmp = path + ".repair_tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+        try:
+            os.unlink(path + ".quarantine")
+        except OSError:
+            pass
+        self._sigleaves.pop(f, None)
+        self._digest = None
+        with self._lock:
+            self.repaired_sites += 1
 
     # -- read path ----------------------------------------------------------
     def _read_raw(self, i: int) -> RawSite:

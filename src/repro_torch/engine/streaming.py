@@ -40,6 +40,14 @@ Behind :meth:`StreamingEngine.sample`:
   segment is fetched, the pool fetches (or broadcasts) the first segment
   again for the next macro batch, behind this batch's last compute;
 * macro batches as idempotent :class:`WorkQueue` items (:meth:`run_queue`);
+* a ``shard`` map (``repro_torch.shard.ShardMap``) on a multi-process
+  runtime: the sharded plane (Adamski & Brown, PAPERS.md) — each process
+  reads only the sites it owns (a ``ShardedGammaStore`` view refuses any
+  other), walks its segments, and at each ownership boundary ships only
+  the (N, χ) env, ``log_scale`` (and ``log_prob``) to the next owner; the
+  owners' sample blocks meet in one all-gather, so every process returns
+  the same batch.  A pre-walk round verifies each owner's slice and
+  repairs a rotted site from a peer's healthy copy;
 * conditional sampling (``clamp``, a ``workloads.clamp`` spec): each
   segment walks ``core/clamped.py`` (the dp walk for every parallel
   scheme) with the segment's clamp arrays, ``log_prob`` is a carry across
@@ -63,7 +71,14 @@ checks, the copy to the device started), ``compute_s``,
 bytes), ``h2d_s`` and ``h2d_bytes`` (the copies to the card, by CUDA
 events on the copy stream), ``wall_s``, ``io_hidden_frac`` and the
 runtime's counters over the walk (``broadcast_send_bytes``,
-``broadcast_recv_bytes``, ``broadcast_segments``, ``broadcast_s``).
+``broadcast_recv_bytes``, ``broadcast_segments``, ``broadcast_s``,
+``p2p_send_bytes``, ``p2p_recv_bytes``, ``p2p_msgs``); ``repaired_sites``
+and ``quarantined_sites`` (the store's); on a sharded walk
+``owned_segments``, ``handoffs``, ``handoff_send_bytes``,
+``handoff_recv_bytes``, ``gather_bytes``, ``handoff_copy_s`` (the env's
+copies between the card and the host), ``handoff_send_s`` (in
+``runtime.send``), ``handoff_wait_s`` (in ``runtime.recv``: the wire and
+the predecessor's walk) and ``gather_s``.
 """
 from __future__ import annotations
 
@@ -72,7 +87,7 @@ import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,6 +105,9 @@ from repro_torch.core.precision import real_dtype_of
 from repro_torch.data.gamma_store import payload_on_device
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.faults import CorruptSegment, Fault
+from repro_torch.shard import walk as SW
+from repro_torch.shard.shardmap import chain_segments
+from repro_torch.shard.store import ShardedGammaStore
 from repro_torch.workloads.clamp import (clamp_map, normalize_clamp,
                                          segment_clamp_arrays, validate_clamp)
 
@@ -103,27 +121,6 @@ class StreamPlan:
     checkpoint_every: int = 0           # segments between checkpoints; 0 = off
 
 
-def chain_segments(n_sites: int, segment_len: int,
-                   stages: Optional[Sequence] = None) -> list[tuple]:
-    """The walk's segments: ``segment_len``-sized chunks that never cross
-    a χ-stage; ``stages`` entries are ``(start, stop, chi)``, None one
-    fixed-χ stage.  (A copy of ``repro.shard.shardmap.chain_segments``.)"""
-    if stages is None:
-        stages = [(0, n_sites, None)]
-    out = []
-    for s0, s1, chi_s in stages:
-        c = s0
-        while c < s1:
-            out.append((c, min(c + segment_len, s1), chi_s))
-            c = min(c + segment_len, s1)
-    return out
-
-
-def _unported(what: str, row: int, topic: str):
-    from repro_torch.api.config import unported
-    return unported(what, row, topic)
-
-
 class StreamingEngine:
     """Walks a chain stored in a :class:`GammaStore` under any DP × TP
     placement, never holding more than two segments on the device."""
@@ -135,24 +132,40 @@ class StreamingEngine:
                  checkpoint_dir: Optional[str] = None,
                  chi_profile=None, runtime=None, shard=None, clamp=None,
                  device: DeviceLike = None):
-        if shard is not None:
-            raise _unported("chain sharding (shard=...)", "10b",
-                            "sharded plane, serving and gateway")
         self.clamp = normalize_clamp(clamp)   # None: the unclamped walk
         self.runtime = runtime or LocalRuntime()
         self.store = store
-        # bytes that cross processes are verified: a flipped bit must
-        # surface as a CorruptSegment before any sample is drawn
-        if self.runtime.process_count > 1:
-            store.verify = True
+        self._source_store = store
+        self._wrapped_store = None
         self.n_sites = store.n_sites
         if self.n_sites == 0:
             raise ValueError(f"empty GammaStore at {store.root}")
+        self.shard = shard
+        if shard is not None:
+            if shard.n_sites != self.n_sites:
+                raise ValueError(f"shard map covers {shard.n_sites} sites, "
+                                 f"store holds {self.n_sites}")
+            if shard.n_hosts != self.runtime.process_count:
+                raise ValueError(
+                    f"shard map spans {shard.n_hosts} hosts but the runtime "
+                    f"has {self.runtime.process_count} processes")
+            if shard.n_hosts > 1 and not isinstance(store, ShardedGammaStore):
+                # a shared root: this host's ownership-enforcing view,
+                # owned by the engine (the caller's store stays as it is)
+                self.store = ShardedGammaStore(
+                    store.root, shard, self.runtime.process_index,
+                    storage_dtype=store.storage_dtype,
+                    compute_dtype=store.compute_dtype, verify=True)
+                self._wrapped_store = self.store
+        # bytes that cross processes are verified: a flipped bit must
+        # surface as a CorruptSegment before any sample is drawn
+        if self.runtime.process_count > 1:
+            self.store.verify = True
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))
         # pinned reads make the copies to the card asynchronous
-        store.pin_memory = self.device.type == "cuda"
-        shape = store.meta(0)             # the npz header, no Γ payload
+        self.store.pin_memory = self.device.type == "cuda"
+        shape = self.store.meta(0)        # the npz header, no Γ payload
         self.chi, self.d = shape[0], shape[2]
         self.gamma_dtype = store.compute_dtype
         self.semantics = semantics
@@ -189,6 +202,11 @@ class StreamingEngine:
         self.stats: dict = {}
         self.state: Optional[S.SamplerState] = None
         self._begin_walk()
+        # every segment of the real schedule (χ-stages included) needs one
+        # owner: checked once, here
+        self._seg_owners = (None if shard is None else
+                            tuple(shard.segment_owner(s0, s1)
+                                  for s0, s1, _ in self._segment_schedule()))
 
     # -- chain schedule ------------------------------------------------------
     def _segment_schedule(self) -> list[tuple[int, int, int]]:
@@ -244,12 +262,16 @@ class StreamingEngine:
 
     def _fetch(self, start: int, stop: int, chi_s: int) -> dict:
         t0 = time.perf_counter()
-        if self.runtime.process_count > 1:
+        sharded = self.shard is not None and self.runtime.process_count > 1
+        if self.runtime.process_count > 1 and not sharded:
             seg = self._fetch_via_runtime(start, stop, chi_s)
         else:
+            # a sharded walk reads its own slice here, and schedules its
+            # next owned segment itself: no blanket next-segment prefetch
             seg = self.store.get_segment_on_device(
                 start, stop - start, self.device,
-                chi=chi_s if chi_s < self.chi else None)
+                chi=chi_s if chi_s < self.chi else None,
+                prefetch_next_segment=not sharded)
         self.stats["fetch_s"] += time.perf_counter() - t0
         with self._live_lock:
             self._live += 1
@@ -372,13 +394,21 @@ class StreamingEngine:
         """Zero the per-walk stats and anchor the store's and the
         runtime's counters."""
         self._store_io0 = (self.store.io_seconds, self.store.io_bytes)
+        self._store_q0 = (self.store.quarantined_sites,
+                          self.store.repaired_sites)
         self._runtime_io0 = dict(self.runtime.io_counters())
         with self._live_lock:
             live = self._live           # a warm prefetched segment counts
         self.stats.update(segments=0, io_wait_s=0.0, compute_s=0.0,
                           max_live_segments=live, store_io_s=0.0,
                           io_bytes=0, io_hidden_frac=0.0, h2d_s=0.0,
-                          h2d_bytes=0, fetch_s=0.0, wall_s=0.0)
+                          h2d_bytes=0, fetch_s=0.0, wall_s=0.0,
+                          quarantined_sites=0, repaired_sites=0,
+                          owned_segments=0, handoffs=0,
+                          handoff_send_bytes=0, handoff_recv_bytes=0,
+                          gather_bytes=0, handoff_copy_s=0.0,
+                          handoff_send_s=0.0, handoff_wait_s=0.0,
+                          gather_s=0.0)
         for k, v in self._runtime_io0.items():
             if isinstance(v, (int, float)) and not isinstance(v, bool):
                 self.stats[k] = 0
@@ -388,6 +418,10 @@ class StreamingEngine:
         self.stats["wall_s"] = time.perf_counter() - t_walk
         self.stats["store_io_s"] = self.store.io_seconds - self._store_io0[0]
         self.stats["io_bytes"] = self.store.io_bytes - self._store_io0[1]
+        self.stats["quarantined_sites"] = (self.store.quarantined_sites
+                                           - self._store_q0[0])
+        self.stats["repaired_sites"] = (self.store.repaired_sites
+                                        - self._store_q0[1])
         if self.stats["store_io_s"] > 0:
             hidden = max(0.0,
                          self.stats["store_io_s"] - self.stats["io_wait_s"])
@@ -449,6 +483,11 @@ class StreamingEngine:
                            n_samples=n_samples)
         if ckpt_dir:
             os.makedirs(ckpt_dir, exist_ok=True)
+        if self.shard is not None and self.runtime.process_count > 1:
+            return self._sample_sharded(
+                n_samples, key, resume=resume,
+                stop_after_segments=stop_after_segments, ckpt_dir=ckpt_dir,
+                pipeline=pipeline)
         self._begin_walk()
         t_walk = time.perf_counter()
         if self.plan.micro_batch is not None and \
@@ -583,6 +622,248 @@ class StreamingEngine:
             return np.zeros((n_samples, 0), dtype=np.int64)
         return np.concatenate(done, axis=0).T.astype(np.int64)
 
+    # -- the sharded plane --------------------------------------------------
+    def _verify_and_repair_sharded(self, me: int) -> None:
+        """The pre-walk repair round: every host verifies its owned slice
+        against the digest manifest, the union of corrupt sites is
+        all-gathered, and each corrupt site is written again from the
+        lowest-ranked peer that holds a healthy copy, over tagged
+        ``send``/``recv``.  With no healthy holder, every process raises
+        the same ``kind="corruption"`` :class:`CorruptSegment` in the same
+        round, so no collective is left waiting."""
+        if not self.store.verify:
+            return
+        mine = self.store.verify_sites()
+        rounds = self.runtime.allgather_payloads(
+            {"corrupt": np.asarray(sorted(mine), dtype=np.int64)})
+        bad = sorted({int(s) for pay in rounds
+                      for s in np.asarray(pay["corrupt"]).ravel()})
+        for site in bad:
+            owner = self.shard.owner(site)
+            healthy = int(me != owner and self.store.has_healthy_copy(site))
+            votes = self.runtime.allgather_payloads(
+                {"healthy": np.asarray([healthy], dtype=np.int64)})
+            helpers = [r for r, pay in enumerate(votes)
+                       if int(np.asarray(pay["healthy"]).ravel()[0])]
+            if not helpers:
+                raise CorruptSegment(Fault(
+                    kind="corruption", site=site, store=self.store.root,
+                    message=f"Γ site {site} (owner host {owner}) is corrupt "
+                            f"and no peer holds a healthy copy — "
+                            f"unrepairable; failing the job cleanly"))
+            helper, tag = helpers[0], ("repair", site)
+            if me == helper:
+                data = self.store.read_repair_bytes(site)
+                self.runtime.send(owner, {
+                    "site": np.asarray(site, dtype=np.int64),
+                    "data": np.frombuffer(data, dtype=np.uint8)}, tag=tag)
+            elif me == owner:
+                pay = self.runtime.recv(helper, tag=tag)
+                if int(np.asarray(pay["site"])) != site:
+                    raise RuntimeError(
+                        f"repair desync: host {me} expected bytes for site "
+                        f"{site} but received site "
+                        f"{int(np.asarray(pay['site']))}")
+                self.store.restore_site(
+                    site, np.asarray(pay["data"], dtype=np.uint8).tobytes())
+            else:
+                self.runtime.observe_handoff(helper, tag=tag)
+
+    def _sample_sharded(self, n_samples: int, key: torch.Tensor, *,
+                        resume: bool, stop_after_segments: Optional[int],
+                        ckpt_dir, pipeline: bool) -> np.ndarray:
+        """The block-cyclic sharded walk.
+
+        Every process goes through the same segment schedule, and segment
+        k is walked only by its owner; at each ownership boundary the
+        (N, χ) env (never Γ) crosses to the next owner, whose fetch of its
+        own first segment ran behind its predecessor's walk.  A barrier
+        and one sample-block all-gather end the walk, so every process
+        returns the same (N, M) batch.
+
+        Crash consistency: an owner saves a received boundary before it
+        walks from it, and each walked block and the boundary after it
+        right after the walk, all with ``keep=0``; so the boundary the
+        processes agree on (``allreduce_min``) is on disk where the resume
+        needs it, with every owned block below it."""
+        if stop_after_segments is not None:
+            raise ValueError(
+                "stop_after_segments injects a single-process kill — on a "
+                "sharded runtime the peers would block on the env handoff")
+        self._begin_walk()
+        t_walk = time.perf_counter()
+        if self.plan.micro_batch is not None and \
+                n_samples % self.plan.micro_batch:
+            raise ValueError(f"micro_batch={self.plan.micro_batch} must "
+                             f"divide n_samples={n_samples}")
+        schedule = self._segment_schedule()
+        owners = list(self._seg_owners)
+        me = self.runtime.process_index
+        self._verify_and_repair_sharded(me)
+        base_key = key.cpu().numpy().astype(np.uint32)
+
+        idx0 = 0
+        blocks: dict[int, np.ndarray] = {}     # start site → (L, N) block
+        env = PP.segment_env_init(n_samples, schedule[0][2], self.gamma_dtype,
+                                  self.device)
+        log_scale = torch.zeros((n_samples,), dtype=real_dtype_of(env.dtype),
+                                device=self.device)
+        log_prob = (None if self.clamp is None else
+                    torch.zeros_like(log_scale))
+        if resume:
+            if not ckpt_dir:
+                raise ValueError("resume=True needs a checkpoint_dir")
+            agreed = self.runtime.allreduce_min(
+                newest_checkpoint_site(ckpt_dir))
+            if agreed > 0:
+                boundaries = {s for s, _, _ in schedule} | {self.n_sites}
+                if agreed not in boundaries:
+                    raise ValueError(f"checkpoint at site {agreed} is not a "
+                                     f"segment boundary of this plan "
+                                     f"({sorted(boundaries)})")
+                idx0 = next((i for i, (s, _, _) in enumerate(schedule)
+                             if s == agreed), len(schedule))
+                for i in range(idx0):          # my blocks below the boundary
+                    if owners[i] == me:
+                        s0 = schedule[i][0]
+                        blocks[s0] = np.load(os.path.join(
+                            ckpt_dir, f"samples_{s0:06d}.npy"))
+                if idx0 < len(schedule) and owners[idx0] == me:
+                    _, state, _ = load_sampler_state(ckpt_dir, site=agreed,
+                                                     device=self.device)
+                    if not torch.equal(key.cpu(), state.key):
+                        raise ValueError("resume key does not match the "
+                                         "checkpointed run")
+                    env, log_scale = state.env, state.log_scale
+
+        owned = [i for i in range(idx0, len(schedule)) if owners[i] == me]
+        self.stats["owned_segments"] = len(owned)
+        fut: Optional[Future] = None      # the segment being fetched
+        seg: Optional[dict] = None        # the segment the walk holds
+        try:
+            if owned:
+                fut = self._take_warm(schedule[owned[0]])
+                if fut is None:
+                    fut = self._pool.submit(self._fetch, *schedule[owned[0]])
+            next_pos = 1                  # the next entry of `owned` to fetch
+            for idx in range(idx0, len(schedule)):
+                start, stop, chi_s = schedule[idx]
+                prev = owners[idx - 1] if idx > idx0 else None
+                incoming = prev is not None and prev != owners[idx]
+                if owners[idx] != me:
+                    if incoming and prev != me:
+                        self.runtime.observe_handoff(prev, tag=start)
+                    continue
+                if incoming:              # I take over: receive the env
+                    t0 = time.perf_counter()
+                    payload = self.runtime.recv(prev, tag=start)
+                    self.stats["handoff_wait_s"] += time.perf_counter() - t0
+                    env_h, ls_h, key_h, site = SW.decode_handoff(payload)
+                    if site != start:
+                        raise RuntimeError(
+                            f"handoff desync: host {me} expected the env at "
+                            f"site {start} but received site {site} — are "
+                            f"all processes walking the same plan?")
+                    if not np.array_equal(key_h, base_key):
+                        raise RuntimeError(
+                            "handoff key does not match this walk's base "
+                            "key — the predecessor owner is sampling a "
+                            "different (n_samples, key) job")
+                    t0 = time.perf_counter()
+                    env = torch.from_numpy(env_h).to(self.device)
+                    log_scale = torch.from_numpy(ls_h).to(self.device)
+                    if self.clamp is not None:
+                        lp_h = SW.decode_handoff_log_prob(payload)
+                        if lp_h is None:
+                            raise RuntimeError(
+                                "clamped walk received a handoff without the "
+                                "log_prob carry — is the predecessor owner "
+                                "running an unclamped plan?")
+                        log_prob = torch.from_numpy(lp_h).to(self.device)
+                    self.stats["handoff_copy_s"] += time.perf_counter() - t0
+                    self.stats["handoffs"] += 1
+                    self.stats["handoff_recv_bytes"] += \
+                        SW.payload_nbytes(payload)
+                    if ckpt_dir:          # on disk before the walk uses it
+                        save_sampler_state(
+                            ckpt_dir, start,
+                            S.SamplerState(env, key, log_scale),
+                            np.zeros((0, n_samples), dtype=np.int32), keep=0)
+
+                t0 = time.perf_counter()
+                seg, fut = fut.result(), None
+                self.stats["io_wait_s"] += time.perf_counter() - t0
+                if next_pos < len(owned):   # fetch my next owned segment
+                    fut = self._pool.submit(self._fetch,
+                                            *schedule[owned[next_pos]])
+                    next_pos += 1
+                elif pipeline:            # the next walk's first segment
+                    self._warm = (schedule[owned[0]], self._pool.submit(
+                        self._fetch, *schedule[owned[0]]))
+
+                t0 = time.perf_counter()
+                with self.runtime.compute_lock():
+                    part = self._take(seg)
+                    env = DB.fit_env(env, chi_s)
+                    if self.clamp is None:
+                        samples, env, log_scale = self._run_segment(
+                            part, env, log_scale, key, start)
+                    else:
+                        samples, env, log_scale, log_prob = \
+                            self._run_segment_clamped(part, env, log_scale,
+                                                      log_prob, key, start)
+                    del part
+                    samples = samples.cpu().numpy().astype(np.int32)
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                self.stats["compute_s"] += time.perf_counter() - t0
+                self._release(seg)
+                seg = None
+                blocks[start] = samples
+                self.stats["segments"] += 1
+                if ckpt_dir:
+                    np.save(os.path.join(ckpt_dir,
+                                         f"samples_{start:06d}.npy"), samples)
+                    save_sampler_state(
+                        ckpt_dir, stop, S.SamplerState(env, key, log_scale),
+                        np.zeros((0, n_samples), dtype=np.int32), keep=0)
+                if idx + 1 < len(schedule) and owners[idx + 1] != me:
+                    t0 = time.perf_counter()
+                    payload = SW.encode_handoff(env, log_scale, key, stop,
+                                                log_prob=log_prob)
+                    t1 = time.perf_counter()
+                    self.runtime.send(owners[idx + 1], payload, tag=stop)
+                    self.stats["handoff_copy_s"] += t1 - t0
+                    self.stats["handoff_send_s"] += time.perf_counter() - t1
+                    self.stats["handoffs"] += 1
+                    self.stats["handoff_send_bytes"] += \
+                        SW.payload_nbytes(payload)
+        except BaseException:
+            self._drop_pending(fut, seg)
+            raise
+
+        # every process finishes its slice before the sample gather
+        t0 = time.perf_counter()
+        self.runtime.barrier()
+        merged: dict[int, np.ndarray] = {}
+        for pay in self.runtime.allgather_payloads(SW.encode_blocks(blocks)):
+            self.stats["gather_bytes"] += SW.payload_nbytes(pay)
+            merged.update(SW.decode_blocks(pay))
+        out = SW.assemble_blocks(merged, self.n_sites, n_samples)
+        if self.clamp is not None:
+            # the finished carry lives with the last segment's owner: one
+            # more small gather gives every process the same log_prob
+            mine = (log_prob.cpu().numpy() if owners[-1] == me
+                    else np.zeros((0,), dtype=np.float64))
+            for pay in self.runtime.allgather_payloads({"log_prob": mine}):
+                arr = np.asarray(pay["log_prob"])
+                if arr.size:
+                    self.stats["log_prob"] = arr
+        self.stats["gather_s"] = time.perf_counter() - t0
+        self.state = S.SamplerState(env, key, log_scale)
+        self._finish_walk(t_walk)
+        return out
+
     def run_queue(self, queue, per_batch: int, base_key: torch.Tensor,
                   worker: str = "engine") -> dict[int, np.ndarray]:
         """Macro batches (paper N₁) as work items: batch b walks on
@@ -605,8 +886,11 @@ class StreamingEngine:
             except Exception:           # the fetch failed: nothing is live
                 pass
         self._pool.shutdown(wait=True)
+        if self._wrapped_store is not None:
+            # the engine's own view (and its reader thread)
+            self._wrapped_store.close()
         if close_store:
-            self.store.close()
+            self._source_store.close()
 
     def __enter__(self) -> "StreamingEngine":
         return self

@@ -70,11 +70,21 @@ def site_step_born_torch(env, gamma, lam, u, *, scaling, compute_dtype):
     return site_step_born_plain(env, gamma, lam, u[:, 0], scaling=scaling)
 
 
+def _as_env(x, env):
+    """A real operand (Λ, u) in env's real dtype.  A store keeps Λ in the
+    dtype it was written in, so an fp32 walk of a store written in fp64
+    gets an fp64 Λ, and its uniforms come in the probabilities' promoted
+    dtype; the Pallas kernels cast Λ to their fp32 accumulation and compare
+    their fp32 CDF with the fp64 uniform, which the fp32 uniform here
+    differs from only within half an fp32 spacing of a CDF boundary."""
+    return x.to(real_dtype_of(env.dtype))
+
+
 def _site_step_cuda(kernel, env, gamma, lam, u, scaling, **kw):
     _on_card(env, "site-step")
     fused = scaling if scaling in ("per_sample", "none") else "none"
-    env2, samples, dlog = kernel(env, gamma, lam, u[:, 0], scaling=fused,
-                                 **kw)
+    env2, samples, dlog = kernel(env, gamma, _as_env(lam, env),
+                                 _as_env(u[:, 0], env), scaling=fused, **kw)
     if scaling == "global":
         env2, dlog = precision.rescale(env2, "global")
     return env2, samples, dlog
@@ -131,7 +141,7 @@ register_site_op("contract_measure", "born", "torch")(_contract_measure_torch)
 def contract_measure_cuda(env, gamma, lam, *, semantics, compute_dtype):
     del semantics                      # the registry key says linear
     _on_card(env, "contract_measure")
-    return CM.contract_measure(env, gamma, lam, compute_dtype)
+    return CM.contract_measure(env, gamma, _as_env(lam, env), compute_dtype)
 
 
 # ---------------------------------------------------------------------------

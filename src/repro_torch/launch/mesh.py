@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -55,9 +56,12 @@ def init_distributed(device: torch.device) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A named device mesh and the device this rank runs on."""
+    """A named device mesh and the device this rank runs on.  ``flat``
+    holds the groups of several axes flattened into one (made with the
+    mesh, on every rank: group creation is collective)."""
     device_mesh: DeviceMesh
     device: torch.device
+    flat: dict = dataclasses.field(default_factory=dict, compare=False)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -68,10 +72,42 @@ class Mesh:
         return {ax: self.device_mesh.size(i)
                 for i, ax in enumerate(self.axis_names)}
 
-    def group(self, axis: str):
+    def group(self, axis):
         """The process group of this rank's line along ``axis``; a rank's
-        index in it is its coordinate on the axis."""
-        return self.device_mesh.get_group(axis)
+        index in it is its coordinate on the axis.  A tuple of axes (the
+        data axes ("pod", "data")) names their flattened line, indexed in
+        the order of the axes (pod-major), as ``jax.lax.axis_index`` of a
+        tuple counts."""
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(axis)
+        axis = tuple(axis)
+        if len(axis) == 1:
+            return self.device_mesh.get_group(axis[0])
+        if axis not in self.flat:
+            raise ValueError(f"mesh {self.shape} has no flattened group of "
+                             f"{axis} (made for its non-model axes "
+                             f"{tuple(self.flat)})")
+        return self.flat[axis]
+
+
+def _flat_groups(shape: tuple[int, ...], names: tuple[str, ...]) -> dict:
+    """The groups of the non-"model" axes flattened into one line, for
+    every other coordinate.  Ranks lie row-major on the mesh (as
+    ``init_device_mesh`` lays them), so a line's sorted ranks are in the
+    axes' order; every rank makes every group, in the same order."""
+    axes = tuple(n for n in names if n != "model")
+    if len(axes) < 2:
+        return {}
+    idx = [names.index(a) for a in axes]
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    lines = np.moveaxis(grid, idx, list(range(len(idx))))
+    lines = lines.reshape(int(np.prod([shape[i] for i in idx])), -1).T
+    me, mine = dist.get_rank(), None
+    for line in lines:
+        g = dist.new_group(sorted(int(r) for r in line))
+        if me in line:
+            mine = g
+    return {axes: mine}
 
 
 def device_mesh(shape: tuple[int, ...], names: tuple[str, ...],
@@ -87,8 +123,8 @@ def device_mesh(shape: tuple[int, ...], names: tuple[str, ...],
     if size != world:
         raise ValueError(f"mesh {dict(zip(names, shape))} needs {size} "
                          f"ranks; the job has {world}")
-    return Mesh(init_device_mesh(dev.type, tuple(shape),
-                                 mesh_dim_names=tuple(names)), dev)
+    dm = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))
+    return Mesh(dm, dev, _flat_groups(tuple(shape), tuple(names)))
 
 
 def make_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:
@@ -104,10 +140,25 @@ def make_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:
     return device_mesh((world // model, model), ("data", "model"), dev)
 
 
+def make_pod_mesh(pods: int, model: int = 1,
+                  device: DeviceLike = None) -> Mesh:
+    """The ("pod", "data", "model") mesh over every rank: ``pods`` pods of
+    world / (pods · model) data shards each.  The schemes split the batch
+    over the flattened ("pod", "data") line, pod-major, as the JAX package
+    does on its multi-pod meshes."""
+    dev = local_device(device)
+    init_distributed(dev)
+    world = dist.get_world_size()
+    if pods < 1 or model < 1 or world % (pods * model):
+        raise ValueError(f"{pods} pods × model {model} must divide the "
+                         f"{world} ranks of the job")
+    return device_mesh((pods, world // (pods * model), model),
+                       ("pod", "data", "model"), dev)
+
+
 def make_host_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:
     """The mesh over whatever this job has, as the JAX package's
     ``launch/mesh.make_host_mesh`` builds it (``ClusterRuntime.mesh`` calls
-    it): one data axis and the model axis.  The JAX package's multi-pod
-    "pod" axis is folded into the data axis here; a mesh a caller builds
-    with two data axes is refused by ``core/parallel``."""
+    it): one data axis and the model axis, the "pod" axis folded into the
+    data axis.  :func:`make_pod_mesh` keeps the two data axes apart."""
     return make_mesh(model, device)

@@ -548,6 +548,39 @@ def test_streamed_walk_on_the_card(card, tmp_path, profile):
                                    **TOL[torch.float64])
 
 
+@pytest.mark.parametrize("clamp", [None, {1: 0, 3: 1}],
+                         ids=["unclamped", "clamped"])
+def test_fp32_walk_of_a_store_with_an_fp64_lambda(card, tmp_path, clamp):
+    """A store keeps Λ in the dtype it was written in, so a path opened
+    with the default fp32 compute dtype (as the gateway opens one) hands
+    the kernels an fp64 Λ (and fp64 uniforms) beside an fp32 env; they
+    take both in env's dtype, as the Pallas kernels cast Λ: the streamed
+    walk runs on the kernels, one launch a site, and equals the in-memory
+    kernel walk of the same decoded chain."""
+    from repro_torch import api
+    from repro_torch.core.mps import MPS
+    from repro_torch.data.gamma_store import GammaStore
+    from repro_torch.kernels import ops
+
+    mps = M.random_linear_mps(prng.key(7), 6, 24, 3, device=card)
+    with GammaStore(str(tmp_path), torch.bfloat16, torch.float64) as store:
+        store.write_mps(mps)
+    cfg = dict(kernels="cuda", clamp=clamp)
+    ops.reset_launches()
+    with api.SamplingSession(str(tmp_path), api.SamplerConfig(
+            backend="streamed", segment_len=2, **cfg), device=card) as s:
+        got = s.sample(64, prng.key(8))
+    kernel = "contract_measure" if clamp else "site_step_linear"
+    assert ops.launch_counts()[kernel] == 6
+    with GammaStore(str(tmp_path), torch.bfloat16, torch.float32) as store:
+        g, lam = store.get_segment(0, 6)
+    assert (g.dtype, lam.dtype) == (torch.float32, torch.float64)
+    chain = MPS(g.to(card), lam.to(card))
+    with api.SamplingSession(chain, api.SamplerConfig(**cfg),
+                             device=card) as s:
+        np.testing.assert_array_equal(got, s.sample(64, prng.key(8)))
+
+
 # ---------------------------------------------------------------------------
 # The displacement and flash-attention kernels
 # ---------------------------------------------------------------------------

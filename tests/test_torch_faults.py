@@ -1,8 +1,7 @@
 """The port's fault taxonomy (``repro_torch.runtime.faults``) and the
 self-healing paths it drives, against the JAX package's: the counterparts
-of ``tests/test_faults.py``'s cases that need neither the sharded plane
-(ROADMAP.md §1 row 10b) nor modules the port does not carry (the
-checkpoint store of model training, the serving result cache).
+of ``tests/test_faults.py``'s cases that need no module the port does not
+carry (the checkpoint store of model training).
 
 * The taxonomy: the closed kind set, ``to_dict`` / ``with_context``, the
   report, ``classify`` (torch's out-of-memory and ``torch.distributed``
@@ -13,6 +12,11 @@ checkpoint store of model training, the serving result cache).
   a rotted store failing with the structured fault, and the broadcast
   plane shipping a root's read fault as an error frame so every member
   raises it.
+* The store's repair functions, the sharded plane's peer repair (a
+  rotted copy of an owned site written again from a peer's healthy copy,
+  the samples unchanged) and an unrepairable site failing every process
+  with ``kind="corruption"``; the result cache dropping a corrupt disk
+  entry loudly.
 * Bounded retries (a poison batch dead-letters its job only) and the
   crash-loop quarantine with its readmit, on an in-process pool with the
   real ``LaneHealth`` and ``execute_payload``; the sampler-state digest,
@@ -524,3 +528,130 @@ def test_launch_cli_structured_failure_on_corrupt_store(chain, tmp_path,
     assert record["fault"]["kind"] == "corruption"
     assert record["fault"]["site"] == 3
     assert not [f for f in os.listdir(out_dir) if f.startswith("batch_")]
+
+
+# ---------------------------------------------------------------------------
+# peer repair (the sharded plane) and the result cache
+# ---------------------------------------------------------------------------
+
+def test_repair_functions_match_the_reference(chain, tmp_path):
+    root = _copy_store(chain, str(tmp_path / "rep"))
+    pristine = open(_site_path(root, 3), "rb").read()
+    with GammaStore(root, *F64) as st, JStore(
+            root, storage_dtype=jnp.float64,
+            compute_dtype=jnp.float64) as jst:
+        assert st.has_healthy_copy(3) and jst.has_healthy_copy(3)
+        data = st.read_repair_bytes(3)
+        assert data == jst.read_repair_bytes(3) == pristine
+        assert st.repair_read_bytes == len(pristine)
+        assert st.payload_reads == 0            # not a payload read
+        _flip_bytes(_site_path(root, 3))
+        assert not st.has_healthy_copy(3)
+        with pytest.raises(CorruptSegment, match="itself corrupt"):
+            st.read_repair_bytes(3)
+        with pytest.raises(CorruptSegment, match="refusing"):
+            st.restore_site(3, data[:-1] + bytes([data[-1] ^ 1]))
+        assert st.verify_sites([3]) == [3]      # quarantined
+        assert not st.has_healthy_copy(3)
+        st.restore_site(3, data)
+        assert st.repaired_sites == 1 and st.has_healthy_copy(3)
+        assert open(_site_path(root, 3), "rb").read() == pristine
+        assert not os.path.exists(_site_path(root, 3) + ".quarantine")
+        assert not st.has_healthy_copy(99)
+
+
+def _sharded_cluster(sources, key):
+    outs, stats, errs = {}, {}, {}
+
+    def run(rt):
+        try:
+            with api.SamplingSession(sources[rt.process_index],
+                                     api.SamplerConfig(
+                                         runtime=rt, backend="streamed",
+                                         segment_len=2, shard="auto",
+                                         kernels="torch"),
+                                     device="cpu") as sess:
+                outs[rt.process_index] = sess.sample(16, key)
+                stats[rt.process_index] = dict(sess.stats)
+        except BaseException as e:      # noqa: BLE001 — asserted below
+            errs[rt.process_index] = e
+
+    threads = [threading.Thread(target=run, args=(rt,), daemon=True)
+               for rt in api.emulated_cluster(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "cluster run hung"
+    return outs, stats, errs
+
+
+def test_sharded_peer_repair_restores_the_rotted_copy(chain, tmp_path):
+    """Host 0 walks its slice of the store (``materialize_shard``: hard
+    links and the manifest) with one owned site a rotted copy; host 1
+    walks the shared root.  The pre-walk round writes the site again from
+    host 1's healthy copy and the samples are the local walk's."""
+    from repro_torch.shard import ShardMap, ShardedGammaStore
+    from repro_torch.shard import materialize_shard
+    key = prng.key(23)
+    with api.SamplingSession(GammaStore(chain, *F64), api.SamplerConfig(
+            backend="streamed", segment_len=2, kernels="torch"),
+            device="cpu") as sess:
+        ref = sess.sample(16, key)
+    shared = _copy_store(chain, str(tmp_path / "shared"))
+    sm = ShardMap(10, 2, 2)             # block 2: site 4 is host 0's
+    r0 = materialize_shard(shared, str(tmp_path / "host0"), sm, 0)
+    pristine = open(_site_path(r0, 4), "rb").read()
+    # a hard link shares the file with the shared root: copy it, then rot
+    os.remove(_site_path(r0, 4))
+    shutil.copyfile(_site_path(shared, 4), _site_path(r0, 4))
+    _flip_bytes(_site_path(r0, 4))
+    sources = {0: ShardedGammaStore(r0, sm, 0, *F64),
+               1: GammaStore(shared, *F64)}
+    outs, stats, errs = _sharded_cluster(sources, key)
+    assert not errs, errs
+    np.testing.assert_array_equal(outs[0], ref)
+    np.testing.assert_array_equal(outs[1], ref)
+    assert stats[0]["quarantined_sites"] == 1
+    assert (stats[0]["repaired_sites"], stats[1]["repaired_sites"]) == (1, 0)
+    assert open(_site_path(r0, 4), "rb").read() == pristine
+    assert not os.path.exists(_site_path(r0, 4) + ".quarantine")
+    with open(_site_path(shared, 4), "rb") as f:
+        assert f.read() == pristine     # the healthy copy was not touched
+
+
+def test_sharded_unrepairable_site_fails_every_process(chain, tmp_path):
+    """The only copy of an owned site is rotted: every process raises the
+    same structured fault in the same round, none hangs, none samples."""
+    root = _copy_store(chain, str(tmp_path / "shard_rot"))
+    _flip_bytes(_site_path(root, 4))
+    outs, _, errs = _sharded_cluster({0: root, 1: root}, prng.key(5))
+    assert not outs
+    assert set(errs) == {0, 1}
+    for e in errs.values():
+        assert isinstance(e, CorruptSegment)
+        assert e.fault.kind == "corruption" and e.fault.site == 4
+        assert "no peer holds a healthy copy" in e.fault.message
+
+
+def test_result_cache_corrupt_entry_dropped_loudly(tmp_path):
+    from repro_torch.serve.cache import ResultCache
+
+    d = str(tmp_path / "cache")
+    c1 = ResultCache(cache_dir=d)
+    entry, status = c1.get_or_begin("k1", 1)
+    assert status == "miss"
+    entry.publish(0, transport.array_to_frame(np.arange(6, dtype=np.int8)))
+    entry.finish()
+    c1.seal(entry)
+    assert ResultCache(cache_dir=d).get_or_begin("k1", 1)[1] == "hit"
+    with open(os.path.join(d, "k1", "meta.json"), "w") as f:
+        f.write("{this is not json")
+    events = []
+    c3 = ResultCache(cache_dir=d)
+    c3.observer = lambda ev, **kw: events.append((ev, kw))
+    assert c3.get_or_begin("k1", 1)[1] == "miss"
+    assert c3.corrupt_entries == 1
+    assert c3.stats()["corrupt_entries"] == 1
+    assert ("cache_corrupt", {"key": "k1"}) in events
+    assert not os.path.exists(os.path.join(d, "k1"))

@@ -40,6 +40,11 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+def test_import_scan_covers_every_package():
+    scanned = {p.parent.name for p in PORT_FILES}
+    assert {"shard", "serve", "api", "engine", "launch"} <= scanned
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
@@ -141,8 +146,10 @@ def _remote_runtime(make):
 
 
 def _sharded(make):
+    """The JAX package's own error: sharding distributes the streamed
+    walk, and an in-memory source has none."""
     with make() as session, pytest.raises(
-            NotImplementedError, match=r"ROADMAP\.md §1 row 10b"):
+            ValueError, match="needs backend='streamed'"):
         session.plan(8)
 
 
@@ -158,9 +165,9 @@ def _sharded(make):
         "runtime=multihost-meshNone", "runtime=remote-meshNone",
         "shard=2-meshNone", "scheme=tp_single-shard=2-mesh(1, 1)"])
 def test_unported_config_values_raise(fields, mesh, check):
-    """The config values ROADMAP.md §1 row 10 named: the sharded plane
-    (row 10b) still raises; the runtimes and the remote plane (row 10a)
-    now hold their ported path, or the JAX package's own error."""
+    """The config values ROADMAP.md §1 row 10 named: the runtimes, the
+    remote plane and the sharded plane now hold their ported path, or the
+    JAX package's own error."""
     check(lambda: api.SamplingSession(_tiny_mps(), SamplerConfig(**fields),
                                       device="cpu",
                                       mesh=mesh and _mesh(*mesh)))
@@ -254,16 +261,50 @@ def test_ported_config_values_resolve(fields, mesh, check):
 
 
 def test_a_second_data_axis_is_unported():
-    """The JAX package folds a "pod" axis into data parallel; the port's
-    meshes have one data axis until the cluster layers are ported."""
-    mesh = SimpleNamespace(shape={"pod": 2, "data": 1, "model": 1},
+    """A second data axis (the JAX package's "pod") is ported: the schemes
+    split the batch over the flattened ("pod", "data") line.  On a
+    one-rank ("pod", "data", "model") mesh the dp walk is the one-axis
+    mesh's (4 ranks: tests/test_torch_shard.py)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (init_distributed, make_mesh,
+                                         make_pod_mesh)
+    created = init_distributed(torch.device("cpu"))
+    try:
+        pod = make_pod_mesh(1, device="cpu")
+        assert pod.axis_names == ("pod", "data", "model")
+        out = {}
+        for name, mesh in (("pod", pod), ("flat", make_mesh(1, "cpu"))):
+            with api.SamplingSession(_tiny_mps(), SamplerConfig(
+                    scheme="dp", kernels="torch"), device="cpu",
+                    mesh=mesh) as session:
+                out[name] = session.sample(8, prng.key(0))
+                axes = session.plan(8).pconfig.data_axes
+                assert axes == (("pod", "data") if name == "pod"
+                                else ("data",))
+        np.testing.assert_array_equal(out["pod"], out["flat"])
+        with pytest.raises(ValueError, match="flattened"):
+            pod.group(("data", "model"))
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("pods,data,model", [(2, 1, 1), (2, 2, 2)],
+                         ids=["2x1x1", "2x2x2"])
+def test_a_pod_mesh_plans(pods, data, model):
+    """A ("pod", "data", "model") mesh plans as the JAX package's: p₁ is
+    the product of the data axes, and the placement names both."""
+    mesh = SimpleNamespace(shape={"pod": pods, "data": data, "model": model},
                            axis_names=("pod", "data", "model"),
                            device=torch.device("cpu"))
-    session = api.SamplingSession(_tiny_mps(), SamplerConfig(scheme="dp"),
-                                  device="cpu", mesh=mesh)
-    assert session.plan(8).pconfig.data_axes == ("pod", "data")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row 10"):
-        session.sample(8, prng.key(0))
+    session = api.SamplingSession(
+        M.random_linear_mps(prng.key(0), 4, 4, 2, device="cpu"),
+        SamplerConfig(scheme="dp" if model == 1 else "tp_single"),
+        device="cpu", mesh=mesh)
+    plan = session.plan(8)
+    assert (plan.p1, plan.p2) == (pods * data, model)
+    assert plan.pconfig.data_axes == ("pod", "data")
 
 
 @pytest.mark.parametrize("fields,mesh,scheme", [

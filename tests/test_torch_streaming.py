@@ -569,11 +569,26 @@ def test_gbs_like_site_is_site_i_of_the_chain():
 
 
 def test_unported_engine_options_name_their_rows(stores):
+    """The engine's last unported option, ``shard`` (ROADMAP.md §1 row
+    10b), is ported: a map of the wrong chain or host count is refused as
+    the JAX package refuses it, and the one-host map walks the unsharded
+    samples (the sharded walks: tests/test_torch_shard.py)."""
+    from repro_torch.shard import ShardMap
     root = stores[("linear", "fp64")]
     with GammaStore(root, torch.float64, torch.float64) as store:
-        for kw, row in (({"shard": 2}, 10),):
-            with pytest.raises(NotImplementedError, match=f"row {row}"):
-                StreamingEngine(store, device="cpu", **kw)
+        with pytest.raises(ValueError, match="covers 4 sites"):
+            StreamingEngine(store, device="cpu", shard=ShardMap(4, 1, 2))
+        with pytest.raises(ValueError, match="spans 2 hosts"):
+            StreamingEngine(store, device="cpu", shard=ShardMap(10, 2, 2))
+        kw = dict(config=S.SamplerConfig(kernels="torch"),
+                  plan=StreamPlan(segment_len=2), device="cpu")
+        plain = StreamingEngine(store, **kw)
+        want = plain.sample(N, prng.key(3))
+        plain.close(close_store=False)
+        one = StreamingEngine(store, shard=ShardMap(10, 1, 2), **kw)
+        np.testing.assert_array_equal(one.sample(N, prng.key(3)), want)
+        assert one.stats["handoffs"] == 0
+        one.close(close_store=False)
 
 
 @pytest.mark.parametrize("clamp", [{0: 1}, {3: 2, 8: 0}],
