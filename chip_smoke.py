@@ -175,7 +175,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 10. flash   — the flash-attention kernel against its plain version at the
               granite-3-2b shapes (B = 2, S = T = 4096, H = 32, KVH = 8,
               Dh = 64, bf16, causal), non-causal, Dh = 128 with KVH = H,
-              MQA, and fp32 at S = 1024; times, the bound,
+              MQA, and fp32 at S = 1024; kimi-k2-1t-a32b's prefill (H =
+              64, KVH = 8, Dh = 112) in bf16 and in fp32 at S = 1024;
+              times, the bound,
               ``F.scaled_dot_product_attention`` as the library yardstick,
               and the card's clock, power and temperature while it runs;
 11. lm      — granite-3-2b at full width (40 layers, bf16, weights from the
@@ -187,6 +189,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               tokens, cache 64), cold and again warm; one decode step's
               wall time against its device time (torch.profiler); peak
               memory and wall times;
+    moe     — (after lm, which frees granite) deepseek-v3-671b (MLA, 256 +
+              1 experts, top-8) with 2 of its 61 layers and kimi-k2-1t-a32b
+              (GQA 64/8 at head_dim 112, 384 + 1 experts) with 1, at their
+              published widths, bf16 weights from the port's seeded init on
+              the card (49.7 and 38.8 GB): a prefill at B = 2 (S = 2048 and
+              4096; capacity 80 and 112) with each layer's drop_frac and
+              lb_loss, kimi-k2's through ``flash_attention`` once (Dh =
+              112) and against the same prefill with the plain attention;
+              decode against the forward on S = 16 at capacity_factor =
+              n_experts / top_k (at the published 1.25 a 16-token row gets
+              capacity 1 and the forward drops tokens a one-token decode
+              step never drops), the logits held on the tokens every layer
+              routed alike; ``serve()`` of 16 requests cold and again warm
+              (the same tokens); one decode step at batch 8 profiled beside
+              the bytes of every routed expert it reads;
 12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
               again with ``--clamp 1=0,3=1``, and ``python -m
               repro_torch.launch.scenarios --scenario all --json ''``
@@ -226,6 +243,12 @@ weight exp(s − m) to bf16 relative to its running max m, the plain version
 relative to the final max, so a weight differs by up to two bf16 roundings
 (2·2⁻⁸) and the output by 2⁻⁷·Σ w|v| / Σ w, plus the fp32 sums over T keys
 ((T·2⁻²² + 2⁻¹⁴)·Σ w|v| / Σ w) and one rounding of the output (2⁻⁷·|out|).
+MoE decode against the forward: a token whose route differs in some layer
+(the two attention paths round bf16 apart, and a one-ulp change of x swaps
+two experts whose router probabilities nearly tie) is counted, at most an
+eighth of the tokens, and left out of the logit comparison with the tokens
+after it in its row when it was not the last layer; the argmax agreement
+is held > 0.9 (the reference's own decode-vs-prefill criterion).
 LM logits (bf16 through 40 layers):
 within 5e-2 of the largest |logit| (a 40-layer bf16 stand-in on the CPU
 drifted 1.5e-2 between decode and forward).  The argmax agreement is
@@ -291,15 +314,23 @@ SUBNORMAL_RANGES = [(torch.float32, 1e-3, 1e-2, True),
                 (torch.float64, 1e-22, 1e-19, True),
                 (torch.float64, 37.7, 38.5, False)]
 DISP_DS = (4, 16)                 # jiuzhang2's cutoff (configs/gbs.py), max
-# (B, S, H, KVH, Dh, dtype, causal): granite-3-2b first (the lm phase's)
+# (B, S, H, KVH, Dh, dtype, causal): granite-3-2b first (the lm phase's),
+# kimi-k2-1t-a32b's prefill at Dh = 112 (phase moe's) after its variants
 FLASH_CASES = [(2, 4096, 32, 8, 64, torch.bfloat16, True),
                (2, 4096, 32, 8, 64, torch.bfloat16, False),
                (2, 4096, 32, 32, 128, torch.bfloat16, True),
                (2, 4096, 32, 1, 64, torch.bfloat16, True),
-               (2, 1024, 32, 8, 64, torch.float32, True)]
+               (2, 1024, 32, 8, 64, torch.float32, True),
+               (2, 4096, 64, 8, 112, torch.bfloat16, True),
+               (2, 1024, 64, 8, 112, torch.float32, True)]
 LM_ARCH, LM_BATCH, LM_SEQ = "granite-3-2b", 2, 4096
 LM_LOGIT_TOL = 5e-2
 SERVE = dict(requests=16, batch=8, max_new=16, cache_len=64)
+# phase moe: (arch, depth kept, prefill batch, prefill length); published
+# widths, the depth cut so that the bf16 weights fit one 80 GB card
+MOE_RUNS = (("deepseek-v3-671b", 2, 2, 2048),
+            ("kimi-k2-1t-a32b", 1, 2, 4096))
+MOE_DECODE_SEQ = 16
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -337,6 +368,7 @@ STOP_CUTS = (SERVICE_SITES, 1)  # (d)'s unclean stop: each process's last
 # a built kernel), and the instructions each must hold: mma.sync (HMMA, and
 # DMMA for fp64), or wgmma (HGMMA) fed by TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = {"flash_tc_kernel<64>": ("HMMA",),
+                       "flash_tc_kernel<112>": ("HMMA",),
                        "flash_tc_kernel<128>": ("HMMA",),
                        "wgmma_bf16_kernel": ("HGMMA", "UTMALDG"),
                        "contract_f64_kernel<0>": ("DMMA",),
@@ -3884,6 +3916,230 @@ def phase_lm(device) -> dict:
             "decode_step_kernels": n_kernels, "peak_gb": peak}
 
 
+def _moe_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(31)
+    n, mx = SERVE["requests"], SERVE["max_new"]
+    return [(int(t), int(m)) for t, m in
+            zip(rng.integers(0, vocab, n),
+                rng.integers(max(2, mx // 4), mx + 1, n))]
+
+
+def _moe_model(device, arch: str, depth: int, batch: int, seq: int) -> dict:
+    """One MoE architecture at its published width, ``depth`` layers,
+    through the port's entry points.  Returns its numbers."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    tag = f"moe {arch}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    ti = time.perf_counter()
+    params = T.init_params(0, cfg, device)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - ti
+    n_params = sum(p.numel() for p in params.parameters())
+    attn = "MLA" if cfg.use_mla else f"GQA {cfg.n_heads}/{cfg.n_kv_heads}"
+    print(f"{tag}: {depth} of {full.n_layers} layers, d_model {cfg.d_model}, "
+          f"{attn}, head_dim {cfg.hd}, {cfg.n_experts} + "
+          f"{cfg.n_shared_experts} experts, top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}: {n_params / 1e9:.3f} B "
+          f"parameters ({n_params * 2 / 1e9:.2f} GB) built in {built_s:.3f} s",
+          flush=True)
+    gen = torch.Generator(device=device).manual_seed(29)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         device=device)
+    T.forward(params, toks[:, :128], cfg)                      # warm-up
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before, read just after
+    layer_aux: list = []
+    ops.reset_launches()
+    tp = time.perf_counter()
+    logits, lb_sum = T.forward(params, toks, cfg, kernels="auto",
+                               layer_aux=layer_aux)
+    last = logits[:, -1, :].clone()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - tp
+    launches = ops.launch_counts()
+    del logits
+    want_flash = 0 if cfg.use_mla else cfg.n_layers
+    drop = [float(a["drop_frac"]) for a in layer_aux]
+    lb = [float(a["lb_loss"]) for a in layer_aux]
+    cap = MOE._capacity(seq, cfg.moe_cfg())
+    print(f"{tag}: prefill B={batch} S={seq} in {prefill_s:.3f} s "
+          f"({batch * seq / prefill_s:.0f} tokens/s); capacity {cap} a row; "
+          f"drop_frac by layer {drop}, lb_loss by layer {lb} (sum "
+          f"{float(lb_sum):.4f}); launches {launches}", flush=True)
+    check(launches["flash_attention"] == want_flash,
+          f"{tag}: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, expected {want_flash}")
+    check(last.shape == (batch, cfg.vocab)
+          and bool(torch.isfinite(last.float()).all()),
+          f"{tag}: prefill logits {tuple(last.shape)} not finite or shaped "
+          f"(B, V)")
+    out = {"arch": arch, "layers": depth, "params_b": n_params / 1e9,
+           "built_s": built_s, "prefill_s": prefill_s, "capacity": cap,
+           "drop_frac": drop, "lb_loss": lb,
+           "flash_launches": launches["flash_attention"]}
+    if not cfg.use_mla:             # the same prefill, plain attention
+        tq = time.perf_counter()
+        plain = steps.make_prefill_step(cfg, kernels="torch")(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        out["plain_prefill_s"] = time.perf_counter() - tq
+        rel = ((last.float() - plain.float()).abs().max()
+               / plain.float().abs().max()).item()
+        agree = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        print(f"{tag}: last-token logits flash vs plain attention: max rel "
+              f"diff {rel:.3e} (tolerance {LM_LOGIT_TOL}), argmax agreement "
+              f"{agree}; plain prefill {out['plain_prefill_s']:.3f} s",
+              flush=True)
+        check(rel <= LM_LOGIT_TOL, f"{tag}: prefill logits differ from the "
+              f"plain attention's ({rel:.3e})")
+        out["flash_vs_plain_rel"] = rel
+        del plain
+    del last
+    torch.cuda.empty_cache()
+
+    # decode against the forward, with a capacity no token overflows: at
+    # the published 1.25 a 16-token row gets capacity 1 and the forward
+    # drops tokens that a one-token decode step never drops.  A route may
+    # still differ where the router's k-th and (k+1)-th experts are a near
+    # tie: the forward's attention (the flash kernel: fp32 scores, P in
+    # bf16) and the decode's (``_sdpa``: scores rounded to bf16, as the
+    # reference's) differ by bf16 roundings, and a one-ulp change of x can
+    # swap them.  The logits are held to the tolerance where every layer
+    # routed a token alike; tokens routed otherwise are counted and held
+    # to at most an eighth, and the argmax agreement to the reference's
+    # own decode-vs-prefill criterion (> 0.9, tests/test_models.py)
+    dcfg = dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+    short = toks[:, :MOE_DECODE_SEQ]
+    fwd_aux: list = []
+    fwd, _ = T.forward(params, short, dcfg, layer_aux=fwd_aux)
+    state = T.init_decode_state(dcfg, batch, MOE_DECODE_SEQ + 1, device)
+    outs, dec_aux = [], []
+    for t in range(MOE_DECODE_SEQ):
+        step_aux: list = []
+        step_logits, state = T.decode_step(params, short[:, t:t + 1], state,
+                                           dcfg, layer_aux=step_aux)
+        outs.append(step_logits[:, 0])
+        dec_aux.append(step_aux)
+    dec = torch.stack(outs, dim=1)
+    other = torch.stack([                            # (L, B, S)
+        (torch.cat([st[layer]["expert_ids"] for st in dec_aux], dim=1)
+         .sort(-1).values != a["expert_ids"].sort(-1).values).any(-1)
+        for layer, a in enumerate(fwd_aux)])
+    # a token is compared if no layer routed it otherwise and no earlier
+    # token of its row was routed otherwise before the last layer (its
+    # state reaches later tokens through the next layers' attention)
+    early = other[:-1].any(0).to(torch.int32).cummax(dim=1).values.bool()
+    alike = ~(other.any(0) | early)
+    flipped = int(other.any(0).sum())
+    agree = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    diff = (dec.float() - fwd.float()).abs().amax(-1)          # (B, S)
+    scale = fwd.float().abs().max()
+    rel = (diff.max() / scale).item()
+    rel_alike = ((diff * alike).max() / scale).item()
+    print(f"{tag}: decode vs forward on S={MOE_DECODE_SEQ} at capacity_factor "
+          f"{dcfg.capacity_factor} (= n_experts / top_k, so the forward "
+          f"drops no token; at the published {cfg.capacity_factor} its "
+          f"capacity is {MOE._capacity(MOE_DECODE_SEQ, cfg.moe_cfg())}): "
+          f"{flipped} of {alike.numel()} tokens routed otherwise in some "
+          f"layer (near ties); max rel diff {rel_alike:.3e} on the "
+          f"{int(alike.sum())} tokens routed alike (tolerance "
+          f"{LM_LOGIT_TOL}), {rel:.3e} on all; argmax agreement "
+          f"{agree:.4f}", flush=True)
+    check(rel_alike <= LM_LOGIT_TOL, f"{tag}: decode differs from the "
+          f"forward on tokens routed alike (max rel diff {rel_alike:.3e})")
+    check(flipped * 8 <= alike.numel() and agree > 0.9,
+          f"{tag}: decode routed {flipped} of {alike.numel()} tokens "
+          f"otherwise than the forward, argmax agreement {agree}")
+    out.update(decode_vs_forward_rel=rel_alike, decode_vs_forward_rel_all=rel,
+               decode_routed_otherwise=flipped, decode_argmax_agree=agree)
+    del fwd, dec, state, outs, fwd_aux, dec_aux
+    torch.cuda.empty_cache()
+
+    prompts = _moe_prompts(cfg.vocab)
+    n, mx = SERVE["requests"], SERVE["max_new"]
+    ts = time.perf_counter()
+    done = serve_lm.serve(cfg, params, prompts, SERVE["batch"], mx,
+                          SERVE["cache_len"])
+    serve_s = time.perf_counter() - ts
+    total = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(n)), f"{tag}: served {sorted(done)}")
+    for rid, (_, limit) in enumerate(prompts):
+        check(1 <= len(done[rid]) <= limit
+              and all(0 <= t < cfg.vocab for t in done[rid]),
+              f"{tag}: request {rid} got {done[rid]}")
+    ts = time.perf_counter()                        # again, warm
+    again = serve_lm.serve(cfg, params, prompts, SERVE["batch"], mx,
+                           SERVE["cache_len"], verbose=False)
+    warm_s = time.perf_counter() - ts
+    check(again == done, f"{tag}: a second serve() gave other tokens")
+
+    # one decode step at the serving batch: wall against device time, and
+    # the routed experts' bytes it reads (every expert, every layer)
+    b = SERVE["batch"]
+    caches = T.init_decode_state(cfg, b, SERVE["cache_len"], device).caches
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    pos = torch.arange(b, dtype=torch.int32, device=device)
+    step = serve_lm.make_decode_fn(cfg)
+
+    def one():
+        step(params, tok, caches, pos)
+
+    walls = []
+    for _ in range(6):
+        tw = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tw) * 1e3)
+    step_ms = statistics.median(walls[1:])
+    kernels = device_breakdown(one, reps=3)
+    device_ms = sum(ms * c for ms, c in kernels.values())
+    n_kernels = sum(v[1] for v in kernels.values())
+    expert_gb = (cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+                 * params["embed"].element_size() / 1e9)
+    bound_ms = expert_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    top = dict(list(kernels.items())[:4])
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"{tag}: serve {n} requests, {total} tokens in {serve_s:.3f} s cold "
+          f"({total / serve_s:.1f} tokens/s), {warm_s:.3f} s warm "
+          f"({total / warm_s:.1f} tokens/s); one decode step at batch {b}: "
+          f"{step_ms:.3f} ms wall, {device_ms:.3f} ms on the device in "
+          f"{n_kernels} kernels (idle share {1 - device_ms / step_ms:.3f}); "
+          f"it reads every routed expert, {expert_gb:.2f} GB: "
+          f"{bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"{bound_ms / device_ms:.1%} of the device time; largest "
+          f"{json.dumps(top)}; peak memory {peak:.3f} GB", flush=True)
+    out.update(serve_s=serve_s, serve_warm_s=warm_s, serve_tokens=total,
+               decode_step_ms=step_ms, decode_step_device_ms=device_ms,
+               decode_step_kernels=n_kernels, expert_gb_a_step=expert_gb,
+               expert_bound_ms=bound_ms, peak_gb=peak)
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(device) -> dict:
+    """deepseek-v3 (MLA, 2 layers) and kimi-k2 (GQA at head_dim 112, one
+    layer) at full width through the port's entry points: prefill, decode
+    against the forward, ``serve()`` cold and warm, one decode step
+    profiled.  Returns each model's numbers."""
+    t0 = time.perf_counter()
+    out = {arch: _moe_model(device, arch, depth, b, s)
+           for arch, depth, b, s in MOE_RUNS}
+    _phase("moe", t0)
+    return out
+
+
 def _launcher_request(proc, gateway) -> dict:
     """The gateway launcher's one request: wait for its URL, ask for phase
     gateway's first job by the store's name under ``--store-root`` and
@@ -4080,11 +4336,13 @@ def main() -> int:
     displacement = phase_displacement(device)
     flash_rows = phase_flash(device)
     lm = phase_lm(device)
+    moe = phase_moe(device)
     flash = dict(flash_rows[0], name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:111",
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
-                 lm=lm)
+                 kimi_k2_launches=moe["kimi-k2-1t-a32b"]["flash_launches"],
+                 lm=lm, moe=moe)
     try:
         gateway["launcher"] = phase_cli(gateway)
     finally:

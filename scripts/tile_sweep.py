@@ -29,7 +29,8 @@ against the plain PyTorch version (bf16 flash within
 ``flash_attention.rounding_bound``, the fp64 and complex128 GEMMs within
 1e-12 of the largest |temp| or |env'|, the linear step's samples equal),
 then timed (CUDA events, median) at the shapes of ``chip_smoke.py``: flash
-at granite-3-2b's prefill and its variants, contract_measure at the p₂ = 4
+at granite-3-2b's prefill and its variants (kimi-k2's at Dh = 112 among
+them), contract_measure at the p₂ = 4
 shard shapes of χ = 10⁴, the Born site step at N = 512, χ = 10⁴, d = 4,
 the fp64 linear site step at N = 1024, χ = 10⁴, d = 4 and collapse_select
 at N = 1024, 2500 → 10⁴, d = 4 and, at χ = 10⁴, on fixed sizes of its
@@ -76,8 +77,10 @@ from repro_torch.kernels import displacement_expm as DE  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import site_step as K  # noqa: E402
 
-# flash: warps and query tiles per warp for Dh = 64, then for Dh = 128
-FLASH = [(4, 2, 8, 1), (4, 1, 4, 1), (8, 2, 4, 1)]
+# flash: warps and query tiles per warp for Dh = 64, then for Dh = 128,
+# then for Dh = 112 (whose 14 chunks a row need a block of 128 threads or
+# fewer)
+FLASH = [(4, 2, 8, 1, 4, 1), (4, 1, 4, 1, 4, 2), (8, 2, 4, 1, 2, 2)]
 # contract: BM, BN, BK, STAGES, WM, WN, MINB (blocks an SM must hold)
 CONTRACT = [(128, 64, 16, 3, 32, 32, 2), (128, 64, 16, 3, 32, 32, 1),
             (64, 64, 16, 3, 32, 32, 1), (128, 128, 16, 3, 32, 64, 1),
@@ -695,7 +698,8 @@ def main() -> int:
             if kind in args.only else ()
 
     for v in tiles("flash", FLASH):
-        variants[f"flash 64:{v[0]}x{v[1]} 128:{v[2]}x{v[3]}"] = (
+        variants[f"flash 64:{v[0]}x{v[1]} 128:{v[2]}x{v[3]} "
+                 f"112:{v[4]}x{v[5]}"] = (
             "flash_attention",
             {"FASTMPS_FLASH_TILES": ", ".join(map(str, v))}, CSRC)
     for kind, macro, found in (

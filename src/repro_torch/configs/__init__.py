@@ -2,16 +2,16 @@
 
 Every ported ``<arch>.py`` exports ``CONFIG`` (the published config, copied
 value for value from ``repro.configs``) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  The port runs the dense family; the
-other architectures of ``ARCHS`` raise ``NotImplementedError`` naming their
-ROADMAP row.
+same-family config for CPU tests).  The port runs the dense and MoE
+families; the other architectures of ``ARCHS`` raise
+``NotImplementedError`` naming their ROADMAP row.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.transformer import ModelConfig, require_dense
+from repro_torch.models.transformer import ModelConfig, require_ported
 
 ARCHS = [
     "zamba2-7b", "qwen1.5-4b", "deepseek-7b", "starcoder2-15b",
@@ -21,8 +21,7 @@ ARCHS = [
 
 # the family of each architecture not ported yet
 _UNPORTED = {"zamba2-7b": "hybrid", "llama-3.2-vision-11b": "vlm",
-             "whisper-small": "encdec", "mamba2-1.3b": "ssm",
-             "kimi-k2-1t-a32b": "moe", "deepseek-v3-671b": "moe"}
+             "whisper-small": "encdec", "mamba2-1.3b": "ssm"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +44,7 @@ def _mod(arch: str):
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; have {ARCHS}")
     if arch in _UNPORTED:
-        require_dense(_UNPORTED[arch])
+        require_ported(_UNPORTED[arch])
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -62,7 +62,9 @@ def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
     init_params`` output as numpy arrays: a dict with ``embed``, ``ln_f``,
     ``unembed`` and ``layers``, layers stacked on axis 0) → a port
     :class:`~repro_torch.models.transformer.Transformer` with the same
-    weights, for the dense family."""
+    weights, for the dense and MoE families (nested dicts such as MoE's
+    ``shared`` MLP are taken as they are; every leaf keeps its dtype, the
+    fp32 router too)."""
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
@@ -70,15 +72,16 @@ def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
     def leaf(a):
         return tensor_from_array(a, dev)
 
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        return leaf(node[i])
+
     layers = tree["layers"]
     n = len(layers["ln1"])
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    per_layer = [{"attn": {k: leaf(v[i]) for k, v in layers["attn"].items()},
-                  "mlp": {k: leaf(v[i]) for k, v in layers["mlp"].items()},
-                  "ln1": leaf(layers["ln1"][i]),
-                  "ln2": leaf(layers["ln2"][i])} for i in range(n)]
     return Transformer(cfg, {"embed": leaf(tree["embed"]),
                              "ln_f": leaf(tree["ln_f"]),
                              "unembed": leaf(tree["unembed"]),
-                             "layers": per_layer})
+                             "layers": [layer(layers, i) for i in range(n)]})

@@ -6,7 +6,8 @@
 // repro/kernels/flash_attention.py::flash_attention.
 //
 //   q (B, S, H, Dh), k/v (B, T, KVH, Dh), bf16 or fp32, contiguous
-//   out (B, S, H, Dh) in q's type; Dh = 64 or 128; H a multiple of KVH.
+//   out (B, S, H, Dh) in q's type; Dh = 64, 112 or 128; H a multiple of
+//   KVH.  (112 is kimi-k2's head: 7168 / 64.)
 //
 // What the TPU kernel does and how it is carried over.  Its grid is
 // (B.H, S/BQ, T/BK) with the key blocks innermost, run in order on one core,
@@ -50,6 +51,13 @@
 // changes no value.  Query tiles are issued heaviest first under the causal
 // mask.
 //
+// Dh = 112 (7 k-steps of 16 for Q.K^T, 14 output blocks of 8 for P.V, so
+// the fragment loops above hold) has tiles of its own: a row is 14 16-byte
+// chunks, so a 64-key tile is 896 chunks, which 128 threads divide and 256
+// do not; it runs 4 warps of one 16-row query tile each (BQ = 64).  Its
+// shared rows are 240 bytes (Dh + 8 halves), so the eight rows an ldmatrix
+// phase reads still fall in distinct banks.
+//
 // fp32 (flash_kernel): the reference scores fp32 inputs in fp32, and TF32
 // would keep about three digits, so fp32 stays on the FMA units: 256 threads
 // as 16 x 16, thread (ty, tx) owns query rows ty*4 .. ty*4+3 and the score
@@ -78,10 +86,10 @@ constexpr int STAGES = 2;   // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
 // warps per block and 16-row query tiles per warp at Dh = 64, then at
-// Dh = 128.  A file that defines FASTMPS_FLASH_TILES and then includes this
-// one builds other tiles (scripts/tile_sweep.py).
+// Dh = 128, then at Dh = 112.  A file that defines FASTMPS_FLASH_TILES and
+// then includes this one builds other tiles (scripts/tile_sweep.py).
 #ifndef FASTMPS_FLASH_TILES
-#define FASTMPS_FLASH_TILES 4, 2, 8, 1
+#define FASTMPS_FLASH_TILES 4, 2, 8, 1, 4, 1
 #endif
 constexpr int FLASH_TILES[] = {FASTMPS_FLASH_TILES};
 template <int DH> struct TcShape;
@@ -90,6 +98,9 @@ template <> struct TcShape<64> {
 };
 template <> struct TcShape<128> {
   static constexpr int WARPS = FLASH_TILES[2], MT = FLASH_TILES[3];
+};
+template <> struct TcShape<112> {
+  static constexpr int WARPS = FLASH_TILES[4], MT = FLASH_TILES[5];
 };
 
 // rows [row0, row0 + ROWS) of one head of a (B, n_rows, heads, DH) bf16
@@ -501,6 +512,7 @@ int fastmps_flash_attention_bf16(const void* q, const void* k, const void* v, vo
   bf16* ob = (bf16*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (Dh == 64) return launch_tc<64>(qb, kb, vb, ob, B, S, T, H, KVH, causal, st);
+  if (Dh == 112) return launch_tc<112>(qb, kb, vb, ob, B, S, T, H, KVH, causal, st);
   if (Dh == 128) return launch_tc<128>(qb, kb, vb, ob, B, S, T, H, KVH, causal, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -509,6 +521,7 @@ int fastmps_flash_attention_f32(const float* q, const float* k, const float* v, 
   if (bad_sizes(B, S, T, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (Dh == 64) return launch_f32<64>(q, k, v, out, B, S, T, H, KVH, causal, st);
+  if (Dh == 112) return launch_f32<112>(q, k, v, out, B, S, T, H, KVH, causal, st);
   if (Dh == 128) return launch_f32<128>(q, k, v, out, B, S, T, H, KVH, causal, st);
   return (int)cudaErrorInvalidValue;
 }

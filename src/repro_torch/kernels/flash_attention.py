@@ -27,7 +27,7 @@ from repro_torch.kernels import _build
 LAUNCHES = {"flash_attention": 0}
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)       # 112: kimi-k2's head (7168 / 64)
 
 _ENTRY = {torch.bfloat16: "fastmps_flash_attention_bf16",
           torch.float32: "fastmps_flash_attention_f32"}
@@ -41,18 +41,19 @@ def flash_attention_plain(q, k, v, causal: bool = True):
     """The same function in plain PyTorch: fp32 scores from the inputs, the
     −1e30 mask; fp32 softmax times fp32 V for fp32 inputs; for bf16 inputs
     the weights exp(s − rowmax) rounded to bf16, times V, over their fp32
-    sum.  Cast to q's dtype.  Materialises the (B, KVH, g, S, T) scores."""
+    sum.  Cast to q's dtype.  Materialises the (B, KVH, g, S, T) scores
+    once: the weights are computed over them in place."""
     scores = _scores(q, k, causal)
     b, s, h, dh = q.shape
     if q.dtype == torch.float32:
         w = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     else:
-        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        p = scores.sub_(scores.amax(dim=-1, keepdim=True)).exp_()
         l = p.sum(dim=-1)
         l = torch.where(l > 0, l, 1.0).permute(0, 3, 1, 2)[..., None]
-        out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype).float(),
-                           v.float()) / l
+        p.copy_(p.to(v.dtype))                  # rounded to bf16, in place
+        out = torch.einsum("bkgst,btkd->bskgd", p, v.float()) / l
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
@@ -61,12 +62,12 @@ def _scores(q, k, causal: bool):
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, s, kvh, h // kvh, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()).mul_(
         1.0 / math.sqrt(dh))
     if causal:
-        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
-                                     device=q.device))
-        scores = torch.where(mask, scores, NEG_INF)
+        above = torch.ones((s, t), dtype=torch.bool,
+                           device=q.device).triu_(1)
+        scores.masked_fill_(above, NEG_INF)
     return scores
 
 
@@ -93,7 +94,8 @@ def rounding_bound(q, k, v, causal: bool = True):
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """The kernel: q, k, v all bf16 or all fp32, contiguous, Dh 64 or 128 →
+    """The kernel: q, k, v all bf16 or all fp32, contiguous, Dh in
+    ``HEAD_DIMS`` (another head dim raises: there is no fallback) →
     out as :func:`flash_attention_plain` (bf16: within
     :func:`rounding_bound`).  One block per (b·h, query tile) walks the key
     tiles in order; bf16 on the tensor cores, fp32 on the FMA units."""

@@ -20,6 +20,13 @@ As the reference, the host reads the tokens back every step.
 Usage (on the card; ``--device cpu`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch deepseek-7b \
       --requests 32 --batch 8 --max-new 24
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm \
+      --arch deepseek-v3-671b --device cpu --requests 8 --batch 4
+
+The MoE architectures decode with MoE capacity counted per batch row, so a
+batched step routes each row as the reference's one-row steps do; MLA
+keeps its latent cache (``{"latent"}``), which a refill zeroes as it
+zeroes K and V.
 """
 from __future__ import annotations
 
@@ -122,7 +129,10 @@ def serve(cfg, params, prompts, batch: int, max_new: int, cache_len: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepseek-7b", choices=configs.ARCHS)
+    ap.add_argument("--arch", default="deepseek-7b", choices=configs.ARCHS,
+                    help="a dense (qwen1.5-4b, deepseek-7b, starcoder2-15b, "
+                    "granite-3-2b) or MoE (kimi-k2-1t-a32b, deepseek-v3-671b"
+                    ") architecture, at its smoke size")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,9 +1,9 @@
-"""Grouped-query self-attention with optional QKV bias and RoPE.
+"""Grouped-query self-attention with optional QKV bias and RoPE, and MLA.
 
-Mirrors ``repro.models.attention`` for the dense family.  Parameters keep
-the reference's shapes (wq (dm, h, dh), wk/wv (dm, kvh, dh), wo (h, dh, dm),
-biases (h, dh) and (kvh, dh)) in an ``nn.ParameterDict``, so carrying
-weights across is a copy.
+Mirrors ``repro.models.attention`` for the dense and MoE families.
+Parameters keep the reference's shapes (wq (dm, h, dh), wk/wv (dm, kvh,
+dh), wo (h, dh, dm), biases (h, dh) and (kvh, dh); MLA's six weights) in an
+``nn.ParameterDict``, so carrying weights across is a copy.
 
 Full-sequence attention (``cache is None``: prefill) goes through
 ``kernels.ops.flash_attention``: the CUDA flash kernel on the card, its
@@ -12,6 +12,11 @@ reference's global ``USE_FLASH`` switch becomes this dispatch).  Decode
 (``cache`` given) keeps the plain :func:`_sdpa`, as the reference keeps
 its XLA path.  The decode write index may be a scalar or one position per
 row (B,); the cache tensors are written in place.
+
+MLA (:func:`mla_apply`, DeepSeek-V3's multi-head latent attention) caches
+the compressed latent (kv_lora_rank + rope dim) instead of per-head K/V and
+stays plain PyTorch in prefill and decode, as the reference keeps it on
+its XLA path: it has no kernel.
 """
 from __future__ import annotations
 
@@ -95,6 +100,23 @@ def _project(x, w):
     return (x @ w.reshape(dm, heads * dh)).view(*x.shape[:2], heads, dh)
 
 
+def _write_rows(pairs, length: torch.Tensor) -> torch.Tensor:
+    """For each (buf (B, T, …), new (B, s, …)) of ``pairs``, write new into
+    buf in place at each row's ``length`` (a scalar or (B,)), clamped into
+    the buffer as ``dynamic_update_slice`` clamps its start; returns the
+    lengths (B,)."""
+    buf, new = pairs[0]
+    b, s = new.shape[:2]
+    t = buf.shape[1]
+    pos = length.expand(b) if length.ndim == 0 else length
+    start = pos.clamp(0, t - s).to(torch.int64)
+    rows = start[:, None] + torch.arange(s, device=buf.device)    # (B, s)
+    batch = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    for buf, new in pairs:
+        buf[batch, rows] = new.to(buf.dtype)
+    return pos
+
+
 def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[KVCache] = None,
@@ -128,13 +150,7 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
     new_cache = None
     if cache is not None:
         t = cache.k.shape[1]
-        pos = cache.length.expand(b) if cache.length.ndim == 0 \
-            else cache.length
-        start = pos.clamp(0, t - s).to(torch.int64)
-        rows = start[:, None] + torch.arange(s, device=x.device)   # (B, s)
-        batch = torch.arange(b, device=x.device)[:, None].expand(b, s)
-        cache.k[batch, rows] = k.to(cache.k.dtype)        # in place
-        cache.v[batch, rows] = v.to(cache.v.dtype)
+        pos = _write_rows(((cache.k, k), (cache.v, v)), cache.length)
         valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
         out = _sdpa(q, cache.k, cache.v, valid[:, None, None, None, :])
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
@@ -146,3 +162,104 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, dm)
     return y, new_cache
 
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V3).  The cache stores the
+# compressed latent (kv_lora_rank + rope_head_dim) instead of per-head K/V.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    head_dim: int = 128          # nope head dim
+    rope_head_dim: int = 64
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+
+
+def mla_init(gen: torch.Generator, cfg: MLAConfig, dtype,
+             device=None) -> dict:
+    """MLA's six weights by name, in the reference's shapes: wq_a (dm,
+    q_lora), wq_b (q_lora, h, dh + dr), wkv_a (dm, kv_lora + dr), wk_b and
+    wv_b (kv_lora, h, dh), wo (h, dh, dm)."""
+    dm, h = cfg.d_model, cfg.n_heads
+    dh, dr, ql, kl = (cfg.head_dim, cfg.rope_head_dim, cfg.q_lora_rank,
+                      cfg.kv_lora_rank)
+    return {
+        "wq_a": dense_init(gen, dm, ql, dtype, device),
+        "wq_b": dense_init(gen, ql, h * (dh + dr), dtype, device).reshape(
+            ql, h, dh + dr),
+        "wkv_a": dense_init(gen, dm, kl + dr, dtype, device),
+        "wk_b": dense_init(gen, kl, h * dh, dtype, device).reshape(kl, h, dh),
+        "wv_b": dense_init(gen, kl, h * dh, dtype, device).reshape(kl, h, dh),
+        "wo": dense_init(gen, h * dh, dm, dtype, device).reshape(h, dh, dm),
+    }
+
+
+class MLACache(NamedTuple):
+    latent: torch.Tensor    # (B, cache_len, kv_lora_rank + rope_head_dim)
+    length: torch.Tensor    # () or (B,) int: tokens already in the cache
+
+
+def init_mla_cache(batch: int, cache_len: int, cfg: MLAConfig, dtype,
+                   device=None) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, cache_len, cfg.kv_lora_rank + cfg.rope_head_dim),
+                    dtype=dtype, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def mla_apply(params, x: torch.Tensor, cfg: MLAConfig,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[MLACache] = None):
+    """Prefill (``cache is None``: causal over x) or decode (the latent
+    written at ``cache.length``, a scalar or one per row, and attended up
+    to it).  Returns (y, new_cache), new_cache None without one.  q_rope
+    turns at ``positions``, k_rope at the context positions, both with the
+    default θ = 10⁴, as the reference's."""
+    b, s, _ = x.shape
+    h, dh, dr, r = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
+        cfg.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+
+    q = _project(x @ params["wq_a"], params["wq_b"])             # (B,S,H,·)
+    q_nope, q_rope = q[..., :dh], q[..., dh:]
+    q_rope = apply_rope(q_rope, positions)
+
+    latent = x @ params["wkv_a"]                                  # (B,S,r+dr)
+    new_cache = None
+    if cache is not None:
+        lengths = _write_rows(((cache.latent, latent),), cache.length)
+        latent_ctx = cache.latent
+        t = latent_ctx.shape[1]
+        ctx_pos = torch.arange(t, device=x.device)[None, :]
+        new_cache = MLACache(cache.latent, cache.length + s)
+    else:
+        latent_ctx = latent
+        ctx_pos = positions
+        t = s
+
+    c_kv, k_rope_in = latent_ctx[..., :r], latent_ctx[..., r:]
+    k_rope = apply_rope(k_rope_in[:, :, None, :], ctx_pos)[:, :, 0, :]
+    k_nope = _project(c_kv, params["wk_b"])                       # (B,T,H,dh)
+    v = _project(c_kv, params["wv_b"])
+
+    logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    logits.div_(math.sqrt(dh + dr))
+    if cache is not None:
+        mask = (torch.arange(t, device=x.device)[None, :]
+                <= lengths[:, None])[:, None, None, :]            # (B,1,1,T)
+    else:
+        mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
+                                     device=x.device))[None, None]
+    logits.masked_fill_(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    del logits
+    out = torch.einsum("bhst,bthk->bshk", w, v)
+    hh, dhh, dm = params["wo"].shape
+    y = out.reshape(b, s, hh * dhh) @ params["wo"].reshape(hh * dhh, dm)
+    return y, new_cache

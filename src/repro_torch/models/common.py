@@ -5,7 +5,8 @@ Mirrors ``repro.models.common`` without its sharding helpers (``DATA``,
 are no-ops on one device.  Casts happen where the reference casts:
 :func:`rms_norm` reduces in fp32, casts to x's dtype, then multiplies by γ
 in that dtype; :func:`apply_rope` rotates split halves in fp32 and casts
-back.  Initialisers draw from a ``torch.Generator`` (their bits differ from
+back; :func:`silu` rounds bf16 where the reference's sigmoid does.
+Initialisers draw from a ``torch.Generator`` (their bits differ from
 ``jax.random``'s; weights are carried across with ``convert``).
 """
 from __future__ import annotations
@@ -42,8 +43,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (x * torch.rsqrt(var + eps)).to(dt) * gamma
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x·σ(x).  In bf16, σ(x) = 1/(1 + exp(−x)) with a bf16 rounding after
+    each op, as the reference's ``jax.nn.sigmoid`` computes it on the CPU
+    (XLA expands ``logistic`` so); a one-step rounding differs from it on
+    about a third of bf16 inputs, and a one-ulp difference can flip an MoE
+    route downstream."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def gelu_mlp(x, w_up, b_up, w_down, b_down):

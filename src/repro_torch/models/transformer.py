@@ -1,18 +1,20 @@
-"""Config-driven model assembly, the dense family: [attn + swiglu] × L.
+"""Config-driven model assembly: the dense and MoE families.
 
-Mirrors ``repro.models.transformer`` for ``family="dense"`` (qwen,
-deepseek-7b, starcoder2, granite).  ``ModelConfig`` carries every field of
-the reference so that all configs copy verbatim.  Parameters are a
-:class:`Transformer` module whose leaves keep the reference's names and
-shapes (``params["layers"][l]["attn"]["wq"]``; the reference stacks layers
-on axis 0, here they are an ``nn.ModuleList``).  Layers run as a Python
-loop: the reference's scan and remat are training concerns.
+Mirrors ``repro.models.transformer`` for ``family="dense"`` ([attn +
+swiglu] × L: qwen, deepseek-7b, starcoder2, granite) and ``family="moe"``
+([attn | MLA + MoE] × L: kimi-k2, deepseek-v3).  ``ModelConfig`` carries
+every field of the reference so that all configs copy verbatim.
+Parameters are a :class:`Transformer` module whose leaves keep the
+reference's names and shapes (``params["layers"][l]["attn"]["wq"]``,
+``params["layers"][l]["moe"]["shared"]["gate"]``; the reference stacks
+layers on axis 0, here they are an ``nn.ModuleList``).  Layers run as a
+Python loop: the reference's scan and remat are training concerns.
 
 Logits stay in the model's dtype (``x @ unembed``), so a greedy argmax
 breaks ties as the reference's does, at the first index.  The decode path
-carries a KV cache, the LM analogue of the FastMPS left environment; it is
-written in place.  Every other family raises ``NotImplementedError``
-naming its ROADMAP row.
+carries a KV cache (or MLA's latent cache), the LM analogue of the FastMPS
+left environment; it is written in place.  Every other family raises
+``NotImplementedError`` naming its ROADMAP row.
 """
 from __future__ import annotations
 
@@ -24,22 +26,24 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (embed_init, mlp_apply, mlp_init,
                                        rms_norm)
 
+PORTED_FAMILIES = ("dense", "moe")
 # ROADMAP.md §1 row of each family still to port
-_FAMILY_ROW = {"moe": 15, "ssm": 16, "hybrid": 16, "encdec": 17, "vlm": 17}
+_FAMILY_ROW = {"ssm": 16, "hybrid": 16, "encdec": 17, "vlm": 17}
 
 
-def require_dense(family: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP row of an unported
-    family."""
-    if family != "dense":
+def require_ported(family: str) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP row of a family the
+    port does not run yet."""
+    if family not in PORTED_FAMILIES:
         row = _FAMILY_ROW.get(family)
         where = f"ROADMAP.md §1 row {row}" if row else "unknown family"
         raise NotImplementedError(
             f"model family {family!r} is not ported yet ({where}); the port "
-            "runs family='dense'")
+            f"runs {', '.join(map(repr, PORTED_FAMILIES))}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +88,16 @@ class ModelConfig:
         return A.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                             self.hd, self.qkv_bias, rope, self.rope_theta,
                             causal)
+
+    def mla_cfg(self) -> A.MLAConfig:
+        return A.MLAConfig(self.d_model, self.n_heads, head_dim=self.hd,
+                           rope_head_dim=64, q_lora_rank=1536,
+                           kv_lora_rank=512)
+
+    def moe_cfg(self) -> MOE.MoEConfig:
+        return MOE.MoEConfig(self.d_model, self.d_ff, self.n_experts,
+                             self.top_k, self.n_shared_experts,
+                             self.capacity_factor)
 
     @property
     def has_attn(self) -> bool:
@@ -146,21 +160,56 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _param_dict(tree: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(v) for k, v in tree.items()})
+
+
 class DenseBlock(nn.Module):
     """One layer's weights: ``attn``, ``mlp`` (``nn.ParameterDict``s),
     ``ln1``, ``ln2``; indexable by name as the reference's dicts."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        self.attn = nn.ParameterDict({k: _param(v)
-                                      for k, v in tree["attn"].items()})
-        self.mlp = nn.ParameterDict({k: _param(v)
-                                     for k, v in tree["mlp"].items()})
+        self.attn = _param_dict(tree["attn"])
+        self.mlp = _param_dict(tree["mlp"])
         self.ln1 = _param(tree["ln1"])
         self.ln2 = _param(tree["ln2"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+class MoEWeights(nn.Module):
+    """``router`` (fp32), ``gate``, ``up``, ``down`` and, with shared
+    experts, ``shared`` (an ``nn.ParameterDict``); indexable by name."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name in ("router", "gate", "up", "down"):
+            setattr(self, name, _param(tree[name]))
+        if "shared" in tree:
+            self.shared = _param_dict(tree["shared"])
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class MoEBlock(nn.Module):
+    """One MoE layer's weights: ``attn`` (GQA or MLA weights), ``moe``
+    (:class:`MoEWeights`), ``ln1``, ``ln2``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.attn = _param_dict(tree["attn"])
+        self.moe = MoEWeights(tree["moe"])
+        self.ln1 = _param(tree["ln1"])
+        self.ln2 = _param(tree["ln2"])
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+_BLOCK = {"dense": DenseBlock, "moe": MoEBlock}
 
 
 class Transformer(nn.Module):
@@ -170,12 +219,13 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        require_dense(cfg.family)
+        require_ported(cfg.family)
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.ln_f = _param(tree["ln_f"])
         self.unembed = _param(tree["unembed"])
-        self.layers = nn.ModuleList(DenseBlock(lp) for lp in tree["layers"])
+        block = _BLOCK[cfg.family]
+        self.layers = nn.ModuleList(block(lp) for lp in tree["layers"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -190,7 +240,7 @@ def init_params(seed: int, cfg: ModelConfig,
     """Random weights from a ``torch.Generator`` seeded with ``seed``, on
     ``device`` (the card unless ``"cpu"`` is asked for).  The draws follow
     the reference's initialisers but not ``jax.random``'s bits."""
-    require_dense(cfg.family)
+    require_ported(cfg.family)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt, dm = cfg.dtype, cfg.d_model
@@ -198,12 +248,19 @@ def init_params(seed: int, cfg: ModelConfig,
     def ones():
         return torch.ones((dm,), dtype=dt, device=dev)
 
+    def layer():
+        if cfg.family == "dense":
+            return {"attn": A.attn_init(gen, cfg.attn_cfg(), dt, dev),
+                    "mlp": mlp_init(gen, dm, cfg.d_ff, dt, cfg.mlp_style,
+                                    dev),
+                    "ln1": ones(), "ln2": ones()}
+        attn = (A.mla_init(gen, cfg.mla_cfg(), dt, dev) if cfg.use_mla
+                else A.attn_init(gen, cfg.attn_cfg(), dt, dev))
+        return {"attn": attn, "moe": MOE.moe_init(gen, cfg.moe_cfg(), dt, dev),
+                "ln1": ones(), "ln2": ones()}
+
     tree = {"embed": embed_init(gen, cfg.vocab, dm, dt, dev), "ln_f": ones()}
-    tree["layers"] = [{"attn": A.attn_init(gen, cfg.attn_cfg(), dt, dev),
-                       "mlp": mlp_init(gen, dm, cfg.d_ff, dt, cfg.mlp_style,
-                                       dev),
-                       "ln1": ones(), "ln2": ones()}
-                      for _ in range(cfg.n_layers)]
+    tree["layers"] = [layer() for _ in range(cfg.n_layers)]
     tree["unembed"] = embed_init(gen, cfg.vocab, dm, dt, dev).T.contiguous()
     return Transformer(cfg, tree)
 
@@ -222,54 +279,98 @@ def _dense_block(lp, x, cfg: ModelConfig, positions, cache=None,
     return x, new_cache
 
 
+def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
+               kernels: str = "auto"):
+    """Attention (MLA, plain; or GQA through the flash dispatch) then the
+    MoE layer.  Returns (x, new_cache, aux)."""
+    if cfg.use_mla:
+        h, new_cache = A.mla_apply(lp["attn"], rms_norm(x, lp["ln1"]),
+                                   cfg.mla_cfg(), positions, cache)
+    else:
+        h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
+                                    cfg.attn_cfg(), positions, cache,
+                                    kernels=kernels)
+    x = x + h
+    y, aux = MOE.moe_apply(lp["moe"], rms_norm(x, lp["ln2"]), cfg.moe_cfg())
+    return x + y, new_cache, aux
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-            extra: Optional[dict] = None, kernels: str = "auto"):
+            extra: Optional[dict] = None, kernels: str = "auto",
+            layer_aux: Optional[list] = None):
     """Full-sequence forward (prefill).  tokens (B, S) → (logits (B, S, V)
-    in the model's dtype, aux loss 0).  Attention goes through the flash
-    kernel's dispatch (``kernels``)."""
-    require_dense(cfg.family)
+    in the model's dtype, aux loss: the sum of the MoE layers' ``lb_loss``,
+    0 for a dense model).  GQA attention goes through the flash kernel's
+    dispatch (``kernels``).  ``layer_aux``, a list, receives each MoE
+    layer's aux dict (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
+    require_ported(cfg.family)
     _, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device)[None, :]
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels)
+        if cfg.family == "moe":
+            x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels)
+            aux_acc = aux_acc + aux["lb_loss"]
+            if layer_aux is not None:
+                layer_aux.append(aux)
+        else:
+            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_acc
 
 
 class DecodeState(NamedTuple):
-    caches: Any              # {"k", "v"}: (L, B, cache_len, KVH, Dh) each
+    caches: Any              # {"k", "v"}: (L, B, cache_len, KVH, Dh) each;
+    #                          MLA: {"latent"}: (L, B, cache_len, 512 + 64)
     position: torch.Tensor   # () int32, or (B,) int32: one per row
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: DeviceLike = None) -> DecodeState:
-    require_dense(cfg.family)
+    require_ported(cfg.family)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    caches = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    L = cfg.n_layers
+    if cfg.family == "moe" and cfg.use_mla:
+        m = cfg.mla_cfg()
+        caches = {"latent": torch.zeros(
+            (L, batch, cache_len, m.kv_lora_rank + m.rope_head_dim),
+            dtype=cfg.dtype, device=dev)}
+    else:
+        shape = (L, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+        caches = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
     return DecodeState(caches, torch.zeros((), dtype=torch.int32,
                                            device=dev))
 
 
 def decode_step(params: Transformer, tokens: torch.Tensor,
                 state: DecodeState, cfg: ModelConfig,
-                extra: Optional[dict] = None):
+                extra: Optional[dict] = None,
+                layer_aux: Optional[list] = None):
     """One decode step: tokens (B, 1) → (logits (B, 1, V), new state).
     ``state.position`` is one position for the batch or one per row; the
     caches of ``state`` are updated in place and returned in the new
-    state."""
-    require_dense(cfg.family)
+    state.  ``layer_aux`` as :func:`forward`'s."""
+    require_ported(cfg.family)
     b = tokens.shape[0]
     x = params["embed"][tokens]
     pos = state.position
     positions = (pos.expand(b) if pos.ndim == 0 else pos)[:, None]
+    mla = cfg.family == "moe" and cfg.use_mla
     for layer, lp in enumerate(params["layers"]):
-        cache = A.KVCache(state.caches["k"][layer], state.caches["v"][layer],
-                          pos)
-        x, _ = _dense_block(lp, x, cfg, positions, cache)
+        if mla:
+            cache = A.MLACache(state.caches["latent"][layer], pos)
+        else:
+            cache = A.KVCache(state.caches["k"][layer],
+                              state.caches["v"][layer], pos)
+        if cfg.family == "moe":
+            x, _, aux = _moe_block(lp, x, cfg, positions, cache)
+            if layer_aux is not None:
+                layer_aux.append(aux)
+        else:
+            x, _ = _dense_block(lp, x, cfg, positions, cache)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, DecodeState(state.caches, pos + 1)

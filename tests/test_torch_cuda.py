@@ -758,7 +758,7 @@ def _flash_operands(dtype, b, s, t, kvh, g, dh, device, seed):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("g", [1, 4, 6])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel(card, dtype, dh, g, causal):
     """Ragged lengths (S = 200, T = 200 causal; S = 130, T = 77 not)."""
@@ -777,7 +777,7 @@ def test_flash_attention_kernel(card, dtype, dh, g, causal):
 @pytest.mark.parametrize("s,t", [(100, 100), (77, 130), (130, 77)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("g", [1, 4, 6])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 def test_flash_attention_bf16_ragged(card, dh, g, causal, s, t):
     """The tensor-core kernel on lengths that are not multiples of its
     query and key tiles, S = T and S ≠ T, within the rounding bound."""
@@ -808,6 +808,34 @@ def test_flash_attention_bf16_unaligned_operands(card):
     got = FA.flash_attention(*moved, causal=True)
     torch.cuda.synchronize()
     assert torch.equal(got, FA.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_at_kimi_head_dim(card, dtype, causal):
+    """kimi-k2's head: Dh = 112 (7168 / 64), 8 query heads a KV head, 8
+    KV heads, on a sequence of 5 query tiles and a ragged end."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(dtype, 2, 300, 300, 8, 8, 112, card,
+                              112 + causal)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    _flash_close(got, want, (q, k, v), causal)
+
+
+@pytest.mark.parametrize("dh", [32, 96, 120])
+def test_flash_attention_raises_for_a_head_dim_it_lacks(card, dh):
+    """No fallback to the plain version on the card."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    q, k, v = _flash_operands(torch.bfloat16, 1, 16, 16, 2, 2, dh, card, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, v, causal=True)
 
 
 @pytest.mark.parametrize("kernel", [
@@ -894,6 +922,64 @@ def test_lm_prefill_runs_the_flash_kernel(card):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err.item() <= 3e-2
+
+
+def test_moe_apply_on_the_card_repeats_bit_for_bit(card):
+    """``moe_apply`` at a small width on the card, twice: the same bits
+    (the combine adds each token's terms in a fixed order, no atomics),
+    drops included; and within the bf16 tolerance of the CPU's."""
+    from repro_torch.models import moe as MOE
+
+    cfg = MOE.MoEConfig(256, 128, 16, 4, n_shared=1, capacity_factor=0.5)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = MOE.moe_init(gen, cfg, torch.bfloat16, card)
+    x = torch.randn((4, 64, 256), generator=gen, device=card).to(
+        torch.bfloat16)
+    y1, a1 = MOE.moe_apply(params, x, cfg)
+    y2, a2 = MOE.moe_apply(params, x, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and float(a1["drop_frac"]) > 0
+    assert torch.equal(a1["expert_ids"], a2["expert_ids"])
+    cpu = {k: (v.cpu() if torch.is_tensor(v)
+               else {n: w.cpu() for n, w in v.items()})
+           for k, v in params.items()}
+    y0, a0 = MOE.moe_apply(cpu, x.cpu(), cfg)
+    same = (a0["expert_ids"] == a1["expert_ids"].cpu()).all(-1)
+    err = ((y1.cpu().float() - y0.float()).abs().amax(-1)[same].max()
+           / y0.float().abs().max())
+    assert err.item() <= 3e-2
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v3-671b"])
+def test_moe_lm_on_the_card(card, arch):
+    """A smoke-width MoE model on the card: kimi-k2's prefill launches the
+    flash kernel at Dh = 112 once a layer (deepseek-v3's MLA none); in
+    fp32 (where no route swaps on a rounding) the logits agree with the
+    plain attention's; in bf16 ``serve()`` gives the same tokens twice."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_smoke_config(arch)
+    if not cfg.use_mla:
+        cfg = dataclasses.replace(cfg, d_model=448)   # head_dim 112
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=card)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = T.init_params(0, f32, card)
+    ops.reset_launches()
+    got, _ = T.forward(params, toks, f32, kernels="auto")
+    assert ops.launch_counts()["flash_attention"] == (
+        0 if cfg.use_mla else cfg.n_layers)
+    want, _ = T.forward(params, toks, f32, kernels="torch")
+    torch.cuda.synchronize()
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4
+    params = T.init_params(0, cfg, card)
+    prompts = [(int(t), 6) for t in range(7)]
+    first = serve_lm.serve(cfg, params, prompts, 3, 6, 16, verbose=False)
+    again = serve_lm.serve(cfg, params, prompts, 3, 6, 16, verbose=False)
+    assert first == again and sorted(first) == list(range(7))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The plain version of the port's flash-attention kernel (PyTorch on the
 CPU) against the JAX package's Pallas kernel in interpret mode and its
-oracle, at the reference test's four cases (GQA, MHA, non-causal, MQA),
-in fp32 and bf16; the port's oracle against the reference's; and the
-dispatch on CPU tensors.
+oracle, at the reference test's four cases (GQA, MHA, non-causal, MQA)
+and kimi-k2's head (Dh = 112, 8 query heads a KV head), in fp32 and bf16;
+the port's oracle against the reference's; and the dispatch on CPU
+tensors.
 
 Tolerances: fp32 ``atol=3e-6`` (the reference test's, for its kernel
 against the same oracle); bf16 ``atol=3e-2`` against the fp32 oracle on the
@@ -25,8 +26,9 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 
 CASES = [(2, 64, 4, 2, 32, True), (1, 128, 4, 4, 16, True),
-         (2, 64, 8, 2, 32, False), (1, 64, 6, 1, 64, True)]
-IDS = ["gqa", "mha", "noncausal", "mqa"]
+         (2, 64, 8, 2, 32, False), (1, 64, 6, 1, 64, True),
+         (1, 64, 8, 1, 112, True)]
+IDS = ["gqa", "mha", "noncausal", "mqa", "kimi-dh112"]
 
 
 def _qkv(b, s, h, kvh, dh, t=None, seed=0):
