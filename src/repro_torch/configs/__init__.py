@@ -2,9 +2,9 @@
 
 Every ported ``<arch>.py`` exports ``CONFIG`` (the published config, copied
 value for value from ``repro.configs``) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  The port runs the dense and MoE
-families; the other architectures of ``ARCHS`` raise
-``NotImplementedError`` naming their ROADMAP row.
+same-family config for CPU tests).  The port runs the dense, MoE, SSM and
+hybrid families; the other architectures of ``ARCHS`` (encoder-decoder and
+VLM) raise ``NotImplementedError`` naming their ROADMAP row.
 """
 from __future__ import annotations
 
@@ -20,8 +20,7 @@ ARCHS = [
 ]
 
 # the family of each architecture not ported yet
-_UNPORTED = {"zamba2-7b": "hybrid", "llama-3.2-vision-11b": "vlm",
-             "whisper-small": "encdec", "mamba2-1.3b": "ssm"}
+_UNPORTED = {"llama-3.2-vision-11b": "vlm", "whisper-small": "encdec"}
 
 
 @dataclasses.dataclass(frozen=True)

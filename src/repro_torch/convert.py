@@ -60,11 +60,13 @@ def mps_from_arrays(gammas, lambdas, semantics: str = "linear",
 def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
     """The reference's LM parameter tree (``repro.models.transformer.
     init_params`` output as numpy arrays: a dict with ``embed``, ``ln_f``,
-    ``unembed`` and ``layers``, layers stacked on axis 0) → a port
+    ``unembed``, ``layers`` stacked on axis 0 and, for the hybrid,
+    ``shared_attn``) → a port
     :class:`~repro_torch.models.transformer.Transformer` with the same
-    weights, for the dense and MoE families (nested dicts such as MoE's
-    ``shared`` MLP are taken as they are; every leaf keeps its dtype, the
-    fp32 router too)."""
+    weights, for the dense, MoE, SSM and hybrid families (nested dicts such
+    as MoE's ``shared`` MLP or a layer's ``mamba`` weights are taken as
+    they are; every leaf keeps its dtype, the fp32 router and the SSM's
+    fp32 ``A_log``, ``D`` and ``dt_bias`` too)."""
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
@@ -72,16 +74,20 @@ def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
     def leaf(a):
         return tensor_from_array(a, dev)
 
-    def layer(node, i):
+    def layer(node, i=None):
+        """The ``i``-th layer of a stacked subtree, or, with no ``i``, an
+        unstacked one whole."""
         if isinstance(node, dict):
             return {k: layer(v, i) for k, v in node.items()}
-        return leaf(node[i])
+        return leaf(node if i is None else node[i])
 
     layers = tree["layers"]
-    n = len(layers["ln1"])
+    n = len(layers["ln1" if "ln1" in layers else "ln"])
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    return Transformer(cfg, {"embed": leaf(tree["embed"]),
-                             "ln_f": leaf(tree["ln_f"]),
-                             "unembed": leaf(tree["unembed"]),
-                             "layers": [layer(layers, i) for i in range(n)]})
+    out = {"embed": leaf(tree["embed"]), "ln_f": leaf(tree["ln_f"]),
+           "unembed": leaf(tree["unembed"]),
+           "layers": [layer(layers, i) for i in range(n)]}
+    if "shared_attn" in tree:
+        out["shared_attn"] = layer(tree["shared_attn"])
+    return Transformer(cfg, out)

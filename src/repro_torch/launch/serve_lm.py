@@ -1,8 +1,8 @@
 """Continuous-batching LM server (the paper's §5 analogy).
 
 The FastMPS macro-batch work queue becomes a *request* queue, the left
-environment becomes the KV cache, and slot management replaces macro-batch
-scheduling:
+environment becomes the KV (latent, SSM state) cache, and slot management
+replaces macro-batch scheduling:
 
   * a fixed pool of B cache slots; each active slot decodes one request;
   * when a request finishes (EOS token, its length, or a full cache), its
@@ -22,10 +22,14 @@ Usage (on the card; ``--device cpu`` runs on the CPU):
       --requests 32 --batch 8 --max-new 24
   PYTHONPATH=src python -m repro_torch.launch.serve_lm \
       --arch deepseek-v3-671b --device cpu --requests 8 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch zamba2-7b \
+      --device cpu --requests 8 --batch 4
 
 The MoE architectures decode with MoE capacity counted per batch row, so a
 batched step routes each row as the reference's one-row steps do; MLA
-keeps its latent cache (``{"latent"}``), which a refill zeroes as it
+keeps its latent cache (``{"latent"}``), mamba2 its fp32 SSM state
+(``{"state"}``) and zamba2 both the state and one KV cache per
+application of its shared attention block; a refill zeroes each as it
 zeroes K and V.
 """
 from __future__ import annotations
@@ -131,8 +135,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="deepseek-7b", choices=configs.ARCHS,
                     help="a dense (qwen1.5-4b, deepseek-7b, starcoder2-15b, "
-                    "granite-3-2b) or MoE (kimi-k2-1t-a32b, deepseek-v3-671b"
-                    ") architecture, at its smoke size")
+                    "granite-3-2b), MoE (kimi-k2-1t-a32b, deepseek-v3-671b"
+                    "), SSM (mamba2-1.3b) or hybrid (zamba2-7b) "
+                    "architecture, at its smoke size")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)

@@ -13,7 +13,8 @@ from repro_torch.models import transformer as T
 
 def make_prefill_step(cfg: T.ModelConfig, kernels: str = "auto"):
     """(params, batch) → last-position logits (B, V).  Full-sequence
-    attention goes through the flash kernel's dispatch (``kernels``)."""
+    attention (the hybrid's shared block too) goes through the flash
+    kernel's dispatch (``kernels``)."""
     def prefill(params, batch):
         logits, _ = T.forward(params, batch["tokens"], cfg, kernels=kernels)
         return logits[:, -1, :]

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, rope_tables
 
 NEG_INF = -1e30
 _ROW = "ROADMAP.md §1 row"
@@ -121,8 +121,10 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[KVCache] = None,
                kv_input: Optional[torch.Tensor] = None,
-               kernels: str = "auto"):
+               kernels: str = "auto", rope=None):
     """Self-attention.  Returns (y, new_cache), new_cache None without one.
+    ``rope``: ``common.rope_tables(positions, head_dim, rope_theta)``, if the
+    caller made them once for every layer.
 
     * prefill: ``cache is None`` → full causal (or full, if not causal)
       attention through the flash kernel's dispatch;
@@ -144,8 +146,9 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        rope = rope or rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
 
     new_cache = None
     if cache is not None:
@@ -213,12 +216,14 @@ def init_mla_cache(batch: int, cache_len: int, cfg: MLAConfig, dtype,
 
 def mla_apply(params, x: torch.Tensor, cfg: MLAConfig,
               positions: Optional[torch.Tensor] = None,
-              cache: Optional[MLACache] = None):
+              cache: Optional[MLACache] = None, rope=None):
     """Prefill (``cache is None``: causal over x) or decode (the latent
     written at ``cache.length``, a scalar or one per row, and attended up
     to it).  Returns (y, new_cache), new_cache None without one.  q_rope
     turns at ``positions``, k_rope at the context positions, both with the
-    default θ = 10⁴, as the reference's."""
+    default θ = 10⁴, as the reference's.  ``rope``: the (q, k) pair of
+    ``common.rope_tables`` at those positions, if the caller made them once
+    for every layer."""
     b, s, _ = x.shape
     h, dh, dr, r = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
         cfg.kv_lora_rank
@@ -227,7 +232,8 @@ def mla_apply(params, x: torch.Tensor, cfg: MLAConfig,
 
     q = _project(x @ params["wq_a"], params["wq_b"])             # (B,S,H,·)
     q_nope, q_rope = q[..., :dh], q[..., dh:]
-    q_rope = apply_rope(q_rope, positions)
+    q_tables, k_tables = rope or (None, None)
+    q_rope = apply_rope(q_rope, positions, tables=q_tables)
 
     latent = x @ params["wkv_a"]                                  # (B,S,r+dr)
     new_cache = None
@@ -243,7 +249,8 @@ def mla_apply(params, x: torch.Tensor, cfg: MLAConfig,
         t = s
 
     c_kv, k_rope_in = latent_ctx[..., :r], latent_ctx[..., r:]
-    k_rope = apply_rope(k_rope_in[:, :, None, :], ctx_pos)[:, :, 0, :]
+    k_rope = apply_rope(k_rope_in[:, :, None, :], ctx_pos,
+                        tables=k_tables)[:, :, 0, :]
     k_nope = _project(c_kv, params["wk_b"])                       # (B,T,H,dh)
     v = _project(c_kv, params["wv_b"])
 

@@ -5,15 +5,18 @@ Mirrors ``repro.models.common`` without its sharding helpers (``DATA``,
 are no-ops on one device.  Casts happen where the reference casts:
 :func:`rms_norm` reduces in fp32, casts to x's dtype, then multiplies by γ
 in that dtype; :func:`apply_rope` rotates split halves in fp32 and casts
-back; :func:`silu` rounds bf16 where the reference's sigmoid does.
+back, its angles' sin and cos with the reference's bits (:func:`sin_cos`);
+:func:`silu` rounds bf16 where the reference's sigmoid does.
 Initialisers draw from a ``torch.Generator`` (their bits differ from
 ``jax.random``'s; weights are carried across with ``convert``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -82,16 +85,108 @@ def mlp_apply(params, x, style: str = "swiglu"):
                     params["b_down"])
 
 
+# glibc's sinf/cosf (sysdeps/ieee754/flt-32/s_sincosf.h), the functions
+# XLA's CPU backend calls for fp32 sin and cos: a double-precision
+# polynomial after a reduction by π/2 (one multiply-subtract below 120,
+# 4/π to 192 bits above), rounded to fp32 once.
+_SINCOS_SIGN = (1.0, -1.0, -1.0, 1.0)
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")      # 2/π · 2²⁴
+_HPI = float.fromhex("0x1.921FB54442D18p0")             # π/2
+_PI63 = float.fromhex("0x1.921FB54442D18p-62")          # π · 2⁻⁶³
+_COS_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+_INV_PIO4 = (                                           # 4/π, 8 new bits each
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
+    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
+    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
+    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041)
+
+
+@functools.lru_cache(maxsize=None)
+def _sincos_tables(device: torch.device):
+    """4/π's words and the quadrants' signs on ``device``, copied once."""
+    return (torch.tensor(_INV_PIO4, dtype=torch.int64, device=device),
+            torch.tensor(_SINCOS_SIGN, dtype=torch.float64, device=device))
+
+
+def _reduce_large(bits: torch.Tensor):
+    """|y| ≥ 120 from its fp32 bits (int64, sign cleared) → (r, n): y − n·π/2
+    = r in double, n mod 4, by glibc's 32 × 96-bit fixed-point product with
+    4/π, its 64-bit sums split at bit 32 so that no int64 overflows."""
+    tab = _sincos_tables(bits.device)[0]
+    idx = (bits >> 26) & 15
+    xi = ((bits & 0xffffff) | 0x800000) << ((bits >> 23) & 7)      # < 2³¹
+    r0 = (xi * tab[idx]) & 0xffffffff
+    r1 = xi * tab[idx + 4]
+    low = (xi * tab[idx + 8] >> 32) + (r1 & 0xffffffff)
+    high = (r0 + (r1 >> 32) + (low >> 32) + (1 << 29)) & 0xffffffff
+    res = ((high & 0x3fffffff) << 32) + (low & 0xffffffff) - (1 << 61)
+    return res.to(torch.float64) * _PI63, high >> 30
+
+
+def sin_cos(y: torch.Tensor):
+    """fp32 (sin y, cos y) with the bits of glibc's ``sinf``/``cosf``, which
+    XLA's CPU backend calls: the reference's ``jnp.sin``/``jnp.cos``.  Plain
+    fp64 tensor ops, so the card gives the CPU's bits (glibc's FMA build may
+    round its double sum otherwise in rare cases: 1 of 11.2 M rope angles).
+    ``torch.sin``/``torch.cos`` differ from it on ≈ 5 % of rope angles.
+    Finite ``y`` only."""
+    bits = y.float().view(torch.int32).to(torch.int64) & 0xffffffff
+    top = (bits >> 20) & 0x7ff               # glibc's abstop12 thresholds
+    small, mid, tiny = top < 1012, top < 1071, top < 920   # 0.75, 120, 2⁻¹²
+    x = y.double()
+    n_mid = (torch.trunc(x * _HPI_INV).to(torch.int64) + 0x800000) >> 24
+    r_large, n_large = _reduce_large(bits & 0x7fffffff)
+    n = torch.where(small, 0, torch.where(mid, n_mid, n_large))
+    r = torch.where(small, x, torch.where(mid, x - n_mid.double() * _HPI,
+                                          r_large))
+    quad = torch.where(mid, n, n + (bits >> 31)) & 3
+    xs = r * _sincos_tables(y.device)[1][quad]
+    x2 = r * r
+    x3 = xs * x2
+    s = (xs + x3 * _SIN_S[0]) + (x3 * x2) * (_SIN_S[1] + x2 * _SIN_S[2])
+    c0, c1, c2, c3, c4 = _COS_C
+    x4 = x2 * x2
+    c = ((c0 + x2 * c1) + x4 * c2) + (x4 * x2) * (c3 + x2 * c4)
+    c = torch.where((quad & 2) != 0, -c, c)  # glibc's second table: −cos
+    odd = (n & 1) == 1
+    sin = torch.where(odd, c, s).float()
+    cos = torch.where(odd, s, c).float()
+    return (torch.where(tiny, y, sin),
+            torch.where(tiny, torch.ones_like(sin), cos))
+
+
+@functools.lru_cache(maxsize=None)
+def rope_inv_freq(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """1/θ^(2i/Dh) (Dh/2,) fp32 with the reference's bits: the exponent in
+    fp32, the power in fp64 rounded to fp32 (XLA's fp32 ``pow`` on the CPU),
+    the reciprocal in fp32.  Computed on the host, so every device gets the
+    same bits (torch's fp32 ``pow`` is one ulp off at Dh = 112)."""
+    e = np.arange(0, dh, 2, dtype=np.float32) / np.float32(dh)
+    p = np.power(np.float64(theta), e.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(np.float32(1.0) / p).to(device)
+
+
+def rope_tables(positions: torch.Tensor, dh: int, theta: float = 10000.0):
+    """(cos, sin), each (..., S, 1, Dh/2) fp32, for positions (..., S): the
+    angles pos·inv in fp32 as the reference's, then :func:`sin_cos`.  One
+    pair serves every layer and both q and k of a step."""
+    ang = positions[..., None].to(torch.float32) * rope_inv_freq(
+        dh, float(theta), positions.device)
+    sin, cos = sin_cos(ang)
+    return cos[..., None, :], sin[..., None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0, tables=None) -> torch.Tensor:
     """x (..., S, H, Dh); positions (..., S) integer.  Rotates split halves
-    (not interleaved pairs) in fp32 and casts back to x's dtype."""
-    dh = x.shape[-1]
-    inv = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                        device=x.device) / dh))
-    ang = positions[..., None].to(torch.float32) * inv     # (..., S, Dh/2)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    (not interleaved pairs) in fp32 and casts back to x's dtype.
+    ``tables``: :func:`rope_tables` of these positions, if already made."""
+    cos, sin = tables or rope_tables(positions, x.shape[-1], theta)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,20 +1,28 @@
-"""Config-driven model assembly: the dense and MoE families.
+"""Config-driven model assembly: the dense, MoE, SSM and hybrid families.
 
 Mirrors ``repro.models.transformer`` for ``family="dense"`` ([attn +
-swiglu] × L: qwen, deepseek-7b, starcoder2, granite) and ``family="moe"``
-([attn | MLA + MoE] × L: kimi-k2, deepseek-v3).  ``ModelConfig`` carries
-every field of the reference so that all configs copy verbatim.
-Parameters are a :class:`Transformer` module whose leaves keep the
-reference's names and shapes (``params["layers"][l]["attn"]["wq"]``,
-``params["layers"][l]["moe"]["shared"]["gate"]``; the reference stacks
-layers on axis 0, here they are an ``nn.ModuleList``).  Layers run as a
-Python loop: the reference's scan and remat are training concerns.
+swiglu] × L: qwen, deepseek-7b, starcoder2, granite), ``family="moe"``
+([attn | MLA + MoE] × L: kimi-k2, deepseek-v3), ``family="ssm"``
+([mamba2] × L: mamba2-1.3b) and ``family="hybrid"`` ([mamba2] × L with one
+*shared* attention + MLP block applied after every ``attn_every``-th
+layer: zamba2-7b).  ``ModelConfig`` carries every field of the reference
+so that all configs copy verbatim.  Parameters are a :class:`Transformer`
+module whose leaves keep the reference's names and shapes
+(``params["layers"][l]["attn"]["wq"]``,
+``params["layers"][l]["moe"]["shared"]["gate"]``,
+``params["layers"][l]["mamba"]["w_in"]``, ``params["shared_attn"]["ln1"]``;
+the reference stacks layers on axis 0, here they are an
+``nn.ModuleList``).  Layers run as a Python loop: the reference's scan and
+remat are training concerns.
 
 Logits stay in the model's dtype (``x @ unembed``), so a greedy argmax
 breaks ties as the reference's does, at the first index.  The decode path
-carries a KV cache (or MLA's latent cache), the LM analogue of the FastMPS
-left environment; it is written in place.  Every other family raises
-``NotImplementedError`` naming its ROADMAP row.
+carries a KV cache (MLA's latent cache; the SSM state (L, B, H, P, N) in
+fp32, and for the hybrid one KV cache per shared-attention application),
+the LM analogue of the FastMPS left environment; it is written in place.
+rope's tables are made once a forward or decode step and serve every
+layer.  The encoder-decoder and VLM families raise
+``NotImplementedError`` naming their ROADMAP row.
 """
 from __future__ import annotations
 
@@ -26,13 +34,14 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (embed_init, mlp_apply, mlp_init,
-                                       rms_norm)
+                                       rms_norm, rope_tables)
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # ROADMAP.md §1 row of each family still to port
-_FAMILY_ROW = {"ssm": 16, "hybrid": 16, "encdec": 17, "vlm": 17}
+_FAMILY_ROW = {"encdec": 17, "vlm": 17}
 
 
 def require_ported(family: str) -> None:
@@ -99,6 +108,9 @@ class ModelConfig:
                              self.top_k, self.n_shared_experts,
                              self.capacity_factor)
 
+    def ssm_cfg(self) -> M2.Mamba2Config:
+        return M2.Mamba2Config(self.d_model, self.ssm_state, self.ssm_head)
+
     @property
     def has_attn(self) -> bool:
         return self.family != "ssm"
@@ -131,12 +143,9 @@ class ModelConfig:
                                    * 3 * dm * dff + router) + emb
             return total, act
         if self.family in ("ssm", "hybrid"):
-            # the reference's Mamba2Config(d_model, ssm_state, ssm_head):
-            # expand 2, one B/C group
-            heads = 2 * dm // self.ssm_head
-            d_inner = heads * self.ssm_head
-            per = dm * (2 * d_inner + 2 * self.ssm_state + heads) \
-                + d_inner * dm
+            c = self.ssm_cfg()
+            per = dm * (2 * c.d_inner + 2 * c.n_groups * c.d_state + c.heads) \
+                + c.d_inner * dm
             total = self.n_layers * per + emb
             if self.family == "hybrid":
                 total += attn + mlp    # one shared block
@@ -209,12 +218,27 @@ class MoEBlock(nn.Module):
         return getattr(self, name)
 
 
-_BLOCK = {"dense": DenseBlock, "moe": MoEBlock}
+class SSMBlock(nn.Module):
+    """One Mamba2 layer's weights: ``mamba`` (``w_in``, ``w_out``, ``A_log``,
+    ``D``, ``dt_bias``, ``norm_g``; an ``nn.ParameterDict``) and ``ln``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.mamba = _param_dict(tree["mamba"])
+        self.ln = _param(tree["ln"])
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+_BLOCK = {"dense": DenseBlock, "moe": MoEBlock, "ssm": SSMBlock,
+          "hybrid": SSMBlock}
 
 
 class Transformer(nn.Module):
-    """``embed`` (V, dm), ``ln_f`` (dm,), ``unembed`` (dm, V) and
-    ``layers``, from a nested dict of tensors (see :func:`init_params` and
+    """``embed`` (V, dm), ``ln_f`` (dm,), ``unembed`` (dm, V), ``layers``
+    and, for the hybrid, ``shared_attn`` (a :class:`DenseBlock`), from a
+    nested dict of tensors (see :func:`init_params` and
     ``convert.lm_params_from_arrays``)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
@@ -226,6 +250,8 @@ class Transformer(nn.Module):
         self.unembed = _param(tree["unembed"])
         block = _BLOCK[cfg.family]
         self.layers = nn.ModuleList(block(lp) for lp in tree["layers"])
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(tree["shared_attn"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -248,12 +274,17 @@ def init_params(seed: int, cfg: ModelConfig,
     def ones():
         return torch.ones((dm,), dtype=dt, device=dev)
 
+    def dense_block():
+        return {"attn": A.attn_init(gen, cfg.attn_cfg(), dt, dev),
+                "mlp": mlp_init(gen, dm, cfg.d_ff, dt, cfg.mlp_style, dev),
+                "ln1": ones(), "ln2": ones()}
+
     def layer():
+        if cfg.family in ("ssm", "hybrid"):
+            return {"mamba": M2.mamba2_init(gen, cfg.ssm_cfg(), dt, dev),
+                    "ln": ones()}
         if cfg.family == "dense":
-            return {"attn": A.attn_init(gen, cfg.attn_cfg(), dt, dev),
-                    "mlp": mlp_init(gen, dm, cfg.d_ff, dt, cfg.mlp_style,
-                                    dev),
-                    "ln1": ones(), "ln2": ones()}
+            return dense_block()
         attn = (A.mla_init(gen, cfg.mla_cfg(), dt, dev) if cfg.use_mla
                 else A.attn_init(gen, cfg.attn_cfg(), dt, dev))
         return {"attn": attn, "moe": MOE.moe_init(gen, cfg.moe_cfg(), dt, dev),
@@ -261,6 +292,8 @@ def init_params(seed: int, cfg: ModelConfig,
 
     tree = {"embed": embed_init(gen, cfg.vocab, dm, dt, dev), "ln_f": ones()}
     tree["layers"] = [layer() for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = dense_block()
     tree["unembed"] = embed_init(gen, cfg.vocab, dm, dt, dev).T.contiguous()
     return Transformer(cfg, tree)
 
@@ -270,29 +303,52 @@ def init_params(seed: int, cfg: ModelConfig,
 # ===========================================================================
 
 def _dense_block(lp, x, cfg: ModelConfig, positions, cache=None,
-                 kernels: str = "auto"):
+                 kernels: str = "auto", rope=None):
     h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                 cfg.attn_cfg(), positions, cache,
-                                kernels=kernels)
+                                kernels=kernels, rope=rope)
     x = x + h
     x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.mlp_style)
     return x, new_cache
 
 
 def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
-               kernels: str = "auto"):
+               kernels: str = "auto", rope=None):
     """Attention (MLA, plain; or GQA through the flash dispatch) then the
     MoE layer.  Returns (x, new_cache, aux)."""
     if cfg.use_mla:
         h, new_cache = A.mla_apply(lp["attn"], rms_norm(x, lp["ln1"]),
-                                   cfg.mla_cfg(), positions, cache)
+                                   cfg.mla_cfg(), positions, cache,
+                                   rope=rope)
     else:
         h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                     cfg.attn_cfg(), positions, cache,
-                                    kernels=kernels)
+                                    kernels=kernels, rope=rope)
     x = x + h
     y, aux = MOE.moe_apply(lp["moe"], rms_norm(x, lp["ln2"]), cfg.moe_cfg())
     return x + y, new_cache, aux
+
+
+def _rope(cfg: ModelConfig, positions, context: Optional[int] = None):
+    """rope's tables for every attention layer of a step (None for the SSM
+    family).  MLA: the pair for q at ``positions`` and k at the context
+    positions, ``arange(context)`` in decode (its cache's length), its
+    rope dims at the default θ as ``mla_apply`` turns them."""
+    if cfg.family == "ssm":
+        return None
+    if not cfg.use_mla:
+        return rope_tables(positions, cfg.hd, cfg.rope_theta)
+    dr = cfg.mla_cfg().rope_head_dim
+    q = rope_tables(positions, dr)
+    if context is None:
+        return q, q
+    return q, rope_tables(torch.arange(context, device=positions.device)[
+        None, :], dr)
+
+
+def _is_attn(cfg: ModelConfig, layer: int) -> bool:
+    """Whether the hybrid's shared block runs after Mamba layer ``layer``."""
+    return layer % cfg.attn_every == cfg.attn_every - 1
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -300,22 +356,33 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             layer_aux: Optional[list] = None):
     """Full-sequence forward (prefill).  tokens (B, S) → (logits (B, S, V)
     in the model's dtype, aux loss: the sum of the MoE layers' ``lb_loss``,
-    0 for a dense model).  GQA attention goes through the flash kernel's
-    dispatch (``kernels``).  ``layer_aux``, a list, receives each MoE
-    layer's aux dict (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
+    0 for the other families).  GQA attention (the hybrid's shared block
+    too) goes through the flash kernel's dispatch (``kernels``).
+    ``layer_aux``, a list, receives each MoE layer's aux dict
+    (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
     require_ported(cfg.family)
     _, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device)[None, :]
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["layers"]:
+    rope = _rope(cfg, positions)
+    for layer, lp in enumerate(params["layers"]):
         if cfg.family == "moe":
-            x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels)
+            x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
+                                   rope=rope)
             aux_acc = aux_acc + aux["lb_loss"]
             if layer_aux is not None:
                 layer_aux.append(aux)
+        elif cfg.family in ("ssm", "hybrid"):
+            h, _ = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
+                                   cfg.ssm_cfg())
+            x = x + h
+            if cfg.family == "hybrid" and _is_attn(cfg, layer):
+                x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                    kernels=kernels, rope=rope)
         else:
-            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels)
+            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
+                                rope=rope)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, aux_acc
@@ -323,7 +390,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 
 class DecodeState(NamedTuple):
     caches: Any              # {"k", "v"}: (L, B, cache_len, KVH, Dh) each;
-    #                          MLA: {"latent"}: (L, B, cache_len, 512 + 64)
+    #                          MLA: {"latent"}: (L, B, cache_len, 512 + 64);
+    #                          SSM: {"state"}: (L, B, H, P, N) fp32; hybrid:
+    #                          "state" and "k", "v" of (n_attn, B, …)
     position: torch.Tensor   # () int32, or (B,) int32: one per row
 
 
@@ -332,15 +401,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     require_ported(cfg.family)
     dev = resolve_device(device)
     L = cfg.n_layers
+    caches = {}
+    n_kv = L                     # layers that keep a KV cache
+    if cfg.family in ("ssm", "hybrid"):
+        c = cfg.ssm_cfg()
+        caches["state"] = torch.zeros(
+            (L, batch, c.heads, c.d_head, c.d_state), dtype=torch.float32,
+            device=dev)
+        # the hybrid: one KV cache per application of the shared block
+        n_kv = max(1, L // cfg.attn_every) if cfg.family == "hybrid" else 0
     if cfg.family == "moe" and cfg.use_mla:
         m = cfg.mla_cfg()
-        caches = {"latent": torch.zeros(
+        caches["latent"] = torch.zeros(
             (L, batch, cache_len, m.kv_lora_rank + m.rope_head_dim),
-            dtype=cfg.dtype, device=dev)}
-    else:
-        shape = (L, batch, cache_len, cfg.n_kv_heads, cfg.hd)
-        caches = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            dtype=cfg.dtype, device=dev)
+    elif n_kv:
+        shape = (n_kv, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+        caches["k"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        caches["v"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
     return DecodeState(caches, torch.zeros((), dtype=torch.int32,
                                            device=dev))
 
@@ -358,19 +436,37 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     x = params["embed"][tokens]
     pos = state.position
     positions = (pos.expand(b) if pos.ndim == 0 else pos)[:, None]
-    mla = cfg.family == "moe" and cfg.use_mla
+    caches = state.caches
+    rope = _rope(cfg, positions, caches["latent"].shape[2]
+                 if "latent" in caches else None)
+    ssm = cfg.family in ("ssm", "hybrid")
+    conv = x.new_zeros((b, 1)) if ssm else None   # SSMState's placeholder
     for layer, lp in enumerate(params["layers"]):
-        if mla:
-            cache = A.MLACache(state.caches["latent"][layer], pos)
-        else:
-            cache = A.KVCache(state.caches["k"][layer],
-                              state.caches["v"][layer], pos)
-        if cfg.family == "moe":
-            x, _, aux = _moe_block(lp, x, cfg, positions, cache)
+        if ssm:
+            st = caches["state"][layer]
+            h, new = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
+                                     cfg.ssm_cfg(), M2.SSMState(st, conv))
+            st.copy_(new.state)
+            x = x + h
+            if cfg.family == "hybrid" and _is_attn(cfg, layer):
+                # this application's cache: the attention layers before it
+                ci = min(layer // cfg.attn_every, caches["k"].shape[0] - 1)
+                x, _ = _dense_block(
+                    params["shared_attn"], x, cfg, positions,
+                    A.KVCache(caches["k"][ci], caches["v"][ci], pos),
+                    rope=rope)
+        elif cfg.family == "moe":
+            cache = (A.MLACache(caches["latent"][layer], pos) if cfg.use_mla
+                     else A.KVCache(caches["k"][layer], caches["v"][layer],
+                                    pos))
+            x, _, aux = _moe_block(lp, x, cfg, positions, cache, rope=rope)
             if layer_aux is not None:
                 layer_aux.append(aux)
         else:
-            x, _ = _dense_block(lp, x, cfg, positions, cache)
+            x, _ = _dense_block(
+                lp, x, cfg, positions,
+                A.KVCache(caches["k"][layer], caches["v"][layer], pos),
+                rope=rope)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, DecodeState(state.caches, pos + 1)

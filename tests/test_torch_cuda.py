@@ -827,6 +827,23 @@ def test_flash_attention_at_kimi_head_dim(card, dtype, causal):
     _flash_close(got, want, (q, k, v), causal)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_at_zamba2_head_dim(card, dtype, causal):
+    """zamba2's shared attention: Dh = 112 (3584 / 32) with KVH = H = 32,
+    a GQA group of one, on 5 query tiles and a ragged end."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(dtype, 2, 300, 300, 32, 1, 112, card,
+                              1120 + causal)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    _flash_close(got, want, (q, k, v), causal)
+
+
 @pytest.mark.parametrize("dh", [32, 96, 120])
 def test_flash_attention_raises_for_a_head_dim_it_lacks(card, dh):
     """No fallback to the plain version on the card."""
@@ -971,6 +988,79 @@ def test_moe_lm_on_the_card(card, arch):
     got, _ = T.forward(params, toks, f32, kernels="auto")
     assert ops.launch_counts()["flash_attention"] == (
         0 if cfg.use_mla else cfg.n_layers)
+    want, _ = T.forward(params, toks, f32, kernels="torch")
+    torch.cuda.synchronize()
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-4
+    params = T.init_params(0, cfg, card)
+    prompts = [(int(t), 6) for t in range(7)]
+    first = serve_lm.serve(cfg, params, prompts, 3, 6, 16, verbose=False)
+    again = serve_lm.serve(cfg, params, prompts, 3, 6, 16, verbose=False)
+    assert first == again and sorted(first) == list(range(7))
+
+
+def test_rope_on_the_card_has_the_cpu_bits(card):
+    """``sin_cos`` runs glibc's algorithm in fp64 tensor ops: the card's
+    rope tables equal the CPU's bit for bit (and so the reference's)."""
+    from repro_torch.models import common as C
+
+    for dh in (16, 64, 112, 128):
+        pos = torch.arange(8192)[None]
+        cos, sin = C.rope_tables(pos.to(card), dh)
+        want_cos, want_sin = C.rope_tables(pos, dh)
+        assert torch.equal(cos.cpu(), want_cos) and torch.equal(sin.cpu(),
+                                                                want_sin)
+
+
+def test_mamba2_on_the_card(card):
+    """``mamba2_apply`` in fp32 at a small width on the card: the chunked
+    prefill (S = 300: chunks of 100) and its final state against 300
+    decode steps, and both against the CPU's."""
+    from repro_torch.models import mamba2 as M2
+
+    cfg = M2.Mamba2Config(d_model=128, d_state=32, d_head=32)
+    gen = torch.Generator().manual_seed(0)
+    params = M2.mamba2_init(gen, cfg, torch.float32, "cpu")
+    params["dt_bias"] = torch.randn(cfg.heads, generator=gen) * 0.5
+    params["D"] = 1 + torch.randn(cfg.heads, generator=gen) * 0.5
+    x = torch.randn((2, 300, cfg.d_model), generator=gen)
+    want, _ = M2.mamba2_apply(params, x, cfg)
+    on = {k: v.to(card) for k, v in params.items()}
+    got, _ = M2.mamba2_apply(on, x.to(card), cfg)
+    st = M2.init_ssm_state(2, cfg, torch.float32, card)
+    steps = []
+    for t in range(300):
+        y, st = M2.mamba2_apply(on, x[:, t:t + 1].to(card), cfg, st)
+        steps.append(y)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * scale
+    assert (torch.cat(steps, 1) - got).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-1.3b"])
+def test_ssm_lm_on_the_card(card, arch):
+    """A narrow SSM model on the card: zamba2's shared block at Dh = 112
+    (d_model 448, 4 heads, 4 layers) launches the flash kernel once per
+    application (after layers 1 and 3), mamba2 none; in fp32 the logits
+    agree with the plain attention's; in bf16 ``serve()`` gives the same
+    tokens twice."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_smoke_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, d_model=448)   # head_dim 112
+        assert cfg.hd == 112 and cfg.n_kv_heads == cfg.n_heads
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=card)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = T.init_params(0, f32, card)
+    ops.reset_launches()
+    got, _ = T.forward(params, toks, f32, kernels="auto")
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    assert ops.launch_counts()["flash_attention"] == n_attn
     want, _ = T.forward(params, toks, f32, kernels="torch")
     torch.cuda.synchronize()
     err = (got - want).abs().max() / want.abs().max()
