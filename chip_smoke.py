@@ -227,6 +227,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               recurrence, y and the final state; ``serve()`` as phase lm's,
               cold and warm (the same tokens); one decode step profiled;
               peak memory beside the SSM state's bytes;
+    xattn   — (after ssm, which frees its weights) whisper-small (12
+              encoder + 12 decoder layers, d_model 768, vocab 51865) and
+              llama-3.2-vision-11b (40 layers, 8 cross layers, d_model
+              4096, vocab 128256; 10.1 B parameters, 20.2 GB) at full depth
+              and published width, bf16 weights from the port's seeded
+              init on the card, the stub frontends' frames and patches
+              ``torch.randn`` from a seeded generator: whisper's
+              ``make_prefill_step`` on 8 requests of 1500 frames at S = 448
+              (``flash_attention`` × 36: 12 encoder, 12 self, 12 cross),
+              against the same prefill with the plain attention;
+              ``encode`` (× 12); ``make_serve_step`` greedy for 16 tokens
+              at batch 8, cache 64 (× 12 a step: the cross-attention at S =
+              1); decode against the forward on S = 16 (bf16 argmax
+              agreement > 0.9; an fp32 copy within ``XATTN_FP32_TOL``);
+              the VLM's prefill at B = 2, S = 4096 with 1600 patches (× 48:
+              40 + 8), against the plain attention's; its greedy serve at
+              batch 8 (× 8 a step); its decode through the kernel against
+              the plain decode (the forward printed beside it, not held:
+              the reference's decode runs the cross layers after all dense
+              layers, its forward after every 5th); each model's decode
+              step profiled beside the cross K/V projections it recomputes
+              every step (the reference keeps no cross cache), timed
+              alone; then kernel 7 alone at each new shape of that path
+              (``XATTN_CASES``: non-causal T ≠ S, T off the 64-key tile,
+              GQA 4 non-causal, S = 1) against its plain version, with
+              times, the bound and SDPA;
 12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
               again with ``--clamp 1=0,3=1``, and ``python -m
               repro_torch.launch.scenarios --scenario all --json ''``
@@ -242,7 +268,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line (the flash entry's launches: a
-              granite prefill's, with kimi-k2's and zamba2's beside them).
+              granite prefill's, with kimi-k2's, zamba2's, whisper's and
+              the VLM's beside them, and phase xattn's shapes).
 
 bf16 inputs: each kernel's outputs within their rounding bound, elementwise
 (``site_step.bf16_gemm_bound``: the same bf16-exact products summed in fp32
@@ -284,6 +311,11 @@ random-weight Mamba2 stack amplifies roundings with depth (the
 reference's own bf16 decode and forward differ by 0.093 of the logits'
 scale at 8 layers of mamba2's width on the CPU, the port's by 0.10; at
 48 layers on the card the port's by 0.98 in bf16 and 0.053 in fp32).
+Encoder-decoder and VLM (phase xattn): prefill through the kernel against
+the plain attention, and the VLM's decode through it against the plain
+decode, within ``LM_LOGIT_TOL`` of the largest |logit|; whisper's decode
+against its forward: bf16 argmax agreement > 0.9, fp32 within
+``XATTN_FP32_TOL`` (1e-3) of the largest |logit|.
 LM logits (bf16 through 40 layers):
 within 5e-2 of the largest |logit| (a 40-layer bf16 stand-in on the CPU
 drifted 1.5e-2 between decode and forward).  The argmax agreement is
@@ -373,6 +405,21 @@ SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")
 SSD_CHECK_SEQ = 512           # one layer's chunked SSD (4 chunks of 128)
 SSD_TOL = 1e-4                # fp32, of the largest |y| and |state|
 ROPE_HEAD_DIMS = (64, 112, 128)
+# phase xattn: whisper-small and llama-3.2-vision-11b at full depth and
+# published width; whisper's 8 requests of 1500 frames at its published
+# text context of 448, the VLM's prefill as granite's (B = 2, S = 4096)
+XATTN_ARCHS = ("whisper-small", "llama-3.2-vision-11b")
+WHISPER_BATCH, WHISPER_TEXT = 8, 448
+XATTN_FP32_TOL = 1e-3
+XATTN_DECODE_SEQ = 16
+# kernel 7 at the shapes of that path: (B, S, T, H, KVH, Dh, causal, where)
+XATTN_CASES = [(8, 1500, 1500, 12, 12, 64, False, "whisper encoder"),
+               (8, 448, 448, 12, 12, 64, True, "whisper decoder self"),
+               (8, 448, 1500, 12, 12, 64, False, "whisper cross"),
+               (8, 1, 1500, 12, 12, 64, False, "whisper decode cross"),
+               (2, 4096, 4096, 32, 8, 128, True, "vlm self"),
+               (2, 4096, 1600, 32, 8, 128, False, "vlm cross"),
+               (8, 1, 1600, 32, 8, 128, False, "vlm decode cross")]
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -3779,13 +3826,45 @@ def _flash_close(name, got, want, qkv, causal) -> dict:
     return out
 
 
-def phase_flash(device) -> list:
-    """The flash kernel against its plain version at FLASH_CASES; returns
-    one row per case (the first is granite-3-2b's prefill)."""
+def _flash_row(name: str, q, k, v, causal: bool, shape: dict) -> dict:
+    """The flash kernel against its plain version on (q, k, v), its time,
+    the plain version's, ``F.scaled_dot_product_attention``'s and the
+    bound (4·B·H·S·T·Dh operations, halved when causal, against Q, K, V
+    and O once); printed and returned as a row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
+    close = _flash_close(name, FA.flash_attention(q, k, v, causal),
+                         FA.flash_attention_plain(q, k, v, causal),
+                         (q, k, v), causal)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    b, s, h, dh = q.shape
+    t, w = k.shape[1], q.element_size()
+    flops = 4 * b * h * s * t * dh // (2 if causal else 1)
+    moved = (2 * q.numel() + k.numel() + v.numel()) * w
+    bound_ms, bound_by = _bound(moved, flops, PEAK_BF16_FLOPS
+                                if q.dtype == torch.bfloat16
+                                else PEAK_FP32_FLOPS)
+    row = {**close,
+           "ms": time_ms(lambda: FA.flash_attention(q, k, v, causal), 5),
+           "plain_ms": time_ms(
+               lambda: FA.flash_attention_plain(q, k, v, causal), 3),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=True), 5),
+           "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
+    print(f"{name}: ms={row['ms']:.3f} plain_ms={row['plain_ms']:.3f} "
+          f"library_ms={row['library_ms']:.3f} bound_ms={bound_ms:.4f} "
+          f"({bound_by}: {moved / 1e9:.4f} GB, {flops / 1e12:.4f} TFLOP; "
+          f"{flops / row['ms'] / 1e9:.2f} TFLOP/s, "
+          f"{bound_ms / row['ms']:.1%} of the bound) {json.dumps(close)}",
+          flush=True)
+    return row
+
+
+def phase_flash(device) -> list:
+    """The flash kernel against its plain version at FLASH_CASES; returns
+    one row per case (the first is granite-3-2b's prefill)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(23)
     rows = []
@@ -3795,32 +3874,10 @@ def phase_flash(device) -> list:
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
                    for shape in ((b, s, h, dh), (b, s, kvh, dh),
                                  (b, s, kvh, dh)))
-        close = _flash_close(name, FA.flash_attention(q, k, v, causal),
-                             FA.flash_attention_plain(q, k, v, causal),
-                             (q, k, v), causal)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        w = q.element_size()
-        flops = 4 * b * h * s * s * dh // (2 if causal else 1)
-        moved = (2 * q.numel() + k.numel() + v.numel()) * w
-        bound_ms, bound_by = _bound(moved, flops, PEAK_BF16_FLOPS
-                                    if dt == torch.bfloat16
-                                    else PEAK_FP32_FLOPS)
-        row = {**close,
-               "ms": time_ms(lambda: FA.flash_attention(q, k, v, causal), 5),
-               "plain_ms": time_ms(
-                   lambda: FA.flash_attention_plain(q, k, v, causal), 3),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=causal, enable_gqa=True), 5),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "shape": {"b": b, "s": s, "t": s, "h": h, "kvh": kvh,
-                         "dh": dh, "dtype": str(dt), "causal": causal}}
-        print(f"{name}: ms={row['ms']:.3f} plain_ms={row['plain_ms']:.3f} "
-              f"library_ms={row['library_ms']:.3f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}: {moved / 1e9:.4f} GB, {flops / 1e12:.4f} TFLOP; "
-              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s, "
-              f"{bound_ms / row['ms']:.1%} of the bound) {json.dumps(close)}", flush=True)
-        rows.append(row)
-        del q, k, v, qt, kt, vt
+        rows.append(_flash_row(name, q, k, v, causal, {
+            "b": b, "s": s, "t": s, "h": h, "kvh": kvh, "dh": dh,
+            "dtype": str(dt), "causal": causal}))
+        del q, k, v
         torch.cuda.empty_cache()
     _phase("flash", t0)
     return rows
@@ -4532,6 +4589,353 @@ def phase_ssm(device) -> dict:
     return out
 
 
+def _frontend(cfg, batch: int, gen, device):
+    """The stub frontend's embeddings, N(0, 1) in the model's dtype:
+    ("frames", (B, enc_len, dm)) for whisper, ("patches", (B, n_patches,
+    dm)) for the VLM."""
+    key, n = (("frames", cfg.enc_len) if cfg.family == "encdec"
+              else ("patches", cfg.n_patches))
+    return key, torch.randn((batch, n, cfg.d_model), generator=gen,
+                            device=device).to(cfg.dtype)
+
+
+def _cross_kv_share(params, cfg, ctx) -> dict:
+    """The cross K/V projections a decode step recomputes from ``ctx``
+    (``enc_out`` or the patches; the reference keeps no cross cache): their
+    operations and their time alone (CUDA events)."""
+    from repro_torch.models import attention as A
+
+    ws = ([lp["cross"] for lp in params["layers"]]
+          if cfg.family == "encdec" else list(params["cross_layers"]))
+
+    def run():
+        for w in ws:
+            A._project(ctx, w["wk"])
+            A._project(ctx, w["wv"])
+
+    b, t, dm = ctx.shape
+    flops = 2 * b * t * dm * 2 * cfg.n_kv_heads * cfg.hd * len(ws)
+    return {"tflop": flops / 1e12, "ms": time_ms(run, 5)}
+
+
+def _decode_run(params, cfg, toks, extra, device, kernels="auto"):
+    """Teacher-forced decode steps over ``toks`` (B, S): the logits (B, S,
+    V) in fp32."""
+    from repro_torch.models import transformer as T
+
+    state = T.init_decode_state(cfg, toks.shape[0], toks.shape[1] + 1,
+                                device)
+    outs = []
+    for t in range(toks.shape[1]):
+        logits, state = T.decode_step(params, toks[:, t:t + 1], state, cfg,
+                                      extra, kernels=kernels)
+        outs.append(logits[:, 0].float())
+    return torch.stack(outs, dim=1)
+
+
+def _greedy_serve(params, cfg, first, extra, device) -> dict:
+    """``make_serve_step`` greedy for ``SERVE["max_new"]`` tokens at the
+    batch of ``first`` (B, 1), cache ``SERVE["cache_len"]``: the tokens,
+    the wall time and the flash launches of the whole run (counts set to 0
+    just before, read just after)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    step = steps.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, first.shape[0], SERVE["cache_len"],
+                                device)
+    tok, out = first, []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ts = time.perf_counter()
+    for _ in range(SERVE["max_new"]):
+        tok, state = step(params, {"tokens": tok, **extra}, state)
+        out.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    launches = ops.launch_counts()["flash_attention"]
+    toks = torch.cat(out, dim=1)
+    check(toks.shape == (first.shape[0], SERVE["max_new"])
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{cfg.name}: served tokens {tuple(toks.shape)} out of range")
+    return {"tokens": toks, "serve_s": wall, "launches": launches}
+
+
+def _step_profile(params, cfg, extra, batch: int, device) -> dict:
+    """One decode step at ``batch`` (positions 0..B-1 in a cache of
+    ``SERVE["cache_len"]``): wall time against device time, the four
+    largest kernels."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    step = steps.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, batch, SERVE["cache_len"], device)
+    state = state._replace(position=torch.arange(batch, dtype=torch.int32,
+                                                 device=device))
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+
+    def one():
+        step(params, {"tokens": tok, **extra}, state)
+
+    walls = []
+    for _ in range(6):
+        tw = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tw) * 1e3)
+    kernels = device_breakdown(one, reps=3)
+    return {"decode_step_ms": statistics.median(walls[1:]),
+            "decode_step_device_ms": sum(ms * c
+                                         for ms, c in kernels.values()),
+            "decode_step_kernels": sum(v[1] for v in kernels.values()),
+            "top": dict(list(kernels.items())[:4])}
+
+
+def _xattn_prefill(params, cfg, toks, key, ctx, tag, want_launches) -> dict:
+    """``make_prefill_step`` through the flash kernel (counts set to 0
+    just before, read just after), then the same prefill with the plain
+    attention: last-token logits within LM_LOGIT_TOL of their scale."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    prefill = steps.make_prefill_step(cfg, kernels="auto")
+    prefill(params, {"tokens": toks[:1, :16], key: ctx[:1]})      # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tp = time.perf_counter()
+    last = prefill(params, {"tokens": toks, key: ctx})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - tp
+    launches = ops.launch_counts()["flash_attention"]
+    check(launches == want_launches, f"{tag}: flash_attention launched "
+          f"{launches} times in one prefill, expected {want_launches}")
+    tq = time.perf_counter()
+    plain = steps.make_prefill_step(cfg, kernels="torch")(
+        params, {"tokens": toks, key: ctx})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - tq
+    check(last.shape == (toks.shape[0], cfg.vocab)
+          and bool(torch.isfinite(last.float()).all()),
+          f"{tag}: prefill logits not finite or shaped (B, V)")
+    rel = _block_rel(last, plain)
+    agree = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    b, s = toks.shape
+    print(f"{tag}: prefill B={b} S={s} with {key} {tuple(ctx.shape)} in "
+          f"{prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s), "
+          f"flash_attention x {launches}; last-token logits flash vs plain "
+          f"attention: max rel diff {rel:.3e} (tolerance {LM_LOGIT_TOL}), "
+          f"argmax agreement {agree}; plain prefill {plain_s:.3f} s",
+          flush=True)
+    check(rel <= LM_LOGIT_TOL, f"{tag}: prefill logits differ from the "
+          f"plain attention's ({rel:.3e})")
+    return {"prefill_s": prefill_s, "plain_prefill_s": plain_s,
+            "flash_launches": launches, "flash_vs_plain_rel": rel,
+            "flash_vs_plain_agree": agree}
+
+
+def _xattn_built(cfg, device, tag: str):
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    ti = time.perf_counter()
+    params = T.init_params(0, cfg, device)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - ti
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{tag}: {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_len} "
+             f"frames" if cfg.family == "encdec" else
+             f" + {cfg.n_layers // cfg.cross_attn_every} cross layers to "
+             f"{cfg.n_patches} patches")
+          + f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.hd}, vocab {cfg.vocab}, {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B parameters ({n_params * 2 / 1e9:.2f} GB) "
+          f"built in {built_s:.3f} s", flush=True)
+    return params, {"arch": cfg.name, "params_b": n_params / 1e9,
+                    "built_s": built_s}
+
+
+def _whisper(device) -> dict:
+    """whisper-small at full depth: prefill, ``encode``, greedy serve,
+    decode against the forward (bf16, and fp32 on an fp32 copy), one
+    decode step profiled."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("whisper-small")
+    tag = "xattn whisper-small"
+    params, out = _xattn_built(cfg, device, tag)
+    b = WHISPER_BATCH
+    gen = torch.Generator(device=device).manual_seed(41)
+    _, frames = _frontend(cfg, b, gen, device)
+    toks = torch.randint(0, cfg.vocab, (b, WHISPER_TEXT), generator=gen,
+                         device=device)
+    out.update(_xattn_prefill(params, cfg, toks, "frames", frames, tag,
+                              cfg.n_enc_layers + 2 * cfg.n_layers))
+    ops.reset_launches()
+    te = time.perf_counter()
+    enc = T.encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    out["encode_s"] = time.perf_counter() - te
+    out["encode_launches"] = ops.launch_counts()["flash_attention"]
+    check(out["encode_launches"] == cfg.n_enc_layers,
+          f"{tag}: flash_attention launched {out['encode_launches']} times "
+          f"in encode, expected {cfg.n_enc_layers}")
+    served = _greedy_serve(params, cfg, toks[:, :1], {"enc_out": enc},
+                           device)
+    n = SERVE["max_new"]
+    check(served["launches"] == n * cfg.n_layers, f"{tag}: "
+          f"flash_attention launched {served['launches']} times in {n} "
+          f"decode steps, expected {n * cfg.n_layers}")
+    out.update(serve_s=served["serve_s"], serve_launches=served["launches"])
+    print(f"{tag}: encode of {tuple(frames.shape)} in {out['encode_s']:.3f} "
+          f"s, flash_attention x {out['encode_launches']}; make_serve_step "
+          f"greedy at batch {b}: {n} tokens each in {served['serve_s']:.3f} "
+          f"s ({b * n / served['serve_s']:.1f} tokens/s), flash_attention "
+          f"x {served['launches']} ({served['launches'] // n} a step)",
+          flush=True)
+
+    short = toks[:, :XATTN_DECODE_SEQ]
+    for dt in (cfg.dtype, torch.float32):
+        dcfg = dataclasses.replace(cfg, dtype=dt)
+        dparams = params if dt == cfg.dtype else T.init_params(0, dcfg,
+                                                               device)
+        f = frames.to(dt)
+        full, _ = T.forward(dparams, short, dcfg, {"frames": f})
+        dec = _decode_run(dparams, dcfg, short,
+                          {"enc_out": T.encode(dparams, f, dcfg)}, device)
+        rel = _block_rel(dec, full)
+        agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+        key = "fp32" if dt == torch.float32 else "bf16"
+        print(f"{tag}: decode vs forward on S={XATTN_DECODE_SEQ} in {dt}: "
+              f"argmax agreement {agree:.4f} (held > 0.9), max rel diff "
+              f"{rel:.3e}" + (f" (tolerance {XATTN_FP32_TOL})"
+                               if key == "fp32" else ""), flush=True)
+        check(agree > 0.9 and (key == "bf16" or rel <= XATTN_FP32_TOL),
+              f"{tag}: {key} decode differs from the forward (agreement "
+              f"{agree}, max rel diff {rel:.3e})")
+        out.update({f"decode_vs_forward_rel_{key}": rel,
+                    f"decode_argmax_agree_{key}": agree})
+        del dparams, full, dec
+        torch.cuda.empty_cache()
+
+    out["cross_kv"] = _cross_kv_share(params, cfg, enc)
+    out.update(_step_profile(params, cfg, {"enc_out": enc}, b, device))
+    return _xattn_done(tag, out, params, device)
+
+
+def _xattn_done(tag: str, out: dict, params, device) -> dict:
+    """Prints the decode step's numbers and the cross K/V share, frees the
+    weights."""
+    top = out.pop("top")
+    kv = out["cross_kv"]
+    kv["share_of_step"] = kv["ms"] / out["decode_step_device_ms"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    step_ms = out["decode_step_ms"]
+    print(f"{tag}: one decode step at batch {SERVE['batch']}: {step_ms:.3f} "
+          f"ms wall, {out['decode_step_device_ms']:.3f} ms on the device in "
+          f"{out['decode_step_kernels']} kernels (idle share "
+          f"{1 - out['decode_step_device_ms'] / step_ms:.3f}); the cross K/V "
+          f"projections it recomputes: {kv['tflop']:.3f} TFLOP, "
+          f"{kv['ms']:.3f} ms alone ({kv['share_of_step']:.1%} of the "
+          f"step's device time); largest {json.dumps(top)}; peak memory "
+          f"{out['peak_gb']:.3f} GB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vlm(device) -> dict:
+    """llama-3.2-vision-11b at full depth: prefill, greedy serve, the
+    kernel's decode against the plain one (the forward printed beside
+    it: the reference's decode order differs from its forward), one
+    decode step profiled."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("llama-3.2-vision-11b")
+    tag = "xattn llama-3.2-vision-11b"
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    params, out = _xattn_built(cfg, device, tag)
+    gen = torch.Generator(device=device).manual_seed(43)
+    _, patches = _frontend(cfg, SERVE["batch"], gen, device)
+    toks = torch.randint(0, cfg.vocab, (SERVE["batch"], LM_SEQ),
+                         generator=gen, device=device)
+    out.update(_xattn_prefill(params, cfg, toks[:LM_BATCH], "patches",
+                              patches[:LM_BATCH], tag,
+                              cfg.n_layers + n_cross))
+    served = _greedy_serve(params, cfg, toks[:, :1], {"patches": patches},
+                           device)
+    n = SERVE["max_new"]
+    check(served["launches"] == n * n_cross, f"{tag}: flash_attention "
+          f"launched {served['launches']} times in {n} decode steps, "
+          f"expected {n * n_cross}")
+    out.update(serve_s=served["serve_s"], serve_launches=served["launches"])
+    print(f"{tag}: make_serve_step greedy at batch {SERVE['batch']}: {n} "
+          f"tokens each in {served['serve_s']:.3f} s "
+          f"({SERVE['batch'] * n / served['serve_s']:.1f} tokens/s), "
+          f"flash_attention x {served['launches']} "
+          f"({served['launches'] // n} a step)", flush=True)
+
+    short = toks[:, :XATTN_DECODE_SEQ]
+    extra = {"patches": patches}
+    dec = _decode_run(params, cfg, short, extra, device)
+    plain = _decode_run(params, cfg, short, extra, device, kernels="torch")
+    full, _ = T.forward(params, short, cfg, extra)
+    rel = _block_rel(dec, plain)
+    agree = (dec.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    fwd_rel = _block_rel(dec, full)
+    fwd_agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"{tag}: decode through the kernel vs the plain attention on "
+          f"S={XATTN_DECODE_SEQ}: max rel diff {rel:.3e} (tolerance "
+          f"{LM_LOGIT_TOL}), argmax agreement {agree:.4f}; vs the forward "
+          f"(printed, not held: the decode runs the cross layers after "
+          f"all dense layers, as the reference's): max rel diff "
+          f"{fwd_rel:.3e}, argmax agreement {fwd_agree:.4f}", flush=True)
+    check(rel <= LM_LOGIT_TOL and bool(torch.isfinite(dec).all()),
+          f"{tag}: the kernel's decode differs from the plain one "
+          f"({rel:.3e})")
+    out.update(decode_kernel_vs_plain_rel=rel,
+               decode_kernel_vs_plain_agree=agree,
+               decode_vs_forward_rel=fwd_rel,
+               decode_vs_forward_agree=fwd_agree)
+    del dec, plain, full
+    torch.cuda.empty_cache()
+    out["cross_kv"] = _cross_kv_share(params, cfg, patches)
+    out.update(_step_profile(params, cfg, extra, SERVE["batch"], device))
+    return _xattn_done(tag, out, params, device)
+
+
+def phase_xattn(device) -> dict:
+    """whisper-small and llama-3.2-vision-11b at full depth through the
+    port's entry points, then kernel 7 alone at each shape of that path
+    (``XATTN_CASES``).  Returns the models' numbers and the kernel's rows."""
+    t0 = time.perf_counter()
+    out = {"whisper-small": _whisper(device),
+           "llama-3.2-vision-11b": _vlm(device)}
+    gen = torch.Generator(device=device).manual_seed(47)
+    rows = []
+    for b, s, t, h, kvh, dh, causal, where in XATTN_CASES:
+        name = (f"flash {where}: B={b} S={s} T={t} H={h} KVH={kvh} Dh={dh} "
+                f"{'causal' if causal else 'full'}")
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16) for shape in ((b, s, h, dh), (b, t, kvh, dh),
+                                          (b, t, kvh, dh)))
+        rows.append(_flash_row(name, q, k, v, causal, {
+            "where": where, "b": b, "s": s, "t": t, "h": h, "kvh": kvh,
+            "dh": dh, "dtype": "torch.bfloat16", "causal": causal}))
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+    _phase("xattn", t0)
+    return out
+
+
 def _launcher_request(proc, gateway) -> dict:
     """The gateway launcher's one request: wait for its URL, ask for phase
     gateway's first job by the store's name under ``--store-root`` and
@@ -4730,13 +5134,25 @@ def main() -> int:
     lm = phase_lm(device)
     moe = phase_moe(device)
     ssm = phase_ssm(device)
+    xattn = phase_xattn(device)
+    whisper, vlm = (xattn[a] for a in XATTN_ARCHS)
     flash = dict(flash_rows[0], name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:111",
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
                  kimi_k2_launches=moe["kimi-k2-1t-a32b"]["flash_launches"],
                  zamba2_launches=ssm["zamba2-7b"]["flash_launches"],
-                 lm=lm, moe=moe, ssm=ssm)
+                 whisper_launches={
+                     "prefill": whisper["flash_launches"],
+                     "encode": whisper["encode_launches"],
+                     "decode_step": whisper["serve_launches"]
+                     // SERVE["max_new"]},
+                 vlm_launches={
+                     "prefill": vlm["flash_launches"],
+                     "decode_step": vlm["serve_launches"]
+                     // SERVE["max_new"]},
+                 xattn_shapes=xattn.pop("rows"),
+                 lm=lm, moe=moe, ssm=ssm, xattn=xattn)
     try:
         gateway["launcher"] = phase_cli(gateway)
     finally:

@@ -2,25 +2,21 @@
 
 Every ported ``<arch>.py`` exports ``CONFIG`` (the published config, copied
 value for value from ``repro.configs``) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  The port runs the dense, MoE, SSM and
-hybrid families; the other architectures of ``ARCHS`` (encoder-decoder and
-VLM) raise ``NotImplementedError`` naming their ROADMAP row.
+same-family config for CPU tests).  The port runs every architecture of
+``ARCHS``: the dense, MoE, SSM, hybrid, encoder-decoder and VLM families.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.transformer import ModelConfig, require_ported
+from repro_torch.models.transformer import ModelConfig
 
 ARCHS = [
     "zamba2-7b", "qwen1.5-4b", "deepseek-7b", "starcoder2-15b",
     "granite-3-2b", "llama-3.2-vision-11b", "whisper-small", "mamba2-1.3b",
     "kimi-k2-1t-a32b", "deepseek-v3-671b",
 ]
-
-# the family of each architecture not ported yet
-_UNPORTED = {"llama-3.2-vision-11b": "vlm", "whisper-small": "encdec"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +38,6 @@ SHAPES = {
 def _mod(arch: str):
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; have {ARCHS}")
-    if arch in _UNPORTED:
-        require_ported(_UNPORTED[arch])
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -60,13 +60,16 @@ def mps_from_arrays(gammas, lambdas, semantics: str = "linear",
 def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
     """The reference's LM parameter tree (``repro.models.transformer.
     init_params`` output as numpy arrays: a dict with ``embed``, ``ln_f``,
-    ``unembed``, ``layers`` stacked on axis 0 and, for the hybrid,
-    ``shared_attn``) → a port
+    ``unembed``, ``layers`` stacked on axis 0; for the hybrid
+    ``shared_attn``; for encdec ``enc_layers`` stacked, ``enc_ln_f``,
+    ``enc_pos``, ``dec_pos``; for the VLM ``cross_layers`` stacked and
+    ``ln_cross``) → a port
     :class:`~repro_torch.models.transformer.Transformer` with the same
-    weights, for the dense, MoE, SSM and hybrid families (nested dicts such
-    as MoE's ``shared`` MLP or a layer's ``mamba`` weights are taken as
-    they are; every leaf keeps its dtype, the fp32 router and the SSM's
-    fp32 ``A_log``, ``D`` and ``dt_bias`` too)."""
+    weights, for every family (nested dicts such as MoE's ``shared`` MLP,
+    a layer's ``mamba`` weights or a decoder layer's ``self`` and
+    ``cross`` attention are taken as they are; every leaf keeps its dtype,
+    the fp32 router and the SSM's fp32 ``A_log``, ``D`` and ``dt_bias``
+    too)."""
     from repro_torch.models.transformer import Transformer
 
     dev = resolve_device(device)
@@ -81,13 +84,28 @@ def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
             return {k: layer(v, i) for k, v in node.items()}
         return leaf(node if i is None else node[i])
 
+    def stack(node, name, want):
+        """The layers of a stacked subtree, counted by its leaf ``name``
+        and held to the config's ``want``."""
+        n = len(node[name])
+        if n != want:
+            raise ValueError(f"tree has {n} layers, config {want}")
+        return [layer(node, i) for i in range(n)]
+
     layers = tree["layers"]
-    n = len(layers["ln1" if "ln1" in layers else "ln"])
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
     out = {"embed": leaf(tree["embed"]), "ln_f": leaf(tree["ln_f"]),
            "unembed": leaf(tree["unembed"]),
-           "layers": [layer(layers, i) for i in range(n)]}
+           "layers": stack(layers, "ln1" if "ln1" in layers else "ln",
+                           cfg.n_layers)}
     if "shared_attn" in tree:
         out["shared_attn"] = layer(tree["shared_attn"])
+    if "enc_layers" in tree:
+        out["enc_layers"] = stack(tree["enc_layers"], "ln1",
+                                  cfg.n_enc_layers)
+        for name in ("enc_ln_f", "enc_pos", "dec_pos"):
+            out[name] = leaf(tree[name])
+    if "cross_layers" in tree:
+        out["cross_layers"] = stack(tree["cross_layers"], "wq",
+                                    cfg.n_layers // cfg.cross_attn_every)
+        out["ln_cross"] = leaf(tree["ln_cross"])
     return Transformer(cfg, out)

@@ -25,6 +25,13 @@ Usage (on the card; ``--device cpu`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch zamba2-7b \
       --device cpu --requests 8 --batch 4
 
+The encoder-decoder and VLM architectures are not served here: their
+decode step needs the encoder's output or the image patches, which a
+request of this server does not carry, so :func:`serve` refuses them
+before the first step (``launch.steps.make_serve_step`` serves them, with
+``enc_out`` / ``patches`` in its batch).  The reference's server fails
+there with a ``KeyError``.
+
 The MoE architectures decode with MoE capacity counted per batch row, so a
 batched step routes each row as the reference's one-row steps do; MLA
 keeps its latent cache (``{"latent"}``), mamba2 its fp32 SSM state
@@ -77,6 +84,13 @@ def serve(cfg, params, prompts, batch: int, max_new: int, cache_len: int,
     prompts: per request either a first token (int) or (first_token,
     max_len).  Returns {request_id: [generated tokens]}.
     """
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError(
+            f"serve() decodes tokens alone; {cfg.name} ({cfg.family}) needs "
+            f"{'enc_out' if cfg.family == 'encdec' else 'patches'} in every "
+            "step: serve it through launch.steps.make_serve_step with "
+            "batch['enc_out'] (models.transformer.encode of the frames) or "
+            "batch['patches']")
     prompts = [p if isinstance(p, tuple) else (p, max_new) for p in prompts]
     step = make_decode_fn(cfg)
     dev = params.device
@@ -137,7 +151,9 @@ def main(argv=None) -> None:
                     help="a dense (qwen1.5-4b, deepseek-7b, starcoder2-15b, "
                     "granite-3-2b), MoE (kimi-k2-1t-a32b, deepseek-v3-671b"
                     "), SSM (mamba2-1.3b) or hybrid (zamba2-7b) "
-                    "architecture, at its smoke size")
+                    "architecture, at its smoke size; whisper-small and "
+                    "llama-3.2-vision-11b are refused (their steps need "
+                    "enc_out or patches: launch.steps.make_serve_step)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)

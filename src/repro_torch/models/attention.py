@@ -1,17 +1,20 @@
-"""Grouped-query self-attention with optional QKV bias and RoPE, and MLA.
+"""Grouped-query self- and cross-attention with optional QKV bias and
+RoPE, and MLA.
 
-Mirrors ``repro.models.attention`` for the dense and MoE families.
+Mirrors ``repro.models.attention``.
 Parameters keep the reference's shapes (wq (dm, h, dh), wk/wv (dm, kvh,
 dh), wo (h, dh, dm), biases (h, dh) and (kvh, dh); MLA's six weights) in an
 ``nn.ParameterDict``, so carrying weights across is a copy.
 
-Full-sequence attention (``cache is None``: prefill) goes through
+Full-sequence attention (``cache is None``: prefill) and every
+cross-attention (``kv_input`` given: K/V projected from it, no rope, no
+causal mask, no cache written; in decode too, at one query row) go through
 ``kernels.ops.flash_attention``: the CUDA flash kernel on the card, its
 plain version on the CPU (``kernels="auto" | "cuda" | "torch"``; the
 reference's global ``USE_FLASH`` switch becomes this dispatch).  Decode
-(``cache`` given) keeps the plain :func:`_sdpa`, as the reference keeps
-its XLA path.  The decode write index may be a scalar or one position per
-row (B,); the cache tensors are written in place.
+self-attention (``cache`` given) keeps the plain :func:`_sdpa`, as the
+reference keeps its XLA path.  The decode write index may be a scalar or
+one position per row (B,); the cache tensors are written in place.
 
 MLA (:func:`mla_apply`, DeepSeek-V3's multi-head latent attention) caches
 the compressed latent (kv_lora_rank + rope dim) instead of per-head K/V and
@@ -30,7 +33,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, dense_init, rope_tables
 
 NEG_INF = -1e30
-_ROW = "ROADMAP.md §1 row"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,36 +124,38 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
                cache: Optional[KVCache] = None,
                kv_input: Optional[torch.Tensor] = None,
                kernels: str = "auto", rope=None):
-    """Self-attention.  Returns (y, new_cache), new_cache None without one.
-    ``rope``: ``common.rope_tables(positions, head_dim, rope_theta)``, if the
-    caller made them once for every layer.
+    """Self- or cross-attention.  Returns (y, new_cache), new_cache None
+    without a cache or with ``kv_input``.  ``rope``: ``common.rope_tables(
+    positions, head_dim, rope_theta)``, if the caller made them once for
+    every layer.
 
     * prefill: ``cache is None`` → full causal (or full, if not causal)
       attention through the flash kernel's dispatch;
     * decode: ``cache`` given, x is (B, s, D) → write at ``cache.length``
       (clamped into the cache, as ``dynamic_update_slice``) and attend to
-      ``[0, length]``.
+      ``[0, length]``;
+    * cross: ``kv_input`` (B, T, D) given → K/V from it, no rope, no causal
+      mask, the cache (if any) neither written nor read: the flash
+      kernel's dispatch at S query rows against T keys.
     """
-    if kv_input is not None:
-        raise NotImplementedError(
-            f"cross-attention (kv_input) is not ported yet ({_ROW} 17)")
     b, s, _ = x.shape
+    src = x if kv_input is None else kv_input
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    k = _project(src, params["wk"])
+    v = _project(src, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    if cfg.rope:
+    if cfg.rope and kv_input is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
         rope = rope or rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, positions, cfg.rope_theta, rope)
         k = apply_rope(k, positions, cfg.rope_theta, rope)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_input is None:
         t = cache.k.shape[1]
         pos = _write_rows(((cache.k, k), (cache.v, v)), cache.length)
         valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
@@ -159,7 +163,8 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
     else:
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=cfg.causal,
+                                  v.contiguous(),
+                                  causal=cfg.causal and kv_input is None,
                                   kernels=kernels)
     h, dh, dm = params["wo"].shape
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, dm)

@@ -1,16 +1,21 @@
-"""Config-driven model assembly: the dense, MoE, SSM and hybrid families.
+"""Config-driven model assembly: one code path, the six families.
 
 Mirrors ``repro.models.transformer`` for ``family="dense"`` ([attn +
 swiglu] × L: qwen, deepseek-7b, starcoder2, granite), ``family="moe"``
 ([attn | MLA + MoE] × L: kimi-k2, deepseek-v3), ``family="ssm"``
-([mamba2] × L: mamba2-1.3b) and ``family="hybrid"`` ([mamba2] × L with one
+([mamba2] × L: mamba2-1.3b), ``family="hybrid"`` ([mamba2] × L with one
 *shared* attention + MLP block applied after every ``attn_every``-th
-layer: zamba2-7b).  ``ModelConfig`` carries every field of the reference
-so that all configs copy verbatim.  Parameters are a :class:`Transformer`
-module whose leaves keep the reference's names and shapes
-(``params["layers"][l]["attn"]["wq"]``,
+layer: zamba2-7b), ``family="encdec"`` (whisper: an encoder [attn + gelu
+MLP] × Lₑ over stub frame embeddings, a decoder [causal attn + cross-attn
++ gelu MLP] × L, learned positions, no rope) and ``family="vlm"``
+(llama-3.2-vision: a dense stack with a cross-attention to stub patch
+embeddings after every ``cross_attn_every``-th layer).  ``ModelConfig``
+carries every field of the reference so that all configs copy verbatim.
+Parameters are a :class:`Transformer` module whose leaves keep the
+reference's names and shapes (``params["layers"][l]["attn"]["wq"]``,
 ``params["layers"][l]["moe"]["shared"]["gate"]``,
-``params["layers"][l]["mamba"]["w_in"]``, ``params["shared_attn"]["ln1"]``;
+``params["layers"][l]["mamba"]["w_in"]``, ``params["shared_attn"]["ln1"]``,
+``params["layers"][l]["cross"]["wk"]``, ``params["cross_layers"][c]["wq"]``;
 the reference stacks layers on axis 0, here they are an
 ``nn.ModuleList``).  Layers run as a Python loop: the reference's scan and
 remat are training concerns.
@@ -21,8 +26,17 @@ carries a KV cache (MLA's latent cache; the SSM state (L, B, H, P, N) in
 fp32, and for the hybrid one KV cache per shared-attention application),
 the LM analogue of the FastMPS left environment; it is written in place.
 rope's tables are made once a forward or decode step and serve every
-layer.  The encoder-decoder and VLM families raise
-``NotImplementedError`` naming their ROADMAP row.
+layer.  Every full-sequence and every cross-attention goes through the
+flash kernel's dispatch (``kernels``), decode's cross-attention too (one
+query row against the encoder's or the patches' keys).
+
+The encdec and vlm decode steps take ``extra["enc_out"]`` (``encode``'s
+output) or ``extra["patches"]`` and recompute the cross K/V from it every
+step, as the reference does (it keeps no cross cache).  The VLM's decode
+runs its cross layers in the reference's decode order: all dense layers
+first, then the cross layers in a row, which differs from its forward
+(cross after every ``cross_attn_every``-th layer); so a VLM decode does
+not reproduce its prefill, in the reference or here.
 """
 from __future__ import annotations
 
@@ -39,20 +53,17 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.common import (embed_init, mlp_apply, mlp_init,
                                        rms_norm, rope_tables)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-# ROADMAP.md §1 row of each family still to port
-_FAMILY_ROW = {"encdec": 17, "vlm": 17}
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+DEC_POSITIONS = 32768            # rows of whisper's learned decoder positions
 
 
 def require_ported(family: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP row of a family the
-    port does not run yet."""
+    """Raise ``ValueError`` for a family that is none of the reference's
+    six."""
     if family not in PORTED_FAMILIES:
-        row = _FAMILY_ROW.get(family)
-        where = f"ROADMAP.md §1 row {row}" if row else "unknown family"
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet ({where}); the port "
-            f"runs {', '.join(map(repr, PORTED_FAMILIES))}")
+        raise ValueError(
+            f"unknown model family {family!r}; the port runs "
+            f"{', '.join(map(repr, PORTED_FAMILIES))}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,14 +242,34 @@ class SSMBlock(nn.Module):
         return getattr(self, name)
 
 
+class EncDecBlock(nn.Module):
+    """One whisper decoder layer's weights: ``self`` and ``cross``
+    attention (``nn.ParameterDict``s), ``mlp`` (gelu, with biases),
+    ``ln1``, ``ln2``, ``ln3``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name in ("self", "cross", "mlp"):
+            setattr(self, name, _param_dict(tree[name]))
+        for name in ("ln1", "ln2", "ln3"):
+            setattr(self, name, _param(tree[name]))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
 _BLOCK = {"dense": DenseBlock, "moe": MoEBlock, "ssm": SSMBlock,
-          "hybrid": SSMBlock}
+          "hybrid": SSMBlock, "encdec": EncDecBlock, "vlm": DenseBlock}
 
 
 class Transformer(nn.Module):
-    """``embed`` (V, dm), ``ln_f`` (dm,), ``unembed`` (dm, V), ``layers``
-    and, for the hybrid, ``shared_attn`` (a :class:`DenseBlock`), from a
-    nested dict of tensors (see :func:`init_params` and
+    """``embed`` (V, dm), ``ln_f`` (dm,), ``unembed`` (dm, V), ``layers``;
+    for the hybrid ``shared_attn`` (a :class:`DenseBlock`); for encdec
+    ``enc_layers`` (:class:`DenseBlock`s with the gelu MLP), ``enc_ln_f``
+    (dm,), ``enc_pos`` (enc_len, dm) and ``dec_pos`` (32768, dm); for the
+    VLM ``cross_layers`` (one ``nn.ParameterDict`` of attention weights a
+    cross layer) and ``ln_cross`` (n_cross, dm); from a nested dict of
+    tensors (see :func:`init_params` and
     ``convert.lm_params_from_arrays``)."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
@@ -252,6 +283,15 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(block(lp) for lp in tree["layers"])
         if cfg.family == "hybrid":
             self.shared_attn = DenseBlock(tree["shared_attn"])
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                DenseBlock(lp) for lp in tree["enc_layers"])
+            for name in ("enc_ln_f", "enc_pos", "dec_pos"):
+                setattr(self, name, _param(tree[name]))
+        if cfg.family == "vlm":
+            self.cross_layers = nn.ModuleList(
+                _param_dict(cp) for cp in tree["cross_layers"])
+            self.ln_cross = _param(tree["ln_cross"])
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -274,26 +314,43 @@ def init_params(seed: int, cfg: ModelConfig,
     def ones():
         return torch.ones((dm,), dtype=dt, device=dev)
 
-    def dense_block():
-        return {"attn": A.attn_init(gen, cfg.attn_cfg(), dt, dev),
-                "mlp": mlp_init(gen, dm, cfg.d_ff, dt, cfg.mlp_style, dev),
+    def attn():
+        return A.attn_init(gen, cfg.attn_cfg(), dt, dev)
+
+    def dense_block(style=cfg.mlp_style):
+        return {"attn": attn(),
+                "mlp": mlp_init(gen, dm, cfg.d_ff, dt, style, dev),
                 "ln1": ones(), "ln2": ones()}
 
     def layer():
         if cfg.family in ("ssm", "hybrid"):
             return {"mamba": M2.mamba2_init(gen, cfg.ssm_cfg(), dt, dev),
                     "ln": ones()}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return dense_block()
-        attn = (A.mla_init(gen, cfg.mla_cfg(), dt, dev) if cfg.use_mla
-                else A.attn_init(gen, cfg.attn_cfg(), dt, dev))
-        return {"attn": attn, "moe": MOE.moe_init(gen, cfg.moe_cfg(), dt, dev),
+        if cfg.family == "encdec":
+            return {"self": attn(), "cross": attn(),
+                    "mlp": mlp_init(gen, dm, cfg.d_ff, dt, "gelu", dev),
+                    "ln1": ones(), "ln2": ones(), "ln3": ones()}
+        return {"attn": (A.mla_init(gen, cfg.mla_cfg(), dt, dev)
+                         if cfg.use_mla else attn()),
+                "moe": MOE.moe_init(gen, cfg.moe_cfg(), dt, dev),
                 "ln1": ones(), "ln2": ones()}
 
     tree = {"embed": embed_init(gen, cfg.vocab, dm, dt, dev), "ln_f": ones()}
     tree["layers"] = [layer() for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
         tree["shared_attn"] = dense_block()
+    if cfg.family == "encdec":
+        tree["enc_layers"] = [dense_block("gelu")
+                              for _ in range(cfg.n_enc_layers)]
+        tree["enc_ln_f"] = ones()
+        tree["enc_pos"] = embed_init(gen, cfg.enc_len, dm, dt, dev)
+        tree["dec_pos"] = embed_init(gen, DEC_POSITIONS, dm, dt, dev)
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        tree["cross_layers"] = [attn() for _ in range(n_cross)]
+        tree["ln_cross"] = torch.ones((n_cross, dm), dtype=dt, device=dev)
     tree["unembed"] = embed_init(gen, cfg.vocab, dm, dt, dev).T.contiguous()
     return Transformer(cfg, tree)
 
@@ -329,12 +386,46 @@ def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
     return x + y, new_cache, aux
 
 
+def _noncausal_cfg(cfg: ModelConfig) -> A.AttnConfig:
+    """The attention of whisper's encoder and of every cross layer: no
+    causal mask, no rope."""
+    return cfg.attn_cfg(causal=False, rope=False)
+
+
+def _encdec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache=None,
+                  kernels: str = "auto"):
+    """A whisper decoder layer: causal self-attention (the KV cache in
+    decode), cross-attention to ``enc_out``, the gelu MLP."""
+    h, new_cache = A.attn_apply(lp["self"], rms_norm(x, lp["ln1"]),
+                                cfg.attn_cfg(causal=True, rope=False),
+                                positions, cache, kernels=kernels)
+    x = x + h
+    h, _ = A.attn_apply(lp["cross"], rms_norm(x, lp["ln2"]),
+                        _noncausal_cfg(cfg), positions, kv_input=enc_out,
+                        kernels=kernels)
+    x = x + h
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"]), "gelu")
+    return x, new_cache
+
+
+def _cross_layer(params: "Transformer", ci: int, x, cfg: ModelConfig,
+                 patches, kernels: str = "auto"):
+    """The VLM's cross layer ``ci``: x + cross-attention of rms_norm(x,
+    ln_cross[ci]) to ``patches``."""
+    h, _ = A.attn_apply(params["cross_layers"][ci],
+                        rms_norm(x, params["ln_cross"][ci]),
+                        _noncausal_cfg(cfg), kv_input=patches,
+                        kernels=kernels)
+    return x + h
+
+
 def _rope(cfg: ModelConfig, positions, context: Optional[int] = None):
     """rope's tables for every attention layer of a step (None for the SSM
-    family).  MLA: the pair for q at ``positions`` and k at the context
-    positions, ``arange(context)`` in decode (its cache's length), its
-    rope dims at the default θ as ``mla_apply`` turns them."""
-    if cfg.family == "ssm":
+    and encoder-decoder families, which turn nothing).  MLA: the pair for q
+    at ``positions`` and k at the context positions, ``arange(context)`` in
+    decode (its cache's length), its rope dims at the default θ as
+    ``mla_apply`` turns them."""
+    if cfg.family in ("ssm", "encdec"):
         return None
     if not cfg.use_mla:
         return rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -351,21 +442,34 @@ def _is_attn(cfg: ModelConfig, layer: int) -> bool:
     return layer % cfg.attn_every == cfg.attn_every - 1
 
 
+def _is_cross(cfg: ModelConfig, layer: int) -> bool:
+    """Whether the VLM's cross layer ``layer // cross_attn_every`` runs
+    after dense layer ``layer`` in the forward."""
+    return layer % cfg.cross_attn_every == cfg.cross_attn_every - 1
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             extra: Optional[dict] = None, kernels: str = "auto",
             layer_aux: Optional[list] = None):
     """Full-sequence forward (prefill).  tokens (B, S) → (logits (B, S, V)
     in the model's dtype, aux loss: the sum of the MoE layers' ``lb_loss``,
-    0 for the other families).  GQA attention (the hybrid's shared block
-    too) goes through the flash kernel's dispatch (``kernels``).
-    ``layer_aux``, a list, receives each MoE layer's aux dict
-    (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
+    0 for the other families).  ``extra``: ``{"frames": (B, T, dm)}`` for
+    encdec (the stub frontend's frame embeddings, run through
+    :func:`encode`), ``{"patches": (B, n_patches, dm)}`` for the VLM.
+    GQA attention (the hybrid's shared block, the encoder and every
+    cross-attention too) goes through the flash kernel's dispatch
+    (``kernels``).  ``layer_aux``, a list, receives each MoE layer's aux
+    dict (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
     require_ported(cfg.family)
+    extra = extra or {}
     _, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device)[None, :]
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     rope = _rope(cfg, positions)
+    if cfg.family == "encdec":
+        enc_out = encode(params, extra["frames"], cfg, kernels=kernels)
+        x = x + params["dec_pos"][:s]
     for layer, lp in enumerate(params["layers"]):
         if cfg.family == "moe":
             x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
@@ -380,16 +484,39 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             if cfg.family == "hybrid" and _is_attn(cfg, layer):
                 x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
                                     kernels=kernels, rope=rope)
+        elif cfg.family == "encdec":
+            x, _ = _encdec_block(lp, x, cfg, positions, enc_out,
+                                 kernels=kernels)
         else:
             x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
                                 rope=rope)
+            if cfg.family == "vlm" and _is_cross(cfg, layer):
+                x = _cross_layer(params, layer // cfg.cross_attn_every, x,
+                                 cfg, extra["patches"], kernels)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, aux_acc
 
 
+def encode(params: Transformer, frames: torch.Tensor, cfg: ModelConfig,
+           kernels: str = "auto") -> torch.Tensor:
+    """Whisper's encoder on the stub frontend's frame embeddings frames
+    (B, T, dm), T ≤ enc_len: learned positions, then [non-causal rope-free
+    attention through the flash dispatch + gelu MLP] × Lₑ, then
+    ``enc_ln_f``.  Returns enc_out (B, T, dm)."""
+    e = frames + params["enc_pos"][:frames.shape[1]]
+    for lp in params["enc_layers"]:
+        h, _ = A.attn_apply(lp["attn"], rms_norm(e, lp["ln1"]),
+                            _noncausal_cfg(cfg), kernels=kernels)
+        e = e + h
+        e = e + mlp_apply(lp["mlp"], rms_norm(e, lp["ln2"]), "gelu")
+    return rms_norm(e, params["enc_ln_f"])
+
+
 class DecodeState(NamedTuple):
-    caches: Any              # {"k", "v"}: (L, B, cache_len, KVH, Dh) each;
+    caches: Any              # {"k", "v"}: (L, B, cache_len, KVH, Dh) each
+    #                          (dense, MoE, encdec: the decoder's self-
+    #                          attention, vlm: its dense layers);
     #                          MLA: {"latent"}: (L, B, cache_len, 512 + 64);
     #                          SSM: {"state"}: (L, B, H, P, N) fp32; hybrid:
     #                          "state" and "k", "v" of (n_attn, B, …)
@@ -426,12 +553,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
 def decode_step(params: Transformer, tokens: torch.Tensor,
                 state: DecodeState, cfg: ModelConfig,
                 extra: Optional[dict] = None,
-                layer_aux: Optional[list] = None):
+                layer_aux: Optional[list] = None, kernels: str = "auto"):
     """One decode step: tokens (B, 1) → (logits (B, 1, V), new state).
     ``state.position`` is one position for the batch or one per row; the
     caches of ``state`` are updated in place and returned in the new
-    state.  ``layer_aux`` as :func:`forward`'s."""
+    state.  ``extra``: ``{"enc_out": encode(...)}`` for encdec,
+    ``{"patches": ...}`` for the VLM; their cross-attention goes through
+    the flash kernel's dispatch (``kernels``) at one query row, the self-
+    attention reads the cache with the plain ``_sdpa``.  The VLM runs its
+    dense layers, then its cross layers in a row, as the reference's
+    decode does.  ``layer_aux`` as :func:`forward`'s."""
     require_ported(cfg.family)
+    extra = extra or {}
     b = tokens.shape[0]
     x = params["embed"][tokens]
     pos = state.position
@@ -439,6 +572,9 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     caches = state.caches
     rope = _rope(cfg, positions, caches["latent"].shape[2]
                  if "latent" in caches else None)
+    if cfg.family == "encdec":   # clamped into the table, as dynamic_slice
+        dec_pos = params["dec_pos"]
+        x = x + dec_pos[positions.clamp(0, dec_pos.shape[0] - 1).long()]
     ssm = cfg.family in ("ssm", "hybrid")
     conv = x.new_zeros((b, 1)) if ssm else None   # SSMState's placeholder
     for layer, lp in enumerate(params["layers"]):
@@ -462,11 +598,19 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
             x, _, aux = _moe_block(lp, x, cfg, positions, cache, rope=rope)
             if layer_aux is not None:
                 layer_aux.append(aux)
+        elif cfg.family == "encdec":
+            x, _ = _encdec_block(
+                lp, x, cfg, positions, extra["enc_out"],
+                A.KVCache(caches["k"][layer], caches["v"][layer], pos),
+                kernels=kernels)
         else:
             x, _ = _dense_block(
                 lp, x, cfg, positions,
                 A.KVCache(caches["k"][layer], caches["v"][layer], pos),
                 rope=rope)
+    if cfg.family == "vlm":
+        for ci in range(len(params["cross_layers"])):
+            x = _cross_layer(params, ci, x, cfg, extra["patches"], kernels)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, DecodeState(state.caches, pos + 1)

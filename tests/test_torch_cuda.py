@@ -844,6 +844,38 @@ def test_flash_attention_at_zamba2_head_dim(card, dtype, causal):
     _flash_close(got, want, (q, k, v), causal)
 
 
+# (b, s, t, h, kvh, dh, causal): whisper-small's encoder, decoder self-
+# and cross-attention and decode cross-attention; llama-3.2-vision-11b's
+# self- and cross-attention and decode cross-attention (B cut to 2 or 1)
+XATTN_SHAPES = [(1, 1500, 1500, 12, 12, 64, False),
+                (2, 448, 448, 12, 12, 64, True),
+                (2, 448, 1500, 12, 12, 64, False),
+                (8, 1, 1500, 12, 12, 64, False),
+                (1, 4096, 4096, 32, 8, 128, True),
+                (1, 4096, 1600, 32, 8, 128, False),
+                (8, 1, 1600, 32, 8, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,t,h,kvh,dh,causal", XATTN_SHAPES)
+def test_flash_attention_at_the_cross_attention_shapes(card, dtype, b, s, t,
+                                                       h, kvh, dh, causal):
+    """The shapes of the encoder-decoder and VLM paths: T a multiple of
+    neither 64 nor 128 without the causal mask, T ≠ S, GQA 4 non-causal,
+    and S = 1 (one query tile with 63 or more dead rows)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(dtype, b, s, t, kvh, h // kvh, dh, card,
+                              s + t + h)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    _flash_close(got, want, (q, k, v), causal)
+
+
 @pytest.mark.parametrize("dh", [32, 96, 120])
 def test_flash_attention_raises_for_a_head_dim_it_lacks(card, dh):
     """No fallback to the plain version on the card."""

@@ -1,7 +1,9 @@
 """The plain version of the port's flash-attention kernel (PyTorch on the
 CPU) against the JAX package's Pallas kernel in interpret mode and its
-oracle, at the reference test's four cases (GQA, MHA, non-causal, MQA)
-and kimi-k2's head (Dh = 112, 8 query heads a KV head), in fp32 and bf16;
+oracle, at the reference test's four cases (GQA, MHA, non-causal, MQA),
+kimi-k2's head (Dh = 112, 8 query heads a KV head) and the non-causal
+shapes of cross-attention (S = 1, S ≠ T, T off the 64-key tile), in fp32
+and bf16;
 the port's oracle against the reference's; and the dispatch on CPU
 tensors.
 
@@ -113,6 +115,35 @@ def test_ragged_lengths_match_oracle(s, t, causal):
     want = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-6)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("s,t,h,kvh", [(1, 130, 6, 2), (1, 64, 4, 4),
+                                       (130, 130, 6, 2), (77, 130, 6, 2)],
+                         ids=["decode-gqa", "decode-mha", "full-gqa",
+                              "cross-gqa"])
+def test_cross_shapes_match_pallas_interpret_and_oracle(s, t, h, kvh, dtype):
+    """The non-causal shapes of cross-attention and of whisper's encoder:
+    one query row (a decode step's cross-attention), T not a multiple of
+    the kernel's 64-key tile, S ≠ T, GQA.  fp32 within 3e-6 of the Pallas
+    kernel (its blocks whole sequences here) and the oracle; bf16 within
+    ``rounding_bound`` of the Pallas kernel and 3e-2 of the fp32 oracle."""
+    q, k, v = _qkv(2, s, h, kvh, 64, t=t, seed=s + t + h)
+    orc = jax_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=False)
+    if dtype == "fp32":
+        got = FA.flash_attention(_t(q), _t(k), _t(v), causal=False)
+        pal = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=False, interpret=True)
+        for want in (pal, orc):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=3e-6)
+        return
+    _within_rounding_bound(q, k, v, False, block=None)
+    got = FA.flash_attention(*(_t(a, torch.bfloat16) for a in (q, k, v)),
+                             causal=False)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(orc),
+                               atol=3e-2)
 
 
 def test_dispatch_on_cpu_tensors():

@@ -515,16 +515,19 @@ def test_serve_cli_runs_the_moe_archs(arch, capsys):
 
 
 def test_unported_families_raise():
+    """Every family is ported: whisper and the VLM load and build; a family
+    that is none of the reference's six still raises."""
     for arch in ("whisper-small", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row"):
-            configs.get_smoke_config(arch)
-    encdec = dataclasses.replace(configs.get_smoke_config("granite-3-2b"),
-                                 family="encdec")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row 17"):
-        T.init_params(0, encdec, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 row 17"):
-        T.init_decode_state(dataclasses.replace(encdec, family="vlm"), 1, 4,
-                            device="cpu")
+        cfg = configs.get_smoke_config(arch)
+        assert cfg.family in T.PORTED_FAMILIES
+        assert configs.get_config(arch).family == cfg.family
+        T.init_params(0, cfg, device="cpu")
+    unknown = dataclasses.replace(configs.get_smoke_config("granite-3-2b"),
+                                  family="retnet")
+    with pytest.raises(ValueError, match="unknown model family 'retnet'"):
+        T.init_params(0, unknown, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family 'retnet'"):
+        T.init_decode_state(unknown, 1, 4, device="cpu")
 
 
 def test_port_init_is_seeded_and_shaped():
