@@ -253,6 +253,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               (``XATTN_CASES``: non-causal T ≠ S, T off the 64-key tile,
               GQA 4 non-causal, S = 1) against its plain version, with
               times, the bound and SDPA;
+    train   — (after xattn) training through ``make_train_step`` on the
+              reference's ``_sdpa`` route, each step timed (wall, device
+              time from torch.profiler, peak memory, tokens/s, loss,
+              gnorm; the card's name and power limit beside each): (a)
+              granite-3-2b at full width and depth (bf16, seeded weights)
+              on one ``synthetic_token_stream`` batch at train_4k's S =
+              4096, B = 2 (B = 1 if the first step peaks above 76 GB),
+              4 adamw steps (cosine schedule, remat "dots"), loss and
+              gnorm finite, the weights moved, then one adafactor step;
+              (b) granite-3-2b at full width, 2 layers, fp32: one step on
+              the card against the same step on the CPU (loss and gnorm
+              rtol 1e-5, each leaf's gradient within 1e-4 of its largest
+              |g|); (c) mamba2-1.3b at full depth, B = 2, S = 4096, 3
+              steps; the flash kernel launched 0 times in (a)-(c); (d)
+              whisper-small through ``python -m repro_torch.launch.train
+              --batch 8 --seq 448``: 4 steps with a checkpoint every 2,
+              and beside it a run stopped after step 2 and resumed to 4;
+              the largest |Δ| between the two final checkpoints' leaves;
 12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
               again with ``--clamp 1=0,3=1``, and ``python -m
               repro_torch.launch.scenarios --scenario all --json ''``
@@ -420,6 +438,19 @@ XATTN_CASES = [(8, 1500, 1500, 12, 12, 64, False, "whisper encoder"),
                (2, 4096, 4096, 32, 8, 128, True, "vlm self"),
                (2, 4096, 1600, 32, 8, 128, False, "vlm cross"),
                (8, 1, 1600, 32, 8, 128, False, "vlm decode cross")]
+
+# phase train: granite-3-2b at full width and depth on train_4k's sequence,
+# its global batch of 256 cut to TRAIN_BATCH (TRAIN_BATCH_MIN if the first
+# step passes TRAIN_PEAK_GB); the fp32 check at full width, depth and shape
+# cut (depth, B, S); mamba2-1.3b at full depth; whisper-small through the
+# CLI (batch, text length, steps, checkpoint cadence, the stopped run's step)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "granite-3-2b", 4096, 4
+TRAIN_BATCH, TRAIN_BATCH_MIN, TRAIN_PEAK_GB = 2, 1, 76.0
+TRAIN_CHECK = (2, 1, 256)
+TRAIN_GRAD_TOL = 1e-4         # of a leaf's largest |g|, the CPU tests' fp32
+TRAIN_SSM = ("mamba2-1.3b", 2, 4096, 3)
+TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
+                 stop=2, extra=())
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -4936,6 +4967,385 @@ def phase_xattn(device) -> dict:
     return out
 
 
+def _kernel_durations(prof) -> list:
+    """(name, µs) of each kernel a torch.profiler window lists, from its
+    raw kineto events: a train step launches 2·10⁴–4·10⁴ kernels, and
+    ``prof.events()`` would build its event tree over them for seconds."""
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        raw = prof.profiler.kineto_results.events()
+        return [(e.name(), e.duration_ns() / 1e3) for e in raw
+                if e.device_type() == cuda]
+    except AttributeError:                  # a torch without the raw events
+        return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+                if ev.device_type == cuda]
+
+
+def _step_timed(step, params, state, batch, device, tokens: int):
+    """One call of a train step under torch.profiler: wall time (synced),
+    the device time of the kernels it lists (None for a window it left
+    out), peak memory, tokens/s, loss and gnorm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+    tp = time.perf_counter()
+    kernels = _kernel_durations(prof)
+    parse_s = time.perf_counter() - tp
+    device_s = (sum(us for _, us in kernels) / 1e6 if kernels else None)
+    by_name: dict = {}
+    for raw, us in kernels:
+        name = kernel_name(raw)[:60]
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    rec = {"wall_s": wall, "device_s": device_s, "kernels": len(kernels),
+           "window_s": time.perf_counter() - tw, "parse_s": parse_s,
+           "top_ms": {k: v / 1e3 for k, v in top},
+           "idle_share": None if device_s is None else 1 - device_s / wall,
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "tokens_per_s": tokens / wall, "loss": float(m["loss"]),
+           "gnorm": float(m["gnorm"])}
+    return params, state, rec
+
+
+def _print_step(tag: str, i: int, rec: dict, smi: str) -> None:
+    dev = ("not measured (the profiler listed no kernel)"
+           if rec["device_s"] is None else
+           f"{rec['device_s']:.3f} s on the device in {rec['kernels']} "
+           f"kernels (idle share {rec['idle_share']:.3f})")
+    print(f"{tag} step {i}: {rec['wall_s']:.3f} s wall, {dev}, peak "
+          f"{rec['peak_gb']:.3f} GB, {rec['tokens_per_s']:.0f} tokens/s, "
+          f"loss {rec['loss']:.4f}, gnorm {rec['gnorm']:.4f} (profiler "
+          f"window {rec['window_s']:.1f} s) [{smi}]", flush=True)
+
+
+def _train_steps(tag, cfg, params, opt, state, batch, steps_, device,
+                 smi) -> tuple:
+    """The steps numbered ``steps_`` of ``make_train_step`` on one batch
+    from ``state`` (a fresh one if None), each timed; losses and gnorms
+    finite."""
+    from repro_torch.launch import steps
+
+    step = steps.make_train_step(cfg, opt)
+    state = opt.init(params) if state is None else state
+    recs = []
+    for i in steps_:
+        params, state, rec = _step_timed(step, params, state, batch, device,
+                                         batch["tokens"].numel())
+        _print_step(tag, i, rec, smi)
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["gnorm"]),
+              f"{tag}: step {i} loss or gnorm not finite")
+        recs.append(rec)
+    return params, state, recs
+
+
+def _retake_device(tag, cfg, params, opt, state, batch, recs, device, smi):
+    """A step whose profiler window listed nothing is timed again, up to
+    five more steps, the first window that lists kernels kept."""
+    if all(r["device_s"] is not None for r in recs):
+        return None
+    from repro_torch.launch import steps
+
+    step = steps.make_train_step(cfg, opt)
+    for i in range(5):
+        params, state, rec = _step_timed(step, params, state, batch, device,
+                                         batch["tokens"].numel())
+        _print_step(f"{tag} retake", i + 1, rec, smi)
+        if rec["device_s"] is not None:
+            return rec
+    return None
+
+
+def _split_step(cfg, params, opt, state, batch, tag, smi) -> dict:
+    """One more step in its two halves, each synced: the forward and
+    backward (``steps.loss_and_grads``), then the optimizer's update."""
+    from repro_torch.launch import steps
+
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    _, _, grads = steps.loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    fwd_bwd = time.perf_counter() - tw
+    tw = time.perf_counter()
+    opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    update = time.perf_counter() - tw
+    print(f"{tag}: one step split: forward + backward {fwd_bwd:.3f} s, "
+          f"{opt.name} update {update:.3f} s [{smi}]", flush=True)
+    return {"fwd_bwd_s": fwd_bwd, "update_s": update}
+
+
+def _granite_train(device, smi: str) -> dict:
+    """(a) granite-3-2b at full width and depth: adamw steps, then one
+    adafactor step on the same weights."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers, schedule
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    tag = f"train {cfg.name}"
+    torch.cuda.empty_cache()
+    params = T.init_params(0, cfg, device)
+    n_params = sum(p.numel() for p in params.parameters())
+    first = params.layers[0].mlp.gate[:64, :64].clone()
+    opt = optimizers.adamw(schedule.cosine_schedule(
+        3e-4, warmup=1, total=TRAIN_STEPS))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "seq": TRAIN_SEQ,
+           "params_b": n_params / 1e9, "remat_policy": cfg.remat_policy}
+    for b in (TRAIN_BATCH, TRAIN_BATCH_MIN):
+        batch = synthetic_token_stream(0, cfg.vocab, b, TRAIN_SEQ, device)(0)
+        oom, state, recs = False, None, None
+        try:
+            params, state, recs = _train_steps(tag + f" B={b}", cfg, params,
+                                               opt, None, batch, [1], device,
+                                               smi)
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        if not oom and recs[0]["peak_gb"] <= TRAIN_PEAK_GB:
+            break
+        check(b > TRAIN_BATCH_MIN, f"{tag}: B={b} does not fit")
+        print(f"{tag}: B={b} " + ("ran out of memory" if oom else
+              f"peaked at {recs[0]['peak_gb']:.3f} GB") + f"; B={b - 1}",
+              flush=True)
+        out[f"b{b}_first_step"] = "out of memory" if oom else recs[0]
+        state = recs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["batch"] = b
+    params, state, more = _train_steps(
+        tag + f" B={b}", cfg, params, opt, state, batch,
+        range(2, TRAIN_STEPS + 1), device, smi)
+    step_recs = recs + more
+    out["retake"] = _retake_device(tag, cfg, params, opt, state, batch,
+                                   step_recs, device, smi)
+    out["adamw_steps"] = step_recs
+    out["split"] = _split_step(cfg, params, opt, state, batch, tag, smi)
+    moved = float((params.layers[0].mlp.gate[:64, :64].float()
+                   - first.float()).abs().max())
+    check(moved > 0, f"{tag}: the weights did not move")
+    out["moved"] = moved
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fact = optimizers.adafactor(1e-2)
+    params, _, recs = _train_steps(tag + f" adafactor B={b}", cfg, params,
+                                   fact, None, batch, [1], device, smi)
+    out["adafactor_step"] = recs[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads_of(step_opt):
+    """An optimizer that keeps the gradients it is handed, then updates."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    kept = {}
+
+    def update(grads, state, params):
+        kept.update(grads)
+        return step_opt.update(grads, state, params)
+    return Optimizer(step_opt.init, update, step_opt.name), kept
+
+
+def _fp32_check(device, smi: str) -> dict:
+    """(b) granite-3-2b at full width, cut depth, fp32: one train step on
+    the card and the same step on the CPU from the same weights and batch;
+    loss and gnorm within rtol 1e-5, each leaf's gradient within
+    ``TRAIN_GRAD_TOL`` of its largest |g|."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers
+
+    depth, b, s = TRAIN_CHECK
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_layers=depth,
+                              dtype=torch.float32)
+    tag = f"train {cfg.name} fp32 check"
+    cpu = T.init_params(0, cfg, "cpu")
+    card = copy.deepcopy(cpu).to(device)
+    batch = synthetic_token_stream(0, cfg.vocab, b, s)(0)
+    out, grads = {}, {}
+    for where, params in (("card", card), ("cpu", cpu)):
+        opt, kept = _grads_of(optimizers.adamw(1e-3))
+        tw = time.perf_counter()
+        _, _, m = steps.make_train_step(cfg, opt)(
+            params, opt.init(params),
+            {k: v.to(params.device) for k, v in batch.items()})
+        if where == "card":
+            torch.cuda.synchronize()
+        out[f"{where}_s"] = time.perf_counter() - tw
+        out[where] = {k: float(v) for k, v in m.items()}
+        grads[where] = {p: [g.cpu() for g in rows] for p, rows in kept.items()}
+    worst, at = -1.0, None
+    for path, rows in grads["cpu"].items():
+        want = torch.stack(rows)
+        got = torch.stack(grads["card"][path])
+        err = float((got - want).abs().max() / want.abs().max().clamp_min(
+            1e-30))
+        if err > worst:
+            worst, at = err, path
+    out["grad_worst"], out["grad_worst_leaf"] = worst, at
+    rel = {k: abs(out["card"][k] / out["cpu"][k] - 1) for k in ("loss",
+                                                                "gnorm")}
+    out["rel"] = rel
+    print(f"{tag}: {depth} layers, B={b} S={s}: card step {out['card_s']:.3f}"
+          f" s, CPU {out['cpu_s']:.3f} s; loss {out['card']['loss']:.6f} vs "
+          f"{out['cpu']['loss']:.6f} (rel {rel['loss']:.2e}), gnorm "
+          f"{out['card']['gnorm']:.6f} vs {out['cpu']['gnorm']:.6f} (rel "
+          f"{rel['gnorm']:.2e}); worst leaf gradient {worst:.2e} of its "
+          f"largest |g| at {at} (tolerance {TRAIN_GRAD_TOL}) [{smi}]",
+          flush=True)
+    check(rel["loss"] <= 1e-5 and rel["gnorm"] <= 1e-5
+          and worst <= TRAIN_GRAD_TOL,
+          f"{tag}: the card's step differs from the CPU's")
+    del card, cpu, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_train(device, smi: str) -> dict:
+    """(c) mamba2-1.3b at full depth: adamw steps (the SSD's backward)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers, schedule
+
+    arch, b, s, n = TRAIN_SSM
+    cfg = configs.get_config(arch)
+    tag = f"train {cfg.name} B={b}"
+    params = T.init_params(0, cfg, device)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = optimizers.adamw(schedule.cosine_schedule(3e-4, warmup=1,
+                                                    total=n))
+    batch = synthetic_token_stream(0, cfg.vocab, b, s, device)(0)
+    params, state, recs = _train_steps(tag, cfg, params, opt, None, batch,
+                                       range(1, n + 1), device, smi)
+    retake = _retake_device(tag, cfg, params, opt, state, batch, recs,
+                            device, smi)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "batch": b, "seq": s,
+            "params_b": n_params / 1e9, "steps": recs, "retake": retake}
+
+
+def _leaf_deltas(a: Path, b: Path) -> dict:
+    """Largest |Δ| of each leaf between two checkpoint directories."""
+    manifest = json.loads((a / "manifest.json").read_text())
+    out = {}
+    for e in manifest["leaves"]:
+        x, y = (np.load(d / e["file"]) for d in (a, b))
+        if e["dtype"] == "bfloat16":
+            x, y = ((v.astype(np.uint32) << 16).view(np.float32)
+                    for v in (x, y))
+        out[e["path"]] = float(np.abs(x.astype(np.float64)
+                                      - y.astype(np.float64)).max())
+    return out
+
+
+def _cli_train(smi: str) -> dict:
+    """(d) whisper-small through ``python -m repro_torch.launch.train`` on
+    the card: an uninterrupted run, and beside it a run stopped after its
+    step-``stop`` checkpoint, then resumed; their final checkpoints
+    compared leaf by leaf."""
+    c = TRAIN_CLI
+    root = ROOT / "build" / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            c["arch"], "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+            "--steps", str(c["steps"]), "--ckpt-every", str(c["every"]),
+            *c["extra"]]
+
+    def run(*more):
+        return subprocess.Popen(argv + list(more), cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def done(name, proc):
+        so, se = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"train cli {name}: exit "
+              f"{proc.returncode}: {se[-3000:]}")
+        return so
+
+    tw = time.perf_counter()
+    full = run("--ckpt-dir", str(root / "a"))
+    outs = {"stopped": done("stopped", run("--ckpt-dir", str(root / "b"),
+                                           "--stop-at", str(c["stop"])))}
+    resumed = run("--ckpt-dir", str(root / "b"))       # beside the full run
+    outs["full"] = done("full", full)
+    outs["resumed"] = so = done("resumed", resumed)
+    wall = time.perf_counter() - tw
+    check(f"resumed from step {c['stop']}" in so, "train cli: the second "
+          f"run did not resume: {so[-2000:]}")
+    check(all("device: cuda" in o for o in outs.values()),
+          "train cli: a run was not on the card")
+    final = f"step_{c['steps']:08d}"
+    deltas = _leaf_deltas(root / "a" / final, root / "b" / final)
+    worst = max(deltas.items(), key=lambda kv: kv[1])
+    for name, o in outs.items():
+        print(f"train cli {name}: " + " | ".join(
+            line.strip() for line in o.splitlines() if line.startswith(
+                ("device", "step", "resumed"))), flush=True)
+    print(f"train cli {c['arch']}: {c['steps']} steps uninterrupted and "
+          f"{c['stop']} + resumed to {c['steps']} (B={c['batch']}, "
+          f"S={c['seq']}, a checkpoint every {c['every']}) in {wall:.1f} s; "
+          f"largest |Δ| between the final checkpoints' leaves "
+          f"{worst[1]:.3e} at {worst[0]}; "
+          f"{sum(v == 0 for v in deltas.values())} of {len(deltas)} leaves "
+          f"equal [{smi}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"arch": c["arch"], "wall_s": wall, "max_abs_delta": worst[1],
+            "max_abs_delta_leaf": worst[0],
+            "leaves_equal": sum(v == 0 for v in deltas.values()),
+            "leaves": len(deltas)}
+
+
+def phase_train(device) -> dict:
+    """Training through ``launch.steps.make_train_step`` and the train CLI
+    on the card: granite-3-2b (a, b), mamba2-1.3b (c), whisper-small (d).
+    The flash kernel's launch count stays 0 (training takes the reference's
+    ``_sdpa`` route)."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    ops.reset_launches()
+    out = {"card": smi}
+    for name, part in (("granite", _granite_train), ("fp32_check",
+                                                     _fp32_check),
+                       ("ssm", _ssm_train)):
+        tp = time.perf_counter()
+        out[name] = part(device, smi)
+        out[name]["part_s"] = time.perf_counter() - tp
+        print(f"train {name}: {out[name]['part_s']:.1f} s", flush=True)
+    launches = ops.launch_counts()["flash_attention"]
+    check(launches == 0, f"train: flash_attention launched {launches} "
+          "times in training")
+    out["flash_launches"] = launches
+    out["cli"] = _cli_train(smi)
+    print("train:", json.dumps(out), flush=True)
+    _phase("train", t0)
+    return out
+
+
 def _launcher_request(proc, gateway) -> dict:
     """The gateway launcher's one request: wait for its URL, ask for phase
     gateway's first job by the store's name under ``--store-root`` and
@@ -5135,6 +5545,7 @@ def main() -> int:
     moe = phase_moe(device)
     ssm = phase_ssm(device)
     xattn = phase_xattn(device)
+    train = phase_train(device)
     whisper, vlm = (xattn[a] for a in XATTN_ARCHS)
     flash = dict(flash_rows[0], name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5152,6 +5563,7 @@ def main() -> int:
                      "decode_step": vlm["serve_launches"]
                      // SERVE["max_new"]},
                  xattn_shapes=xattn.pop("rows"),
+                 train_launches=train["flash_launches"],
                  lm=lm, moe=moe, ssm=ssm, xattn=xattn)
     try:
         gateway["launcher"] = phase_cli(gateway)

@@ -1,1 +1,2 @@
-"""Mid-chain sampler checkpoints (``sampler_state``)."""
+"""Mid-chain sampler checkpoints (``sampler_state``) and the training
+checkpoint store (``store``)."""

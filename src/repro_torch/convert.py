@@ -109,3 +109,71 @@ def lm_params_from_arrays(tree, cfg, device: DeviceLike = None):
                                     cfg.n_layers // cfg.cross_attn_every)
         out["ln_cross"] = leaf(tree["ln_cross"])
     return Transformer(cfg, out)
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b/c": x} → {"a": {"b": {"c": x}}}."""
+    out: dict = {}
+    for path, value in flat.items():
+        *heads, last = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = value
+    return out
+
+
+def _at(tree: dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def lm_arrays_from_params(params) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: a port model → the
+    reference's parameter tree as numpy arrays, every stacked leaf
+    stacked on axis 0 again (bf16 as ``ml_dtypes.bfloat16``)."""
+    import ml_dtypes
+
+    def arr(leaf):
+        a = array_from_tensor(leaf.full())
+        return a.view(ml_dtypes.bfloat16) if leaf.dtype == torch.bfloat16 \
+            else a
+    return _nest({path: arr(leaf)
+                  for path, leaf in params.ref_leaves().items()})
+
+
+def _rows(name: str, leaf) -> bool:
+    """Whether the state array ``name`` of ``leaf`` is kept a row a layer
+    (the layer axis first), as ``optim.optimizers`` keeps it."""
+    return leaf.stacked and not (name == "vc" and leaf.tensors[0].ndim == 1)
+
+
+def opt_state_from_arrays(state, params, device: DeviceLike = None):
+    """The reference's ``OptState`` as numpy (``step`` and ``inner``: per
+    leaf of the parameter tree a dict of ``m``/``v`` or ``vr``/``vc``/``v``
+    arrays) → the port's ``optim.OptState`` for ``params`` (a model or a
+    dict of ``core.tree.Leaf`` s), each array split into rows where the
+    port keeps rows."""
+    from repro_torch.core.tree import Leaf
+    from repro_torch.optim.optimizers import OptState, param_leaves
+
+    dev = resolve_device(device)
+    step, inner = state
+    out = {}
+    for path, leaf in param_leaves(params).items():
+        out[path] = {}
+        for name, a in _at(inner, path).items():
+            t = tensor_from_array(a, dev)
+            out[path][name] = (Leaf(list(t.unbind(0)), True)
+                               if _rows(name, leaf) else Leaf([t], False))
+    return OptState(tensor_from_array(np.asarray(step, np.int32), dev), out)
+
+
+def opt_state_to_arrays(state) -> tuple:
+    """The inverse of :func:`opt_state_from_arrays`: (step, inner) as
+    numpy, shaped as the reference's ``OptState``."""
+    inner = {f"{path}/{name}": array_from_tensor(leaf.full())
+             for path, names in state.inner.items()
+             for name, leaf in names.items()}
+    return array_from_tensor(state.step), _nest(inner)

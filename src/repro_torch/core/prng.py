@@ -5,8 +5,8 @@ inverse-CDF uniforms from ``fold_in(key, i)``, so every schedule sharing a
 base key draws the same randoms.  Holding the port to the JAX package's
 samples therefore needs jax's generator itself, not ``torch.Generator``:
 this module reproduces ``jax.random.key`` / ``fold_in`` / ``split`` /
-``uniform`` under jax's defaults (impl ``threefry2x32``,
-``jax_threefry_partitionable=True``).
+``uniform`` / ``normal`` / ``randint`` under jax's defaults (impl
+``threefry2x32``, ``jax_threefry_partitionable=True``).
 
 A key is an int64 tensor of shape ``(2,)`` holding two uint32 words, the
 same words ``jax.random.key_data`` shows.  Keys live on the CPU (they are
@@ -113,6 +113,39 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``: two
+    draws of 32 random bits (keys ``split(key)``), ``hi`` and ``lo``; with
+    span = maxval − minval (1 when maxval ≤ minval), the offset
+    ((hi mod span)·m + lo mod span) mod span, m = (2¹⁶ mod span)² mod span,
+    every product and sum wrapping at 2³² as jax's uint32 arithmetic (so m
+    is 0 for a span above 2¹⁶, where (2¹⁶)² wraps);
+    ``maxval`` above the int32 range is clipped to it and the span then
+    counts the top value too.  int32 on ``device``."""
+    shape = tuple(int(s) for s in shape)
+    lo_i32, hi_i32 = -2 ** 31, 2 ** 31 - 1
+    wide = maxval > hi_i32
+    minval = min(max(int(minval), lo_i32), hi_i32)
+    maxval = min(max(int(maxval), lo_i32), hi_i32)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    if wide and maxval > minval:
+        span = (span + 1) & _MASK
+    k1, k2 = split(key)
+    n = math.prod(shape)
+    higher, lower = (b1 ^ b2 for b1, b2 in (_bits(k, n, device)
+                                            for k in (k1, k2)))
+    if span == 0:                 # the whole uint32 range: no remainder
+        offset = lower
+    else:
+        mult = (((2 ** 16 % span) ** 2) & _MASK) % span
+        offset = (((higher % span) * mult) & _MASK) + lower % span
+        offset = (offset & _MASK) % span
+    out = (minval + offset) & _MASK
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).reshape(shape)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int] = (),

@@ -1,1 +1,2 @@
-"""Γ storage on disk (``gamma_store``)."""
+"""Γ storage on disk (``gamma_store``) and the synthetic token stream
+(``tokens``)."""

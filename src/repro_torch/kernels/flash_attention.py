@@ -37,12 +37,27 @@ def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
+def refuse_graph(q, k, v) -> None:
+    """Raise where a graph would run through the kernel or its plain
+    version: neither has a backward (the kernel writes its output through
+    ctypes, the plain version computes in place), and a silent cut would
+    leave q, k, v and the projections before them without a gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward; train on the reference's "
+            "default attention route: models.transformer.forward(..., "
+            "flash=False) (attention._sdpa), as launch.steps."
+            "make_train_step does")
+
+
 def flash_attention_plain(q, k, v, causal: bool = True):
     """The same function in plain PyTorch: fp32 scores from the inputs, the
     −1e30 mask; fp32 softmax times fp32 V for fp32 inputs; for bf16 inputs
     the weights exp(s − rowmax) rounded to bf16, times V, over their fp32
     sum.  Cast to q's dtype.  Materialises the (B, KVH, g, S, T) scores
-    once: the weights are computed over them in place."""
+    once: the weights are computed over them in place, so it refuses a
+    graph (:func:`refuse_graph`)."""
+    refuse_graph(q, k, v)
     scores = _scores(q, k, causal)
     b, s, h, dh = q.shape
     if q.dtype == torch.float32:
@@ -98,7 +113,10 @@ def flash_attention(q, k, v, causal: bool = True):
     ``HEAD_DIMS`` (another head dim raises: there is no fallback) →
     out as :func:`flash_attention_plain` (bf16: within
     :func:`rounding_bound`).  One block per (b·h, query tile) walks the key
-    tiles in order; bf16 on the tensor cores, fp32 on the FMA units."""
+    tiles in order; bf16 on the tensor cores, fp32 on the FMA units.
+    Under a graph (grad mode on, q, k or v requiring grad) it raises
+    ``RuntimeError`` (:func:`refuse_graph`)."""
+    refuse_graph(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     name = "flash_attention"

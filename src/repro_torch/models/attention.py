@@ -10,8 +10,10 @@ Full-sequence attention (``cache is None``: prefill) and every
 cross-attention (``kv_input`` given: K/V projected from it, no rope, no
 causal mask, no cache written; in decode too, at one query row) go through
 ``kernels.ops.flash_attention``: the CUDA flash kernel on the card, its
-plain version on the CPU (``kernels="auto" | "cuda" | "torch"``; the
-reference's global ``USE_FLASH`` switch becomes this dispatch).  Decode
+plain version on the CPU (``kernels="auto" | "cuda" | "torch"``).  The
+reference's global ``USE_FLASH`` switch, off by default there, is the
+``flash`` argument here, on by default: with it off they go through the
+plain :func:`_sdpa` (the reference's op for op), as training needs.  Decode
 self-attention (``cache`` given) keeps the plain :func:`_sdpa`, as the
 reference keeps its XLA path.  The decode write index may be a scalar or
 one position per row (B,); the cache tensors are written in place.
@@ -123,11 +125,14 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[KVCache] = None,
                kv_input: Optional[torch.Tensor] = None,
-               kernels: str = "auto", rope=None):
+               kernels: str = "auto", rope=None, flash: bool = True):
     """Self- or cross-attention.  Returns (y, new_cache), new_cache None
     without a cache or with ``kv_input``.  ``rope``: ``common.rope_tables(
     positions, head_dim, rope_theta)``, if the caller made them once for
-    every layer.
+    every layer.  ``flash=False`` is the reference's default route
+    (``USE_FLASH = False``): full-sequence and cross attention through
+    :func:`_sdpa`, causal by a ``tril`` mask; it is the route training
+    takes (the flash kernel has no backward).
 
     * prefill: ``cache is None`` → full causal (or full, if not causal)
       attention through the flash kernel's dispatch;
@@ -161,11 +166,17 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
         valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
         out = _sdpa(q, cache.k, cache.v, valid[:, None, None, None, :])
         new_cache = KVCache(cache.k, cache.v, cache.length + s)
-    else:
+    elif flash:
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(),
                                   causal=cfg.causal and kv_input is None,
                                   kernels=kernels)
+    else:
+        mask = None
+        if cfg.causal and kv_input is None:
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=x.device).tril()[None, None, None]
+        out = _sdpa(q, k, v, mask)
     h, dh, dm = params["wo"].shape
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, dm)
     return y, new_cache

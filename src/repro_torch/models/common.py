@@ -1,11 +1,12 @@
 """Initialisers and primitive layers shared by the model zoo.
 
-Mirrors ``repro.models.common`` without its sharding helpers (``DATA``,
-``MODEL``, ``resolve_specs``, ``batch_sharded``, ``shard_hint``), which
-are no-ops on one device.  Casts happen where the reference casts:
-:func:`rms_norm` reduces in fp32, casts to x's dtype, then multiplies by γ
-in that dtype; :func:`apply_rope` rotates split halves in fp32 and casts
-back, its angles' sin and cos with the reference's bits (:func:`sin_cos`);
+Mirrors ``repro.models.common`` (its ``remat`` too) without its sharding
+helpers (``DATA``, ``MODEL``, ``resolve_specs``, ``batch_sharded``,
+``shard_hint``), which are no-ops on one device.  Casts happen where the
+reference casts: :func:`rms_norm` reduces in fp32, casts to x's dtype,
+then multiplies by γ in that dtype; :func:`apply_rope` rotates split
+halves in fp32 and casts back, its angles' sin and cos with the
+reference's bits (:func:`sin_cos`);
 :func:`silu` rounds bf16 where the reference's sigmoid does, and
 :func:`gelu` where its tanh-GELU does.
 Initialisers draw from a ``torch.Generator`` (their bits differ from
@@ -218,3 +219,37 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# Remat policy
+# ---------------------------------------------------------------------------
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the weight projections
+    (``x @ w`` reaches ``aten.mm``: a product without batch dims, as
+    ``checkpoint_dots_with_no_batch_dims`` keeps) and recompute the rest,
+    the attention scores (``aten.bmm``) among them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str = "nothing"):
+    """``fn`` under activation checkpointing (``torch.utils.checkpoint``,
+    non-reentrant), as the reference's ``jax.checkpoint`` policies:
+    ``"nothing"`` saves only fn's inputs, ``"dots"`` also the weight
+    projections' outputs, ``"none"`` is fn itself."""
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if policy == "nothing":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_weight_products))
+    raise ValueError(policy)

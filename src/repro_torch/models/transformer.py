@@ -17,8 +17,9 @@ reference's names and shapes (``params["layers"][l]["attn"]["wq"]``,
 ``params["layers"][l]["mamba"]["w_in"]``, ``params["shared_attn"]["ln1"]``,
 ``params["layers"][l]["cross"]["wk"]``, ``params["cross_layers"][c]["wq"]``;
 the reference stacks layers on axis 0, here they are an
-``nn.ModuleList``).  Layers run as a Python loop: the reference's scan and
-remat are training concerns.
+``nn.ModuleList``; :meth:`Transformer.ref_leaves` gives the reference's
+stacked view of them).  Layers run as a Python loop; a forward that
+records a graph runs them under the config's remat policy.
 
 Logits stay in the model's dtype (``x @ unembed``), so a greedy argmax
 breaks ties as the reference's does, at the first index.  The decode path
@@ -28,7 +29,8 @@ the LM analogue of the FastMPS left environment; it is written in place.
 rope's tables are made once a forward or decode step and serve every
 layer.  Every full-sequence and every cross-attention goes through the
 flash kernel's dispatch (``kernels``), decode's cross-attention too (one
-query row against the encoder's or the patches' keys).
+query row against the encoder's or the patches' keys); ``flash=False``
+takes the reference's default ``_sdpa`` route instead (training's).
 
 The encdec and vlm decode steps take ``extra["enc_out"]`` (``encode``'s
 output) or ``extra["patches"]`` and recompute the cross K/V from it every
@@ -50,10 +52,12 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.core.tree import Leaf
 from repro_torch.models.common import (embed_init, mlp_apply, mlp_init,
-                                       rms_norm, rope_tables)
+                                       remat, rms_norm, rope_tables)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
 DEC_POSITIONS = 32768            # rows of whisper's learned decoder positions
 
 
@@ -177,6 +181,9 @@ class ModelConfig:
 # ===========================================================================
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A weight, made without ``requires_grad``: prefill and serving record
+    no graph.  ``launch.steps.loss_and_grads`` (the train step's backward)
+    turns it on for its own backward and off again."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -300,6 +307,22 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def ref_leaves(self) -> dict[str, Leaf]:
+        """The reference's parameter leaves by path (``"embed"``,
+        ``"layers/attn/wq"``, ``"layers/moe/shared/gate"``,
+        ``"shared_attn/ln1"``, ``"cross_layers/wq"``, ``"ln_cross"``), in
+        its flattening order (dict keys sorted at every level).  A stacked
+        leaf (under ``layers``, ``enc_layers`` or ``cross_layers``) holds
+        the tensor of each layer, the rows of the reference's array."""
+        groups: dict[tuple, list] = {}
+        for name, p in self.named_parameters():       # layers in order
+            parts = name.split(".")
+            if parts[0] in STACKED:
+                del parts[1]                          # the layer's index
+            groups.setdefault(tuple(parts), []).append(p)
+        return {"/".join(key): Leaf(group, key[0] in STACKED)
+                for key, group in sorted(groups.items())}
+
 
 def init_params(seed: int, cfg: ModelConfig,
                 device: DeviceLike = None) -> Transformer:
@@ -360,17 +383,17 @@ def init_params(seed: int, cfg: ModelConfig,
 # ===========================================================================
 
 def _dense_block(lp, x, cfg: ModelConfig, positions, cache=None,
-                 kernels: str = "auto", rope=None):
+                 kernels: str = "auto", rope=None, flash: bool = True):
     h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                 cfg.attn_cfg(), positions, cache,
-                                kernels=kernels, rope=rope)
+                                kernels=kernels, rope=rope, flash=flash)
     x = x + h
     x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.mlp_style)
     return x, new_cache
 
 
 def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
-               kernels: str = "auto", rope=None):
+               kernels: str = "auto", rope=None, flash: bool = True):
     """Attention (MLA, plain; or GQA through the flash dispatch) then the
     MoE layer.  Returns (x, new_cache, aux)."""
     if cfg.use_mla:
@@ -380,7 +403,7 @@ def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
     else:
         h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                     cfg.attn_cfg(), positions, cache,
-                                    kernels=kernels, rope=rope)
+                                    kernels=kernels, rope=rope, flash=flash)
     x = x + h
     y, aux = MOE.moe_apply(lp["moe"], rms_norm(x, lp["ln2"]), cfg.moe_cfg())
     return x + y, new_cache, aux
@@ -393,29 +416,30 @@ def _noncausal_cfg(cfg: ModelConfig) -> A.AttnConfig:
 
 
 def _encdec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache=None,
-                  kernels: str = "auto"):
+                  kernels: str = "auto", flash: bool = True):
     """A whisper decoder layer: causal self-attention (the KV cache in
     decode), cross-attention to ``enc_out``, the gelu MLP."""
     h, new_cache = A.attn_apply(lp["self"], rms_norm(x, lp["ln1"]),
                                 cfg.attn_cfg(causal=True, rope=False),
-                                positions, cache, kernels=kernels)
+                                positions, cache, kernels=kernels,
+                                flash=flash)
     x = x + h
     h, _ = A.attn_apply(lp["cross"], rms_norm(x, lp["ln2"]),
                         _noncausal_cfg(cfg), positions, kv_input=enc_out,
-                        kernels=kernels)
+                        kernels=kernels, flash=flash)
     x = x + h
     x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"]), "gelu")
     return x, new_cache
 
 
 def _cross_layer(params: "Transformer", ci: int, x, cfg: ModelConfig,
-                 patches, kernels: str = "auto"):
+                 patches, kernels: str = "auto", flash: bool = True):
     """The VLM's cross layer ``ci``: x + cross-attention of rms_norm(x,
     ln_cross[ci]) to ``patches``."""
     h, _ = A.attn_apply(params["cross_layers"][ci],
                         rms_norm(x, params["ln_cross"][ci]),
                         _noncausal_cfg(cfg), kv_input=patches,
-                        kernels=kernels)
+                        kernels=kernels, flash=flash)
     return x + h
 
 
@@ -448,9 +472,44 @@ def _is_cross(cfg: ModelConfig, layer: int) -> bool:
     return layer % cfg.cross_attn_every == cfg.cross_attn_every - 1
 
 
+def _recording(params: Transformer) -> bool:
+    """Whether this forward records a graph for a backward."""
+    return torch.is_grad_enabled() and params["embed"].requires_grad
+
+
+def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
+              extra: dict, kernels: str, flash: bool):
+    """The body of layer ``layer`` of the forward: (x, layer) → (x, aux),
+    aux the MoE layer's aux dict (None for the other families)."""
+    def body(x, layer):
+        lp = params["layers"][layer]
+        if cfg.family == "moe":
+            x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
+                                   rope=rope, flash=flash)
+            return x, aux
+        if cfg.family in ("ssm", "hybrid"):
+            h, _ = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
+                                   cfg.ssm_cfg())
+            x = x + h
+            if cfg.family == "hybrid" and _is_attn(cfg, layer):
+                x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
+                                    kernels=kernels, rope=rope, flash=flash)
+        elif cfg.family == "encdec":
+            x, _ = _encdec_block(lp, x, cfg, positions, extra["enc_out"],
+                                 kernels=kernels, flash=flash)
+        else:
+            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
+                                rope=rope, flash=flash)
+            if cfg.family == "vlm" and _is_cross(cfg, layer):
+                x = _cross_layer(params, layer // cfg.cross_attn_every, x,
+                                 cfg, extra["patches"], kernels, flash)
+        return x, None
+    return body
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             extra: Optional[dict] = None, kernels: str = "auto",
-            layer_aux: Optional[list] = None):
+            layer_aux: Optional[list] = None, flash: bool = True):
     """Full-sequence forward (prefill).  tokens (B, S) → (logits (B, S, V)
     in the model's dtype, aux loss: the sum of the MoE layers' ``lb_loss``,
     0 for the other families).  ``extra``: ``{"frames": (B, T, dm)}`` for
@@ -458,58 +517,73 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     :func:`encode`), ``{"patches": (B, n_patches, dm)}`` for the VLM.
     GQA attention (the hybrid's shared block, the encoder and every
     cross-attention too) goes through the flash kernel's dispatch
-    (``kernels``).  ``layer_aux``, a list, receives each MoE layer's aux
-    dict (``lb_loss``, ``drop_frac``, ``expert_ids``)."""
+    (``kernels``), or with ``flash=False`` through the reference's default
+    ``_sdpa``.  ``layer_aux``, a list, receives each MoE layer's aux
+    dict (``lb_loss``, ``drop_frac``, ``expert_ids``).
+
+    When it records a graph (grad mode on, the weights requiring grad), the
+    layers run under ``cfg.remat_policy`` (``common.remat``) and, for the
+    dense family with ``cfg.remat_block = k``, in checkpointed blocks of k
+    layers, as the reference's ``_scan_blocks``; otherwise no remat."""
     require_ported(cfg.family)
-    extra = extra or {}
+    extra = dict(extra or {})
     _, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=x.device)[None, :]
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     rope = _rope(cfg, positions)
+    recording = _recording(params)
     if cfg.family == "encdec":
-        enc_out = encode(params, extra["frames"], cfg, kernels=kernels)
+        extra["enc_out"] = encode(params, extra["frames"], cfg,
+                                  kernels=kernels, flash=flash)
         x = x + params["dec_pos"][:s]
-    for layer, lp in enumerate(params["layers"]):
-        if cfg.family == "moe":
-            x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
-                                   rope=rope)
-            aux_acc = aux_acc + aux["lb_loss"]
-            if layer_aux is not None:
-                layer_aux.append(aux)
-        elif cfg.family in ("ssm", "hybrid"):
-            h, _ = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
-                                   cfg.ssm_cfg())
-            x = x + h
-            if cfg.family == "hybrid" and _is_attn(cfg, layer):
-                x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
-                                    kernels=kernels, rope=rope)
-        elif cfg.family == "encdec":
-            x, _ = _encdec_block(lp, x, cfg, positions, enc_out,
-                                 kernels=kernels)
-        else:
-            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
-                                rope=rope)
-            if cfg.family == "vlm" and _is_cross(cfg, layer):
-                x = _cross_layer(params, layer // cfg.cross_attn_every, x,
-                                 cfg, extra["patches"], kernels)
+    body = _layer_fn(params, cfg, positions, rope, extra, kernels, flash)
+    layer_fn = remat(body, cfg.remat_policy if recording else "none")
+    k = cfg.remat_block if recording and cfg.family == "dense" else 0
+    if k:
+        if cfg.n_layers % k:
+            raise ValueError(f"remat_block {k} does not divide "
+                             f"{cfg.n_layers} layers")
+
+        def block(x, first):
+            for layer in range(first, first + k):
+                x, _ = layer_fn(x, layer)
+            return x
+        block_fn = remat(block, "nothing")
+        for first in range(0, cfg.n_layers, k):
+            x = block_fn(x, first)
+    else:
+        for layer in range(cfg.n_layers):
+            x, aux = layer_fn(x, layer)
+            if aux is not None:
+                aux_acc = aux_acc + aux["lb_loss"]
+                if layer_aux is not None:
+                    layer_aux.append(aux)
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, aux_acc
 
 
 def encode(params: Transformer, frames: torch.Tensor, cfg: ModelConfig,
-           kernels: str = "auto") -> torch.Tensor:
+           kernels: str = "auto", flash: bool = True) -> torch.Tensor:
     """Whisper's encoder on the stub frontend's frame embeddings frames
     (B, T, dm), T ≤ enc_len: learned positions, then [non-causal rope-free
-    attention through the flash dispatch + gelu MLP] × Lₑ, then
-    ``enc_ln_f``.  Returns enc_out (B, T, dm)."""
+    attention through the flash dispatch (``_sdpa`` with ``flash=False``)
+    + gelu MLP] × Lₑ, then ``enc_ln_f``; each layer under
+    ``cfg.remat_policy`` when it records a graph.  Returns enc_out (B, T,
+    dm)."""
+    def body(e, lp):
+        h, _ = A.attn_apply(lp["attn"], rms_norm(e, lp["ln1"]),
+                            _noncausal_cfg(cfg), kernels=kernels,
+                            flash=flash)
+        e = e + h
+        return e + mlp_apply(lp["mlp"], rms_norm(e, lp["ln2"]), "gelu")
+
+    layer_fn = remat(body, cfg.remat_policy if _recording(params)
+                     else "none")
     e = frames + params["enc_pos"][:frames.shape[1]]
     for lp in params["enc_layers"]:
-        h, _ = A.attn_apply(lp["attn"], rms_norm(e, lp["ln1"]),
-                            _noncausal_cfg(cfg), kernels=kernels)
-        e = e + h
-        e = e + mlp_apply(lp["mlp"], rms_norm(e, lp["ln2"]), "gelu")
+        e = layer_fn(e, lp)
     return rms_norm(e, params["enc_ln_f"])
 
 

@@ -1,0 +1,210 @@
+"""Optimizers over the reference's parameter leaves (no library optimizer).
+
+* ``adamw``      — the trainer for the archs of at most 100 B parameters.
+* ``adafactor``  — a factored second moment: the state of a matrix is
+  O(rows + cols) instead of O(rows·cols), the only optimizer whose state
+  fits the trillion-parameter MoEs.
+
+Each is an ``(init, update)`` pair over a tree whose leaves are the
+reference's (``core.tree``): a model is taken through its ``ref_leaves()``,
+so ``layers/attn/wq`` is one leaf of L rows although the port keeps one
+tensor a layer.  That matters to adafactor, whose math sees the stacked
+leaf: ``_factored`` tests the stacked rank (a layer's (dm,) norm is an (L,
+dm) leaf and is factored across the layer axis, its ``vc`` a mean over the
+layers), and the update clip ``rms_u`` is one RMS over the whole stacked
+leaf.  adamw is elementwise.  Both work a layer at a time: ``rms_u`` is a
+sum of per-layer sums, and each layer's update is computed again after it
+rather than held, so no stacked copy of a gradient is made.
+
+The state (:class:`OptState`) holds, per leaf path, the reference's state
+arrays as :class:`~repro_torch.core.tree.Leaf` s: per-layer rows where the
+reference's array has the layer axis first (adamw's ``m``/``v``,
+adafactor's ``vr``, and ``vc`` of a leaf whose rows are matrices), one
+tensor where it has not (``vc`` of a stacked vector leaf, (dm,)).  So it
+converts to and from the reference's ``OptState`` shapes
+(``convert.opt_state_from_arrays``).  ``update`` writes the parameters and
+the state in place (the reference donates both) and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.tree import Leaf
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor       # () int32
+    inner: dict              # leaf path → {state name → Leaf}
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], OptState]
+    update: Callable[[dict, OptState, Any], tuple[Any, OptState]]
+    name: str = ""
+
+
+def param_leaves(params) -> dict[str, Leaf]:
+    """A model's (``ref_leaves()``) or a dict's leaves by path."""
+    if hasattr(params, "ref_leaves"):
+        return params.ref_leaves()
+    return dict(params)
+
+
+def _zeros(leaf: Leaf, drop: int | None = None) -> Leaf:
+    """fp32 zeros shaped as the leaf's rows, with the row dim ``drop``
+    (−1 or −2 of the reference's shape) left out."""
+    def z(t):
+        shape = list(t.shape)
+        if drop is not None:
+            del shape[drop]
+        return torch.zeros(shape, dtype=torch.float32, device=t.device)
+    return Leaf([z(t) for t in leaf.tensors], leaf.stacked)
+
+
+def _lr_at(lr, step: torch.Tensor):
+    return lr(step) if callable(lr) else lr
+
+
+def _step_of(state: OptState) -> tuple[torch.Tensor, torch.Tensor]:
+    step = state.step + 1
+    return step, step.to(torch.float32)
+
+
+def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.01) -> Optimizer:
+    def init(params):
+        leaves = param_leaves(params)
+        return OptState(torch.zeros((), dtype=torch.int32),
+                        {path: {"m": _zeros(leaf), "v": _zeros(leaf)}
+                         for path, leaf in leaves.items()})
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step, t = _step_of(state)
+        lr_t = _lr_at(lr, step)
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        for path, leaf in param_leaves(params).items():
+            s = state.inner[path]
+            for p, g, m, v in zip(leaf.tensors, grads[path],
+                                  s["m"].tensors, s["v"].tensors):
+                g = g.float()
+                m.copy_(b1 * m + (1 - b1) * g)
+                v.copy_(b2 * v + (1 - b2) * g * g)
+                dev = p.device
+                upd = (m / c1.to(dev)) / (torch.sqrt(v / c2.to(dev)) + eps) \
+                    + weight_decay * p.float()
+                p.copy_(p.float() - _on(lr_t, dev) * upd)
+        return params, OptState(step, state.inner)
+
+    return Optimizer(init, update, "adamw")
+
+
+def _on(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
+              eps: float = 1e-30, clip_threshold: float = 1.0,
+              weight_decay: float = 0.0) -> Optimizer:
+    """Adafactor (Shazeer & Stern 2018), factored over the last two dims of
+    every leaf of reference rank ≥ 2."""
+    def _factored(leaf: Leaf) -> bool:
+        return len(leaf.shape) >= 2
+
+    def init(params):
+        def leaf_state(leaf):
+            if not _factored(leaf):
+                return {"v": _zeros(leaf)}
+            if leaf.stacked and leaf.tensors[0].ndim == 1:
+                # (L, n): vc (n,) is shared by the rows
+                t = leaf.tensors[0]
+                return {"vr": _zeros(leaf, -1),
+                        "vc": Leaf([torch.zeros(t.shape, dtype=torch.float32,
+                                                device=t.device)], False)}
+            return {"vr": _zeros(leaf, -1), "vc": _zeros(leaf, -2)}
+        leaves = param_leaves(params)
+        return OptState(torch.zeros((), dtype=torch.int32),
+                        {path: leaf_state(leaf)
+                         for path, leaf in leaves.items()})
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step, t = _step_of(state)
+        beta = 1.0 - t ** -decay
+        lr_t = _lr_at(lr, step)
+        for path, leaf in param_leaves(params).items():
+            _update_leaf(leaf, grads[path], state.inner[path], beta, lr_t)
+        return params, OptState(step, state.inner)
+
+    def _update_leaf(leaf, grads, s, beta, lr_t):
+        dev = leaf.tensors[0].device
+        beta = beta.to(dev)
+        lr_t = _on(lr_t, dev)
+        rows = list(zip(leaf.tensors, grads))
+
+        def g2(g):
+            g = g.float()
+            return g, g * g + eps
+
+        if not _factored(leaf):
+            for (_, g), v in zip(rows, s["v"].tensors):
+                g, sq = g2(g)
+                v.copy_(beta * v + (1 - beta) * sq)
+
+            def u_of(i, g):
+                return g.float() * torch.rsqrt(s["v"].tensors[i] + eps)
+        elif leaf.stacked and leaf.tensors[0].ndim == 1:
+            # vr (L,): a row's mean; vc (n,): the mean over the rows; rfac
+            # relative to the mean of vr over the rows
+            vc = s["vc"].tensors[0]
+            col = torch.zeros_like(vc)
+            for (_, g), vr in zip(rows, s["vr"].tensors):
+                g, sq = g2(g)
+                vr.copy_(beta * vr + (1 - beta) * torch.mean(sq, dim=-1))
+                col += sq
+            vc.copy_(beta * vc + (1 - beta) * (col / len(rows)))
+            vr_mean = torch.stack(s["vr"].tensors).mean()
+
+            def u_of(i, g):
+                rfac = s["vr"].tensors[i] / vr_mean
+                return g.float() * torch.rsqrt(rfac * vc + eps)
+        else:
+            for (_, g), vr, vc in zip(rows, s["vr"].tensors,
+                                      s["vc"].tensors):
+                g, sq = g2(g)
+                vr.copy_(beta * vr + (1 - beta) * torch.mean(sq, dim=-1))
+                vc.copy_(beta * vc + (1 - beta) * torch.mean(sq, dim=-2))
+
+            def u_of(i, g):
+                vr, vc = s["vr"].tensors[i], s["vc"].tensors[i]
+                rfac = (vr / torch.mean(vr, dim=-1, keepdim=True))[..., None]
+                return g.float() * torch.rsqrt(rfac * vc[..., None, :] + eps)
+
+        # one RMS over the whole leaf, from per-row sums; then each row's
+        # update again, clipped
+        total = sum(torch.sum(torch.square(u_of(i, g)))
+                    for i, (_, g) in enumerate(rows))
+        count = sum(g.numel() for _, g in rows)
+        rms_u = torch.sqrt(total / count + eps)
+        clip = torch.clamp(rms_u / clip_threshold, min=1.0)
+        for i, (p, g) in enumerate(rows):
+            u = u_of(i, g) / clip
+            newp = p.float() - lr_t * u
+            if weight_decay:
+                newp = newp - lr_t * weight_decay * p.float()
+            p.copy_(newp)
+
+    return Optimizer(init, update, "adafactor")
+
+
+def optimizer_for(cfg, lr=None) -> Optimizer:
+    """The reference's policy: adafactor for models above 100 B parameters
+    (its state must fit the device memory), adamw for the rest."""
+    total, _ = cfg.param_count()
+    if total > 100e9:
+        return adafactor(lr or 1e-2)
+    return adamw(lr or 3e-4)

@@ -1724,3 +1724,73 @@ def test_broadcast_plane_on_the_card(card, tmp_path):
         rec = json.loads((out / f"rank{r}.json").read_text())
         assert rec["resumed_segments"] == 2                # sites 2..6
         assert rec["launches"] == {"site_step_linear": mps.n_sites + 4}
+
+@pytest.mark.parametrize("vocab", [1, 128, 49155, 2 ** 31 - 1])
+def test_randint_and_token_stream_on_the_card(card, vocab):
+    """``prng.randint`` and the synthetic token stream give the CPU's bits
+    on the card."""
+    from repro_torch.data.tokens import synthetic_token_stream
+
+    for seed, step in ((0, 0), (7, 123)):
+        want = synthetic_token_stream(seed, vocab, 3, 257)(step)
+        got = synthetic_token_stream(seed, vocab, 3, 257, card)(step)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), want[k])
+    assert torch.equal(prng.randint(prng.key(5), (4, 1000), -9, 2 ** 31 - 1,
+                                    card).cpu(),
+                       prng.randint(prng.key(5), (4, 1000), -9, 2 ** 31 - 1))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-1.3b",
+                                  "whisper-small"])
+def test_train_step_on_the_card(card, arch):
+    """One fp32 ``make_train_step`` of the smoke config on the card against
+    the same step on the CPU from the same weights and batch: loss and
+    gnorm within rtol 1e-5, each leaf's gradient within 1e-4 of its
+    largest |g|; the updated weights within lr·1e-2 where |g| is above
+    1e-2 of its leaf's largest, within 2·lr elsewhere (adamw divides m by
+    √v: a gradient a rounding away from 0 may move its weight by lr
+    either way; the CPU tests' rule); the flash kernel is not launched."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import stub_inputs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype=torch.float32, remat_policy="dots")
+    cpu = T.init_params(0, cfg, "cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    batch = {**synthetic_token_stream(3, cfg.vocab, 2, 16)(0),
+             **stub_inputs(cfg, 2, 0, "cpu")}
+    out = {}
+    ops.reset_launches()
+    for where, params in (("cpu", cpu), ("card", gpu)):
+        _, _, grads = steps.loss_and_grads(
+            params, {k: v.to(params.device) for k, v in batch.items()}, cfg)
+        opt = optimizers.adamw(1e-3)
+        _, _, m = steps.make_train_step(cfg, opt)(
+            params, opt.init(params),
+            {k: v.to(params.device) for k, v in batch.items()})
+        out[where] = (grads, m)
+    assert ops.launch_counts()["flash_attention"] == 0
+    for name in ("loss", "gnorm"):
+        assert float(out["card"][1][name]) == pytest.approx(
+            float(out["cpu"][1][name]), rel=1e-5)
+    for path, rows in out["cpu"][0].items():
+        want = torch.stack(rows)
+        got = torch.stack(out["card"][0][path]).cpu()
+        scale = float(want.abs().max()) or 1.0
+        assert float((got - want).abs().max()) <= 1e-4 * scale, path
+    for (path, a), (_, b) in zip(cpu.ref_leaves().items(),
+                                 gpu.ref_leaves().items()):
+        g = torch.stack(out["cpu"][0][path]).abs()
+        d = (b.full().cpu() - a.full()).abs().reshape(g.shape)
+        assert float(d.max()) <= 2e-3, path
+        big = g > 1e-2 * g.max()
+        assert not big.any() or float(d[big].max()) <= 1e-5, path

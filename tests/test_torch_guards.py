@@ -42,7 +42,8 @@ def _imported_modules(path: Path):
 
 def test_import_scan_covers_every_package():
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"shard", "serve", "api", "engine", "launch"} <= scanned
+    assert {"shard", "serve", "api", "engine", "launch", "optim",
+            "checkpoint", "data"} <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
