@@ -283,6 +283,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               gateway's 2 sites (hard-linked under ``build/``), whose one
               request by the store's name gives the in-process job's
               samples;
+    dryrun  — ``python -m repro_torch.launch.dryrun --gbs --mesh single``
+              limited to b-m288, and the same with ``--gbs-opt``: two
+              child processes started after phase build and read here (the
+              other phases keep their process groups); each walks dp,
+              tp_single and tp_double as rank 0 of a fake 256-rank group
+              on fake tensors on the card; each cell's ``summarize()``
+              line, the child's wall time, each cell's
+              ``flops_per_device`` == ``dryrun.gbs_flops``' closed form,
+              and no device memory allocated by the child's walks
+              (``torch.cuda.max_memory_allocated() == 0`` at its end,
+              counted from after torch's fake-tensor context, whose one
+              real element the child reports apart);
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line (the flash entry's launches: a
@@ -350,6 +362,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -369,13 +382,13 @@ CHI, D = 10_000, 4
 LINEAR_SITES, LINEAR_N = 8, 1024
 BORN_SITES, BORN_N = 4, 512
 
-# NVIDIA H100 SXM data sheet (dense): HBM3 bandwidth, the FP64 tensor-core
-# peak (the card's fp64 GEMM rate), fp32 outside the tensor cores, and the
-# bf16 tensor-core peak
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FP64_FLOPS = 67e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+# NVIDIA H100 SXM data sheet (dense), at 700 W: HBM3 bandwidth, the FP64
+# tensor-core peak (the card's fp64 GEMM rate), fp32 outside the tensor
+# cores, and the bf16 tensor-core peak (the dry run's roofline constants)
+sys.path.insert(0, str(SRC))
+from repro_torch.launch.costs import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                      PEAK_FLOPS as PEAK_BF16_FLOPS,
+                                      PEAK_FP32_FLOPS, PEAK_FP64_FLOPS)
 
 # the stream phase: jiuzhang2 at full width with the depth cut to 24 sites,
 # a bf16 GammaStore of 19.2 GB on disk that decodes to 76.8 GB of fp64
@@ -451,6 +464,12 @@ TRAIN_GRAD_TOL = 1e-4         # of a leaf's largest |g|, the CPU tests' fp32
 TRAIN_SSM = ("mamba2-1.3b", 2, 4096, 3)
 TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
+
+# the dryrun phase: the GBS preset its two children walk (plain and
+# --gbs-opt) on the 16×16 mesh, and their time limit from their start
+DRYRUN_PRESET = "b-m288"
+DRYRUN_SECONDS = 900
+DRYRUN_ARGS = ()              # more flags for the children
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -5509,14 +5528,112 @@ def phase_cli(gateway) -> dict:
     return served
 
 
+def dryrun_start() -> dict:
+    """Start phase dryrun's two children (plain and ``--gbs-opt``); each
+    writes its log and its JSONs under ``build/dryrun_torch/``."""
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    children = {}
+    for flag in ("--gbs", "--gbs-opt"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", flag,
+               "--mesh", "single", "--preset", DRYRUN_PRESET, "--force",
+               "--out", str(out), *DRYRUN_ARGS]
+        t0 = time.perf_counter()
+        with open(out / f"{flag[2:]}.log", "w") as log:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT, text=True)
+        rec = {"proc": proc, "log": out / f"{flag[2:]}.log", "t0": t0}
+        rec["watch"] = threading.Thread(target=_dryrun_watch, args=(rec,),
+                                        daemon=True)
+        rec["watch"].start()
+        children[flag] = rec
+    return {"out": out, "children": children}
+
+
+def _dryrun_watch(rec: dict) -> None:
+    rec["proc"].wait()
+    rec["wall_s"] = time.perf_counter() - rec["t0"]
+
+
+def dryrun_stop(started: dict) -> None:
+    """Kill a child still running (a phase before this one failed)."""
+    for rec in started["children"].values():
+        if rec["proc"].poll() is None:
+            rec["proc"].kill()
+            rec["proc"].wait()
+
+
+def phase_dryrun(started: dict) -> dict:
+    """Read the two children: their summaries, wall times, each cell's
+    FLOPs against the closed form, and the device memory they allocated."""
+    from repro_torch.configs import gbs
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    preset = gbs.PRESETS[DRYRUN_PRESET]
+    result = {}
+    for flag, rec in started["children"].items():
+        left = DRYRUN_SECONDS - (time.perf_counter() - rec["t0"])
+        rec["watch"].join(timeout=max(left, 1.0))
+        if rec["watch"].is_alive():
+            dryrun_stop(started)
+            check(False, f"dryrun {flag}: still running after "
+                  f"{DRYRUN_SECONDS} s")
+        text = rec["log"].read_text()
+        lines = [ln for ln in text.splitlines() if ln.startswith("gbs-")]
+        for ln in lines:
+            print(f"dryrun {flag}: {ln}", flush=True)
+        print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
+              f"{rec['proc'].returncode}", flush=True)
+        check(rec["proc"].returncode == 0 and len(lines) == len(DR.SCHEMES),
+              f"dryrun {flag} exited {rec['proc'].returncode}: "
+              f"{text[-3000:]}")
+        peak = re.search(r"peak device memory allocated: (\d+) bytes.*",
+                         text)
+        print(f"dryrun {flag}: {peak and peak.group(0)}", flush=True)
+        check(peak is not None and int(peak.group(1)) == 0,
+              f"dryrun {flag}: the child allocated device memory "
+              f"({peak and peak.group(0)})")
+        opt = flag == "--gbs-opt"
+        cells = {}
+        for scheme in DR.SCHEMES:
+            path = started["out"] / (f"gbs-{DRYRUN_PRESET}__{scheme}"
+                                     f"{'_opt' if opt else ''}__single.json")
+            r = json.loads(path.read_text())
+            check("error" not in r, f"dryrun {path.name}: {r.get('error')}")
+            want = DR.gbs_flops(preset, scheme, opt, r["n_samples"] // (
+                256 if scheme == "dp" else 16))
+            got = r["hlo"]["flops_per_device"]
+            check(got == want, f"dryrun {path.name}: flops_per_device {got} "
+                  f"!= the closed form {want}")
+            cells[scheme] = {"flops_per_device": got,
+                             "bytes_per_device": r["bytes_per_device"],
+                             "n_collectives": r["hlo"]["n_collectives"],
+                             "walk_s": r["compile_s"],
+                             "roofline": r["roofline"]}
+        result[flag[2:]] = {"wall_s": rec["wall_s"], "peak_allocated": 0,
+                            "cells": cells}
+    _phase("dryrun", t0)
+    return result
+
+
 def main() -> int:
+    device = phase_device()
+    ptxas, mma = phase_build()
+    dryrun = dryrun_start()
+    try:
+        return _main(device, ptxas, mma, dryrun)
+    finally:
+        dryrun_stop(dryrun)
+
+
+def _main(device, ptxas, mma, dryrun) -> int:
     import torch.distributed as dist
 
-    device = phase_device()
-    sys.path.insert(0, str(SRC))
     from repro_torch.obs import MetricsRegistry
 
-    ptxas, mma = phase_build()
     phase_small(device)
     mesh = phase_nccl(device)
     registry = MetricsRegistry()
@@ -5570,6 +5687,7 @@ def main() -> int:
     finally:
         shutil.rmtree(gateway["store_root"], ignore_errors=True)
     del gateway["samples"]
+    dry = phase_dryrun(dryrun)
     for entry, prefix in ((linear, "collapse_f64_kernel"),
                           (born, "contract_c128_kernel"),
                           (tp_entries[0], "contract_f64_kernel"),
@@ -5633,6 +5751,7 @@ def main() -> int:
             "contract_measure"]}
     print("stream:", json.dumps(stream))
     print("service:", json.dumps(service))
+    print("dryrun:", json.dumps(dry))
     entries = [linear, born, *tp_entries, *bf16_entries, displacement,
                flash]
     print("kernels:", json.dumps(entries))

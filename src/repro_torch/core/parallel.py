@@ -367,7 +367,7 @@ def sample_segment(mesh, mps: MPS, env: torch.Tensor, key: torch.Tensor,
         log_scale = torch.zeros((n_samples,), dtype=real_dtype_of(env.dtype),
                                 device=env.device)
     start = int(start_site)
-    shard_key = prng.split(key, p1)[C.axis_index(data)]
+    shard_key = prng.split_at(key, p1, C.axis_index(data))
     env_l = _shard(env, data, 0)
     ls_l = _shard(log_scale, data, 0)
 
@@ -399,7 +399,9 @@ def segment_env_init(n_samples: int, chi: int, gamma_dtype: torch.dtype,
     """Boundary environment for site 0: one-hot row 0, the full view."""
     env = torch.zeros((n_samples, chi), dtype=_env_dtype(gamma_dtype),
                       device=device)
-    env[:, 0] = 1.0
+    # fill_, not ``env[:, 0] = 1.0``: indexing assignment makes its scalar a
+    # real tensor on the device, even under the dry run's fake tensors
+    env[:, 0].fill_(1.0)
     return env
 
 

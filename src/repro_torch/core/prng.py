@@ -13,6 +13,12 @@ same words ``jax.random.key_data`` shows.  Keys live on the CPU (they are
 two words); ``uniform`` builds its counters on the requested device and
 hashes them with torch integer ops, so the CPU and the card give the same
 bits.  uint32 arithmetic is carried in int64 and masked to 32 bits.
+
+Keys stay real tensors under a ``FakeTensorMode`` (the dry run's,
+``launch/dryrun.py``): :func:`key`, :func:`fold_in`, :func:`split` and
+:func:`split_at` derive them with the fake mode unset, so a key's words can
+be read on the host at every site; only the draws of :func:`uniform` and
+its kin become fake.  Without a fake mode the unset is a no-op.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -51,7 +58,8 @@ def _words(key: torch.Tensor) -> tuple[int, int]:
 
 
 def _as_key(k1, k2) -> torch.Tensor:
-    return torch.tensor([int(k1), int(k2)], dtype=torch.int64)
+    with unset_fake_temporarily():
+        return torch.tensor([int(k1), int(k2)], dtype=torch.int64)
 
 
 def key(seed: int) -> torch.Tensor:
@@ -70,9 +78,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): key i hashes counter (0, i).
     Returns ``(num, 2)`` keys."""
     k1, k2 = _words(key)
-    lo = torch.arange(num, dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack([b1, b2], dim=1)
+    with unset_fake_temporarily():
+        lo = torch.arange(num, dtype=torch.int64)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        return torch.stack([b1, b2], dim=1)
+
+
+def split_at(key: torch.Tensor, num: int, index: int) -> torch.Tensor:
+    """``split(key, num)[index]``, indexed with any fake mode unset."""
+    keys = split(key, num)
+    with unset_fake_temporarily():
+        return keys[int(index)]
 
 
 def _bits(key: torch.Tensor, size: int, device, offset: int = 0) -> tuple:

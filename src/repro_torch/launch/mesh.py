@@ -10,6 +10,10 @@ through the host for the other device type.
 ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment) or, without one, makes
 a one-rank group in this process.  A caller that has already called
 ``torch.distributed.init_process_group`` (with its own store) keeps it.
+
+:func:`make_production_mesh` builds the production meshes of the dry run
+(16×16 and 2×16×16) over a fake process group in this process, the
+counterpart of the JAX package's 512 placeholder CPU devices.
 """
 from __future__ import annotations
 
@@ -90,12 +94,14 @@ class Mesh:
         return self.flat[axis]
 
 
-def _flat_groups(shape: tuple[int, ...], names: tuple[str, ...]) -> dict:
-    """The groups of the non-"model" axes flattened into one line, for
-    every other coordinate.  Ranks lie row-major on the mesh (as
-    ``init_device_mesh`` lays them), so a line's sorted ranks are in the
-    axes' order; every rank makes every group, in the same order."""
-    axes = tuple(n for n in names if n != "model")
+def _flat_groups(shape: tuple[int, ...], names: tuple[str, ...],
+                 axes: tuple[str, ...] | None = None) -> dict:
+    """The groups of ``axes`` (by default the non-"model" axes) flattened
+    into one line, for every other coordinate.  Ranks lie row-major on the
+    mesh (as ``init_device_mesh`` lays them), so a line's sorted ranks are
+    in the axes' order; every rank makes every group, in the same order."""
+    if axes is None:
+        axes = tuple(n for n in names if n != "model")
     if len(axes) < 2:
         return {}
     idx = [names.index(a) for a in axes]
@@ -154,6 +160,50 @@ def make_pod_mesh(pods: int, model: int = 1,
                          f"{world} ranks of the job")
     return device_mesh((pods, world // (pods * model), model),
                        ("pod", "data", "model"), dev)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
+    """The production mesh: 16×16 over ("data", "model"), or 2×16×16 over
+    ("pod", "data", "model") with ``multi_pod``, built over a fake process
+    group of 256 or 512 ranks in this process, as rank 0 (the JAX
+    package's ``--xla_force_host_platform_device_count=512``).  Its
+    collectives move nothing: it is for the dry run's fake tensors.  Besides
+    the data axes' flattened line, the mesh holds the line of all its axes
+    (the dp scheme shards the samples over every axis).
+
+    Refuses to run when a default process group exists: it never joins or
+    replaces a real one.  The caller ends the fake group with
+    ``torch.distributed.destroy_process_group()``."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists; the production "
+                           "mesh is built over a fake group of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = local_device(device)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(np.prod(shape)))
+    try:
+        dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+        flat = {**_flat_groups(shape, names),
+                **_flat_groups(shape, names, names)}
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    return Mesh(dm, dev, flat)
+
+
+def data_axis_names(mesh: Mesh) -> tuple[str, ...]:
+    return tuple(ax for ax in mesh.axis_names if ax != "model")
+
+
+def data_parallel_size(mesh: Mesh) -> int:
+    out = 1
+    for ax in data_axis_names(mesh):
+        out *= mesh.shape[ax]
+    return out
 
 
 def make_host_mesh(model: int = 1, device: DeviceLike = None) -> Mesh:

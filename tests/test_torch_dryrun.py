@@ -1,0 +1,305 @@
+"""The port's GBS dry run (``repro_torch.launch.dryrun``) against the JAX
+package's ``run_gbs_cell``, its production meshes over a fake process
+group, its keys under fake tensors, and ``launch/report.py``.
+
+The reference runs in a subprocess: its import sets ``XLA_FLAGS`` (512
+placeholder devices) before jax starts, and ``tests/conftest.py`` has
+already started jax here.  Both walk a tiny preset (4 sites, χ 64, d 4,
+16 samples a data shard) on the 16×16 and 2×16×16 meshes.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+torch = pytest.importorskip("torch")
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+from repro.launch import report as ref_report
+from repro_torch.configs import gbs
+from repro_torch.core import prng
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import report
+from repro_torch.launch.mesh import (data_axis_names, data_parallel_size,
+                                     make_production_mesh)
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = gbs.GBSPreset("tiny", 4, 64, 4, 4096, 1.0)
+MICRO = 16
+CELLS = [(s, mk, opt) for s in DR.SCHEMES for mk in ("single", "multi")
+         for opt in (False, True)]
+
+REFERENCE = """
+import json, sys
+from repro.configs import gbs
+from repro.launch import dryrun as D
+gbs.PRESETS["tiny"] = gbs.GBSPreset("tiny", 4, 64, 4, 4096, 1.0)
+out = {}
+for scheme in ("dp", "tp_single", "tp_double"):
+    for mk in ("single", "multi"):
+        for opt in (False, True):
+            out[f"{scheme}-{mk}-{opt}"] = D.run_gbs_cell(
+                "tiny", scheme, mk, force=True, out_root=sys.argv[1],
+                micro_batch=16, optimized=opt)
+print(json.dumps(out))
+"""
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                JAX_PLATFORMS="cpu")
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_dryrun")
+    proc = subprocess.run([sys.executable, "-c", REFERENCE, str(out)],
+                          env=_env(), cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    monkeypatch.setitem(gbs.PRESETS, "tiny", TINY)
+    assert not dist.is_initialized()
+
+
+def _port_cell(scheme, mk, opt, out):
+    r = DR.run_gbs_cell("tiny", scheme, mk, force=True, out_root=str(out),
+                        micro_batch=MICRO, optimized=opt, device="cpu")
+    assert "error" not in r, r.get("traceback")
+    assert not dist.is_initialized()          # the fake group ended with it
+    return r
+
+
+def _ring(g):
+    return (g - 1) / g
+
+
+def _hand_wire(scheme, multi, opt):
+    """(per-kind wire bytes of the chain, of the end-of-segment gathers):
+    n = 16 samples a shard, χ = 64, d = 4, M = 4, p₂ = 16; probs (n, d),
+    pmax (n, 1) and log_scale (n,) fp32, the wire dtype bf16 with
+    ``--gbs-opt``; samples int64."""
+    n, chi, d, m, p2 = MICRO, 64, 4, 4, 16
+    p1 = (512 if multi else 256) if scheme == "dp" else (32 if multi else 16)
+    w = 2 if opt else 4
+    chain = {}
+    if scheme == "tp_single":
+        chain["all-reduce"] = m * 2 * (n * d * 4 + n * 4) * _ring(p2)
+        chain["reduce-scatter"] = m * n * (chi // p2) * w * (p2 - 1)
+    elif scheme == "tp_double":
+        chain["all-reduce"] = (m // 2 * 2 * (n * chi * d * w + n * d * 4
+                                             + n * 4) * _ring(p2))
+    gathers = (p1 * m * n * 8 + p1 * n * chi * 4 + p1 * n * 4) * _ring(p1)
+    if scheme != "dp":
+        gathers += n * chi * 4 * _ring(p2)       # the model axis' env
+    return chain, gathers
+
+
+@pytest.mark.parametrize("scheme,mk,opt", CELLS,
+                         ids=[f"{s}-{mk}-{'opt' if o else 'plain'}"
+                              for s, mk, o in CELLS])
+def test_gbs_cell_against_the_reference(reference, tiny, tmp_path, scheme,
+                                        mk, opt):
+    """FLOPs within 0.1% of the reference (and equal to the closed form);
+    dp's and tp_single's chain collectives are the reference's kinds and
+    counts, tp_double's the port's own; wire bytes to a hand count, the
+    end-of-segment all-gathers apart."""
+    want = reference[f"{scheme}-{mk}-{opt}"]
+    got = _port_cell(scheme, mk, opt, tmp_path)
+    h, rh = got["hlo"], want["hlo"]
+    assert h["flops_per_device"] == pytest.approx(rh["flops_per_device"],
+                                                  rel=1e-3)
+    assert h["flops_per_device"] == DR.gbs_flops(TINY, scheme, opt, MICRO)
+    assert (got["n_chips"], got["n_samples"], got["model_flops"]) == (
+        want["n_chips"], want["n_samples"], want["model_flops"])
+
+    gathers = h["end_gathers"]
+    assert gathers["n"] == (3 if scheme == "dp" else 4)
+    assert h["n_collectives"]["all-gather"] == gathers["n"]
+    chain = {k: v for k, v in h["n_collectives"].items() if k != "all-gather"}
+    if scheme == "tp_double":
+        # XLA reshards the even sites' Γ with one all-to-all; the port holds
+        # Γ whole on every rank and narrows it in place
+        assert chain == {"all-reduce": 6}
+        assert rh["n_collectives"] == {"all-reduce": 6.0, "all-to-all": 1.0}
+    else:
+        assert chain == rh["n_collectives"]
+
+    wire, end = _hand_wire(scheme, mk == "multi", opt)
+    per = {k: v for k, v in h["per_collective"].items() if k != "all-gather"}
+    assert per == pytest.approx(wire, rel=1e-12)
+    assert gathers["wire_bytes"] == pytest.approx(end, rel=1e-12)
+    assert h["per_collective"]["all-gather"] == pytest.approx(end, rel=1e-12)
+    total = sum(wire.values()) + end
+    assert h["collective_wire_bytes_per_device"] == pytest.approx(total,
+                                                                  rel=1e-12)
+    # every group of the 16×16 and 2×16×16 meshes spans several nodes
+    assert h["wire_bytes_by_link"]["nvlink"] == 0.0
+    assert "upcast_bytes_per_device" not in h
+    assert "t_memory_tpu_adj_s" not in got["roofline"]
+    assert set(got) >= set(want) - {"traceback"}
+    assert got["bytes_per_device"]["aliased"] == 0
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+def test_production_mesh_groups(multi):
+    """The mesh over a fake group of 256 or 512 ranks, this process rank 0:
+    the data axes' flattened line, and the line of every axis (dp)."""
+    assert not dist.is_initialized()
+    mesh = make_production_mesh(multi_pod=multi, device="cpu")
+    try:
+        n = 512 if multi else 256
+        assert dist.get_backend() == "fake" and dist.get_world_size() == n
+        assert mesh.axis_names == (("pod", "data", "model") if multi
+                                   else ("data", "model"))
+        assert data_axis_names(mesh) == mesh.axis_names[:-1]
+        assert data_parallel_size(mesh) == n // 16
+        every = mesh.group(mesh.axis_names)
+        assert (dist.get_world_size(every), dist.get_rank(every)) == (n, 0)
+        data = mesh.group(data_axis_names(mesh))
+        assert dist.get_world_size(data) == n // 16
+        assert dist.get_process_group_ranks(data) == list(range(0, n, 16))
+        assert dist.get_world_size(mesh.group("model")) == 16
+    finally:
+        dist.destroy_process_group()
+
+
+def test_production_mesh_never_joins_a_real_group(tiny, tmp_path):
+    """With a default group up, the mesh refuses and the cell records the
+    refusal; the real group is left as it was."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="process group exists"):
+            make_production_mesh(device="cpu")
+        r = DR.run_gbs_cell("tiny", "dp", "single", force=True,
+                            out_root=str(tmp_path), micro_batch=MICRO,
+                            device="cpu")
+        assert "process group exists" in r["error"]
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+
+
+ALLOCATES = """
+import json, resource, sys
+from repro_torch.configs import gbs
+from repro_torch.launch import dryrun as D
+gbs.PRESETS["wide"] = gbs.GBSPreset("wide", 2, 2048, 4, 1, 1.0)
+D.run_gbs_cell("wide", "tp_single", "single", force=True,
+               out_root=sys.argv[1], micro_batch=2, device="cpu")
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+r = D.run_gbs_cell("wide", sys.argv[2], "single", force=True,
+                   out_root=sys.argv[1], micro_batch=64, device="cpu")
+grew = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+print(json.dumps({"grew_kib": grew, "error": r.get("error"),
+                  "peak": r["bytes_per_device"]["peak_estimate"]}))
+"""
+
+
+@pytest.mark.parametrize("scheme", ["dp", "tp_double"])
+def test_the_dry_run_allocates_nothing(tmp_path, scheme):
+    """A cell whose arrays would take over 100 MB (χ = 2048: Γ alone is
+    134 MB; dp's env 16384 × 2048 fp32 as much again) leaves the process's
+    peak RSS within 16 MB of where a warm-up cell left it."""
+    proc = subprocess.run([sys.executable, "-c", ALLOCATES, str(tmp_path),
+                           scheme], env=_env(), cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert r["error"] is None
+    assert r["peak"] > 100e6
+    assert r["grew_kib"] * 1024 < 16e6
+
+
+def test_keys_stay_real_under_fake_tensors():
+    """Key derivation runs with the fake mode unset (the words are read on
+    the host at every site); the draws are fake.  Outside the mode the
+    functions are the plain ones."""
+    k = prng.key(7)
+    want = (prng.fold_in(k, 3), prng.split(k, 4), prng.split(k, 4)[2])
+    with FakeTensorMode():
+        got = (prng.fold_in(prng.key(7), 3), prng.split(k, 4),
+               prng.split_at(k, 4, 2))
+        sub = prng.fold_in(got[2], 5)
+        u = prng.uniform(sub, (6, 1), dtype=torch.float32)
+    for g, w in zip(got, want):
+        assert not isinstance(g, FakeTensor)
+        assert torch.equal(g, w)
+    assert torch.equal(sub, prng.fold_in(prng.split(k, 4)[2], 5))
+    assert isinstance(u, FakeTensor) and u.shape == (6, 1)
+
+
+def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
+                                                    monkeypatch, capsys):
+    """``--gbs --mesh single`` writes a JSON a scheme, ``--gbs-opt`` three
+    more; the report's roofline table has a row each."""
+    monkeypatch.setattr(DR, "PRESETS", ("tiny",))
+    for flag in ("--gbs", "--gbs-opt"):
+        assert DR.main([flag, "--mesh", "single", "--preset", "tiny",
+                        "--device", "cpu", "--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 6 and all(" ok " in ln for ln in lines)
+    names = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert names == sorted(f"gbs-tiny__{s}{o}__single.json"
+                           for s in DR.SCHEMES for o in ("", "_opt"))
+    report.main(["--dir", str(tmp_path)])
+    table = capsys.readouterr().out.splitlines()
+    assert len(table) == 2 + 6
+    assert all(row.startswith("| gbs-tiny | ") for row in table[2:])
+
+
+@pytest.mark.parametrize("flags", [["--arch", "granite-3-2b"], ["--all"],
+                                   ["--shape", "train_4k"],
+                                   ["--remat-block", "4"]])
+def test_lm_cells_are_row_19b(flags):
+    with pytest.raises(ValueError, match="row 19b"):
+        DR.main(flags)
+
+
+def _rows():
+    ok = {"arch": "gbs-b-m288", "shape": "tp_single", "mesh": "16x16",
+          "n_chips": 256, "compile_s": 17.3,
+          "bytes_per_device": {"peak_estimate": 469000390656},
+          "hlo": {"flops_per_device": 59076771840000.0,
+                  "collective_wire_bytes_per_device": 47034040320.0,
+                  "n_collectives": {"all-reduce": 576, "reduce-scatter": 288,
+                                    "all-gather": 4}},
+          "roofline": {"t_compute_s": 0.0597, "t_memory_s": 0.2548,
+                       "t_collective_s": 0.9407, "bottleneck": "collective",
+                       "model_flops": 1.50994944e16,
+                       "hlo_flops": 1.512365359104e16,
+                       "useful_ratio": 0.9984}}
+    multi = dict(ok, mesh="2x16x16", n_chips=512)
+    fail = {"arch": "gbs-m8176", "shape": "dp", "mesh": "16x16",
+            "error": "RuntimeError: boom"}
+    skip = {"arch": "granite-3-2b", "shape": "long_500k", "mesh": "16x16",
+            "skipped": "not supported"}
+    return [ok, multi, fail, skip]
+
+
+def test_report_tables_on_fixture_jsons(tmp_path):
+    """Both tables, read back from JSON files, are the JAX package's
+    report over the same rows (the roofline header names the counted
+    FLOPs)."""
+    for i, r in enumerate(_rows()):
+        (tmp_path / f"{i}.json").write_text(json.dumps(r))
+    rows = report.load(str(tmp_path))
+    assert rows == _rows()
+    assert report.dryrun_table(rows) == ref_report.dryrun_table(rows)
+    assert report.dryrun_table(rows, "2x16x16").splitlines()[2] == (
+        "| gbs-b-m288 | tp_single | 2x16x16 | 512 | ok | 469.0GB "
+        "| 5.91e+13 | 47.0GB | 868 | 17s |")
+    roof = report.roofline_table(rows)
+    assert roof.replace("counted FLOPs", "HLO_FLOPs") == \
+        ref_report.roofline_table(rows)
+    assert roof.splitlines()[2:] == [
+        "| gbs-b-m288 | tp_single | 59.7ms | 254.8ms | 940.7ms "
+        "| **collective** | 1.51e+16 | 1.51e+16 | 1.00 |"]

@@ -44,6 +44,8 @@ def test_import_scan_covers_every_package():
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"shard", "serve", "api", "engine", "launch", "optim",
             "checkpoint", "data"} <= scanned
+    launch = {p.name for p in PORT_FILES if p.parent.name == "launch"}
+    assert {"costs.py", "dryrun.py", "report.py"} <= launch
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
