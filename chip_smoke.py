@@ -466,10 +466,14 @@ TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
 
 # the dryrun phase: the GBS preset its two children walk (plain and
-# --gbs-opt) on the 16×16 mesh, and their time limit from their start
+# --gbs-opt) on the 16×16 mesh, the LM arch whose cells (prefill_32k,
+# decode_32k; long_500k is skipped) the plain child walks too and a third
+# child walks on the CPU, and their time limit from their start
 DRYRUN_PRESET = "b-m288"
+DRYRUN_LM_ARCH = "granite-3-2b"
+DRYRUN_LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 DRYRUN_SECONDS = 900
-DRYRUN_ARGS = ()              # more flags for the children
+DRYRUN_ARGS = ()              # more flags for the card's children
 
 # the tp phase: (scheme, measure_first) → kernels its walk must launch M times
 TP_WALKS = {("dp", False): ("site_step_linear",),
@@ -1579,14 +1583,16 @@ def _stream_timed(store, device, read_gbps) -> dict:
 
 
 def _segment(mesh, mps, n, key, scheme, measure_first, kernels):
-    """The segment runner over the whole chain: (samples, env, log_scale)."""
+    """The segment runner over the whole chain, a TP rank on its tiles
+    (``parallel.rank_chain``): (samples, env, log_scale)."""
     from repro_torch.core import parallel as PP
     from repro_torch.core import sampler as S
 
     cfg = S.SamplerConfig(semantics=mps.semantics, kernels=kernels)
     pc = PP.ParallelConfig(scheme=scheme, measure_first=measure_first)
     env = PP.segment_env_init(n, mps.chi, mps.gammas.dtype, mps.device)
-    return PP.sample_segment(mesh, mps, env, key, 0, pc, cfg)
+    return PP.sample_segment(mesh, PP.rank_chain(mesh, mps, pc), env, key, 0,
+                             pc, cfg)
 
 
 def _same_walk(name, got, want) -> tuple[float, float]:
@@ -3482,7 +3488,8 @@ def phase_bf16(device, mesh, mps64) -> list:
 
         def tp(kernels, env, ls, i0, i1, pc=pc):
             c = S.SamplerConfig(kernels=kernels, compute_dtype=bf)
-            seg = MPS(m.gammas[i0:i1], m.lambdas[i0:i1])
+            seg = PP.rank_chain(mesh, MPS(m.gammas[i0:i1], m.lambdas[i0:i1]),
+                                pc)
             smp, env, ls = PP.sample_segment(mesh, seg, env, key, i0, pc, c,
                                              log_scale=ls)
             return smp, env, ls
@@ -5529,22 +5536,30 @@ def phase_cli(gateway) -> dict:
 
 
 def dryrun_start() -> dict:
-    """Start phase dryrun's two children (plain and ``--gbs-opt``); each
-    writes its log and its JSONs under ``build/dryrun_torch/``."""
+    """Start phase dryrun's three children: plain (the GBS cells and
+    ``DRYRUN_LM_ARCH``'s) and ``--gbs-opt`` on the card's fake tensors, and
+    the LM cells again on the CPU's; each writes its log and its JSONs
+    under ``build/dryrun_torch/`` (the CPU's under ``cpu/``)."""
     out = ROOT / "build" / "dryrun_torch"
     shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
+    (out / "cpu").mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    lm = ["--arch", DRYRUN_LM_ARCH]
+    gbs = ["--preset", DRYRUN_PRESET]
+    args = {"--gbs": ["--gbs", *gbs, *lm, "--out", str(out), *DRYRUN_ARGS],
+            "--gbs-opt": ["--gbs-opt", *gbs, "--out", str(out),
+                          *DRYRUN_ARGS],
+            "cpu": [*lm, "--out", str(out / "cpu"), "--device", "cpu"]}
     children = {}
-    for flag in ("--gbs", "--gbs-opt"):
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", flag,
-               "--mesh", "single", "--preset", DRYRUN_PRESET, "--force",
-               "--out", str(out), *DRYRUN_ARGS]
+    for flag, more in args.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--mesh", "single", "--force", *more]
         t0 = time.perf_counter()
-        with open(out / f"{flag[2:]}.log", "w") as log:
+        with open(out / f"{flag.lstrip('-')}.log", "w") as log:
             proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
                                     stderr=subprocess.STDOUT, text=True)
-        rec = {"proc": proc, "log": out / f"{flag[2:]}.log", "t0": t0}
+        rec = {"proc": proc, "log": out / f"{flag.lstrip('-')}.log",
+               "t0": t0}
         rec["watch"] = threading.Thread(target=_dryrun_watch, args=(rec,),
                                         daemon=True)
         rec["watch"].start()
@@ -5565,15 +5580,25 @@ def dryrun_stop(started: dict) -> None:
             rec["proc"].wait()
 
 
+def _lm_lines(text: str) -> list[str]:
+    """The LM cells' ``summarize`` lines of a child's log, each without its
+    walk time (``compile=…``)."""
+    return [re.sub(r" compile=\S+$", "", ln) for ln in text.splitlines()
+            if ln.startswith(DRYRUN_LM_ARCH)]
+
+
 def phase_dryrun(started: dict) -> dict:
-    """Read the two children: their summaries, wall times, each cell's
-    FLOPs against the closed form, and the device memory they allocated."""
+    """Read the three children: their summaries, wall times, each GBS
+    cell's FLOPs against the closed form, the LM cells' lines and counts
+    against the CPU child's, and the device memory the card's children
+    allocated."""
     from repro_torch.configs import gbs
     from repro_torch.launch import dryrun as DR
 
     t0 = time.perf_counter()
     preset = gbs.PRESETS[DRYRUN_PRESET]
     result = {}
+    texts = {}
     for flag, rec in started["children"].items():
         left = DRYRUN_SECONDS - (time.perf_counter() - rec["t0"])
         rec["watch"].join(timeout=max(left, 1.0))
@@ -5581,15 +5606,20 @@ def phase_dryrun(started: dict) -> dict:
             dryrun_stop(started)
             check(False, f"dryrun {flag}: still running after "
                   f"{DRYRUN_SECONDS} s")
-        text = rec["log"].read_text()
-        lines = [ln for ln in text.splitlines() if ln.startswith("gbs-")]
+        text = texts[flag] = rec["log"].read_text()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("gbs-", DRYRUN_LM_ARCH))]
         for ln in lines:
             print(f"dryrun {flag}: {ln}", flush=True)
         print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
               f"{rec['proc'].returncode}", flush=True)
-        check(rec["proc"].returncode == 0 and len(lines) == len(DR.SCHEMES),
+        want = {"--gbs": len(DR.SCHEMES) + len(DRYRUN_LM_SHAPES),
+                "--gbs-opt": len(DR.SCHEMES), "cpu": len(DRYRUN_LM_SHAPES)}
+        check(rec["proc"].returncode == 0 and len(lines) == want[flag],
               f"dryrun {flag} exited {rec['proc'].returncode}: "
               f"{text[-3000:]}")
+        if flag == "cpu":
+            continue
         peak = re.search(r"peak device memory allocated: (\d+) bytes.*",
                          text)
         print(f"dryrun {flag}: {peak and peak.group(0)}", flush=True)
@@ -5615,6 +5645,33 @@ def phase_dryrun(started: dict) -> dict:
                              "roofline": r["roofline"]}
         result[flag[2:]] = {"wall_s": rec["wall_s"], "peak_allocated": 0,
                             "cells": cells}
+    # the LM cells: the card's fake tensors count what the CPU's count
+    card, cpu = _lm_lines(texts["--gbs"]), _lm_lines(texts["cpu"])
+    check(card == cpu and len(card) == len(DRYRUN_LM_SHAPES),
+          f"dryrun {DRYRUN_LM_ARCH}: the card's lines {card} != the CPU's "
+          f"{cpu}")
+    lm = {}
+    for shape in DRYRUN_LM_SHAPES:
+        name = f"{DRYRUN_LM_ARCH}__{shape}__single.json"
+        r, c = (json.loads(p.read_text()) for p in
+                (started["out"] / name, started["out"] / "cpu" / name))
+        if "skipped" in r:
+            check(r == c, f"dryrun {name}: {r} != the CPU's {c}")
+            lm[shape] = {"skipped": r["skipped"]}
+            continue
+        check("error" not in r and "error" not in c,
+              f"dryrun {name}: {r.get('error')} / {c.get('error')}")
+        same = all(r[k] == c[k] for k in ("hlo", "bytes_per_device",
+                                          "roofline"))
+        check(same, f"dryrun {name}: the card's counts differ from the "
+              "CPU's")
+        lm[shape] = {"flops_per_device": r["hlo"]["flops_per_device"],
+                     "n_collectives": r["hlo"]["n_collectives"],
+                     "bytes_per_device": r["bytes_per_device"],
+                     "roofline": r["roofline"], "walk_s": r["compile_s"]}
+    result["lm"] = {"arch": DRYRUN_LM_ARCH, "mesh": "16x16",
+                    "wall_s_cpu": started["children"]["cpu"]["wall_s"],
+                    "cells": lm}
     _phase("dryrun", t0)
     return result
 

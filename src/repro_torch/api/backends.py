@@ -1,10 +1,11 @@
 """Data-plane registry for :class:`repro_torch.api.SamplingSession`.
 
-* ``inmem`` — the whole stacked Γ on the device: scheme ``seq`` walks it
-  with ``core/sampler`` (micro-batched or not) or, with a χ-profile, with
+* ``inmem`` — the stacked Γ on the device: scheme ``seq`` walks it with
+  ``core/sampler`` (micro-batched or not) or, with a χ-profile, with
   ``dynamic_bond``'s staged walk; ``dp``/``tp_*`` with ``core/parallel``'s
   segment runner over the session's mesh (with a χ-profile, one call per
-  χ-stage after ``fit_env``), and ``baseline19`` with the [19] ring; a
+  χ-stage after ``fit_env``), a TP rank holding only its tile of each Γ
+  (``parallel.rank_chain``), and ``baseline19`` with the [19] ring; a
   clamped plan walks ``core/clamped.py`` in one χ-stage loop for every
   scheme and leaves the per-sample ``log_prob`` in the request's stats;
 * ``streamed`` — ``engine.StreamingEngine`` walks the chain from a
@@ -68,6 +69,10 @@ class SampleRequest:
     key: torch.Tensor
     mps: Callable[[], MPS]
     store: Optional[Callable[[], object]] = None
+    # the chain where the session keeps it (``mps`` is its copy on the
+    # device) and the session's cache of this rank's TP tiles of it
+    source: Optional[Callable[[], MPS]] = None
+    tiles: Optional[dict] = None
     mesh: Optional[object] = None      # launch.mesh.Mesh for dp/tp/[19]
     resume: bool = False
     checkpoint_dir: Optional[str] = None
@@ -103,6 +108,8 @@ class InMemBackend(Backend):
         if req.resume:
             raise ValueError("mid-chain resume needs the streamed backend "
                              "(it owns the per-segment checkpoints)")
+        if plan.clamp is None and plan.scheme in ("tp_single", "tp_double"):
+            return self._sample_tp(req)
         mps = req.mps()
         if plan.clamp is not None:
             return self._sample_clamped(req, mps)
@@ -124,21 +131,60 @@ class InMemBackend(Backend):
             out = PP._multilevel_sample(req.mesh, mps, n, key,
                                         plan.pconfig, cfg)
         else:
-            # dynamic χ under DP/TP: one segment-runner call per χ-stage,
-            # the environment through fit_env at each boundary — the port's
-            # segment runner takes the full environment, so this works
-            # under TP too
-            env = PP.segment_env_init(n, plan.stages[0][2], mps.gammas.dtype,
-                                      mps.device)
-            log_scale, blocks = None, []
-            for s0, s1, chi_s in plan.stages:
-                env = DB.fit_env(env, chi_s)
-                samples, env, log_scale = PP.sample_segment(
-                    req.mesh, DB.stage_mps(mps, s0, s1, chi_s), env, key, s0,
-                    plan.pconfig, cfg, log_scale=log_scale)
-                blocks.append(samples)
-            out = torch.cat(blocks, dim=0).T
+            # dynamic χ under dp: one segment-runner call per χ-stage, the
+            # environment through fit_env at each boundary
+            out = self._staged(req, lambda s0, s1, c: DB.stage_mps(
+                mps, s0, s1, c), mps.gammas.dtype)
         return out.cpu().numpy()
+
+    def _sample_tp(self, req: SampleRequest) -> np.ndarray:
+        """tp_single / tp_double: each χ-stage (the whole chain without a
+        profile) walks this rank's tiles, cut from the chain where the
+        session keeps it and copied alone to the mesh's device, once a
+        session (``req.tiles``)."""
+        from repro_torch.core import parallel as PP
+
+        plan = req.plan
+        cache = req.tiles if req.tiles is not None else {}
+
+        def tile(s0, s1, chi):
+            k = (plan.scheme, s0, s1, chi)
+            if k not in cache:
+                src = (req.source or req.mps)()
+                view = MPS(src.gammas[s0:s1, :chi, :chi],
+                           src.lambdas[s0:s1, :chi], src.semantics)
+                cache[k] = PP.rank_chain(req.mesh, view, plan.pconfig,
+                                         req.mesh.device)
+            return cache[k]
+
+        if plan.stages is None:
+            t = tile(0, None, None)
+            out = PP._multilevel_sample(req.mesh, t, req.n_samples, req.key,
+                                        plan.pconfig, plan.sampler_config)
+        else:
+            out = self._staged(req, tile, tile(*plan.stages[0]).dtype)
+        return out.cpu().numpy()
+
+    @staticmethod
+    def _staged(req: SampleRequest, chain_of, gamma_dtype) -> torch.Tensor:
+        """The χ-stage loop of a dp/tp plan: ``chain_of(s0, s1, χ)`` gives
+        the stage's chain (an :class:`MPS` or a rank's tile), the segment
+        runner walks it from the full environment after ``fit_env``.
+        Returns the (N, M) outcomes."""
+        from repro_torch.core import dynamic_bond as DB
+        from repro_torch.core import parallel as PP
+
+        plan, n = req.plan, req.n_samples
+        env = PP.segment_env_init(n, plan.stages[0][2], gamma_dtype,
+                                  req.mesh.device)
+        log_scale, blocks = None, []
+        for s0, s1, chi_s in plan.stages:
+            env = DB.fit_env(env, chi_s)
+            samples, env, log_scale = PP.sample_segment(
+                req.mesh, chain_of(s0, s1, chi_s), env, req.key, s0,
+                plan.pconfig, plan.sampler_config, log_scale=log_scale)
+            blocks.append(samples)
+        return torch.cat(blocks, dim=0).T
 
     def _sample_clamped(self, req: SampleRequest, mps: MPS) -> np.ndarray:
         """Conditional sampling: one χ-stage loop over the clamped segment

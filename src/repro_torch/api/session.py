@@ -1,7 +1,9 @@
 """`SamplingSession` — the port's front door for chain sampling.
 
-The session owns the source — an in-memory :class:`MPS` (moved to the
-session's device), a :class:`~repro_torch.data.gamma_store.GammaStore`, or
+The session owns the source — an in-memory :class:`MPS` (kept where its
+caller put it: a seq or dp walk moves it to the session's device once, a
+tensor-parallel walk copies only its rank's tiles there), a
+:class:`~repro_torch.data.gamma_store.GammaStore`, or
 a store's path — resolves a :class:`SamplerConfig` against it, and routes
 ``sample(n, key)`` to the registered data plane::
 
@@ -67,7 +69,9 @@ class SamplingSession:
         self.mesh = mesh
         self.device = (resolve_device(device) if device is not None
                        or mesh is None else mesh.device)
-        self._mps: Optional[MPS] = None
+        self._mps: Optional[MPS] = None     # where the caller put it
+        self._dev_mps: Optional[MPS] = None  # the whole chain on the device
+        self._tiles: dict = {}               # this rank's TP tiles by stage
         self._store: Optional[GammaStore] = None
         self._owns_store = False
         self._tmp_store_root: Optional[str] = None
@@ -99,9 +103,10 @@ class SamplingSession:
             self._elt_bytes = torch.empty(
                 (), dtype=source.compute_dtype).element_size()
         elif isinstance(source, MPS):
-            # moving is explicit here: the chain lives on the session's device
-            self._mps = (source if source.device == self.device
-                         else source.to(self.device))
+            # the chain stays where the caller put it: a seq or dp walk
+            # moves it to the session's device once, a tensor-parallel walk
+            # copies only this rank's tile of each Γ there
+            self._mps = source
             self.n_sites, self.chi, self.d = (source.n_sites, source.chi,
                                               source.phys_dim)
             self._semantics, self._hint = source.semantics, "inmem"
@@ -163,9 +168,17 @@ class SamplingSession:
                                                  prefetch_next_segment=False)
                 semantics = (self.config.semantics
                              if self.config.semantics != "auto" else "linear")
-                self._mps = MPS(g.to(self.device), lam.to(self.device),
-                                semantics)
+                self._mps = MPS(g, lam, semantics)
             return self._mps
+
+    def _device_mps(self) -> MPS:
+        """The whole chain on the session's device, moved there once."""
+        with self._lock:
+            if self._dev_mps is None:
+                mps = self._ensure_mps()
+                self._dev_mps = (mps if mps.device == self.device
+                                 else mps.to(self.device))
+            return self._dev_mps
 
     def _ensure_store(self) -> GammaStore:
         with self._lock:
@@ -237,7 +250,8 @@ class SamplingSession:
         if checkpoint_dir is None and (job is None or job.n_batches == 1):
             checkpoint_dir = self.config.checkpoint_dir
         req = SampleRequest(
-            plan=plan, n_samples=n_samples, key=key, mps=self._ensure_mps,
+            plan=plan, n_samples=n_samples, key=key, mps=self._device_mps,
+            source=self._ensure_mps, tiles=self._tiles,
             store=self._ensure_store, mesh=self.mesh, runtime=self.runtime,
             config=self.config, resume=resume, checkpoint_dir=checkpoint_dir,
             stop_after_segments=stop_after_segments, job=job,
@@ -308,7 +322,8 @@ class SamplingSession:
             self._tmp_store_root = None
         if self._owns_runtime and not self._closed:
             self.runtime.close()        # reap its worker processes
-        self._mps = None
+        self._mps = self._dev_mps = None
+        self._tiles.clear()
         self._closed = True
 
     def __enter__(self) -> "SamplingSession":

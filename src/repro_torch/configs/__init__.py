@@ -57,3 +57,28 @@ def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
         return False, ("pure full-attention arch — 500k decode skipped "
                        "(DESIGN.md)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Stand-ins for every model input of this cell: empty tensors on
+    ``device`` (the meta device by default; fake tensors when made under a
+    ``FakeTensorMode``), tokens int32 as the reference's."""
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(shape.kind)
+    spec = {"tokens": t((B, 1 if shape.kind == "decode" else S),
+                        torch.int32)}
+    if shape.kind == "train":
+        spec["labels"] = t((B, S), torch.int32)
+    if cfg.family == "encdec":
+        key = "enc_out" if shape.kind == "decode" else "frames"
+        spec[key] = t((B, cfg.enc_len, cfg.d_model), cfg.dtype)
+    if cfg.family == "vlm":
+        spec["patches"] = t((B, cfg.n_patches, cfg.d_model), cfg.dtype)
+    return spec

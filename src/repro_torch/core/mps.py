@@ -27,6 +27,24 @@ from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 
 
+TP_SCHEMES = ("tp_single", "tp_double")
+
+
+def site_tile(gamma, scheme: str, p2: int, rank: int, site: int):
+    """Rank ``rank``'s tile of one site's Γ (χ, χ, d) under a tensor-parallel
+    scheme over p₂ ranks (the JAX package's ``shard_map`` ``in_specs``):
+    ``tp_single`` rows [r·χ/p₂, (r+1)·χ/p₂) of every site; ``tp_double`` the
+    same rows of the sites it contracts split-K (``site`` even) and those
+    columns, the right bond, of the others.  Slicing only: a numpy array or a
+    tensor gives a view of itself."""
+    if scheme not in TP_SCHEMES:
+        raise ValueError(f"{scheme!r} has no tiles (one of {TP_SCHEMES})")
+    w = gamma.shape[0] // p2
+    if scheme == "tp_double" and site % 2:
+        return gamma[:, rank * w:(rank + 1) * w]
+    return gamma[rank * w:(rank + 1) * w]
+
+
 @dataclasses.dataclass
 class MPS:
     """Uniform-χ stacked MPS (see module docstring)."""

@@ -26,8 +26,13 @@ same seed — the JAX package's promise, which the tests hold the port to.
 The JAX package runs this under ``shard_map`` from one controller; the port
 runs SPMD: every rank executes this module's Python on its own shard, the
 ``lax.scan`` loops are Python loops over sites, and the collectives are
-those of ``core/collectives.py`` on the mesh's process groups.  Every rank
-returns the full result, as the JAX controller does.  The key schedule is
+those of ``core/collectives.py`` on the mesh's process groups.  A TP rank
+walks a :class:`ChainTile`, only its tile of each Γ (the ``shard_map``
+``in_specs``; :func:`shard_chain` cuts it from a whole chain and copies it
+alone to the card); dp keeps Γ whole.  By default every rank returns the
+full result, as the JAX controller does; ``sharded=True`` keeps it sharded
+as the ``out_specs`` do (samples and ``log_scale`` over the data axes, env
+over data × model), with no all-gather at the end.  The key schedule is
 the JAX package's: ``split(key, p₁)`` indexed by the data coordinate,
 ``fold_in(k, start + site)`` per site (per pair ``start + 2j`` and
 ``start + 2j + 1``), and ``split(shard_key, n_micro)`` per micro batch.
@@ -52,7 +57,7 @@ import torch
 from repro_torch.core import collectives as C
 from repro_torch.core import prng
 from repro_torch.core import sampler as S
-from repro_torch.core.mps import MPS
+from repro_torch.core.mps import MPS, TP_SCHEMES
 from repro_torch.core.precision import real_dtype_of
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.site_impls import (contract_parallel,
@@ -83,6 +88,87 @@ def _shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's tile of ``x`` along ``dim`` (p equal tiles)."""
     w = x.shape[dim] // C.axis_size(group)
     return x.narrow(dim, C.axis_index(group) * w, w)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTile:
+    """One TP rank's share of a chain segment: its tile of each Γ
+    (``core.mps.site_tile``) and the whole Λ (replicated, as the JAX
+    package's ``P()``).  ``tp_single``: ``gammas`` (L, χ/p₂, χ, d), rows of
+    every site.  ``tp_double``: ``gammas`` (L/2, χ/p₂, χ, d), rows of the
+    sites 2j, and ``gammas_right`` (L/2, χ, χ/p₂, d), the right-bond columns
+    of the sites 2j + 1."""
+    gammas: torch.Tensor
+    lambdas: torch.Tensor            # (L, χ)
+    semantics: str
+    scheme: str
+    p2: int
+    rank: int
+    gammas_right: Optional[torch.Tensor] = None
+
+    @property
+    def n_sites(self) -> int:
+        return self.lambdas.shape[0]
+
+    @property
+    def chi(self) -> int:
+        return self.lambdas.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.gammas.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gammas.dtype
+
+
+def shard_chain(mps: MPS, scheme: str, p2: int, rank: int,
+                device=None) -> ChainTile:
+    """Rank ``rank``'s :class:`ChainTile` of ``mps`` under ``scheme`` over p₂
+    ranks, on ``device`` (default: where ``mps`` lies).  The tiles are cut
+    where ``mps`` lies and only they are copied: a chain held on the host
+    puts 1/p₂ of each Γ on the card.  On ``mps``'s own device they are
+    views (the walk makes each site's tile contiguous as it reaches it)."""
+    if scheme not in TP_SCHEMES:
+        raise ValueError(f"{scheme!r} has no tiles (one of {TP_SCHEMES})")
+    if mps.chi % p2:
+        raise ValueError(f"χ={mps.chi} does not divide over p₂={p2} ranks")
+    if not 0 <= rank < p2:
+        raise ValueError(f"rank {rank} is not one of p₂={p2}")
+    dev = mps.device if device is None else torch.device(device)
+    w = mps.chi // p2
+    g, right = mps.gammas, None
+    if scheme == "tp_double":
+        if mps.n_sites % 2:
+            raise ValueError("double-site segments need an even site count")
+        g, right = g[0::2], g[1::2].narrow(2, rank * w, w).to(dev)
+    return ChainTile(g.narrow(1, rank * w, w).to(dev), mps.lambdas.to(dev),
+                     mps.semantics, scheme, p2, rank, right)
+
+
+def rank_chain(mesh, mps: MPS, pconfig: "ParallelConfig", device=None):
+    """What this rank of ``mesh`` walks of ``mps`` under ``pconfig``: the
+    whole chain under dp (on ``device``), its :class:`ChainTile` under a TP
+    scheme (:func:`shard_chain`)."""
+    if pconfig.scheme not in TP_SCHEMES:
+        return mps if device is None else mps.to(device)
+    model = mesh.group(pconfig.model_axis)
+    return shard_chain(mps, pconfig.scheme, C.axis_size(model),
+                       C.axis_index(model), device)
+
+
+def _chain_tile(chain, scheme: str, group) -> ChainTile:
+    """``chain`` as this rank's :class:`ChainTile` (a whole :class:`MPS` is
+    cut in place, with no copy); a given tile must be this rank's."""
+    p2, rank = C.axis_size(group), C.axis_index(group)
+    if isinstance(chain, MPS):
+        return shard_chain(chain, scheme, p2, rank)
+    if (chain.scheme, chain.p2, chain.rank) != (scheme, p2, rank):
+        raise ValueError(f"a {chain.scheme} tile of rank {chain.rank}/"
+                         f"{chain.p2} given to rank {rank}/{p2} of "
+                         f"{scheme}")
+    return chain
 
 
 def _backend(config: S.SamplerConfig, env: torch.Tensor) -> str:
@@ -249,19 +335,28 @@ class ParallelConfig:
     micro_batch: Optional[int] = None
 
 
-def _multilevel_sample(mesh, mps: MPS, n_samples: int, key: torch.Tensor,
+def _multilevel_sample(mesh, mps, n_samples: int, key: torch.Tensor,
                        pconfig: ParallelConfig = ParallelConfig(),
-                       config: S.SamplerConfig = S.SamplerConfig()
-                       ) -> torch.Tensor:
-    """DP over samples × TP over χ.  Returns (N, M) outcomes on every rank:
-    the segment runner over the whole chain as one segment."""
+                       config: S.SamplerConfig = S.SamplerConfig(),
+                       *, sharded: bool = False) -> torch.Tensor:
+    """DP over samples × TP over χ: the segment runner over the whole chain
+    as one segment.  ``mps``: the whole chain, or under a TP scheme this
+    rank's :class:`ChainTile`.  Returns (N, M) outcomes on every rank or,
+    with ``sharded``, this data shard's (N/p₁, M), its environment made
+    as its own tile alone."""
     if pconfig.scheme == "baseline19":
         return _baseline19_sample(mesh, mps, n_samples, key, config,
                                   pipeline_axis=pconfig.data_axes[-1])
     if pconfig.scheme not in ("dp", "tp_single", "tp_double"):
         raise ValueError(f"unknown scheme {pconfig.scheme!r}")
-    env = segment_env_init(n_samples, mps.chi, mps.gammas.dtype, mps.device)
-    samples, _, _ = sample_segment(mesh, mps, env, key, 0, pconfig, config)
+    if sharded:
+        env = segment_env_shard(mesh, pconfig, n_samples, mps.chi,
+                                mps.gammas.dtype, mps.device)
+    else:
+        env = segment_env_init(n_samples, mps.chi, mps.gammas.dtype,
+                               mps.device)
+    samples, _, _ = sample_segment(mesh, mps, env, key, 0, pconfig, config,
+                                   sharded=sharded)
     return samples.T
 
 
@@ -291,18 +386,18 @@ def _dp_chain(mps: MPS, start: int, config):
     return chain
 
 
-def _tp_single_chain(mps: MPS, start: int, config, pconfig, group):
-    gammas_l = [_shard(mps.gammas[i], group, 0) for i in range(mps.n_sites)]
+def _tp_single_chain(tile: ChainTile, start: int, config, pconfig, group):
     measure_first = pconfig.measure_first and config.semantics == "linear"
     if measure_first:
         # W per site in fp32, as the JAX package builds it
-        w_l = [torch.einsum("lrs,r->ls", g.to(torch.float32),
-                            mps.lambdas[i].to(torch.float32))
-               for i, g in enumerate(gammas_l)]
+        w_l = [torch.einsum("lrs,r->ls", tile.gammas[i].to(torch.float32),
+                            tile.lambdas[i].to(torch.float32))
+               for i in range(tile.n_sites)]
 
     def chain(k, e, ls):
         samples = []
-        for i, g in enumerate(gammas_l):
+        for i in range(tile.n_sites):
+            g = tile.gammas[i].contiguous()
             sub = prng.fold_in(k, start + i)
             if measure_first:
                 e, dlog, smp = _tp_single_site_step_measure_first(
@@ -310,7 +405,7 @@ def _tp_single_chain(mps: MPS, start: int, config, pconfig, group):
                     wire_dtype=pconfig.wire_dtype)
             else:
                 e, dlog, smp = _tp_single_site_step(
-                    e, g, mps.lambdas[i], sub, config, group,
+                    e, g, tile.lambdas[i], sub, config, group,
                     wire_dtype=pconfig.wire_dtype)
             ls = ls + dlog
             samples.append(smp)
@@ -318,76 +413,83 @@ def _tp_single_chain(mps: MPS, start: int, config, pconfig, group):
     return chain
 
 
-def _tp_double_chain(mps: MPS, start: int, config, pconfig, group):
-    if mps.n_sites % 2:
-        raise ValueError("double-site segments need an even site count")
-
+def _tp_double_chain(tile: ChainTile, start: int, config, pconfig, group):
     def chain(k, e, ls):
         samples = []
-        for j in range(mps.n_sites // 2):
-            go = _shard(mps.gammas[2 * j], group, 0)
-            ge = _shard(mps.gammas[2 * j + 1], group, 1).contiguous()
+        for j in range(tile.n_sites // 2):
             kp = (prng.fold_in(k, start + 2 * j),
                   prng.fold_in(k, start + 2 * j + 1))
             e, dlog, (so, se) = _tp_double_site_pair(
-                e, go, mps.lambdas[2 * j], ge, mps.lambdas[2 * j + 1], kp,
-                config, group, wire_dtype=pconfig.wire_dtype)
+                e, tile.gammas[j].contiguous(), tile.lambdas[2 * j],
+                tile.gammas_right[j].contiguous(), tile.lambdas[2 * j + 1],
+                kp, config, group, wire_dtype=pconfig.wire_dtype)
             ls = ls + dlog
             samples += [so, se]
         return torch.stack(samples), e, ls
     return chain
 
 
-def sample_segment(mesh, mps: MPS, env: torch.Tensor, key: torch.Tensor,
+def sample_segment(mesh, mps, env: torch.Tensor, key: torch.Tensor,
                    start_site: int,
                    pconfig: ParallelConfig = ParallelConfig(),
                    config: S.SamplerConfig = S.SamplerConfig(),
-                   log_scale: Optional[torch.Tensor] = None
+                   log_scale: Optional[torch.Tensor] = None,
+                   *, sharded: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run sites [start, start+L) of the chain from a full environment.
+    """Run sites [start, start+L) of the chain from an environment.
 
-    ``mps`` holds only the segment's L site tensors; ``env`` (N, χ) and
-    ``log_scale`` (N,) are the full arrays, the same on every rank.  Returns
-    the full (samples (L, N) site-major, env' (N, χ), log_scale' (N,)) on
-    every rank; ``log_scale=None`` starts the carry at zero.
+    ``mps`` holds only the segment's L sites: the whole :class:`MPS`, or
+    under a TP scheme this rank's :class:`ChainTile` (a whole chain is cut
+    in place).  By default ``env`` (N, χ) and ``log_scale`` (N,) are the
+    full arrays, the same on every rank, and so is the result (samples (L,
+    N) site-major, env' (N, χ), log_scale' (N,)).  With ``sharded`` they
+    are this rank's shards, in and out: env (N/p₁, χ/p₂) under TP, (N/p₁,
+    χ) under dp, log_scale (N/p₁,), samples (L, N/p₁); no all-gather ends
+    the segment.  ``log_scale=None`` starts the carry at zero.
     """
     # several data axes ("pod", "data") split the batch over their
     # flattened line, pod-major
     data = mesh.group(pconfig.data_axes)
     p1 = C.axis_size(data)
-    n_samples, chi = env.shape
-    if n_samples % p1:
-        raise ValueError(f"n_samples={n_samples} must divide over the "
-                         f"p₁={p1} data shards")
-    if pconfig.micro_batch is not None and (n_samples // p1) % \
-            pconfig.micro_batch:
-        raise ValueError(f"micro_batch={pconfig.micro_batch} must divide "
-                         f"the local batch {n_samples // p1}")
+    n_rows, chi = env.shape
     if log_scale is None:
-        log_scale = torch.zeros((n_samples,), dtype=real_dtype_of(env.dtype),
+        log_scale = torch.zeros((n_rows,), dtype=real_dtype_of(env.dtype),
                                 device=env.device)
+    if sharded:
+        env_l, ls_l = env, log_scale
+    else:
+        if n_rows % p1:
+            raise ValueError(f"n_samples={n_rows} must divide over the "
+                             f"p₁={p1} data shards")
+        env_l, ls_l = _shard(env, data, 0), _shard(log_scale, data, 0)
+    if pconfig.micro_batch is not None and \
+            env_l.shape[0] % pconfig.micro_batch:
+        raise ValueError(f"micro_batch={pconfig.micro_batch} must divide "
+                         f"the local batch {env_l.shape[0]}")
     start = int(start_site)
     shard_key = prng.split_at(key, p1, C.axis_index(data))
-    env_l = _shard(env, data, 0)
-    ls_l = _shard(log_scale, data, 0)
 
     if pconfig.scheme == "dp":
         chain = _dp_chain(mps, start, config)
         model = None
-    elif pconfig.scheme in ("tp_single", "tp_double"):
+    elif pconfig.scheme in TP_SCHEMES:
         model = mesh.group(pconfig.model_axis)
-        if chi % C.axis_size(model):
-            raise ValueError(f"χ={chi} does not divide over "
+        tile = _chain_tile(mps, pconfig.scheme, model)
+        if tile.chi % C.axis_size(model):
+            raise ValueError(f"χ={tile.chi} does not divide over "
                              f"p₂={C.axis_size(model)} ranks")
-        env_l = _shard(env_l, model, 1)
+        if not sharded:
+            env_l = _shard(env_l, model, 1)
         make = (_tp_single_chain if pconfig.scheme == "tp_single"
                 else _tp_double_chain)
-        chain = make(mps, start, config, pconfig, model)
+        chain = make(tile, start, config, pconfig, model)
     else:
         raise ValueError(f"segment runner has no scheme {pconfig.scheme!r}")
 
     samples, env_o, ls_o = _with_micro(chain, shard_key, env_l.contiguous(),
                                        ls_l.contiguous(), pconfig.micro_batch)
+    if sharded:
+        return samples, env_o, ls_o
     if model is not None:
         env_o = C.all_gather(env_o, model, dim=1)
     return (C.all_gather(samples, data, dim=1), C.all_gather(env_o, data),
@@ -402,6 +504,28 @@ def segment_env_init(n_samples: int, chi: int, gamma_dtype: torch.dtype,
     # fill_, not ``env[:, 0] = 1.0``: indexing assignment makes its scalar a
     # real tensor on the device, even under the dry run's fake tensors
     env[:, 0].fill_(1.0)
+    return env
+
+
+def segment_env_shard(mesh, pconfig: ParallelConfig, n_samples: int,
+                      chi: int, gamma_dtype: torch.dtype,
+                      device) -> torch.Tensor:
+    """This rank's shard of :func:`segment_env_init`'s environment, made
+    alone: (N/p₁, χ/p₂) under TP (the hot column 0 on model rank 0), (N/p₁,
+    χ) under dp — the ``sharded`` input of :func:`sample_segment`."""
+    p1 = C.axis_size(mesh.group(pconfig.data_axes))
+    if n_samples % p1:
+        raise ValueError(f"n_samples={n_samples} must divide over the "
+                         f"p₁={p1} data shards")
+    hot = True
+    if pconfig.scheme in TP_SCHEMES:
+        model = mesh.group(pconfig.model_axis)
+        chi //= C.axis_size(model)
+        hot = C.axis_index(model) == 0
+    env = torch.zeros((n_samples // p1, chi), dtype=_env_dtype(gamma_dtype),
+                      device=device)
+    if hot:
+        env[:, 0].fill_(1.0)
     return env
 
 

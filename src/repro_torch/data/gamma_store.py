@@ -52,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.mps import site_tile
 from repro_torch.runtime.faults import CorruptSegment, Fault
 
 #: per-store digest manifest: site file name → leaf digest
@@ -261,42 +262,98 @@ def decode_segment(payload: dict, compute_dtype: Optional[torch.dtype] = None
 def payload_on_device(payload: dict, device: torch.device, *,
                       chi: Optional[int] = None,
                       compute_dtype: Optional[torch.dtype] = None,
-                      stream=None) -> dict:
+                      stream=None, tile: Optional[tuple] = None) -> dict:
     """A segment payload (a store's :meth:`GammaStore.get_segment_raw`, or
-    one a runtime broadcast) on ``device``, both bonds cut to ``chi``, in
+    one a runtime broadcast) on ``device``, both bonds cut to ``chi`` and,
+    with ``tile``, each Γ to a rank's tile, in
     :meth:`GammaStore.get_segment_on_device`'s form.  The ``crc`` is
-    checked first.  On the card the storage-format bytes are copied on
-    ``stream`` and upcast there; on the CPU they are decoded on the
-    host."""
+    checked first, over the whole payload.  On the card the storage-format
+    bytes are copied on ``stream`` and upcast there; on the CPU they are
+    decoded on the host."""
     _check_crc(payload)
-    device = torch.device(device)
     raw = np.asarray(payload["gamma"])
     gshape = tuple(int(x) for x in payload["gshape"])
     c = gshape[0] if chi is None else chi
-    two_byte = bool(payload["two_byte"])
     compute = payload["compute_dtype"] if compute_dtype is None \
         else compute_dtype
     lam = torch.from_numpy(np.ascontiguousarray(
         np.asarray(payload["lam"])[:, :c]))
-    if c != gshape[0]:
-        raw = raw[:, :c, :c, :]
+    device = torch.device(device)
+    start = int(np.asarray(payload.get("start", 0)))
+    blocks = _site_blocks(list(raw), c, tile, start)
+    whole = None
+    if device.type == "cuda" and (tile is None or tile[1] == 1):
+        whole = [torch.from_numpy(np.ascontiguousarray(raw[:, :c, :c, :])
+                                  .reshape(-1).view(np.uint8))]
+    stored = torch.bfloat16 if payload["two_byte"] else _TORCH[raw.dtype]
+    return _blocks_to_device(blocks, whole, stored, compute, lam, device,
+                             stream, _pairs(tile))
+
+
+def _site_blocks(views: list, c: int, tile: Optional[tuple],
+                 start: int) -> list:
+    """Each site's stored Γ (χ, χ, d) cut to the χ-stage ``c`` and, with
+    ``tile`` = (scheme, p₂, rank), to that rank's tile of it
+    (``core.mps.site_tile``; site ``start + i``): numpy views."""
+    out = []
+    for i, v in enumerate(views):
+        v = v[:c, :c, :]
+        out.append(v if tile is None else site_tile(v, *tile, start + i))
+    return out
+
+
+def _pairs(tile: Optional[tuple]) -> bool:
+    return tile is not None and tile[0] == "tp_double"
+
+
+def _split_sites(g: torch.Tensor, shapes: list, pairs: bool) -> dict:
+    """A flat buffer of the sites' Γ blocks, in order, as the segment's
+    ``gammas`` (L, …) or, with ``pairs`` (a tp_double tile), ``gammas`` of
+    the sites 2j and ``gammas_right`` of the sites 2j + 1, each (L/2, …)."""
+    n = len(shapes)
+    if not pairs:
+        return {"gammas": g.view(n, *shapes[0]), "gammas_right": None}
+    two = g.view(n // 2, 2, -1)
+    return {"gammas": two[:, 0].view(n // 2, *shapes[0]),
+            "gammas_right": two[:, 1].view(n // 2, *shapes[1])}
+
+
+def _blocks_to_device(blocks: list, whole: Optional[list],
+                      stored: torch.dtype, compute: torch.dtype,
+                      lam: torch.Tensor, device: torch.device, stream,
+                      pairs: bool) -> dict:
+    """The sites' storage-format Γ blocks (numpy) on ``device`` in
+    ``compute``: decoded on the host for the CPU; on the card one buffer
+    filled on ``stream`` and upcast there, from ``whole`` (uint8 host
+    tensors that already hold the blocks' bytes in order) or else from a
+    pinned copy of each block made here; ``pairs`` as
+    :func:`_split_sites`'."""
+    shapes = [tuple(b.shape) for b in blocks]
+    two_byte = stored == torch.bfloat16
     if device.type != "cuda":
-        g = decode_gamma(raw, (c, c, gshape[2]), two_byte, compute)
-        return {"gammas": g, "lambdas": lam.to(device), "ready": None,
-                "copy": None, "bytes": 0}
-    host = torch.from_numpy(np.ascontiguousarray(raw).reshape(-1)
-                            .view(np.uint8))
-    stored = torch.bfloat16 if two_byte else _TORCH[raw.dtype]
-    return _segment_to_device([host], (raw.shape[0], c, c, gshape[2]),
-                              stored, compute, lam, device, stream)
+        g = torch.cat([decode_gamma(b, b.shape, two_byte, compute).reshape(-1)
+                       for b in blocks])
+        return {**_split_sites(g, shapes, pairs), "lambdas": lam.to(device),
+                "ready": None, "copy": None, "bytes": 0}
+    chunks = whole
+    if chunks is None:
+        chunks = []
+        for b in blocks:
+            part = torch.empty(b.size * b.dtype.itemsize, dtype=torch.uint8,
+                               pin_memory=True)
+            part.numpy().view(b.dtype).reshape(b.shape)[...] = b
+            chunks.append(part)
+    return _segment_to_device(chunks, shapes, stored, compute, lam, device,
+                              stream, pairs)
 
 
-def _segment_to_device(chunks: list, shape: tuple, stored: torch.dtype,
+def _segment_to_device(chunks: list, shapes: list, stored: torch.dtype,
                        compute: torch.dtype, lam: torch.Tensor,
-                       device: torch.device, stream) -> dict:
+                       device: torch.device, stream, pairs: bool) -> dict:
     """Host storage-format bytes (uint8 tensors, pinned for an asynchronous
-    copy) → one device buffer on ``stream``, viewed as ``stored`` in
-    ``shape`` and upcast to ``compute`` there: the card's half of
+    copy) → one device buffer on ``stream``, viewed as ``stored``, upcast to
+    ``compute`` there and split into the sites' ``shapes``
+    (:func:`_split_sites`): the card's half of
     :meth:`GammaStore.get_segment_on_device` and :func:`payload_on_device`.
     """
     h2d0 = torch.cuda.Event(enable_timing=True)
@@ -311,12 +368,13 @@ def _segment_to_device(chunks: list, shape: tuple, stored: torch.dtype,
             dev[o:o + ch.numel()].copy_(ch, non_blocking=True)
             o += ch.numel()
         h2d1.record(stream)
-        g = dev.view(stored).view(*shape)
+        g = dev.view(stored)
         g = g.to(compute) if g.dtype != compute else g
         lam_d = lam.to(device)
         del dev
         ready.record(stream)
-    return {"gammas": g, "lambdas": lam_d, "ready": ready,
+    return {**_split_sites(g, shapes, pairs), "lambdas": lam_d,
+            "ready": ready,
             "copy": (h2d0, h2d1),
             "bytes": o + lam.numel() * lam.element_size()}
 
@@ -692,47 +750,44 @@ class GammaStore:
     def get_segment_on_device(self, start: int, length: int,
                               device: torch.device, *,
                               chi: Optional[int] = None,
-                              prefetch_next_segment: bool = True) -> dict:
+                              prefetch_next_segment: bool = True,
+                              tile: Optional[tuple] = None) -> dict:
         """Sites [start, start+length) on ``device``, both bonds cut to
-        ``chi`` (the χ-stage; None: the stored χ).  Returns ``{"gammas",
-        "lambdas", "ready", "copy", "bytes"}``: on a CUDA device ``ready``
-        is the event the consuming stream must wait on, ``copy`` the pair
-        of events around the host→device copies and ``bytes`` what they
-        moved; on the CPU the events are None and nothing is copied.
+        ``chi`` (the χ-stage; None: the stored χ) and, with ``tile`` =
+        (scheme, p₂, rank), each Γ to that rank's tile
+        (``core.mps.site_tile``).  Returns ``{"gammas", "gammas_right",
+        "lambdas", "ready", "copy", "bytes"}`` (``gammas_right``: a
+        tp_double tile's right-bond blocks of the sites start + 2j + 1,
+        ``gammas`` then holds the others; None otherwise); on a CUDA
+        device ``ready`` is the event the consuming stream must wait on,
+        ``copy`` the pair of events around the host→device copies and
+        ``bytes`` what they moved; on the CPU the events are None and
+        nothing is copied.
 
-        On the card: the storage-format bytes of each site (pinned, sliced
-        to χ on the host when a stage needs less) are copied on the store's
-        copy stream with ``non_blocking=True`` into one device buffer, which
-        is upcast there to the compute dtype.  Tensors made on the copy
-        stream are handed to the consumer, who must ``record_stream`` them
-        on the stream that uses them."""
+        On the card: the storage-format bytes of each site (pinned; a
+        χ-stage's or a tile's block copied to pinned memory on the host
+        first) are copied on the store's copy stream with
+        ``non_blocking=True`` into one device buffer, which is upcast there
+        to the compute dtype.  Tensors made on the copy stream are handed
+        to the consumer, who must ``record_stream`` them on the stream that
+        uses them."""
         device = torch.device(device)
         raws = self._raw_segment(start, length, prefetch_next_segment)
         gshape = raws[0].gshape
         c = gshape[0] if chi is None else chi
         lam = torch.from_numpy(np.ascontiguousarray(
             np.stack([r.lam for r in raws])[:, :c]))
-        if device.type != "cuda":
-            g = torch.stack([decode_gamma(
-                r.view()[:c, :c, :], (c, c, gshape[2]), r.two_byte,
-                self.compute_dtype) for r in raws])
-            return {"gammas": g, "lambdas": lam.to(device), "ready": None,
-                    "copy": None, "bytes": 0}
-        chunks = []
-        for r in raws:
-            if c == gshape[0]:
-                chunks.append(r.buf[r.offset:r.offset + r.nbytes])
-            else:                 # a χ-stage: copy only the kept block
-                part = torch.empty(c * c * gshape[2] * r.dtype.itemsize,
-                                   dtype=torch.uint8, pin_memory=True)
-                part.numpy().view(r.dtype).reshape(c, c, gshape[2])[...] = \
-                    r.view()[:c, :c, :]
-                chunks.append(part)
+        blocks = _site_blocks([r.view() for r in raws], c, tile, start)
+        whole = None
+        if device.type == "cuda" and c == gshape[0] and (
+                tile is None or tile[1] == 1):      # whole sites, in order
+            whole = [r.buf[r.offset:r.offset + r.nbytes] for r in raws]
         stored = torch.bfloat16 if raws[0].two_byte else \
             _TORCH[raws[0].dtype]
-        return _segment_to_device(chunks, (len(raws), c, c, gshape[2]),
-                                  stored, self.compute_dtype, lam, device,
-                                  self.copy_stream(device))
+        return _blocks_to_device(
+            blocks, whole, stored, self.compute_dtype, lam, device,
+            self.copy_stream(device) if device.type == "cuda" else None,
+            _pairs(tile))
 
     def get_segment_raw(self, start: int, length: int) -> dict:
         """Storage-format payload for sites [start, start+length), stamped

@@ -17,7 +17,9 @@ Behind :meth:`StreamingEngine.sample`:
   for the same key (``micro_batch=None``) or of ``sampler.sample_batched``
   (``micro_batch=N₂``: chunk c walks on ``split(key, n_micro)[c]``);
 * ``dp`` / ``tp_single`` / ``tp_double`` — ``core/parallel``'s segment
-  runner over the engine's mesh;
+  runner over the engine's mesh; an unclamped TP walk fetches only its
+  rank's tile of each Γ (the store cuts each site on the host before the
+  copy, ``tile=``), a ``parallel.ChainTile``;
 * a multi-process ``runtime`` (``api/runtime.py``: an emulated cluster's
   member or a ``torch.distributed`` rank): the paper's §3.1 broadcast
   plane — only the root reads each segment from the store and broadcasts
@@ -96,6 +98,7 @@ from repro_torch.api.runtime import LocalRuntime
 from repro_torch.checkpoint.sampler_state import (load_sampler_state,
                                                   newest_checkpoint_site,
                                                   save_sampler_state)
+from repro_torch.core import collectives as C
 from repro_torch.core import dynamic_bond as DB
 from repro_torch.core import parallel as PP
 from repro_torch.core import prng
@@ -258,7 +261,19 @@ class StreamingEngine:
             payload, self.device, chi=chi_s if chi_s < self.chi else None,
             compute_dtype=self.gamma_dtype,
             stream=(self.store.copy_stream(self.device)
-                    if self.device.type == "cuda" else None))
+                    if self.device.type == "cuda" else None),
+            tile=self._tile_spec())
+
+    def _tile_spec(self) -> Optional[tuple]:
+        """(scheme, p₂, rank) when this walk takes only its rank's tile of
+        each Γ (an unclamped tp_single or tp_double walk; the clamped
+        walk runs dp on the whole Γ); None otherwise."""
+        scheme = self.pconfig.scheme
+        if self.clamp is not None or scheme not in ("tp_single",
+                                                    "tp_double"):
+            return None
+        model = self.mesh.group(self.pconfig.model_axis)
+        return scheme, C.axis_size(model), C.axis_index(model)
 
     def _fetch(self, start: int, stop: int, chi_s: int) -> dict:
         t0 = time.perf_counter()
@@ -271,7 +286,7 @@ class StreamingEngine:
             seg = self.store.get_segment_on_device(
                 start, stop - start, self.device,
                 chi=chi_s if chi_s < self.chi else None,
-                prefetch_next_segment=not sharded)
+                prefetch_next_segment=not sharded, tile=self._tile_spec())
         self.stats["fetch_s"] += time.perf_counter() - t0
         with self._live_lock:
             self._live += 1
@@ -279,15 +294,20 @@ class StreamingEngine:
                 self.stats["max_live_segments"], self._live)
         return seg
 
-    def _take(self, seg: dict) -> MPS:
+    def _take(self, seg: dict):
         """Hand a fetched segment to the walk's stream: wait for its copy
-        and tell the allocator the walk's stream uses its memory."""
+        and tell the allocator the walk's stream uses its memory.  Returns
+        the segment's :class:`MPS`, or this rank's ``ChainTile`` of it."""
         if seg["ready"] is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(seg["ready"])
             seg["gammas"].record_stream(cur)
             seg["lambdas"].record_stream(cur)
-        return MPS(seg["gammas"], seg["lambdas"], self.semantics)
+        tile = self._tile_spec()
+        if tile is None:
+            return MPS(seg["gammas"], seg["lambdas"], self.semantics)
+        return PP.ChainTile(seg["gammas"], seg["lambdas"], self.semantics,
+                            *tile, gammas_right=seg["gammas_right"])
 
     def _release(self, seg: dict) -> None:
         if seg["copy"] is not None:      # the walk waited on the copy
@@ -335,7 +355,7 @@ class StreamingEngine:
             self._drop(pending)
 
     # -- one segment of the data plane --------------------------------------
-    def _run_segment(self, seg: MPS, env, log_scale, key, start: int):
+    def _run_segment(self, seg, env, log_scale, key, start: int):
         if self.plan.scheme != "inmem":
             return PP.sample_segment(self.mesh, seg, env, key, start,
                                      self.pconfig, self.config,

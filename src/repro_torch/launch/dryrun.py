@@ -1,30 +1,43 @@
-"""Dry run of the paper's own workload on the production meshes: the GBS
-half of the JAX package's ``launch/dryrun.py`` (ROADMAP §1 row 19a).
+"""Dry run on the production meshes: the port's ``launch/dryrun.py``.
 
-For every (preset × scheme × mesh) cell, the port's multi-level sampler
-(``core/parallel._multilevel_sample``) walks the whole chain once as rank 0
-of a fake process group of 256 (16×16) or 512 (2×16×16) ranks
-(``launch/mesh.make_production_mesh``), on fake tensors: no storage, so
-nothing is allocated on the card or the host.  ``launch/costs.py`` counts
-the rank's FLOPs, memory traffic, collectives and live bytes on the way,
-and derives the roofline terms with the constants of one NVIDIA H100 80GB
-HBM3 at 700 W.  The walk runs the plain cells (``kernels="torch"``), as the
-JAX dry run off a TPU counts its XLA cells.
+Every cell is walked once as rank 0 of a fake process group of 256
+(16×16) or 512 (2×16×16) ranks (``launch/mesh.make_production_mesh``), on
+fake tensors: no storage, so nothing is allocated on the card or the host.
+``launch/costs.py`` counts the rank's FLOPs, memory traffic, collectives
+and live bytes on the way, and derives the roofline terms with the
+constants of one NVIDIA H100 80GB HBM3 at 700 W.
+
+* The GBS cells (ROADMAP §1 row 19a): the multi-level sampler
+  (``core/parallel._multilevel_sample``) walks the whole chain on the
+  rank's own arguments (Γ whole under dp, its tiles under TP) and keeps
+  its result sharded, as the JAX package's ``shard_map`` does, on the
+  plain cells (``kernels="torch"``), as the JAX dry run off a TPU counts
+  its XLA cells.
+* The LM cells of the dense family (row 19b): the rank holds its tile of
+  every weight, batch row and cache under the sharding policy
+  (``launch/steps.py``) and runs ``make_prefill_step`` (prefill_32k) or
+  ``make_serve_step`` (decode_32k) with the collectives of a sharded rank
+  (``models.common.TPLayout``), attention on the reference's default
+  ``_sdpa`` route (its ``USE_FLASH`` is off).  long_500k is skipped for
+  these full-attention archs, as the reference skips it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs-opt  # Γ bf16,
       # bf16 wire, measure-first
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
+      --shape prefill_32k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
 
 Results are cached as JSON under experiments/dryrun_torch/ (the JAX
 package's file names and keys, less its two TPU fields); --force walks
-again.  The LM cells (``--arch``, ``--all``, ``--shape``,
-``--remat-block``) are ROADMAP §1 row 19b and raise until it is ported.
+again.  The train cells and ``--remat-block`` are ROADMAP §1 row 21, the
+other families' cells row 22 (``LM_CELLS``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -35,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import configs
 from repro_torch.configs import gbs
 from repro_torch.core import parallel as PP
 from repro_torch.core import prng
@@ -42,14 +56,23 @@ from repro_torch.core import sampler as S
 from repro_torch.core.mps import MPS
 from repro_torch.device import resolve_device
 from repro_torch.launch import costs as C
+from repro_torch.launch import steps
 from repro_torch.launch.mesh import data_axis_names, make_production_mesh
+from repro_torch.models import transformer as T
+from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
 
 OUT_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                         "experiments", "dryrun_torch")
 PRESETS = ("b-m288", "m8176")
 SCHEMES = ("dp", "tp_single", "tp_double")
-LM_CELLS = ("the LM cells of the dry run are ROADMAP §1 row 19b, not "
-            "ported yet")
+DENSE_ARCHS = tuple(a for a in configs.ARCHS
+                    if configs.get_config(a).family == "dense")
+LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+LM_CELLS = {"train": "the train cells and --remat-block are ROADMAP §1 "
+                     "row 21, not ported yet",
+            "family": "the MoE, SSM, hybrid, encoder-decoder and VLM cells "
+                      "are ROADMAP §1 row 22, not ported yet (the dense "
+                      "archs: " + ", ".join(DENSE_ARCHS) + ")"}
 
 
 def gbs_flops(preset: gbs.GBSPreset, scheme: str, optimized: bool,
@@ -76,25 +99,43 @@ def gbs_flops(preset: gbs.GBSPreset, scheme: str, optimized: bool,
 def _count(mesh, preset: gbs.GBSPreset, n_sites: int, n_samples: int,
            pcfg: PP.ParallelConfig, gamma_dtype: torch.dtype) -> C.Cost:
     """One rank's walk of ``n_sites`` sites of ``preset``'s chain on fake
-    tensors, counted."""
+    tensors, counted: its arguments are the whole Γ under dp and its tiles
+    under TP (the JAX package's ``in_specs``), its result its shard."""
     scfg = S.SamplerConfig(compute_dtype=torch.bfloat16, kernels="torch")
     key = prng.key(0)
+    chi, d, dev = preset.chi, preset.d, mesh.device
     with FakeTensorMode(), C.CostCounter() as counter:
-        gammas = torch.empty((n_sites, preset.chi, preset.chi, preset.d),
-                             dtype=gamma_dtype, device=mesh.device)
-        lambdas = torch.empty((n_sites, preset.chi), dtype=torch.float32,
-                              device=mesh.device)
-        counter.arguments(gammas, lambdas)
-        out = PP._multilevel_sample(mesh, MPS(gammas, lambdas, "linear"),
-                                    n_samples, key, pcfg, scfg)
+        lambdas = torch.empty((n_sites, chi), dtype=torch.float32,
+                              device=dev)
+        if pcfg.scheme == "dp":
+            chain = MPS(torch.empty((n_sites, chi, chi, d),
+                                    dtype=gamma_dtype, device=dev), lambdas)
+            counter.arguments(chain.gammas, lambdas)
+        else:
+            c = chi // mesh.shape[pcfg.model_axis]
+            rows = n_sites // 2 if pcfg.scheme == "tp_double" else n_sites
+            right = None
+            if pcfg.scheme == "tp_double":
+                right = torch.empty((n_sites // 2, chi, c, d),
+                                    dtype=gamma_dtype, device=dev)
+            chain = PP.ChainTile(
+                torch.empty((rows, c, chi, d), dtype=gamma_dtype,
+                            device=dev), lambdas, "linear", pcfg.scheme,
+                mesh.shape[pcfg.model_axis], 0, right)
+            counter.arguments(chain.gammas, right, lambdas)
+        out = PP._multilevel_sample(mesh, chain, n_samples, key, pcfg, scfg,
+                                    sharded=True)
         counter.outputs(out)
     return counter.cost
 
 
-def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict) -> dict:
+def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict,
+                 end_gathers: bool = True) -> dict:
     """The JAX package's cell record from the counts of the whole walk
     (``cost``) and of one loop body (``once``: the walk of one site, of one
-    pair for tp_double, what XLA's ``cost_analysis()`` counts of a scan)."""
+    pair for tp_double, of one layer for an LM cell: what XLA's
+    ``cost_analysis()`` counts of a scan).  ``end_gathers`` (the GBS
+    cells): the all-gathers that end the walk, counted apart."""
     rf = C.roofline(cost, meta["n_chips"], meta["model_flops"])
     tail = []
     for c in reversed(cost.collectives):
@@ -113,16 +154,134 @@ def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict) -> dict:
             "per_collective": cost.per_collective,
             "n_collectives": cost.n_collectives,
             "wire_bytes_by_link": cost.wire_bytes_by_link,
-            # every rank returns the full result: the all-gathers that end
-            # the segment, apart from the chain's own collectives
-            "end_gathers": {"n": len(tail),
-                            "wire_bytes": sum(c.wire_bytes for c in tail)},
         },
         "roofline": rf.table_row(),
         "constants": {"device": C.DEVICE_NAME,
                       "power_limit_w": C.POWER_LIMIT_W},
     })
+    if end_gathers:
+        # a walk that gathered its result would end in these, apart from
+        # the chain's own collectives (the sharded walk has none)
+        out["hlo"]["end_gathers"] = {
+            "n": len(tail), "wire_bytes": sum(c.wire_bytes for c in tail)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM cells: the dense family
+# ---------------------------------------------------------------------------
+
+def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (fwd-only), N = active params."""
+    _, active = cfg.param_count()
+    if shape.kind == "train":
+        return 6.0 * active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * active * shape.global_batch * shape.seq_len
+    return 2.0 * active * shape.global_batch       # one token a sequence
+
+
+def _lm_step(mesh, cfg: T.ModelConfig, shape: configs.ShapeSpec) -> C.Cost:
+    """One rank's step of the cell on fake tensors, counted: its tiles of
+    the weights (guarded, FSDP above 8 GB of bf16 weights, as the
+    reference's ``lower_cell`` decides), of the batch and of the caches
+    are the arguments; the caches are written in place (the reference
+    donates them), so the outputs are the step's result."""
+    fsdp = cfg.param_count()[0] * 2 > 8e9
+    with FakeTensorMode():
+        whole, specs, extra = steps.abstract_state(
+            cfg, None, shape.kind, shape.global_batch, shape.seq_len,
+            device=mesh.device)
+        params = steps.shard_params(
+            whole, steps.param_shardings(mesh, whole, specs, fsdp), mesh)
+        del whole
+        batch = configs.input_specs(cfg, shape, device=mesh.device)
+        batch = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
+                                  mesh)
+        state = None
+        if shape.kind == "decode":
+            state = steps.shard_state(
+                extra, steps.cache_shardings(mesh, cfg, extra.caches), mesh)
+            del extra
+        with C.CostCounter() as counter:
+            counter.arguments(list(params.parameters()), batch)
+            if state is None:
+                out = steps.make_prefill_step(cfg, kernels="torch",
+                                              flash=False)(params, batch)
+            else:
+                counter.arguments(state.caches, state.position)
+                out, _ = steps.make_serve_step(cfg)(params, batch, state)
+            counter.outputs(out)
+    return counter.cost
+
+
+def count_cell(arch: str, shape_name: str, multi_pod: bool,
+               remat_block: int = 0, device=None):
+    """The counterpart of the reference's ``lower_cell``: one LM cell
+    walked as rank 0 of the fake group under the cost counter.  Returns
+    ((the whole step's cost, one layer's), meta), or (None, {"skipped":
+    why}) for a cell the reference skips."""
+    if remat_block:
+        raise NotImplementedError(LM_CELLS["train"])
+    cfg = configs.get_config(arch)
+    if cfg.family != "dense":
+        raise NotImplementedError(LM_CELLS["family"])
+    shape = configs.SHAPES[shape_name]
+    if shape.kind == "train":
+        raise NotImplementedError(LM_CELLS["train"])
+    ok, why = configs.cell_supported(cfg, shape)
+    if not ok:
+        return None, {"skipped": why}
+    mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+    try:
+        n_chips = dist.get_world_size()
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        t0 = time.time()
+        cost = _lm_step(mesh, cfg, shape)
+        t1 = time.time()
+        once = _lm_step(mesh, dataclasses.replace(cfg, n_layers=1), shape)
+    finally:
+        clear_mesh_axes()
+        dist.destroy_process_group()
+    return (cost, once), {
+        "arch": arch, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "n_chips": n_chips, "compile_s": round(t1 - t0, 1),
+        "model_flops": model_flops_of(cfg, shape)}
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, force: bool = False,
+             out_root: str = OUT_ROOT, remat_block: int = 0,
+             device=None) -> dict:
+    """Walk one LM cell, write its JSON (the reference's file name) and
+    return it (the cached JSON unless ``force``)."""
+    multi = mesh_kind == "multi"
+    mesh_name = "2x16x16" if multi else "16x16"
+    os.makedirs(out_root, exist_ok=True)
+    rb = f"__rb{remat_block}" if remat_block else ""
+    path = os.path.join(
+        out_root,
+        f"{arch}__{shape_name}{rb}__{'multi' if multi else 'single'}.json")
+    if not force and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    try:
+        costs, meta = count_cell(arch, shape_name, multi, remat_block,
+                                 device)
+        if costs is None:
+            result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                      **meta}
+        else:
+            result = analyze_cell(*costs, meta, end_gathers=False)
+    except Exception as e:                                    # noqa: BLE001
+        result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                  "error": f"{type(e).__name__}: {e}",
+                  "traceback": traceback.format_exc()[-2000:]}
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(result, f, indent=1)
+    os.replace(tmp, path)
+    return result
 
 
 def run_gbs_cell(preset_name: str, scheme: str, mesh_kind: str,
@@ -225,8 +384,12 @@ def main(argv=None) -> int:
                     help="where the fake tensors live (default: the card)")
     ap.add_argument("--out", default=OUT_ROOT)
     args = ap.parse_args(argv)
-    if args.arch or args.all or args.shape or args.remat_block:
-        raise ValueError(LM_CELLS)
+    if args.remat_block or args.shape == "train_4k":
+        raise ValueError(LM_CELLS["train"])
+    if args.arch and args.arch not in DENSE_ARCHS:
+        raise ValueError(f"--arch {args.arch}: {LM_CELLS['family']}")
+    if args.shape and args.shape not in LM_SHAPES:
+        raise ValueError(f"--shape {args.shape}: one of {LM_SHAPES}")
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     dev = resolve_device(args.device)
@@ -250,11 +413,19 @@ def main(argv=None) -> int:
                                      device=args.device)
                     failed += "error" in r
                     print(summarize(r), flush=True)
-        if cuda:
-            print("peak device memory allocated: "
-                  f"{torch.cuda.max_memory_allocated()} bytes (before the "
-                  f"walks, torch's fake-tensor context: {context} bytes)",
-                  flush=True)
+    if args.all or args.arch:
+        for arch in [args.arch] if args.arch else DENSE_ARCHS:
+            for shape in [args.shape] if args.shape else LM_SHAPES:
+                for mk in meshes:
+                    r = run_cell(arch, shape, mk, force=args.force,
+                                 out_root=args.out, device=args.device)
+                    failed += "error" in r
+                    print(summarize(r), flush=True)
+    if cuda:
+        print("peak device memory allocated: "
+              f"{torch.cuda.max_memory_allocated()} bytes (before the "
+              f"walks, torch's fake-tensor context: {context} bytes)",
+              flush=True)
     return 1 if failed else 0
 
 

@@ -122,6 +122,14 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _say(*parts) -> None:
+    """Print one line in one write, then flush: ranks of a job share a pipe,
+    and ``print`` writes its parts and the newline apart (unbuffered, they
+    reach the pipe apart and another rank's line can land between them)."""
+    sys.stdout.write(" ".join(map(str, parts)) + "\n")
+    sys.stdout.flush()
+
+
 def main(argv=None) -> None:
     try:
         _main(argv)
@@ -131,7 +139,7 @@ def main(argv=None) -> None:
         record = {"fault": e.fault.to_dict(), "error": str(e)}
         if isinstance(e, DeadLetter):
             record["report"] = e.report.to_dict()
-        print(json.dumps(record, indent=1), file=sys.stderr)
+        sys.stderr.write(json.dumps(record, indent=1) + "\n")
         raise SystemExit(2)
 
 
@@ -167,7 +175,7 @@ def _main(argv=None) -> None:
 
 def _run(args, mesh, device, runtime, per_batch: int) -> None:
     lead = dist.get_rank() == 0
-    print(f"rank {dist.get_rank()}/{dist.get_world_size()} runtime "
+    _say(f"rank {dist.get_rank()}/{dist.get_world_size()} runtime "
           f"{runtime.name} mesh "
           f"{mesh.shape if mesh else None} scheme {args.scheme} device "
           f"{device}")
@@ -187,7 +195,7 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
         root = args.store or os.path.join(args.out, "gamma_store")
         source = GammaStore(root, compute_dtype=dtype)
         if source.n_sites == 0 and lead:
-            print(f"writing Γ store ({args.sites} sites) to {root}")
+            _say(f"writing Γ store ({args.sites} sites) to {root}")
             source.write_mps(build_mps())
             source.write_digest_manifest()
         dist.barrier()                       # rank 0 wrote it
@@ -205,14 +213,14 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
                                               args.chi // 4),
                                           args.chi // 2, args.chi}))
         chi_profile = tuple(int(c) for c in buck)
-        print("table1:", DB.table1_metrics(prof, args.chi))
+        _say("table1:", DB.table1_metrics(prof, args.chi))
     clamp = parse_clamp_arg(args.clamp) if args.clamp else None
     if clamp is not None:
-        print(f"clamp: {clamp} (clamped walks skip chain checkpoints — "
+        _say(f"clamp: {clamp} (clamped walks skip chain checkpoints — "
               f"macro-batch idempotence is the restart story)")
     scheme = args.scheme
     if mesh is None and scheme not in ("auto", "seq"):
-        print(f"the workers place the walk (--runtime {args.runtime}"
+        _say(f"the workers place the walk (--runtime {args.runtime}"
               f"{' --service-fleet' if args.service_fleet else ''}) — "
               f"overriding scheme {scheme!r} to auto")
         scheme = "auto"
@@ -234,16 +242,16 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
     queue = WorkQueue(n1)
     for b in done[0]:
         queue.complete(b)
-    print(f"pending macro batches: {queue.pending}")
+    _say(f"pending macro batches: {queue.pending}")
 
     base = prng.key(args.seed + 1)
     t0 = time.perf_counter()
     with api.SamplingSession(source, config, device=device,
                              mesh=mesh) as session:
         plan = session.plan(per_batch)
-        print("plan:", plan)
-        print("why:", session.explain(per_batch))
-        print(f"kernel dispatch: requested={args.kernels!r} → resolved "
+        _say("plan:", plan)
+        _say("why:", session.explain(per_batch))
+        _say(f"kernel dispatch: requested={args.kernels!r} → resolved "
               f"{plan.kernels!r} (device={device}; registered ops: "
               f"{dispatch.registered_ops()})")
 
@@ -259,7 +267,7 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
                                           dtype=np.float64)
             for k, v in (stats.get("launches") or {}).items():
                 worker_launches[k] = worker_launches.get(k, 0) + v
-            print(f"macro batch {b} done ({per_batch} samples)", flush=True)
+            _say(f"macro batch {b} done ({per_batch} samples)")
 
         if args.service:
             _run_service(args, session, base, queue, save_batch, device,
@@ -275,24 +283,24 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
         engine_stats = {k: v for k, v in session.stats.items()
                         if k != "log_prob"}
         if engine_stats:
-            print("streaming stats:", engine_stats)
+            _say("streaming stats:", engine_stats)
         if lp_blocks:
             # ln P(clamped outcomes | earlier sites) per sample: the mean
             # of exp estimates the clamp's probability
             lp = np.concatenate([lp_blocks[b] for b in sorted(lp_blocks)])
             w = np.exp(lp)
-            print(f"clamp log_prob: n={lp.size} mean={lp.mean():.6f} "
+            _say(f"clamp log_prob: n={lp.size} mean={lp.mean():.6f} "
                   f"min={lp.min():.6f} max={lp.max():.6f}  "
                   f"P(clamp) ≈ {w.mean():.6g}")
     if args.stream:
         source.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print("kernel launches:", json.dumps(ops.launch_counts()))
+    _say("kernel launches:", json.dumps(ops.launch_counts()))
     if worker_launches:
-        print("worker kernel launches:", json.dumps(worker_launches))
+        _say("worker kernel launches:", json.dumps(worker_launches))
     if runtime.name != "local":
-        print("runtime counters:", json.dumps(runtime.io_counters()))
+        _say("runtime counters:", json.dumps(runtime.io_counters()))
     if not lead:
         return
 
@@ -309,7 +317,7 @@ def _run(args, mesh, device, runtime, per_batch: int) -> None:
              "mean_photon_max": float(mean_photons.max())}
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=1)
-    print(json.dumps(stats, indent=1))
+    _say(json.dumps(stats, indent=1))
 
 
 def _checkpoint_root(out: str) -> str:
@@ -349,14 +357,14 @@ def _run_service(args, session, base, queue, save_batch, device,
             adm = st["admission"]
             lanes = " ".join(f"{n}:{c}" for n, c in
                              sorted(st["lane_batches"].items()))
-            print(f"[service] {p['done']}/{p['total']} batches "
+            _say(f"[service] {p['done']}/{p['total']} batches "
                   f"(claims={p['claims']} requeues={p['requeues']} "
                   f"lanes={p['workers']}) queue_depth={st['queue_depth']} "
                   f"backpressure={'yes' if adm['backpressure'] else 'no'} "
                   f"(admitted={adm['admitted_jobs']} queued="
-                  f"{adm['queued_jobs']}) per-lane: {lanes}", flush=True)
+                  f"{adm['queued_jobs']}) per-lane: {lanes}")
         final = svc.stats()
-        print("[service] final:", handle.status(), json.dumps(final))
+        _say("[service] final:", handle.status(), json.dumps(final))
     if pool is not None:
         pool.close()
 

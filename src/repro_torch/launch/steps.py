@@ -1,9 +1,26 @@
-"""Train, prefill and serve step factories for the LM stack.
+"""Train, prefill and serve step factories for the LM stack, and the
+sharding policy.
 
-Mirrors ``repro.launch.steps.make_train_step`` / ``make_prefill_step`` /
-``make_serve_step``.  The reference's sharding policy (``param_shardings``
-and the rest) matters only across devices and is later work (ROADMAP.md
-§1 row 19).
+Mirrors ``repro.launch.steps``.  Sharding policy (per leaf, as the
+reference's):
+  1. Resolve the model's logical specs (DATA placeholders → the mesh's
+     data-like axes; ``models.transformer.param_specs``).
+  2. Divisibility guard: a dim that its axes do not divide is replicated
+     (qwen1.5-4b's 20 heads on a model axis of 16).
+  3. FSDP: above 8 GB of bf16 weights, a leaf not data-sharded gets its
+     largest divisible dim sharded over the data axes.
+Decode caches: batch over the data axes; KV heads over "model" when they
+divide, else the cache's length.
+
+A spec is a ``models.common.PartitionSpec``; the port has no
+``NamedSharding``, so the ``*_shardings`` functions return specs (by
+``Transformer.ref_leaves`` path for the weights, by name for a batch and
+the caches).  A rank of a mesh holds its tile of each leaf under its spec
+(:func:`shard_params`, :func:`shard_batch`, :func:`shard_state`, on real
+or fake tensors), and with
+``common.set_mesh_axes(..., mesh=mesh)`` the dense family's prefill and
+serve steps run on those tiles with their collectives.  ``opt_state_
+shardings`` and the sharded train step are ROADMAP §1 row 21.
 """
 from __future__ import annotations
 
@@ -11,9 +28,190 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import collectives as C
+from repro_torch.core.tree import Leaf
+from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import transformer as T
-from repro_torch.models.common import softmax_xent
+from repro_torch.models.common import (PartitionSpec, resolve_specs,
+                                       softmax_xent)
 
+
+# ---------------------------------------------------------------------------
+# Sharding policy
+# ---------------------------------------------------------------------------
+
+def _axis_size(mesh, ax) -> int:
+    if ax is None:
+        return 1
+    if isinstance(ax, (tuple, list)):
+        out = 1
+        for a in ax:
+            out *= mesh.shape[a]
+        return out
+    return mesh.shape[ax]
+
+
+def guard_divisibility(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
+    """``spec`` with every dim its axes do not divide replicated, padded
+    with None to ``shape``'s rank."""
+    out = []
+    for i, ax in enumerate(spec):
+        if ax is not None and (i >= len(shape)
+                               or shape[i] % _axis_size(mesh, ax)):
+            out.append(None)
+        else:
+            out.append(ax)
+    while len(out) < len(shape):
+        out.append(None)
+    return PartitionSpec(*out)
+
+
+def apply_fsdp(spec: PartitionSpec, shape, mesh,
+               data_axes) -> PartitionSpec:
+    """Shard the largest unsharded divisible dim over the data axes."""
+    if any(ax is not None and (ax in data_axes or (
+            isinstance(ax, (tuple, list)) and set(ax) & set(data_axes)))
+           for ax in spec):
+        return spec                       # already data-sharded
+    dsize = 1
+    for a in data_axes:
+        dsize *= mesh.shape[a]
+    cands = [i for i, ax in enumerate(spec)
+             if ax is None and shape[i] % dsize == 0]
+    if not cands:
+        return spec
+    best = max(cands, key=lambda i: shape[i])
+    out = list(spec)
+    out[best] = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+    return PartitionSpec(*out)
+
+
+def param_shardings(mesh, params, specs: dict, fsdp: bool) -> dict:
+    """Each weight's spec on ``mesh`` by ``ref_leaves`` path: ``params`` a
+    :class:`Transformer` (fake tensors will do: :func:`abstract_params`)
+    or a dict of shapes by path."""
+    data_axes = data_axis_names(mesh)
+    specs = resolve_specs(specs, data_axes)
+    shapes = (params if isinstance(params, dict) else
+              {k: leaf.shape for k, leaf in params.ref_leaves().items()})
+
+    def leaf(shape, spec):
+        spec = guard_divisibility(spec, shape, mesh)
+        if fsdp:
+            spec = apply_fsdp(spec, shape, mesh, data_axes)
+        return spec
+
+    return {k: leaf(tuple(shapes[k]), specs[k]) for k in specs}
+
+
+def batch_shardings(mesh, batch: dict) -> dict:
+    """A batch's specs by name: dim 0 over the data axes when they divide
+    it (``batch``: tensors or shapes by name)."""
+    data_axes = data_axis_names(mesh)
+    dspec = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+
+    def leaf(shape):
+        spec = [None] * len(shape)
+        if shape and shape[0] % _axis_size(mesh, dspec) == 0:
+            spec[0] = dspec
+        return PartitionSpec(*spec)
+
+    return {k: leaf(tuple(v.shape if hasattr(v, "shape") else v))
+            for k, v in batch.items()}
+
+
+def cache_shardings(mesh, cfg: T.ModelConfig, caches: dict) -> dict:
+    """The decode caches' specs by name (stacked (L, B, T, kvh?, dh?)):
+    batch over the data axes; a KV cache's heads over "model" when they
+    divide, else its length; MLA's latent cache on its length."""
+    del cfg
+    data_axes = data_axis_names(mesh)
+    dspec = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+    msize = mesh.shape["model"]
+    dsize = _axis_size(mesh, dspec)
+
+    def leaf(shape):
+        if len(shape) == 0:
+            return PartitionSpec()
+        spec: list = [None] * len(shape)
+        if len(shape) >= 2 and shape[1] % dsize == 0:
+            spec[1] = dspec                       # batch
+        if len(shape) == 5:                       # (L, B, T, kvh, dh) KV
+            if shape[3] % msize == 0:
+                spec[3] = "model"                 # kv heads
+            elif shape[2] % msize == 0:
+                spec[2] = "model"                 # cache length
+        elif len(shape) == 4:                     # (L, B, T, latent) MLA
+            if shape[2] % msize == 0:
+                spec[2] = "model"
+        return PartitionSpec(*spec)
+
+    return {k: leaf(tuple(v.shape if hasattr(v, "shape") else v))
+            for k, v in caches.items()}
+
+
+# ---------------------------------------------------------------------------
+# A rank's tiles
+# ---------------------------------------------------------------------------
+
+def _coords(mesh, spec: PartitionSpec, shape) -> list:
+    """(dim, start, width) of this rank's tile of a leaf of ``shape``
+    under ``spec``: its coordinate on each dim's axes (a tuple of axes
+    counted on their flattened line, major axis first)."""
+    out = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n = _axis_size(mesh, ax)
+        w = shape[d] // n
+        out.append((d, C.axis_index(mesh.group(ax)) * w, w))
+    return out
+
+
+def _tile(t: torch.Tensor, coords) -> torch.Tensor:
+    """The tile a fresh tensor of its own (a fake tile's storage is the
+    tile's size, not the whole leaf's)."""
+    for d, start, w in coords:
+        t = t.narrow(d, start, w)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: T.Transformer, shardings: dict,
+                 mesh) -> T.Transformer:
+    """This rank's tiles of ``params`` (whole weights; fake ones give the
+    dry run's fake tiles) under ``shardings`` (:func:`param_shardings`), a
+    :class:`Transformer` that remembers them (its ``shardings``)."""
+    leaves = {}
+    for path, leaf in params.ref_leaves().items():
+        spec = shardings[path]
+        coords = _coords(mesh, spec, leaf.shape)
+        if leaf.stacked:                  # the layer axis is never split
+            if any(d == 0 for d, _, _ in coords):
+                raise NotImplementedError(f"{path}: a split layer axis")
+            coords = [(d - 1, s0, w) for d, s0, w in coords]
+        leaves[path] = Leaf([_tile(t, coords) for t in leaf.tensors],
+                            leaf.stacked)
+    return T.params_from_leaves(params.cfg, leaves, shardings)
+
+
+def shard_batch(batch: dict, shardings: dict, mesh) -> dict:
+    """This rank's rows of each batch tensor."""
+    return {k: _tile(v, _coords(mesh, shardings[k], v.shape))
+            for k, v in batch.items()}
+
+
+def shard_state(state: T.DecodeState, shardings: dict,
+                mesh) -> T.DecodeState:
+    """This rank's tiles of a whole decode state's caches under
+    ``shardings`` (:func:`cache_shardings`), carried in the state."""
+    caches = {k: _tile(v, _coords(mesh, shardings[k], v.shape))
+              for k, v in state.caches.items()}
+    return T.DecodeState(caches, state.position, shardings)
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
 
 def loss_and_grads(params: T.Transformer, batch: dict, cfg: T.ModelConfig,
                    aux_weight: float = 0.01):
@@ -65,16 +263,19 @@ def make_train_step(cfg: T.ModelConfig, optimizer, aux_weight: float = 0.01,
     return train_step
 
 
-def make_prefill_step(cfg: T.ModelConfig, kernels: str = "auto"):
+def make_prefill_step(cfg: T.ModelConfig, kernels: str = "auto",
+                      flash: bool = True):
     """(params, batch) → last-position logits (B, V).  ``batch`` holds
     ``tokens`` and, for encdec and the VLM, ``frames`` or ``patches`` (the
     stub frontends' embeddings).  Full-sequence and cross attention (the
     hybrid's shared block, whisper's encoder too) go through the flash
-    kernel's dispatch (``kernels``)."""
+    kernel's dispatch (``kernels``), or with ``flash=False`` the
+    reference's default ``_sdpa``.  On a sharded rank: its rows and its
+    vocabulary columns."""
     def prefill(params, batch):
         extra = {k: batch[k] for k in ("frames", "patches") if k in batch}
         logits, _ = T.forward(params, batch["tokens"], cfg, extra,
-                              kernels=kernels)
+                              kernels=kernels, flash=flash)
         return logits[:, -1, :]
     return prefill
 
@@ -89,6 +290,32 @@ def make_serve_step(cfg: T.ModelConfig):
         extra = {k: batch[k] for k in ("enc_out", "patches") if k in batch}
         logits, new_state = T.decode_step(params, batch["tokens"], state, cfg,
                                           extra)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        nxt = T.greedy(params, logits[:, -1, :]).to(torch.int32)[:, None]
         return nxt, new_state
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract state builders (the dry run: fake tensors, no storage)
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: T.ModelConfig, device=None):
+    """(params, specs): ``init_params``' weights, on fake tensors when
+    called under a ``FakeTensorMode`` (shapes and dtypes only), and
+    :func:`models.transformer.param_specs`."""
+    return T.init_params(0, cfg, device=device), T.param_specs(cfg)
+
+
+def abstract_state(cfg: T.ModelConfig, optimizer, shape_kind: str,
+                   batch: int, seq: int, device=None):
+    """(params, specs, extra) as the reference's: extra the decode state
+    for ``"decode"``, None for ``"prefill"``; ``"train"`` (the optimizer's
+    state) is ROADMAP §1 row 21."""
+    del optimizer
+    if shape_kind == "train":
+        raise NotImplementedError("the train cells are ROADMAP §1 row 21")
+    params, specs = abstract_params(cfg, device)
+    if shape_kind == "decode":
+        return params, specs, T.init_decode_state(cfg, batch, seq,
+                                                  device=device)
+    return params, specs, None

@@ -22,6 +22,15 @@ MLA (:func:`mla_apply`, DeepSeek-V3's multi-head latent attention) caches
 the compressed latent (kv_lora_rank + rope dim) instead of per-head K/V and
 stays plain PyTorch in prefill and decode, as the reference keeps it on
 its XLA path: it has no kernel.
+
+On a sharded rank (``tp``, a ``common.TPLayout``) the dense self-attention
+runs on its tiles as XLA partitions the reference's: the query heads (and
+the KV heads when they divide) column parallel, wo row parallel and summed
+over the model axis; in prefill a rank whose KV heads are whole projects
+only those its query heads read; in decode a KV cache split on its length
+(``launch.steps.cache_shardings``) is read with every query head (gathered
+over the model axis) and a softmax whose max, sum and output are summed
+over the axis (:func:`_sdpa_split`).
 """
 from __future__ import annotations
 
@@ -31,8 +40,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, rope_tables
+from repro_torch.models.common import (MODEL, TPLayout, apply_rope,
+                                       dense_init, model_psum, rope_tables,
+                                       spec)
 
 NEG_INF = -1e30
 
@@ -67,6 +79,17 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype,
             "bk": torch.zeros((kvh, dh), dtype=dtype, device=device),
             "bv": torch.zeros((kvh, dh), dtype=dtype, device=device)})
     return params
+
+
+def attn_specs(cfg: AttnConfig) -> dict:
+    """The attention weights' logical specs by name (the reference's
+    ``attn_init``): q, k, v split on their heads, wo on its rows."""
+    specs = {"wq": spec(None, MODEL, None), "wk": spec(None, MODEL, None),
+             "wv": spec(None, MODEL, None), "wo": spec(MODEL, None, None)}
+    if cfg.qkv_bias:
+        specs.update({"bq": spec(MODEL, None), "bk": spec(MODEL, None),
+                      "bv": spec(MODEL, None)})
+    return specs
 
 
 class KVCache(NamedTuple):
@@ -125,7 +148,8 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[KVCache] = None,
                kv_input: Optional[torch.Tensor] = None,
-               kernels: str = "auto", rope=None, flash: bool = True):
+               kernels: str = "auto", rope=None, flash: bool = True,
+               tp: Optional[TPLayout] = None):
     """Self- or cross-attention.  Returns (y, new_cache), new_cache None
     without a cache or with ``kv_input``.  ``rope``: ``common.rope_tables(
     positions, head_dim, rope_theta)``, if the caller made them once for
@@ -143,6 +167,12 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
       mask, the cache (if any) neither written nor read: the flash
       kernel's dispatch at S query rows against T keys.
     """
+    if tp is not None:
+        if kv_input is not None:
+            raise NotImplementedError("sharded cross-attention is ROADMAP "
+                                      "§1 row 22 (encoder-decoder, VLM)")
+        return _attn_apply_tp(params, x, cfg, positions, cache, kernels,
+                              rope, flash, tp)
     b, s, _ = x.shape
     src = x if kv_input is None else kv_input
     q = _project(x, params["wq"])
@@ -180,6 +210,120 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
     h, dh, dm = params["wo"].shape
     y = out.reshape(b, s, h * dh) @ params["wo"].reshape(h * dh, dm)
     return y, new_cache
+
+
+def _write_rows_at(pairs, length: torch.Tensor, offset: int,
+                   t_all: int) -> torch.Tensor:
+    """:func:`_write_rows` into this rank's rows [offset, offset + T_l) of
+    a cache of ``t_all`` rows split on its length: the start clamped into
+    the whole cache, each row written by the rank that holds it.  Returns
+    the lengths (B,)."""
+    buf, new = pairs[0]
+    b, s = new.shape[:2]
+    t_l = buf.shape[1]
+    pos = length.expand(b) if length.ndim == 0 else length
+    start = pos.clamp(0, t_all - s).to(torch.int64) - offset
+    batch = torch.arange(b, device=buf.device)
+    for j in range(s):                    # one row a sequence per write
+        row = start + j
+        keep = ((row >= 0) & (row < t_l))[:, None, None]
+        row = row.clamp(0, t_l - 1)
+        for buf, new in pairs:
+            buf[batch, row] = torch.where(keep, new[:, j].to(buf.dtype),
+                                          buf[batch, row])
+    return pos
+
+
+def _sdpa_split(q, k, v, mask, tp: Optional[TPLayout]):
+    """:func:`_sdpa` over a KV cache split on its length across the model
+    axis: every rank scores all of ``q`` against its keys, the softmax's
+    max and sum and the output are summed over the axis (None: a whole
+    cache, :func:`_sdpa` itself)."""
+    if tp is None:
+        return _sdpa(q, k, v, mask)
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    logits = logits / math.sqrt(dh)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = C.pmax(logits.amax(dim=-1, keepdim=True), tp.group)
+    e = torch.exp(logits - m)
+    z = C.psum(e.sum(dim=-1, keepdim=True), tp.group)
+    w = (e / z).to(v.dtype)
+    out = C.psum(torch.einsum("bkgst,btkd->bskgd", w, v), tp.group)
+    return out.reshape(b, s, h, dh)
+
+
+def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
+                   rope, flash, tp: TPLayout):
+    """:func:`attn_apply`'s self-attention on a sharded rank's tiles (see
+    the module docstring).  Returns (y, new_cache)."""
+    b, s, _ = x.shape
+    q = _project(x, params["wq"])                 # (B, S, H_l, Dh)
+    h_l = q.shape[2]
+    h0 = tp.rank * h_l if tp.heads else 0
+    kv = slice(None)
+    if cache is None and tp.heads and not tp.kv_heads:
+        # prefill: only the KV heads of this rank's query heads (XLA slices
+        # the replicated wk, wv so)
+        g = cfg.n_heads // cfg.n_kv_heads
+        if h_l % g and g % h_l:
+            raise NotImplementedError(
+                f"{h_l} query heads a rank straddle KV groups of {g}")
+        kv = slice(h0 // g, (h0 + h_l - 1) // g + 1)
+    k = _project(x, params["wk"][:, kv])
+    v = _project(x, params["wv"][:, kv])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"][kv]
+        v = v + params["bv"][kv]
+    if cfg.rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        rope = rope or rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
+    new_cache = None
+    if cache is None:
+        if tp.kv_heads and not tp.heads:
+            k = C.all_gather(k, tp.group, dim=2)
+            v = C.all_gather(v, tp.group, dim=2)
+        if flash:
+            out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=cfg.causal,
+                                      kernels=kernels)
+        else:
+            mask = None
+            if cfg.causal:
+                mask = torch.ones((s, s), dtype=torch.bool,
+                                  device=x.device).tril()[None, None, None]
+            out = _sdpa(q, k, v, mask)
+    elif tp.cache == "heads":
+        t = cache.k.shape[1]
+        pos = _write_rows(((cache.k, k), (cache.v, v)), cache.length)
+        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        out = _sdpa(q, cache.k, cache.v, valid[:, None, None, None, :])
+        new_cache = KVCache(cache.k, cache.v, cache.length + s)
+    else:
+        # the cache's rows [off, off + T_l) on this rank (all of them when
+        # it is whole): every query head reads them
+        if tp.heads:
+            q = C.all_gather(q, tp.group, dim=2)
+        t_l = cache.k.shape[1]
+        split = tp.cache == "length"
+        off = tp.rank * t_l if split else 0
+        pos = _write_rows_at(((cache.k, k), (cache.v, v)), cache.length,
+                             off, t_l * tp.size if split else t_l)
+        valid = (torch.arange(off, off + t_l, device=x.device)[None, :]
+                 <= pos[:, None])
+        out = _sdpa_split(q, cache.k, cache.v,
+                          valid[:, None, None, None, :], tp if split else None)
+        out = out[:, :, h0:h0 + h_l]
+        new_cache = KVCache(cache.k, cache.v, cache.length + s)
+    _, dh, dm = params["wo"].shape
+    y = out.reshape(b, s, h_l * dh) @ params["wo"].reshape(h_l * dh, dm)
+    return (model_psum(y, tp) if tp.heads else y), new_cache
 
 
 

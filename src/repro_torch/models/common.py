@@ -1,9 +1,17 @@
-"""Initialisers and primitive layers shared by the model zoo.
+"""Initialisers, primitive layers and the sharding vocabulary shared by the
+model zoo.
 
-Mirrors ``repro.models.common`` (its ``remat`` too) without its sharding
-helpers (``DATA``, ``MODEL``, ``resolve_specs``, ``batch_sharded``,
-``shard_hint``), which are no-ops on one device.  Casts happen where the
-reference casts: :func:`rms_norm` reduces in fp32, casts to x's dtype,
+Mirrors ``repro.models.common`` (its ``remat`` too).  Its sharding helpers
+(``DATA``, ``MODEL``, ``spec``, ``set_mesh_axes``, ``clear_mesh_axes``,
+``batch_sharded``, ``shard_hint``, ``resolve_specs``) are here with a
+partition-spec type of the port's own (:class:`PartitionSpec`, a tuple).
+The reference constrains one controller's activations; the port runs SPMD,
+so a rank's activations are its batch shard already and ``batch_sharded``
+and ``shard_hint`` return their input.  ``set_mesh_axes(..., mesh=...)``
+makes the dense forward and decode step of a rank that holds tiles
+(``launch.steps.shard_params``) issue their collectives over ``mesh``
+(:class:`TPLayout`); with no mesh set they are the one-device code.
+Casts happen where the reference casts: :func:`rms_norm` reduces in fp32, casts to x's dtype,
 then multiplies by γ in that dtype; :func:`apply_rope` rotates split
 halves in fp32 and casts back, its angles' sin and cos with the
 reference's bits (:func:`sin_cos`);
@@ -14,13 +22,126 @@ Initialisers draw from a ``torch.Generator`` (their bits differ from
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import collectives as C
+
+
+# ---------------------------------------------------------------------------
+# Sharding vocabulary: the reference's logical specs, resolved by
+# ``launch.steps`` to the mesh's axes.  DATA stands for the data-like axes
+# (("pod", "data") or ("data",)); MODEL is the model axis.
+# ---------------------------------------------------------------------------
+
+DATA = "__data__"
+MODEL = "model"
+
+
+class PartitionSpec(tuple):
+    """A leaf's sharding, one entry a dim: None (replicated), a mesh axis
+    name, or a tuple of names (their flattened line, major axis first);
+    trailing dims left out are replicated.  The port's counterpart of
+    ``jax.sharding.PartitionSpec``: a plain tuple."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def spec(*axes) -> PartitionSpec:
+    return PartitionSpec(*axes)
+
+
+_MESH_CTX: dict = {"data": None, "model": None, "mesh": None}
+
+
+def set_mesh_axes(data_axes, model_axis: str = "model", mesh=None) -> None:
+    """Declare the mesh axes (the reference's call), and with ``mesh`` (a
+    ``launch.mesh.Mesh``) the mesh whose groups a sharded rank's forward
+    and decode step run their collectives on.  Tests and single-device
+    runs leave it unset."""
+    _MESH_CTX["data"] = tuple(data_axes) if data_axes else None
+    _MESH_CTX["model"] = model_axis
+    _MESH_CTX["mesh"] = mesh
+
+
+def clear_mesh_axes() -> None:
+    _MESH_CTX.update(data=None, model=None, mesh=None)
+
+
+def mesh_context() -> Optional[dict]:
+    """``{"data", "model", "mesh"}`` when a mesh was declared with
+    :func:`set_mesh_axes`, else None (the one-device code)."""
+    return dict(_MESH_CTX) if _MESH_CTX["mesh"] is not None else None
+
+
+def batch_sharded(x: torch.Tensor) -> torch.Tensor:
+    """The reference's batch constraint: a rank's activations are its batch
+    shard already."""
+    return x
+
+
+def shard_hint(x: torch.Tensor, *logical) -> torch.Tensor:
+    """The reference's per-dim constraint: nothing to do on a rank."""
+    del logical
+    return x
+
+
+def resolve_specs(tree: Any, data_axes: tuple[str, ...]) -> Any:
+    """Rewrite DATA placeholders for the concrete mesh, in a dict, list or
+    tuple of :class:`PartitionSpec` (a spec is a leaf)."""
+    if isinstance(tree, PartitionSpec):
+        d = tuple(data_axes)
+        return PartitionSpec(*((d if len(d) > 1 else d[0]) if ax == DATA
+                               else ax for ax in tree))
+    if isinstance(tree, dict):
+        return {k: resolve_specs(v, data_axes) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(resolve_specs(v, data_axes) for v in tree)
+    return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """How a sharded rank's dense block is split over the model axis: the
+    axis' process ``group`` (``size`` ranks, this one ``rank``) and which
+    weights it splits (Megatron's column and row parallel layers, as XLA
+    partitions the reference's specs):
+
+    * ``heads``: wq, bq on the heads (column parallel) and wo on its rows;
+      wo's partial products are summed over the group;
+    * ``kv_heads``: wk, wv, bk, bv on the KV heads.  When the heads are
+      split and the KV heads are not, a rank projects only the KV heads its
+      query heads read;
+    * ``ffn``: gate and up on d_ff (column parallel), down on its rows,
+      summed over the group;
+    * ``cache``: decode's KV cache, split on its ``"heads"`` or its
+      ``"length"`` (softmax's max and sum and the output summed over the
+      group), or None (whole)."""
+    group: Any
+    size: int
+    rank: int
+    heads: bool = False
+    kv_heads: bool = False
+    ffn: bool = False
+    cache: Optional[str] = None
+
+
+def model_psum(x: torch.Tensor, tp: Optional[TPLayout]) -> torch.Tensor:
+    """Σ of the group's partial ``x`` (an all-reduce), or ``x`` on one
+    device."""
+    if tp is None or tp.size == 1:
+        return x
+    return C.psum(x, tp.group)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -82,6 +203,16 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
     return gelu(x @ w_up + b_up) @ w_down + b_down
 
 
+def mlp_specs(style: str = "swiglu") -> dict:
+    """The MLP's logical specs by weight name (the reference's
+    ``mlp_init``): the up projections column parallel, down row parallel."""
+    if style == "swiglu":
+        return {"gate": spec(None, MODEL), "up": spec(None, MODEL),
+                "down": spec(MODEL, None)}
+    return {"up": spec(None, MODEL), "b_up": spec(MODEL),
+            "down": spec(MODEL, None), "b_down": spec(None)}
+
+
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
              style: str = "swiglu", device=None) -> dict:
     """The MLP's weights by name, shapes as the reference's."""
@@ -95,7 +226,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
             "b_down": torch.zeros((d_model,), dtype=dtype, device=device)}
 
 
-def mlp_apply(params, x, style: str = "swiglu"):
+def mlp_apply(params, x, style: str = "swiglu",
+              tp: Optional[TPLayout] = None):
+    """The MLP; with ``tp.ffn`` this rank's columns of d_ff, the down
+    projection's partial products summed over the model axis."""
+    if tp is not None and tp.ffn:
+        if style != "swiglu":
+            raise NotImplementedError("a sharded gelu MLP is ROADMAP §1 "
+                                      "row 22 (encoder-decoder, VLM)")
+        return model_psum(swiglu(x, params["gate"], params["up"],
+                                 params["down"]), tp)
     if style == "swiglu":
         return swiglu(x, params["gate"], params["up"], params["down"])
     return gelu_mlp(x, params["up"], params["b_up"], params["down"],
@@ -123,11 +263,28 @@ _INV_PIO4 = (                                           # 4/π, 8 new bits each
     0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041)
 
 
-@functools.lru_cache(maxsize=None)
+def _cached(fn):
+    """``functools.lru_cache`` of ``fn``, bypassed under a fake-tensor mode
+    (the dry run): a fake tensor must not outlive its mode in the cache."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def call(*args):
+        from torch._guards import active_fake_mode
+        return fn(*args) if active_fake_mode() is not None else cached(*args)
+    return call
+
+
+@_cached
 def _sincos_tables(device: torch.device):
-    """4/π's words and the quadrants' signs on ``device``, copied once."""
-    return (torch.tensor(_INV_PIO4, dtype=torch.int64, device=device),
-            torch.tensor(_SINCOS_SIGN, dtype=torch.float64, device=device))
+    """4/π's words and the quadrants' signs on ``device``, copied once:
+    made on the host and copied (on the CPU too), so the dry run's counter
+    sees the same ops on the card and on the CPU; under its fake tensors
+    ``torch.tensor(data, device=card)`` would take real memory on the
+    card."""
+    return (torch.tensor(_INV_PIO4, dtype=torch.int64).to(device, copy=True),
+            torch.tensor(_SINCOS_SIGN, dtype=torch.float64).to(device,
+                                                              copy=True))
 
 
 def _reduce_large(bits: torch.Tensor):
@@ -177,7 +334,7 @@ def sin_cos(y: torch.Tensor):
             torch.where(tiny, torch.ones_like(sin), cos))
 
 
-@functools.lru_cache(maxsize=None)
+@_cached
 def rope_inv_freq(dh: int, theta: float, device: torch.device) -> torch.Tensor:
     """1/θ^(2i/Dh) (Dh/2,) fp32 with the reference's bits: the exponent in
     fp32, the power in fp64 rounded to fp32 (XLA's fp32 ``pow`` on the CPU),
@@ -185,7 +342,7 @@ def rope_inv_freq(dh: int, theta: float, device: torch.device) -> torch.Tensor:
     same bits (torch's fp32 ``pow`` is one ulp off at Dh = 112)."""
     e = np.arange(0, dh, 2, dtype=np.float32) / np.float32(dh)
     p = np.power(np.float64(theta), e.astype(np.float64)).astype(np.float32)
-    return torch.from_numpy(np.float32(1.0) / p).to(device)
+    return torch.from_numpy(np.float32(1.0) / p).to(device, copy=True)
 
 
 def rope_tables(positions: torch.Tensor, dh: int, theta: float = 10000.0):

@@ -39,6 +39,16 @@ runs its cross layers in the reference's decode order: all dense layers
 first, then the cross layers in a row, which differs from its forward
 (cross after every ``cross_attn_every``-th layer); so a VLM decode does
 not reproduce its prefill, in the reference or here.
+
+A rank of a mesh (the dense family) holds its tiles of the weights
+(``launch.steps.shard_params``: a :class:`Transformer` whose
+``shardings`` are the resolved specs of :func:`param_specs`) and, with the
+mesh declared (``common.set_mesh_axes(..., mesh=mesh)``), its forward and
+decode step run on them with a ``common.TPLayout``'s collectives: the
+vocabulary-parallel embedding and logits, FSDP tiles gathered over the
+data axes before use, the attention and MLP as ``attention`` and
+``common.mlp_apply`` split them; :func:`greedy` picks a token over a split
+vocabulary.  With no mesh declared both are the one-device code.
 """
 from __future__ import annotations
 
@@ -48,13 +58,16 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.core import collectives as C
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.core.tree import Leaf
-from repro_torch.models.common import (embed_init, mlp_apply, mlp_init,
-                                       remat, rms_norm, rope_tables)
+from repro_torch.models.common import (MODEL, PartitionSpec, TPLayout,
+                                       embed_init, mesh_context, mlp_apply,
+                                       mlp_init, mlp_specs, remat, rms_norm,
+                                       rope_tables, spec)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
@@ -279,10 +292,13 @@ class Transformer(nn.Module):
     tensors (see :func:`init_params` and
     ``convert.lm_params_from_arrays``)."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, shardings=None):
         super().__init__()
         require_ported(cfg.family)
         self.cfg = cfg
+        # a sharded rank's leaves are tiles under these resolved specs (by
+        # ``ref_leaves`` path; ``launch.steps.shard_params``); None: whole
+        self.shardings = shardings
         self.embed = _param(tree["embed"])
         self.ln_f = _param(tree["ln_f"])
         self.unembed = _param(tree["unembed"])
@@ -322,6 +338,49 @@ class Transformer(nn.Module):
             groups.setdefault(tuple(parts), []).append(p)
         return {"/".join(key): Leaf(group, key[0] in STACKED)
                 for key, group in sorted(groups.items())}
+
+
+def params_from_leaves(cfg: ModelConfig, leaves: dict,
+                       shardings: Optional[dict] = None) -> Transformer:
+    """A :class:`Transformer` from its reference leaves by path (a
+    :class:`Leaf` each, as :meth:`Transformer.ref_leaves` gives them: a
+    stacked leaf's tensors are its layers' rows)."""
+    tree: dict = {}
+    for path, leaf in leaves.items():
+        head, *rest = path.split("/")
+        if not leaf.stacked:
+            node = tree
+            for k in [head, *rest][:-1]:
+                node = node.setdefault(k, {})
+            node[path.split("/")[-1]] = leaf.tensors[0]
+            continue
+        rows = tree.setdefault(head, [{} for _ in leaf.tensors])
+        for row, t in zip(rows, leaf.tensors):
+            node = row
+            for k in rest[:-1]:
+                node = node.setdefault(k, {})
+            node[rest[-1]] = t
+    return Transformer(cfg, tree, shardings)
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
+    """The logical specs of the weights (the reference's ``init_params``
+    second output), keyed as :meth:`Transformer.ref_leaves` is: embed
+    split on the vocabulary, unembed on its columns, each layer's
+    attention and MLP as ``attention.attn_specs`` and ``common.mlp_specs``
+    with a leading None for the stacked layer axis, the norms whole.  The
+    dense family's; the others' are ROADMAP §1 row 22."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family's sharding is "
+                                  "ROADMAP §1 row 22")
+    layer = {**{f"attn/{k}": v for k, v in
+                A.attn_specs(cfg.attn_cfg()).items()},
+             **{f"mlp/{k}": v for k, v in mlp_specs(cfg.mlp_style).items()},
+             "ln1": spec(None), "ln2": spec(None)}
+    out = {"embed": spec(MODEL, None), "ln_f": spec(None),
+           "unembed": spec(None, MODEL)}
+    out.update({f"layers/{k}": spec(None, *v) for k, v in layer.items()})
+    return dict(sorted(out.items()))
 
 
 def init_params(seed: int, cfg: ModelConfig,
@@ -383,12 +442,15 @@ def init_params(seed: int, cfg: ModelConfig,
 # ===========================================================================
 
 def _dense_block(lp, x, cfg: ModelConfig, positions, cache=None,
-                 kernels: str = "auto", rope=None, flash: bool = True):
+                 kernels: str = "auto", rope=None, flash: bool = True,
+                 tp: Optional[TPLayout] = None):
     h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                 cfg.attn_cfg(), positions, cache,
-                                kernels=kernels, rope=rope, flash=flash)
+                                kernels=kernels, rope=rope, flash=flash,
+                                tp=tp)
     x = x + h
-    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.mlp_style)
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.mlp_style,
+                      tp=tp)
     return x, new_cache
 
 
@@ -526,6 +588,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     dense family with ``cfg.remat_block = k``, in checkpointed blocks of k
     layers, as the reference's ``_scan_blocks``; otherwise no remat."""
     require_ported(cfg.family)
+    tp = _tp_layout(params, cfg)
+    if tp is not None:
+        return _forward_tp(params, tokens, cfg, tp, kernels, flash)
     extra = dict(extra or {})
     _, s = tokens.shape
     x = params["embed"][tokens]
@@ -595,6 +660,9 @@ class DecodeState(NamedTuple):
     #                          SSM: {"state"}: (L, B, H, P, N) fp32; hybrid:
     #                          "state" and "k", "v" of (n_attn, B, …)
     position: torch.Tensor   # () int32, or (B,) int32: one per row
+    # a sharded rank's caches are tiles under these specs (by cache name,
+    # ``launch.steps.cache_shardings``); None: whole
+    shardings: Any = None
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
@@ -638,6 +706,9 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     dense layers, then its cross layers in a row, as the reference's
     decode does.  ``layer_aux`` as :func:`forward`'s."""
     require_ported(cfg.family)
+    tp = _tp_layout(params, cfg, state)
+    if tp is not None:
+        return _decode_step_tp(params, tokens, state, cfg, tp)
     extra = extra or {}
     b = tokens.shape[0]
     x = params["embed"][tokens]
@@ -688,3 +759,146 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, DecodeState(state.caches, pos + 1)
+
+
+# ===========================================================================
+# A sharded rank (the dense family): tiles of the weights under their
+# resolved specs, the collectives XLA's partitioner inserts for the
+# reference's (``common.TPLayout``)
+# ===========================================================================
+
+def _tp_layout(params: Transformer, cfg: ModelConfig,
+               state: Optional[DecodeState] = None) -> Optional[TPLayout]:
+    """This rank's :class:`TPLayout` when a mesh is declared
+    (``common.set_mesh_axes(..., mesh=...)``), else None."""
+    ctx = mesh_context()
+    if ctx is None:
+        return None
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the sharded {cfg.family} forward is "
+                                  "ROADMAP §1 row 22")
+    sh = params.shardings
+    if sh is None:
+        raise ValueError("a declared mesh needs a sharded rank's weights "
+                         "(launch.steps.shard_params)")
+    m = ctx["model"]
+    group = ctx["mesh"].group(m)
+    cache = None
+    if state is not None and state.shardings is not None:
+        k = state.shardings["k"]
+        cache = "heads" if k[3] == m else "length" if k[2] == m else None
+    return TPLayout(group, C.axis_size(group), C.axis_index(group),
+                    heads=sh["layers/attn/wq"][2] == m,
+                    kv_heads=sh["layers/attn/wk"][2] == m,
+                    ffn=sh["layers/mlp/gate"][2] == m, cache=cache)
+
+
+def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
+               stacked: bool) -> torch.Tensor:
+    """A tile with its FSDP dims (those over the data axes) all-gathered:
+    the rank's tile under the model axis alone."""
+    ctx = mesh_context()
+    dims = params.shardings[path][1 if stacked else 0:]
+    for d, ax in enumerate(dims):
+        if ax is not None and ax != ctx["model"]:
+            t = C.all_gather(t, ctx["mesh"].group(ax), dim=d)
+    return t
+
+
+def _rank_layer(params: Transformer, layer: int):
+    """Layer ``layer``'s weights as the block reads them, FSDP tiles
+    gathered (the module itself when none is)."""
+    lp = params["layers"][layer]
+    ctx = mesh_context()
+    if all(ax in (None, ctx["model"]) for path, sp in params.shardings.items()
+           if path.startswith("layers/") for ax in sp):
+        return lp
+    out: dict = {}
+    for name, t in lp.named_parameters():
+        *head, last = name.split(".")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = _rank_leaf(params, "layers/" + "/".join(name.split(".")),
+                                t, True)
+    return out
+
+
+def _vocab_split(params: Transformer, path: str, dim: int) -> bool:
+    return params.shardings[path][dim] == mesh_context()["model"]
+
+
+def _embed_tp(params: Transformer, tokens: torch.Tensor,
+              tp: TPLayout) -> torch.Tensor:
+    """The embedding gather; over a vocabulary split on the model axis each
+    rank gathers its rows (zeros elsewhere), summed over the axis."""
+    w = _rank_leaf(params, "embed", params["embed"], False)
+    if not _vocab_split(params, "embed", 0):
+        return w[tokens]
+    v_l = w.shape[0]
+    local = tokens - tp.rank * v_l
+    mine = (local >= 0) & (local < v_l)
+    x = w[local.clamp(0, v_l - 1)].masked_fill(~mine[..., None], 0)
+    return C.psum(x, tp.group)
+
+
+def _logits_tp(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and unembedding: this rank's vocabulary columns when
+    unembed is split on them."""
+    x = rms_norm(x, _rank_leaf(params, "ln_f", params["ln_f"], False))
+    return x @ _rank_leaf(params, "unembed", params["unembed"], False)
+
+
+def _forward_tp(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+                tp: TPLayout, kernels: str, flash: bool):
+    """:func:`forward` on a sharded rank: its batch rows, logits (B_l, S,
+    V_l) over its vocabulary columns (all of them when unembed is whole),
+    aux 0."""
+    _, s = tokens.shape
+    x = _embed_tp(params, tokens, tp)
+    positions = torch.arange(s, device=x.device)[None, :]
+    rope = _rope(cfg, positions)
+    for layer in range(cfg.n_layers):
+        x, _ = _dense_block(_rank_layer(params, layer), x, cfg, positions,
+                            kernels=kernels, rope=rope, flash=flash, tp=tp)
+    return (_logits_tp(params, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
+                    state: DecodeState, cfg: ModelConfig, tp: TPLayout):
+    """:func:`decode_step` on a sharded rank: its rows of the batch and its
+    tiles of the KV caches (written in place); logits as
+    :func:`_forward_tp`'s."""
+    b = tokens.shape[0]
+    x = _embed_tp(params, tokens, tp)
+    pos = state.position
+    positions = (pos.expand(b) if pos.ndim == 0 else pos)[:, None]
+    rope = _rope(cfg, positions)
+    caches = state.caches
+    for layer in range(cfg.n_layers):
+        x, _ = _dense_block(
+            _rank_layer(params, layer), x, cfg, positions,
+            A.KVCache(caches["k"][layer], caches["v"][layer], pos),
+            rope=rope, tp=tp)
+    return (_logits_tp(params, x),
+            DecodeState(caches, pos + 1, state.shardings))
+
+
+def greedy(params: Transformer, logits: torch.Tensor) -> torch.Tensor:
+    """The first index of the largest logit, logits (B, V).  On a sharded
+    rank whose logits are its vocabulary columns: each rank's largest value
+    and its index, all-gathered over the model axis, the first largest of
+    them (so ties go to the lowest index, as one device's argmax)."""
+    ctx = mesh_context()
+    if ctx is None or not _vocab_split(params, "unembed", 1):
+        return torch.argmax(logits, dim=-1)
+    group = ctx["mesh"].group(ctx["model"])
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.take_along_dim(logits, idx[:, None], dim=-1)[:, 0]
+    idx = idx + C.axis_index(group) * logits.shape[-1]
+    vals = C.all_gather(val[None], group)            # (p, B)
+    idxs = C.all_gather(idx[None], group)
+    best = torch.argmax(vals, dim=0)
+    return torch.take_along_dim(idxs, best[None], dim=0)[0]
+

@@ -515,6 +515,46 @@ def test_segment_on_device_is_the_host_decode(card, tmp_path, kind, chi,
         assert seg["bytes"] == 3 * (c * c * d * storage.itemsize + c * 8)
 
 
+@pytest.mark.parametrize("tile", [("tp_single", 3, 2), ("tp_double", 3, 1),
+                                  ("tp_double", 1, 0)])
+@pytest.mark.parametrize("chi", [None, 6])
+@pytest.mark.parametrize("kind", ["bf16-fp64", "fp32"])
+def test_segment_tile_on_the_card(card, tmp_path, kind, chi, tile):
+    """A TP rank's tiles of a segment, cut on the host and copied alone to
+    the card (``get_segment_on_device(tile=...)``, and a payload's), equal
+    bit for bit the tiles ``parallel.shard_chain`` cuts from the host
+    decode."""
+    from repro_torch.core import parallel as PP
+    from repro_torch.core.mps import MPS
+    from repro_torch.data.gamma_store import GammaStore, payload_on_device
+
+    storage, compute = SEGMENT_STORES[kind]
+    rng = np.random.default_rng(8)
+    m, c_full, d = 6, 12, 3
+    with GammaStore(str(tmp_path), storage, compute) as store:
+        for i in range(m):
+            store.put(i, torch.from_numpy(rng.standard_normal(
+                (c_full, c_full, d))), torch.from_numpy(rng.random(c_full)))
+        g, lam = store.get_segment(2, 4, prefetch_next_segment=False)
+        c = c_full if chi is None else chi
+        want = PP.shard_chain(MPS(g[:, :c, :c].contiguous(), lam[:, :c]),
+                              *tile)
+        for seg in (store.get_segment_on_device(2, 4, card, chi=chi,
+                                                tile=tile),
+                    payload_on_device(store.get_segment_raw(2, 4), card,
+                                      chi=chi, tile=tile,
+                                      stream=store.copy_stream(card))):
+            torch.cuda.current_stream(card).wait_event(seg["ready"])
+            assert seg["gammas"].is_cuda
+            assert _bits(seg["gammas"]) == _bits(want.gammas)
+            assert _bits(seg["lambdas"]) == _bits(want.lambdas)
+            if tile[0] == "tp_double":
+                assert _bits(seg["gammas_right"]) == _bits(
+                    want.gammas_right)
+            else:
+                assert seg["gammas_right"] is None
+
+
 @pytest.mark.parametrize("profile", [None, (4, 8, 24, 24, 24, 8, 8, 4)])
 def test_streamed_walk_on_the_card(card, tmp_path, profile):
     """The streamed seq walk from a bf16 store, flat and with a χ-profile

@@ -1,6 +1,7 @@
 """The port's GBS dry run (``repro_torch.launch.dryrun``) against the JAX
 package's ``run_gbs_cell``, its production meshes over a fake process
-group, its keys under fake tensors, and ``launch/report.py``.
+group, its keys under fake tensors, and ``launch/report.py``.  The LM
+cells are ``tests/test_torch_dryrun_lm.py``.
 
 The reference runs in a subprocess: its import sets ``XLA_FLAGS`` (512
 placeholder devices) before jax starts, and ``tests/conftest.py`` has
@@ -81,13 +82,12 @@ def _ring(g):
     return (g - 1) / g
 
 
-def _hand_wire(scheme, multi, opt):
-    """(per-kind wire bytes of the chain, of the end-of-segment gathers):
-    n = 16 samples a shard, χ = 64, d = 4, M = 4, p₂ = 16; probs (n, d),
-    pmax (n, 1) and log_scale (n,) fp32, the wire dtype bf16 with
-    ``--gbs-opt``; samples int64."""
+def _hand_wire(scheme, opt):
+    """Per-kind wire bytes of the chain: n = 16 samples a shard, χ = 64,
+    d = 4, M = 4, p₂ = 16; probs (n, d), pmax (n, 1) and log_scale (n,)
+    fp32, the wire dtype bf16 with ``--gbs-opt``.  The walk keeps its
+    result sharded, so nothing else crosses the wire."""
     n, chi, d, m, p2 = MICRO, 64, 4, 4, 16
-    p1 = (512 if multi else 256) if scheme == "dp" else (32 if multi else 16)
     w = 2 if opt else 4
     chain = {}
     if scheme == "tp_single":
@@ -96,10 +96,7 @@ def _hand_wire(scheme, multi, opt):
     elif scheme == "tp_double":
         chain["all-reduce"] = (m // 2 * 2 * (n * chi * d * w + n * d * 4
                                              + n * 4) * _ring(p2))
-    gathers = (p1 * m * n * 8 + p1 * n * chi * 4 + p1 * n * 4) * _ring(p1)
-    if scheme != "dp":
-        gathers += n * chi * 4 * _ring(p2)       # the model axis' env
-    return chain, gathers
+    return chain
 
 
 @pytest.mark.parametrize("scheme,mk,opt", CELLS,
@@ -108,9 +105,10 @@ def _hand_wire(scheme, multi, opt):
 def test_gbs_cell_against_the_reference(reference, tiny, tmp_path, scheme,
                                         mk, opt):
     """FLOPs within 0.1% of the reference (and equal to the closed form);
-    dp's and tp_single's chain collectives are the reference's kinds and
-    counts, tp_double's the port's own; wire bytes to a hand count, the
-    end-of-segment all-gathers apart."""
+    dp's and tp_single's collectives are the reference's kinds and counts,
+    tp_double's the port's own; wire bytes to a hand count; no all-gather
+    ends the walk (its result stays sharded, as the reference's
+    ``out_specs`` keep it)."""
     want = reference[f"{scheme}-{mk}-{opt}"]
     got = _port_cell(scheme, mk, opt, tmp_path)
     h, rh = got["hlo"], want["hlo"]
@@ -120,32 +118,41 @@ def test_gbs_cell_against_the_reference(reference, tiny, tmp_path, scheme,
     assert (got["n_chips"], got["n_samples"], got["model_flops"]) == (
         want["n_chips"], want["n_samples"], want["model_flops"])
 
-    gathers = h["end_gathers"]
-    assert gathers["n"] == (3 if scheme == "dp" else 4)
-    assert h["n_collectives"]["all-gather"] == gathers["n"]
-    chain = {k: v for k, v in h["n_collectives"].items() if k != "all-gather"}
+    assert h["end_gathers"] == {"n": 0, "wire_bytes": 0}
+    chain = h["n_collectives"]
     if scheme == "tp_double":
-        # XLA reshards the even sites' Γ with one all-to-all; the port holds
-        # Γ whole on every rank and narrows it in place
+        # XLA's jit gets Γ whole and reshards the even sites to their
+        # right-bond tiles with one all-to-all; a port rank's arguments
+        # are its tiles already
         assert chain == {"all-reduce": 6}
         assert rh["n_collectives"] == {"all-reduce": 6.0, "all-to-all": 1.0}
     else:
         assert chain == rh["n_collectives"]
 
-    wire, end = _hand_wire(scheme, mk == "multi", opt)
-    per = {k: v for k, v in h["per_collective"].items() if k != "all-gather"}
-    assert per == pytest.approx(wire, rel=1e-12)
-    assert gathers["wire_bytes"] == pytest.approx(end, rel=1e-12)
-    assert h["per_collective"]["all-gather"] == pytest.approx(end, rel=1e-12)
-    total = sum(wire.values()) + end
-    assert h["collective_wire_bytes_per_device"] == pytest.approx(total,
-                                                                  rel=1e-12)
+    wire = _hand_wire(scheme, opt)
+    assert h["per_collective"] == pytest.approx(wire, rel=1e-12)
+    assert h["collective_wire_bytes_per_device"] == pytest.approx(
+        sum(wire.values()), rel=1e-12)
     # every group of the 16×16 and 2×16×16 meshes spans several nodes
     assert h["wire_bytes_by_link"]["nvlink"] == 0.0
     assert "upcast_bytes_per_device" not in h
     assert "t_memory_tpu_adj_s" not in got["roofline"]
     assert set(got) >= set(want) - {"traceback"}
     assert got["bytes_per_device"]["aliased"] == 0
+
+
+@pytest.mark.parametrize("scheme,opt", [(s, o) for s in DR.SCHEMES
+                                        for o in (False, True)])
+def test_tp_ranks_hold_their_tiles(tiny, tmp_path, scheme, opt):
+    """A rank's arguments are Γ whole under dp and 1/p₂ of it under TP (its
+    tiles; Λ whole in both), and it returns its shard: its samples (n, M),
+    int64."""
+    r = _port_cell(scheme, "single", opt, tmp_path)
+    gamma = 4 * 64 * 64 * 4 * (2 if opt else 4)
+    lam = 4 * 64 * 4
+    args = r["bytes_per_device"]["arguments"]
+    assert args == (gamma if scheme == "dp" else gamma // 16) + lam
+    assert r["bytes_per_device"]["outputs"] == MICRO * 4 * 8
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
@@ -192,7 +199,7 @@ ALLOCATES = """
 import json, resource, sys
 from repro_torch.configs import gbs
 from repro_torch.launch import dryrun as D
-gbs.PRESETS["wide"] = gbs.GBSPreset("wide", 2, 2048, 4, 1, 1.0)
+gbs.PRESETS["wide"] = gbs.GBSPreset("wide", 2, 8192, 4, 1, 1.0)
 D.run_gbs_cell("wide", "tp_single", "single", force=True,
                out_root=sys.argv[1], micro_batch=2, device="cpu")
 before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
@@ -206,9 +213,10 @@ print(json.dumps({"grew_kib": grew, "error": r.get("error"),
 
 @pytest.mark.parametrize("scheme", ["dp", "tp_double"])
 def test_the_dry_run_allocates_nothing(tmp_path, scheme):
-    """A cell whose arrays would take over 100 MB (χ = 2048: Γ alone is
-    134 MB; dp's env 16384 × 2048 fp32 as much again) leaves the process's
-    peak RSS within 16 MB of where a warm-up cell left it."""
+    """A cell whose arrays would take over 100 MB (χ = 8192: Γ alone is
+    2.1 GB whole and 134 MB in a TP rank's tiles; dp's env 16384 × 8192
+    fp32 537 MB) leaves the process's peak RSS within 16 MB of where a
+    warm-up cell left it."""
     proc = subprocess.run([sys.executable, "-c", ALLOCATES, str(tmp_path),
                            scheme], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -256,11 +264,16 @@ def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
     assert all(row.startswith("| gbs-tiny | ") for row in table[2:])
 
 
-@pytest.mark.parametrize("flags", [["--arch", "granite-3-2b"], ["--all"],
-                                   ["--shape", "train_4k"],
-                                   ["--remat-block", "4"]])
-def test_lm_cells_are_row_19b(flags):
-    with pytest.raises(ValueError, match="row 19b"):
+@pytest.mark.parametrize("flags,row", [
+    (["--arch", "mamba2-1.3b"], "row 22"),
+    (["--arch", "kimi-k2-1t-a32b"], "row 22"),
+    (["--arch", "granite-3-2b", "--shape", "train_4k"], "row 21"),
+    (["--arch", "granite-3-2b", "--remat-block", "4"], "row 21")])
+def test_lm_cells_are_row_19b(flags, row):
+    """Row 19b ports the dense family's prefill and decode cells: another
+    family's cells raise naming row 22, the train cells and
+    ``--remat-block`` row 21."""
+    with pytest.raises(ValueError, match=row):
         DR.main(flags)
 
 

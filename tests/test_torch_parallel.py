@@ -207,6 +207,48 @@ _PORT_RANK = _COMMON + textwrap.dedent("""
             out[f"{name}/samples{s0}"] = smp
             out[f"{name}/env{s0}"] = env
             out[f"{name}/log_scale{s0}"] = ls
+
+    # the same cases on this rank's tiles alone (parallel.rank_chain), and
+    # with the result kept sharded (tiles in, the shards out, no gather)
+    import torch.distributed as D
+    for name, c in cases.items():
+        if c["scheme"] == "baseline19":
+            continue
+        mesh, mps = meshes[c["mesh"]], chains[c["chain"]]
+        cfg = S.SamplerConfig(semantics=mps.semantics, kernels="torch",
+                              scaling=c.get("scaling", "per_sample"),
+                              compute_dtype=torch.bfloat16 if c.get("compute")
+                              else None)
+        pc = PP.ParallelConfig(
+            scheme=c["scheme"].replace("_mf", ""),
+            measure_first=c["scheme"].endswith("_mf"),
+            wire_dtype=torch.bfloat16 if c.get("wire") else None,
+            micro_batch=c.get("micro"))
+        n = N[c["chain"]]
+        out[f"coords:{name}"] = torch.tensor(
+            [D.get_rank(mesh.group("data")), D.get_rank(mesh.group("model"))])
+        if not c.get("segment"):
+            for how, sharded in (("tiles", False), ("shard", True)):
+                out[f"{how}:{name}/samples"] = PP._multilevel_sample(
+                    mesh, PP.rank_chain(mesh, mps, pc), n, key, pc, cfg,
+                    sharded=sharded)
+            continue
+        for how, sharded in (("tiles", False), ("shard", True)):
+            env = (PP.segment_env_shard(mesh, pc, n, mps.chi,
+                                        mps.gammas.dtype, "cpu") if sharded
+                   else PP.segment_env_init(n, mps.chi, mps.gammas.dtype,
+                                            "cpu"))
+            ls = None
+            for s0, s1 in ((0, SPLIT), (SPLIT, mps.n_sites)):
+                seg = PP.rank_chain(mesh, MPS(mps.gammas[s0:s1],
+                                              mps.lambdas[s0:s1],
+                                              mps.semantics), pc)
+                smp, env, ls = PP.sample_segment(mesh, seg, env, key, s0, pc,
+                                                 cfg, log_scale=ls,
+                                                 sharded=sharded)
+                out[f"{how}:{name}/samples{s0}"] = smp
+                out[f"{how}:{name}/env{s0}"] = env
+                out[f"{how}:{name}/log_scale{s0}"] = ls
     np.savez(f"{work}/port{rank}.npz",
              **{k: v.float().numpy() if v.dtype == torch.bfloat16
                 else v.numpy() for k, v in out.items()})
@@ -291,6 +333,62 @@ def test_schemes_draw_alike(results):
                     np.testing.assert_array_equal(got[k], dp, err_msg=k)
 
 
+def _case_keys(got, prefix, case):
+    return sorted(k for k in got if k.startswith(f"{prefix}{case}/"))
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c]["scheme"] != "baseline19"))
+def test_tile_inputs_walk_alike(results, case):
+    """A rank given only its tiles of each Γ (``parallel.rank_chain``)
+    returns what it returns when it cuts them from the whole chain, bit
+    for bit, on every rank."""
+    for got in results[1]:
+        keys = _case_keys(got, "", case)
+        assert keys and [f"tiles:{k}" for k in keys] == \
+            _case_keys(got, "tiles:", case)
+        for k in keys:
+            np.testing.assert_array_equal(got[f"tiles:{k}"], got[k],
+                                          err_msg=k)
+
+
+def _gathered(ranks, case, k):
+    """A sharded result put back together from the 4 ranks' shards by
+    their (data, model) coordinates: samples and log_scale over the data
+    axis, env over data × model (model under TP only)."""
+    coords = {tuple(int(x) for x in r[f"coords:{case}"]): r[f"shard:{k}"]
+              for r in ranks}
+    p1 = max(d for d, _ in coords) + 1
+    p2 = max(m for _, m in coords) + 1
+    what = k.split("/")[1]
+    tp = CASES[case]["scheme"] != "dp"
+    rows = []
+    for d in range(p1):
+        if what.startswith("env") and tp:
+            rows.append(np.concatenate([coords[(d, m)] for m in range(p2)],
+                                       axis=1))
+        else:
+            for m in range(1, p2):       # replicated over "model"
+                np.testing.assert_array_equal(coords[(d, m)], coords[(d, 0)],
+                                              err_msg=f"{k} model {m}")
+            rows.append(coords[(d, 0)])
+    return np.concatenate(rows, axis=1 if what.startswith("samples")
+                          and CASES[case].get("segment") else 0)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES
+                                        if CASES[c]["scheme"] != "baseline19"))
+def test_sharded_return_gathers_to_the_full_result(results, case):
+    """``sharded=True`` (tiles in, shards out, no all-gather at the end),
+    gathered by the ranks' mesh coordinates, equals the full result bit
+    for bit; every rank's shard of a replicated piece (over "model") is
+    the same."""
+    ranks = results[1]
+    for k in _case_keys(ranks[0], "", case):
+        np.testing.assert_array_equal(_gathered(ranks, case, k), ranks[0][k],
+                                      err_msg=k)
+
+
 def test_every_rank_holds_the_full_result(results):
     """Every rank returns the whole (N, M) array, env and log_scale, as the
     JAX controller does: ranks 1-3 equal rank 0 bit for bit."""
@@ -298,5 +396,7 @@ def test_every_rank_holds_the_full_result(results):
     for r in (1, 2, 3):
         assert sorted(ranks[r]) == sorted(ranks[0])
         for k, v in ranks[0].items():
-            np.testing.assert_array_equal(ranks[r][k], v, err_msg=f"{r} {k}")
+            if not k.startswith(("shard:", "coords:")):
+                np.testing.assert_array_equal(ranks[r][k], v,
+                                              err_msg=f"{r} {k}")
 

@@ -164,6 +164,66 @@ def test_payload_on_device_is_the_host_decode(stores):
     assert torch.equal(seg["lambdas"], lam[:, :4])
 
 
+@pytest.mark.parametrize("scheme", ["tp_single", "tp_double"])
+@pytest.mark.parametrize("p2,rank", [(2, 0), (2, 1), (1, 0)])
+def test_payload_tile_is_the_decoded_tile(stores, scheme, p2, rank):
+    """A TP rank's walk takes only its tiles of each Γ from a payload or
+    the store (``core.mps.site_tile``, sites counted from the chain's
+    start): the tiles of the whole decode, χ-stage cut first."""
+    from repro_torch.core import parallel as PP
+    from repro_torch.core.mps import MPS
+
+    with _store(stores, "bf16") as st:
+        g, lam = st.get_segment(2, 4, prefetch_next_segment=False)
+        want = PP.shard_chain(MPS(g[:, :4, :4].contiguous(), lam[:, :4]),
+                              scheme, p2, rank)
+        for seg in (GS.payload_on_device(st.get_segment_raw(2, 4),
+                                         torch.device("cpu"), chi=4,
+                                         tile=(scheme, p2, rank)),
+                    st.get_segment_on_device(2, 4, "cpu", chi=4,
+                                             prefetch_next_segment=False,
+                                             tile=(scheme, p2, rank))):
+            assert torch.equal(seg["gammas"], want.gammas)
+            assert torch.equal(seg["lambdas"], want.lambdas)
+            if scheme == "tp_double":
+                assert torch.equal(seg["gammas_right"], want.gammas_right)
+            else:
+                assert seg["gammas_right"] is None
+
+
+def test_cli_lines_leave_in_one_write(tmp_path, monkeypatch):
+    """Every line the sampling CLI prints reaches stdout in one write,
+    its newline included (ranks of a job share the pipe: a line written
+    in parts can be torn by another rank's), the runtime counters' too."""
+    import sys
+
+    from repro_torch.launch import sample as cli
+
+    class Pipe:
+        def __init__(self):
+            self.writes = []
+
+        def write(self, text):
+            self.writes.append(text)
+            return len(text)
+
+        def flush(self):
+            pass
+
+    pipe = Pipe()
+    monkeypatch.setattr(sys, "stdout", pipe)
+    cli.main(["--device", "cpu", "--sites", "4", "--chi", "4", "--d", "3",
+              "--samples", "8", "--macro-batches", "2", "--out",
+              str(tmp_path)])
+    cli._say("runtime counters:", json.dumps({"broadcast_send_bytes": 1}))
+    assert len(pipe.writes) > 5
+    assert all(w.endswith("\n") for w in pipe.writes), pipe.writes
+    assert pipe.writes[-1] == \
+        'runtime counters: {"broadcast_send_bytes": 1}\n'
+    lines = "".join(pipe.writes).splitlines()
+    assert any(ln.startswith("kernel launches:") for ln in lines)
+
+
 # ---------------------------------------------------------------------------
 # the broadcast plane
 # ---------------------------------------------------------------------------
