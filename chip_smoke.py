@@ -262,13 +262,22 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               4096, B = 2 (B = 1 if the first step peaks above 76 GB),
               4 adamw steps (cosine schedule, remat "dots"), loss and
               gnorm finite, the weights moved, then one adafactor step;
-              (b) granite-3-2b at full width, 2 layers, fp32: one step on
+              (a') granite-3-2b at full width and depth through the
+              sharded train step on a 1×1 mesh over a one-rank NCCL group
+              (``make_host_mesh``; the weights and adamw state its tiles,
+              ``shard_params``/``shard_opt_state``) against the
+              one-device step on the same weights and batch: loss and
+              gnorm, every updated weight, both steps' wall and device
+              time and peak memory (NCCL refuses two ranks on one card:
+              the multi-rank math is held on CPU gloo ranks by the
+              tests); (b) granite-3-2b at full width, 2 layers, fp32: one step on
               the card against the same step on the CPU (loss and gnorm
               rtol 1e-5, each leaf's gradient within 1e-4 of its largest
               |g|); (c) mamba2-1.3b at full depth, B = 2, S = 4096, 3
               steps; the flash kernel launched 0 times in (a)-(c); (d)
               whisper-small through ``python -m repro_torch.launch.train
-              --batch 8 --seq 448``: 4 steps with a checkpoint every 2,
+              --batch 8 --seq 448`` (the CLI's mesh path: a 1×1 mesh over
+              a one-rank NCCL group): 4 steps with a checkpoint every 2,
               and beside it a run stopped after step 2 and resumed to 4;
               the largest |Δ| between the two final checkpoints' leaves;
 12. cli     — ``python -m repro_torch.launch.sample`` in a subprocess,
@@ -466,12 +475,14 @@ TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
 
 # the dryrun phase: the GBS preset its two children walk (plain and
-# --gbs-opt) on the 16×16 mesh, the LM arch whose cells (prefill_32k,
-# decode_32k; long_500k is skipped) the plain child walks too and a third
-# child walks on the CPU, and their time limit from their start
+# --gbs-opt) on the 16×16 mesh, the LM arch whose cells (train_4k,
+# prefill_32k, decode_32k; long_500k is skipped) the plain child walks too
+# (--gbs-opt its train_4k at --remat-block 4) and two more children walk
+# on the CPU, and their time limit from their start
 DRYRUN_PRESET = "b-m288"
 DRYRUN_LM_ARCH = "granite-3-2b"
-DRYRUN_LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+DRYRUN_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_REMAT_BLOCK = 4
 DRYRUN_SECONDS = 900
 DRYRUN_ARGS = ()              # more flags for the card's children
 
@@ -5171,6 +5182,104 @@ def _granite_train(device, smi: str) -> dict:
     return out
 
 
+def _mesh_train(device, smi: str, b: int) -> dict:
+    """(a') granite-3-2b at full width and depth, one adamw step through
+    the sharded train step on a 1×1 mesh over a one-rank NCCL group (the
+    weights and the state from ``shard_params``/``shard_opt_state``, the
+    mesh declared) against the one-device step on the same seeded weights
+    and batch: loss, gnorm and every updated weight, both steps timed.
+    The embedding's backward sums with atomics on the card, so the two
+    runs may round a gradient apart: each updated leaf is held to a bf16
+    rounding of its largest |w|, and the leaves equal bit for bit are
+    counted."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                         make_host_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+    from repro_torch.optim import optimizers
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    tag = f"train {cfg.name} mesh"
+    torch.cuda.empty_cache()
+    batch = synthetic_token_stream(0, cfg.vocab, b, TRAIN_SEQ, device)(0)
+    opt = optimizers.adamw(3e-4)
+    step = steps.make_train_step(cfg, opt)
+    params = T.init_params(0, cfg, device)
+    seeded = {p: [t.to("cpu", copy=True) for t in leaf.tensors]
+              for p, leaf in params.ref_leaves().items()}
+    params, state, one = _step_timed(step, params, opt.init(params), batch,
+                                     device, batch["tokens"].numel())
+    _print_step(tag + f" one-device B={b}", 1, one, smi)
+    after = {p: [t.to("cpu", copy=True) for t in leaf.tensors]
+             for p, leaf in params.ref_leaves().items()}
+    del state
+    with torch.no_grad():
+        for p, leaf in params.ref_leaves().items():
+            for t, h in zip(leaf.tensors, seeded[p]):
+                t.copy_(h)
+    del seeded
+    gc.collect()
+    torch.cuda.empty_cache()
+    created = init_distributed(device)
+    try:
+        mesh = make_host_mesh(1, device)
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+        tiles = steps.shard_params(params, psh, mesh)
+        del params
+        whole = opt.init(tiles)
+        osh = steps.opt_state_shardings(mesh, whole, psh)
+        state = steps.shard_opt_state(whole, osh, mesh)
+        del whole
+        local = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
+                                  mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tiles, state, rec = _step_timed(step, tiles, state, local, device,
+                                        batch["tokens"].numel())
+        _print_step(tag + f" 1x1 B={b}", 1, rec, smi)
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+    del state
+    worst, equal = 0.0, 0
+    with torch.no_grad():
+        for p, leaf in tiles.ref_leaves().items():
+            d = scale = 0.0
+            for t, h in zip(leaf.tensors, after[p]):
+                h = h.to(device)
+                d = max(d, float((t.float() - h.float()).abs().max()))
+                scale = max(scale, float(h.float().abs().max()))
+            equal += d == 0
+            worst = max(worst, d / (scale or 1.0))
+    rel = {k: abs(rec[k] / one[k] - 1) for k in ("loss", "gnorm")}
+    print(f"{tag}: the 1x1 mesh step against the one-device step: loss "
+          f"{rec['loss']:.6f} vs {one['loss']:.6f} (rel {rel['loss']:.2e}),"
+          f" gnorm {rec['gnorm']:.6f} vs {one['gnorm']:.6f} (rel "
+          f"{rel['gnorm']:.2e}); updated weights: {equal} of {len(after)} "
+          f"leaves equal, the largest |Δ| {worst:.2e} of its leaf's "
+          f"largest |w|; wall {rec['wall_s']:.3f} vs {one['wall_s']:.3f} s, "
+          f"peak {rec['peak_gb']:.3f} vs {one['peak_gb']:.3f} GB [{smi}]",
+          flush=True)
+    check(rel["loss"] <= 1e-6 and rel["gnorm"] <= 1e-5
+          and worst <= 2.0 ** -7,
+          f"{tag}: the 1x1 mesh step differs from the one-device step")
+    del tiles, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": b, "one_device": one, "mesh_1x1": rec,
+            "rel": rel, "leaves_equal": equal, "worst_weight": worst}
+
+
 def _grads_of(step_opt):
     """An optimizer that keeps the gradients it is handed, then updates."""
     from repro_torch.optim.optimizers import Optimizer
@@ -5323,6 +5432,8 @@ def _cli_train(smi: str) -> dict:
           f"run did not resume: {so[-2000:]}")
     check(all("device: cuda" in o for o in outs.values()),
           "train cli: a run was not on the card")
+    check(all("mesh: {'data': 1, 'model': 1}" in o for o in outs.values()),
+          "train cli: a run did not take the 1×1 mesh")
     final = f"step_{c['steps']:08d}"
     deltas = _leaf_deltas(root / "a" / final, root / "b" / final)
     worst = max(deltas.items(), key=lambda kv: kv[1])
@@ -5346,7 +5457,8 @@ def _cli_train(smi: str) -> dict:
 
 def phase_train(device) -> dict:
     """Training through ``launch.steps.make_train_step`` and the train CLI
-    on the card: granite-3-2b (a, b), mamba2-1.3b (c), whisper-small (d).
+    on the card: granite-3-2b (a, a' on a 1×1 mesh, b), mamba2-1.3b (c),
+    whisper-small (d).
     The flash kernel's launch count stays 0 (training takes the reference's
     ``_sdpa`` route)."""
     from repro_torch.kernels import ops
@@ -5355,9 +5467,11 @@ def phase_train(device) -> dict:
     smi = nvidia_smi()
     ops.reset_launches()
     out = {"card": smi}
-    for name, part in (("granite", _granite_train), ("fp32_check",
-                                                     _fp32_check),
-                       ("ssm", _ssm_train)):
+    parts = (("granite", _granite_train),
+             ("mesh", lambda d, m: _mesh_train(d, m, out["granite"][
+                 "batch"])),
+             ("fp32_check", _fp32_check), ("ssm", _ssm_train))
+    for name, part in parts:
         tp = time.perf_counter()
         out[name] = part(device, smi)
         out[name]["part_s"] = time.perf_counter() - tp
@@ -5546,10 +5660,13 @@ def dryrun_start() -> dict:
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     lm = ["--arch", DRYRUN_LM_ARCH]
     gbs = ["--preset", DRYRUN_PRESET]
+    rb = [*lm, "--shape", "train_4k", "--remat-block",
+          str(DRYRUN_REMAT_BLOCK)]
     args = {"--gbs": ["--gbs", *gbs, *lm, "--out", str(out), *DRYRUN_ARGS],
-            "--gbs-opt": ["--gbs-opt", *gbs, "--out", str(out),
+            "--gbs-opt": ["--gbs-opt", *gbs, *rb, "--out", str(out),
                           *DRYRUN_ARGS],
-            "cpu": [*lm, "--out", str(out / "cpu"), "--device", "cpu"]}
+            "cpu": [*lm, "--out", str(out / "cpu"), "--device", "cpu"],
+            "cpu-rb": [*rb, "--out", str(out / "cpu"), "--device", "cpu"]}
     children = {}
     for flag, more in args.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -5614,11 +5731,12 @@ def phase_dryrun(started: dict) -> dict:
         print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
               f"{rec['proc'].returncode}", flush=True)
         want = {"--gbs": len(DR.SCHEMES) + len(DRYRUN_LM_SHAPES),
-                "--gbs-opt": len(DR.SCHEMES), "cpu": len(DRYRUN_LM_SHAPES)}
+                "--gbs-opt": len(DR.SCHEMES) + 1,
+                "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1}
         check(rec["proc"].returncode == 0 and len(lines) == want[flag],
               f"dryrun {flag} exited {rec['proc'].returncode}: "
               f"{text[-3000:]}")
-        if flag == "cpu":
+        if flag.startswith("cpu"):
             continue
         peak = re.search(r"peak device memory allocated: (\d+) bytes.*",
                          text)
@@ -5646,18 +5764,22 @@ def phase_dryrun(started: dict) -> dict:
         result[flag[2:]] = {"wall_s": rec["wall_s"], "peak_allocated": 0,
                             "cells": cells}
     # the LM cells: the card's fake tensors count what the CPU's count
-    card, cpu = _lm_lines(texts["--gbs"]), _lm_lines(texts["cpu"])
-    check(card == cpu and len(card) == len(DRYRUN_LM_SHAPES),
-          f"dryrun {DRYRUN_LM_ARCH}: the card's lines {card} != the CPU's "
-          f"{cpu}")
+    for card_flag, cpu_flag, n in (("--gbs", "cpu", len(DRYRUN_LM_SHAPES)),
+                                   ("--gbs-opt", "cpu-rb", 1)):
+        card, cpu = _lm_lines(texts[card_flag]), _lm_lines(texts[cpu_flag])
+        check(card == cpu and len(card) == n,
+              f"dryrun {DRYRUN_LM_ARCH}: the card's lines {card} != the "
+              f"CPU's {cpu}")
     lm = {}
-    for shape in DRYRUN_LM_SHAPES:
-        name = f"{DRYRUN_LM_ARCH}__{shape}__single.json"
+    cells = [(shape, "") for shape in DRYRUN_LM_SHAPES]
+    cells.insert(1, ("train_4k", f"__rb{DRYRUN_REMAT_BLOCK}"))
+    for shape, rb in cells:
+        name = f"{DRYRUN_LM_ARCH}__{shape}{rb}__single.json"
         r, c = (json.loads(p.read_text()) for p in
                 (started["out"] / name, started["out"] / "cpu" / name))
         if "skipped" in r:
             check(r == c, f"dryrun {name}: {r} != the CPU's {c}")
-            lm[shape] = {"skipped": r["skipped"]}
+            lm[shape + rb] = {"skipped": r["skipped"]}
             continue
         check("error" not in r and "error" not in c,
               f"dryrun {name}: {r.get('error')} / {c.get('error')}")
@@ -5665,12 +5787,13 @@ def phase_dryrun(started: dict) -> dict:
                                           "roofline"))
         check(same, f"dryrun {name}: the card's counts differ from the "
               "CPU's")
-        lm[shape] = {"flops_per_device": r["hlo"]["flops_per_device"],
+        lm[shape + rb] = {"flops_per_device": r["hlo"]["flops_per_device"],
                      "n_collectives": r["hlo"]["n_collectives"],
                      "bytes_per_device": r["bytes_per_device"],
                      "roofline": r["roofline"], "walk_s": r["compile_s"]}
     result["lm"] = {"arch": DRYRUN_LM_ARCH, "mesh": "16x16",
                     "wall_s_cpu": started["children"]["cpu"]["wall_s"],
+                    "wall_s_cpu_rb": started["children"]["cpu-rb"]["wall_s"],
                     "cells": lm}
     _phase("dryrun", t0)
     return result

@@ -92,3 +92,89 @@ def ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives of a model split over a group (the LM's
+# tensor- and data-parallel training).  The loss is computed alike on every
+# rank of the group, so a cotangent that reaches a replicated tensor is the
+# same on every rank: Megatron's pair (``psum_forward``, ``psum_backward``)
+# and the gather's adjoint (``gather_forward``) give each rank the gradient
+# of that one loss.  ``torch.distributed.nn.functional.all_reduce`` sums
+# the gradient in its backward too, which would count such a loss once a
+# rank.  Outside a graph (no grad, or an input that needs none) they are
+# the plain functions above.
+# ---------------------------------------------------------------------------
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _psum_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Σ over the group, scattered in tiles along ``dim`` (the adjoint of
+    :func:`all_gather` along it)."""
+    p = axis_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((moved.shape[0] // p, *moved.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(_real(out), _real(moved),
+                               op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _PsumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PsumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _GatherForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+def psum_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the group, the gradient passed through as it is (Megatron's
+    g): the partial sums of a row-parallel product or of a split
+    lookup."""
+    if _recording(x):
+        return _PsumForward.apply(x, group)
+    return psum(x, group)
+
+
+def psum_backward(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, its gradient summed over the group (Megatron's f): a
+    replicated tensor that enters weights split over the group, each rank's
+    gradient being the part of its tile."""
+    if _recording(x):
+        return _PsumBackward.apply(x, group)
+    return x
+
+
+def gather_forward(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` along ``dim``, its gradient summed over the group
+    and scattered back to this rank's tile (an FSDP weight's gather)."""
+    if _recording(x):
+        return _GatherForward.apply(x, group, dim)
+    return all_gather(x, group, dim)

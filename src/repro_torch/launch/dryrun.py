@@ -13,13 +13,17 @@ constants of one NVIDIA H100 80GB HBM3 at 700 W.
   its result sharded, as the JAX package's ``shard_map`` does, on the
   plain cells (``kernels="torch"``), as the JAX dry run off a TPU counts
   its XLA cells.
-* The LM cells of the dense family (row 19b): the rank holds its tile of
-  every weight, batch row and cache under the sharding policy
-  (``launch/steps.py``) and runs ``make_prefill_step`` (prefill_32k) or
-  ``make_serve_step`` (decode_32k) with the collectives of a sharded rank
-  (``models.common.TPLayout``), attention on the reference's default
-  ``_sdpa`` route (its ``USE_FLASH`` is off).  long_500k is skipped for
-  these full-attention archs, as the reference skips it.
+* The LM cells of the dense family (rows 19b and 21): the rank holds its
+  tile of every weight, batch row and cache (and of the optimizer's
+  state) under the sharding policy (``launch/steps.py``) and runs
+  ``make_train_step`` (train_4k: forward, recompute and backward with
+  their collectives, the weights and the state updated in place as the
+  reference donates them; ``--remat-block k`` its sqrt-L block remat),
+  ``make_prefill_step`` (prefill_32k) or ``make_serve_step`` (decode_32k)
+  with the collectives of a sharded rank (``models.common.TPLayout``),
+  attention on the reference's default ``_sdpa`` route (its ``USE_FLASH``
+  is off).  long_500k is skipped for these full-attention archs, as the
+  reference skips it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs --mesh single
@@ -27,12 +31,13 @@ Usage:
       # bf16 wire, measure-first
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
       --shape prefill_32k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
+      --shape train_4k --remat-block 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
 
 Results are cached as JSON under experiments/dryrun_torch/ (the JAX
 package's file names and keys, less its two TPU fields); --force walks
-again.  The train cells and ``--remat-block`` are ROADMAP §1 row 21, the
-other families' cells row 22 (``LM_CELLS``).
+again.  The other families' cells are ROADMAP §1 row 22 (``LM_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.mesh import data_axis_names, make_production_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+from repro_torch.optim import optimizers
 
 OUT_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                         "experiments", "dryrun_torch")
@@ -67,12 +73,10 @@ PRESETS = ("b-m288", "m8176")
 SCHEMES = ("dp", "tp_single", "tp_double")
 DENSE_ARCHS = tuple(a for a in configs.ARCHS
                     if configs.get_config(a).family == "dense")
-LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
-LM_CELLS = {"train": "the train cells and --remat-block are ROADMAP §1 "
-                     "row 21, not ported yet",
-            "family": "the MoE, SSM, hybrid, encoder-decoder and VLM cells "
-                      "are ROADMAP §1 row 22, not ported yet (the dense "
-                      "archs: " + ", ".join(DENSE_ARCHS) + ")"}
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+LM_FAMILIES = ("the MoE, SSM, hybrid, encoder-decoder and VLM cells are "
+               "ROADMAP §1 row 22, not ported yet (the dense archs: "
+               + ", ".join(DENSE_ARCHS) + ")")
 
 
 def gbs_flops(preset: gbs.GBSPreset, scheme: str, optimized: bool,
@@ -184,28 +188,37 @@ def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
 def _lm_step(mesh, cfg: T.ModelConfig, shape: configs.ShapeSpec) -> C.Cost:
     """One rank's step of the cell on fake tensors, counted: its tiles of
     the weights (guarded, FSDP above 8 GB of bf16 weights, as the
-    reference's ``lower_cell`` decides), of the batch and of the caches
-    are the arguments; the caches are written in place (the reference
-    donates them), so the outputs are the step's result."""
+    reference's ``lower_cell`` decides), of the batch and of the caches or
+    the optimizer's state (``optimizer_for``, as the reference's) are the
+    arguments; the caches, or the weights and the state, are written in
+    place (the reference donates them), so the outputs are the step's
+    result (its metrics for train)."""
     fsdp = cfg.param_count()[0] * 2 > 8e9
+    opt = optimizers.optimizer_for(cfg)
     with FakeTensorMode():
         whole, specs, extra = steps.abstract_state(
-            cfg, None, shape.kind, shape.global_batch, shape.seq_len,
+            cfg, opt, shape.kind, shape.global_batch, shape.seq_len,
             device=mesh.device)
-        params = steps.shard_params(
-            whole, steps.param_shardings(mesh, whole, specs, fsdp), mesh)
-        del whole
+        psh = steps.param_shardings(mesh, whole, specs, fsdp)
+        params = steps.shard_params(whole, psh, mesh)
         batch = configs.input_specs(cfg, shape, device=mesh.device)
         batch = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
                                   mesh)
-        state = None
+        state = opt_state = None
         if shape.kind == "decode":
             state = steps.shard_state(
                 extra, steps.cache_shardings(mesh, cfg, extra.caches), mesh)
-            del extra
+        elif shape.kind == "train":
+            opt_state = steps.shard_opt_state(
+                extra, steps.opt_state_shardings(mesh, extra, psh), mesh)
+        del whole, extra
         with C.CostCounter() as counter:
             counter.arguments(list(params.parameters()), batch)
-            if state is None:
+            if opt_state is not None:
+                counter.arguments(opt_state)
+                _, _, out = steps.make_train_step(cfg, opt)(
+                    params, opt_state, batch)
+            elif state is None:
                 out = steps.make_prefill_step(cfg, kernels="torch",
                                               flash=False)(params, batch)
             else:
@@ -219,16 +232,15 @@ def count_cell(arch: str, shape_name: str, multi_pod: bool,
                remat_block: int = 0, device=None):
     """The counterpart of the reference's ``lower_cell``: one LM cell
     walked as rank 0 of the fake group under the cost counter.  Returns
-    ((the whole step's cost, one layer's), meta), or (None, {"skipped":
-    why}) for a cell the reference skips."""
-    if remat_block:
-        raise NotImplementedError(LM_CELLS["train"])
+    ((the whole step's cost, one loop body's: a layer's, a block of
+    ``remat_block`` layers'), meta), or (None, {"skipped": why}) for a
+    cell the reference skips."""
     cfg = configs.get_config(arch)
     if cfg.family != "dense":
-        raise NotImplementedError(LM_CELLS["family"])
+        raise NotImplementedError(LM_FAMILIES)
+    if remat_block:
+        cfg = dataclasses.replace(cfg, remat_block=remat_block)
     shape = configs.SHAPES[shape_name]
-    if shape.kind == "train":
-        raise NotImplementedError(LM_CELLS["train"])
     ok, why = configs.cell_supported(cfg, shape)
     if not ok:
         return None, {"skipped": why}
@@ -239,7 +251,8 @@ def count_cell(arch: str, shape_name: str, multi_pod: bool,
         t0 = time.time()
         cost = _lm_step(mesh, cfg, shape)
         t1 = time.time()
-        once = _lm_step(mesh, dataclasses.replace(cfg, n_layers=1), shape)
+        once = _lm_step(mesh, dataclasses.replace(
+            cfg, n_layers=max(1, cfg.remat_block)), shape)
     finally:
         clear_mesh_axes()
         dist.destroy_process_group()
@@ -384,10 +397,8 @@ def main(argv=None) -> int:
                     help="where the fake tensors live (default: the card)")
     ap.add_argument("--out", default=OUT_ROOT)
     args = ap.parse_args(argv)
-    if args.remat_block or args.shape == "train_4k":
-        raise ValueError(LM_CELLS["train"])
     if args.arch and args.arch not in DENSE_ARCHS:
-        raise ValueError(f"--arch {args.arch}: {LM_CELLS['family']}")
+        raise ValueError(f"--arch {args.arch}: {LM_FAMILIES}")
     if args.shape and args.shape not in LM_SHAPES:
         raise ValueError(f"--shape {args.shape}: one of {LM_SHAPES}")
 
@@ -418,7 +429,9 @@ def main(argv=None) -> int:
             for shape in [args.shape] if args.shape else LM_SHAPES:
                 for mk in meshes:
                     r = run_cell(arch, shape, mk, force=args.force,
-                                 out_root=args.out, device=args.device)
+                                 out_root=args.out,
+                                 remat_block=args.remat_block,
+                                 device=args.device)
                     failed += "error" in r
                     print(summarize(r), flush=True)
     if cuda:

@@ -19,21 +19,26 @@ the caches).  A rank of a mesh holds its tile of each leaf under its spec
 (:func:`shard_params`, :func:`shard_batch`, :func:`shard_state`, on real
 or fake tensors), and with
 ``common.set_mesh_axes(..., mesh=mesh)`` the dense family's prefill and
-serve steps run on those tiles with their collectives.  ``opt_state_
-shardings`` and the sharded train step are ROADMAP §1 row 21.
+serve steps run on those tiles with their collectives, and so does the
+train step, on the tiles of the weights and of the optimizer state
+(:func:`opt_state_shardings`, :func:`shard_opt_state`).  A checkpoint
+holds whole leaves: :func:`unshard_params` and :func:`unshard_opt_state`
+gather them.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import collectives as C
 from repro_torch.core.tree import Leaf
 from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import transformer as T
-from repro_torch.models.common import (PartitionSpec, resolve_specs,
-                                       softmax_xent)
+from repro_torch.models.common import (PartitionSpec, mesh_context,
+                                       resolve_specs, softmax_xent)
+from repro_torch.optim import optimizers as O
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +125,28 @@ def batch_shardings(mesh, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
+def opt_state_shardings(mesh, opt_state, params_shardings: dict):
+    """The optimizer state's specs, mirroring the weights' (the reference's
+    rule): adamw's ``m``/``v`` (and adafactor's unfactored ``v``) take the
+    weight's spec; adafactor's ``vr`` drops its last dim, ``vc`` its
+    second-to-last, each guarded; the step is replicated.  ``opt_state``:
+    an ``optim.OptState`` (fake tensors will do), the specs an
+    ``OptState`` of ``{path: {name: spec}}``."""
+    inner = {}
+    for path, st in opt_state.inner.items():
+        psh = params_shardings[path]
+        out = {}
+        for k, leaf in st.items():
+            if k in ("m", "v"):
+                out[k] = psh
+                continue
+            spec = list(psh) + [None] * (len(leaf.shape) + 1 - len(psh))
+            s = spec[:-1] if k == "vr" else spec[:-2] + spec[-1:]
+            out[k] = guard_divisibility(PartitionSpec(*s), leaf.shape, mesh)
+        inner[path] = out
+    return O.OptState(PartitionSpec(), inner)
+
+
 def cache_shardings(mesh, cfg: T.ModelConfig, caches: dict) -> dict:
     """The decode caches' specs by name (stacked (L, B, T, kvh?, dh?)):
     batch over the data axes; a KV cache's heads over "model" when they
@@ -181,17 +208,58 @@ def shard_params(params: T.Transformer, shardings: dict,
     """This rank's tiles of ``params`` (whole weights; fake ones give the
     dry run's fake tiles) under ``shardings`` (:func:`param_shardings`), a
     :class:`Transformer` that remembers them (its ``shardings``)."""
-    leaves = {}
-    for path, leaf in params.ref_leaves().items():
-        spec = shardings[path]
-        coords = _coords(mesh, spec, leaf.shape)
-        if leaf.stacked:                  # the layer axis is never split
-            if any(d == 0 for d, _, _ in coords):
-                raise NotImplementedError(f"{path}: a split layer axis")
-            coords = [(d - 1, s0, w) for d, s0, w in coords]
-        leaves[path] = Leaf([_tile(t, coords) for t in leaf.tensors],
-                            leaf.stacked)
+    leaves = {path: _tile_leaf(leaf, shardings[path], mesh, path)
+              for path, leaf in params.ref_leaves().items()}
     return T.params_from_leaves(params.cfg, leaves, shardings)
+
+
+def shard_opt_state(opt_state, shardings, mesh):
+    """This rank's tiles of a whole optimizer state under ``shardings``
+    (:func:`opt_state_shardings`); the step is replicated."""
+    inner = {path: {k: _tile_leaf(leaf, shardings.inner[path][k], mesh,
+                                  path)
+                    for k, leaf in st.items()}
+             for path, st in opt_state.inner.items()}
+    return O.OptState(opt_state.step, inner)
+
+
+def _tile_leaf(leaf: Leaf, spec: PartitionSpec, mesh, path: str) -> Leaf:
+    coords = _coords(mesh, spec, leaf.shape)
+    if leaf.stacked:                      # the layer axis is never split
+        if any(d == 0 for d, _, _ in coords):
+            raise NotImplementedError(f"{path}: a split layer axis")
+        coords = [(d - 1, s0, w) for d, s0, w in coords]
+    return Leaf([_tile(t, coords) for t in leaf.tensors], leaf.stacked)
+
+
+def _untile_leaf(leaf: Leaf, spec: PartitionSpec, mesh) -> Leaf:
+    """A leaf's tiles all-gathered over the axes of ``spec`` into the whole
+    leaf (every rank of the mesh takes part)."""
+    dims = spec[1:] if leaf.stacked else spec
+
+    def whole(t):
+        for d, ax in enumerate(dims):
+            if ax is not None:
+                t = C.all_gather(t, mesh.group(ax), dim=d)
+        return t
+    return Leaf([whole(t) for t in leaf.tensors], leaf.stacked)
+
+
+def unshard_params(params: T.Transformer, mesh) -> T.Transformer:
+    """The whole weights from every rank's tiles (:func:`shard_params`'
+    inverse; a collective over the mesh)."""
+    leaves = {path: _untile_leaf(leaf, params.shardings[path], mesh)
+              for path, leaf in params.ref_leaves().items()}
+    return T.params_from_leaves(params.cfg, leaves)
+
+
+def unshard_opt_state(opt_state, shardings, mesh):
+    """The whole optimizer state from every rank's tiles
+    (:func:`shard_opt_state`'s inverse)."""
+    inner = {path: {k: _untile_leaf(leaf, shardings.inner[path][k], mesh)
+                    for k, leaf in st.items()}
+             for path, st in opt_state.inner.items()}
+    return O.OptState(opt_state.step, inner)
 
 
 def shard_batch(batch: dict, shardings: dict, mesh) -> dict:
@@ -221,7 +289,12 @@ def loss_and_grads(params: T.Transformer, batch: dict, cfg: T.ModelConfig,
     labels) + aux_weight·aux``; the forward takes the reference's default
     attention route (``_sdpa``, ``flash=False``: the flash kernel has no
     backward) under ``cfg.remat_policy``, with ``frames``/``patches`` from
-    the batch.  The weights require grad for this backward alone."""
+    the batch.  The weights require grad for this backward alone.
+
+    On a sharded rank (a mesh declared): its tiles' gradients of its rows'
+    loss (the cross entropy over a vocabulary split on the model axis when
+    unembed is), each FSDP tile's summed over the data axes; the train
+    step averages them over the data axes."""
     extra = {k: batch[k] for k in ("frames", "patches") if k in batch}
     leaves = params.ref_leaves()
     flat = [t for leaf in leaves.values() for t in leaf.tensors]
@@ -230,7 +303,8 @@ def loss_and_grads(params: T.Transformer, batch: dict, cfg: T.ModelConfig,
             params.requires_grad_(True)
             logits, aux = T.forward(params, batch["tokens"], cfg, extra,
                                     flash=False)
-            loss = softmax_xent(logits, batch["labels"])
+            loss = softmax_xent(logits, batch["labels"],
+                                tp=T.vocab_layout(params, cfg))
             del logits
             grads = torch.autograd.grad(loss + aux_weight * aux, flat,
                                         allow_unused=True)
@@ -243,6 +317,54 @@ def loss_and_grads(params: T.Transformer, batch: dict, cfg: T.ModelConfig,
     return loss.detach(), aux.detach(), by_leaf
 
 
+def _data_mean(params: T.Transformer, loss, aux, grads: dict, ctx: dict):
+    """The global batch's loss and aux (the mean of the data shards') and
+    the gradients averaged over the data axes: a leaf replicated over them
+    all-reduced (fp32, one collective a leaf), an FSDP leaf, already summed
+    and scattered by its gather's backward, divided."""
+    daxes = ctx["data"]
+    group = ctx["mesh"].group(daxes if len(daxes) > 1 else daxes[0])
+    p = C.axis_size(group)
+    if p == 1:
+        return loss, aux, grads
+    loss, aux = (C.psum(torch.stack([loss, aux]), group) / p).unbind()
+    out = {}
+    for path, rows in grads.items():
+        if any(ax not in (None, ctx["model"]) for ax in params.shardings[path]):
+            out[path] = [g / p for g in rows]
+            continue
+        flat = C.psum(torch.cat([g.reshape(-1).float() for g in rows]),
+                      group) / p
+        out[path] = [f.view_as(g).to(g.dtype) for f, g in
+                     zip(flat.split([g.numel() for g in rows]), rows)]
+    return loss, aux, out
+
+
+def _gnorm(params: T.Transformer, grads: dict, ctx: Optional[dict]):
+    """√Σ of every leaf's fp32 gradient squared.  On a mesh each rank sums
+    its tiles, a leaf's weighted by the share of the mesh that holds that
+    tile (1 over its number of copies), and the sums are summed over every
+    rank: no replicated tile counts twice."""
+    weight = dict.fromkeys(grads, 1.0)
+    world = 1
+    if ctx is not None:
+        shape = ctx["mesh"].shape
+        for n in shape.values():
+            world *= n
+        for path in grads:
+            split = 1
+            for ax in params.shardings[path]:
+                for a in (() if ax is None else
+                          (ax,) if isinstance(ax, str) else ax):
+                    split *= shape[a]
+            weight[path] = split / world
+    total = sum(torch.sum(torch.square(g.float())) * weight[path]
+                for path, rows in grads.items() for g in rows)
+    if world > 1:
+        total = C.psum(total, dist.group.WORLD)
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg: T.ModelConfig, optimizer, aux_weight: float = 0.01,
                     grad_compression_axis: Optional[str] = None):
     """(params, opt_state, batch) → (params, opt_state, metrics), the
@@ -251,13 +373,21 @@ def make_train_step(cfg: T.ModelConfig, optimizer, aux_weight: float = 0.01,
     ``loss`` (the cross entropy), ``aux`` and ``gnorm`` = √Σ over every
     leaf of its fp32 gradient squared, 0-d fp32 tensors.
     ``grad_compression_axis`` is accepted and unused, as in the
-    reference."""
+    reference.
+
+    On a sharded rank (a mesh declared, the weights and the state its
+    tiles: :func:`shard_params`, :func:`shard_opt_state`) it computes the
+    one-device step of the global batch: the loss and aux the mean of the
+    data shards', the gradients averaged over the data axes, gnorm over
+    the whole mesh, each rank updating its tiles."""
     del grad_compression_axis
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(params, batch, cfg, aux_weight)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for rows in grads.values() for g in rows))
+        ctx = mesh_context()
+        if ctx is not None:
+            loss, aux, grads = _data_mean(params, loss, aux, grads, ctx)
+        gnorm = _gnorm(params, grads, ctx)
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "aux": aux, "gnorm": gnorm}
     return train_step
@@ -308,13 +438,13 @@ def abstract_params(cfg: T.ModelConfig, device=None):
 
 def abstract_state(cfg: T.ModelConfig, optimizer, shape_kind: str,
                    batch: int, seq: int, device=None):
-    """(params, specs, extra) as the reference's: extra the decode state
-    for ``"decode"``, None for ``"prefill"``; ``"train"`` (the optimizer's
-    state) is ROADMAP §1 row 21."""
-    del optimizer
-    if shape_kind == "train":
-        raise NotImplementedError("the train cells are ROADMAP §1 row 21")
+    """(params, specs, extra) as the reference's: extra the optimizer's
+    state (``optimizer.init``) for ``"train"``, the decode state for
+    ``"decode"``, None for ``"prefill"``; on fake tensors when called under
+    a ``FakeTensorMode``."""
     params, specs = abstract_params(cfg, device)
+    if shape_kind == "train":
+        return params, specs, optimizer.init(params)
     if shape_kind == "decode":
         return params, specs, T.init_decode_state(cfg, batch, seq,
                                                   device=device)

@@ -10,14 +10,27 @@ Mirrors ``repro.launch.train``.  Fault-tolerance contract:
     dtype), so a resumed run reads the stream an uninterrupted run would
     have read: restart-exact training.
 
-One device: ``--model-parallel`` other than 1 raises (the sharding policy
-is ROADMAP.md §1 row 19).  On the card unless ``--device cpu``.
-``--stop-at N`` ends the run after step N with the flags of a longer run,
-as a preemption would: its resume is held to the uninterrupted run.
+Every run builds the ("data", "model") mesh over the job's ranks
+(``launch.mesh.make_host_mesh(model=--model-parallel)``; a ``torchrun``
+job's, or a one-rank group in this process: NCCL on the card, gloo on the
+CPU), as the reference builds its host mesh.  The dense family trains on
+it: each rank holds its tiles of the seeded weights and of their adamw
+state under the sharding policy (``launch.steps``, FSDP off as the
+reference's CLI has it) and of the (seed, step) batch, and runs the
+sharded ``make_train_step``.  The other families train on a mesh of one
+rank with their whole weights (their sharded steps are ROADMAP §1 row 22:
+on more ranks they raise).  A checkpoint holds whole leaves: the tiles are
+gathered and rank 0 writes them; a resume loads whole leaves and takes its
+tiles, so a checkpoint of one world size resumes on another.  Only rank 0
+prints.  On the card unless ``--device cpu``.  ``--stop-at N`` ends the
+run after step N with the flags of a longer run, as a preemption would:
+its resume is held to the uninterrupted run.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --smoke --device cpu --steps 50 --batch 4 --seq 32 --ckpt-dir DIR
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch granite-3-2b --smoke --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -25,14 +38,17 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpoint import store
 from repro_torch.core import prng
 from repro_torch.data.tokens import synthetic_token_stream
-from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                     local_device, make_host_mesh)
 from repro_torch.models import transformer as T
+from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
 from repro_torch.optim import optimizers, schedule
 
 STUB_KEYS = {"encdec": ("frames", 1, "enc_len"),
@@ -71,14 +87,30 @@ def main(argv=None) -> dict:
                     help="end the run after this step, as a preemption "
                     "would (the schedule still spans --steps)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError("--model-parallel: the port trains on one device; "
-                         "the sharding policy is ROADMAP.md §1 row 19")
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    dev = resolve_device(args.device)
-    print(f"device: {dev}  arch: {cfg.name}  family: {cfg.family}")
+    dev = local_device(args.device)
+    created = init_distributed(dev)
+    try:
+        return _train(args, cfg, dev)
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
+    mesh = make_host_mesh(model=args.model_parallel, device=dev)
+    world = dist.get_world_size()
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    sharded = cfg.family == "dense"
+    if not sharded and world > 1:
+        raise ValueError(f"the {cfg.family} family trains on one rank; its "
+                         "sharded train step is ROADMAP §1 row 22")
+    say(f"device: {dev}  mesh: {mesh.shape}  arch: {cfg.name}  "
+        f"family: {cfg.family}")
 
     opt = optimizers.optimizer_for(cfg, schedule.cosine_schedule(
         args.lr, warmup=max(args.steps // 20, 1), total=args.steps))
@@ -88,7 +120,24 @@ def main(argv=None) -> dict:
     if args.ckpt_dir and store.latest_step(args.ckpt_dir) is not None:
         (params, opt_state), start_step, _ = store.load_checkpoint(
             args.ckpt_dir, (params, opt_state))
-        print(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
+    batch_sh = osh = None
+    if sharded:
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps_mod.param_shardings(mesh, params, T.param_specs(cfg),
+                                        fsdp=False)
+        osh = steps_mod.opt_state_shardings(mesh, opt_state, psh)
+        opt_state = steps_mod.shard_opt_state(opt_state, osh, mesh)
+        params = steps_mod.shard_params(params, psh, mesh)
+
+    def save(step: int) -> None:
+        whole = ((steps_mod.unshard_params(params, mesh),
+                  steps_mod.unshard_opt_state(opt_state, osh, mesh))
+                 if sharded else (params, opt_state))
+        if lead:
+            store.save_checkpoint(args.ckpt_dir, step, whole)
+        if world > 1:
+            dist.barrier()
 
     step_fn = steps_mod.make_train_step(cfg, opt)
     batch_at = synthetic_token_stream(args.seed, cfg.vocab, args.batch,
@@ -99,17 +148,19 @@ def main(argv=None) -> dict:
                                                         args.steps)
     for step in range(start_step, stop):
         batch = {**batch_at(step), **stub_inputs(cfg, args.batch, step, dev)}
+        if sharded:
+            batch_sh = batch_sh or steps_mod.batch_shardings(mesh, batch)
+            batch = steps_mod.shard_batch(batch, batch_sh, mesh)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (step + 1) % 10 == 0 or step == start_step:
             dt = time.perf_counter() - t_last
             t_last = time.perf_counter()
-            print(f"step {step + 1:5d}  loss {float(metrics['loss']):8.4f}  "
-                  f"gnorm {float(metrics['gnorm']):8.3f}  ({dt:.2f}s)",
-                  flush=True)
+            say(f"step {step + 1:5d}  loss {float(metrics['loss']):8.4f}  "
+                f"gnorm {float(metrics['gnorm']):8.3f}  ({dt:.2f}s)",
+                flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            store.save_checkpoint(args.ckpt_dir, step + 1,
-                                  (params, opt_state))
-    print("done")
+            save(step + 1)
+    say("done")
     return {k: float(v) for k, v in metrics.items()}
 
 

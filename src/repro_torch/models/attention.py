@@ -30,7 +30,10 @@ over the model axis; in prefill a rank whose KV heads are whole projects
 only those its query heads read; in decode a KV cache split on its length
 (``launch.steps.cache_shardings``) is read with every query head (gathered
 over the model axis) and a softmax whose max, sum and output are summed
-over the axis (:func:`_sdpa_split`).
+over the axis (:func:`_sdpa_split`).  Differentiated (training's prefill
+route), a replicated input that enters split heads has its gradient
+summed over the model axis (``common.model_enter``), and so have wk, wv
+(bk, bv) where a rank projects only part of the whole KV heads.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ import torch
 from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.common import (MODEL, TPLayout, apply_rope,
-                                       dense_init, model_psum, rope_tables,
-                                       spec)
+                                       dense_init, model_enter, model_psum,
+                                       rope_tables, spec)
 
 NEG_INF = -1e30
 
@@ -260,24 +263,30 @@ def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
     """:func:`attn_apply`'s self-attention on a sharded rank's tiles (see
     the module docstring).  Returns (y, new_cache)."""
     b, s, _ = x.shape
+    if tp.heads:
+        x = model_enter(x, tp)
     q = _project(x, params["wq"])                 # (B, S, H_l, Dh)
     h_l = q.shape[2]
     h0 = tp.rank * h_l if tp.heads else 0
     kv = slice(None)
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    w = {n: params[n] for n in names}
     if cache is None and tp.heads and not tp.kv_heads:
         # prefill: only the KV heads of this rank's query heads (XLA slices
-        # the replicated wk, wv so)
+        # the replicated wk, wv so); ranks that share a KV head each give
+        # a part of its weights' gradient, summed over the model axis
         g = cfg.n_heads // cfg.n_kv_heads
         if h_l % g and g % h_l:
             raise NotImplementedError(
                 f"{h_l} query heads a rank straddle KV groups of {g}")
         kv = slice(h0 // g, (h0 + h_l - 1) // g + 1)
-    k = _project(x, params["wk"][:, kv])
-    v = _project(x, params["wv"][:, kv])
+        w = {n: model_enter(t, tp) for n, t in w.items()}
+    k = _project(x, w["wk"][:, kv])
+    v = _project(x, w["wv"][:, kv])
     if cfg.qkv_bias:
         q = q + params["bq"]
-        k = k + params["bk"][kv]
-        v = v + params["bv"][kv]
+        k = k + w["bk"][kv]
+        v = v + w["bv"][kv]
     if cfg.rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]

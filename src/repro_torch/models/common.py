@@ -10,7 +10,9 @@ so a rank's activations are its batch shard already and ``batch_sharded``
 and ``shard_hint`` return their input.  ``set_mesh_axes(..., mesh=...)``
 makes the dense forward and decode step of a rank that holds tiles
 (``launch.steps.shard_params``) issue their collectives over ``mesh``
-(:class:`TPLayout`); with no mesh set they are the one-device code.
+(:class:`TPLayout`; differentiable: :func:`model_psum`,
+:func:`model_enter`, and :func:`softmax_xent` over a split vocabulary);
+with no mesh set they are the one-device code.
 Casts happen where the reference casts: :func:`rms_norm` reduces in fp32, casts to x's dtype,
 then multiplies by γ in that dtype; :func:`apply_rope` rotates split
 halves in fp32 and casts back, its angles' sin and cos with the
@@ -137,11 +139,20 @@ class TPLayout:
 
 
 def model_psum(x: torch.Tensor, tp: Optional[TPLayout]) -> torch.Tensor:
-    """Σ of the group's partial ``x`` (an all-reduce), or ``x`` on one
-    device."""
+    """Σ of the group's partial ``x`` (an all-reduce; its gradient passed
+    through), or ``x`` on one device."""
     if tp is None or tp.size == 1:
         return x
-    return C.psum(x, tp.group)
+    return C.psum_forward(x, tp.group)
+
+
+def model_enter(x: torch.Tensor, tp: Optional[TPLayout]) -> torch.Tensor:
+    """A replicated ``x`` (or weight) that enters computations split over
+    the model axis: ``x`` itself, its gradient summed over the group (each
+    rank's is the part of its tiles), or ``x`` on one device."""
+    if tp is None or tp.size == 1:
+        return x
+    return C.psum_backward(x, tp.group)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -234,8 +245,8 @@ def mlp_apply(params, x, style: str = "swiglu",
         if style != "swiglu":
             raise NotImplementedError("a sharded gelu MLP is ROADMAP §1 "
                                       "row 22 (encoder-decoder, VLM)")
-        return model_psum(swiglu(x, params["gate"], params["up"],
-                                 params["down"]), tp)
+        return model_psum(swiglu(model_enter(x, tp), params["gate"],
+                                 params["up"], params["down"]), tp)
     if style == "swiglu":
         return swiglu(x, params["gate"], params["up"], params["down"])
     return gelu_mlp(x, params["up"], params["b_up"], params["down"],
@@ -367,11 +378,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross entropy.  logits (B, S, V), labels (B, S)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+                 mask: Optional[torch.Tensor] = None,
+                 tp: Optional[TPLayout] = None) -> torch.Tensor:
+    """Mean next-token cross entropy.  logits (B, S, V), labels (B, S).
+    With ``tp`` the logits are this rank's columns of a vocabulary split
+    over the model axis (rank k's are [k·V, (k + 1)·V)): the max over the
+    group (no gradient, as logsumexp's), Σexp summed over it, and the
+    label's logit from the rank that holds it."""
+    logits, labels = logits.float(), labels.long()
+    if tp is None or tp.size == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None],
+                                    dim=-1)[..., 0]
+    else:
+        v_l = logits.shape[-1]
+        m = C.pmax(logits.detach().amax(dim=-1, keepdim=True), tp.group)
+        z = C.psum_forward(torch.exp(logits - m).sum(dim=-1), tp.group)
+        logz = torch.log(z) + m[..., 0]
+        local = labels - tp.rank * v_l
+        mine = (local >= 0) & (local < v_l)
+        gold = torch.take_along_dim(logits, local.clamp(0, v_l - 1)[..., None],
+                                    dim=-1)[..., 0]
+        gold = C.psum_forward(torch.where(mine, gold, 0.0), tp.group)
     nll = logz - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -410,3 +438,33 @@ def remat(fn, policy: str = "nothing"):
             context_fn=functools.partial(
                 create_selective_checkpoint_contexts, _save_weight_products))
     raise ValueError(policy)
+
+
+class _BlockRecompute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, x, *weights):
+        ctx.fn, ctx.weights = fn, weights
+        ctx.save_for_backward(x)
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        x = x.detach().requires_grad_(x.requires_grad)
+        wrt = [t for t in (x, *ctx.weights) if t.requires_grad]
+        with torch.enable_grad():
+            y = ctx.fn(x)
+        grads = iter(torch.autograd.grad(y, wrt, dy, allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None
+                        for t in (x, *ctx.weights)))
+
+
+def block_remat(fn, x: torch.Tensor, weights) -> torch.Tensor:
+    """``fn(x)`` for a block of layers whose ``weights`` it reads, as the
+    reference's ``remat(block, "nothing")`` over its inner per-layer
+    remat: the forward runs without a graph and keeps only ``x``; the
+    backward runs ``fn`` again (its layers under their own policy, so the
+    recomputed block saves what that policy saves) and differentiates it.
+    A nested ``torch.utils.checkpoint`` would keep the inner policy's
+    saved products across the outer one and stop its recompute early."""
+    return _BlockRecompute.apply(fn, x, *weights)

@@ -44,7 +44,9 @@ A rank of a mesh (the dense family) holds its tiles of the weights
 (``launch.steps.shard_params``: a :class:`Transformer` whose
 ``shardings`` are the resolved specs of :func:`param_specs`) and, with the
 mesh declared (``common.set_mesh_axes(..., mesh=mesh)``), its forward and
-decode step run on them with a ``common.TPLayout``'s collectives: the
+decode step run on them with a ``common.TPLayout``'s collectives (the
+forward's differentiable: the train step's backward gives a rank its
+tiles' gradients, and ``remat_block`` blocks recompute sharded layers): the
 vocabulary-parallel embedding and logits, FSDP tiles gathered over the
 data axes before use, the attention and MLP as ``attention`` and
 ``common.mlp_apply`` split them; :func:`greedy` picks a token over a split
@@ -53,6 +55,7 @@ vocabulary.  With no mesh declared both are the one-device code.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -66,8 +69,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.core.tree import Leaf
 from repro_torch.models.common import (MODEL, PartitionSpec, TPLayout,
                                        embed_init, mesh_context, mlp_apply,
-                                       mlp_init, mlp_specs, remat, rms_norm,
-                                       rope_tables, spec)
+                                       mlp_init, mlp_specs, model_enter,
+                                       model_psum, remat, block_remat,
+                                       rms_norm, rope_tables, spec)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
@@ -540,10 +544,18 @@ def _recording(params: Transformer) -> bool:
 
 
 def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
-              extra: dict, kernels: str, flash: bool):
+              extra: dict, kernels: str, flash: bool,
+              tp: Optional[TPLayout] = None):
     """The body of layer ``layer`` of the forward: (x, layer) → (x, aux),
-    aux the MoE layer's aux dict (None for the other families)."""
+    aux the MoE layer's aux dict (None for the other families).  On a
+    sharded rank (``tp``) the dense layer's weights are its tiles, FSDP's
+    gathered inside the body (so a recompute gathers them again)."""
     def body(x, layer):
+        if tp is not None:
+            x, _ = _dense_block(_rank_layer(params, layer), x, cfg, positions,
+                                kernels=kernels, rope=rope, flash=flash,
+                                tp=tp)
+            return x, None
         lp = params["layers"][layer]
         if cfg.family == "moe":
             x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
@@ -574,7 +586,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             layer_aux: Optional[list] = None, flash: bool = True):
     """Full-sequence forward (prefill).  tokens (B, S) → (logits (B, S, V)
     in the model's dtype, aux loss: the sum of the MoE layers' ``lb_loss``,
-    0 for the other families).  ``extra``: ``{"frames": (B, T, dm)}`` for
+    0 for the other families).  On a sharded rank (a mesh declared): its
+    batch rows, logits (B_l, S, V_l) over its vocabulary columns (all of
+    them when unembed is whole).  ``extra``: ``{"frames": (B, T, dm)}`` for
     encdec (the stub frontend's frame embeddings, run through
     :func:`encode`), ``{"patches": (B, n_patches, dm)}`` for the VLM.
     GQA attention (the hybrid's shared block, the encoder and every
@@ -589,11 +603,10 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     layers, as the reference's ``_scan_blocks``; otherwise no remat."""
     require_ported(cfg.family)
     tp = _tp_layout(params, cfg)
-    if tp is not None:
-        return _forward_tp(params, tokens, cfg, tp, kernels, flash)
     extra = dict(extra or {})
     _, s = tokens.shape
-    x = params["embed"][tokens]
+    x = params["embed"][tokens] if tp is None else _embed_tp(params, tokens,
+                                                             tp)
     positions = torch.arange(s, device=x.device)[None, :]
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     rope = _rope(cfg, positions)
@@ -602,7 +615,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
         extra["enc_out"] = encode(params, extra["frames"], cfg,
                                   kernels=kernels, flash=flash)
         x = x + params["dec_pos"][:s]
-    body = _layer_fn(params, cfg, positions, rope, extra, kernels, flash)
+    body = _layer_fn(params, cfg, positions, rope, extra, kernels, flash, tp)
     layer_fn = remat(body, cfg.remat_policy if recording else "none")
     k = cfg.remat_block if recording and cfg.family == "dense" else 0
     if k:
@@ -610,13 +623,14 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             raise ValueError(f"remat_block {k} does not divide "
                              f"{cfg.n_layers} layers")
 
-        def block(x, first):
+        def block(first, x):
             for layer in range(first, first + k):
                 x, _ = layer_fn(x, layer)
             return x
-        block_fn = remat(block, "nothing")
         for first in range(0, cfg.n_layers, k):
-            x = block_fn(x, first)
+            weights = [t for layer in range(first, first + k)
+                       for t in params["layers"][layer].parameters()]
+            x = block_remat(functools.partial(block, first), x, weights)
     else:
         for layer in range(cfg.n_layers):
             x, aux = layer_fn(x, layer)
@@ -624,6 +638,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
                 aux_acc = aux_acc + aux["lb_loss"]
                 if layer_aux is not None:
                     layer_aux.append(aux)
+    if tp is not None:
+        return _logits_tp(params, x, tp), aux_acc
     x = rms_norm(x, params["ln_f"])
     logits = x @ params["unembed"]
     return logits, aux_acc
@@ -796,12 +812,15 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
 def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
                stacked: bool) -> torch.Tensor:
     """A tile with its FSDP dims (those over the data axes) all-gathered:
-    the rank's tile under the model axis alone."""
+    the rank's tile under the model axis alone.  Its gradient is summed
+    over the data axes and scattered back to the tile."""
     ctx = mesh_context()
     dims = params.shardings[path][1 if stacked else 0:]
     for d, ax in enumerate(dims):
         if ax is not None and ax != ctx["model"]:
-            t = C.all_gather(t, ctx["mesh"].group(ax), dim=d)
+            group = ctx["mesh"].group(ax)
+            if C.axis_size(group) > 1:
+                t = C.gather_forward(t, group, dim=d)
     return t
 
 
@@ -839,37 +858,35 @@ def _embed_tp(params: Transformer, tokens: torch.Tensor,
     local = tokens - tp.rank * v_l
     mine = (local >= 0) & (local < v_l)
     x = w[local.clamp(0, v_l - 1)].masked_fill(~mine[..., None], 0)
-    return C.psum(x, tp.group)
+    return model_psum(x, tp)
 
 
-def _logits_tp(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+def _logits_tp(params: Transformer, x: torch.Tensor,
+               tp: TPLayout) -> torch.Tensor:
     """Final norm and unembedding: this rank's vocabulary columns when
     unembed is split on them."""
     x = rms_norm(x, _rank_leaf(params, "ln_f", params["ln_f"], False))
+    if _vocab_split(params, "unembed", 1):
+        x = model_enter(x, tp)
     return x @ _rank_leaf(params, "unembed", params["unembed"], False)
 
 
-def _forward_tp(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-                tp: TPLayout, kernels: str, flash: bool):
-    """:func:`forward` on a sharded rank: its batch rows, logits (B_l, S,
-    V_l) over its vocabulary columns (all of them when unembed is whole),
-    aux 0."""
-    _, s = tokens.shape
-    x = _embed_tp(params, tokens, tp)
-    positions = torch.arange(s, device=x.device)[None, :]
-    rope = _rope(cfg, positions)
-    for layer in range(cfg.n_layers):
-        x, _ = _dense_block(_rank_layer(params, layer), x, cfg, positions,
-                            kernels=kernels, rope=rope, flash=flash, tp=tp)
-    return (_logits_tp(params, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+def vocab_layout(params: Transformer, cfg: ModelConfig) -> Optional[TPLayout]:
+    """The :class:`TPLayout` whose ranks each hold a part of the forward's
+    logits (its vocabulary columns: unembed split on the model axis), or
+    None when every rank holds all of them (one device, or a vocabulary
+    the model axis does not divide)."""
+    tp = _tp_layout(params, cfg)
+    if tp is None or not _vocab_split(params, "unembed", 1):
+        return None
+    return tp
 
 
 def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
                     state: DecodeState, cfg: ModelConfig, tp: TPLayout):
     """:func:`decode_step` on a sharded rank: its rows of the batch and its
-    tiles of the KV caches (written in place); logits as
-    :func:`_forward_tp`'s."""
+    tiles of the KV caches (written in place); logits as :func:`forward`'s
+    on a sharded rank."""
     b = tokens.shape[0]
     x = _embed_tp(params, tokens, tp)
     pos = state.position
@@ -881,7 +898,7 @@ def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
             _rank_layer(params, layer), x, cfg, positions,
             A.KVCache(caches["k"][layer], caches["v"][layer], pos),
             rope=rope, tp=tp)
-    return (_logits_tp(params, x),
+    return (_logits_tp(params, x, tp),
             DecodeState(caches, pos + 1, state.shardings))
 
 

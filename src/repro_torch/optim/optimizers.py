@@ -24,15 +24,25 @@ tensor where it has not (``vc`` of a stacked vector leaf, (dm,)).  So it
 converts to and from the reference's ``OptState`` shapes
 (``convert.opt_state_from_arrays``).  ``update`` writes the parameters and
 the state in place (the reference donates both) and returns them.
+
+On a sharded rank (a model whose ``shardings`` are set, its mesh declared
+with ``models.common.set_mesh_axes``) the parameters, gradients and state
+are the rank's tiles (``launch.steps.shard_opt_state``).  adamw needs
+nothing more; adafactor's reductions over a split dim (the means of g²
+over the last two dims, ``vr``'s mean, ``rms_u``) sum over that dim's
+axes (:class:`_Split`), so every rank updates its tiles as one device
+would update the whole leaf.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import collectives as C
 from repro_torch.core.tree import Leaf
+from repro_torch.models.common import mesh_context
 
 
 class OptState(NamedTuple):
@@ -85,26 +95,76 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params):
         step, t = _step_of(state)
-        lr_t = _lr_at(lr, step)
-        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
-        for path, leaf in param_leaves(params).items():
+        leaves = param_leaves(params)
+        lr_t, c1, c2 = _on_device(leaves, _lr_at(lr, step), 1 - b1 ** t,
+                                  1 - b2 ** t)
+        for path, leaf in leaves.items():
             s = state.inner[path]
             for p, g, m, v in zip(leaf.tensors, grads[path],
                                   s["m"].tensors, s["v"].tensors):
                 g = g.float()
                 m.copy_(b1 * m + (1 - b1) * g)
                 v.copy_(b2 * v + (1 - b2) * g * g)
-                dev = p.device
-                upd = (m / c1.to(dev)) / (torch.sqrt(v / c2.to(dev)) + eps) \
+                upd = (m / c1) / (torch.sqrt(v / c2) + eps) \
                     + weight_decay * p.float()
-                p.copy_(p.float() - _on(lr_t, dev) * upd)
+                p.copy_(p.float() - lr_t * upd)
         return params, OptState(step, state.inner)
 
     return Optimizer(init, update, "adamw")
 
 
-def _on(x, device):
-    return x.to(device) if isinstance(x, torch.Tensor) else x
+def _on_device(leaves: dict, *xs):
+    """The step's scalars (the step lives on the host) copied once to the
+    weights' device, a Python number as it is.  Copied on the CPU too, so
+    the dry run's counter sees the same ops on either device."""
+    dev = next(iter(leaves.values())).tensors[0].device
+    return tuple(x.to(dev, copy=True) if isinstance(x, torch.Tensor) else x
+                 for x in xs)
+
+
+class _Split:
+    """How a leaf is split over the declared mesh: the process group and
+    size of each of its reference dims (None where the dim is whole).  A
+    model without ``shardings``, or no mesh declared: nothing is split."""
+
+    def __init__(self, params, path: str):
+        ctx = mesh_context()
+        spec = getattr(params, "shardings", None)
+        spec = spec[path] if ctx is not None and spec is not None else ()
+        self.dims = []
+        for ax in spec:
+            group = None if ax is None else ctx["mesh"].group(ax)
+            n = 1 if group is None else C.axis_size(group)
+            self.dims.append((group, n) if n > 1 else None)
+
+    def _dim(self, d: int):
+        return self.dims[d] if self.dims else None
+
+    def mean(self, x: torch.Tensor, dim: int, ref: Optional[int] = None,
+             keepdim: bool = False) -> torch.Tensor:
+        """The whole leaf's mean over ``dim`` of ``x`` (a row of it, or of
+        its state), which is the leaf's reference dim ``ref`` (by default
+        ``dim``; both < 0, counted from the last)."""
+        split = self._dim(dim if ref is None else ref)
+        if split is None:
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        group, n = split
+        return C.psum(torch.sum(x, dim=dim, keepdim=keepdim),
+                      group) / (x.shape[dim] * n)
+
+    def size(self) -> int:
+        """How many tiles the leaf is cut into."""
+        out = 1
+        for split in self.dims:
+            out *= 1 if split is None else split[1]
+        return out
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over this rank's tile summed over every split dim."""
+        for split in self.dims:
+            if split is not None:
+                x = C.psum(x, split[0])
+        return x
 
 
 def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
@@ -134,16 +194,14 @@ def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
     @torch.no_grad()
     def update(grads, state, params):
         step, t = _step_of(state)
-        beta = 1.0 - t ** -decay
-        lr_t = _lr_at(lr, step)
-        for path, leaf in param_leaves(params).items():
-            _update_leaf(leaf, grads[path], state.inner[path], beta, lr_t)
+        leaves = param_leaves(params)
+        beta, lr_t = _on_device(leaves, 1.0 - t ** -decay, _lr_at(lr, step))
+        for path, leaf in leaves.items():
+            _update_leaf(leaf, grads[path], state.inner[path], beta, lr_t,
+                         _Split(params, path))
         return params, OptState(step, state.inner)
 
-    def _update_leaf(leaf, grads, s, beta, lr_t):
-        dev = leaf.tensors[0].device
-        beta = beta.to(dev)
-        lr_t = _on(lr_t, dev)
+    def _update_leaf(leaf, grads, s, beta, lr_t, split):
         rows = list(zip(leaf.tensors, grads))
 
         def g2(g):
@@ -164,7 +222,7 @@ def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
             col = torch.zeros_like(vc)
             for (_, g), vr in zip(rows, s["vr"].tensors):
                 g, sq = g2(g)
-                vr.copy_(beta * vr + (1 - beta) * torch.mean(sq, dim=-1))
+                vr.copy_(beta * vr + (1 - beta) * split.mean(sq, -1))
                 col += sq
             vc.copy_(beta * vc + (1 - beta) * (col / len(rows)))
             vr_mean = torch.stack(s["vr"].tensors).mean()
@@ -176,19 +234,21 @@ def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
             for (_, g), vr, vc in zip(rows, s["vr"].tensors,
                                       s["vc"].tensors):
                 g, sq = g2(g)
-                vr.copy_(beta * vr + (1 - beta) * torch.mean(sq, dim=-1))
-                vc.copy_(beta * vc + (1 - beta) * torch.mean(sq, dim=-2))
+                vr.copy_(beta * vr + (1 - beta) * split.mean(sq, -1))
+                vc.copy_(beta * vc + (1 - beta) * split.mean(sq, -2))
 
             def u_of(i, g):
                 vr, vc = s["vr"].tensors[i], s["vc"].tensors[i]
-                rfac = (vr / torch.mean(vr, dim=-1, keepdim=True))[..., None]
+                # vr's last dim is the leaf's second-to-last
+                rfac = (vr / split.mean(vr, -1, ref=-2,
+                                        keepdim=True))[..., None]
                 return g.float() * torch.rsqrt(rfac * vc[..., None, :] + eps)
 
         # one RMS over the whole leaf, from per-row sums; then each row's
         # update again, clipped
-        total = sum(torch.sum(torch.square(u_of(i, g)))
-                    for i, (_, g) in enumerate(rows))
-        count = sum(g.numel() for _, g in rows)
+        total = split.total(sum(torch.sum(torch.square(u_of(i, g)))
+                                for i, (_, g) in enumerate(rows)))
+        count = sum(g.numel() for _, g in rows) * split.size()
         rms_u = torch.sqrt(total / count + eps)
         clip = torch.clamp(rms_u / clip_threshold, min=1.0)
         for i, (p, g) in enumerate(rows):

@@ -8,6 +8,7 @@ placeholder devices) before jax starts, and ``tests/conftest.py`` has
 already started jax here.  Both walk a tiny preset (4 sites, χ 64, d 4,
 16 samples a data shard) on the 16×16 and 2×16×16 meshes.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -20,6 +21,7 @@ import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
 from repro.launch import report as ref_report
+from repro_torch import configs
 from repro_torch.configs import gbs
 from repro_torch.core import prng
 from repro_torch.launch import dryrun as DR
@@ -197,6 +199,7 @@ def test_production_mesh_never_joins_a_real_group(tiny, tmp_path):
 
 ALLOCATES = """
 import json, resource, sys
+from repro_torch import configs
 from repro_torch.configs import gbs
 from repro_torch.launch import dryrun as D
 gbs.PRESETS["wide"] = gbs.GBSPreset("wide", 2, 8192, 4, 1, 1.0)
@@ -266,15 +269,39 @@ def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
 
 @pytest.mark.parametrize("flags,row", [
     (["--arch", "mamba2-1.3b"], "row 22"),
-    (["--arch", "kimi-k2-1t-a32b"], "row 22"),
-    (["--arch", "granite-3-2b", "--shape", "train_4k"], "row 21"),
-    (["--arch", "granite-3-2b", "--remat-block", "4"], "row 21")])
+    (["--arch", "kimi-k2-1t-a32b"], "row 22")])
 def test_lm_cells_are_row_19b(flags, row):
-    """Row 19b ports the dense family's prefill and decode cells: another
-    family's cells raise naming row 22, the train cells and
-    ``--remat-block`` row 21."""
+    """Rows 19b and 21 port the dense family's cells: another family's
+    cells raise naming row 22."""
     with pytest.raises(ValueError, match=row):
         DR.main(flags)
+
+
+@pytest.mark.parametrize("rb", [0, 4])
+def test_train_cells_give_records(rb, tmp_path, monkeypatch, capsys):
+    """``--shape train_4k`` (and ``--remat-block 4``) write a record a
+    mesh and no error: granite's smoke config at 4 layers (so that a block
+    of 4 divides them); the report reads them."""
+    smoke = configs.get_smoke_config("granite-3-2b")
+    monkeypatch.setattr(configs, "get_config", lambda a: dataclasses.replace(
+        smoke, n_layers=4))
+    flags = ["--arch", "granite-3-2b", "--shape", "train_4k", "--device",
+             "cpu", "--out", str(tmp_path)]
+    assert DR.main(flags + (["--remat-block", str(rb)] if rb else [])) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 and all(" ok " in ln for ln in lines), lines
+    rb_tag = f"__rb{rb}" if rb else ""
+    names = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert names == [f"granite-3-2b__train_4k{rb_tag}__{m}.json"
+                     for m in ("multi", "single")]
+    for name in names:
+        r = json.loads((tmp_path / name).read_text())
+        assert r["hlo"]["flops_per_device"] > 0
+        assert r["bytes_per_device"]["outputs"] == 12
+    report.main(["--dir", str(tmp_path)])           # the 16×16 roofline
+    assert capsys.readouterr().out.count("| granite-3-2b | train_4k") == 1
+    report.main(["--dir", str(tmp_path), "--kind", "dryrun"])
+    assert capsys.readouterr().out.count("| granite-3-2b | train_4k") == 2
 
 
 def _rows():

@@ -1,5 +1,5 @@
-"""The dry run's LM cells of the dense family (ROADMAP §1 row 19b) and the
-sharding policy, against the JAX package's.
+"""The dry run's LM cells of the dense family (ROADMAP §1 rows 19b and 21)
+and the sharding policy, against the JAX package's.
 
 The reference runs in one subprocess with 512 placeholder CPU devices (its
 ``launch/dryrun.py`` sets ``XLA_FLAGS`` on import).  On jax 0.9.0
@@ -12,9 +12,13 @@ swapped), as the reference's mesh had them when it was written.  It gives:
   ``apply_fsdp``), ``batch_shardings`` and ``cache_shardings`` for the 4
   dense archs at full and smoke size, FSDP off and on, on 16×16 and
   2×16×16;
+* ``steps.opt_state_shardings`` of adamw's and adafactor's state (its
+  ``vr``/``vc`` the weight's spec less a dim) under both weight policies;
 * ``lower_cell`` + ``analyze_cell`` for prefill_32k and decode_32k of the
   4 smoke configs and granite-3-2b at full size on both meshes, and
-  ``run_cell``'s long_500k record.
+  ``run_cell``'s long_500k record;
+* the train_4k cells of the 4 smoke configs on 16×16 and of granite-3-2b
+  at full size with ``remat_block`` 0 and 4.
 
 The port counts the same cells in this process (``launch.dryrun.run_cell``
 on fake tensors) while the child runs.  FLOPs a device, the arguments'
@@ -24,7 +28,14 @@ the model axis and the KV heads do not (granite-3-2b: 32 and 8 on 16), a
 decode step's cache is split on its length and XLA gathers the queries and
 sums the attention's output in two collectives each (over the model axis
 seen as 2 × 8), one more all-gather and one more all-reduce a layer than
-the port's one each (PERF.md §6, PR 31).
+the port's one each (PERF.md §6).  A train cell's FLOPs a device,
+arguments and MODEL_FLOPS are equal too; its collectives are all-reduces
+on both sides, the port's held to their count by hand
+(``_train_all_reduces``) and XLA's recorded beside them (PERF.md §6):
+XLA sums the data-parallel gradient of each layer inside its
+backward loop and combines the rest into tuples, the port issues one
+all-reduce a leaf at the end, and under ``"dots"`` it issues wo's
+all-reduce again in the recompute.
 """
 import json
 import os
@@ -42,6 +53,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as T
+from repro_torch.optim import optimizers as O
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("granite-3-2b", "qwen1.5-4b", "deepseek-7b", "starcoder2-15b")
@@ -49,6 +61,8 @@ SHAPES = ("prefill_32k", "decode_32k")
 MESHES = ("single", "multi")
 CELLS = ([("smoke", a, s, m) for a in DENSE for s in SHAPES for m in MESHES]
          + [("full", "granite-3-2b", s, m) for s in SHAPES for m in MESHES])
+TRAIN = ([("smoke", a, 0) for a in DENSE]
+         + [("full", "granite-3-2b", rb) for rb in (0, 4)])
 POLICY = [(size, a, m) for size in ("full", "smoke") for a in DENSE
           for m in MESHES]
 
@@ -67,6 +81,7 @@ def auto_mesh(*, multi_pod=False):
 
 D.make_production_mesh = auto_mesh
 cells, policy = json.loads(sys.argv[2]), json.loads(sys.argv[3])
+train = json.loads(sys.argv[4])
 get = {"full": configs.get_config, "smoke": configs.get_smoke_config}
 
 def spec(s):
@@ -90,12 +105,29 @@ for size, arch, mk in policy:
             mesh, configs.input_specs(cfg, configs.SHAPES[s])))
     st = jax.eval_shape(lambda: D.T.init_decode_state(cfg, 128, 32768))
     rec["cache"] = paths(steps.cache_shardings(mesh, cfg, st.caches))
+    for name in ("adamw", "adafactor"):
+        opt = getattr(D.optimizers, name)()
+        opt_sds = jax.eval_shape(opt.init, params)
+        for f in (False, True):
+            psh = steps.param_shardings(mesh, params, specs, f)
+            rec[f"{name}-fsdp={f}"] = paths(
+                steps.opt_state_shardings(mesh, opt_sds, psh))
     out["policy"][f"{size}-{arch}-{mk}"] = rec
 for size, arch, s, mk in cells:
     configs.get_config = D.configs.get_config = get[size]
     compiled, meta = D.lower_cell(arch, s, mk == "multi")
     r = D.analyze_cell(compiled, meta)
     out["cells"][f"{size}-{arch}-{s}-{mk}"] = {
+        "flops": r["hlo"]["flops_per_device"],
+        "n_collectives": r["hlo"]["n_collectives"],
+        "arguments": r["bytes_per_device"]["arguments"],
+        "model_flops": r["model_flops"], "n_chips": r["n_chips"]}
+    del compiled
+for size, arch, rb in train:
+    configs.get_config = D.configs.get_config = get[size]
+    compiled, meta = D.lower_cell(arch, "train_4k", False, rb)
+    r = D.analyze_cell(compiled, meta)
+    out["cells"][f"{size}-{arch}-train_4k-rb{rb}"] = {
         "flops": r["hlo"]["flops_per_device"],
         "n_collectives": r["hlo"]["n_collectives"],
         "arguments": r["bytes_per_device"]["arguments"],
@@ -116,7 +148,8 @@ def both(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-c", REFERENCE, str(work), json.dumps(CELLS),
-         json.dumps(POLICY)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+         json.dumps(POLICY), json.dumps(TRAIN)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
         port = {}
@@ -128,6 +161,14 @@ def both(tmp_path_factory):
                 port[f"{size}-{arch}-{s}-{mk}"] = DR.run_cell(
                     arch, s, mk, force=True, out_root=str(work / size),
                     device="cpu")
+        for size, arch, rb in TRAIN:
+            with pytest.MonkeyPatch.context() as mp:
+                if size == "smoke":
+                    mp.setattr(configs, "get_config",
+                               configs.get_smoke_config)
+                port[f"{size}-{arch}-train_4k-rb{rb}"] = DR.run_cell(
+                    arch, "train_4k", "single", force=True,
+                    out_root=str(work / size), remat_block=rb, device="cpu")
         for mk in MESHES:
             port[f"long_500k-{mk}"] = DR.run_cell(
                 "granite-3-2b", "long_500k", mk, force=True,
@@ -173,6 +214,54 @@ def test_lm_cell_against_the_reference(both, size, arch, shape, mk):
     assert "end_gathers" not in h
 
 
+def _train_all_reduces(cfg, rb: int) -> int:
+    """The port's all-reduces of one train step on 16×16 (no FSDP): the
+    forward's psums (the split embedding, wo's and down's, the split
+    vocabulary's max, Σexp and label logit), those the recompute issues
+    again (wo's under ``"dots"``: the layer's recompute stops before
+    down's; a block of ``rb`` layers the forward's again), the backward's
+    (the attention's and the MLP's input, a KV weight that ranks project
+    in part, the logits' input), and at the end one a weight leaf for the
+    data mean, one for loss and aux, one for gnorm."""
+    p = 16
+    heads, ffn, vocab = (cfg.n_heads % p == 0, cfg.d_ff % p == 0,
+                         cfg.vocab % p == 0)
+    kv_part = heads and cfg.n_kv_heads % p != 0
+    per_fwd = heads + ffn
+    fwd = vocab + cfg.n_layers * per_fwd + 3 * vocab
+    again = cfg.n_layers * (heads if cfg.remat_policy == "dots" else 0)
+    if rb:
+        again += cfg.n_layers * per_fwd
+    kv_w = (4 if cfg.qkv_bias else 2) * kv_part
+    bwd = cfg.n_layers * (heads + ffn + kv_w) + vocab
+    leaves = len(T.param_specs(cfg))
+    return fwd + again + bwd + leaves + 1 + 1
+
+
+@pytest.mark.parametrize("size,arch,rb", TRAIN,
+                         ids=[f"{s}-{a}-rb{rb}" for s, a, rb in TRAIN])
+def test_train_cell_against_the_reference(both, size, arch, rb):
+    """train_4k on 16×16: FLOPs a device (forward, recompute, backward),
+    the arguments (the weights', adamw's state's and the batch's tiles)
+    and MODEL_FLOPS equal to ``lower_cell``'s; all-reduces only, on both
+    sides, the port's its hand count."""
+    ref, port = both
+    key = f"{size}-{arch}-train_4k-rb{rb}"
+    want, got = ref["cells"][key], port[key]
+    assert "error" not in got, got.get("traceback")
+    h = got["hlo"]
+    assert h["flops_per_device"] == want["flops"]
+    assert got["bytes_per_device"]["arguments"] == want["arguments"]
+    assert (got["model_flops"], got["n_chips"]) == (want["model_flops"],
+                                                    want["n_chips"])
+    assert set(h["n_collectives"]) == set(want["n_collectives"]) == \
+        {"all-reduce"}
+    cfg = (configs.get_smoke_config if size == "smoke"
+           else configs.get_config)(arch)
+    assert h["n_collectives"]["all-reduce"] == _train_all_reduces(cfg, rb)
+    assert got["bytes_per_device"]["outputs"] == 12     # loss, aux, gnorm
+
+
 @pytest.mark.parametrize("mk", MESHES)
 def test_long_500k_is_skipped_as_the_reference_skips_it(both, mk):
     ref, port = both
@@ -210,6 +299,35 @@ def test_policy_against_the_reference(both, size, arch, mk):
             assert {k: _spec(v) for k, v in got.items()} == want[s]
         got = steps.cache_shardings(mesh, cfg, caches)
         assert {k: _spec(v) for k, v in got.items()} == want["cache"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("size,arch,mk", POLICY,
+                         ids=["-".join(c) for c in POLICY])
+def test_opt_state_policy_against_the_reference(both, size, arch, mk):
+    """opt_state_shardings of adamw's and adafactor's state on fake
+    tensors, under the weights' specs with FSDP off and on: the
+    reference's, leaf for leaf ("step" and "inner/<weight>/<state>")."""
+    want = both[0]["policy"][f"{size}-{arch}-{mk}"]
+    cfg = (configs.get_smoke_config if size == "smoke"
+           else configs.get_config)(arch)
+    assert not dist.is_initialized()
+    mesh = make_production_mesh(multi_pod=mk == "multi", device="cpu")
+    try:
+        with FakeTensorMode():
+            params, specs = steps.abstract_params(cfg, device="cpu")
+            states = {name: getattr(O, name)().init(params)
+                      for name in ("adamw", "adafactor")}
+        for name, state in states.items():
+            for fsdp in (False, True):
+                psh = steps.param_shardings(mesh, params, specs, fsdp)
+                got = steps.opt_state_shardings(mesh, state, psh)
+                flat = {"step": _spec(got.step)}
+                flat.update({f"inner/{path}/{k}": _spec(v)
+                             for path, st in got.inner.items()
+                             for k, v in st.items()})
+                assert flat == want[f"{name}-fsdp={fsdp}"], (name, fsdp)
     finally:
         dist.destroy_process_group()
 

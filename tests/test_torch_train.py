@@ -1,7 +1,8 @@
 """The port's training (plain PyTorch on the CPU) against the JAX package on
 the same weights and batches: ``launch.steps.make_train_step`` and its
 gradients for the 10 smoke archs, the attention route it takes, remat, the
-CLI's restart-exact resume, and the refusals around it.
+CLI's restart-exact resume, and the refusals around it (the CLI on several
+ranks: ``test_torch_train_sharded.py``).
 
 The reference builds the weights (``init_params``); its norms, biases and
 the SSM's A_log, D, dt_bias and norm_g are then redrawn from a numpy
@@ -73,10 +74,12 @@ FWD_TOL = {"fp32": 1e-5, "bf16": 1e-2}
 
 
 @functools.lru_cache(maxsize=None)
-def _tree(arch: str, prec: str):
-    """(reference config, the reference's weights as numpy, port config)."""
+def _tree(arch: str, prec: str, replace: tuple = ()):
+    """(reference config, the reference's weights as numpy, port config);
+    ``replace``: (field, value) pairs changed in both smoke configs."""
     jdt, tdt = DTYPES[prec]
-    jcfg = dataclasses.replace(jax_configs.get_smoke_config(arch), dtype=jdt)
+    jcfg = dataclasses.replace(jax_configs.get_smoke_config(arch), dtype=jdt,
+                               **dict(replace))
     jparams, _ = jax_T.init_params(jax.random.key(0), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     rng = np.random.default_rng(23)
@@ -104,7 +107,8 @@ def _tree(arch: str, prec: str):
             redraw(m, "norm_g", 1, 0.2)
     for name in ("ln_f", "enc_ln_f", "ln_cross"):
         redraw(tree, name, 1, 0.2)
-    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=tdt)
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=tdt,
+                              **dict(replace))
     return jcfg, tree, cfg
 
 
@@ -349,12 +353,6 @@ def test_cli_targets_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
-
-
-def test_cli_refuses_model_parallel(tmp_path):
-    with pytest.raises(ValueError, match="row 19"):
-        train_cli.main(["--arch", "granite-3-2b", "--smoke", "--device",
-                        "cpu", "--model-parallel", "2"])
 
 
 def test_flash_route_refuses_a_graph():
