@@ -203,7 +203,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               step never drops), the logits held on the tokens every layer
               routed alike; ``serve()`` of 16 requests cold and again warm
               (the same tokens); one decode step at batch 8 profiled beside
-              the bytes of every routed expert it reads;
+              the bytes of every routed expert it reads; then the sharded
+              path (ROADMAP §1 row 22) on a 1×1 mesh over a one-rank NCCL
+              group, the rank's tiles being the weights themselves: its
+              prefill (kimi-k2's through ``flash_attention`` once, counted
+              by the wrapper), its decode and its ``serve()`` tokens equal
+              to the one-device path's bit for bit;
     ssm     — (after moe, which frees its weights) rope's tables on the
               card (positions 0–4095, Dh 64, 112, 128) equal the CPU's bit
               for bit, and the card machine's glibc ``sinf``/``cosf`` on
@@ -274,7 +279,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               the card against the same step on the CPU (loss and gnorm
               rtol 1e-5, each leaf's gradient within 1e-4 of its largest
               |g|); (c) mamba2-1.3b at full depth, B = 2, S = 4096, 3
-              steps; the flash kernel launched 0 times in (a)-(c); (d)
+              steps; (e) deepseek-v3 at full width, 1 layer (26.7 GB),
+              B = 1, S = 256: one adafactor step through the sharded train
+              step on a 1×1 mesh against the one-device step (loss, aux,
+              gnorm, every updated weight; the peak reckoned first and
+              the part left out above 76 GB); the flash kernel launched 0
+              times in (a)-(c), (e); (d)
               whisper-small through ``python -m repro_torch.launch.train
               --batch 8 --seq 448`` (the CLI's mesh path: a 1×1 mesh over
               a one-rank NCCL group): 4 steps with a checkpoint every 2,
@@ -293,8 +303,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               request by the store's name gives the in-process job's
               samples;
     dryrun  — ``python -m repro_torch.launch.dryrun --gbs --mesh single``
-              limited to b-m288, and the same with ``--gbs-opt``: two
-              child processes started after phase build and read here (the
+              limited to b-m288, and the same with ``--gbs-opt``, and
+              ``--arch A --shape decode_32k --mesh single`` for each MoE
+              arch at full depth (61 layers, its record without error and
+              no device memory allocated): child processes started after
+              phase build and read here (the
               other phases keep their process groups); each walks dp,
               tp_single and tp_double as rank 0 of a fake 256-rank group
               on fake tensors on the card; each cell's ``summarize()``
@@ -471,6 +484,7 @@ TRAIN_BATCH, TRAIN_BATCH_MIN, TRAIN_PEAK_GB = 2, 1, 76.0
 TRAIN_CHECK = (2, 1, 256)
 TRAIN_GRAD_TOL = 1e-4         # of a leaf's largest |g|, the CPU tests' fp32
 TRAIN_SSM = ("mamba2-1.3b", 2, 4096, 3)
+TRAIN_MOE = ("deepseek-v3-671b", 1, 1, 256)   # arch, depth, B, S: adafactor
 TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
 
@@ -483,6 +497,7 @@ DRYRUN_PRESET = "b-m288"
 DRYRUN_LM_ARCH = "granite-3-2b"
 DRYRUN_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRYRUN_REMAT_BLOCK = 4
+DRYRUN_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")  # decode_32k
 DRYRUN_SECONDS = 900
 DRYRUN_ARGS = ()              # more flags for the card's children
 
@@ -4132,7 +4147,7 @@ def _serve_and_step(cfg, params, tag: str, device, reps: int) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - tw) * 1e3)
     kernels = device_breakdown(one, reps=reps)
-    return {"serve_s": serve_s, "serve_warm_s": warm_s,
+    return {"served": done, "serve_s": serve_s, "serve_warm_s": warm_s,
             "serve_tokens": sum(len(v) for v in done.values()),
             "decode_step_ms": statistics.median(walls[1:]),
             "decode_step_device_ms": sum(ms * c
@@ -4233,7 +4248,6 @@ def _moe_model(device, arch: str, depth: int, batch: int, seq: int) -> dict:
               f"plain attention's ({rel:.3e})")
         out["flash_vs_plain_rel"] = rel
         del plain
-    del last
     torch.cuda.empty_cache()
 
     # decode against the forward, with a capacity no token overflows: at
@@ -4292,11 +4306,13 @@ def _moe_model(device, arch: str, depth: int, batch: int, seq: int) -> dict:
           f"otherwise than the forward, argmax agreement {agree}")
     out.update(decode_vs_forward_rel=rel_alike, decode_vs_forward_rel_all=rel,
                decode_routed_otherwise=flipped, decode_argmax_agree=agree)
-    del fwd, dec, state, outs, fwd_aux, dec_aux
+    one_device = {"last": last, "decode": dec}
+    del fwd, state, outs, fwd_aux, dec_aux
     torch.cuda.empty_cache()
 
     numbers = _serve_and_step(cfg, params, tag, device, reps=3)
     top = numbers.pop("top")
+    served = numbers.pop("served")
     expert_gb = (cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
                  * params["embed"].element_size() / 1e9)
     bound_ms = expert_gb * 1e9 / HBM_BYTES_PER_S * 1e3
@@ -4309,9 +4325,150 @@ def _moe_model(device, arch: str, depth: int, batch: int, seq: int) -> dict:
           flush=True)
     out.update(numbers, expert_gb_a_step=expert_gb, expert_bound_ms=bound_ms,
                peak_gb=peak)
-    del params
+    one_device.update(served=served, serve_s=numbers["serve_s"],
+                      step_ms=numbers["decode_step_ms"],
+                      step_device_ms=numbers["decode_step_device_ms"],
+                      step_kernels=numbers["decode_step_kernels"])
+    out["mesh_1x1"] = _moe_sharded(device, cfg, dcfg, params, toks, short,
+                                   one_device, tag)
+    del params, one_device
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_sharded(device, cfg, dcfg, params, toks, short, one: dict,
+                 tag: str) -> dict:
+    """The same model through the sharded path (ROADMAP §1 row 22) on a 1×1
+    ("data", "model") mesh over a one-rank NCCL group: the rank's tiles
+    (``steps.shard_params``; on one rank a tile is the weight itself, so
+    the 38.8 / 49.7 GB are held once), the mesh declared, then the prefill
+    (the rank's batch rows through ``transformer.forward``'s sharded
+    layers: the expert-parallel MoE, MLA over the heads, kimi-k2's GQA
+    through ``_attn_apply_tp`` and the flash kernel), the decode against
+    the forward of the one-device check above (its state from
+    ``steps.shard_state``) and ``serve()``'s greedy tokens, each held bit
+    for bit against the one-device path's; kimi-k2's sharded prefill
+    launches ``flash_attention`` once a layer (the wrapper's counter)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                         make_host_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+
+    mtag = f"{tag} mesh 1x1"
+    t0 = time.perf_counter()
+    created = init_distributed(device)
+    try:
+        mesh = make_host_mesh(1, device)
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+        rp = steps.shard_params(params, psh, mesh)
+        same = all(a.data_ptr() == b.data_ptr() for a, b in
+                   zip(rp.parameters(), params.parameters()))
+        check(same, f"{mtag}: a one-rank tile is a copy, not the weight")
+        tp = T._tp_layout(rp, cfg)
+        batch = {"tokens": toks}
+        local = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
+                                  mesh)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        tp_s = time.perf_counter()
+        logits, _ = T.forward(rp, local["tokens"], cfg, kernels="auto")
+        last = logits[:, -1, :].clone()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tp_s
+        launches = ops.launch_counts()
+        del logits
+        want_flash = 0 if cfg.use_mla else cfg.n_layers
+        prefill_equal = bool(torch.equal(last, one["last"]))
+        print(f"{mtag}: layout experts={tp.experts} heads={tp.heads} "
+              f"kv_heads={tp.kv_heads} ffn={tp.ffn}; prefill B="
+              f"{toks.shape[0]} S={toks.shape[1]} in {prefill_s:.3f} s, "
+              f"last-token logits equal to the one-device prefill's bit for "
+              f"bit: {prefill_equal}; launches {launches}", flush=True)
+        check(prefill_equal, f"{mtag}: the sharded prefill's logits differ "
+              "from the one-device prefill's")
+        check(launches["flash_attention"] == want_flash,
+              f"{mtag}: flash_attention launched "
+              f"{launches['flash_attention']} times in the sharded prefill, "
+              f"expected {want_flash}")
+        del last
+        whole = T.init_decode_state(dcfg, short.shape[0], MOE_DECODE_SEQ + 1,
+                                    device)
+        state = steps.shard_state(whole, steps.cache_shardings(
+            mesh, dcfg, whole.caches), mesh)
+        specs = {k: tuple(v) for k, v in state.shardings.items()}
+        outs = []
+        for t in range(MOE_DECODE_SEQ):
+            step_logits, state = T.decode_step(rp, short[:, t:t + 1], state,
+                                               dcfg)
+            outs.append(step_logits[:, 0])
+        dec = torch.stack(outs, dim=1)
+        decode_equal = bool(torch.equal(dec, one["decode"]))
+        del state, whole, outs, dec
+        torch.cuda.empty_cache()
+        prompts = _moe_prompts(cfg.vocab)
+        ts = time.perf_counter()
+        served = serve_lm.serve(cfg, rp, prompts, SERVE["batch"],
+                                SERVE["max_new"], SERVE["cache_len"],
+                                verbose=False)
+        serve_s = time.perf_counter() - ts
+        served_equal = served == one["served"]
+        step = _decode_step_numbers(cfg, rp, device)
+        print(f"{mtag}: decode of S={MOE_DECODE_SEQ} (cache specs {specs}) "
+              f"equal to the one-device decode's logits bit for bit: "
+              f"{decode_equal}; serve() of {len(prompts)} requests in "
+              f"{serve_s:.3f} s (one device: {one['serve_s']:.3f} s cold), "
+              f"its tokens equal to the one-device serve()'s: "
+              f"{served_equal}; one decode step at batch {SERVE['batch']}: "
+              f"{step['wall_ms']:.3f} ms wall, {step['device_ms']:.3f} ms "
+              f"on the device in {step['kernels']} kernels (one device: "
+              f"{one['step_ms']:.3f} ms wall, {one['step_device_ms']:.3f} ms "
+              f"in {one['step_kernels']}); {time.perf_counter() - t0:.1f} s "
+              f"[{nvidia_smi()}]", flush=True)
+        check(decode_equal, f"{mtag}: the sharded decode's logits differ "
+              "from the one-device decode's")
+        check(served_equal, f"{mtag}: the sharded serve() gave other tokens")
+        del rp
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+    return {"prefill_s": prefill_s, "prefill_equal": prefill_equal,
+            "flash_launches": launches["flash_attention"],
+            "decode_equal": decode_equal, "serve_s": serve_s,
+            "served_equal": served_equal, "decode_step": step}
+
+
+def _decode_step_numbers(cfg, params, device, reps: int = 3) -> dict:
+    """One decode step at the serving batch, as ``_serve_and_step`` times
+    it: the median wall of 5 after one, the device time and kernels."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as T
+
+    b = SERVE["batch"]
+    caches = T.init_decode_state(cfg, b, SERVE["cache_len"], device).caches
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    pos = torch.arange(b, dtype=torch.int32, device=device)
+    step = serve_lm.make_decode_fn(cfg)
+
+    def one():
+        step(params, tok, caches, pos)
+
+    walls = []
+    for _ in range(6):
+        tw = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tw) * 1e3)
+    kernels = device_breakdown(one, reps=reps)
+    return {"wall_ms": statistics.median(walls[1:]),
+            "device_ms": sum(ms * c for ms, c in kernels.values()),
+            "kernels": sum(v[1] for v in kernels.values())}
 
 
 def phase_moe(device) -> dict:
@@ -4632,6 +4789,7 @@ def _ssm_model(device, arch: str) -> dict:
 
     numbers = _serve_and_step(cfg, params, tag, device, reps=3)
     top = numbers.pop("top")
+    served = numbers.pop("served")
     scfg = cfg.ssm_cfg()
     state_gb = (cfg.n_layers * SERVE["batch"] * scfg.heads * scfg.d_head
                 * scfg.d_state * 4 / 1e9)
@@ -5046,7 +5204,7 @@ def _step_timed(step, params, state, batch, device, tokens: int):
            "idle_share": None if device_s is None else 1 - device_s / wall,
            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
            "tokens_per_s": tokens / wall, "loss": float(m["loss"]),
-           "gnorm": float(m["gnorm"])}
+           "aux": float(m["aux"]), "gnorm": float(m["gnorm"])}
     return params, state, rec
 
 
@@ -5280,6 +5438,154 @@ def _mesh_train(device, smi: str, b: int) -> dict:
             "rel": rel, "leaves_equal": equal, "worst_weight": worst}
 
 
+def _fingerprint(params) -> list:
+    """Each weight leaf's fp64 sum (two seeded inits are compared by it)."""
+    return [float(sum(t.double().sum() for t in leaf.tensors))
+            for leaf in params.ref_leaves().values()]
+
+
+def _moe_train(device, smi: str) -> dict:
+    """(e) deepseek-v3 at full width and ``TRAIN_MOE``'s depth (one layer:
+    MLA, 256 + 1 experts; 26.7 GB of bf16 weights), one adafactor step
+    through the sharded train step on a 1×1 mesh over a one-rank NCCL group
+    (the rank's tiles the weights themselves; ROADMAP §1 row 22) against
+    the one-device step on the same seeded weights (made twice from the
+    seed, their leaves' sums compared) and batch, both with PyTorch's
+    deterministic algorithms: loss, aux, gnorm and every updated weight
+    (the one-device step's kept on the host).  The
+    peak is reckoned first (the weights, their gradients of the same
+    bytes, adafactor's state and its largest fp32 temporaries: an expert
+    stack's are a piece's, at most ``optimizers.PIECE_BYTES``, so the
+    (dm, vocab) embedding's are the largest); above ``TRAIN_PEAK_GB`` the
+    part is left out and says why."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.optim import optimizers
+
+    arch, depth, b, s = TRAIN_MOE
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=depth)
+    tag = f"train {cfg.name} x{depth} mesh"
+    total, _ = cfg.param_count()
+    weights_gb = total * 2 / 1e9
+    state_gb = (depth * 3 * cfg.n_experts * (cfg.d_model + cfg.d_ff) * 4
+                / 1e9)
+    # adafactor's fp32 temporaries: 4 copies of a row at once (the
+    # update's u, the weight, lr·u and the new weight), an expert stack's
+    # a piece of at most PIECE_BYTES, the (dm, vocab) embedding's whole
+    temps_gb = 4 * max(optimizers.PIECE_BYTES,
+                       4 * cfg.d_model * cfg.vocab) / 1e9
+    reckon = 2 * weights_gb + state_gb + temps_gb
+    print(f"{tag}: peak reckoned {reckon:.1f} GB (weights {weights_gb:.1f},"
+          f" gradients {weights_gb:.1f}, the experts' adafactor state "
+          f"{state_gb:.2f}, adafactor's largest fp32 temporaries "
+          f"{temps_gb:.2f}: the embedding's; activations at B={b} S={s} "
+          f"besides) [{smi}]", flush=True)
+    if reckon > TRAIN_PEAK_GB:
+        print(f"{tag}: left out, above {TRAIN_PEAK_GB} GB", flush=True)
+        return {"skipped": f"peak reckoned {reckon:.1f} GB"}
+    torch.cuda.empty_cache()
+    # the card's index_add (the MoE dispatch's index_select backward) and
+    # embedding backward add with atomics, so two runs of the same step
+    # differ (gnorm 36.0678 / 36.0680 in two runs on an H100); both run
+    # with PyTorch's deterministic algorithms
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _moe_train_steps(device, smi, cfg, tag, b, s, reckon)
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+
+
+def _moe_train_steps(device, smi, cfg, tag, b, s, reckon) -> dict:
+    """:func:`_moe_train`'s two steps and their comparison."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.data.tokens import synthetic_token_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                         make_host_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+    from repro_torch.optim import optimizers
+
+    batch = synthetic_token_stream(0, cfg.vocab, b, s, device)(0)
+    opt = optimizers.adafactor()
+    step = steps.make_train_step(cfg, opt)
+    params = T.init_params(0, cfg, device)
+    seeded = _fingerprint(params)
+    # the weights and whatever earlier phases left allocated
+    before_gb = torch.cuda.memory_allocated(device) / 1e9
+    params, state, one = _step_timed(step, params, opt.init(params), batch,
+                                     device, b * s)
+    _print_step(tag + f" one-device B={b} S={s}", 1, one, smi)
+    after = {p: [t.to("cpu", copy=True) for t in leaf.tensors]
+             for p, leaf in params.ref_leaves().items()}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = T.init_params(0, cfg, device)
+    same_init = _fingerprint(params) == seeded
+    check(same_init, f"{tag}: the seeded weights differ between two inits")
+    created = init_distributed(device)
+    try:
+        mesh = make_host_mesh(1, device)
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+        tiles = steps.shard_params(params, psh, mesh)
+        del params
+        whole = opt.init(tiles)
+        osh = steps.opt_state_shardings(mesh, whole, psh)
+        state = steps.shard_opt_state(whole, osh, mesh)
+        del whole
+        local = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
+                                  mesh)
+        tiles, state, rec = _step_timed(step, tiles, state, local, device,
+                                        b * s)
+        _print_step(tag + f" 1x1 B={b} S={s}", 1, rec, smi)
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+    del state
+    worst, equal = 0.0, 0
+    with torch.no_grad():                 # an expert stack a piece at a time
+        for p, leaf in tiles.ref_leaves().items():
+            d = scale = 0.0
+            for t, h in zip(leaf.tensors, after[p]):
+                for part in optimizers.expert_pieces(t):
+                    hp = h[part].to(device).float()
+                    d = max(d, float((t[part].float() - hp).abs().max()))
+                    scale = max(scale, float(hp.abs().max()))
+            equal += d == 0
+            worst = max(worst, d / (scale or 1.0))
+    rel = {k: abs(rec[k] / one[k] - 1) for k in ("loss", "aux", "gnorm")}
+    print(f"{tag}: the 1x1 mesh adafactor step against the one-device step:"
+          f" loss {rec['loss']:.6f} vs {one['loss']:.6f}, aux "
+          f"{rec['aux']:.6f} vs {one['aux']:.6f}, gnorm {rec['gnorm']:.6f} "
+          f"vs {one['gnorm']:.6f} (rel {json.dumps(rel)}); updated weights: "
+          f"{equal} of {len(after)} leaves equal, the largest |Δ| "
+          f"{worst:.2e} of its leaf's largest |w|; wall {rec['wall_s']:.3f}"
+          f" vs {one['wall_s']:.3f} s, peak {rec['peak_gb']:.3f} vs "
+          f"{one['peak_gb']:.3f} GB (reckoned {reckon:.1f}; allocated "
+          f"before the step, the weights among it: {before_gb:.3f}) "
+          f"[{smi}]", flush=True)
+    check(rel["loss"] <= 1e-6 and rel["aux"] <= 1e-6 and rel["gnorm"] <= 1e-5
+          and worst <= 2.0 ** -7,
+          f"{tag}: the 1x1 mesh step differs from the one-device step")
+    del tiles, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "depth": cfg.n_layers, "batch": b, "seq": s,
+            "reckoned_gb": reckon, "allocated_before_gb": before_gb,
+            "one_device": one, "mesh_1x1": rec,
+            "rel": rel, "leaves_equal": equal, "worst_weight": worst}
+
+
 def _grads_of(step_opt):
     """An optimizer that keeps the gradients it is handed, then updates."""
     from repro_torch.optim.optimizers import Optimizer
@@ -5458,7 +5764,7 @@ def _cli_train(smi: str) -> dict:
 def phase_train(device) -> dict:
     """Training through ``launch.steps.make_train_step`` and the train CLI
     on the card: granite-3-2b (a, a' on a 1×1 mesh, b), mamba2-1.3b (c),
-    whisper-small (d).
+    deepseek-v3 at depth 1 on a 1×1 mesh (e), whisper-small (d).
     The flash kernel's launch count stays 0 (training takes the reference's
     ``_sdpa`` route)."""
     from repro_torch.kernels import ops
@@ -5470,7 +5776,8 @@ def phase_train(device) -> dict:
     parts = (("granite", _granite_train),
              ("mesh", lambda d, m: _mesh_train(d, m, out["granite"][
                  "batch"])),
-             ("fp32_check", _fp32_check), ("ssm", _ssm_train))
+             ("fp32_check", _fp32_check), ("ssm", _ssm_train),
+             ("moe", _moe_train))
     for name, part in parts:
         tp = time.perf_counter()
         out[name] = part(device, smi)
@@ -5650,10 +5957,12 @@ def phase_cli(gateway) -> dict:
 
 
 def dryrun_start() -> dict:
-    """Start phase dryrun's three children: plain (the GBS cells and
+    """Start phase dryrun's children: plain (the GBS cells and
     ``DRYRUN_LM_ARCH``'s) and ``--gbs-opt`` on the card's fake tensors, and
-    the LM cells again on the CPU's; each writes its log and its JSONs
-    under ``build/dryrun_torch/`` (the CPU's under ``cpu/``)."""
+    the LM cells again on the CPU's; each MoE arch's decode_32k cell on
+    16×16 at full depth on the card's fakes (``DRYRUN_MOE_ARCHS``); each
+    writes its log and its JSONs under ``build/dryrun_torch/`` (the CPU's
+    under ``cpu/``)."""
     out = ROOT / "build" / "dryrun_torch"
     shutil.rmtree(out, ignore_errors=True)
     (out / "cpu").mkdir(parents=True)
@@ -5667,6 +5976,9 @@ def dryrun_start() -> dict:
                           *DRYRUN_ARGS],
             "cpu": [*lm, "--out", str(out / "cpu"), "--device", "cpu"],
             "cpu-rb": [*rb, "--out", str(out / "cpu"), "--device", "cpu"]}
+    for arch in DRYRUN_MOE_ARCHS:     # full depth, on the card's fakes
+        args[f"moe-{arch}"] = ["--arch", arch, "--shape", "decode_32k",
+                               "--out", str(out), *DRYRUN_ARGS]
     children = {}
     for flag, more in args.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -5725,15 +6037,17 @@ def phase_dryrun(started: dict) -> dict:
                   f"{DRYRUN_SECONDS} s")
         text = texts[flag] = rec["log"].read_text()
         lines = [ln for ln in text.splitlines()
-                 if ln.startswith(("gbs-", DRYRUN_LM_ARCH))]
+                 if ln.startswith(("gbs-", DRYRUN_LM_ARCH,
+                                   *DRYRUN_MOE_ARCHS))]
         for ln in lines:
             print(f"dryrun {flag}: {ln}", flush=True)
         print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
               f"{rec['proc'].returncode}", flush=True)
         want = {"--gbs": len(DR.SCHEMES) + len(DRYRUN_LM_SHAPES),
                 "--gbs-opt": len(DR.SCHEMES) + 1,
-                "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1}
-        check(rec["proc"].returncode == 0 and len(lines) == want[flag],
+                "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1}.get(flag, 1)
+        check(rec["proc"].returncode == 0 and len(lines) == want
+              and " ok " in " ".join(lines),
               f"dryrun {flag} exited {rec['proc'].returncode}: "
               f"{text[-3000:]}")
         if flag.startswith("cpu"):
@@ -5744,6 +6058,20 @@ def phase_dryrun(started: dict) -> dict:
         check(peak is not None and int(peak.group(1)) == 0,
               f"dryrun {flag}: the child allocated device memory "
               f"({peak and peak.group(0)})")
+        if flag.startswith("moe-"):
+            arch = flag[len("moe-"):]
+            r = json.loads((started["out"] / f"{arch}__decode_32k__single"
+                            ".json").read_text())
+            check("error" not in r, f"dryrun {flag}: {r.get('error')}")
+            result[flag] = {
+                "wall_s": rec["wall_s"], "peak_allocated": 0,
+                "flops_per_device": r["hlo"]["flops_per_device"],
+                "n_collectives": r["hlo"]["n_collectives"],
+                "bytes_per_device": r["bytes_per_device"],
+                "roofline": r["roofline"], "walk_s": r["compile_s"]}
+            print(f"dryrun {flag}: decode_32k on 16x16 at full depth: "
+                  f"{json.dumps(result[flag])} [{nvidia_smi()}]", flush=True)
+            continue
         opt = flag == "--gbs-opt"
         cells = {}
         for scheme in DR.SCHEMES:
@@ -5849,6 +6177,8 @@ def _main(device, ptxas, mma, dryrun) -> int:
                  replaces="src/repro/kernels/flash_attention.py:111",
                  launches=lm["flash_launches"], other_shapes=flash_rows[1:],
                  kimi_k2_launches=moe["kimi-k2-1t-a32b"]["flash_launches"],
+                 kimi_k2_sharded_launches=moe["kimi-k2-1t-a32b"][
+                     "mesh_1x1"]["flash_launches"],
                  zamba2_launches=ssm["zamba2-7b"]["flash_launches"],
                  whisper_launches={
                      "prefill": whisper["flash_launches"],

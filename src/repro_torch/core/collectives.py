@@ -143,6 +143,17 @@ class _PsumBackward(torch.autograd.Function):
         return psum(g, ctx.group), None
 
 
+class _PsumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
 class _GatherForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -170,6 +181,18 @@ def psum_backward(x: torch.Tensor, group) -> torch.Tensor:
     if _recording(x):
         return _PsumBackward.apply(x, group)
     return x
+
+
+def psum_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the group, its gradient summed over the group too: a total
+    over the data axes (an MoE layer's router statistics of the global
+    batch) that every data rank's loss reads whole.  The train step
+    averages the data ranks' gradients, so each rank must hand back the sum
+    of the ranks' cotangents for its part (the adjoint of a sum that each
+    of the p losses reads)."""
+    if _recording(x):
+        return _PsumShared.apply(x, group)
+    return psum(x, group)
 
 
 def gather_forward(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

@@ -13,17 +13,19 @@ constants of one NVIDIA H100 80GB HBM3 at 700 W.
   its result sharded, as the JAX package's ``shard_map`` does, on the
   plain cells (``kernels="torch"``), as the JAX dry run off a TPU counts
   its XLA cells.
-* The LM cells of the dense family (rows 19b and 21): the rank holds its
-  tile of every weight, batch row and cache (and of the optimizer's
-  state) under the sharding policy (``launch/steps.py``) and runs
+* The LM cells of the dense and MoE families (rows 19b, 21 and row 22's
+  MoE part): the rank holds its tile of every weight, batch row and cache
+  (and of the optimizer's state) under the sharding policy
+  (``launch/steps.py``) and runs
   ``make_train_step`` (train_4k: forward, recompute and backward with
   their collectives, the weights and the state updated in place as the
   reference donates them; ``--remat-block k`` its sqrt-L block remat),
   ``make_prefill_step`` (prefill_32k) or ``make_serve_step`` (decode_32k)
-  with the collectives of a sharded rank (``models.common.TPLayout``),
-  attention on the reference's default ``_sdpa`` route (its ``USE_FLASH``
-  is off).  long_500k is skipped for these full-attention archs, as the
-  reference skips it.
+  with the collectives of a sharded rank (``models.common.TPLayout``;
+  the MoE layer expert parallel, MLA split over its heads), attention on
+  the reference's default ``_sdpa`` route (its ``USE_FLASH`` is off).
+  long_500k is skipped for these full-attention archs, as the reference
+  skips it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs --mesh single
@@ -33,11 +35,14 @@ Usage:
       --shape prefill_32k --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
       --shape train_4k --remat-block 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
+      deepseek-v3-671b --device cpu   # its prefill, decode and train cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
 
 Results are cached as JSON under experiments/dryrun_torch/ (the JAX
 package's file names and keys, less its two TPU fields); --force walks
-again.  The other families' cells are ROADMAP §1 row 22 (``LM_FAMILIES``).
+again.  The SSM, hybrid, encoder-decoder and VLM cells are ROADMAP §1 row
+22 (``LM_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -71,12 +76,12 @@ OUT_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                         "experiments", "dryrun_torch")
 PRESETS = ("b-m288", "m8176")
 SCHEMES = ("dp", "tp_single", "tp_double")
-DENSE_ARCHS = tuple(a for a in configs.ARCHS
-                    if configs.get_config(a).family == "dense")
+LM_ARCHS = tuple(a for a in configs.ARCHS
+                 if configs.get_config(a).family in T.SHARDED_FAMILIES)
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-LM_FAMILIES = ("the MoE, SSM, hybrid, encoder-decoder and VLM cells are "
-               "ROADMAP §1 row 22, not ported yet (the dense archs: "
-               + ", ".join(DENSE_ARCHS) + ")")
+LM_FAMILIES = ("the SSM, hybrid, encoder-decoder and VLM cells are "
+               "ROADMAP §1 row 22, not ported yet (the dense and MoE archs: "
+               + ", ".join(LM_ARCHS) + ")")
 
 
 def gbs_flops(preset: gbs.GBSPreset, scheme: str, optimized: bool,
@@ -172,7 +177,7 @@ def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict,
 
 
 # ---------------------------------------------------------------------------
-# LM cells: the dense family
+# LM cells: the dense and MoE families
 # ---------------------------------------------------------------------------
 
 def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
@@ -236,7 +241,7 @@ def count_cell(arch: str, shape_name: str, multi_pod: bool,
     ``remat_block`` layers'), meta), or (None, {"skipped": why}) for a
     cell the reference skips."""
     cfg = configs.get_config(arch)
-    if cfg.family != "dense":
+    if cfg.family not in T.SHARDED_FAMILIES:
         raise NotImplementedError(LM_FAMILIES)
     if remat_block:
         cfg = dataclasses.replace(cfg, remat_block=remat_block)
@@ -397,7 +402,7 @@ def main(argv=None) -> int:
                     help="where the fake tensors live (default: the card)")
     ap.add_argument("--out", default=OUT_ROOT)
     args = ap.parse_args(argv)
-    if args.arch and args.arch not in DENSE_ARCHS:
+    if args.arch and args.arch not in LM_ARCHS:
         raise ValueError(f"--arch {args.arch}: {LM_FAMILIES}")
     if args.shape and args.shape not in LM_SHAPES:
         raise ValueError(f"--shape {args.shape}: one of {LM_SHAPES}")
@@ -425,7 +430,7 @@ def main(argv=None) -> int:
                     failed += "error" in r
                     print(summarize(r), flush=True)
     if args.all or args.arch:
-        for arch in [args.arch] if args.arch else DENSE_ARCHS:
+        for arch in [args.arch] if args.arch else LM_ARCHS:
             for shape in [args.shape] if args.shape else LM_SHAPES:
                 for mk in meshes:
                     r = run_cell(arch, shape, mk, force=args.force,

@@ -63,11 +63,13 @@ class SlotState:
 
 def make_decode_fn(cfg):
     """(params, tokens (B, 1), caches, positions (B,)) → (next (B, 1),
-    caches), the caches written in place."""
+    caches), the caches written in place.  The greedy token is
+    ``models.transformer.greedy``'s: the first largest logit, over the
+    ranks' vocabulary columns on a sharded rank (its mesh declared)."""
     def step(params, tokens, caches, positions):
         logits, new = T.decode_step(params, tokens,
                                     T.DecodeState(caches, positions), cfg)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        nxt = T.greedy(params, logits[:, -1, :]).to(torch.int32)
         return nxt[:, None], new.caches
     return step
 

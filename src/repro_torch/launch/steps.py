@@ -17,9 +17,9 @@ A spec is a ``models.common.PartitionSpec``; the port has no
 ``Transformer.ref_leaves`` path for the weights, by name for a batch and
 the caches).  A rank of a mesh holds its tile of each leaf under its spec
 (:func:`shard_params`, :func:`shard_batch`, :func:`shard_state`, on real
-or fake tensors), and with
-``common.set_mesh_axes(..., mesh=mesh)`` the dense family's prefill and
-serve steps run on those tiles with their collectives, and so does the
+or fake tensors), and with ``common.set_mesh_axes(..., mesh=mesh)`` the
+dense and MoE families' prefill and serve steps run on those tiles with
+their collectives, and so does the
 train step, on the tiles of the weights and of the optimizer state
 (:func:`opt_state_shardings`, :func:`shard_opt_state`).  A checkpoint
 holds whole leaves: :func:`unshard_params` and :func:`unshard_opt_state`
@@ -197,7 +197,11 @@ def _coords(mesh, spec: PartitionSpec, shape) -> list:
 
 def _tile(t: torch.Tensor, coords) -> torch.Tensor:
     """The tile a fresh tensor of its own (a fake tile's storage is the
-    tile's size, not the whole leaf's)."""
+    tile's size, not the whole leaf's); a tile that is the whole tensor
+    (every dim on axes of one rank) is the tensor itself, not a copy, so a
+    rank of a 1 × 1 mesh holds its weights once."""
+    if all(w == t.shape[d] for d, _, w in coords):
+        return t
     for d, start, w in coords:
         t = t.narrow(d, start, w)
     return t.clone(memory_format=torch.contiguous_format)
@@ -318,16 +322,20 @@ def loss_and_grads(params: T.Transformer, batch: dict, cfg: T.ModelConfig,
 
 
 def _data_mean(params: T.Transformer, loss, aux, grads: dict, ctx: dict):
-    """The global batch's loss and aux (the mean of the data shards') and
-    the gradients averaged over the data axes: a leaf replicated over them
+    """The global batch's loss (the mean of the data shards') and the
+    gradients averaged over the data axes: a leaf replicated over them
     all-reduced (fp32, one collective a leaf), an FSDP leaf, already summed
-    and scattered by its gather's backward, divided."""
+    and scattered by its gather's backward, divided.  aux is the global
+    batch's already (an MoE layer sums its router statistics over the data
+    axes, ``moe.moe_apply``), and so is its part of each gradient once
+    averaged (those sums' backward sums the cotangents,
+    ``collectives.psum_shared``): neither is averaged again."""
     daxes = ctx["data"]
     group = ctx["mesh"].group(daxes if len(daxes) > 1 else daxes[0])
     p = C.axis_size(group)
     if p == 1:
         return loss, aux, grads
-    loss, aux = (C.psum(torch.stack([loss, aux]), group) / p).unbind()
+    loss = C.psum(loss, group) / p
     out = {}
     for path, rows in grads.items():
         if any(ax not in (None, ctx["model"]) for ax in params.shardings[path]):
@@ -358,8 +366,11 @@ def _gnorm(params: T.Transformer, grads: dict, ctx: Optional[dict]):
                           (ax,) if isinstance(ax, str) else ax):
                     split *= shape[a]
             weight[path] = split / world
-    total = sum(torch.sum(torch.square(g.float())) * weight[path]
-                for path, rows in grads.items() for g in rows)
+    # an expert stack's squares a few experts at a time (its fp32 copy is
+    # 15 GB at deepseek-v3's width)
+    total = sum(torch.sum(torch.square(g[part].float())) * weight[path]
+                for path, rows in grads.items() for g in rows
+                for part in O.expert_pieces(g))
     if world > 1:
         total = C.psum(total, dist.group.WORLD)
     return torch.sqrt(total)

@@ -13,10 +13,10 @@ Mirrors ``repro.launch.train``.  Fault-tolerance contract:
 Every run builds the ("data", "model") mesh over the job's ranks
 (``launch.mesh.make_host_mesh(model=--model-parallel)``; a ``torchrun``
 job's, or a one-rank group in this process: NCCL on the card, gloo on the
-CPU), as the reference builds its host mesh.  The dense family trains on
-it: each rank holds its tiles of the seeded weights and of their adamw
-state under the sharding policy (``launch.steps``, FSDP off as the
-reference's CLI has it) and of the (seed, step) batch, and runs the
+CPU), as the reference builds its host mesh.  The dense and MoE families
+train on it: each rank holds its tiles of the seeded weights and of their
+optimizer state under the sharding policy (``launch.steps``, FSDP off as
+the reference's CLI has it) and of the (seed, step) batch, and runs the
 sharded ``make_train_step``.  The other families train on a mesh of one
 rank with their whole weights (their sharded steps are ROADMAP §1 row 22:
 on more ranks they raise).  A checkpoint holds whole leaves: the tiles are
@@ -31,6 +31,8 @@ Usage:
       --smoke --device cpu --steps 50 --batch 4 --seq 32 --ckpt-dir DIR
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch granite-3-2b --smoke --device cpu --model-parallel 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch deepseek-v3-671b --smoke --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -105,7 +107,7 @@ def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
     world = dist.get_world_size()
     lead = dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
-    sharded = cfg.family == "dense"
+    sharded = cfg.family in T.SHARDED_FAMILIES
     if not sharded and world > 1:
         raise ValueError(f"the {cfg.family} family trains on one rank; its "
                          "sharded train step is ROADMAP §1 row 22")

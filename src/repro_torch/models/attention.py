@@ -21,7 +21,14 @@ one position per row (B,); the cache tensors are written in place.
 MLA (:func:`mla_apply`, DeepSeek-V3's multi-head latent attention) caches
 the compressed latent (kv_lora_rank + rope dim) instead of per-head K/V and
 stays plain PyTorch in prefill and decode, as the reference keeps it on
-its XLA path: it has no kernel.
+its XLA path: it has no kernel.  On a sharded rank (the reference's
+``mla_init`` specs, :func:`mla_specs`) prefill and training split it over
+the heads (wq_b, wk_b, wv_b column parallel, wo row parallel and summed
+over the model axis; wq_a and wkv_a whole, their products entering the
+split heads).  Decode reads a latent cache split on its length: the rank
+gathers the query heads and wk_b, wv_b over the model axis, runs every
+head over its rows of the cache and sums softmax's max, sum and output
+over the axis, as XLA partitions the reference's (PERF.md §6).
 
 On a sharded rank (``tp``, a ``common.TPLayout``) the dense self-attention
 runs on its tiles as XLA partitions the reference's: the query heads (and
@@ -45,9 +52,10 @@ import torch
 
 from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
-from repro_torch.models.common import (MODEL, TPLayout, apply_rope,
-                                       dense_init, model_enter, model_psum,
-                                       rope_tables, spec)
+from repro_torch.models.common import (MODEL, RowTile, TPLayout,
+                                       apply_rope, dense_init, model_enter,
+                                       model_psum, project_rows, rope_tables,
+                                       spec)
 
 NEG_INF = -1e30
 
@@ -125,7 +133,13 @@ def _sdpa(q, k, v, mask: Optional[torch.Tensor]):
 
 
 def _project(x, w):
-    """x (B, S, dm) · w (dm, heads, dh) → (B, S, heads, dh)."""
+    """x (B, S, dm) · w (dm, heads, dh) → (B, S, heads, dh); ``w`` may be a
+    ``common.RowTile`` of such a weight (its products summed over the model
+    axis)."""
+    if isinstance(w, RowTile):
+        rows, heads, dh = w.tile.shape
+        flat = w._replace(tile=w.tile.reshape(rows, heads * dh))
+        return project_rows(x, flat).view(*x.shape[:2], heads, dh)
     dm, heads, dh = w.shape
     return (x @ w.reshape(dm, heads * dh)).view(*x.shape[:2], heads, dh)
 
@@ -229,10 +243,11 @@ def _write_rows_at(pairs, length: torch.Tensor, offset: int,
     batch = torch.arange(b, device=buf.device)
     for j in range(s):                    # one row a sequence per write
         row = start + j
-        keep = ((row >= 0) & (row < t_l))[:, None, None]
+        keep = (row >= 0) & (row < t_l)
         row = row.clamp(0, t_l - 1)
         for buf, new in pairs:
-            buf[batch, row] = torch.where(keep, new[:, j].to(buf.dtype),
+            k = keep.view(b, *[1] * (buf.dim() - 2))
+            buf[batch, row] = torch.where(k, new[:, j].to(buf.dtype),
                                           buf[batch, row])
     return pos
 
@@ -281,8 +296,9 @@ def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
                 f"{h_l} query heads a rank straddle KV groups of {g}")
         kv = slice(h0 // g, (h0 + h_l - 1) // g + 1)
         w = {n: model_enter(t, tp) for n, t in w.items()}
-    k = _project(x, w["wk"][:, kv])
-    v = _project(x, w["wv"][:, kv])
+    whole = kv == slice(None)     # a decode step's KV weights: RowTiles too
+    k = _project(x, w["wk"] if whole else w["wk"][:, kv])
+    v = _project(x, w["wv"] if whole else w["wv"][:, kv])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + w["bk"][kv]
@@ -383,59 +399,95 @@ def init_mla_cache(batch: int, cache_len: int, cfg: MLAConfig, dtype,
         torch.zeros((), dtype=torch.int32, device=device))
 
 
+def mla_specs() -> dict:
+    """MLA's logical specs by weight name (the reference's ``mla_init``):
+    the down projections whole, the up projections on the heads, wo on its
+    rows."""
+    return {"wq_a": spec(None, None), "wq_b": spec(None, MODEL, None),
+            "wkv_a": spec(None, None), "wk_b": spec(None, MODEL, None),
+            "wv_b": spec(None, MODEL, None), "wo": spec(MODEL, None, None)}
+
+
 def mla_apply(params, x: torch.Tensor, cfg: MLAConfig,
               positions: Optional[torch.Tensor] = None,
-              cache: Optional[MLACache] = None, rope=None):
+              cache: Optional[MLACache] = None, rope=None,
+              tp: Optional[TPLayout] = None):
     """Prefill (``cache is None``: causal over x) or decode (the latent
     written at ``cache.length``, a scalar or one per row, and attended up
     to it).  Returns (y, new_cache), new_cache None without one.  q_rope
     turns at ``positions``, k_rope at the context positions, both with the
     default θ = 10⁴, as the reference's.  ``rope``: the (q, k) pair of
-    ``common.rope_tables`` at those positions, if the caller made them once
-    for every layer."""
+    ``common.rope_tables`` at those positions (k at the rows of this
+    rank's cache), if the caller made them once for every layer.  ``tp``:
+    a sharded rank's layout (see the module docstring)."""
     b, s, _ = x.shape
     h, dh, dr, r = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, \
         cfg.kv_lora_rank
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    heads = tp is not None and tp.heads
 
-    q = _project(x @ params["wq_a"], params["wq_b"])             # (B,S,H,·)
+    q_a = project_rows(x, params["wq_a"])
+    q = _project(model_enter(q_a, tp) if heads else q_a,
+                 params["wq_b"])                                  # (B,S,H,·)
+    h_l = q.shape[2]
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     q_tables, k_tables = rope or (None, None)
     q_rope = apply_rope(q_rope, positions, tables=q_tables)
 
-    latent = x @ params["wkv_a"]                                  # (B,S,r+dr)
+    latent = project_rows(x, params["wkv_a"])                     # (B,S,r+dr)
+    wk, wv = params["wk_b"], params["wv_b"]
+    split = (cache is not None and tp is not None and tp.size > 1
+             and tp.cache == "length")
     new_cache = None
     if cache is not None:
-        lengths = _write_rows(((cache.latent, latent),), cache.length)
+        t = cache.latent.shape[1]
+        off = tp.rank * t if split else 0
+        pairs = ((cache.latent, latent),)
+        lengths = (_write_rows_at(pairs, cache.length, off, t * tp.size)
+                   if split else _write_rows(pairs, cache.length))
         latent_ctx = cache.latent
-        t = latent_ctx.shape[1]
-        ctx_pos = torch.arange(t, device=x.device)[None, :]
+        ctx_pos = torch.arange(off, off + t, device=x.device)[None, :]
         new_cache = MLACache(cache.latent, cache.length + s)
+        if split and heads:
+            # every head over this rank's rows of the cache
+            q_nope = C.all_gather(q_nope, tp.group, dim=2)
+            q_rope = C.all_gather(q_rope, tp.group, dim=2)
+            wk = C.all_gather(wk, tp.group, dim=1)
+            wv = C.all_gather(wv, tp.group, dim=1)
     else:
-        latent_ctx = latent
+        latent_ctx = model_enter(latent, tp) if heads else latent
         ctx_pos = positions
         t = s
 
     c_kv, k_rope_in = latent_ctx[..., :r], latent_ctx[..., r:]
     k_rope = apply_rope(k_rope_in[:, :, None, :], ctx_pos,
                         tables=k_tables)[:, :, 0, :]
-    k_nope = _project(c_kv, params["wk_b"])                       # (B,T,H,dh)
-    v = _project(c_kv, params["wv_b"])
+    k_nope = _project(c_kv, wk)                                   # (B,T,H,dh)
+    v = _project(c_kv, wv)
 
     logits = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
               + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
     logits.div_(math.sqrt(dh + dr))
     if cache is not None:
-        mask = (torch.arange(t, device=x.device)[None, :]
-                <= lengths[:, None])[:, None, None, :]            # (B,1,1,T)
+        mask = (ctx_pos <= lengths[:, None])[:, None, None, :]    # (B,1,1,T)
     else:
         mask = torch.tril(torch.ones((s, t), dtype=torch.bool,
                                      device=x.device))[None, None]
     logits.masked_fill_(~mask, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    del logits
-    out = torch.einsum("bhst,bthk->bshk", w, v)
+    if split:
+        m = C.pmax(logits.amax(dim=-1, keepdim=True), tp.group)
+        e = torch.exp(logits - m)
+        del logits
+        z = C.psum(e.sum(dim=-1, keepdim=True), tp.group)
+        w = (e / z).to(v.dtype)
+        out = C.psum(torch.einsum("bhst,bthk->bshk", w, v), tp.group)
+        h0 = tp.rank * h_l if heads else 0
+        out = out[:, :, h0:h0 + h_l]
+    else:
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        del logits
+        out = torch.einsum("bhst,bthk->bshk", w, v)
     hh, dhh, dm = params["wo"].shape
     y = out.reshape(b, s, hh * dhh) @ params["wo"].reshape(hh * dhh, dm)
-    return y, new_cache
+    return (model_psum(y, tp) if heads else y), new_cache

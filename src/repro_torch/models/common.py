@@ -8,8 +8,8 @@ partition-spec type of the port's own (:class:`PartitionSpec`, a tuple).
 The reference constrains one controller's activations; the port runs SPMD,
 so a rank's activations are its batch shard already and ``batch_sharded``
 and ``shard_hint`` return their input.  ``set_mesh_axes(..., mesh=...)``
-makes the dense forward and decode step of a rank that holds tiles
-(``launch.steps.shard_params``) issue their collectives over ``mesh``
+makes the dense and MoE forward and decode step of a rank that holds
+tiles (``launch.steps.shard_params``) issue their collectives over ``mesh``
 (:class:`TPLayout`; differentiable: :func:`model_psum`,
 :func:`model_enter`, and :func:`softmax_xent` over a split vocabulary);
 with no mesh set they are the one-device code.
@@ -27,10 +27,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import collectives as C
@@ -128,7 +129,13 @@ class TPLayout:
       summed over the group;
     * ``cache``: decode's KV cache, split on its ``"heads"`` or its
       ``"length"`` (softmax's max and sum and the output summed over the
-      group), or None (whole)."""
+      group), or None (whole);
+    * ``experts``: an MoE layer's gate, up and down on the expert axis
+      (``moe.moe_apply``: the rank's experts, the result summed over the
+      group); with MLA, ``heads`` is wq_b, wk_b and wv_b on the heads and
+      wo on its rows (``attention.mla_apply``);
+    * ``data``: the process group of the data axes when they hold more than
+      one rank (an MoE layer's global-batch sums), else None."""
     group: Any
     size: int
     rank: int
@@ -136,6 +143,72 @@ class TPLayout:
     kv_heads: bool = False
     ffn: bool = False
     cache: Optional[str] = None
+    experts: bool = False
+    data: Any = None
+
+
+class RowTile(NamedTuple):
+    """A replicated weight read by its tile of rows: rows [index·n,
+    (index + 1)·n) of it, n = ``tile.shape[0]``, on the rank whose
+    coordinate on the model axis (``group``) is ``index``.  A product with
+    it (:func:`project_rows`) contracts the rank's slice of the input and
+    sums the partial products over the group."""
+    tile: torch.Tensor
+    index: int
+    group: Any
+
+
+class RowShard(NamedTuple):
+    """A weight whole on the model axis whose rows FSDP splits over a data
+    axis as large as the model axis: this rank's ``tile`` (rows of its
+    data coordinate), the ``data`` and ``model`` groups, this rank's model
+    coordinate ``index`` and the world ``pairs`` of the mesh's transpose
+    ((d, m) → (m, d)).  A product with it (:func:`project_rows`) gathers
+    the weight over the data axis; its backward computes the weight's
+    gradient only on the rows of the rank's model coordinate, sums them
+    over the data axis and sends them across the transpose, so each rank
+    receives its tile's gradient summed over the data axis (the work of
+    the model axis' copies is split among them, as XLA partitions it)."""
+    tile: torch.Tensor
+    index: int
+    model: Any
+    data: Any
+    pairs: tuple
+
+
+class _RowShardProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tile, w):
+        whole = C.all_gather(tile, w.data, dim=0)
+        ctx.w = w
+        ctx.save_for_backward(x, whole)
+        return x @ whole
+
+    @staticmethod
+    def backward(ctx, g):
+        x, whole = ctx.saved_tensors
+        w = ctx.w
+        dx = g @ whole.T
+        n = w.tile.shape[0]
+        rows = x[..., w.index * n:(w.index + 1) * n].reshape(-1, n)
+        part = rows.T @ g.reshape(-1, g.shape[-1])
+        dtile = C.ppermute(C.psum(part, w.data), dist.group.WORLD,
+                           list(w.pairs))
+        return dx, dtile, None
+
+
+def project_rows(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a weight ``w`` (dm, N), or for a :class:`RowTile` of one
+    (x's columns of the tile's rows times the tile, in fp32, summed over
+    the model axis and rounded once to the product's dtype), or for a
+    :class:`RowShard` of one (differentiable)."""
+    if isinstance(w, RowShard):
+        return _RowShardProduct.apply(x, w.tile, w)
+    if not isinstance(w, RowTile):
+        return x @ w
+    n = w.tile.shape[0]
+    part = x[..., w.index * n:(w.index + 1) * n].float() @ w.tile.float()
+    return C.psum(part, w.group).to(torch.result_type(x, w.tile))
 
 
 def model_psum(x: torch.Tensor, tp: Optional[TPLayout]) -> torch.Tensor:

@@ -23,15 +23,32 @@ What differs from the reference, and why:
 * the buffer is kept expert-major, (E, B·C, D), so the expert GEMMs are
   three ``torch.bmm``s without a copy of the weights; the reference's
   einsums compute the same products outside any Pallas kernel.
+
+On a sharded rank (``tp``, a ``common.TPLayout``; the reference's
+``moe_init`` specs, :func:`moe_specs`) the layer is expert parallel, as
+XLA partitions the reference's (B → data, E → model) buffer: every rank
+routes its batch rows whole (the router is replicated), fills only its
+E/p experts' slots, runs the three ``bmm``s on its expert tiles, adds its
+experts' weighted terms in ascending expert order and sums the (B, S, D)
+result over the model axis in one all-reduce (the reference's "local
+scatters + one all-reduce").  The shared expert is a SwiGLU MLP split as
+the dense one.  ``lb_loss`` and ``drop_frac`` are the global batch's: the
+expert counts, the summed router probabilities and the kept count are
+summed over the data axes before the product, so every rank holds the
+reference's values.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, mlp_apply, silu
+from repro_torch.core import collectives as C
+from repro_torch.models.common import (MODEL, TPLayout, dense_init,
+                                       mlp_apply, mlp_specs, model_enter,
+                                       model_psum, project_rows, silu, spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +95,17 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, dtype,
     return params
 
 
+def moe_specs(cfg: MoEConfig) -> dict:
+    """The layer's logical specs by weight name (the reference's
+    ``moe_init``): the experts split on the expert axis over the model axis,
+    the router whole, the shared expert as a SwiGLU MLP."""
+    out = {"router": spec(None, None), "gate": spec(MODEL, None, None),
+           "up": spec(MODEL, None, None), "down": spec(MODEL, None, None)}
+    if cfg.n_shared:
+        out["shared"] = mlp_specs("swiglu")
+    return out
+
+
 def _capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
     """Slots per expert and batch row: ⌈int(cf·S·k) / E⌉, rounded up to a
     multiple of 8 when it is at least 8 (a one-token decode row gets 1)."""
@@ -109,64 +137,99 @@ def _positions(eids: torch.Tensor) -> torch.Tensor:
         eids.shape)
 
 
-def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
+def _router_stats(eids: torch.Tensor, probs: torch.Tensor, keep, e: int,
+                  tp: Optional[TPLayout]):
+    """(me, ce, kept): the share of the top-k choices each expert got, the
+    mean router probability of each expert and the share of choices kept,
+    over the global batch.  On a rank whose data axes hold more than one
+    rank (``tp.data``) its sums are summed over them in one all-reduce,
+    whose backward sums ce's cotangent over them too
+    (``collectives.psum_shared``: every data rank's loss reads the global
+    ce whole, and the train step averages their gradients)."""
+    onehot = F.one_hot(eids, e).to(torch.float32)
+    kept = keep.to(torch.float32)
+    if tp is None or tp.data is None:
+        return onehot.mean(dim=(0, 1, 2)), probs.mean(dim=(0, 1)), \
+            kept.mean()
+    sums = C.psum_shared(torch.cat([onehot.sum(dim=(0, 1, 2)),
+                                    probs.sum(dim=(0, 1)),
+                                    kept.sum()[None]]), tp.data)
+    n = C.axis_size(tp.data)
+    choices, tokens = kept.numel() * n, probs.shape[0] * probs.shape[1] * n
+    return sums[:e] / choices, sums[e:2 * e] / tokens, sums[-1] / choices
+
+
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig,
+              tp: Optional[TPLayout] = None):
     """x (B, S, D) → (y (B, S, D), aux).  aux holds the reference's
     ``lb_loss`` and ``drop_frac`` (fp32 scalars) and ``expert_ids`` (B, S,
     k), each token's route.  Capacity is per batch row: C =
-    :func:`_capacity` (S)."""
+    :func:`_capacity` (S).  With ``tp`` (a sharded rank, see the module
+    docstring) ``params`` are its tiles, x its batch rows, and y the sum
+    over the model axis of its experts' terms."""
     b, s, dm = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(s, cfg)
     dev = x.device
+    split = tp is not None and tp.experts
+    e_l = params["gate"].shape[0]                  # this rank's experts
+    e0 = tp.rank * e_l if split else 0
 
-    logits = x.to(cfg.router_dtype) @ params["router"]            # (B, S, E)
-    probs = torch.softmax(logits, dim=-1)
+    logits = project_rows(x.to(cfg.router_dtype), params["router"])
+    probs = torch.softmax(logits, dim=-1)                         # (B, S, E)
     gate_w, eids = top_k_lower_first(probs, k)                    # (B, S, k)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
 
     # dispatch: slot (e, b, c) of the expert-major buffer holds token
-    # tok_of_slot; overflow goes to the sink slot E·B·C
+    # tok_of_slot; overflow, and on a sharded rank another rank's expert,
+    # goes to the sink slot E_l·B·C
     pos = _positions(eids)
     keep = pos < cap
+    mine = keep & (eids >= e0) & (eids < e0 + e_l)
     rows = torch.arange(b, device=dev)[:, None, None]
-    slot = torch.where(keep, (eids * b + rows) * cap + pos, e * b * cap)
+    slot = torch.where(mine, ((eids - e0) * b + rows) * cap + pos,
+                       e_l * b * cap)
     tok = torch.arange(s, device=dev)[None, :, None].expand(b, s, k)
     sink_tok = b * (s + 1) - 1                                    # a zero row
-    tok_of_slot = torch.full((e * b * cap + 1,), sink_tok, dtype=torch.int64,
-                             device=dev)
+    tok_of_slot = torch.full((e_l * b * cap + 1,), sink_tok,
+                             dtype=torch.int64, device=dev)
     tok_of_slot[slot.reshape(-1)] = (rows * (s + 1) + tok).reshape(-1)
-    x_pad = torch.cat([x, x.new_zeros((b, 1, dm))], dim=1).reshape(-1, dm)
-    buf = x_pad.index_select(0, tok_of_slot[:-1]).view(e, b * cap, dm)
+    xe = model_enter(x, tp) if split else x
+    x_pad = torch.cat([xe, xe.new_zeros((b, 1, dm))], dim=1).reshape(-1, dm)
+    buf = x_pad.index_select(0, tok_of_slot[:-1]).view(e_l, b * cap, dm)
 
-    # expert GEMMs: gate, up (E, D, F) and down (E, F, D), every expert
+    # expert GEMMs: gate, up (E_l, D, F) and down (E_l, F, D)
     h = silu(torch.bmm(buf, params["gate"]))
     h = h * torch.bmm(buf, params["up"])
-    out = torch.bmm(h, params["down"]).view(e * b * cap, dm)
+    out = torch.bmm(h, params["down"]).view(e_l * b * cap, dm)
     out = torch.cat([out, out.new_zeros((1, dm))])                # sink: 0
 
     # combine: each token's kept terms, weighted in the model's dtype, added
-    # in ascending expert order from zero (the reference's scatter order)
+    # in ascending expert order from zero (the reference's scatter order);
+    # another rank's terms read the sink's zero
     _, perm = torch.sort(eids, dim=-1, stable=True)
     slot_sorted = torch.gather(slot, -1, perm)
-    gate_sorted = torch.gather(torch.where(keep, gate_w, 0.0), -1, perm)
+    gates = model_enter(gate_w, tp) if split else gate_w
+    gate_sorted = torch.gather(torch.where(keep, gates, 0.0), -1, perm)
     terms = out.index_select(0, slot_sorted.reshape(-1)).view(b, s, k, dm)
     terms = terms * gate_sorted.to(out.dtype)[..., None]
     y = torch.zeros((b, s, dm), dtype=out.dtype, device=dev)
     for j in range(k):
         y = y + terms[:, :, j]
+    if split:
+        y = model_psum(y, tp)
     y = y.to(x.dtype)
 
     if cfg.n_shared:
-        y = y + mlp_apply(params["shared"], x.reshape(b * s, dm)).reshape(
-            b, s, dm)
+        y = y + mlp_apply(params["shared"], x.reshape(b * s, dm),
+                          tp=tp).reshape(b, s, dm)
 
-    # load-balance aux loss (Switch-style)
-    me = F.one_hot(eids, e).to(torch.float32).mean(dim=(0, 1, 2))
-    ce = probs.mean(dim=(0, 1))
-    aux = {"lb_loss": e * torch.sum(me * ce),
-           "drop_frac": 1.0 - keep.to(torch.float32).mean(),
+    # load-balance aux loss (Switch-style), over the global batch
+    me, ce, kept = _router_stats(eids, probs, keep, e, tp)
+    aux = {"lb_loss": e * torch.sum(me * ce), "drop_frac": 1.0 - kept,
            "expert_ids": eids}
     return y, aux
 
 
-__all__ = ["MoEConfig", "moe_apply", "moe_init", "top_k_lower_first"]
+__all__ = ["MoEConfig", "moe_apply", "moe_init", "moe_specs",
+           "top_k_lower_first"]

@@ -40,7 +40,7 @@ first, then the cross layers in a row, which differs from its forward
 (cross after every ``cross_attn_every``-th layer); so a VLM decode does
 not reproduce its prefill, in the reference or here.
 
-A rank of a mesh (the dense family) holds its tiles of the weights
+A rank of a mesh (the dense and MoE families) holds its tiles of the weights
 (``launch.steps.shard_params``: a :class:`Transformer` whose
 ``shardings`` are the resolved specs of :func:`param_specs`) and, with the
 mesh declared (``common.set_mesh_axes(..., mesh=mesh)``), its forward and
@@ -49,8 +49,10 @@ forward's differentiable: the train step's backward gives a rank its
 tiles' gradients, and ``remat_block`` blocks recompute sharded layers): the
 vocabulary-parallel embedding and logits, FSDP tiles gathered over the
 data axes before use, the attention and MLP as ``attention`` and
-``common.mlp_apply`` split them; :func:`greedy` picks a token over a split
-vocabulary.  With no mesh declared both are the one-device code.
+``common.mlp_apply`` split them, the MoE layer expert parallel
+(``moe.moe_apply``) and MLA over its heads, on 16×16 the model-whole
+FSDP tiles read by their rows (:func:`_row_split`); :func:`greedy` picks a
+token over a split vocabulary.  With no mesh declared both are the one-device code.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core import collectives as C
@@ -67,13 +70,15 @@ from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.core.tree import Leaf
-from repro_torch.models.common import (MODEL, PartitionSpec, TPLayout,
-                                       embed_init, mesh_context, mlp_apply,
-                                       mlp_init, mlp_specs, model_enter,
-                                       model_psum, remat, block_remat,
-                                       rms_norm, rope_tables, spec)
+from repro_torch.models.common import (MODEL, PartitionSpec, RowShard,
+                                       RowTile, TPLayout, embed_init,
+                                       mesh_context, mlp_apply, mlp_init,
+                                       mlp_specs, model_enter, model_psum,
+                                       remat, block_remat, rms_norm,
+                                       rope_tables, spec)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+SHARDED_FAMILIES = ("dense", "moe")   # the rest: ROADMAP §1 row 22
 STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
 DEC_POSITIONS = 32768            # rows of whisper's learned decoder positions
 
@@ -372,15 +377,25 @@ def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
     second output), keyed as :meth:`Transformer.ref_leaves` is: embed
     split on the vocabulary, unembed on its columns, each layer's
     attention and MLP as ``attention.attn_specs`` and ``common.mlp_specs``
-    with a leading None for the stacked layer axis, the norms whole.  The
-    dense family's; the others' are ROADMAP §1 row 22."""
-    if cfg.family != "dense":
+    with a leading None for the stacked layer axis, the norms whole; an MoE
+    layer's attention (``attention.mla_specs`` with MLA) and its experts as
+    ``moe.moe_specs`` (the reference's ``_layer_init_moe``).  The dense and
+    MoE families'; the others' are ROADMAP §1 row 22."""
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family's sharding is "
                                   "ROADMAP §1 row 22")
-    layer = {**{f"attn/{k}": v for k, v in
-                A.attn_specs(cfg.attn_cfg()).items()},
-             **{f"mlp/{k}": v for k, v in mlp_specs(cfg.mlp_style).items()},
-             "ln1": spec(None), "ln2": spec(None)}
+    attn = (A.mla_specs() if cfg.use_mla else A.attn_specs(cfg.attn_cfg()))
+    layer = {f"attn/{k}": v for k, v in attn.items()}
+    if cfg.family == "moe":
+        for k, v in MOE.moe_specs(cfg.moe_cfg()).items():
+            if isinstance(v, dict):
+                layer.update({f"moe/{k}/{n}": w for n, w in v.items()})
+            else:
+                layer[f"moe/{k}"] = v
+    else:
+        layer.update({f"mlp/{k}": v
+                      for k, v in mlp_specs(cfg.mlp_style).items()})
+    layer.update({"ln1": spec(None), "ln2": spec(None)})
     out = {"embed": spec(MODEL, None), "ln_f": spec(None),
            "unembed": spec(None, MODEL)}
     out.update({f"layers/{k}": spec(None, *v) for k, v in layer.items()})
@@ -459,19 +474,23 @@ def _dense_block(lp, x, cfg: ModelConfig, positions, cache=None,
 
 
 def _moe_block(lp, x, cfg: ModelConfig, positions, cache=None,
-               kernels: str = "auto", rope=None, flash: bool = True):
+               kernels: str = "auto", rope=None, flash: bool = True,
+               tp: Optional[TPLayout] = None):
     """Attention (MLA, plain; or GQA through the flash dispatch) then the
-    MoE layer.  Returns (x, new_cache, aux)."""
+    MoE layer, on a sharded rank's tiles with ``tp``.  Returns (x,
+    new_cache, aux)."""
     if cfg.use_mla:
         h, new_cache = A.mla_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                    cfg.mla_cfg(), positions, cache,
-                                   rope=rope)
+                                   rope=rope, tp=tp)
     else:
         h, new_cache = A.attn_apply(lp["attn"], rms_norm(x, lp["ln1"]),
                                     cfg.attn_cfg(), positions, cache,
-                                    kernels=kernels, rope=rope, flash=flash)
+                                    kernels=kernels, rope=rope, flash=flash,
+                                    tp=tp)
     x = x + h
-    y, aux = MOE.moe_apply(lp["moe"], rms_norm(x, lp["ln2"]), cfg.moe_cfg())
+    y, aux = MOE.moe_apply(lp["moe"], rms_norm(x, lp["ln2"]), cfg.moe_cfg(),
+                           tp=tp)
     return x + y, new_cache, aux
 
 
@@ -509,12 +528,13 @@ def _cross_layer(params: "Transformer", ci: int, x, cfg: ModelConfig,
     return x + h
 
 
-def _rope(cfg: ModelConfig, positions, context: Optional[int] = None):
+def _rope(cfg: ModelConfig, positions, context: Optional[int] = None,
+          offset: int = 0):
     """rope's tables for every attention layer of a step (None for the SSM
     and encoder-decoder families, which turn nothing).  MLA: the pair for q
-    at ``positions`` and k at the context positions, ``arange(context)`` in
-    decode (its cache's length), its rope dims at the default θ as
-    ``mla_apply`` turns them."""
+    at ``positions`` and k at the context positions, ``arange(offset,
+    offset + context)`` in decode (the rows of this rank's cache), its
+    rope dims at the default θ as ``mla_apply`` turns them."""
     if cfg.family in ("ssm", "encdec"):
         return None
     if not cfg.use_mla:
@@ -523,8 +543,8 @@ def _rope(cfg: ModelConfig, positions, context: Optional[int] = None):
     q = rope_tables(positions, dr)
     if context is None:
         return q, q
-    return q, rope_tables(torch.arange(context, device=positions.device)[
-        None, :], dr)
+    return q, rope_tables(torch.arange(offset, offset + context,
+                                       device=positions.device)[None, :], dr)
 
 
 def _is_attn(cfg: ModelConfig, layer: int) -> bool:
@@ -548,13 +568,18 @@ def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
               tp: Optional[TPLayout] = None):
     """The body of layer ``layer`` of the forward: (x, layer) → (x, aux),
     aux the MoE layer's aux dict (None for the other families).  On a
-    sharded rank (``tp``) the dense layer's weights are its tiles, FSDP's
+    sharded rank (``tp``) the layer's weights are its tiles, FSDP's
     gathered inside the body (so a recompute gathers them again)."""
     def body(x, layer):
         if tp is not None:
-            x, _ = _dense_block(_rank_layer(params, layer), x, cfg, positions,
-                                kernels=kernels, rope=rope, flash=flash,
-                                tp=tp)
+            lp = _rank_layer(params, layer,
+                             "train" if _recording(params) else "prefill")
+            if cfg.family == "moe":
+                x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
+                                       rope=rope, flash=flash, tp=tp)
+                return x, aux
+            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
+                                rope=rope, flash=flash, tp=tp)
             return x, None
         lp = params["layers"][layer]
         if cfg.family == "moe":
@@ -724,7 +749,7 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     require_ported(cfg.family)
     tp = _tp_layout(params, cfg, state)
     if tp is not None:
-        return _decode_step_tp(params, tokens, state, cfg, tp)
+        return _decode_step_tp(params, tokens, state, cfg, tp, layer_aux)
     extra = extra or {}
     b = tokens.shape[0]
     x = params["embed"][tokens]
@@ -778,8 +803,8 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
 
 
 # ===========================================================================
-# A sharded rank (the dense family): tiles of the weights under their
-# resolved specs, the collectives XLA's partitioner inserts for the
+# A sharded rank (the dense and MoE families): tiles of the weights under
+# their resolved specs, the collectives XLA's partitioner inserts for the
 # reference's (``common.TPLayout``)
 # ===========================================================================
 
@@ -790,7 +815,7 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
     ctx = mesh_context()
     if ctx is None:
         return None
-    if cfg.family != "dense":
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(f"the sharded {cfg.family} forward is "
                                   "ROADMAP §1 row 22")
     sh = params.shardings
@@ -798,15 +823,26 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
         raise ValueError("a declared mesh needs a sharded rank's weights "
                          "(launch.steps.shard_params)")
     m = ctx["model"]
-    group = ctx["mesh"].group(m)
+    mesh = ctx["mesh"]
+    group = mesh.group(m)
+    daxes = ctx["data"]
+    data = mesh.group(daxes if len(daxes) > 1 else daxes[0])
     cache = None
     if state is not None and state.shardings is not None:
-        k = state.shardings["k"]
-        cache = "heads" if k[3] == m else "length" if k[2] == m else None
-    return TPLayout(group, C.axis_size(group), C.axis_index(group),
-                    heads=sh["layers/attn/wq"][2] == m,
-                    kv_heads=sh["layers/attn/wk"][2] == m,
-                    ffn=sh["layers/mlp/gate"][2] == m, cache=cache)
+        if "latent" in state.shardings:
+            cache = "length" if state.shardings["latent"][2] == m else None
+        else:
+            k = state.shardings["k"]
+            cache = "heads" if k[3] == m else "length" if k[2] == m else None
+    mla, moe = cfg.use_mla, cfg.family == "moe"
+    ffn = "layers/moe/shared/gate" if moe else "layers/mlp/gate"
+    return TPLayout(
+        group, C.axis_size(group), C.axis_index(group),
+        heads=sh["layers/attn/wq_b" if mla else "layers/attn/wq"][2] == m,
+        kv_heads=not mla and sh["layers/attn/wk"][2] == m,
+        ffn=ffn in sh and sh[ffn][2] == m, cache=cache,
+        experts=moe and sh["layers/moe/gate"][1] == m,
+        data=data if C.axis_size(data) > 1 else None)
 
 
 def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
@@ -824,9 +860,56 @@ def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
     return t
 
 
-def _rank_layer(params: Transformer, layer: int):
+# the weights whole on the model axis that a step reads by their rows: a
+# decode step all of them (RowTile), the train step's backward the 2-D ones
+# (RowShard; kimi-k2's wk, wv enter the attention sliced to a rank's KV heads)
+_ROW_LEAVES = {"decode": ("attn/wq_a", "attn/wkv_a", "attn/wk", "attn/wv",
+                          "moe/router"),
+               "train": ("attn/wq_a", "attn/wkv_a", "moe/router")}
+
+
+def _row_split(params: Transformer, name: str, t: torch.Tensor,
+               mode: str):
+    """Layer weight ``name`` (a path under ``layers/``) as a ``mode``
+    (``"decode"`` or ``"train"``; none in ``"prefill"``) step reads it when
+    it is whole on the model axis and FSDP splits its rows over a data axis
+    as large as the model axis (the 16×16 mesh), as XLA partitions the
+    reference's; else None.  Rank (d, m) holds rows tile d.  In decode (:class:`RowTile`) it
+    sends it to rank (m, d), whose model coordinate is d (a transpose of
+    the mesh, one collective-permute), and each rank contracts its model
+    coordinate's slice of the input with the tile it received, the
+    products summed over the model axis: no rank gathers the weight.  In
+    the train step (:class:`RowShard`) the forward gathers the weight and
+    the backward computes only the rows of the rank's model coordinate of
+    its gradient (the model axis' copies split the work), summed over the
+    data axis and sent across the transpose."""
+    if name not in _ROW_LEAVES.get(mode, ()):
+        return None
+    ctx = mesh_context()
+    dims = params.shardings["layers/" + name][1:]
+    mesh, m = ctx["mesh"], ctx["model"]
+    ax = dims[0]
+    if (not isinstance(ax, str) or ax == m
+            or any(a is not None for a in dims[1:])
+            or mesh.axis_names != (ax, m)):
+        return None
+    p = mesh.shape[m]
+    if p == 1 or mesh.shape[ax] != p:
+        return None
+    pairs = tuple((d * p + j, j * p + d) for d in range(p) for j in range(p))
+    model = mesh.group(m)
+    if mode == "train":
+        return RowShard(t, C.axis_index(model), model, mesh.group(ax), pairs)
+    tile = C.ppermute(t, dist.group.WORLD, list(pairs))
+    return RowTile(tile, C.axis_index(model), model)
+
+
+def _rank_layer(params: Transformer, layer: int, mode: str = "prefill"):
     """Layer ``layer``'s weights as the block reads them, FSDP tiles
-    gathered (the module itself when none is)."""
+    gathered (the module itself when none is); in a ``"decode"`` step, or
+    in a ``"train"`` step's forward (one that records a graph), the
+    weights whole on the model axis that FSDP splits on their rows are
+    read by their rows (:func:`_row_split`)."""
     lp = params["layers"][layer]
     ctx = mesh_context()
     if all(ax in (None, ctx["model"]) for path, sp in params.shardings.items()
@@ -838,8 +921,10 @@ def _rank_layer(params: Transformer, layer: int):
         node = out
         for k in head:
             node = node.setdefault(k, {})
-        node[last] = _rank_leaf(params, "layers/" + "/".join(name.split(".")),
-                                t, True)
+        path = "/".join(name.split("."))
+        split = _row_split(params, path, t, mode)
+        node[last] = (split if split is not None else
+                      _rank_leaf(params, "layers/" + path, t, True))
     return out
 
 
@@ -883,19 +968,35 @@ def vocab_layout(params: Transformer, cfg: ModelConfig) -> Optional[TPLayout]:
 
 
 def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
-                    state: DecodeState, cfg: ModelConfig, tp: TPLayout):
+                    state: DecodeState, cfg: ModelConfig, tp: TPLayout,
+                    layer_aux: Optional[list] = None):
     """:func:`decode_step` on a sharded rank: its rows of the batch and its
-    tiles of the KV caches (written in place); logits as :func:`forward`'s
-    on a sharded rank."""
+    tiles of the KV caches or of MLA's latent cache (written in place);
+    logits as :func:`forward`'s on a sharded rank."""
     b = tokens.shape[0]
     x = _embed_tp(params, tokens, tp)
     pos = state.position
     positions = (pos.expand(b) if pos.ndim == 0 else pos)[:, None]
-    rope = _rope(cfg, positions)
     caches = state.caches
+    if "latent" in caches:             # k turns at this rank's cache rows
+        t_l = caches["latent"].shape[2]
+        off = tp.rank * t_l if tp.cache == "length" else 0
+        rope = _rope(cfg, positions, t_l, off)
+    else:
+        rope = _rope(cfg, positions)
     for layer in range(cfg.n_layers):
+        lp = _rank_layer(params, layer, "decode")
+        if cfg.family == "moe":
+            cache = (A.MLACache(caches["latent"][layer], pos) if cfg.use_mla
+                     else A.KVCache(caches["k"][layer], caches["v"][layer],
+                                    pos))
+            x, _, aux = _moe_block(lp, x, cfg, positions, cache, rope=rope,
+                                   tp=tp)
+            if layer_aux is not None:
+                layer_aux.append(aux)
+            continue
         x, _ = _dense_block(
-            _rank_layer(params, layer), x, cfg, positions,
+            lp, x, cfg, positions,
             A.KVCache(caches["k"][layer], caches["v"][layer], pos),
             rope=rope, tp=tp)
     return (_logits_tp(params, x, tp),

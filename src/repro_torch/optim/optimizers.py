@@ -30,8 +30,12 @@ with ``models.common.set_mesh_axes``) the parameters, gradients and state
 are the rank's tiles (``launch.steps.shard_opt_state``).  adamw needs
 nothing more; adafactor's reductions over a split dim (the means of g²
 over the last two dims, ``vr``'s mean, ``rms_u``) sum over that dim's
-axes (:class:`_Split`), so every rank updates its tiles as one device
-would update the whole leaf.
+axes (:class:`_Split`; an MoE expert leaf's over the model axis its
+experts are split on too), so every rank updates its tiles as one device
+would update the whole leaf.  adafactor takes an expert stack (E, dm, df)
+a few experts at a time (:func:`expert_pieces`): its fp32 temporaries are
+then a piece's, at most ``PIECE_BYTES``, not the 15 GB of one deepseek-v3
+expert leaf's.
 """
 from __future__ import annotations
 
@@ -148,9 +152,19 @@ class _Split:
         split = self._dim(dim if ref is None else ref)
         if split is None:
             return torch.mean(x, dim=dim, keepdim=keepdim)
+        return self.mean_of(torch.sum(x, dim=dim, keepdim=keepdim),
+                            x.shape[dim], dim if ref is None else ref)
+
+    def mean_of(self, total: torch.Tensor, size: int,
+                ref: int) -> torch.Tensor:
+        """The whole leaf's mean from this rank's sum ``total`` over
+        ``size`` elements of reference dim ``ref``: summed over that dim's
+        axes when it is split."""
+        split = self._dim(ref)
+        if split is None:
+            return total / size
         group, n = split
-        return C.psum(torch.sum(x, dim=dim, keepdim=keepdim),
-                      group) / (x.shape[dim] * n)
+        return C.psum(total, group) / (size * n)
 
     def size(self) -> int:
         """How many tiles the leaf is cut into."""
@@ -165,6 +179,22 @@ class _Split:
             if split is not None:
                 x = C.psum(x, split[0])
         return x
+
+
+PIECE_BYTES = 1 << 30    # the most fp32 bytes of an expert stack at once
+
+
+def expert_pieces(g: torch.Tensor) -> list:
+    """Slices of a row's leading dim: an expert stack (E, dm, df) whose
+    fp32 copy is larger than ``PIECE_BYTES`` a few experts at a time (18
+    of deepseek-v3's 256 × 7168 × 2048, 15 GB whole), so that adafactor's
+    and gnorm's fp32 temporaries are a piece's; any other row whole (an
+    attention weight (dm, heads, dh) too)."""
+    per = 4 * g[0].numel() if g.ndim >= 3 else 0
+    if per * g.shape[0] <= PIECE_BYTES:
+        return [slice(None)]
+    n = max(1, PIECE_BYTES // per)
+    return [slice(i, i + n) for i in range(0, g.shape[0], n)]
 
 
 def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
@@ -213,7 +243,7 @@ def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
                 g, sq = g2(g)
                 v.copy_(beta * v + (1 - beta) * sq)
 
-            def u_of(i, g):
+            def u_of(i, g, part=slice(None)):       # rows of rank < 2
                 return g.float() * torch.rsqrt(s["v"].tensors[i] + eps)
         elif leaf.stacked and leaf.tensors[0].ndim == 1:
             # vr (L,): a row's mean; vc (n,): the mean over the rows; rfac
@@ -227,36 +257,51 @@ def adafactor(lr: float | Callable = 1e-2, decay: float = 0.8,
             vc.copy_(beta * vc + (1 - beta) * (col / len(rows)))
             vr_mean = torch.stack(s["vr"].tensors).mean()
 
-            def u_of(i, g):
+            def u_of(i, g, part=slice(None)):       # rows of rank 1
                 rfac = s["vr"].tensors[i] / vr_mean
                 return g.float() * torch.rsqrt(rfac * vc + eps)
         else:
             for (_, g), vr, vc in zip(rows, s["vr"].tensors,
                                       s["vc"].tensors):
-                g, sq = g2(g)
-                vr.copy_(beta * vr + (1 - beta) * split.mean(sq, -1))
-                vc.copy_(beta * vc + (1 - beta) * split.mean(sq, -2))
+                # g² a piece at a time (an expert stack's few experts), its
+                # sums over the last two dims put together, then the means
+                rs, cs = [], []
+                for part in expert_pieces(g):
+                    sq = g2(g[part])[1]
+                    rs.append(torch.sum(sq, dim=-1))
+                    cs.append(torch.sum(sq, dim=-2))
+                del sq        # not held through the update's temporaries
+                rs, cs = ((torch.cat(t) if len(t) > 1 else t[0])
+                          for t in (rs, cs))
+                vr.copy_(beta * vr + (1 - beta) * split.mean_of(
+                    rs, g.shape[-1], -1))
+                vc.copy_(beta * vc + (1 - beta) * split.mean_of(
+                    cs, g.shape[-2], -2))
 
-            def u_of(i, g):
-                vr, vc = s["vr"].tensors[i], s["vc"].tensors[i]
-                # vr's last dim is the leaf's second-to-last
-                rfac = (vr / split.mean(vr, -1, ref=-2,
-                                        keepdim=True))[..., None]
-                return g.float() * torch.rsqrt(rfac * vc[..., None, :] + eps)
+            # vr's last dim is the leaf's second-to-last
+            rfacs = [(vr / split.mean(vr, -1, ref=-2, keepdim=True))[..., None]
+                     for vr in s["vr"].tensors]
 
-        # one RMS over the whole leaf, from per-row sums; then each row's
-        # update again, clipped
-        total = split.total(sum(torch.sum(torch.square(u_of(i, g)))
-                                for i, (_, g) in enumerate(rows)))
+            def u_of(i, g, part=slice(None)):
+                vc = s["vc"].tensors[i][part]
+                return g[part].float() * torch.rsqrt(
+                    rfacs[i][part] * vc[..., None, :] + eps)
+
+        # one RMS over the whole leaf, from per-row sums (an expert stack's
+        # from its pieces'); then each row's update again, clipped
+        total = split.total(sum(torch.sum(torch.square(u_of(i, g, part)))
+                                for i, (_, g) in enumerate(rows)
+                                for part in expert_pieces(g)))
         count = sum(g.numel() for _, g in rows) * split.size()
         rms_u = torch.sqrt(total / count + eps)
         clip = torch.clamp(rms_u / clip_threshold, min=1.0)
         for i, (p, g) in enumerate(rows):
-            u = u_of(i, g) / clip
-            newp = p.float() - lr_t * u
-            if weight_decay:
-                newp = newp - lr_t * weight_decay * p.float()
-            p.copy_(newp)
+            for part in expert_pieces(g):
+                u = u_of(i, g, part) / clip
+                newp = p[part].float() - lr_t * u
+                if weight_decay:
+                    newp = newp - lr_t * weight_decay * p[part].float()
+                p[part].copy_(newp)
 
     return Optimizer(init, update, "adafactor")
 

@@ -269,10 +269,10 @@ def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
 
 @pytest.mark.parametrize("flags,row", [
     (["--arch", "mamba2-1.3b"], "row 22"),
-    (["--arch", "kimi-k2-1t-a32b"], "row 22")])
+    (["--arch", "whisper-small"], "row 22")])
 def test_lm_cells_are_row_19b(flags, row):
-    """Rows 19b and 21 port the dense family's cells: another family's
-    cells raise naming row 22."""
+    """Rows 19b, 21 and row 22's MoE part port the dense and MoE families'
+    cells: another family's cells raise naming row 22."""
     with pytest.raises(ValueError, match=row):
         DR.main(flags)
 
@@ -302,6 +302,28 @@ def test_train_cells_give_records(rb, tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out.count("| granite-3-2b | train_4k") == 1
     report.main(["--dir", str(tmp_path), "--kind", "dryrun"])
     assert capsys.readouterr().out.count("| granite-3-2b | train_4k") == 2
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v3-671b"])
+def test_moe_cells_give_records(arch, tmp_path, monkeypatch, capsys):
+    """``--arch`` of a MoE arch writes a record a shape and mesh: train_4k,
+    prefill_32k and decode_32k with no error (its smoke config: 8 experts,
+    MLA for deepseek-v3), long_500k skipped as the reference skips a
+    full-attention arch; the report reads them."""
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    assert DR.main(["--arch", arch, "--device", "cpu", "--out",
+                    str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 8, lines
+    assert sum(" ok " in ln for ln in lines) == 6
+    assert sum(" SKIP " in ln and "long_500k" in ln for ln in lines) == 2
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        for m in ("single", "multi"):
+            r = json.loads((tmp_path / f"{arch}__{shape}__{m}.json")
+                           .read_text())
+            assert "error" not in r and r["hlo"]["flops_per_device"] > 0
+    report.main(["--dir", str(tmp_path), "--kind", "dryrun"])
+    assert capsys.readouterr().out.count(f"| {arch} | ") == 8
 
 
 def _rows():

@@ -343,3 +343,50 @@ def test_lm_arrays_round_trip(arch):
         assert g.dtype == w.dtype and g.shape == w.shape, kp
         np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8),
                                       err_msg=jax.tree_util.keystr(kp))
+
+
+def test_adafactor_takes_an_expert_stack_in_pieces(monkeypatch):
+    """An expert stack (E, dm, df) whose fp32 copy is above
+    ``PIECE_BYTES`` is updated a few experts at a time
+    (``optimizers.expert_pieces``: its g² sums, rms_u and update a piece at
+    a time; gnorm too): two adafactor steps give the whole stack's weights
+    and state within rtol 1e-6 (rms_u sums its pieces in another order);
+    an attention leaf (dm, heads, dh) is never cut, bit for bit."""
+    from repro_torch.launch import steps as psteps
+
+    gen = torch.Generator().manual_seed(5)
+
+    def rows(*shape):
+        return [torch.randn(shape, generator=gen) for _ in range(2)]
+
+    weights = {"layers/moe/gate": rows(8, 16, 12),
+               "layers/attn/wq": rows(16, 4, 8)}
+    grads = {p: rows(*ts[0].shape) for p, ts in weights.items()}
+    opt = O.adafactor()
+
+    def run(piece_bytes):
+        monkeypatch.setattr(O, "PIECE_BYTES", piece_bytes)
+        params = {p: Leaf([t.clone() for t in ts], True)
+                  for p, ts in weights.items()}
+        state = opt.init(params)
+        for _ in range(2):
+            params, state = opt.update(grads, state, params)
+        return params, state, float(psteps._gnorm(None, grads, None))
+
+    whole = run(1 << 30)
+    cut = run(4 * 16 * 12 * 3)                       # 3 experts a piece
+    assert O.expert_pieces(grads["layers/moe/gate"][0]) == [
+        slice(0, 3), slice(3, 6), slice(6, 9)]
+    assert O.expert_pieces(grads["layers/attn/wq"][0]) == [slice(None)]
+    for path in weights:
+        for a, b in zip(whole[0][path].tensors, cut[0][path].tensors):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=path)
+        for k, leaf in whole[1].inner[path].items():
+            for a, b in zip(leaf.tensors, cut[1].inner[path][k].tensors):
+                np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                           err_msg=(path, k))
+    for a, b in zip(whole[0]["layers/attn/wq"].tensors,
+                    cut[0]["layers/attn/wq"].tensors):
+        assert torch.equal(a, b)
+    assert cut[2] == pytest.approx(whole[2], rel=1e-6)

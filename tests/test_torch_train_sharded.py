@@ -48,13 +48,15 @@ import pytest
 
 pytest.importorskip("torch")
 
-from test_torch_train import (BIG, LR, PARAM_TOL,  # noqa: E402
-                              STEP2_TOL, _batch, _jax_loss_and_grads, _tree)
+from test_torch_train import (BIG, GRAD_TOL, LR,  # noqa: E402
+                              PARAM_TOL, STEP2_TOL, _batch,
+                              _jax_loss_and_grads, _tree)
 from repro.launch import steps as jax_steps  # noqa: E402
 from repro.optim import optimizers as jax_O  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 240
+MOE = ("kimi-k2-1t-a32b", "deepseek-v3-671b")
 TOL = {"fp32": 1e-5, "bf16": 4e-2}
 STEPS = 2
 HEADS6 = {"n_heads": 6, "n_kv_heads": 6, "head_dim": 16}
@@ -75,7 +77,13 @@ CASES = ([_case(f"{p}-{m}{'-fsdp' if f else ''}", p, m, f)
          + [_case("remat-dots-2x2-fsdp", fsdp=True,
                   replace={"remat_policy": "dots", "remat_block": 1}),
             _case("remat-nothing-1x4",  mesh="1x4",
-                  replace={"remat_policy": "nothing", "remat_block": 2})])
+                  replace={"remat_policy": "nothing", "remat_block": 2})]
+         + [_case(f"moe-{a.split('-')[0]}-{m}{'-fsdp' if f else ''}", mesh=m,
+                  fsdp=f, arch=a, opt="adafactor")
+            for a in MOE for m in ("2x2", "1x4") for f in (False, True)])
+# the MoE case held against the reference's step: the batch split over the
+# data axis (the global lb_loss), FSDP (the router read as a RowShard)
+MOE_REF = "moe-deepseek-2x2-fsdp"
 SECOND_MOMENTS = ("v", "vr", "vc")
 
 _RANK = textwrap.dedent("""
@@ -147,6 +155,16 @@ _RANK = textwrap.dedent("""
             params = steps.shard_params(params, sh, mesh)
             local = steps.shard_batch(
                 batch, steps.batch_shardings(mesh, batch), mesh)
+            if c == %(moe_ref)r:
+                # the first step's gradients and metrics, as the step
+                # computes them (the data mean of the ranks')
+                loss, aux, g = steps.loss_and_grads(params, local, cfg)
+                loss, aux, g = steps._data_mean(
+                    params, loss, aux, g, steps.mesh_context())
+                out[f"{c}/{rank}/ref_aux"] = aux.numpy()
+                for path, rows in g.items():
+                    out[f"{c}/{rank}/g/{path}"] = arrays(
+                        params.ref_leaves()[path]._replace(tensors=rows))
             step = steps.make_train_step(cfg, opt)
             for j in range(%(steps)d):
                 params, state, m = step(params, state, local)
@@ -172,7 +190,7 @@ _RANK = textwrap.dedent("""
             clear_mesh_axes()
     np.savez(f"{work}/rank{rank}.npz", **out)
     dist.destroy_process_group()
-""") % {"steps": STEPS, "lr": LR}
+""") % {"steps": STEPS, "lr": LR, "moe_ref": MOE_REF}
 
 
 def _reference(tree, batch):
@@ -221,6 +239,11 @@ def ranks(tmp_path_factory):
              for r in range(4)]
     try:
         ref = _reference(trees["fp32-2x2"], jb)
+        arch = next(c["arch"] for c in CASES if c["name"] == MOE_REF)
+        jcfg = _tree(arch, "fp32")[0]
+        ref_moe = _jax_loss_and_grads(
+            jcfg, jax.tree_util.tree_map(jax.numpy.asarray, trees[MOE_REF]),
+            jb)
         for r, proc in enumerate(procs):
             try:
                 log, _ = proc.communicate(timeout=TIMEOUT)
@@ -232,7 +255,8 @@ def ranks(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return [dict(np.load(work / f"rank{r}.npz")) for r in range(4)], ref
+    return ([dict(np.load(work / f"rank{r}.npz")) for r in range(4)],
+            ref, ref_moe)
 
 
 def _tile(whole: np.ndarray, offsets: np.ndarray) -> np.ndarray:
@@ -243,10 +267,12 @@ def _tile(whole: np.ndarray, offsets: np.ndarray) -> np.ndarray:
 
 
 def _kinds(rank: dict, case: str) -> list:
-    """(kind, path) of every tile a rank saved for ``case``."""
+    """(kind, path) of every tile a rank saved for ``case`` after the steps
+    (not ``MOE_REF``'s first-step gradients, kind ``g``)."""
     pre = f"{case}/0/"
     return sorted(tuple(k[len(pre):].split("/", 1)) for k in rank
                   if k.startswith(pre) and "/" in k[len(pre):]
+                  and k[len(pre):].split("/", 1)[0] != "g"
                   and "@" not in k[len(pre):].split("/", 1)[0])
 
 
@@ -255,7 +281,7 @@ def test_sharded_train_matches_one_device(ranks, case):
     """Each step's loss, aux and gnorm on every rank, and every rank's tile
     of each weight and of each optimizer-state leaf after both steps,
     against the one-device port step on the same weights and batch."""
-    results, _ = ranks
+    results = ranks[0]
     c, tol = case["name"], TOL[case["prec"]]
     one = results[0]
     for j in range(STEPS):
@@ -323,7 +349,7 @@ def test_sharded_train_matches_the_reference(ranks):
     ``make_train_step`` on the same weights (``test_torch_train``'s
     bounds: the loss and gnorm within 1e-5, then 1e-4; every element
     within 2·lr a step, those of a large gradient within ``PARAM_TOL``)."""
-    results, (metrics, weights, grads) = ranks
+    results, (metrics, weights, grads), _ = ranks
     case = "fp32-2x2"
     for j, (rel, m) in enumerate(zip((1e-5, STEP2_TOL), metrics)):
         for k in ("loss", "gnorm"):
@@ -341,6 +367,32 @@ def test_sharded_train_matches_the_reference(ranks):
             assert d[big].max() <= PARAM_TOL, (path, float(d[big].max()))
 
 
+def test_sharded_moe_step_matches_the_reference(ranks):
+    """``MOE_REF`` (dsv3-smoke, fp32, 2 × 2 with FSDP: the batch split over
+    the data axis, the experts over the model axis, the router FSDP-split
+    on its rows and read as a ``RowShard``): the first step's aux (the
+    global batch's ``lb_loss``, summed over the layers) and the router's
+    gradient, put together from the ranks' tiles, against the reference's
+    ``make_train_step`` loss function on one device
+    (``test_torch_train``'s bounds: aux within 1e-5, each leaf's gradient
+    within 1e-4 of its largest |g|); every other leaf's gradient too."""
+    results, _, (_, aux, grads) = ranks
+    for r, res in enumerate(results):
+        got = float(res[f"{MOE_REF}/{r}/ref_aux"])
+        assert got == pytest.approx(aux, rel=1e-5), (r, got, aux)
+    assert any("router" in path for path in grads)
+    # a gradient's tile lies where its weight's does
+    tiles = [{**res, **{k.replace("/w@/", "/g@/"): v for k, v in res.items()
+                        if k.startswith(f"{MOE_REF}/") and "/w@/" in k}}
+             for res in results]
+    for path, want in grads.items():
+        got = _assemble(tiles, MOE_REF, "g", path)
+        assert got.shape == want.shape, path
+        err = float(np.abs(got - want).max()) / (
+            float(np.abs(want).max()) or 1.0)
+        assert err <= GRAD_TOL["fp32"], (path, err)
+
+
 # ---------------------------------------------------------------------------
 # The CLI on 4 gloo ranks (``--model-parallel 2``) against one rank, and
 # resumes across world sizes
@@ -350,6 +402,12 @@ CLI_ARGV = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
             "--batch", "4", "--seq", "8", "--steps", "10", "--ckpt-every",
             "5", "--lr", str(LR)]
 CLI_STOP = 5
+MOE_CLI = ["--arch", "deepseek-v3-671b"]      # given after CLI_ARGV's arch
+# adam's first step moves an element of a gradient near its eps by up to lr
+# either way, and the next steps' gradients follow: dsv3-smoke's wq_a ends
+# 10 steps with its m 1.2e-4 of its largest apart, 8.0e-5 after 2 steps
+# (the first step's gradients agree within 2.4e-7 of each leaf's largest)
+MOE_STATE_TOL = 3e-4
 
 _CLI_RANK = textwrap.dedent("""
     import dataclasses, json, sys, traceback
@@ -405,8 +463,10 @@ def _ckpt(root: Path) -> dict:
 def cli(tmp_path_factory):
     """The runs: A one rank uninterrupted; B 4 ranks uninterrupted; C 4
     ranks stopped after step 5, resumed on one; D one rank stopped after
-    step 5, resumed on 4; E whisper-small on 4 ranks.  Returns ({run:
-    (rank 0's metrics, printed output)}, work dir)."""
+    step 5, resumed on 4; E whisper-small on 4 ranks; F deepseek-v3's
+    smoke config (MLA, the MoE layer) on one rank and G the same on 4
+    ranks.  Returns ({run: (rank 0's metrics, printed output)}, work
+    dir)."""
     from repro_torch.launch import train as train_cli
     work = tmp_path_factory.mktemp("train_cli")
     mp = pytest.MonkeyPatch()
@@ -425,6 +485,7 @@ def cli(tmp_path_factory):
 
         one("A")
         one("D", "--stop-at", str(CLI_STOP))
+        one("F", *MOE_CLI)
         jobs = [["B", CLI_ARGV + ["--ckpt-dir", str(work / "B"),
                                   "--model-parallel", "2"]],
                 ["C", CLI_ARGV + ["--ckpt-dir", str(work / "C"),
@@ -433,7 +494,9 @@ def cli(tmp_path_factory):
                 ["D", CLI_ARGV + ["--ckpt-dir", str(work / "D"),
                                   "--model-parallel", "2"]],
                 ["E", ["--arch", "whisper-small", "--smoke", "--device",
-                       "cpu", "--steps", "1", "--model-parallel", "2"]]]
+                       "cpu", "--steps", "1", "--model-parallel", "2"]],
+                ["G", CLI_ARGV + MOE_CLI + ["--ckpt-dir", str(work / "G"),
+                                            "--model-parallel", "2"]]]
         (work / "runs.json").write_text(json.dumps(jobs))
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    OMP_NUM_THREADS="1")
@@ -470,11 +533,11 @@ def _close(got: dict, want: dict) -> None:
         assert got[k] == pytest.approx(want[k], rel=TOL["fp32"], abs=1e-7), k
 
 
-def _ckpt_close(a: dict, b: dict) -> None:
+def _ckpt_close(a: dict, b: dict, state_tol: float = TOL["fp32"]) -> None:
     """Two final checkpoints (the weights under ``0/``, adamw's state under
-    ``1/``): the step equal, ``m`` and √``v`` within 1e-5 of their leaf's
-    largest (measured ≤ 2.3e-6), the weights within adam's 2·lr a step
-    (measured ≤ 2.1e-5 of their leaf's largest)."""
+    ``1/``): the step equal, ``m`` and √``v`` within ``state_tol`` of their
+    leaf's largest (1e-5; measured ≤ 2.3e-6), the weights within adam's
+    2·lr a step (measured ≤ 2.1e-5 of their leaf's largest)."""
     assert sorted(a) == sorted(b)
     for path in a:
         x, y = a[path].astype(np.float64), b[path].astype(np.float64)
@@ -484,7 +547,7 @@ def _ckpt_close(a: dict, b: dict) -> None:
         if path.endswith("/v"):
             x, y = np.sqrt(x), np.sqrt(y)
         err = np.abs(x - y).max() / (np.abs(y).max() or 1.0)
-        assert err <= TOL["fp32"], (path, float(err))
+        assert err <= state_tol, (path, float(err))
 
 
 def test_cli_on_four_ranks_matches_one_rank(cli):
@@ -521,6 +584,26 @@ def test_cli_resumes_across_world_sizes(cli, run):
     assert f"resumed from step {CLI_STOP}" in out
     _close(m, a)
     _ckpt_close(_ckpt(work / run), _ckpt(work / "A"))
+
+
+def test_cli_moe_on_four_ranks_matches_one_rank(cli):
+    """A MoE arch (dsv3-smoke) through ``--model-parallel 2`` on 4 gloo
+    ranks (its 8 experts 4 a rank, the batch split over the data axis):
+    the printed steps and final metrics, aux among them, are the one-rank
+    run's, and so is the checkpoint (its adamw state within
+    ``MOE_STATE_TOL``)."""
+    runs, work = cli
+    (f, out_f), = runs["F"]
+    (g, out_g), = runs["G"]
+    assert "family: moe" in out_g and "mesh: {'data': 2, 'model': 2}" in out_g
+    assert f["aux"] > 0
+    _close(g, f)
+    pf, pg = _printed(out_f), _printed(out_g)
+    assert sorted(pf) == sorted(pg) == [1, 10]
+    for step in pf:
+        assert abs(pf[step][0] - pg[step][0]) <= 1.5e-4
+        assert abs(pf[step][1] - pg[step][1]) <= 1.5e-3
+    _ckpt_close(_ckpt(work / "G"), _ckpt(work / "F"), MOE_STATE_TOL)
 
 
 def test_cli_refuses_a_sharded_non_dense_arch(cli):
