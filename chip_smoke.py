@@ -231,7 +231,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               fp32 on S = 512 (4 chunks) against 512 steps of the decode
               recurrence, y and the final state; ``serve()`` as phase lm's,
               cold and warm (the same tokens); one decode step profiled;
-              peak memory beside the SSM state's bytes;
+              peak memory beside the SSM state's bytes; then the sharded
+              path (ROADMAP §1 row 22) on a 1×1 mesh over a one-rank NCCL
+              group, the rank's tiles being the weights themselves: its
+              prefill (zamba2's through ``flash_attention`` 13 times,
+              counted by the wrapper), its decode and its ``serve()``
+              tokens equal to the one-device path's bit for bit, its
+              decode step's device time within ``SSM_STEP_TOL`` (5 %) of
+              one device's;
     xattn   — (after ssm, which frees its weights) whisper-small (12
               encoder + 12 decoder layers, d_model 768, vocab 51865) and
               llama-3.2-vision-11b (40 layers, 8 cross layers, d_model
@@ -283,8 +290,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               B = 1, S = 256: one adafactor step through the sharded train
               step on a 1×1 mesh against the one-device step (loss, aux,
               gnorm, every updated weight; the peak reckoned first and
-              the part left out above 76 GB); the flash kernel launched 0
-              times in (a)-(c), (e); (d)
+              the part left out above 76 GB); (f) mamba2-1.3b at full
+              depth, B = 2, S = 4096, and (g) zamba2-7b at full width and
+              the deepest multiple of 6 layers whose peak is reckoned under
+              the card's 80 GB (72; B = 1, S = 256): one adamw step through the
+              sharded train step on a 1×1 mesh against the one-device
+              step, both with PyTorch's deterministic algorithms, loss,
+              gnorm and every updated weight bit for bit; the flash kernel
+              launched 0 times in (a)-(c), (e)-(g); (d)
               whisper-small through ``python -m repro_torch.launch.train
               --batch 8 --seq 448`` (the CLI's mesh path: a 1×1 mesh over
               a one-rank NCCL group): 4 steps with a checkpoint every 2,
@@ -306,7 +319,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               limited to b-m288, and the same with ``--gbs-opt``, and
               ``--arch A --shape decode_32k --mesh single`` for each MoE
               arch at full depth (61 layers, its record without error and
-              no device memory allocated): child processes started after
+              no device memory allocated), mamba2-1.3b's four cells and
+              zamba2-7b's decode_32k and long_500k at full depth (81
+              layers, FSDP) on the card's fakes and again on the CPU's (the
+              lines and records equal, no device memory allocated on the
+              card): child processes started after
               phase build and read here (the
               other phases keep their process groups); each walks dp,
               tp_single and tp_double as rank 0 of a fake 256-rank group
@@ -320,8 +337,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line (the flash entry's launches: a
-              granite prefill's, with kimi-k2's, zamba2's, whisper's and
-              the VLM's beside them, and phase xattn's shapes).
+              granite prefill's, with kimi-k2's, zamba2's (one-device and
+              sharded), whisper's and the VLM's beside them, and phase
+              xattn's shapes).
 
 bf16 inputs: each kernel's outputs within their rounding bound, elementwise
 (``site_step.bf16_gemm_bound``: the same bf16-exact products summed in fp32
@@ -455,6 +473,8 @@ MOE_RUNS = (("deepseek-v3-671b", 2, 2, 2048),
 MOE_DECODE_SEQ = 16
 # phase ssm: the SSM and hybrid archs at full depth and published width
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")
+SSM_STEP_TOL = 0.05           # the 1×1 decode step's device time, of one
+#                               device's
 SSD_CHECK_SEQ = 512           # one layer's chunked SSD (4 chunks of 128)
 SSD_TOL = 1e-4                # fp32, of the largest |y| and |state|
 ROPE_HEAD_DIMS = (64, 112, 128)
@@ -485,6 +505,11 @@ TRAIN_CHECK = (2, 1, 256)
 TRAIN_GRAD_TOL = 1e-4         # of a leaf's largest |g|, the CPU tests' fp32
 TRAIN_SSM = ("mamba2-1.3b", 2, 4096, 3)
 TRAIN_MOE = ("deepseek-v3-671b", 1, 1, 256)   # arch, depth, B, S: adafactor
+TRAIN_SSM_MESH = ("mamba2-1.3b", 2, 4096)      # arch, B, S: the 1×1 mesh
+TRAIN_HYBRID = ("zamba2-7b", 1, 256)           # arch, B, S: adamw, its depth
+TRAIN_HYBRID_GB = 80.0        # the card's memory, which that depth's peak
+#                               is reckoned under (the reckoning ran 1.6 GB
+#                               above the measured peak at 66 layers)
 TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
 
@@ -498,6 +523,11 @@ DRYRUN_LM_ARCH = "granite-3-2b"
 DRYRUN_LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRYRUN_REMAT_BLOCK = 4
 DRYRUN_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")  # decode_32k
+# the SSM and hybrid children, on the card's fakes and again on the CPU's:
+# mamba2-1.3b's four cells, zamba2-7b's decode cells at full depth (FSDP)
+DRYRUN_SSM = {"mamba2-1.3b": ("train_4k", "prefill_32k", "decode_32k",
+                              "long_500k"),
+              "zamba2-7b": ("decode_32k", "long_500k")}
 DRYRUN_SECONDS = 900
 DRYRUN_ARGS = ()              # more flags for the card's children
 
@@ -4563,7 +4593,8 @@ def _ssd_check(params, cfg, device) -> dict:
 
 def _decode_vs_forward(params, cfg, short, device) -> tuple:
     """Step-by-step decode against the full forward on ``short``: (max
-    relative difference of the logits, argmax agreement)."""
+    relative difference of the logits, argmax agreement, the decode's
+    logits (B, S, V) in the model's dtype)."""
     from repro_torch.models import transformer as T
 
     full, _ = T.forward(params, short, cfg)
@@ -4573,10 +4604,11 @@ def _decode_vs_forward(params, cfg, short, device) -> tuple:
     for t in range(short.shape[1]):
         logits, state = T.decode_step(params, short[:, t:t + 1], state, cfg)
         outs.append(logits[:, 0])
-    dec = torch.stack(outs, dim=1).float()
-    full = full.float()
+    raw = torch.stack(outs, dim=1)
+    dec, full = raw.float(), full.float()
     agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
-    return (dec - full).abs().max().item() / full.abs().max().item(), agree
+    return ((dec - full).abs().max().item() / full.abs().max().item(), agree,
+            raw)
 
 
 def _block_rel(got, want) -> float:
@@ -4718,6 +4750,7 @@ def _ssm_model(device, arch: str) -> dict:
           and bool(torch.isfinite(last.float()).all()),
           f"{tag}: prefill logits {tuple(last.shape)} not finite or shaped "
           f"(B, V)")
+    one_device = {"last": last.clone()}
     out = {"arch": arch, "layers": cfg.n_layers, "params_b": n_params / 1e9,
            "built_s": built_s, "prefill_s": prefill_s,
            "flash_launches": launches["flash_attention"]}
@@ -4774,8 +4807,11 @@ def _ssm_model(device, arch: str) -> dict:
         dcfg = dataclasses.replace(cfg, dtype=dt)
         dparams = params if dt == cfg.dtype else T.init_params(0, dcfg,
                                                                device)
-        rel, agree = _decode_vs_forward(dparams, dcfg, short, device)
+        rel, agree, dec = _decode_vs_forward(dparams, dcfg, short, device)
         key = "fp32" if dt == torch.float32 else "bf16"
+        if dt == cfg.dtype:
+            one_device["decode"] = dec
+        del dec
         print(f"{tag}: decode vs forward through all {cfg.n_layers} layers "
               f"on S={MOE_DECODE_SEQ} in {dt}: argmax agreement {agree:.4f}"
               f", max rel diff {rel:.3e}", flush=True)
@@ -4798,9 +4834,131 @@ def _ssm_model(device, arch: str) -> dict:
           f"state at batch {SERVE['batch']} {state_gb:.3f} GB; peak memory "
           f"{peak:.3f} GB", flush=True)
     out.update(numbers, ssm_state_gb=state_gb, peak_gb=peak)
-    del params
+    one_device.update(served=served, serve_s=numbers["serve_s"],
+                      step_ms=numbers["decode_step_ms"],
+                      step_device_ms=numbers["decode_step_device_ms"],
+                      step_kernels=numbers["decode_step_kernels"])
+    out["mesh_1x1"] = _ssm_sharded(device, cfg, params, toks, short,
+                                   one_device, tag, n_attn)
+    del params, one_device
     torch.cuda.empty_cache()
     return out
+
+
+def _ssm_sharded(device, cfg, params, toks, short, one: dict, tag: str,
+                 n_attn: int) -> dict:
+    """The same model through the sharded path (ROADMAP §1 row 22) on a 1×1
+    ("data", "model") mesh over a one-rank NCCL group: the rank's tiles
+    (``steps.shard_params``; on one rank a tile is the weight itself, and
+    ``w_in``'s part-wise cut is the whole leaf in its own order), the mesh
+    declared, then ``make_prefill_step`` on the rank's batch rows (each
+    Mamba2 layer through ``mamba2_apply``'s sharded branch: ``_rank_proj``,
+    the B/C all-gather and the norm's all-reduce over the one rank, the
+    ``w_out`` sum an identity there; zamba2's shared block through
+    ``_attn_apply_tp`` and the flash kernel, counted by the wrapper:
+    ``n_attn`` launches), the decode against the forward
+    of the one-device check above (its state from ``steps.shard_state``:
+    the SSM state's tile its heads) and ``serve()``'s greedy tokens, each
+    held bit for bit against the one-device path's, and one decode step
+    profiled, its device time held within ``SSM_STEP_TOL`` of one
+    device's."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm, steps
+    from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                         make_host_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+
+    mtag = f"{tag} mesh 1x1"
+    t0 = time.perf_counter()
+    created = init_distributed(device)
+    try:
+        mesh = make_host_mesh(1, device)
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+        rp = steps.shard_params(params, psh, mesh)
+        same = all(a.data_ptr() == b.data_ptr() for a, b in
+                   zip(rp.parameters(), params.parameters()))
+        check(same, f"{mtag}: a one-rank tile is a copy, not the weight")
+        tp = T._tp_layout(rp, cfg)
+        batch = {"tokens": toks}
+        local = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
+                                  mesh)
+        prefill = steps.make_prefill_step(cfg, kernels="auto")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        tp_s = time.perf_counter()
+        last = prefill(rp, local)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tp_s
+        launches = ops.launch_counts()
+        prefill_equal = bool(torch.equal(last, one["last"]))
+        print(f"{mtag}: layout ssm={tp.ssm} heads={tp.heads} "
+              f"kv_heads={tp.kv_heads} ffn={tp.ffn}; prefill B="
+              f"{toks.shape[0]} S={toks.shape[1]} in {prefill_s:.3f} s, "
+              f"last-token logits equal to the one-device prefill's bit for "
+              f"bit: {prefill_equal}; launches {launches}", flush=True)
+        check(prefill_equal, f"{mtag}: the sharded prefill's logits differ "
+              "from the one-device prefill's")
+        check(launches["flash_attention"] == n_attn,
+              f"{mtag}: flash_attention launched "
+              f"{launches['flash_attention']} times in the sharded prefill, "
+              f"expected {n_attn}")
+        del last
+        whole = T.init_decode_state(cfg, short.shape[0], short.shape[1] + 1,
+                                    device)
+        state = steps.shard_state(whole, steps.cache_shardings(
+            mesh, cfg, whole.caches), mesh)
+        specs = {k: tuple(v) for k, v in state.shardings.items()}
+        outs = []
+        for t in range(short.shape[1]):
+            step_logits, state = T.decode_step(rp, short[:, t:t + 1], state,
+                                               cfg)
+            outs.append(step_logits[:, 0])
+        decode_equal = bool(torch.equal(torch.stack(outs, dim=1),
+                                        one["decode"]))
+        del state, whole, outs
+        torch.cuda.empty_cache()
+        prompts = _moe_prompts(cfg.vocab)
+        ts = time.perf_counter()
+        served = serve_lm.serve(cfg, rp, prompts, SERVE["batch"],
+                                SERVE["max_new"], SERVE["cache_len"],
+                                verbose=False)
+        serve_s = time.perf_counter() - ts
+        served_equal = served == one["served"]
+        step = _decode_step_numbers(cfg, rp, device)
+        rel = step["device_ms"] / one["step_device_ms"] - 1
+        print(f"{mtag}: decode of S={short.shape[1]} (cache specs {specs}) "
+              f"equal to the one-device decode's logits bit for bit: "
+              f"{decode_equal}; serve() of {len(prompts)} requests in "
+              f"{serve_s:.3f} s (one device: {one['serve_s']:.3f} s cold), "
+              f"its tokens equal to the one-device serve()'s: "
+              f"{served_equal}; one decode step at batch {SERVE['batch']}: "
+              f"{step['wall_ms']:.3f} ms wall, {step['device_ms']:.3f} ms "
+              f"on the device in {step['kernels']} kernels (one device: "
+              f"{one['step_ms']:.3f} ms wall, {one['step_device_ms']:.3f} ms "
+              f"in {one['step_kernels']}; device {rel:+.2%}, tolerance "
+              f"{SSM_STEP_TOL:.0%}); {time.perf_counter() - t0:.1f} s "
+              f"[{nvidia_smi()}]", flush=True)
+        check(decode_equal, f"{mtag}: the sharded decode's logits differ "
+              "from the one-device decode's")
+        check(served_equal, f"{mtag}: the sharded serve() gave other tokens")
+        check(abs(rel) <= SSM_STEP_TOL, f"{mtag}: the decode step's device "
+              f"time {step['device_ms']:.3f} ms differs from one device's "
+              f"{one['step_device_ms']:.3f} by {rel:+.2%}")
+        del rp
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+    return {"prefill_s": prefill_s, "prefill_equal": prefill_equal,
+            "flash_launches": launches["flash_attention"],
+            "decode_equal": decode_equal, "serve_s": serve_s,
+            "served_equal": served_equal, "decode_step": step,
+            "decode_step_device_rel": rel}
 
 
 def phase_ssm(device) -> dict:
@@ -5449,10 +5607,7 @@ def _moe_train(device, smi: str) -> dict:
     MLA, 256 + 1 experts; 26.7 GB of bf16 weights), one adafactor step
     through the sharded train step on a 1×1 mesh over a one-rank NCCL group
     (the rank's tiles the weights themselves; ROADMAP §1 row 22) against
-    the one-device step on the same seeded weights (made twice from the
-    seed, their leaves' sums compared) and batch, both with PyTorch's
-    deterministic algorithms: loss, aux, gnorm and every updated weight
-    (the one-device step's kept on the host).  The
+    the one-device step, bit for bit (:func:`_mesh_vs_one`).  The
     peak is reckoned first (the weights, their gradients of the same
     bytes, adafactor's state and its largest fp32 temporaries: an expert
     stack's are a piece's, at most ``optimizers.PIECE_BYTES``, so the
@@ -5484,22 +5639,24 @@ def _moe_train(device, smi: str) -> dict:
     if reckon > TRAIN_PEAK_GB:
         print(f"{tag}: left out, above {TRAIN_PEAK_GB} GB", flush=True)
         return {"skipped": f"peak reckoned {reckon:.1f} GB"}
-    torch.cuda.empty_cache()
     # the card's index_add (the MoE dispatch's index_select backward) and
     # embedding backward add with atomics, so two runs of the same step
-    # differ (gnorm 36.0678 / 36.0680 in two runs on an H100); both run
-    # with PyTorch's deterministic algorithms
-    det = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        return _moe_train_steps(device, smi, cfg, tag, b, s, reckon)
-    finally:
-        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+    # differ (gnorm 36.0678 / 36.0680 in two runs on an H100): both run
+    # with PyTorch's deterministic algorithms (:func:`_mesh_vs_one`)
+    out = _mesh_vs_one(device, smi, cfg, tag, b, s, optimizers.adafactor())
+    out["reckoned_gb"] = reckon
+    return out
 
 
-def _moe_train_steps(device, smi, cfg, tag, b, s, reckon) -> dict:
-    """:func:`_moe_train`'s two steps and their comparison."""
+def _mesh_vs_one(device, smi, cfg, tag, b, s, opt) -> dict:
+    """One ``opt`` step of ``cfg`` (seeded weights, one
+    ``synthetic_token_stream`` batch of B = ``b``, S = ``s``) on one device
+    and through the sharded train step on a 1×1 mesh over a one-rank NCCL
+    group, the weights made twice from the seed (their leaves' sums
+    compared), both with PyTorch's deterministic algorithms (the card's
+    embedding backward adds with atomics): loss, aux, gnorm and every
+    updated weight (the one-device step's kept on the host, an expert
+    stack compared a piece at a time) held bit for bit."""
     import gc
 
     import torch.distributed as dist
@@ -5510,80 +5667,135 @@ def _moe_train_steps(device, smi, cfg, tag, b, s, reckon) -> dict:
                                          make_host_mesh)
     from repro_torch.models import transformer as T
     from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+    from repro_torch.optim.optimizers import expert_pieces
+
+    torch.cuda.empty_cache()
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        batch = synthetic_token_stream(0, cfg.vocab, b, s, device)(0)
+        step = steps.make_train_step(cfg, opt)
+        params = T.init_params(0, cfg, device)
+        seeded = _fingerprint(params)
+        before_gb = torch.cuda.memory_allocated(device) / 1e9
+        params, state, one = _step_timed(step, params, opt.init(params),
+                                         batch, device, b * s)
+        _print_step(tag + f" one-device B={b} S={s}", 1, one, smi)
+        after = {p: [t.to("cpu", copy=True) for t in leaf.tensors]
+                 for p, leaf in params.ref_leaves().items()}
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = T.init_params(0, cfg, device)
+        check(_fingerprint(params) == seeded,
+              f"{tag}: the seeded weights differ between two inits")
+        created = init_distributed(device)
+        try:
+            mesh = make_host_mesh(1, device)
+            set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+            psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                        fsdp=False)
+            tiles = steps.shard_params(params, psh, mesh)
+            del params
+            whole = opt.init(tiles)
+            osh = steps.opt_state_shardings(mesh, whole, psh)
+            state = steps.shard_opt_state(whole, osh, mesh)
+            del whole
+            local = steps.shard_batch(
+                batch, steps.batch_shardings(mesh, batch), mesh)
+            tiles, state, rec = _step_timed(step, tiles, state, local,
+                                            device, b * s)
+            _print_step(tag + f" 1x1 B={b} S={s}", 1, rec, smi)
+        finally:
+            clear_mesh_axes()
+            if created:
+                dist.destroy_process_group()
+        del state
+        equal = 0
+        with torch.no_grad():             # an expert stack a piece at a time
+            for p, leaf in tiles.ref_leaves().items():
+                equal += all(torch.equal(t[part], h[part].to(device))
+                             for t, h in zip(leaf.tensors, after[p])
+                             for part in expert_pieces(t))
+        same = {k: rec[k] == one[k] for k in ("loss", "aux", "gnorm")}
+        print(f"{tag}: the 1x1 mesh step against the one-device step: loss "
+              f"{rec['loss']:.6f} vs {one['loss']:.6f}, gnorm "
+              f"{rec['gnorm']:.6f} vs {one['gnorm']:.6f} (equal: "
+              f"{json.dumps(same)}); updated weights: {equal} of "
+              f"{len(after)} leaves equal bit for bit; wall "
+              f"{rec['wall_s']:.3f} vs {one['wall_s']:.3f} s, peak "
+              f"{rec['peak_gb']:.3f} vs {one['peak_gb']:.3f} GB (allocated "
+              f"before the step, the weights among it: {before_gb:.3f}) "
+              f"[{smi}]", flush=True)
+        check(all(same.values()) and equal == len(after),
+              f"{tag}: the 1x1 mesh step differs from the one-device step")
+        del tiles, after
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "depth": cfg.n_layers, "batch": b,
+                "seq": s, "allocated_before_gb": before_gb,
+                "one_device": one, "mesh_1x1": rec, "leaves_equal": equal}
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+
+
+def _ssm_mesh_train(device, smi: str) -> dict:
+    """(f) mamba2-1.3b at full depth, one adamw step through the sharded
+    train step on a 1×1 mesh against the one-device step, bit for bit
+    (:func:`_mesh_vs_one`)."""
+    from repro_torch import configs
     from repro_torch.optim import optimizers
 
-    batch = synthetic_token_stream(0, cfg.vocab, b, s, device)(0)
-    opt = optimizers.adafactor()
-    step = steps.make_train_step(cfg, opt)
-    params = T.init_params(0, cfg, device)
-    seeded = _fingerprint(params)
-    # the weights and whatever earlier phases left allocated
-    before_gb = torch.cuda.memory_allocated(device) / 1e9
-    params, state, one = _step_timed(step, params, opt.init(params), batch,
-                                     device, b * s)
-    _print_step(tag + f" one-device B={b} S={s}", 1, one, smi)
-    after = {p: [t.to("cpu", copy=True) for t in leaf.tensors]
-             for p, leaf in params.ref_leaves().items()}
-    del params, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    params = T.init_params(0, cfg, device)
-    same_init = _fingerprint(params) == seeded
-    check(same_init, f"{tag}: the seeded weights differ between two inits")
-    created = init_distributed(device)
-    try:
-        mesh = make_host_mesh(1, device)
-        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
-        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
-                                    fsdp=False)
-        tiles = steps.shard_params(params, psh, mesh)
-        del params
-        whole = opt.init(tiles)
-        osh = steps.opt_state_shardings(mesh, whole, psh)
-        state = steps.shard_opt_state(whole, osh, mesh)
-        del whole
-        local = steps.shard_batch(batch, steps.batch_shardings(mesh, batch),
-                                  mesh)
-        tiles, state, rec = _step_timed(step, tiles, state, local, device,
-                                        b * s)
-        _print_step(tag + f" 1x1 B={b} S={s}", 1, rec, smi)
-    finally:
-        clear_mesh_axes()
-        if created:
-            dist.destroy_process_group()
-    del state
-    worst, equal = 0.0, 0
-    with torch.no_grad():                 # an expert stack a piece at a time
-        for p, leaf in tiles.ref_leaves().items():
-            d = scale = 0.0
-            for t, h in zip(leaf.tensors, after[p]):
-                for part in optimizers.expert_pieces(t):
-                    hp = h[part].to(device).float()
-                    d = max(d, float((t[part].float() - hp).abs().max()))
-                    scale = max(scale, float(hp.abs().max()))
-            equal += d == 0
-            worst = max(worst, d / (scale or 1.0))
-    rel = {k: abs(rec[k] / one[k] - 1) for k in ("loss", "aux", "gnorm")}
-    print(f"{tag}: the 1x1 mesh adafactor step against the one-device step:"
-          f" loss {rec['loss']:.6f} vs {one['loss']:.6f}, aux "
-          f"{rec['aux']:.6f} vs {one['aux']:.6f}, gnorm {rec['gnorm']:.6f} "
-          f"vs {one['gnorm']:.6f} (rel {json.dumps(rel)}); updated weights: "
-          f"{equal} of {len(after)} leaves equal, the largest |Δ| "
-          f"{worst:.2e} of its leaf's largest |w|; wall {rec['wall_s']:.3f}"
-          f" vs {one['wall_s']:.3f} s, peak {rec['peak_gb']:.3f} vs "
-          f"{one['peak_gb']:.3f} GB (reckoned {reckon:.1f}; allocated "
-          f"before the step, the weights among it: {before_gb:.3f}) "
-          f"[{smi}]", flush=True)
-    check(rel["loss"] <= 1e-6 and rel["aux"] <= 1e-6 and rel["gnorm"] <= 1e-5
-          and worst <= 2.0 ** -7,
-          f"{tag}: the 1x1 mesh step differs from the one-device step")
-    del tiles, after
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"arch": cfg.name, "depth": cfg.n_layers, "batch": b, "seq": s,
-            "reckoned_gb": reckon, "allocated_before_gb": before_gb,
-            "one_device": one, "mesh_1x1": rec,
-            "rel": rel, "leaves_equal": equal, "worst_weight": worst}
+    arch, b, s = TRAIN_SSM_MESH
+    cfg = configs.get_config(arch)
+    return _mesh_vs_one(device, smi, cfg, f"train {cfg.name} mesh", b, s,
+                        optimizers.adamw(3e-4))
+
+
+def _hybrid_train(device, smi: str) -> dict:
+    """(g) zamba2-7b at full width, one adamw step through the sharded train
+    step on a 1×1 mesh against the one-device step, bit for bit
+    (:func:`_mesh_vs_one`), at the deepest multiple of ``attn_every`` (so
+    that the shared block runs, once every 6 layers) whose peak is
+    reckoned under ``TRAIN_HYBRID_GB``: the bf16 weights and their
+    gradients, adamw's fp32 m and v (12 bytes a parameter), adamw's fp32
+    temporaries of the largest row (six copies: the gradient, m's and v's
+    new values and the update's terms; the (V, dm) embedding's) and the
+    activations at B = 1, S = 256 (the layer's saved products: a few MB a
+    layer)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.optim import optimizers
+
+    arch, b, s = TRAIN_HYBRID
+    full = configs.get_config(arch)
+
+    def reckon(depth: int) -> float:
+        cfg = dataclasses.replace(full, n_layers=depth)
+        n = cfg.param_count()[0]
+        scfg = cfg.ssm_cfg()
+        width = 2 * scfg.d_inner + 2 * scfg.d_state + scfg.heads
+        temps = 6 * 4 * cfg.vocab * cfg.d_model
+        acts = depth * b * s * (4 * cfg.d_model + 2 * width) * 2
+        return (12 * n + temps + acts) / 1e9
+
+    depth = full.n_layers - full.n_layers % full.attn_every
+    while depth > full.attn_every and reckon(depth) > TRAIN_HYBRID_GB:
+        depth -= full.attn_every
+    cfg = dataclasses.replace(full, n_layers=depth)
+    tag = f"train {cfg.name} x{depth} mesh"
+    n_attn = depth // cfg.attn_every
+    print(f"{tag}: depth {depth} of {full.n_layers} ({n_attn} "
+          f"applications of the shared block), peak "
+          f"reckoned {reckon(depth):.1f} GB (12 bytes a parameter for "
+          f"{cfg.param_count()[0] / 1e9:.3f} B; {depth + cfg.attn_every} "
+          f"layers would reckon {reckon(depth + cfg.attn_every):.1f}, above "
+          f"{TRAIN_HYBRID_GB} GB) [{smi}]", flush=True)
+    out = _mesh_vs_one(device, smi, cfg, tag, b, s, optimizers.adamw(3e-4))
+    out["reckoned_gb"] = reckon(depth)
+    return out
 
 
 def _grads_of(step_opt):
@@ -5764,7 +5976,8 @@ def _cli_train(smi: str) -> dict:
 def phase_train(device) -> dict:
     """Training through ``launch.steps.make_train_step`` and the train CLI
     on the card: granite-3-2b (a, a' on a 1×1 mesh, b), mamba2-1.3b (c),
-    deepseek-v3 at depth 1 on a 1×1 mesh (e), whisper-small (d).
+    deepseek-v3 at depth 1 on a 1×1 mesh (e), mamba2-1.3b (f) and zamba2-7b
+    at a reckoned depth (g) on a 1×1 mesh, whisper-small (d).
     The flash kernel's launch count stays 0 (training takes the reference's
     ``_sdpa`` route)."""
     from repro_torch.kernels import ops
@@ -5777,7 +5990,8 @@ def phase_train(device) -> dict:
              ("mesh", lambda d, m: _mesh_train(d, m, out["granite"][
                  "batch"])),
              ("fp32_check", _fp32_check), ("ssm", _ssm_train),
-             ("moe", _moe_train))
+             ("moe", _moe_train), ("ssm_mesh", _ssm_mesh_train),
+             ("hybrid_mesh", _hybrid_train))
     for name, part in parts:
         tp = time.perf_counter()
         out[name] = part(device, smi)
@@ -5979,6 +6193,12 @@ def dryrun_start() -> dict:
     for arch in DRYRUN_MOE_ARCHS:     # full depth, on the card's fakes
         args[f"moe-{arch}"] = ["--arch", arch, "--shape", "decode_32k",
                                "--out", str(out), *DRYRUN_ARGS]
+    for arch, shapes in DRYRUN_SSM.items():   # full depth, card and CPU
+        cells = ["--arch", arch,
+                 *(a for shape in shapes for a in ("--shape", shape))]
+        args[f"ssm-{arch}"] = [*cells, "--out", str(out), *DRYRUN_ARGS]
+        args[f"cpu-ssm-{arch}"] = [*cells, "--out", str(out / "cpu"),
+                                   "--device", "cpu"]
     children = {}
     for flag, more in args.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -6009,11 +6229,11 @@ def dryrun_stop(started: dict) -> None:
             rec["proc"].wait()
 
 
-def _lm_lines(text: str) -> list[str]:
-    """The LM cells' ``summarize`` lines of a child's log, each without its
-    walk time (``compile=…``)."""
+def _lm_lines(text: str, arch: str = DRYRUN_LM_ARCH) -> list[str]:
+    """``arch``'s cells' ``summarize`` lines of a child's log, each without
+    its walk time (``compile=…``)."""
     return [re.sub(r" compile=\S+$", "", ln) for ln in text.splitlines()
-            if ln.startswith(DRYRUN_LM_ARCH)]
+            if ln.startswith(arch)]
 
 
 def phase_dryrun(started: dict) -> dict:
@@ -6038,14 +6258,17 @@ def phase_dryrun(started: dict) -> dict:
         text = texts[flag] = rec["log"].read_text()
         lines = [ln for ln in text.splitlines()
                  if ln.startswith(("gbs-", DRYRUN_LM_ARCH,
-                                   *DRYRUN_MOE_ARCHS))]
+                                   *DRYRUN_MOE_ARCHS, *DRYRUN_SSM))]
         for ln in lines:
             print(f"dryrun {flag}: {ln}", flush=True)
         print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
               f"{rec['proc'].returncode}", flush=True)
         want = {"--gbs": len(DR.SCHEMES) + len(DRYRUN_LM_SHAPES),
                 "--gbs-opt": len(DR.SCHEMES) + 1,
-                "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1}.get(flag, 1)
+                "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1,
+                **{f"{pre}ssm-{a}": len(shapes)
+                   for a, shapes in DRYRUN_SSM.items()
+                   for pre in ("", "cpu-")}}.get(flag, 1)
         check(rec["proc"].returncode == 0 and len(lines) == want
               and " ok " in " ".join(lines),
               f"dryrun {flag} exited {rec['proc'].returncode}: "
@@ -6058,6 +6281,9 @@ def phase_dryrun(started: dict) -> dict:
         check(peak is not None and int(peak.group(1)) == 0,
               f"dryrun {flag}: the child allocated device memory "
               f"({peak and peak.group(0)})")
+        if flag.startswith("ssm-"):      # held against the CPU's below
+            result[flag] = {"wall_s": rec["wall_s"], "peak_allocated": 0}
+            continue
         if flag.startswith("moe-"):
             arch = flag[len("moe-"):]
             r = json.loads((started["out"] / f"{arch}__decode_32k__single"
@@ -6091,6 +6317,34 @@ def phase_dryrun(started: dict) -> dict:
                              "roofline": r["roofline"]}
         result[flag[2:]] = {"wall_s": rec["wall_s"], "peak_allocated": 0,
                             "cells": cells}
+    # the SSM and hybrid cells: the card's fake tensors count what the
+    # CPU's count
+    for arch, shapes in DRYRUN_SSM.items():
+        flag = f"ssm-{arch}"
+        card, cpu = (_lm_lines(texts[f], arch) for f in (flag, "cpu-" + flag))
+        check(card == cpu and len(card) == len(shapes),
+              f"dryrun {flag}: the card's lines {card} != the CPU's {cpu}")
+        cells = {}
+        for shape in shapes:
+            name = f"{arch}__{shape}__single.json"
+            r, c = (json.loads(p.read_text()) for p in
+                    (started["out"] / name, started["out"] / "cpu" / name))
+            check("error" not in r and "skipped" not in r and all(
+                r[k] == c[k] for k in ("hlo", "bytes_per_device",
+                                       "roofline")),
+                  f"dryrun {name}: {r.get('error')}, or the card's counts "
+                  f"differ from the CPU's")
+            cells[shape] = {
+                "flops_per_device": r["hlo"]["flops_per_device"],
+                "n_collectives": r["hlo"]["n_collectives"],
+                "bytes_per_device": r["bytes_per_device"],
+                "roofline": r["roofline"], "walk_s": r["compile_s"]}
+        result[flag].update(
+            cells=cells,
+            wall_s_cpu=started["children"]["cpu-" + flag]["wall_s"])
+        print(f"dryrun {flag}: 16x16 at full depth, the card's counts equal "
+              f"to the CPU's: {json.dumps(result[flag])} [{nvidia_smi()}]",
+              flush=True)
     # the LM cells: the card's fake tensors count what the CPU's count
     for card_flag, cpu_flag, n in (("--gbs", "cpu", len(DRYRUN_LM_SHAPES)),
                                    ("--gbs-opt", "cpu-rb", 1)):
@@ -6180,6 +6434,8 @@ def _main(device, ptxas, mma, dryrun) -> int:
                  kimi_k2_sharded_launches=moe["kimi-k2-1t-a32b"][
                      "mesh_1x1"]["flash_launches"],
                  zamba2_launches=ssm["zamba2-7b"]["flash_launches"],
+                 zamba2_sharded_launches=ssm["zamba2-7b"]["mesh_1x1"][
+                     "flash_launches"],
                  whisper_launches={
                      "prefill": whisper["flash_launches"],
                      "encode": whisper["encode_launches"],

@@ -68,6 +68,8 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     buf = torch.empty((p * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(_real(buf), _real(x), group=group)
+    if dim == 0:
+        return buf
     return torch.cat(list(buf.reshape(p, *x.shape).unbind(0)), dim=dim)
 
 
@@ -185,11 +187,12 @@ def psum_backward(x: torch.Tensor, group) -> torch.Tensor:
 
 def psum_shared(x: torch.Tensor, group) -> torch.Tensor:
     """Σ over the group, its gradient summed over the group too: a total
-    over the data axes (an MoE layer's router statistics of the global
-    batch) that every data rank's loss reads whole.  The train step
-    averages the data ranks' gradients, so each rank must hand back the sum
-    of the ranks' cotangents for its part (the adjoint of a sum that each
-    of the p losses reads)."""
+    that each rank reads for its own part of the result, so that each
+    rank's cotangent of it is a part and the adjoint sums them.  Over the
+    data axes: an MoE layer's router statistics of the global batch, read
+    whole by every data rank's loss (the train step averages the data
+    ranks' gradients).  Over the model axis: a Mamba2 block's sum of
+    squares over d_inner, which each rank's heads are normed by."""
     if _recording(x):
         return _PsumShared.apply(x, group)
     return psum(x, group)

@@ -13,19 +13,22 @@ constants of one NVIDIA H100 80GB HBM3 at 700 W.
   its result sharded, as the JAX package's ``shard_map`` does, on the
   plain cells (``kernels="torch"``), as the JAX dry run off a TPU counts
   its XLA cells.
-* The LM cells of the dense and MoE families (rows 19b, 21 and row 22's
-  MoE part): the rank holds its tile of every weight, batch row and cache
+* The LM cells of the dense, MoE, SSM and hybrid families (rows 19b, 21
+  and row 22's MoE and SSM/hybrid parts): the rank holds its tile of every
+  weight, batch row and cache
   (and of the optimizer's state) under the sharding policy
   (``launch/steps.py``) and runs
   ``make_train_step`` (train_4k: forward, recompute and backward with
   their collectives, the weights and the state updated in place as the
   reference donates them; ``--remat-block k`` its sqrt-L block remat),
-  ``make_prefill_step`` (prefill_32k) or ``make_serve_step`` (decode_32k)
-  with the collectives of a sharded rank (``models.common.TPLayout``;
-  the MoE layer expert parallel, MLA split over its heads), attention on
-  the reference's default ``_sdpa`` route (its ``USE_FLASH`` is off).
-  long_500k is skipped for these full-attention archs, as the reference
-  skips it.
+  ``make_prefill_step`` (prefill_32k) or ``make_serve_step`` (decode_32k,
+  and long_500k: one token against a context of 524288, B = 1 replicated
+  over the data axes) with the collectives of a sharded rank
+  (``models.common.TPLayout``; the MoE layer expert parallel, MLA split
+  over its heads, a Mamba2 layer on its heads, the hybrid's shared block
+  as a dense layer), attention on the reference's default ``_sdpa`` route
+  (its ``USE_FLASH`` is off).  long_500k is skipped for the
+  full-attention archs, as the reference skips it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --gbs --mesh single
@@ -37,12 +40,16 @@ Usage:
       --shape train_4k --remat-block 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
       deepseek-v3-671b --device cpu   # its prefill, decode and train cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-7b \
+      --device cpu                    # and its long_500k cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-7b \
+      --shape decode_32k --shape long_500k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
 
 Results are cached as JSON under experiments/dryrun_torch/ (the JAX
 package's file names and keys, less its two TPU fields); --force walks
-again.  The SSM, hybrid, encoder-decoder and VLM cells are ROADMAP §1 row
-22 (``LM_FAMILIES``).
+again.  The encoder-decoder and VLM cells are ROADMAP §1 row 22
+(``LM_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -79,8 +86,8 @@ SCHEMES = ("dp", "tp_single", "tp_double")
 LM_ARCHS = tuple(a for a in configs.ARCHS
                  if configs.get_config(a).family in T.SHARDED_FAMILIES)
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-LM_FAMILIES = ("the SSM, hybrid, encoder-decoder and VLM cells are "
-               "ROADMAP §1 row 22, not ported yet (the dense and MoE archs: "
+LM_FAMILIES = ("the encoder-decoder and VLM cells are ROADMAP §1 row 22, "
+               "not ported yet (the dense, MoE, SSM and hybrid archs: "
                + ", ".join(LM_ARCHS) + ")")
 
 
@@ -177,7 +184,7 @@ def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict,
 
 
 # ---------------------------------------------------------------------------
-# LM cells: the dense and MoE families
+# LM cells: the dense, MoE, SSM and hybrid families
 # ---------------------------------------------------------------------------
 
 def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
@@ -386,7 +393,8 @@ def summarize(result: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    ap.add_argument("--shape", action="append",
+                    help="an LM cell's shape (again for more; default: all)")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
@@ -404,8 +412,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.arch and args.arch not in LM_ARCHS:
         raise ValueError(f"--arch {args.arch}: {LM_FAMILIES}")
-    if args.shape and args.shape not in LM_SHAPES:
-        raise ValueError(f"--shape {args.shape}: one of {LM_SHAPES}")
+    for shape in args.shape or ():
+        if shape not in LM_SHAPES:
+            raise ValueError(f"--shape {shape}: one of {LM_SHAPES}")
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     dev = resolve_device(args.device)
@@ -431,7 +440,7 @@ def main(argv=None) -> int:
                     print(summarize(r), flush=True)
     if args.all or args.arch:
         for arch in [args.arch] if args.arch else LM_ARCHS:
-            for shape in [args.shape] if args.shape else LM_SHAPES:
+            for shape in args.shape or LM_SHAPES:
                 for mk in meshes:
                     r = run_cell(arch, shape, mk, force=args.force,
                                  out_root=args.out,

@@ -10,7 +10,10 @@ reference's):
   3. FSDP: above 8 GB of bf16 weights, a leaf not data-sharded gets its
      largest divisible dim sharded over the data axes.
 Decode caches: batch over the data axes; KV heads over "model" when they
-divide, else the cache's length.
+divide, else the cache's length.  The SSM state (L, B, H, P, N) is a 5-D
+cache to the policy, its d_head P over "model"; a rank's tile of it is
+its heads instead (:func:`shard_state`): the same bytes, and a decode
+step on the rank's heads needs no collective for the state.
 
 A spec is a ``models.common.PartitionSpec``; the port has no
 ``NamedSharding``, so the ``*_shardings`` functions return specs (by
@@ -18,8 +21,8 @@ A spec is a ``models.common.PartitionSpec``; the port has no
 the caches).  A rank of a mesh holds its tile of each leaf under its spec
 (:func:`shard_params`, :func:`shard_batch`, :func:`shard_state`, on real
 or fake tensors), and with ``common.set_mesh_axes(..., mesh=mesh)`` the
-dense and MoE families' prefill and serve steps run on those tiles with
-their collectives, and so does the
+dense, MoE, SSM and hybrid families' prefill and serve steps run on those
+tiles with their collectives, and so does the
 train step, on the tiles of the weights and of the optimizer state
 (:func:`opt_state_shardings`, :func:`shard_opt_state`).  A checkpoint
 holds whole leaves: :func:`unshard_params` and :func:`unshard_opt_state`
@@ -36,8 +39,9 @@ from repro_torch.core import collectives as C
 from repro_torch.core.tree import Leaf
 from repro_torch.launch.mesh import data_axis_names
 from repro_torch.models import transformer as T
-from repro_torch.models.common import (PartitionSpec, mesh_context,
-                                       resolve_specs, softmax_xent)
+from repro_torch.models.common import (PartitionSpec, PartSplit,
+                                       mesh_context, resolve_specs,
+                                       softmax_xent)
 from repro_torch.optim import optimizers as O
 
 
@@ -195,26 +199,83 @@ def _coords(mesh, spec: PartitionSpec, shape) -> list:
     return out
 
 
-def _tile(t: torch.Tensor, coords) -> torch.Tensor:
+def _parts(spec: PartitionSpec, stacked: bool = False) -> dict:
+    """{dim of a row: the part widths} of the dims that a
+    ``common.PartSplit`` splits."""
+    return {d - stacked: ax.parts for d, ax in enumerate(spec)
+            if isinstance(ax, PartSplit)}
+
+
+def _part_cut(t: torch.Tensor, d: int, widths, index: int,
+              n: int) -> torch.Tensor:
+    """Rank ``index`` of ``n``'s 1/n of each part of dim ``d``, in order."""
+    cuts, start = [], 0
+    for w in widths:
+        if w % n:
+            raise ValueError(f"a part of {w} does not split over {n} ranks")
+        cuts.append(t.narrow(d, start + index * (w // n), w // n))
+        start += w
+    return torch.cat(cuts, dim=d)
+
+
+def _part_join(t: torch.Tensor, d: int, widths, n: int) -> torch.Tensor:
+    """The whole dim ``d`` from the ``n`` ranks' :func:`_part_cut` tiles
+    laid side by side in rank order: each part's pieces in rank order."""
+    pieces = [tile.split([w // n for w in widths], dim=d)
+              for tile in t.chunk(n, dim=d)]
+    return torch.cat([pieces[r][i] for i in range(len(widths))
+                      for r in range(n)], dim=d)
+
+
+def _tile(t: torch.Tensor, coords, parts=None) -> torch.Tensor:
     """The tile a fresh tensor of its own (a fake tile's storage is the
     tile's size, not the whole leaf's); a tile that is the whole tensor
     (every dim on axes of one rank) is the tensor itself, not a copy, so a
-    rank of a 1 × 1 mesh holds its weights once."""
+    rank of a 1 × 1 mesh holds its weights once.  ``parts``: {dim: part
+    widths} of the dims cut part by part (:func:`_part_cut`)."""
     if all(w == t.shape[d] for d, _, w in coords):
         return t
+    parts = parts or {}
     for d, start, w in coords:
-        t = t.narrow(d, start, w)
+        if d in parts:
+            t = _part_cut(t, d, parts[d], start // w, t.shape[d] // w)
+        else:
+            t = t.narrow(d, start, w)
     return t.clone(memory_format=torch.contiguous_format)
+
+
+HELD_WHOLE_MAX = 1 << 20    # bytes of a leaf whose split layer axis a rank
+#                             holds whole (replicated over that axis)
+
+
+def _held(spec: PartitionSpec, leaf: Leaf, path: str) -> PartitionSpec:
+    """The spec as a rank holds the leaf: a stacked leaf's layer axis is
+    never split.  FSDP splits it only where no other dim divides, as the
+    smoke configs' ``norm_g`` (L, d_inner) on a data axis of 2; a rank
+    then holds every layer's tile, replicated over that axis, which only
+    a leaf of at most ``HELD_WHOLE_MAX`` bytes may do: a larger one raises
+    rather than hold more bytes a device than the policy's."""
+    if not (leaf.stacked and spec and spec[0] is not None):
+        return spec
+    size = sum(t.numel() * t.element_size() for t in leaf.tensors)
+    if size > HELD_WHOLE_MAX:
+        raise NotImplementedError(f"{path}: a split layer axis ({spec}) on "
+                                  f"a leaf of {size} bytes")
+    return PartitionSpec(None, *spec[1:])
 
 
 def shard_params(params: T.Transformer, shardings: dict,
                  mesh) -> T.Transformer:
     """This rank's tiles of ``params`` (whole weights; fake ones give the
     dry run's fake tiles) under ``shardings`` (:func:`param_shardings`), a
-    :class:`Transformer` that remembers them (its ``shardings``)."""
-    leaves = {path: _tile_leaf(leaf, shardings[path], mesh, path)
-              for path, leaf in params.ref_leaves().items()}
-    return T.params_from_leaves(params.cfg, leaves, shardings)
+    :class:`Transformer` that remembers them as the rank holds them (its
+    ``shardings``: :func:`_held`)."""
+    leaves = params.ref_leaves()
+    held = {path: _held(shardings[path], leaf, path)
+            for path, leaf in leaves.items()}
+    return T.params_from_leaves(
+        params.cfg, {path: _tile_leaf(leaf, held[path], mesh, path)
+                     for path, leaf in leaves.items()}, held)
 
 
 def shard_opt_state(opt_state, shardings, mesh):
@@ -228,23 +289,27 @@ def shard_opt_state(opt_state, shardings, mesh):
 
 
 def _tile_leaf(leaf: Leaf, spec: PartitionSpec, mesh, path: str) -> Leaf:
+    spec = _held(spec, leaf, path)
     coords = _coords(mesh, spec, leaf.shape)
-    if leaf.stacked:                      # the layer axis is never split
-        if any(d == 0 for d, _, _ in coords):
-            raise NotImplementedError(f"{path}: a split layer axis")
+    if leaf.stacked:
         coords = [(d - 1, s0, w) for d, s0, w in coords]
-    return Leaf([_tile(t, coords) for t in leaf.tensors], leaf.stacked)
+    parts = _parts(spec, leaf.stacked)
+    return Leaf([_tile(t, coords, parts) for t in leaf.tensors],
+                leaf.stacked)
 
 
 def _untile_leaf(leaf: Leaf, spec: PartitionSpec, mesh) -> Leaf:
     """A leaf's tiles all-gathered over the axes of ``spec`` into the whole
-    leaf (every rank of the mesh takes part)."""
+    leaf (every rank of the mesh takes part), a dim cut part by part
+    joined in the parts' order."""
     dims = spec[1:] if leaf.stacked else spec
 
     def whole(t):
         for d, ax in enumerate(dims):
             if ax is not None:
                 t = C.all_gather(t, mesh.group(ax), dim=d)
+                if isinstance(ax, PartSplit):
+                    t = _part_join(t, d, ax.parts, _axis_size(mesh, ax))
         return t
     return Leaf([whole(t) for t in leaf.tensors], leaf.stacked)
 
@@ -272,11 +337,27 @@ def shard_batch(batch: dict, shardings: dict, mesh) -> dict:
             for k, v in batch.items()}
 
 
+def _heads_split(name: str, spec: PartitionSpec, shape,
+                 mesh) -> PartitionSpec:
+    """A cache's spec as its tile is cut: the SSM state's (``"state"``, (L,
+    B, H, P, N)) split of P read as a split of H (whole where the model
+    axis does not divide the heads: every rank runs them all), the others'
+    as given."""
+    if name != "state" or spec[3] is None:
+        return spec
+    heads = spec[3] if shape[2] % _axis_size(mesh, spec[3]) == 0 else None
+    return PartitionSpec(*spec[:2], heads, None, *spec[4:])
+
+
 def shard_state(state: T.DecodeState, shardings: dict,
                 mesh) -> T.DecodeState:
     """This rank's tiles of a whole decode state's caches under
-    ``shardings`` (:func:`cache_shardings`), carried in the state."""
-    caches = {k: _tile(v, _coords(mesh, shardings[k], v.shape))
+    ``shardings`` (:func:`cache_shardings`), carried in the state; the SSM
+    state's tile is the rank's heads (its spec's split of P taken as a
+    split of H: the same bytes)."""
+    caches = {k: _tile(v, _coords(mesh, _heads_split(k, shardings[k],
+                                                     v.shape, mesh),
+                                  v.shape))
               for k, v in state.caches.items()}
     return T.DecodeState(caches, state.position, shardings)
 

@@ -13,14 +13,15 @@ Mirrors ``repro.launch.train``.  Fault-tolerance contract:
 Every run builds the ("data", "model") mesh over the job's ranks
 (``launch.mesh.make_host_mesh(model=--model-parallel)``; a ``torchrun``
 job's, or a one-rank group in this process: NCCL on the card, gloo on the
-CPU), as the reference builds its host mesh.  The dense and MoE families
-train on it: each rank holds its tiles of the seeded weights and of their
-optimizer state under the sharding policy (``launch.steps``, FSDP off as
-the reference's CLI has it) and of the (seed, step) batch, and runs the
-sharded ``make_train_step``.  The other families train on a mesh of one
-rank with their whole weights (their sharded steps are ROADMAP §1 row 22:
-on more ranks they raise).  A checkpoint holds whole leaves: the tiles are
-gathered and rank 0 writes them; a resume loads whole leaves and takes its
+CPU), as the reference builds its host mesh.  The dense, MoE, SSM and
+hybrid families train on it: each rank holds its tiles of the seeded
+weights and of their optimizer state under the sharding policy
+(``launch.steps``, FSDP off as the reference's CLI has it) and of the
+(seed, step) batch, and runs the sharded ``make_train_step``.  The
+encoder-decoder and VLM families train on a mesh of one rank with their
+whole weights (their sharded steps are ROADMAP §1 row 22: on more ranks
+they raise).  A checkpoint holds whole leaves: the tiles are gathered and
+rank 0 writes them; a resume loads whole leaves and takes its
 tiles, so a checkpoint of one world size resumes on another.  Only rank 0
 prints.  On the card unless ``--device cpu``.  ``--stop-at N`` ends the
 run after step N with the flags of a longer run, as a preemption would:
@@ -33,6 +34,8 @@ Usage:
       --arch granite-3-2b --smoke --device cpu --model-parallel 2
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch deepseek-v3-671b --smoke --device cpu --model-parallel 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch zamba2-7b --smoke --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -110,7 +113,8 @@ def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
     sharded = cfg.family in T.SHARDED_FAMILIES
     if not sharded and world > 1:
         raise ValueError(f"the {cfg.family} family trains on one rank; its "
-                         "sharded train step is ROADMAP §1 row 22")
+                         "sharded train step is ROADMAP §1 row 22 "
+                         "(encoder-decoder, VLM)")
     say(f"device: {dev}  mesh: {mesh.shape}  arch: {cfg.name}  "
         f"family: {cfg.family}")
 

@@ -8,7 +8,7 @@ partition-spec type of the port's own (:class:`PartitionSpec`, a tuple).
 The reference constrains one controller's activations; the port runs SPMD,
 so a rank's activations are its batch shard already and ``batch_sharded``
 and ``shard_hint`` return their input.  ``set_mesh_axes(..., mesh=...)``
-makes the dense and MoE forward and decode step of a rank that holds
+makes the forward and decode step of a rank that holds
 tiles (``launch.steps.shard_params``) issue their collectives over ``mesh``
 (:class:`TPLayout`; differentiable: :func:`model_psum`,
 :func:`model_enter`, and :func:`softmax_xent` over a split vocabulary);
@@ -62,6 +62,23 @@ class PartitionSpec(tuple):
 
 def spec(*axes) -> PartitionSpec:
     return PartitionSpec(*axes)
+
+
+class PartSplit(str):
+    """A mesh axis name (a ``str`` equal to it) for a fused dim made of
+    ``parts``: a rank's tile of that dim is its 1/p of each part, in the
+    parts' order, not a contiguous 1/p of the dim (Mamba2's ``w_in``
+    columns [x | z | B | C | dt]: a rank's x, z and dt are its heads').
+    The tile has the bytes of the contiguous one; ``launch.steps`` cuts
+    and joins it."""
+
+    def __new__(cls, axis: str, parts):
+        out = super().__new__(cls, axis)
+        out.parts = tuple(parts)
+        return out
+
+    def __getnewargs__(self):
+        return str(self), self.parts
 
 
 _MESH_CTX: dict = {"data": None, "model": None, "mesh": None}
@@ -135,7 +152,12 @@ class TPLayout:
       group); with MLA, ``heads`` is wq_b, wk_b and wv_b on the heads and
       wo on its rows (``attention.mla_apply``);
     * ``data``: the process group of the data axes when they hold more than
-      one rank (an MoE layer's global-batch sums), else None."""
+      one rank (an MoE layer's global-batch sums), else None;
+    * ``ssm``: a Mamba2 block on the rank's heads (``mamba2.mamba2_apply``:
+      its part of each of ``w_in``'s parts, ``w_out`` on its rows, the
+      gated norm's sum over d_inner and the output summed over the group);
+    * ``state``: decode's SSM state is the rank's heads (else whole: the
+      rank reads and writes its heads of it)."""
     group: Any
     size: int
     rank: int
@@ -145,6 +167,8 @@ class TPLayout:
     cache: Optional[str] = None
     experts: bool = False
     data: Any = None
+    ssm: bool = False
+    state: bool = False
 
 
 class RowTile(NamedTuple):

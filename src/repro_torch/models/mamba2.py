@@ -15,6 +15,18 @@ C beside an fp32 state; here they are cast), ``y`` is cast to the model's
 dtype before the gated RMS norm, and the norm's output again before
 ``* norm_g``.  ``dt`` is ``logaddexp(x, 0)`` as ``jax.nn.softplus`` (torch's
 ``softplus`` switches to x above a threshold).
+
+On a sharded rank (``tp``, a ``common.TPLayout`` with ``ssm``) the block
+runs on the rank's H/p heads (:func:`mamba2_specs`; ``w_in``'s tile is
+its 1/p of each of x, z, B, C and dt): x, z and dt are the rank's heads',
+B and C are gathered over the model axis in one all-gather, the SSD and
+the decode update run on the rank's heads (and its tile of the state),
+the gated norm's mean over d_inner is the mean of the ranks' means over
+their heads ((B, S, 1) fp32, summed over the axis), and ``w_out``'s
+row-split products are summed over it.  On a mesh of one rank the same
+code runs every head, its collectives over the one rank.  Heads the
+model axis does not divide (``w_in`` whole) run whole on every rank,
+``w_out`` still split on its rows (the smoke config's 8 heads on 16).
 """
 from __future__ import annotations
 
@@ -24,7 +36,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.core import collectives as C
+from repro_torch.models.common import (MODEL, PartSplit, TPLayout,
+                                       dense_init, model_enter, model_psum,
+                                       spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +77,20 @@ def mamba2_init(gen: torch.Generator, cfg: Mamba2Config, dtype,
         "dt_bias": torch.zeros((h,), dtype=torch.float32, device=device),
         "norm_g": torch.ones((di,), dtype=dtype, device=device),
     }
+
+
+def mamba2_specs(cfg: Mamba2Config) -> dict:
+    """The block's logical specs by weight name (the reference's
+    ``mamba2_init``): ``w_in`` split on its columns (as the model axis'
+    :class:`~repro_torch.models.common.PartSplit` of its five parts: a
+    rank's tile is its share of each, the bytes of the reference's
+    contiguous tile), ``w_out`` on its rows, ``norm_g`` on d_inner, the
+    per-head vectors whole."""
+    gn = cfg.n_groups * cfg.d_state            # x, z, B, C, dt
+    parts = (cfg.d_inner, cfg.d_inner, gn, gn, cfg.heads)
+    return {"w_in": spec(None, PartSplit(MODEL, parts)),
+            "w_out": spec(MODEL, None), "A_log": spec(None),
+            "D": spec(None), "dt_bias": spec(None), "norm_g": spec(MODEL)}
 
 
 class SSMState(NamedTuple):
@@ -143,22 +172,61 @@ def _ssd_chunked(x, dt, a, b, c, cfg: Mamba2Config):
     return (y_intra + y_inter).reshape(bsz, s, h, p), state
 
 
+def _rank_proj(params, x: torch.Tensor, cfg: Mamba2Config, tp: TPLayout):
+    """The rank's x, z gate and dt columns (its heads') of ``x @ w_in``'s
+    tile, B and C whole (one all-gather of the ranks' adjacent B and C
+    columns over the model axis, stacked on dim 0 in rank order), and the
+    rank's heads' slice of the per-head vectors (their gradient summed
+    over the axis)."""
+    if cfg.n_groups != 1:
+        raise NotImplementedError("a sharded Mamba2 block with B/C groups")
+    p, h_l = tp.size, cfg.heads // tp.size
+    di_l, gn_l = h_l * cfg.d_head, cfg.d_state // p
+    xi, zg, bc, dtr = torch.split(model_enter(x, tp) @ params["w_in"],
+                                  [di_l, di_l, 2 * gn_l, h_l], dim=-1)
+    bc = C.gather_forward(bc, tp.group).unflatten(0, (p, x.shape[0]))
+    bc = bc.unflatten(-1, (2, gn_l))                  # (p, B, S, 2, N/p)
+    b, c = (bc[..., i, :].movedim(0, -2).flatten(-2) for i in (0, 1))
+    heads = slice(tp.rank * h_l, (tp.rank + 1) * h_l)
+    vec = {k: model_enter(params[k], tp)[heads]
+           for k in ("A_log", "D", "dt_bias")}
+    return xi, zg, b, c, dtr, vec
+
+
 def mamba2_apply(params, x: torch.Tensor, cfg: Mamba2Config,
-                 state: Optional[SSMState] = None):
+                 state: Optional[SSMState] = None,
+                 tp: Optional[TPLayout] = None):
     """x (B, S, D) → (out (B, S, D), new state).  Without ``state``: the
     chunked prefill, new state None.  With ``state``: one decode step (S
-    must be 1); ``state`` is not written, the new one is returned."""
+    must be 1); ``state`` is not written, the new one is returned.  With
+    ``tp.ssm``: the rank's heads (``state`` and the new state the rank's
+    (B, H/p, P, N)), ``out`` summed over the model axis (on one rank every
+    head, through the same collectives)."""
     bsz, s, _ = x.shape
-    h, p, n, g = cfg.heads, cfg.d_head, cfg.d_state, cfg.n_groups
+    p, n, g = cfg.d_head, cfg.d_state, cfg.n_groups
+    split = tp is not None and tp.ssm
+    # the heads whole on every rank, w_out split on its rows (heads the
+    # model axis does not divide): the rank's rows of the output, each
+    # replicated weight's and x's gradient summed over the axis
+    rows = (tp is not None and not tp.ssm
+            and params["w_out"].shape[0] < cfg.d_inner)
 
-    z = x @ params["w_in"]
-    xi, zg, b, c, dtr = _split_proj(z, cfg)
+    if split:
+        xi, zg, b, c, dtr, vec = _rank_proj(params, x, cfg, tp)
+    else:
+        vec = params
+        if rows:
+            x = model_enter(x, tp)
+            vec = {k: model_enter(params[k], tp)
+                   for k in ("w_in", "A_log", "D", "dt_bias")}
+        xi, zg, b, c, dtr = _split_proj(x @ vec["w_in"], cfg)
+    h = dtr.shape[-1]                                          # the heads
     xi = xi.reshape(bsz, s, h, p)
     b = b.reshape(bsz, s, g, n)
     c = c.reshape(bsz, s, g, n)
-    dt = torch.logaddexp(dtr.float() + params["dt_bias"],
+    dt = torch.logaddexp(dtr.float() + vec["dt_bias"],
                          torch.zeros((), device=x.device))     # (B, S, H)
-    a = -torch.exp(params["A_log"])                            # (H,) < 0
+    a = -torch.exp(vec["A_log"])                               # (H,) < 0
 
     if state is None:
         y, _ = _ssd_chunked(xi.float(), dt, a, b.float(), c.float(), cfg)
@@ -176,10 +244,18 @@ def mamba2_apply(params, x: torch.Tensor, cfg: Mamba2Config,
         y = torch.einsum("bhn,bhpn->bhp", ch, st)[:, None]     # (B,1,H,P)
         new_state = SSMState(st, state.conv)
 
-    y = y + xi.to(y.dtype) * params["D"][None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
-    # gated RMS norm (Mamba2's norm before the output projection)
+    y = y + xi.to(y.dtype) * vec["D"][None, None, :, None]
+    y = y.reshape(bsz, s, h * p).to(x.dtype)
+    # gated RMS norm (Mamba2's norm before the output projection); split,
+    # its mean over d_inner is the mean of the ranks' means over their
+    # heads (each d_inner/p wide; on one rank the one-device mean's bits)
     y32 = y.float() * F.silu(zg.float())
     var = torch.mean(y32 * y32, dim=-1, keepdim=True)
-    y = (y32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * params["norm_g"]
-    return y @ params["w_out"], new_state
+    if split:
+        var = C.psum_shared(var, tp.group) / tp.size
+    y = (y32 * torch.rsqrt(var + 1e-6)).to(x.dtype)
+    if rows:
+        n_l = params["w_out"].shape[0]
+        y = y[..., tp.rank * n_l:(tp.rank + 1) * n_l]
+    out = (y * params["norm_g"]) @ params["w_out"]
+    return (model_psum(out, tp) if split or rows else out), new_state

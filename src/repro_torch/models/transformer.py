@@ -40,19 +40,23 @@ first, then the cross layers in a row, which differs from its forward
 (cross after every ``cross_attn_every``-th layer); so a VLM decode does
 not reproduce its prefill, in the reference or here.
 
-A rank of a mesh (the dense and MoE families) holds its tiles of the weights
-(``launch.steps.shard_params``: a :class:`Transformer` whose
-``shardings`` are the resolved specs of :func:`param_specs`) and, with the
-mesh declared (``common.set_mesh_axes(..., mesh=mesh)``), its forward and
-decode step run on them with a ``common.TPLayout``'s collectives (the
+A rank of a mesh (the dense, MoE, SSM and hybrid families) holds its
+tiles of the weights (``launch.steps.shard_params``: a
+:class:`Transformer` whose ``shardings`` are the resolved specs of
+:func:`param_specs`) and, with the mesh declared
+(``common.set_mesh_axes(..., mesh=mesh)``), its forward and decode step
+run on them with a ``common.TPLayout``'s collectives (the
 forward's differentiable: the train step's backward gives a rank its
 tiles' gradients, and ``remat_block`` blocks recompute sharded layers): the
 vocabulary-parallel embedding and logits, FSDP tiles gathered over the
 data axes before use, the attention and MLP as ``attention`` and
 ``common.mlp_apply`` split them, the MoE layer expert parallel
-(``moe.moe_apply``) and MLA over its heads, on 16×16 the model-whole
-FSDP tiles read by their rows (:func:`_row_split`); :func:`greedy` picks a
-token over a split vocabulary.  With no mesh declared both are the one-device code.
+(``moe.moe_apply``) and MLA over its heads, a Mamba2 layer on its heads
+(``mamba2.mamba2_apply``; decode on its heads' tile of the SSM state), the
+hybrid's shared block as a dense layer (its FSDP tiles gathered at each
+use), on 16×16 the model-whole FSDP tiles read by their rows
+(:func:`_row_split`); :func:`greedy` picks a token over a split
+vocabulary.  With no mesh declared both are the one-device code.
 """
 from __future__ import annotations
 
@@ -78,7 +82,8 @@ from repro_torch.models.common import (MODEL, PartitionSpec, RowShard,
                                        rope_tables, spec)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-SHARDED_FAMILIES = ("dense", "moe")   # the rest: ROADMAP §1 row 22
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the rest: ROADMAP
+#                                            §1 row 22 (encdec, vlm)
 STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
 DEC_POSITIONS = 32768            # rows of whisper's learned decoder positions
 
@@ -379,11 +384,31 @@ def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
     attention and MLP as ``attention.attn_specs`` and ``common.mlp_specs``
     with a leading None for the stacked layer axis, the norms whole; an MoE
     layer's attention (``attention.mla_specs`` with MLA) and its experts as
-    ``moe.moe_specs`` (the reference's ``_layer_init_moe``).  The dense and
-    MoE families'; the others' are ROADMAP §1 row 22."""
+    ``moe.moe_specs`` (the reference's ``_layer_init_moe``); a Mamba2 layer
+    as ``mamba2.mamba2_specs`` and the hybrid's shared block as a dense
+    layer's, without the stacked axis (the reference's ``init_params``).
+    The dense, MoE, SSM and hybrid families'; the others' are ROADMAP §1
+    row 22."""
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family's sharding is "
                                   "ROADMAP §1 row 22")
+    out = {"embed": spec(MODEL, None), "ln_f": spec(None),
+           "unembed": spec(None, MODEL)}
+    if cfg.family in ("ssm", "hybrid"):
+        layer = {f"mamba/{k}": v
+                 for k, v in M2.mamba2_specs(cfg.ssm_cfg()).items()}
+        layer["ln"] = spec(None)
+        if cfg.family == "hybrid":
+            out.update({f"shared_attn/{k}": v
+                        for k, v in _dense_specs(cfg).items()})
+    else:
+        layer = _dense_specs(cfg)
+    out.update({f"layers/{k}": spec(None, *v) for k, v in layer.items()})
+    return dict(sorted(out.items()))
+
+
+def _dense_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
+    """A dense or MoE layer's specs by path under the layer."""
     attn = (A.mla_specs() if cfg.use_mla else A.attn_specs(cfg.attn_cfg()))
     layer = {f"attn/{k}": v for k, v in attn.items()}
     if cfg.family == "moe":
@@ -396,10 +421,7 @@ def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
         layer.update({f"mlp/{k}": v
                       for k, v in mlp_specs(cfg.mlp_style).items()})
     layer.update({"ln1": spec(None), "ln2": spec(None)})
-    out = {"embed": spec(MODEL, None), "ln_f": spec(None),
-           "unembed": spec(None, MODEL)}
-    out.update({f"layers/{k}": spec(None, *v) for k, v in layer.items()})
-    return dict(sorted(out.items()))
+    return layer
 
 
 def init_params(seed: int, cfg: ModelConfig,
@@ -574,31 +596,26 @@ def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
         if tp is not None:
             lp = _rank_layer(params, layer,
                              "train" if _recording(params) else "prefill")
-            if cfg.family == "moe":
-                x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
-                                       rope=rope, flash=flash, tp=tp)
-                return x, aux
-            x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
-                                rope=rope, flash=flash, tp=tp)
-            return x, None
-        lp = params["layers"][layer]
+        else:
+            lp = params["layers"][layer]
         if cfg.family == "moe":
             x, _, aux = _moe_block(lp, x, cfg, positions, kernels=kernels,
-                                   rope=rope, flash=flash)
+                                   rope=rope, flash=flash, tp=tp)
             return x, aux
         if cfg.family in ("ssm", "hybrid"):
             h, _ = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
-                                   cfg.ssm_cfg())
+                                   cfg.ssm_cfg(), tp=tp)
             x = x + h
             if cfg.family == "hybrid" and _is_attn(cfg, layer):
-                x, _ = _dense_block(params["shared_attn"], x, cfg, positions,
-                                    kernels=kernels, rope=rope, flash=flash)
+                x, _ = _dense_block(_shared(params, tp), x, cfg, positions,
+                                    kernels=kernels, rope=rope, flash=flash,
+                                    tp=tp)
         elif cfg.family == "encdec":
             x, _ = _encdec_block(lp, x, cfg, positions, extra["enc_out"],
                                  kernels=kernels, flash=flash)
         else:
             x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
-                                rope=rope, flash=flash)
+                                rope=rope, flash=flash, tp=tp)
             if cfg.family == "vlm" and _is_cross(cfg, layer):
                 x = _cross_layer(params, layer // cfg.cross_attn_every, x,
                                  cfg, extra["patches"], kernels, flash)
@@ -765,18 +782,8 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     conv = x.new_zeros((b, 1)) if ssm else None   # SSMState's placeholder
     for layer, lp in enumerate(params["layers"]):
         if ssm:
-            st = caches["state"][layer]
-            h, new = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
-                                     cfg.ssm_cfg(), M2.SSMState(st, conv))
-            st.copy_(new.state)
-            x = x + h
-            if cfg.family == "hybrid" and _is_attn(cfg, layer):
-                # this application's cache: the attention layers before it
-                ci = min(layer // cfg.attn_every, caches["k"].shape[0] - 1)
-                x, _ = _dense_block(
-                    params["shared_attn"], x, cfg, positions,
-                    A.KVCache(caches["k"][ci], caches["v"][ci], pos),
-                    rope=rope)
+            x = _ssm_decode_layer(params, lp, layer, x, caches, conv, cfg,
+                                  None, positions, pos, rope)
         elif cfg.family == "moe":
             cache = (A.MLACache(caches["latent"][layer], pos) if cfg.use_mla
                      else A.KVCache(caches["k"][layer], caches["v"][layer],
@@ -803,9 +810,9 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
 
 
 # ===========================================================================
-# A sharded rank (the dense and MoE families): tiles of the weights under
-# their resolved specs, the collectives XLA's partitioner inserts for the
-# reference's (``common.TPLayout``)
+# A sharded rank (the dense, MoE, SSM and hybrid families): tiles of the
+# weights under their resolved specs, the collectives XLA's partitioner
+# inserts for the reference's (``common.TPLayout``)
 # ===========================================================================
 
 def _tp_layout(params: Transformer, cfg: ModelConfig,
@@ -817,7 +824,7 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
         return None
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(f"the sharded {cfg.family} forward is "
-                                  "ROADMAP §1 row 22")
+                                  "ROADMAP §1 row 22 (encdec, vlm)")
     sh = params.shardings
     if sh is None:
         raise ValueError("a declared mesh needs a sharded rank's weights "
@@ -828,21 +835,39 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
     daxes = ctx["data"]
     data = mesh.group(daxes if len(daxes) > 1 else daxes[0])
     cache = None
-    if state is not None and state.shardings is not None:
-        if "latent" in state.shardings:
-            cache = "length" if state.shardings["latent"][2] == m else None
-        else:
-            k = state.shardings["k"]
-            cache = "heads" if k[3] == m else "length" if k[2] == m else None
+    sts = state.shardings if state is not None else None
+    if sts is not None and "latent" in sts:
+        cache = "length" if sts["latent"][2] == m else None
+    elif sts is not None and "k" in sts:
+        k = sts["k"]
+        cache = "heads" if k[3] == m else "length" if k[2] == m else None
     mla, moe = cfg.use_mla, cfg.family == "moe"
-    ffn = "layers/moe/shared/gate" if moe else "layers/mlp/gate"
+    ssm = cfg.family in ("ssm", "hybrid")
+    # the attention's weights: a layer's, or the hybrid's shared block's
+    blk = "shared_attn/" if cfg.family == "hybrid" else "layers/"
+
+    def split(path: str, dim: int) -> bool:
+        """Whether dim ``dim`` of the (unstacked) weight is on the model
+        axis."""
+        return path in sh and sh[path][dim + path.startswith("layers/")] == m
+
+    ffn = "layers/moe/shared/gate" if moe else blk + "mlp/gate"
+    heads_ssm = ssm and split("layers/mamba/w_in", 1)
+    # the SSM state's tile: the rank's heads, or whole (launch.steps)
+    state_heads = (state is not None and "state" in state.caches
+                   and state.caches["state"].shape[2] < cfg.ssm_cfg().heads)
+    if ssm and (heads_ssm and not split("layers/mamba/w_out", 0)
+                or state_heads and not heads_ssm):
+        raise NotImplementedError(f"{cfg.name}: w_in, w_out and the SSM "
+                                  "state split apart")
     return TPLayout(
         group, C.axis_size(group), C.axis_index(group),
-        heads=sh["layers/attn/wq_b" if mla else "layers/attn/wq"][2] == m,
-        kv_heads=not mla and sh["layers/attn/wk"][2] == m,
-        ffn=ffn in sh and sh[ffn][2] == m, cache=cache,
-        experts=moe and sh["layers/moe/gate"][1] == m,
-        data=data if C.axis_size(data) > 1 else None)
+        heads=split(blk + ("attn/wq_b" if mla else "attn/wq"), 1),
+        kv_heads=not mla and split(blk + "attn/wk", 1),
+        ffn=split(ffn, 1), cache=cache,
+        experts=moe and split("layers/moe/gate", 0),
+        data=data if C.axis_size(data) > 1 else None,
+        ssm=heads_ssm, state=state_heads)
 
 
 def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
@@ -910,21 +935,34 @@ def _rank_layer(params: Transformer, layer: int, mode: str = "prefill"):
     in a ``"train"`` step's forward (one that records a graph), the
     weights whole on the model axis that FSDP splits on their rows are
     read by their rows (:func:`_row_split`)."""
-    lp = params["layers"][layer]
+    return _rank_block(params, params["layers"][layer], "layers/", mode)
+
+
+def _shared(params: Transformer, tp: Optional[TPLayout]):
+    """The hybrid's shared block: on a sharded rank as :func:`_rank_layer`
+    gives a layer, its FSDP tiles gathered at each use."""
+    if tp is None:
+        return params["shared_attn"]
+    return _rank_block(params, params["shared_attn"], "shared_attn/", None)
+
+
+def _rank_block(params: Transformer, block: nn.Module, prefix: str,
+                mode: Optional[str]):
+    stacked = prefix == "layers/"
     ctx = mesh_context()
     if all(ax in (None, ctx["model"]) for path, sp in params.shardings.items()
-           if path.startswith("layers/") for ax in sp):
-        return lp
+           if path.startswith(prefix) for ax in sp):
+        return block
     out: dict = {}
-    for name, t in lp.named_parameters():
+    for name, t in block.named_parameters():
         *head, last = name.split(".")
         node = out
         for k in head:
             node = node.setdefault(k, {})
         path = "/".join(name.split("."))
-        split = _row_split(params, path, t, mode)
+        split = _row_split(params, path, t, mode) if stacked else None
         node[last] = (split if split is not None else
-                      _rank_leaf(params, "layers/" + path, t, True))
+                      _rank_leaf(params, prefix + path, t, stacked))
     return out
 
 
@@ -984,8 +1022,14 @@ def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
         rope = _rope(cfg, positions, t_l, off)
     else:
         rope = _rope(cfg, positions)
+    ssm = cfg.family in ("ssm", "hybrid")
+    conv = x.new_zeros((b, 1)) if ssm else None   # SSMState's placeholder
     for layer in range(cfg.n_layers):
         lp = _rank_layer(params, layer, "decode")
+        if ssm:
+            x = _ssm_decode_layer(params, lp, layer, x, caches, conv, cfg,
+                                  tp, positions, pos, rope)
+            continue
         if cfg.family == "moe":
             cache = (A.MLACache(caches["latent"][layer], pos) if cfg.use_mla
                      else A.KVCache(caches["k"][layer], caches["v"][layer],
@@ -1001,6 +1045,30 @@ def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
             rope=rope, tp=tp)
     return (_logits_tp(params, x, tp),
             DecodeState(caches, pos + 1, state.shardings))
+
+
+def _ssm_decode_layer(params: Transformer, lp, layer: int, x, caches, conv,
+                      cfg: ModelConfig, tp: Optional[TPLayout], positions,
+                      pos, rope):
+    """The decode of Mamba2 layer ``layer`` (its SSM state written in
+    place) and, after the hybrid's attention layers, the shared block on
+    this application's KV cache (the attention layers before it).  On a
+    sharded rank (``tp``): the rank's heads of the state (its tile, or its
+    heads of a whole state) and of the KV cache."""
+    st = caches["state"][layer]
+    if tp is not None and tp.ssm and not tp.state:
+        h_l = cfg.ssm_cfg().heads // tp.size
+        st = st[:, tp.rank * h_l:(tp.rank + 1) * h_l]
+    h, new = M2.mamba2_apply(lp["mamba"], rms_norm(x, lp["ln"]),
+                             cfg.ssm_cfg(), M2.SSMState(st, conv), tp=tp)
+    st.copy_(new.state)
+    x = x + h
+    if cfg.family == "hybrid" and _is_attn(cfg, layer):
+        ci = min(layer // cfg.attn_every, caches["k"].shape[0] - 1)
+        x, _ = _dense_block(_shared(params, tp), x, cfg, positions,
+                            A.KVCache(caches["k"][ci], caches["v"][ci], pos),
+                            rope=rope, tp=tp)
+    return x
 
 
 def greedy(params: Transformer, logits: torch.Tensor) -> torch.Tensor:

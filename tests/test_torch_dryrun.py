@@ -268,11 +268,12 @@ def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
 
 
 @pytest.mark.parametrize("flags,row", [
-    (["--arch", "mamba2-1.3b"], "row 22"),
+    (["--arch", "llama-3.2-vision-11b"], "row 22"),
     (["--arch", "whisper-small"], "row 22")])
 def test_lm_cells_are_row_19b(flags, row):
-    """Rows 19b, 21 and row 22's MoE part port the dense and MoE families'
-    cells: another family's cells raise naming row 22."""
+    """Rows 19b, 21 and row 22's MoE and SSM/hybrid parts port the dense,
+    MoE, SSM and hybrid families' cells: the encoder-decoder and VLM
+    families' cells raise naming row 22."""
     with pytest.raises(ValueError, match=row):
         DR.main(flags)
 
