@@ -237,7 +237,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               prefill (zamba2's through ``flash_attention`` 13 times,
               counted by the wrapper), its decode and its ``serve()``
               tokens equal to the one-device path's bit for bit, its
-              decode step's device time within ``SSM_STEP_TOL`` (5 %) of
+              decode step's device time within ``MESH_STEP_TOL`` (5 %) of
               one device's;
     xattn   — (after ssm, which frees its weights) whisper-small (12
               encoder + 12 decoder layers, d_model 768, vocab 51865) and
@@ -261,7 +261,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               layers, its forward after every 5th); each model's decode
               step profiled beside the cross K/V projections it recomputes
               every step (the reference keeps no cross cache), timed
-              alone; then kernel 7 alone at each new shape of that path
+              alone; then each model through the sharded path (ROADMAP §1
+              row 22) on a 1×1 mesh over a one-rank NCCL group, the
+              rank's tiles being the weights themselves: its prefill (×
+              36 and × 48, counted by the wrapper), whisper's ``encode``
+              (× 12), its decode and its greedy ``make_serve_step`` tokens
+              (× 12 and × 8 a step) equal to the one-device path's bit for
+              bit, its decode step's device time within
+              ``MESH_STEP_TOL`` (5 %) of one device's; then kernel 7 alone
+              at each new shape of that path
               (``XATTN_CASES``: non-causal T ≠ S, T off the 64-key tile,
               GQA 4 non-causal, S = 1) against its plain version, with
               times, the bound and SDPA;
@@ -296,8 +304,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               the card's 80 GB (72; B = 1, S = 256): one adamw step through the
               sharded train step on a 1×1 mesh against the one-device
               step, both with PyTorch's deterministic algorithms, loss,
-              gnorm and every updated weight bit for bit; the flash kernel
-              launched 0 times in (a)-(c), (e)-(g); (d)
+              gnorm and every updated weight bit for bit; (h)
+              whisper-small at full depth (B = 8 requests of 1500 frames,
+              S = 448) and (i) llama-3.2-vision-11b at full width cut to
+              10 of its 40 layers (2 cross layers; 3.32 B parameters, its
+              peak reckoned first: B = 1, S = 4096, 1600 patches): one
+              adamw step through the sharded train step on a 1×1 mesh
+              against the one-device step the same way, bit for bit; the
+              flash kernel launched 0 times in (a)-(c), (e)-(i); (d)
               whisper-small through ``python -m repro_torch.launch.train
               --batch 8 --seq 448`` (the CLI's mesh path: a 1×1 mesh over
               a one-rank NCCL group): 4 steps with a checkpoint every 2,
@@ -321,9 +335,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
               arch at full depth (61 layers, its record without error and
               no device memory allocated), mamba2-1.3b's four cells and
               zamba2-7b's decode_32k and long_500k at full depth (81
-              layers, FSDP) on the card's fakes and again on the CPU's (the
-              lines and records equal, no device memory allocated on the
-              card): child processes started after
+              layers, FSDP), whisper-small's train_4k, prefill_32k and
+              decode_32k and llama-3.2-vision-11b's decode_32k at full
+              depth (40 layers, FSDP) on the card's fakes and again on the
+              CPU's (the lines and records equal, no device memory
+              allocated on the card): child processes started after
               phase build and read here (the
               other phases keep their process groups); each walks dp,
               tp_single and tp_double as rank 0 of a fake 256-rank group
@@ -337,8 +353,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13. timings — per-site kernel, plain and library times and the bound at the
               phase 4/8 shapes; with phases 6, 7, 9 and 10's, printed as the
               ``{"kernels": [...]}`` line (the flash entry's launches: a
-              granite prefill's, with kimi-k2's, zamba2's (one-device and
-              sharded), whisper's and the VLM's beside them, and phase
+              granite prefill's, with kimi-k2's, zamba2's, whisper's and
+              the VLM's (one-device and sharded) beside them, and phase
               xattn's shapes).
 
 bf16 inputs: each kernel's outputs within their rounding bound, elementwise
@@ -473,8 +489,8 @@ MOE_RUNS = (("deepseek-v3-671b", 2, 2, 2048),
 MOE_DECODE_SEQ = 16
 # phase ssm: the SSM and hybrid archs at full depth and published width
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")
-SSM_STEP_TOL = 0.05           # the 1×1 decode step's device time, of one
-#                               device's
+MESH_STEP_TOL = 0.05          # the 1×1 decode step's device time, of one
+#                               device's (phases ssm and xattn)
 SSD_CHECK_SEQ = 512           # one layer's chunked SSD (4 chunks of 128)
 SSD_TOL = 1e-4                # fp32, of the largest |y| and |state|
 ROPE_HEAD_DIMS = (64, 112, 128)
@@ -510,6 +526,10 @@ TRAIN_HYBRID = ("zamba2-7b", 1, 256)           # arch, B, S: adamw, its depth
 TRAIN_HYBRID_GB = 80.0        # the card's memory, which that depth's peak
 #                               is reckoned under (the reckoning ran 1.6 GB
 #                               above the measured peak at 66 layers)
+TRAIN_WHISPER_MESH = ("whisper-small", 8, 448)  # arch, B, S: the 1×1 mesh
+TRAIN_VLM = ("llama-3.2-vision-11b", 10, 1, 4096)  # arch, depth, B, S: the
+#                               1×1 mesh, adamw; the depth a multiple of
+#                               cross_attn_every (2 cross layers)
 TRAIN_CLI = dict(arch="whisper-small", batch=8, seq=448, steps=4, every=2,
                  stop=2, extra=())
 
@@ -528,6 +548,11 @@ DRYRUN_MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")  # decode_32k
 DRYRUN_SSM = {"mamba2-1.3b": ("train_4k", "prefill_32k", "decode_32k",
                               "long_500k"),
               "zamba2-7b": ("decode_32k", "long_500k")}
+# the encoder-decoder and VLM children, the same way: whisper-small's three
+# cells, llama-3.2-vision-11b's decode_32k at full depth (FSDP)
+DRYRUN_XATTN = {"whisper-small": ("train_4k", "prefill_32k", "decode_32k"),
+                "llama-3.2-vision-11b": ("decode_32k",)}
+DRYRUN_PAIRED = {"ssm": DRYRUN_SSM, "xattn": DRYRUN_XATTN}
 DRYRUN_SECONDS = 900
 DRYRUN_ARGS = ()              # more flags for the card's children
 
@@ -4860,7 +4885,7 @@ def _ssm_sharded(device, cfg, params, toks, short, one: dict, tag: str,
     of the one-device check above (its state from ``steps.shard_state``:
     the SSM state's tile its heads) and ``serve()``'s greedy tokens, each
     held bit for bit against the one-device path's, and one decode step
-    profiled, its device time held within ``SSM_STEP_TOL`` of one
+    profiled, its device time held within ``MESH_STEP_TOL`` of one
     device's."""
     import torch.distributed as dist
 
@@ -4941,12 +4966,12 @@ def _ssm_sharded(device, cfg, params, toks, short, one: dict, tag: str,
               f"on the device in {step['kernels']} kernels (one device: "
               f"{one['step_ms']:.3f} ms wall, {one['step_device_ms']:.3f} ms "
               f"in {one['step_kernels']}; device {rel:+.2%}, tolerance "
-              f"{SSM_STEP_TOL:.0%}); {time.perf_counter() - t0:.1f} s "
+              f"{MESH_STEP_TOL:.0%}); {time.perf_counter() - t0:.1f} s "
               f"[{nvidia_smi()}]", flush=True)
         check(decode_equal, f"{mtag}: the sharded decode's logits differ "
               "from the one-device decode's")
         check(served_equal, f"{mtag}: the sharded serve() gave other tokens")
-        check(abs(rel) <= SSM_STEP_TOL, f"{mtag}: the decode step's device "
+        check(abs(rel) <= MESH_STEP_TOL, f"{mtag}: the decode step's device "
               f"time {step['device_ms']:.3f} ms differs from one device's "
               f"{one['step_device_ms']:.3f} by {rel:+.2%}")
         del rp
@@ -5002,13 +5027,16 @@ def _cross_kv_share(params, cfg, ctx) -> dict:
     return {"tflop": flops / 1e12, "ms": time_ms(run, 5)}
 
 
-def _decode_run(params, cfg, toks, extra, device, kernels="auto"):
+def _decode_run(params, cfg, toks, extra, device, kernels="auto",
+                shard=None):
     """Teacher-forced decode steps over ``toks`` (B, S): the logits (B, S,
-    V) in fp32."""
+    V) in fp32.  ``shard``: a sharded rank's tiles of the decode state
+    (``steps.shard_state`` on the mesh), else the whole state."""
     from repro_torch.models import transformer as T
 
     state = T.init_decode_state(cfg, toks.shape[0], toks.shape[1] + 1,
                                 device)
+    state = shard(state) if shard else state
     outs = []
     for t in range(toks.shape[1]):
         logits, state = T.decode_step(params, toks[:, t:t + 1], state, cfg,
@@ -5017,11 +5045,11 @@ def _decode_run(params, cfg, toks, extra, device, kernels="auto"):
     return torch.stack(outs, dim=1)
 
 
-def _greedy_serve(params, cfg, first, extra, device) -> dict:
+def _greedy_serve(params, cfg, first, extra, device, shard=None) -> dict:
     """``make_serve_step`` greedy for ``SERVE["max_new"]`` tokens at the
     batch of ``first`` (B, 1), cache ``SERVE["cache_len"]``: the tokens,
     the wall time and the flash launches of the whole run (counts set to 0
-    just before, read just after)."""
+    just before, read just after).  ``shard`` as :func:`_decode_run`'s."""
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
@@ -5029,6 +5057,7 @@ def _greedy_serve(params, cfg, first, extra, device) -> dict:
     step = steps.make_serve_step(cfg)
     state = T.init_decode_state(cfg, first.shape[0], SERVE["cache_len"],
                                 device)
+    state = shard(state) if shard else state
     tok, out = first, []
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -5046,10 +5075,11 @@ def _greedy_serve(params, cfg, first, extra, device) -> dict:
     return {"tokens": toks, "serve_s": wall, "launches": launches}
 
 
-def _step_profile(params, cfg, extra, batch: int, device) -> dict:
+def _step_profile(params, cfg, extra, batch: int, device,
+                  shard=None) -> dict:
     """One decode step at ``batch`` (positions 0..B-1 in a cache of
     ``SERVE["cache_len"]``): wall time against device time, the four
-    largest kernels."""
+    largest kernels.  ``shard`` as :func:`_decode_run`'s."""
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
 
@@ -5057,6 +5087,7 @@ def _step_profile(params, cfg, extra, batch: int, device) -> dict:
     state = T.init_decode_state(cfg, batch, SERVE["cache_len"], device)
     state = state._replace(position=torch.arange(batch, dtype=torch.int32,
                                                  device=device))
+    state = shard(state) if shard else state
     tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
 
     def one():
@@ -5076,10 +5107,11 @@ def _step_profile(params, cfg, extra, batch: int, device) -> dict:
             "top": dict(list(kernels.items())[:4])}
 
 
-def _xattn_prefill(params, cfg, toks, key, ctx, tag, want_launches) -> dict:
+def _xattn_prefill(params, cfg, toks, key, ctx, tag, want_launches) -> tuple:
     """``make_prefill_step`` through the flash kernel (counts set to 0
     just before, read just after), then the same prefill with the plain
-    attention: last-token logits within LM_LOGIT_TOL of their scale."""
+    attention: last-token logits within LM_LOGIT_TOL of their scale.
+    Returns (the numbers, the kernel's last-token logits)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
 
@@ -5115,7 +5147,7 @@ def _xattn_prefill(params, cfg, toks, key, ctx, tag, want_launches) -> dict:
           f"plain attention's ({rel:.3e})")
     return {"prefill_s": prefill_s, "plain_prefill_s": plain_s,
             "flash_launches": launches, "flash_vs_plain_rel": rel,
-            "flash_vs_plain_agree": agree}
+            "flash_vs_plain_agree": agree}, last
 
 
 def _xattn_built(cfg, device, tag: str):
@@ -5159,8 +5191,10 @@ def _whisper(device) -> dict:
     _, frames = _frontend(cfg, b, gen, device)
     toks = torch.randint(0, cfg.vocab, (b, WHISPER_TEXT), generator=gen,
                          device=device)
-    out.update(_xattn_prefill(params, cfg, toks, "frames", frames, tag,
-                              cfg.n_enc_layers + 2 * cfg.n_layers))
+    n_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    numbers, last = _xattn_prefill(params, cfg, toks, "frames", frames, tag,
+                                   n_prefill)
+    out.update(numbers)
     ops.reset_launches()
     te = time.perf_counter()
     enc = T.encode(params, frames, cfg)
@@ -5177,6 +5211,7 @@ def _whisper(device) -> dict:
           f"flash_attention launched {served['launches']} times in {n} "
           f"decode steps, expected {n * cfg.n_layers}")
     out.update(serve_s=served["serve_s"], serve_launches=served["launches"])
+    one = {"last": last, "enc": enc, "served": served["tokens"]}
     print(f"{tag}: encode of {tuple(frames.shape)} in {out['encode_s']:.3f} "
           f"s, flash_attention x {out['encode_launches']}; make_serve_step "
           f"greedy at batch {b}: {n} tokens each in {served['serve_s']:.3f} "
@@ -5205,12 +5240,155 @@ def _whisper(device) -> dict:
               f"{agree}, max rel diff {rel:.3e})")
         out.update({f"decode_vs_forward_rel_{key}": rel,
                     f"decode_argmax_agree_{key}": agree})
+        if dt == cfg.dtype:
+            one["decode"] = dec
         del dparams, full, dec
         torch.cuda.empty_cache()
 
     out["cross_kv"] = _cross_kv_share(params, cfg, enc)
     out.update(_step_profile(params, cfg, {"enc_out": enc}, b, device))
+    out["mesh_1x1"] = _xattn_sharded(
+        device, cfg, params, {"tokens": toks, "frames": frames}, short,
+        {"enc_out": enc}, one, out, tag, n_prefill, cfg.n_layers)
     return _xattn_done(tag, out, params, device)
+
+
+def _xattn_sharded(device, cfg, params, batch, short, extra, one: dict,
+                   one_numbers: dict, tag: str, n_prefill: int,
+                   n_step: int) -> dict:
+    """The same model through the sharded path (ROADMAP §1 row 22) on a 1×1
+    ("data", "model") mesh over a one-rank NCCL group: the rank's tiles
+    (``steps.shard_params``; on one rank a tile is the weight itself, so
+    the weights are held once), the mesh declared, then
+    ``make_prefill_step`` on the rank's rows of ``batch`` (tokens and
+    frames or patches: each attention through ``_attn_apply_tp`` and the
+    flash kernel, ``n_prefill`` launches counted by the wrapper, the gelu
+    or SwiGLU MLP through ``mlp_apply``'s split branch), whisper's
+    ``encode``, the teacher-forced decode on ``short`` (the state from
+    ``steps.shard_state``, ``extra``'s ``enc_out`` or patches
+    batch-sharded) and the greedy ``make_serve_step`` (``n_step`` launches
+    a step), each held bit for bit against the one-device path's (``one``:
+    its last-token logits, ``enc_out``, decode logits and served tokens),
+    and one decode step profiled, its device time held within
+    ``MESH_STEP_TOL`` of one device's (``one_numbers``)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import (data_axis_names, init_distributed,
+                                         make_host_mesh)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
+
+    mtag = f"{tag} mesh 1x1"
+    t0 = time.perf_counter()
+    created = init_distributed(device)
+    try:
+        mesh = make_host_mesh(1, device)
+        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+        psh = steps.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+        rp = steps.shard_params(params, psh, mesh)
+        same = all(a.data_ptr() == b.data_ptr() for a, b in
+                   zip(rp.parameters(), params.parameters()))
+        check(same, f"{mtag}: a one-rank tile is a copy, not the weight")
+        tp = T._tp_layout(rp, cfg)
+
+        def local(b: dict) -> dict:
+            return steps.shard_batch(b, steps.batch_shardings(mesh, b), mesh)
+
+        def shard(state):
+            return steps.shard_state(state, steps.cache_shardings(
+                mesh, cfg, state.caches), mesh)
+
+        prefill = steps.make_prefill_step(cfg, kernels="auto")
+        rows = local(batch)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        tp_s = time.perf_counter()
+        last = prefill(rp, rows)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - tp_s
+        launches = ops.launch_counts()["flash_attention"]
+        prefill_equal = bool(torch.equal(last, one["last"]))
+        del last
+        res = {"prefill_s": prefill_s, "prefill_equal": prefill_equal,
+               "flash_launches": launches}
+        equal = [prefill_equal]
+        enc_note = ""
+        if cfg.family == "encdec":
+            ops.reset_launches()
+            enc = T.encode(rp, rows["frames"], cfg)
+            res["encode_launches"] = ops.launch_counts()["flash_attention"]
+            res["encode_equal"] = bool(torch.equal(enc, one["enc"]))
+            equal.append(res["encode_equal"])
+            check(res["encode_launches"] == cfg.n_enc_layers,
+                  f"{mtag}: flash_attention launched "
+                  f"{res['encode_launches']} times in encode")
+            enc_note = (f"; encode equal bit for bit: {res['encode_equal']} "
+                        f"(flash_attention x {res['encode_launches']})")
+            del enc
+        print(f"{mtag}: layout heads={tp.heads} kv_heads={tp.kv_heads} "
+              f"ffn={tp.ffn}; prefill of {tuple(batch['tokens'].shape)} in "
+              f"{prefill_s:.3f} s, last-token logits equal to the one-device "
+              f"prefill's bit for bit: {prefill_equal}, flash_attention x "
+              f"{launches}{enc_note}", flush=True)
+        check(prefill_equal, f"{mtag}: the sharded prefill's logits differ "
+              "from the one-device prefill's")
+        check(launches == n_prefill, f"{mtag}: flash_attention launched "
+              f"{launches} times in the sharded prefill, expected "
+              f"{n_prefill}")
+        ext = local(extra)
+        dec = _decode_run(rp, cfg, short, ext, device, shard=shard)
+        res["decode_equal"] = bool(torch.equal(dec, one["decode"]))
+        equal.append(res["decode_equal"])
+        del dec
+        torch.cuda.empty_cache()
+        served = _greedy_serve(rp, cfg, short[:, :1], ext, device,
+                               shard=shard)
+        res["served_equal"] = bool(torch.equal(served["tokens"],
+                                               one["served"]))
+        equal.append(res["served_equal"])
+        n = SERVE["max_new"]
+        res.update(serve_s=served["serve_s"],
+                   serve_launches=served["launches"])
+        step = _step_profile(rp, cfg, ext, short.shape[0], device,
+                             shard=shard)
+        step.pop("top")
+        res["decode_step"] = step
+        rel = (step["decode_step_device_ms"]
+               / one_numbers["decode_step_device_ms"] - 1)
+        res["decode_step_device_rel"] = rel
+        print(f"{mtag}: decode of S={short.shape[1]} equal to the "
+              f"one-device decode's logits bit for bit: "
+              f"{res['decode_equal']}; make_serve_step greedy, {n} tokens at "
+              f"batch {short.shape[0]} in {served['serve_s']:.3f} s (one "
+              f"device: {one_numbers['serve_s']:.3f} s), its tokens equal to "
+              f"the one-device tokens: {res['served_equal']}, "
+              f"flash_attention x {served['launches']}; one decode step: "
+              f"{step['decode_step_ms']:.3f} ms wall, "
+              f"{step['decode_step_device_ms']:.3f} ms on the device in "
+              f"{step['decode_step_kernels']} kernels (one device: "
+              f"{one_numbers['decode_step_ms']:.3f} ms wall, "
+              f"{one_numbers['decode_step_device_ms']:.3f} ms in "
+              f"{one_numbers['decode_step_kernels']}; device {rel:+.2%}, "
+              f"tolerance {MESH_STEP_TOL:.0%}); "
+              f"{time.perf_counter() - t0:.1f} s [{nvidia_smi()}]",
+              flush=True)
+        check(all(equal), f"{mtag}: the sharded path differs from the "
+              f"one-device path: {json.dumps(res)}")
+        check(served["launches"] == n * n_step, f"{mtag}: flash_attention "
+              f"launched {served['launches']} times in {n} decode steps, "
+              f"expected {n * n_step}")
+        check(abs(rel) <= MESH_STEP_TOL, f"{mtag}: the decode step's device "
+              f"time {step['decode_step_device_ms']:.3f} ms differs from one "
+              f"device's by {rel:+.2%}")
+        del rp
+    finally:
+        clear_mesh_axes()
+        if created:
+            dist.destroy_process_group()
+    return res
 
 
 def _xattn_done(tag: str, out: dict, params, device) -> dict:
@@ -5250,9 +5428,10 @@ def _vlm(device) -> dict:
     _, patches = _frontend(cfg, SERVE["batch"], gen, device)
     toks = torch.randint(0, cfg.vocab, (SERVE["batch"], LM_SEQ),
                          generator=gen, device=device)
-    out.update(_xattn_prefill(params, cfg, toks[:LM_BATCH], "patches",
-                              patches[:LM_BATCH], tag,
-                              cfg.n_layers + n_cross))
+    numbers, last = _xattn_prefill(params, cfg, toks[:LM_BATCH], "patches",
+                                   patches[:LM_BATCH], tag,
+                                   cfg.n_layers + n_cross)
+    out.update(numbers)
     served = _greedy_serve(params, cfg, toks[:, :1], {"patches": patches},
                            device)
     n = SERVE["max_new"]
@@ -5288,10 +5467,16 @@ def _vlm(device) -> dict:
                decode_kernel_vs_plain_agree=agree,
                decode_vs_forward_rel=fwd_rel,
                decode_vs_forward_agree=fwd_agree)
-    del dec, plain, full
+    one = {"last": last, "decode": dec, "served": served["tokens"]}
+    del plain, full
     torch.cuda.empty_cache()
     out["cross_kv"] = _cross_kv_share(params, cfg, patches)
     out.update(_step_profile(params, cfg, extra, SERVE["batch"], device))
+    out["mesh_1x1"] = _xattn_sharded(
+        device, cfg, params, {"tokens": toks[:LM_BATCH],
+                              "patches": patches[:LM_BATCH]},
+        short, extra, one, out, tag, cfg.n_layers + n_cross, n_cross)
+    del one, dec
     return _xattn_done(tag, out, params, device)
 
 
@@ -5650,7 +5835,8 @@ def _moe_train(device, smi: str) -> dict:
 
 def _mesh_vs_one(device, smi, cfg, tag, b, s, opt) -> dict:
     """One ``opt`` step of ``cfg`` (seeded weights, one
-    ``synthetic_token_stream`` batch of B = ``b``, S = ``s``) on one device
+    ``synthetic_token_stream`` batch of B = ``b``, S = ``s``, with the stub
+    frontend's frames or patches for encdec and the VLM) on one device
     and through the sharded train step on a 1×1 mesh over a one-rank NCCL
     group, the weights made twice from the seed (their leaves' sums
     compared), both with PyTorch's deterministic algorithms (the card's
@@ -5669,12 +5855,15 @@ def _mesh_vs_one(device, smi, cfg, tag, b, s, opt) -> dict:
     from repro_torch.models.common import clear_mesh_axes, set_mesh_axes
     from repro_torch.optim.optimizers import expert_pieces
 
+    from repro_torch.launch.train import stub_inputs
+
     torch.cuda.empty_cache()
     det = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        batch = synthetic_token_stream(0, cfg.vocab, b, s, device)(0)
+        batch = {**synthetic_token_stream(0, cfg.vocab, b, s, device)(0),
+                 **stub_inputs(cfg, b, 0, device)}
         step = steps.make_train_step(cfg, opt)
         params = T.init_params(0, cfg, device)
         seeded = _fingerprint(params)
@@ -5738,6 +5927,66 @@ def _mesh_vs_one(device, smi, cfg, tag, b, s, opt) -> dict:
                 "one_device": one, "mesh_1x1": rec, "leaves_equal": equal}
     finally:
         torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+
+
+def _whisper_mesh_train(device, smi: str) -> dict:
+    """(h) whisper-small at full depth, B = 8 requests of 1500 frames at S =
+    448, one adamw step through the sharded train step on a 1×1 mesh
+    against the one-device step, bit for bit (:func:`_mesh_vs_one`)."""
+    from repro_torch import configs
+    from repro_torch.optim import optimizers
+
+    arch, b, s = TRAIN_WHISPER_MESH
+    cfg = configs.get_config(arch)
+    return _mesh_vs_one(device, smi, cfg, f"train {cfg.name} mesh", b, s,
+                        optimizers.adamw(3e-4))
+
+
+def _vlm_reckon(cfg, b: int, s: int) -> float:
+    """A VLM train step's peak (GB), reckoned: the bf16 weights and their
+    gradients and adamw's fp32 m and v (12 bytes a parameter), adamw's fp32
+    temporaries of the largest row (six copies of the (V, dm) embedding's,
+    as :func:`_hybrid_train` reckons them), the products ``"dots"`` saves a
+    dense layer (q, k, v, wo's, gate's, up's and down's outputs) and the
+    fp32 logits with their gradient (twice each)."""
+    n = cfg.param_count()[0]
+    temps = 6 * 4 * cfg.vocab * cfg.d_model
+    width = (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+        + 2 * cfg.d_ff + cfg.d_model
+    acts = cfg.n_layers * b * s * width * 2
+    logits = 4 * 4 * b * s * cfg.vocab
+    return (12 * n + temps + acts + logits) / 1e9
+
+
+def _vlm_mesh_train(device, smi: str) -> dict:
+    """(i) llama-3.2-vision-11b at full width cut to ``TRAIN_VLM``'s depth
+    (10 of 40 layers: 2 cross layers, cross_attn_every 5), B = 1, S =
+    4096, 1600 patches: one adamw step through the sharded train step on a
+    1×1 mesh against the one-device step, bit for bit
+    (:func:`_mesh_vs_one`), its peak reckoned first
+    (:func:`_vlm_reckon`) and the depth cut by 5 layers while it is above
+    ``TRAIN_PEAK_GB``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.optim import optimizers
+
+    arch, depth, b, s = TRAIN_VLM
+    full = configs.get_config(arch)
+    every = full.cross_attn_every
+    while depth > every and _vlm_reckon(dataclasses.replace(
+            full, n_layers=depth), b, s) > TRAIN_PEAK_GB:
+        depth -= every
+    cfg = dataclasses.replace(full, n_layers=depth)
+    tag = f"train {cfg.name} x{depth} mesh"
+    reckoned = _vlm_reckon(cfg, b, s)
+    print(f"{tag}: depth {depth} of {full.n_layers} ({depth // every} "
+          f"cross layers), {cfg.param_count()[0] / 1e9:.3f} B parameters, "
+          f"peak reckoned {reckoned:.1f} GB (the whole model would reckon "
+          f"{_vlm_reckon(full, b, s):.1f}) [{smi}]", flush=True)
+    out = _mesh_vs_one(device, smi, cfg, tag, b, s, optimizers.adamw(3e-4))
+    out["reckoned_gb"] = reckoned
+    return out
 
 
 def _ssm_mesh_train(device, smi: str) -> dict:
@@ -5977,7 +6226,9 @@ def phase_train(device) -> dict:
     """Training through ``launch.steps.make_train_step`` and the train CLI
     on the card: granite-3-2b (a, a' on a 1×1 mesh, b), mamba2-1.3b (c),
     deepseek-v3 at depth 1 on a 1×1 mesh (e), mamba2-1.3b (f) and zamba2-7b
-    at a reckoned depth (g) on a 1×1 mesh, whisper-small (d).
+    at a reckoned depth (g) on a 1×1 mesh, whisper-small (h) and
+    llama-3.2-vision-11b at 10 layers (i) on a 1×1 mesh, whisper-small
+    through the CLI (d).
     The flash kernel's launch count stays 0 (training takes the reference's
     ``_sdpa`` route)."""
     from repro_torch.kernels import ops
@@ -5991,7 +6242,9 @@ def phase_train(device) -> dict:
                  "batch"])),
              ("fp32_check", _fp32_check), ("ssm", _ssm_train),
              ("moe", _moe_train), ("ssm_mesh", _ssm_mesh_train),
-             ("hybrid_mesh", _hybrid_train))
+             ("hybrid_mesh", _hybrid_train),
+             ("whisper_mesh", _whisper_mesh_train),
+             ("vlm_mesh", _vlm_mesh_train))
     for name, part in parts:
         tp = time.perf_counter()
         out[name] = part(device, smi)
@@ -6174,9 +6427,10 @@ def dryrun_start() -> dict:
     """Start phase dryrun's children: plain (the GBS cells and
     ``DRYRUN_LM_ARCH``'s) and ``--gbs-opt`` on the card's fake tensors, and
     the LM cells again on the CPU's; each MoE arch's decode_32k cell on
-    16×16 at full depth on the card's fakes (``DRYRUN_MOE_ARCHS``); each
-    writes its log and its JSONs under ``build/dryrun_torch/`` (the CPU's
-    under ``cpu/``)."""
+    16×16 at full depth on the card's fakes (``DRYRUN_MOE_ARCHS``); the SSM,
+    hybrid, encoder-decoder and VLM cells of ``DRYRUN_PAIRED`` on the
+    card's fakes and again on the CPU's; each writes its log and its JSONs
+    under ``build/dryrun_torch/`` (the CPU's under ``cpu/``)."""
     out = ROOT / "build" / "dryrun_torch"
     shutil.rmtree(out, ignore_errors=True)
     (out / "cpu").mkdir(parents=True)
@@ -6193,12 +6447,14 @@ def dryrun_start() -> dict:
     for arch in DRYRUN_MOE_ARCHS:     # full depth, on the card's fakes
         args[f"moe-{arch}"] = ["--arch", arch, "--shape", "decode_32k",
                                "--out", str(out), *DRYRUN_ARGS]
-    for arch, shapes in DRYRUN_SSM.items():   # full depth, card and CPU
-        cells = ["--arch", arch,
-                 *(a for shape in shapes for a in ("--shape", shape))]
-        args[f"ssm-{arch}"] = [*cells, "--out", str(out), *DRYRUN_ARGS]
-        args[f"cpu-ssm-{arch}"] = [*cells, "--out", str(out / "cpu"),
-                                   "--device", "cpu"]
+    for pre, table in DRYRUN_PAIRED.items():   # full depth, card and CPU
+        for arch, shapes in table.items():
+            cells = ["--arch", arch,
+                     *(a for shape in shapes for a in ("--shape", shape))]
+            args[f"{pre}-{arch}"] = [*cells, "--out", str(out),
+                                     *DRYRUN_ARGS]
+            args[f"cpu-{pre}-{arch}"] = [*cells, "--out", str(out / "cpu"),
+                                         "--device", "cpu"]
     children = {}
     for flag, more in args.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -6258,7 +6514,8 @@ def phase_dryrun(started: dict) -> dict:
         text = texts[flag] = rec["log"].read_text()
         lines = [ln for ln in text.splitlines()
                  if ln.startswith(("gbs-", DRYRUN_LM_ARCH,
-                                   *DRYRUN_MOE_ARCHS, *DRYRUN_SSM))]
+                                   *DRYRUN_MOE_ARCHS, *DRYRUN_SSM,
+                                   *DRYRUN_XATTN))]
         for ln in lines:
             print(f"dryrun {flag}: {ln}", flush=True)
         print(f"dryrun {flag}: child wall {rec['wall_s']:.1f} s, exit "
@@ -6266,9 +6523,10 @@ def phase_dryrun(started: dict) -> dict:
         want = {"--gbs": len(DR.SCHEMES) + len(DRYRUN_LM_SHAPES),
                 "--gbs-opt": len(DR.SCHEMES) + 1,
                 "cpu": len(DRYRUN_LM_SHAPES), "cpu-rb": 1,
-                **{f"{pre}ssm-{a}": len(shapes)
-                   for a, shapes in DRYRUN_SSM.items()
-                   for pre in ("", "cpu-")}}.get(flag, 1)
+                **{f"{cpu}{pre}-{a}": len(shapes)
+                   for pre, table in DRYRUN_PAIRED.items()
+                   for a, shapes in table.items()
+                   for cpu in ("", "cpu-")}}.get(flag, 1)
         check(rec["proc"].returncode == 0 and len(lines) == want
               and " ok " in " ".join(lines),
               f"dryrun {flag} exited {rec['proc'].returncode}: "
@@ -6281,7 +6539,8 @@ def phase_dryrun(started: dict) -> dict:
         check(peak is not None and int(peak.group(1)) == 0,
               f"dryrun {flag}: the child allocated device memory "
               f"({peak and peak.group(0)})")
-        if flag.startswith("ssm-"):      # held against the CPU's below
+        if flag.startswith(tuple(f"{pre}-" for pre in DRYRUN_PAIRED)):
+            # held against the CPU's below
             result[flag] = {"wall_s": rec["wall_s"], "peak_allocated": 0}
             continue
         if flag.startswith("moe-"):
@@ -6317,10 +6576,11 @@ def phase_dryrun(started: dict) -> dict:
                              "roofline": r["roofline"]}
         result[flag[2:]] = {"wall_s": rec["wall_s"], "peak_allocated": 0,
                             "cells": cells}
-    # the SSM and hybrid cells: the card's fake tensors count what the
-    # CPU's count
-    for arch, shapes in DRYRUN_SSM.items():
-        flag = f"ssm-{arch}"
+    # the SSM, hybrid, encoder-decoder and VLM cells: the card's fake
+    # tensors count what the CPU's count
+    for flag, arch, shapes in ((f"{pre}-{a}", a, shapes)
+                               for pre, table in DRYRUN_PAIRED.items()
+                               for a, shapes in table.items()):
         card, cpu = (_lm_lines(texts[f], arch) for f in (flag, "cpu-" + flag))
         check(card == cpu and len(card) == len(shapes),
               f"dryrun {flag}: the card's lines {card} != the CPU's {cpu}")
@@ -6444,6 +6704,15 @@ def _main(device, ptxas, mma, dryrun) -> int:
                  vlm_launches={
                      "prefill": vlm["flash_launches"],
                      "decode_step": vlm["serve_launches"]
+                     // SERVE["max_new"]},
+                 whisper_sharded_launches={
+                     "prefill": whisper["mesh_1x1"]["flash_launches"],
+                     "encode": whisper["mesh_1x1"]["encode_launches"],
+                     "decode_step": whisper["mesh_1x1"]["serve_launches"]
+                     // SERVE["max_new"]},
+                 vlm_sharded_launches={
+                     "prefill": vlm["mesh_1x1"]["flash_launches"],
+                     "decode_step": vlm["mesh_1x1"]["serve_launches"]
                      // SERVE["max_new"]},
                  xattn_shapes=xattn.pop("rows"),
                  train_launches=train["flash_launches"],

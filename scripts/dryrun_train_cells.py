@@ -58,7 +58,8 @@ def _counts(n: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", nargs="*", default=[
-        a for a in DR.LM_ARCHS if DR.configs.get_config(a).family == "dense"])
+        a for a in DR.configs.ARCHS
+        if DR.configs.get_config(a).family == "dense"])
     ap.add_argument("--mesh", nargs="*", default=["single", "multi"])
     ap.add_argument("--remat-block", nargs="*", type=int, default=[0])
     ap.add_argument("--out", default=None)

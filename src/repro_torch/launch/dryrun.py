@@ -13,9 +13,8 @@ constants of one NVIDIA H100 80GB HBM3 at 700 W.
   its result sharded, as the JAX package's ``shard_map`` does, on the
   plain cells (``kernels="torch"``), as the JAX dry run off a TPU counts
   its XLA cells.
-* The LM cells of the dense, MoE, SSM and hybrid families (rows 19b, 21
-  and row 22's MoE and SSM/hybrid parts): the rank holds its tile of every
-  weight, batch row and cache
+* The LM cells of every family (rows 19b, 21 and 22): the rank holds its
+  tile of every weight, batch row and cache
   (and of the optimizer's state) under the sharding policy
   (``launch/steps.py``) and runs
   ``make_train_step`` (train_4k: forward, recompute and backward with
@@ -26,8 +25,12 @@ constants of one NVIDIA H100 80GB HBM3 at 700 W.
   over the data axes) with the collectives of a sharded rank
   (``models.common.TPLayout``; the MoE layer expert parallel, MLA split
   over its heads, a Mamba2 layer on its heads, the hybrid's shared block
-  as a dense layer), attention on the reference's default ``_sdpa`` route
-  (its ``USE_FLASH`` is off).  long_500k is skipped for the
+  as a dense layer, whisper's encoder and decoder and the VLM's cross
+  layers as dense attention and MLPs, a cross-attention's K/V from the
+  rank's rows of ``enc_out`` or the patches), attention on the
+  reference's default ``_sdpa`` route (its ``USE_FLASH`` is off; a decode
+  step's cross-attention through the flash dispatch's plain version, whose
+  products are ``_sdpa``'s).  long_500k is skipped for the
   full-attention archs, as the reference skips it.
 
 Usage:
@@ -48,8 +51,7 @@ Usage:
 
 Results are cached as JSON under experiments/dryrun_torch/ (the JAX
 package's file names and keys, less its two TPU fields); --force walks
-again.  The encoder-decoder and VLM cells are ROADMAP §1 row 22
-(``LM_FAMILIES``).
+again.
 """
 from __future__ import annotations
 
@@ -83,12 +85,7 @@ OUT_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                         "experiments", "dryrun_torch")
 PRESETS = ("b-m288", "m8176")
 SCHEMES = ("dp", "tp_single", "tp_double")
-LM_ARCHS = tuple(a for a in configs.ARCHS
-                 if configs.get_config(a).family in T.SHARDED_FAMILIES)
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-LM_FAMILIES = ("the encoder-decoder and VLM cells are ROADMAP §1 row 22, "
-               "not ported yet (the dense, MoE, SSM and hybrid archs: "
-               + ", ".join(LM_ARCHS) + ")")
 
 
 def gbs_flops(preset: gbs.GBSPreset, scheme: str, optimized: bool,
@@ -184,7 +181,7 @@ def analyze_cell(cost: C.Cost, once: C.Cost, meta: dict,
 
 
 # ---------------------------------------------------------------------------
-# LM cells: the dense, MoE, SSM and hybrid families
+# LM cells
 # ---------------------------------------------------------------------------
 
 def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
@@ -195,6 +192,20 @@ def model_flops_of(cfg: T.ModelConfig, shape: configs.ShapeSpec) -> float:
     if shape.kind == "prefill":
         return 2.0 * active * shape.global_batch * shape.seq_len
     return 2.0 * active * shape.global_batch       # one token a sequence
+
+
+# the weights a step never reads, which ``jax.jit`` leaves out of the
+# reference's arguments (``keep_unused=False``): whisper's decode step takes
+# ``enc_out`` in its batch and reads no encoder weight
+_UNREAD = {("encdec", "decode"): ("enc_layers/", "enc_pos", "enc_ln_f")}
+
+
+def _read_weights(params: T.Transformer, cfg: T.ModelConfig,
+                  kind: str) -> list:
+    """The rank's weight tiles that a ``kind`` step reads."""
+    unread = _UNREAD.get((cfg.family, kind), ())
+    return [t for path, leaf in params.ref_leaves().items()
+            if not path.startswith(unread) for t in leaf.tensors]
 
 
 def _lm_step(mesh, cfg: T.ModelConfig, shape: configs.ShapeSpec) -> C.Cost:
@@ -225,7 +236,7 @@ def _lm_step(mesh, cfg: T.ModelConfig, shape: configs.ShapeSpec) -> C.Cost:
                 extra, steps.opt_state_shardings(mesh, extra, psh), mesh)
         del whole, extra
         with C.CostCounter() as counter:
-            counter.arguments(list(params.parameters()), batch)
+            counter.arguments(_read_weights(params, cfg, shape.kind), batch)
             if opt_state is not None:
                 counter.arguments(opt_state)
                 _, _, out = steps.make_train_step(cfg, opt)(
@@ -235,7 +246,8 @@ def _lm_step(mesh, cfg: T.ModelConfig, shape: configs.ShapeSpec) -> C.Cost:
                                               flash=False)(params, batch)
             else:
                 counter.arguments(state.caches, state.position)
-                out, _ = steps.make_serve_step(cfg)(params, batch, state)
+                out, _ = steps.make_serve_step(cfg, kernels="torch")(
+                    params, batch, state)
             counter.outputs(out)
     return counter.cost
 
@@ -248,8 +260,6 @@ def count_cell(arch: str, shape_name: str, multi_pod: bool,
     ``remat_block`` layers'), meta), or (None, {"skipped": why}) for a
     cell the reference skips."""
     cfg = configs.get_config(arch)
-    if cfg.family not in T.SHARDED_FAMILIES:
-        raise NotImplementedError(LM_FAMILIES)
     if remat_block:
         cfg = dataclasses.replace(cfg, remat_block=remat_block)
     shape = configs.SHAPES[shape_name]
@@ -410,8 +420,8 @@ def main(argv=None) -> int:
                     help="where the fake tensors live (default: the card)")
     ap.add_argument("--out", default=OUT_ROOT)
     args = ap.parse_args(argv)
-    if args.arch and args.arch not in LM_ARCHS:
-        raise ValueError(f"--arch {args.arch}: {LM_FAMILIES}")
+    if args.arch and args.arch not in configs.ARCHS:
+        raise ValueError(f"--arch {args.arch}: one of {configs.ARCHS}")
     for shape in args.shape or ():
         if shape not in LM_SHAPES:
             raise ValueError(f"--shape {shape}: one of {LM_SHAPES}")
@@ -439,7 +449,7 @@ def main(argv=None) -> int:
                     failed += "error" in r
                     print(summarize(r), flush=True)
     if args.all or args.arch:
-        for arch in [args.arch] if args.arch else LM_ARCHS:
+        for arch in [args.arch] if args.arch else configs.ARCHS:
             for shape in args.shape or LM_SHAPES:
                 for mk in meshes:
                     r = run_cell(arch, shape, mk, force=args.force,

@@ -20,9 +20,10 @@ A spec is a ``models.common.PartitionSpec``; the port has no
 ``Transformer.ref_leaves`` path for the weights, by name for a batch and
 the caches).  A rank of a mesh holds its tile of each leaf under its spec
 (:func:`shard_params`, :func:`shard_batch`, :func:`shard_state`, on real
-or fake tensors), and with ``common.set_mesh_axes(..., mesh=mesh)`` the
-dense, MoE, SSM and hybrid families' prefill and serve steps run on those
-tiles with their collectives, and so does the
+or fake tensors; a batch's ``frames``, ``enc_out`` and ``patches`` split
+on their rows as the tokens), and with ``common.set_mesh_axes(...,
+mesh=mesh)`` every family's prefill and serve steps run on those tiles
+with their collectives, and so does the
 train step, on the tiles of the weights and of the optimizer state
 (:func:`opt_state_shardings`, :func:`shard_opt_state`).  A checkpoint
 holds whole leaves: :func:`unshard_params` and :func:`unshard_opt_state`
@@ -502,16 +503,18 @@ def make_prefill_step(cfg: T.ModelConfig, kernels: str = "auto",
     return prefill
 
 
-def make_serve_step(cfg: T.ModelConfig):
+def make_serve_step(cfg: T.ModelConfig, kernels: str = "auto"):
     """One decode token: (params, batch, state) → (next_tokens (B, 1)
     int32, state).  Greedy: the first index of the largest logit.
     ``batch`` holds ``tokens`` and, for encdec and the VLM, ``enc_out``
     (``models.transformer.encode``'s output) or ``patches``; their
-    cross-attention goes through the flash kernel on the card."""
+    cross-attention goes through the flash kernel's dispatch
+    (``kernels``: the kernel on the card, its plain version with
+    ``"torch"``)."""
     def serve_step(params, batch, state: T.DecodeState):
         extra = {k: batch[k] for k in ("enc_out", "patches") if k in batch}
         logits, new_state = T.decode_step(params, batch["tokens"], state, cfg,
-                                          extra)
+                                          extra, kernels=kernels)
         nxt = T.greedy(params, logits[:, -1, :]).to(torch.int32)[:, None]
         return nxt, new_state
     return serve_step

@@ -13,15 +13,13 @@ Mirrors ``repro.launch.train``.  Fault-tolerance contract:
 Every run builds the ("data", "model") mesh over the job's ranks
 (``launch.mesh.make_host_mesh(model=--model-parallel)``; a ``torchrun``
 job's, or a one-rank group in this process: NCCL on the card, gloo on the
-CPU), as the reference builds its host mesh.  The dense, MoE, SSM and
-hybrid families train on it: each rank holds its tiles of the seeded
-weights and of their optimizer state under the sharding policy
-(``launch.steps``, FSDP off as the reference's CLI has it) and of the
-(seed, step) batch, and runs the sharded ``make_train_step``.  The
-encoder-decoder and VLM families train on a mesh of one rank with their
-whole weights (their sharded steps are ROADMAP §1 row 22: on more ranks
-they raise).  A checkpoint holds whole leaves: the tiles are gathered and
-rank 0 writes them; a resume loads whole leaves and takes its
+CPU), as the reference builds its host mesh.  Every family trains on it:
+each rank holds its tiles of the seeded weights and of their optimizer
+state under the sharding policy (``launch.steps``, FSDP off as the
+reference's CLI has it) and of the (seed, step) batch (and of the stub
+frontend's ``frames`` or ``patches``), and runs the sharded
+``make_train_step``.  A checkpoint holds whole leaves: the tiles are
+gathered and rank 0 writes them; a resume loads whole leaves and takes its
 tiles, so a checkpoint of one world size resumes on another.  Only rank 0
 prints.  On the card unless ``--device cpu``.  ``--stop-at N`` ends the
 run after step N with the flags of a longer run, as a preemption would:
@@ -36,6 +34,8 @@ Usage:
       --arch deepseek-v3-671b --smoke --device cpu --model-parallel 2
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch zamba2-7b --smoke --device cpu --model-parallel 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch whisper-small --smoke --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -110,11 +110,6 @@ def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
     world = dist.get_world_size()
     lead = dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
-    sharded = cfg.family in T.SHARDED_FAMILIES
-    if not sharded and world > 1:
-        raise ValueError(f"the {cfg.family} family trains on one rank; its "
-                         "sharded train step is ROADMAP §1 row 22 "
-                         "(encoder-decoder, VLM)")
     say(f"device: {dev}  mesh: {mesh.shape}  arch: {cfg.name}  "
         f"family: {cfg.family}")
 
@@ -127,19 +122,17 @@ def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
         (params, opt_state), start_step, _ = store.load_checkpoint(
             args.ckpt_dir, (params, opt_state))
         say(f"resumed from step {start_step}")
-    batch_sh = osh = None
-    if sharded:
-        set_mesh_axes(data_axis_names(mesh), mesh=mesh)
-        psh = steps_mod.param_shardings(mesh, params, T.param_specs(cfg),
-                                        fsdp=False)
-        osh = steps_mod.opt_state_shardings(mesh, opt_state, psh)
-        opt_state = steps_mod.shard_opt_state(opt_state, osh, mesh)
-        params = steps_mod.shard_params(params, psh, mesh)
+    set_mesh_axes(data_axis_names(mesh), mesh=mesh)
+    psh = steps_mod.param_shardings(mesh, params, T.param_specs(cfg),
+                                    fsdp=False)
+    osh = steps_mod.opt_state_shardings(mesh, opt_state, psh)
+    opt_state = steps_mod.shard_opt_state(opt_state, osh, mesh)
+    params = steps_mod.shard_params(params, psh, mesh)
+    batch_sh = None
 
     def save(step: int) -> None:
-        whole = ((steps_mod.unshard_params(params, mesh),
-                  steps_mod.unshard_opt_state(opt_state, osh, mesh))
-                 if sharded else (params, opt_state))
+        whole = (steps_mod.unshard_params(params, mesh),
+                 steps_mod.unshard_opt_state(opt_state, osh, mesh))
         if lead:
             store.save_checkpoint(args.ckpt_dir, step, whole)
         if world > 1:
@@ -154,9 +147,8 @@ def _train(args, cfg: T.ModelConfig, dev: torch.device) -> dict:
                                                         args.steps)
     for step in range(start_step, stop):
         batch = {**batch_at(step), **stub_inputs(cfg, args.batch, step, dev)}
-        if sharded:
-            batch_sh = batch_sh or steps_mod.batch_shardings(mesh, batch)
-            batch = steps_mod.shard_batch(batch, batch_sh, mesh)
+        batch_sh = batch_sh or steps_mod.batch_shardings(mesh, batch)
+        batch = steps_mod.shard_batch(batch, batch_sh, mesh)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (step + 1) % 10 == 0 or step == start_step:
             dt = time.perf_counter() - t_last

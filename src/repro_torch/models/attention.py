@@ -30,11 +30,13 @@ gathers the query heads and wk_b, wv_b over the model axis, runs every
 head over its rows of the cache and sums softmax's max, sum and output
 over the axis, as XLA partitions the reference's (PERF.md §6).
 
-On a sharded rank (``tp``, a ``common.TPLayout``) the dense self-attention
-runs on its tiles as XLA partitions the reference's: the query heads (and
-the KV heads when they divide) column parallel, wo row parallel and summed
-over the model axis; in prefill a rank whose KV heads are whole projects
-only those its query heads read; in decode a KV cache split on its length
+On a sharded rank (``tp``, a ``common.TPLayout``) the dense self- and
+cross-attention run on its tiles as XLA partitions the reference's: the
+query heads (and the KV heads when they divide) column parallel, wo row
+parallel and summed over the model axis; in prefill, and in every
+cross-attention (its K/V from the rank's rows of ``kv_input``), a rank
+whose KV heads are whole projects only those its query heads read; in
+decode a KV cache split on its length
 (``launch.steps.cache_shardings``) is read with every query head (gathered
 over the model axis) and a softmax whose max, sum and output are summed
 over the axis (:func:`_sdpa_split`).  Differentiated (training's prefill
@@ -185,11 +187,8 @@ def attn_apply(params, x: torch.Tensor, cfg: AttnConfig,
       kernel's dispatch at S query rows against T keys.
     """
     if tp is not None:
-        if kv_input is not None:
-            raise NotImplementedError("sharded cross-attention is ROADMAP "
-                                      "§1 row 22 (encoder-decoder, VLM)")
         return _attn_apply_tp(params, x, cfg, positions, cache, kernels,
-                              rope, flash, tp)
+                              rope, flash, tp, kv_input)
     b, s, _ = x.shape
     src = x if kv_input is None else kv_input
     q = _project(x, params["wq"])
@@ -274,12 +273,19 @@ def _sdpa_split(q, k, v, mask, tp: Optional[TPLayout]):
 
 
 def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
-                   rope, flash, tp: TPLayout):
-    """:func:`attn_apply`'s self-attention on a sharded rank's tiles (see
-    the module docstring).  Returns (y, new_cache)."""
+                   rope, flash, tp: TPLayout, kv_input=None):
+    """:func:`attn_apply` on a sharded rank's tiles (see the module
+    docstring); a cross-attention (``kv_input``, batch-sharded as x) as a
+    prefill's, in decode too.  Returns (y, new_cache)."""
     b, s, _ = x.shape
+    cross = kv_input is not None
+    if cross:
+        cache = None                  # neither read nor written
     if tp.heads:
         x = model_enter(x, tp)
+        if cross:
+            kv_input = model_enter(kv_input, tp)
+    src = kv_input if cross else x
     q = _project(x, params["wq"])                 # (B, S, H_l, Dh)
     h_l = q.shape[2]
     h0 = tp.rank * h_l if tp.heads else 0
@@ -297,13 +303,13 @@ def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
         kv = slice(h0 // g, (h0 + h_l - 1) // g + 1)
         w = {n: model_enter(t, tp) for n, t in w.items()}
     whole = kv == slice(None)     # a decode step's KV weights: RowTiles too
-    k = _project(x, w["wk"] if whole else w["wk"][:, kv])
-    v = _project(x, w["wv"] if whole else w["wv"][:, kv])
+    k = _project(src, w["wk"] if whole else w["wk"][:, kv])
+    v = _project(src, w["wv"] if whole else w["wv"][:, kv])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + w["bk"][kv]
         v = v + w["bv"][kv]
-    if cfg.rope:
+    if cfg.rope and not cross:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
         rope = rope or rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -314,13 +320,14 @@ def _attn_apply_tp(params, x, cfg: AttnConfig, positions, cache, kernels,
         if tp.kv_heads and not tp.heads:
             k = C.all_gather(k, tp.group, dim=2)
             v = C.all_gather(v, tp.group, dim=2)
+        causal = cfg.causal and not cross
         if flash:
             out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=cfg.causal,
+                                      v.contiguous(), causal=causal,
                                       kernels=kernels)
         else:
             mask = None
-            if cfg.causal:
+            if causal:
                 mask = torch.ones((s, s), dtype=torch.bool,
                                   device=x.device).tril()[None, None, None]
             out = _sdpa(q, k, v, mask)

@@ -292,6 +292,10 @@ def swiglu(x, w_gate, w_up, w_down):
     return (silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+_GELU_BF16 = tuple(float(torch.tensor(v, dtype=torch.bfloat16))
+                   for v in (math.sqrt(2 / math.pi), 0.044715))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh approximation of GELU, x/2·(1 + tanh(√(2/π)·(x + 0.044715·
     x³))).  In bf16 op by op with bf16 constants, a bf16 rounding after
@@ -299,12 +303,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     it on the CPU (jitted or not): so it gives the reference's bits on
     every bf16 input of magnitude 2⁻¹²⁵ or more (below it XLA's CPU
     backend flushes the subnormal products to ±0).  ``F.gelu`` rounds once
-    and differs on about 3 % of bf16 inputs."""
+    and differs on about 3 % of bf16 inputs.  The constants are Python
+    floats holding their bf16 values: no tensor is made on the device (the
+    dry run's fake CUDA tensors would make a real one)."""
     if x.dtype != torch.bfloat16:
         return F.gelu(x, approximate="tanh")
-    c, k = (torch.tensor(v, dtype=x.dtype, device=x.device)
-            for v in (math.sqrt(2 / math.pi), 0.044715))
+    c, k = _GELU_BF16
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
 
 
 def gelu_mlp(x, w_up, b_up, w_down, b_down):
@@ -336,14 +342,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 def mlp_apply(params, x, style: str = "swiglu",
               tp: Optional[TPLayout] = None):
-    """The MLP; with ``tp.ffn`` this rank's columns of d_ff, the down
-    projection's partial products summed over the model axis."""
+    """The MLP; with ``tp.ffn`` this rank's columns of d_ff (and of the
+    gelu MLP's ``b_up``), the down projection's partial products summed
+    over the model axis, the whole ``b_down`` added once after the sum."""
     if tp is not None and tp.ffn:
-        if style != "swiglu":
-            raise NotImplementedError("a sharded gelu MLP is ROADMAP §1 "
-                                      "row 22 (encoder-decoder, VLM)")
-        return model_psum(swiglu(model_enter(x, tp), params["gate"],
-                                 params["up"], params["down"]), tp)
+        x = model_enter(x, tp)
+        if style == "swiglu":
+            return model_psum(swiglu(x, params["gate"], params["up"],
+                                     params["down"]), tp)
+        h = gelu(x @ params["up"] + params["b_up"]) @ params["down"]
+        return model_psum(h, tp) + params["b_down"]
     if style == "swiglu":
         return swiglu(x, params["gate"], params["up"], params["down"])
     return gelu_mlp(x, params["up"], params["b_up"], params["down"],

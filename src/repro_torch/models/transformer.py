@@ -40,23 +40,25 @@ first, then the cross layers in a row, which differs from its forward
 (cross after every ``cross_attn_every``-th layer); so a VLM decode does
 not reproduce its prefill, in the reference or here.
 
-A rank of a mesh (the dense, MoE, SSM and hybrid families) holds its
-tiles of the weights (``launch.steps.shard_params``: a
-:class:`Transformer` whose ``shardings`` are the resolved specs of
-:func:`param_specs`) and, with the mesh declared
-(``common.set_mesh_axes(..., mesh=mesh)``), its forward and decode step
-run on them with a ``common.TPLayout``'s collectives (the
-forward's differentiable: the train step's backward gives a rank its
-tiles' gradients, and ``remat_block`` blocks recompute sharded layers): the
-vocabulary-parallel embedding and logits, FSDP tiles gathered over the
-data axes before use, the attention and MLP as ``attention`` and
-``common.mlp_apply`` split them, the MoE layer expert parallel
-(``moe.moe_apply``) and MLA over its heads, a Mamba2 layer on its heads
-(``mamba2.mamba2_apply``; decode on its heads' tile of the SSM state), the
-hybrid's shared block as a dense layer (its FSDP tiles gathered at each
-use), on 16×16 the model-whole FSDP tiles read by their rows
-(:func:`_row_split`); :func:`greedy` picks a token over a split
-vocabulary.  With no mesh declared both are the one-device code.
+A rank of a mesh (every family) holds its tiles of the weights
+(``launch.steps.shard_params``: a :class:`Transformer` whose
+``shardings`` are the resolved specs of :func:`param_specs`) and, with the
+mesh declared (``common.set_mesh_axes(..., mesh=mesh)``), its forward,
+``encode`` and decode step run on them with a ``common.TPLayout``'s
+collectives (the forward's differentiable: the train step's backward
+gives a rank its tiles' gradients, and ``remat_block`` blocks recompute
+sharded layers): the vocabulary-parallel embedding and logits, FSDP tiles
+gathered over the data axes before use, the attention and MLP as
+``attention`` and ``common.mlp_apply`` split them (whisper's encoder,
+decoder and cross attention and the VLM's cross layers too, a
+cross-attention's K/V from the rank's rows of ``enc_out`` or the patches;
+heads the model axis does not divide run whole), the MoE layer expert
+parallel (``moe.moe_apply``) and MLA over its heads, a Mamba2 layer on its
+heads (``mamba2.mamba2_apply``; decode on its heads' tile of the SSM
+state), the hybrid's shared block as a dense layer (its FSDP tiles
+gathered at each use), on 16×16 the model-whole FSDP tiles of a layer read
+by their rows (:func:`_row_split`); :func:`greedy` picks a token over a
+split vocabulary.  With no mesh declared both are the one-device code.
 """
 from __future__ import annotations
 
@@ -82,8 +84,6 @@ from repro_torch.models.common import (MODEL, PartitionSpec, RowShard,
                                        rope_tables, spec)
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the rest: ROADMAP
-#                                            §1 row 22 (encdec, vlm)
 STACKED = ("layers", "enc_layers", "cross_layers")   # the reference's stacks
 DEC_POSITIONS = 32768            # rows of whisper's learned decoder positions
 
@@ -327,7 +327,7 @@ class Transformer(nn.Module):
                 setattr(self, name, _param(tree[name]))
         if cfg.family == "vlm":
             self.cross_layers = nn.ModuleList(
-                _param_dict(cp) for cp in tree["cross_layers"])
+                _param_dict(cp) for cp in tree.get("cross_layers", ()))
             self.ln_cross = _param(tree["ln_cross"])
 
     def __getitem__(self, name: str):
@@ -386,14 +386,18 @@ def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
     layer's attention (``attention.mla_specs`` with MLA) and its experts as
     ``moe.moe_specs`` (the reference's ``_layer_init_moe``); a Mamba2 layer
     as ``mamba2.mamba2_specs`` and the hybrid's shared block as a dense
-    layer's, without the stacked axis (the reference's ``init_params``).
-    The dense, MoE, SSM and hybrid families'; the others' are ROADMAP §1
-    row 22."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family's sharding is "
-                                  "ROADMAP §1 row 22")
+    layer's, without the stacked axis (the reference's ``init_params``);
+    whisper's encoder and decoder layers (their attention as
+    ``attention.attn_specs``, the gelu MLP's ``b_up`` on d_ff and ``b_down``
+    whole) and the VLM's stacked cross layers likewise, the position
+    tables, ``enc_ln_f`` and ``ln_cross`` whole."""
     out = {"embed": spec(MODEL, None), "ln_f": spec(None),
            "unembed": spec(None, MODEL)}
+
+    def stacked(stack: str, layer: dict) -> None:
+        out.update({f"{stack}/{k}": spec(None, *v) for k, v in layer.items()})
+
+    attn = A.attn_specs(_noncausal_cfg(cfg))
     if cfg.family in ("ssm", "hybrid"):
         layer = {f"mamba/{k}": v
                  for k, v in M2.mamba2_specs(cfg.ssm_cfg()).items()}
@@ -401,9 +405,23 @@ def param_specs(cfg: ModelConfig) -> dict[str, PartitionSpec]:
         if cfg.family == "hybrid":
             out.update({f"shared_attn/{k}": v
                         for k, v in _dense_specs(cfg).items()})
+    elif cfg.family == "encdec":
+        mlp = {f"mlp/{k}": v for k, v in mlp_specs("gelu").items()}
+        stacked("enc_layers", {**{f"attn/{k}": v for k, v in attn.items()},
+                               **mlp, "ln1": spec(None), "ln2": spec(None)})
+        layer = {f"{part}/{k}": v for part in ("self", "cross")
+                 for k, v in attn.items()}
+        layer.update(mlp)
+        layer.update({n: spec(None) for n in ("ln1", "ln2", "ln3")})
+        out.update({"enc_ln_f": spec(None), "enc_pos": spec(None, None),
+                    "dec_pos": spec(None, None)})
     else:
         layer = _dense_specs(cfg)
-    out.update({f"layers/{k}": spec(None, *v) for k, v in layer.items()})
+        if cfg.family == "vlm":
+            if cfg.n_layers // cfg.cross_attn_every:   # an empty stack: no
+                stacked("cross_layers", attn)          # leaf
+            out["ln_cross"] = spec(None, None)
+    stacked("layers", layer)
     return dict(sorted(out.items()))
 
 
@@ -523,30 +541,37 @@ def _noncausal_cfg(cfg: ModelConfig) -> A.AttnConfig:
 
 
 def _encdec_block(lp, x, cfg: ModelConfig, positions, enc_out, cache=None,
-                  kernels: str = "auto", flash: bool = True):
+                  kernels: str = "auto", flash: bool = True,
+                  tp: Optional[TPLayout] = None):
     """A whisper decoder layer: causal self-attention (the KV cache in
-    decode), cross-attention to ``enc_out``, the gelu MLP."""
+    decode), cross-attention to ``enc_out``, the gelu MLP; on a sharded
+    rank's tiles with ``tp``."""
     h, new_cache = A.attn_apply(lp["self"], rms_norm(x, lp["ln1"]),
                                 cfg.attn_cfg(causal=True, rope=False),
                                 positions, cache, kernels=kernels,
-                                flash=flash)
+                                flash=flash, tp=tp)
     x = x + h
     h, _ = A.attn_apply(lp["cross"], rms_norm(x, lp["ln2"]),
                         _noncausal_cfg(cfg), positions, kv_input=enc_out,
-                        kernels=kernels, flash=flash)
+                        kernels=kernels, flash=flash, tp=tp)
     x = x + h
-    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"]), "gelu")
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"]), "gelu", tp=tp)
     return x, new_cache
 
 
 def _cross_layer(params: "Transformer", ci: int, x, cfg: ModelConfig,
-                 patches, kernels: str = "auto", flash: bool = True):
+                 patches, kernels: str = "auto", flash: bool = True,
+                 tp: Optional[TPLayout] = None, mode: str = "prefill"):
     """The VLM's cross layer ``ci``: x + cross-attention of rms_norm(x,
-    ln_cross[ci]) to ``patches``."""
-    h, _ = A.attn_apply(params["cross_layers"][ci],
-                        rms_norm(x, params["ln_cross"][ci]),
-                        _noncausal_cfg(cfg), kv_input=patches,
-                        kernels=kernels, flash=flash)
+    ln_cross[ci]) to ``patches``; on a sharded rank (``tp``) its tiles as
+    a ``mode`` step reads them (:func:`_rank_block`)."""
+    cp, ln = params["cross_layers"][ci], params["ln_cross"]
+    if tp is not None:
+        cp = _rank_block(params, cp, "cross_layers/", mode)
+        ln = _rank_leaf(params, "ln_cross", ln, False)
+    h, _ = A.attn_apply(cp, rms_norm(x, ln[ci]), _noncausal_cfg(cfg),
+                        kv_input=patches, kernels=kernels, flash=flash,
+                        tp=tp)
     return x + h
 
 
@@ -592,10 +617,11 @@ def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
     aux the MoE layer's aux dict (None for the other families).  On a
     sharded rank (``tp``) the layer's weights are its tiles, FSDP's
     gathered inside the body (so a recompute gathers them again)."""
+    mode = "train" if _recording(params) else "prefill"
+
     def body(x, layer):
         if tp is not None:
-            lp = _rank_layer(params, layer,
-                             "train" if _recording(params) else "prefill")
+            lp = _rank_layer(params, layer, mode)
         else:
             lp = params["layers"][layer]
         if cfg.family == "moe":
@@ -612,13 +638,14 @@ def _layer_fn(params: Transformer, cfg: ModelConfig, positions, rope,
                                     tp=tp)
         elif cfg.family == "encdec":
             x, _ = _encdec_block(lp, x, cfg, positions, extra["enc_out"],
-                                 kernels=kernels, flash=flash)
+                                 kernels=kernels, flash=flash, tp=tp)
         else:
             x, _ = _dense_block(lp, x, cfg, positions, kernels=kernels,
                                 rope=rope, flash=flash, tp=tp)
             if cfg.family == "vlm" and _is_cross(cfg, layer):
                 x = _cross_layer(params, layer // cfg.cross_attn_every, x,
-                                 cfg, extra["patches"], kernels, flash)
+                                 cfg, extra["patches"], kernels, flash, tp,
+                                 mode)
         return x, None
     return body
 
@@ -656,7 +683,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.family == "encdec":
         extra["enc_out"] = encode(params, extra["frames"], cfg,
                                   kernels=kernels, flash=flash)
-        x = x + params["dec_pos"][:s]
+        x = x + _whole(params, "dec_pos", tp)[:s]
     body = _layer_fn(params, cfg, positions, rope, extra, kernels, flash, tp)
     layer_fn = remat(body, cfg.remat_policy if recording else "none")
     k = cfg.remat_block if recording and cfg.family == "dense" else 0
@@ -694,20 +721,27 @@ def encode(params: Transformer, frames: torch.Tensor, cfg: ModelConfig,
     attention through the flash dispatch (``_sdpa`` with ``flash=False``)
     + gelu MLP] × Lₑ, then ``enc_ln_f``; each layer under
     ``cfg.remat_policy`` when it records a graph.  Returns enc_out (B, T,
-    dm)."""
-    def body(e, lp):
+    dm).  On a sharded rank (a mesh declared): its rows of the frames, each
+    layer on its tiles (FSDP's gathered inside the layer's body)."""
+    tp = _tp_layout(params, cfg)
+    mode = "train" if _recording(params) else "prefill"
+
+    def body(e, layer):
+        lp = params["enc_layers"][layer]
+        if tp is not None:
+            lp = _rank_block(params, lp, "enc_layers/", mode)
         h, _ = A.attn_apply(lp["attn"], rms_norm(e, lp["ln1"]),
                             _noncausal_cfg(cfg), kernels=kernels,
-                            flash=flash)
+                            flash=flash, tp=tp)
         e = e + h
-        return e + mlp_apply(lp["mlp"], rms_norm(e, lp["ln2"]), "gelu")
+        return e + mlp_apply(lp["mlp"], rms_norm(e, lp["ln2"]), "gelu",
+                             tp=tp)
 
-    layer_fn = remat(body, cfg.remat_policy if _recording(params)
-                     else "none")
-    e = frames + params["enc_pos"][:frames.shape[1]]
-    for lp in params["enc_layers"]:
-        e = layer_fn(e, lp)
-    return rms_norm(e, params["enc_ln_f"])
+    layer_fn = remat(body, cfg.remat_policy if mode == "train" else "none")
+    e = frames + _whole(params, "enc_pos", tp)[:frames.shape[1]]
+    for layer in range(cfg.n_enc_layers):
+        e = layer_fn(e, layer)
+    return rms_norm(e, _whole(params, "enc_ln_f", tp))
 
 
 class DecodeState(NamedTuple):
@@ -765,9 +799,10 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
     decode does.  ``layer_aux`` as :func:`forward`'s."""
     require_ported(cfg.family)
     tp = _tp_layout(params, cfg, state)
-    if tp is not None:
-        return _decode_step_tp(params, tokens, state, cfg, tp, layer_aux)
     extra = extra or {}
+    if tp is not None:
+        return _decode_step_tp(params, tokens, state, cfg, tp, extra,
+                               layer_aux, kernels)
     b = tokens.shape[0]
     x = params["embed"][tokens]
     pos = state.position
@@ -810,10 +845,21 @@ def decode_step(params: Transformer, tokens: torch.Tensor,
 
 
 # ===========================================================================
-# A sharded rank (the dense, MoE, SSM and hybrid families): tiles of the
-# weights under their resolved specs, the collectives XLA's partitioner
-# inserts for the reference's (``common.TPLayout``)
+# A sharded rank: tiles of the weights under their resolved specs, the
+# collectives XLA's partitioner inserts for the reference's
+# (``common.TPLayout``)
 # ===========================================================================
+
+# each family's attention and MLP weights by path prefix (the others: a
+# layer's ``attn/`` and ``mlp/``): the hybrid's shared block, whisper's
+# encoder and decoder layers, the VLM's layers and cross layers
+_ATTN_PATHS = {
+    "hybrid": (("shared_attn/attn/",), ("shared_attn/mlp/",)),
+    "encdec": (("enc_layers/attn/", "layers/self/", "layers/cross/"),
+               ("enc_layers/mlp/", "layers/mlp/")),
+    "vlm": (("layers/attn/", "cross_layers/"), ("layers/mlp/",)),
+}
+
 
 def _tp_layout(params: Transformer, cfg: ModelConfig,
                state: Optional[DecodeState] = None) -> Optional[TPLayout]:
@@ -822,9 +868,6 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
     ctx = mesh_context()
     if ctx is None:
         return None
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"the sharded {cfg.family} forward is "
-                                  "ROADMAP §1 row 22 (encdec, vlm)")
     sh = params.shardings
     if sh is None:
         raise ValueError("a declared mesh needs a sharded rank's weights "
@@ -843,29 +886,40 @@ def _tp_layout(params: Transformer, cfg: ModelConfig,
         cache = "heads" if k[3] == m else "length" if k[2] == m else None
     mla, moe = cfg.use_mla, cfg.family == "moe"
     ssm = cfg.family in ("ssm", "hybrid")
-    # the attention's weights: a layer's, or the hybrid's shared block's
-    blk = "shared_attn/" if cfg.family == "hybrid" else "layers/"
 
     def split(path: str, dim: int) -> bool:
         """Whether dim ``dim`` of the (unstacked) weight is on the model
         axis."""
-        return path in sh and sh[path][dim + path.startswith("layers/")] == m
+        stacked = path.split("/")[0] in STACKED
+        return sh[path][dim + stacked] == m
 
-    ffn = "layers/moe/shared/gate" if moe else blk + "mlp/gate"
-    heads_ssm = ssm and split("layers/mamba/w_in", 1)
+    def one(paths, dim: int) -> bool:
+        """The split of dim ``dim``, the same in each of ``paths`` that the
+        weights hold (each attention or MLP of a family has one shape)."""
+        splits = {split(p, dim) for p in paths if p in sh}
+        if len(splits) > 1:
+            raise NotImplementedError(f"{cfg.name}: {paths} split apart")
+        return bool(splits) and splits.pop()
+
+    attn, mlp = _ATTN_PATHS.get(cfg.family, (("layers/attn/",),
+                                             ("layers/mlp/",)))
+    ffn = (("layers/moe/shared/gate",) if moe else
+           tuple(p + ("gate" if cfg.mlp_style == "swiglu" else "up")
+                 for p in mlp))
+    heads_ssm = ssm and one(["layers/mamba/w_in"], 1)
     # the SSM state's tile: the rank's heads, or whole (launch.steps)
     state_heads = (state is not None and "state" in state.caches
                    and state.caches["state"].shape[2] < cfg.ssm_cfg().heads)
-    if ssm and (heads_ssm and not split("layers/mamba/w_out", 0)
+    if ssm and (heads_ssm and not one(["layers/mamba/w_out"], 0)
                 or state_heads and not heads_ssm):
         raise NotImplementedError(f"{cfg.name}: w_in, w_out and the SSM "
                                   "state split apart")
     return TPLayout(
         group, C.axis_size(group), C.axis_index(group),
-        heads=split(blk + ("attn/wq_b" if mla else "attn/wq"), 1),
-        kv_heads=not mla and split(blk + "attn/wk", 1),
-        ffn=split(ffn, 1), cache=cache,
-        experts=moe and split("layers/moe/gate", 0),
+        heads=one([p + ("wq_b" if mla else "wq") for p in attn], 1),
+        kv_heads=not mla and one([p + "wk" for p in attn], 1),
+        ffn=one(ffn, 1), cache=cache,
+        experts=moe and one(["layers/moe/gate"], 0),
         data=data if C.axis_size(data) > 1 else None,
         ssm=heads_ssm, state=state_heads)
 
@@ -886,16 +940,20 @@ def _rank_leaf(params: Transformer, path: str, t: torch.Tensor,
 
 
 # the weights whole on the model axis that a step reads by their rows: a
-# decode step all of them (RowTile), the train step's backward the 2-D ones
-# (RowShard; kimi-k2's wk, wv enter the attention sliced to a rank's KV heads)
-_ROW_LEAVES = {"decode": ("attn/wq_a", "attn/wkv_a", "attn/wk", "attn/wv",
-                          "moe/router"),
-               "train": ("attn/wq_a", "attn/wkv_a", "moe/router")}
+# decode step a layer's (RowTile), the train step's backward the 2-D ones
+# (RowShard; kimi-k2's wk, wv enter the attention sliced to a rank's KV
+# heads); the VLM's cross wk, wv project 1600 patches a row, and XLA gathers
+# them as FSDP tiles
+_ROW_LEAVES = {"decode": ("layers/attn/wq_a", "layers/attn/wkv_a",
+                          "layers/attn/wk", "layers/attn/wv",
+                          "layers/moe/router"),
+               "train": ("layers/attn/wq_a", "layers/attn/wkv_a",
+                         "layers/moe/router")}
 
 
 def _row_split(params: Transformer, name: str, t: torch.Tensor,
                mode: str):
-    """Layer weight ``name`` (a path under ``layers/``) as a ``mode``
+    """Stacked weight ``name`` (its ``ref_leaves`` path) as a ``mode``
     (``"decode"`` or ``"train"``; none in ``"prefill"``) step reads it when
     it is whole on the model axis and FSDP splits its rows over a data axis
     as large as the model axis (the 16×16 mesh), as XLA partitions the
@@ -911,7 +969,7 @@ def _row_split(params: Transformer, name: str, t: torch.Tensor,
     if name not in _ROW_LEAVES.get(mode, ()):
         return None
     ctx = mesh_context()
-    dims = params.shardings["layers/" + name][1:]
+    dims = params.shardings[name][1:]
     mesh, m = ctx["mesh"], ctx["model"]
     ax = dims[0]
     if (not isinstance(ax, str) or ax == m
@@ -948,7 +1006,9 @@ def _shared(params: Transformer, tp: Optional[TPLayout]):
 
 def _rank_block(params: Transformer, block: nn.Module, prefix: str,
                 mode: Optional[str]):
-    stacked = prefix == "layers/"
+    """``block``'s weights (those under ``prefix``: a stack's layer, or the
+    hybrid's shared block) as :func:`_rank_layer` gives a layer's."""
+    stacked = prefix.rstrip("/") in STACKED
     ctx = mesh_context()
     if all(ax in (None, ctx["model"]) for path, sp in params.shardings.items()
            if path.startswith(prefix) for ax in sp):
@@ -960,10 +1020,18 @@ def _rank_block(params: Transformer, block: nn.Module, prefix: str,
         for k in head:
             node = node.setdefault(k, {})
         path = "/".join(name.split("."))
-        split = _row_split(params, path, t, mode) if stacked else None
+        split = (_row_split(params, prefix + path, t, mode) if stacked
+                 else None)
         node[last] = (split if split is not None else
                       _rank_leaf(params, prefix + path, t, stacked))
     return out
+
+
+def _whole(params: Transformer, path: str, tp: Optional[TPLayout]):
+    """Top-level weight ``path``; on a sharded rank its tile with the FSDP
+    dims gathered (:func:`_rank_leaf`)."""
+    t = params[path]
+    return t if tp is None else _rank_leaf(params, path, t, False)
 
 
 def _vocab_split(params: Transformer, path: str, dim: int) -> bool:
@@ -1007,15 +1075,20 @@ def vocab_layout(params: Transformer, cfg: ModelConfig) -> Optional[TPLayout]:
 
 def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
                     state: DecodeState, cfg: ModelConfig, tp: TPLayout,
-                    layer_aux: Optional[list] = None):
-    """:func:`decode_step` on a sharded rank: its rows of the batch and its
-    tiles of the KV caches or of MLA's latent cache (written in place);
-    logits as :func:`forward`'s on a sharded rank."""
+                    extra: dict, layer_aux: Optional[list] = None,
+                    kernels: str = "auto"):
+    """:func:`decode_step` on a sharded rank: its rows of the batch (and of
+    ``enc_out`` or the patches) and its tiles of the KV caches or of MLA's
+    latent cache (written in place); logits as :func:`forward`'s on a
+    sharded rank."""
     b = tokens.shape[0]
     x = _embed_tp(params, tokens, tp)
     pos = state.position
     positions = (pos.expand(b) if pos.ndim == 0 else pos)[:, None]
     caches = state.caches
+    if cfg.family == "encdec":   # clamped into the table, as dynamic_slice
+        dec_pos = _whole(params, "dec_pos", tp)
+        x = x + dec_pos[positions.clamp(0, dec_pos.shape[0] - 1).long()]
     if "latent" in caches:             # k turns at this rank's cache rows
         t_l = caches["latent"].shape[2]
         off = tp.rank * t_l if tp.cache == "length" else 0
@@ -1039,10 +1112,17 @@ def _decode_step_tp(params: Transformer, tokens: torch.Tensor,
             if layer_aux is not None:
                 layer_aux.append(aux)
             continue
-        x, _ = _dense_block(
-            lp, x, cfg, positions,
-            A.KVCache(caches["k"][layer], caches["v"][layer], pos),
-            rope=rope, tp=tp)
+        cache = A.KVCache(caches["k"][layer], caches["v"][layer], pos)
+        if cfg.family == "encdec":
+            x, _ = _encdec_block(lp, x, cfg, positions, extra["enc_out"],
+                                 cache, kernels=kernels, tp=tp)
+        else:
+            x, _ = _dense_block(lp, x, cfg, positions, cache, rope=rope,
+                                tp=tp)
+    if cfg.family == "vlm":
+        for ci in range(len(params["cross_layers"])):
+            x = _cross_layer(params, ci, x, cfg, extra["patches"], kernels,
+                             tp=tp, mode="decode")
     return (_logits_tp(params, x, tp),
             DecodeState(caches, pos + 1, state.shardings))
 

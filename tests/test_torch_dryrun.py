@@ -270,12 +270,28 @@ def test_cli_writes_the_cells_and_report_reads_them(tiny, tmp_path,
 @pytest.mark.parametrize("flags,row", [
     (["--arch", "llama-3.2-vision-11b"], "row 22"),
     (["--arch", "whisper-small"], "row 22")])
-def test_lm_cells_are_row_19b(flags, row):
-    """Rows 19b, 21 and row 22's MoE and SSM/hybrid parts port the dense,
-    MoE, SSM and hybrid families' cells: the encoder-decoder and VLM
-    families' cells raise naming row 22."""
-    with pytest.raises(ValueError, match=row):
-        DR.main(flags)
+def test_lm_cells_are_row_19b(flags, row, tmp_path, monkeypatch, capsys):
+    """Rows 19b, 21 and 22 port every family's cells: ``--arch`` of the
+    last two (the encoder-decoder and VLM, ``row`` 22's last part) writes a
+    record a shape and mesh with no error (its smoke config: train_4k,
+    prefill_32k and decode_32k, and long_500k's skip record, as the
+    reference skips a full-attention arch); the report reads them."""
+    del row
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    assert DR.main([*flags, "--device", "cpu", "--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 8, lines
+    assert sum(" ok " in ln for ln in lines) == 6, lines
+    assert sum(" SKIP " in ln for ln in lines) == 2, lines
+    arch = flags[1]
+    for shape in DR.LM_SHAPES:
+        for m in ("single", "multi"):
+            r = json.loads((tmp_path / f"{arch}__{shape}__{m}.json")
+                           .read_text())
+            assert "error" not in r
+            assert ("skipped" in r) == (shape == "long_500k")
+    report.main(["--dir", str(tmp_path), "--kind", "dryrun"])
+    assert capsys.readouterr().out.count(f"| {arch} | ") == 8
 
 
 @pytest.mark.parametrize("rb", [0, 4])

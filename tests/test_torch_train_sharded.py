@@ -403,6 +403,10 @@ CLI_ARGV = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
             "5", "--lr", str(LR)]
 CLI_STOP = 5
 MOE_CLI = ["--arch", "deepseek-v3-671b"]      # given after CLI_ARGV's arch
+# an encoder-decoder arch, one step (its checkpoint written after it)
+WHISPER_CLI = ["--arch", "whisper-small", "--smoke", "--device", "cpu",
+               "--batch", "4", "--seq", "8", "--steps", "1", "--ckpt-every",
+               "1", "--lr", str(LR)]
 # adam's first step moves an element of a gradient near its eps by up to lr
 # either way, and the next steps' gradients follow: dsv3-smoke's wq_a ends
 # 10 steps with its m 1.2e-4 of its largest apart, 8.0e-5 after 2 steps
@@ -476,16 +480,17 @@ def cli(tmp_path_factory):
         import contextlib
         import io
 
-        def one(name, *more):
+        def one(name, *more, argv=CLI_ARGV):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
-                m = train_cli.main(CLI_ARGV + ["--ckpt-dir", str(work / name),
-                                               *more])
+                m = train_cli.main(argv + ["--ckpt-dir", str(work / name),
+                                           *more])
             runs.setdefault(name, []).append((m, buf.getvalue()))
 
         one("A")
         one("D", "--stop-at", str(CLI_STOP))
         one("F", *MOE_CLI)
+        one("E1", argv=WHISPER_CLI)
         jobs = [["B", CLI_ARGV + ["--ckpt-dir", str(work / "B"),
                                   "--model-parallel", "2"]],
                 ["C", CLI_ARGV + ["--ckpt-dir", str(work / "C"),
@@ -493,8 +498,8 @@ def cli(tmp_path_factory):
                                   str(CLI_STOP)]],
                 ["D", CLI_ARGV + ["--ckpt-dir", str(work / "D"),
                                   "--model-parallel", "2"]],
-                ["E", ["--arch", "whisper-small", "--smoke", "--device",
-                       "cpu", "--steps", "1", "--model-parallel", "2"]],
+                ["E", WHISPER_CLI + ["--ckpt-dir", str(work / "E"),
+                                     "--model-parallel", "2"]],
                 ["G", CLI_ARGV + MOE_CLI + ["--ckpt-dir", str(work / "G"),
                                             "--model-parallel", "2"]]]
         (work / "runs.json").write_text(json.dumps(jobs))
@@ -607,7 +612,20 @@ def test_cli_moe_on_four_ranks_matches_one_rank(cli):
 
 
 def test_cli_refuses_a_sharded_non_dense_arch(cli):
-    """whisper-small on 4 ranks: its sharded train step is row 22."""
-    runs, _ = cli
-    (m, _), = runs["E"]
-    assert "row 22" in m["error"]
+    """whisper-smoke (an encoder-decoder arch, whose sharded train step
+    ROADMAP §1 row 22 ports) through ``--model-parallel 2`` on 4 gloo ranks
+    (a 2 × 2 mesh; its frames split over the data axis): one step, the
+    printed loss and gnorm, the final metrics and the checkpoint are the
+    one-rank run's (E1) within the CLI tests' bounds."""
+    runs, work = cli
+    (e1, out1), = runs["E1"]
+    (e, out), = runs["E"]
+    assert "error" not in e
+    assert "family: encdec" in out and "mesh: {'data': 2, 'model': 2}" in out
+    assert "mesh: {'data': 1, 'model': 1}" in out1
+    _close(e, e1)
+    p1, p = _printed(out1), _printed(out)
+    assert sorted(p1) == sorted(p) == [1]
+    assert abs(p1[1][0] - p[1][0]) <= 1.5e-4
+    assert abs(p1[1][1] - p[1][1]) <= 1.5e-3
+    _ckpt_close(_ckpt(work / "E"), _ckpt(work / "E1"))
